@@ -1,0 +1,181 @@
+"""Decoder-only transformer LM.  Counterpart of
+``repro/models/transformer.py``.
+
+Slice 1 ports the dense GQA path that qwen1.5-0.5b takes: RMSNorm, rotary
+attention with qkv bias, a gated SiLU FFN, and the unembedding, with the
+serving entry points ``init_caches``, ``decode_step`` and
+``prefill_step``.  The reference scans stacked layer parameters; the port
+loops over a ``ModuleList`` (``photonics.scanned_layers`` keeps the
+reference's per-layer noise-key numbering).  Caches keep the reference's
+stacked layout: ``{"k", "v"}`` of shape (L, B, S, KVH, D).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+
+import torch
+
+from repro_torch.core import photonics
+from repro_torch.core.photonics import forward_matmul
+from repro_torch.models.base import ServingModel
+from repro_torch.nn.attention import Attention
+from repro_torch.nn.embeddings import Embedding
+from repro_torch.nn.linear import GatedMLP, Linear
+from repro_torch.nn.module import Module
+from repro_torch.nn.norms import RMSNorm
+from repro_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-6
+    window: int | None = None
+    moe: typing.Any = None  # MoE settings: not ported yet
+    mla: typing.Any = None  # MLA settings: not ported yet
+    vision: typing.Any = None  # vision prefix: not ported yet
+    dtype: torch.dtype = torch.float32
+    k_chunk: int = 1024  # sequences above 2·k_chunk need flash_attention
+    pad_vocab_to: int | None = None
+
+    @property
+    def v_padded(self) -> int:
+        return self.pad_vocab_to or self.vocab_size
+
+
+class DecoderBlock(Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        for field in ("moe", "mla", "vision"):
+            if getattr(cfg, field) is not None:
+                raise NotImplementedError(f"TransformerConfig.{field} is not ported yet")
+        c = cfg
+        self.cfg = cfg
+        self.norm1 = RMSNorm(c.d_model, c.norm_eps, c.dtype, device)
+        self.attn = Attention(c.d_model, c.n_heads, c.n_kv_heads, head_dim=c.head_dim,
+                              qkv_bias=c.qkv_bias, qk_norm=c.qk_norm,
+                              rope_theta=c.rope_theta, window=c.window,
+                              dtype=c.dtype, device=device)
+        self.norm2 = RMSNorm(c.d_model, c.norm_eps, c.dtype, device)
+        self.ffn = GatedMLP(c.d_model, c.d_ff, dtype=c.dtype, device=device)
+
+    def forward(self, x, positions):
+        x = x + self.attn(self.norm1(x), positions=positions, k_chunk=self.cfg.k_chunk)
+        return x + self.ffn(self.norm2(x))
+
+    def decode(self, x, cache, cache_len):
+        h, cache = self.attn.decode(self.norm1(x), cache, cache_len)
+        x = x + h
+        return x + self.ffn(self.norm2(x)), cache
+
+    def prefill(self, x, cache, cache_len, n_valid):
+        h, cache = self.attn.prefill(self.norm1(x), cache, cache_len, n_valid)
+        x = x + h
+        return x + self.ffn(self.norm2(x)), cache
+
+
+class TransformerLM(ServingModel):
+    """Parameter names follow the reference's tree (``embed.tok.table``,
+    ``blocks.{i}.attn.q.weight``, ``head.out.weight``, ...); ``convert.py``
+    maps one onto the other."""
+
+    supports_parallel_prefill = True  # global attention: absolute-indexed caches
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        c = cfg
+        self.cfg = cfg
+        self.embed = torch.nn.ModuleDict(
+            {"tok": Embedding(c.v_padded, c.d_model, c.dtype, device)})
+        self.blocks = torch.nn.ModuleList(
+            DecoderBlock(c, device) for _ in range(c.n_layers))
+        self.head = torch.nn.ModuleDict({
+            "norm": RMSNorm(c.d_model, c.norm_eps, c.dtype, device),
+            "out": Linear(c.d_model, c.v_padded, dtype=c.dtype, device=device),
+        })
+
+    @property
+    def device(self) -> torch.device:
+        return self.head["out"].weight.device
+
+    def forward(self, tokens):
+        """Full causal forward: tokens (B, S) -> logits (B, S, V)."""
+        b, s = tokens.shape
+        x = self.embed["tok"](tokens)
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        for block in photonics.scanned_layers(self.blocks):
+            x = block(x, positions)
+        return self._head(self.head["norm"](x))
+
+    # ---- serving ----------------------------------------------------------
+    def init_caches(self, batch: int, max_len: int, dtype=None):
+        """Stacked per-layer caches (L leading axis)."""
+        one = self.blocks[0].attn.init_cache(batch, max_len, dtype)
+        return {n: t[None].repeat(self.cfg.n_layers, *(1,) * t.ndim)
+                for n, t in one.items()}
+
+    def _run_layers(self, x, caches, step):
+        new = {"k": [], "v": []}
+        for i, block in enumerate(photonics.scanned_layers(self.blocks)):
+            x, cache = step(block, x, {"k": caches["k"][i], "v": caches["v"][i]})
+            new["k"].append(cache["k"])
+            new["v"].append(cache["v"])
+        h = self.head["norm"](x)
+        return self._head(h), {n: torch.stack(t) for n, t in new.items()}
+
+    def decode_step(self, token, caches, cache_len):
+        """token: (B, 1) int.  Returns (logits (B, 1, V), new caches)."""
+        x = self.embed["tok"](token)
+        return self._run_layers(
+            x, caches, lambda blk, x, cache: blk.decode(x, cache, cache_len))
+
+    def prefill_step(self, tokens, caches, cache_len, n_valid):
+        """tokens (B, C) -> (logits (B, C, V), new caches).  ``cache_len``
+        is not advanced here: the engine owns slot bookkeeping."""
+        x = self.embed["tok"](tokens)
+        return self._run_layers(
+            x, caches, lambda blk, x, cache: blk.prefill(x, cache, cache_len, n_valid))
+
+    def _head(self, h):
+        """Unembedding, masking padded vocab ids so greedy serving never
+        emits one."""
+        c = self.cfg
+        logits = forward_matmul(h, self.head["out"].weight)
+        if c.pad_vocab_to:
+            pad_mask = torch.arange(c.v_padded, device=logits.device) >= c.vocab_size
+            logits = torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype,
+                                                        device=logits.device), logits)
+        return logits
+
+    def forward_gemm_specs(self):
+        """(name, m, k) of every weight-stationary forward projection of one
+        token — the products ``photonics.forward_matmul`` routes."""
+        c = self.cfg
+        hd = c.head_dim or c.d_model // c.n_heads
+        per_layer = [
+            ("attn.q", c.n_heads * hd, c.d_model),
+            ("attn.k", c.n_kv_heads * hd, c.d_model),
+            ("attn.v", c.n_kv_heads * hd, c.d_model),
+            ("attn.o", c.d_model, c.n_heads * hd),
+            ("ffn.gate", c.d_ff, c.d_model),
+            ("ffn.up", c.d_ff, c.d_model),
+            ("ffn.down", c.d_model, c.d_ff),
+        ]
+        specs = []
+        for i in range(c.n_layers):
+            specs += [(f"blocks[{i}].{n}", m, k) for (n, m, k) in per_layer]
+        specs.append(("head.unembed", c.v_padded, c.d_model))
+        return specs

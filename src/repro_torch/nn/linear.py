@@ -1,0 +1,51 @@
+"""Linear / MLP layers.  Counterpart of ``repro/nn/linear.py``.
+
+Weights are in torch layout (out, in): ``forward_matmul`` hands ``weight``
+to the bank as its (M, K) operand with no copy."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.photonics import forward_matmul
+from repro_torch.nn import activations, initializers
+from repro_torch.nn.module import Module, empty_param
+from repro_torch.utils import prng
+
+
+class Linear(Module):
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = empty_param((out_dim, in_dim), dtype, device)
+        self.bias = empty_param((out_dim,), dtype, device) if use_bias else None
+
+    def init(self, seed: int):
+        w = self.weight
+        with torch.no_grad():
+            w.copy_(initializers.lecun_normal()(
+                prng.generator(prng.fold(seed, "w"), w.device), w.shape, w.dtype, w.device))
+            if self.bias is not None:
+                self.bias.zero_()
+        return self
+
+    def forward(self, x):
+        y = forward_matmul(x, self.weight)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class GatedMLP(Module):
+    """SwiGLU gated FFN: down( silu(gate(x)) * up(x) )."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.gate = Linear(d_model, d_ff, dtype=dtype, device=device)
+        self.up = Linear(d_model, d_ff, dtype=dtype, device=device)
+        self.down = Linear(d_ff, d_model, dtype=dtype, device=device)
+
+    def forward(self, x):
+        gate = activations.silu(forward_matmul(x, self.gate.weight))
+        up = forward_matmul(x, self.up.weight)
+        return forward_matmul(gate * up, self.down.weight)

@@ -1,0 +1,27 @@
+"""Normalisation layers (computed in f32, cast back).
+Counterpart of ``repro/nn/norms.py``."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.nn.module import Module, empty_param
+
+
+class RMSNorm(Module):
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = empty_param((dim,), dtype, device)
+
+    def init(self, seed: int):
+        del seed
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+        return self
+
+    def forward(self, x):
+        x32 = x.float()
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        y = x32 * (var + self.eps) ** -0.5
+        return (y * self.scale.float()).to(x.dtype)
