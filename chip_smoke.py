@@ -4,19 +4,32 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the repository root of a checkout; it needs one CUDA card and
-builds the port's CUDA kernel from the sources in the checkout.  Phases:
+builds the port's CUDA kernels (``photonic_matmul`` and ``dfa_gradient``,
+one library) from the sources in the checkout.  Phases:
 
-1. card and build: the card's name and power limit, the kernel's build time;
+1. card and build: the card's name and power limit, the library's build time;
 2. kernel vs plain version at every shape the serving path gives it
    (T = 4 and 64 rows) plus the ragged 200×300×257 and the paper's
    64×10×800, in f32 and bf16, noise modes none / input / prng;
-3. full-width serve: qwen1.5-0.5b (24 layers, random weights from --seed)
+3. the ``dfa_gradient`` kernel vs its plain version at the reference's
+   kernel-test shapes plus the training shapes 64×10×800 and 256×10×800, in
+   f32 and bf16, modes none / input / prng, with a binary (relu') and a
+   non-binary (tanh') mask;
+4. full-width serve: qwen1.5-0.5b (24 layers, random weights from --seed)
    in bf16 on the ``cuda`` backend with the offchip_bpd preset, counting
    the kernel's launches; then two decode ticks under the profiler (wall,
    device busy time, idle share, the kernels that take the time);
-4. full-width parity: the same model in f32 on the ideal preset, the
+5. full-width parity: the same model in f32 on the ideal preset, the
    ``cuda`` backend against the ``ref`` backend with teacher forcing;
-5. timing: device time of the kernel, the plain version and
+6. full-width DFA training: the paper's 784×800×800×10 MLP on the ``cuda``
+   backend, 96 steps at batch 64 on the procedural digits for each of the
+   ideal, offchip_bpd and onchip_bpd presets, held to the reference's
+   accuracy bands, counting kernel launches per step; one ``bp`` and one
+   ``dfa-fused`` step; step time on CUDA events and five steps under the
+   profiler;
+7. the masked projection on one training step's own operands: the fused
+   ``dfa_gradient`` kernel against the bank kernel times relu'(a_k);
+8. timing: device time of each kernel, its plain version and
    ``torch.matmul`` (profiler, cold L2) and the card's bound at each path
    shape.
 
@@ -44,6 +57,12 @@ DEVICE = "cuda"
 # per forward: q/k/v/o 4 per layer, gate/up 2, down 1, and the head
 PATH_SHAPES = {(1024, 1024): 96, (2816, 1024): 48, (1024, 2816): 24, (151936, 1024): 1}
 EXTRA_SHAPES = [(200, 300, 257), (64, 10, 800)]  # (T, K, M): ragged, the paper's MLP
+# (T, K, M) for the dfa_gradient kernel: tests/test_kernels.py's shapes and
+# the DFA projection of the paper's MLP at batch 64 and 256
+DFA_SHAPES = [(4, 8, 16), (64, 10, 800), (128, 128, 128), (200, 300, 257), (256, 512, 384),
+              (256, 10, 800)]
+TRAIN_PRESETS = ("ideal", "offchip_bpd", "onchip_bpd")
+TRAIN_STEPS, TRAIN_BATCH = 96, 64  # tests/test_train.py's protocol
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's kernel-test bounds
 # published dense peaks (NVIDIA data sheets, SXM parts): bytes/s and op/s by type
 CARDS = {"H100": {"bw": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
@@ -71,11 +90,12 @@ def card_peaks(name):
     return "H100 (assumed)", CARDS["H100"]
 
 
-def bound_ms(t, m, k, dtype_name, peaks):
-    """Least time for C = A·Bᵀ: each input read once, the f32 output
-    written once, 2·T·M·K operations at the peak rate of the input type."""
+def bound_ms(t, m, k, dtype_name, peaks, masked=False):
+    """Least time for C = A·Bᵀ (⊙ mask): each input read once (the f32
+    mask too), the f32 output written once, 2·T·M·K operations at the peak
+    rate of the input type."""
     itemsize = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (t * k + m * k) * itemsize + t * m * 4
+    nbytes = (t * k + m * k) * itemsize + t * m * 4 * (2 if masked else 1)
     ops = 2 * t * m * k
     by_bytes, by_ops = nbytes / peaks["bw"], ops / peaks[dtype_name]
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
@@ -162,6 +182,65 @@ def phase_kernel_vs_plain(torch, pm):
     return max_err
 
 
+def _masks(torch, t, m, gen):
+    """g'(a) of random pre-activations: relu' (binary) and tanh' (not)."""
+    pre = torch.randn((t, m), generator=gen, device=DEVICE)
+    return {"relu'": (pre > 0).float(), "tanh'": 1 - torch.tanh(pre) ** 2}
+
+
+def phase_dfa_kernel_vs_plain(torch, pm, dg):
+    """The fused dfa_gradient kernel against dfa_gradient_plain (the bank
+    product's plain version times the mask, with the same prng counters)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4321)
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = TOL[dname]
+        pooled = []
+        for t, k, m in DFA_SHAPES:
+            a, b = _operands(torch, t, k, m, dtype, gen)
+            noise = 0.1 * torch.randn((t, m), generator=gen, device=DEVICE)
+            nk = math.ceil(k / pm.BLOCK_K)
+            sigma_total = 0.5
+            step = sigma_total / math.sqrt(nk)
+            for mname, mask in _masks(torch, t, m, gen).items():
+                zero = mask == 0
+                for mode, kw in (("none", {}), ("input", {"noise": noise}),
+                                 ("prng", {"seed": 77, "sigma_step": step})):
+                    got = dg.dfa_gradient_cuda(a, b, mask, **kw)
+                    sync(torch)
+                    expect = dg.dfa_gradient_plain(a, b, mask, **kw)
+                    err = (got - expect).abs().max().item()
+                    scale = expect.abs().max().item()
+                    check(err <= tol * scale + 1e-6,
+                          f"dfa_gradient != plain: {dname} {mode} {mname} T={t} K={k} M={m} "
+                          f"err={err} max={scale}")
+                    check(bool((got[zero] == 0).all()),
+                          f"dfa_gradient: nonzero where the mask is 0 ({dname} {mode} T={t})")
+                    if mode != "prng":
+                        max_err = max(max_err, err)
+                if mname == "relu'":
+                    # σ of the prng noise on the entries the mask keeps
+                    exact = dg.dfa_gradient_cuda(a, b, mask)
+                    noisy = dg.dfa_gradient_cuda(a, b, mask, seed=78, sigma_step=step)
+                    sync(torch)
+                    z = ((noisy - exact)[~zero].double() / sigma_total)
+                    pooled.append(z)
+                    if z.numel() >= 10_000:  # 5% is then >= 7 standard errors
+                        check(abs(z.std().item() - 1) < 0.05,
+                              f"dfa_gradient prng σ {z.std().item() * sigma_total} vs "
+                              f"{sigma_total}, T={t} K={k} M={m} {dname}")
+        allz = torch.cat(pooled)
+        std = allz.std().item()
+        check(abs(std - 1) < 0.05, f"dfa_gradient prng σ {std}·σ_total over all shapes")
+        print(f"[dfa_gradient] {dname}: {len(DFA_SHAPES)} shapes x relu'/tanh' masks x "
+              f"none/input/prng agree with the plain version (tol {tol} of max|out|), exact "
+              f"zeros under the mask; prng σ {std:.4f}·σ_step·√nk over {allz.numel()} kept "
+              f"entries")
+    print(f"[dfa_gradient] max |kernel - plain| over none/input: {max_err:.3e}")
+    return max_err
+
+
 def _prompts(rng, n, length, vocab):
     return [rng.integers(0, vocab, length).tolist() for _ in range(n)]
 
@@ -169,7 +248,7 @@ def _prompts(rng, n, length, vocab):
 def phase_serve(torch, np, pm, api, seed):
     from repro_torch.serve import Request
 
-    session = api.build_session(arch=ARCH, smoke=False, hardware="offchip_bpd",
+    session = api.build_session(arch=ARCH, algo="bp", smoke=False, hardware="offchip_bpd",
                                 backend="cuda", dtype=torch.bfloat16, seed=seed,
                                 device=DEVICE)
     model = session.model
@@ -266,6 +345,188 @@ def phase_parity(torch, np, api, seed):
     torch.cuda.empty_cache()
 
 
+def to_device_batch(batch):
+    from repro_torch.data.pipeline import to_device
+
+    return to_device(batch, DEVICE)
+
+
+def _digits():
+    """tests/test_train.py's data: procedural digits, 2048 train / 512 test,
+    batches of 64 drawn from seed 0."""
+    from repro_torch.data import mnist, pipeline
+
+    xtr, ytr = mnist.procedural_digits(2048, seed=0)
+    xte, yte = mnist.procedural_digits(512, seed=10_000)
+    return pipeline.ArrayClassification(xtr, ytr, TRAIN_BATCH, seed=0), (xte, yte)
+
+
+def _mlp_session(api, preset, seed, algo="dfa"):
+    from repro_torch.train import SGDM
+
+    session = api.build_session(arch="mnist_mlp", algo=algo, hardware=preset, backend="cuda",
+                                optimizer=SGDM(lr=0.01, momentum=0.9), seed=seed,
+                                log_every=10**9, device=DEVICE)
+    model = session.model
+    check(model.in_dim == 784 and model.hidden == (800, 800) and model.n_classes == 10,
+          "not the paper's 784x800x800x10 MLP")
+    return session
+
+
+def _profile_steps(torch, session, state, batches):
+    """Wall time and device busy time of len(batches) steps under the
+    profiler, and the kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            state, _ = session.step(state, batch)
+        sync(torch)
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in _device_kernels(torch, prof):
+        name = e.name if "photonic_matmul" in e.name else e.name[:70]
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return wall, by_name
+
+
+def phase_train(torch, np, api, pm, dg, seed):
+    """Full-width DFA training of the paper's MLP on the cuda backend, held
+    to the reference's bands; launches per step; bp and dfa-fused steps;
+    step time and the profile of five steps."""
+    from repro_torch.utils import prng
+
+    pipe, (xte, yte) = _digits()
+    accs, loss = {}, {}
+    for preset in TRAIN_PRESETS:
+        session = _mlp_session(api, preset, seed)
+        sync(torch)
+        pm.launches = dg.launches = 0
+        t0 = time.perf_counter()
+        state, _ = session.fit(pipe.batch, total_steps=TRAIN_STEPS, verbose=False)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        a_launches, b_launches = pm.launches, dg.launches
+        ev = session.evaluate(state, pipe.eval_batches(xte, yte, 256))
+        accs[preset], loss[preset] = ev["accuracy"], ev["ce_loss"]
+        print(f"[train] {preset}: {TRAIN_STEPS} dfa steps in {wall:.2f}s, test accuracy "
+              f"{accs[preset]:.4f}, test loss {loss[preset]:.4f}; photonic_matmul launches "
+              f"{a_launches} = {a_launches / TRAIN_STEPS:g} per step, dfa_gradient "
+              f"launches {b_launches}")
+        check(math.isfinite(loss[preset]), f"{preset}: non-finite test loss")
+        check(a_launches == 2 * TRAIN_STEPS,
+              f"{preset}: {a_launches} bank-kernel launches, expected 2 per step (h0, h1)")
+        check(all(bool(torch.isfinite(p).all()) for p in state["params"].values()),
+              f"{preset}: non-finite parameters")
+    train_launches = 2 * TRAIN_STEPS * len(TRAIN_PRESETS)
+    print(f"[train] bands: ideal {accs['ideal']:.4f} > 0.6, onchip_bpd "
+          f"{accs['onchip_bpd']:.4f} > 0.5, ideal >= onchip_bpd - 0.02")
+    check(accs["ideal"] > 0.6, f"ideal accuracy {accs['ideal']} <= 0.6")
+    check(accs["onchip_bpd"] > 0.5, f"onchip_bpd accuracy {accs['onchip_bpd']} <= 0.5")
+    check(accs["ideal"] >= accs["onchip_bpd"] - 0.02,
+          f"ideal {accs['ideal']} < onchip_bpd {accs['onchip_bpd']} - 0.02")
+
+    # one bp step; one dfa-fused step against dfa followed by SGDM.update
+    batch = to_device_batch(pipe.batch(0))
+    bp = _mlp_session(api, "offchip_bpd", seed, algo="bp")
+    state = bp.init_state()
+    new, metrics = bp.step(state, batch)
+    check(math.isfinite(float(metrics["loss"])) and all(
+        bool(torch.isfinite(p).all()) for p in new["params"].values()), "bp step not finite")
+    fused = _mlp_session(api, "offchip_bpd", seed, algo="dfa-fused")
+    state = fused.init_state()
+    rng = prng.step_key(seed, 0, "noise")
+    p_f, opt_f, loss_f = fused.fused_step()(state["params"], state["fb"], state["opt"], batch,
+                                            rng)
+    (loss_u, _), grads = fused.value_and_grad()(state["params"], state["fb"], batch, rng)
+    p_u, opt_u, _ = fused.config.optimizer.update(grads, state["opt"], state["params"])
+    worst = max((p_f[k] - p_u[k]).abs().max().item() / p_u[k].abs().max().item() for k in p_u)
+    worst_m = max((opt_f["mom"][k] - opt_u["mom"][k]).abs().max().item() for k in p_u)
+    print(f"[train] bp step: loss {float(metrics['loss']):.4f}; dfa-fused step vs dfa + "
+          f"SGDM.update: max |Δparam| / max|param| = {worst:.3e}, max |Δmomentum| = "
+          f"{worst_m:.3e}, loss {float(loss_f):.6f} vs {float(loss_u):.6f}")
+    check(math.isfinite(float(loss_f)), "dfa-fused loss not finite")
+    check(worst <= 1e-6 and worst_m <= 1e-6 and float(loss_f) == float(loss_u),
+          "dfa-fused differs from dfa followed by SGDM.update")
+
+    # step time: CUDA events around each synchronised step, then a run of
+    # steps with one sync at the end, then five steps under the profiler
+    session = _mlp_session(api, "offchip_bpd", seed)
+    state = session.init_state()
+    batches = [to_device_batch(pipe.batch(i)) for i in range(40)]
+    times = []
+    for batch in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _ = session.step(state, batch)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    step_ms = statistics.median(times[10:])
+    sync(torch)
+    t0 = time.perf_counter()
+    for batch in batches:
+        state, _ = session.step(state, batch)
+    sync(torch)
+    steps_s = len(batches) / (time.perf_counter() - t0)
+    print(f"[train] offchip_bpd step (batch {TRAIN_BATCH}): {step_ms:.4f} ms median over "
+          f"{len(times) - 10} steady steps (CUDA events, synchronised steps); "
+          f"{steps_s:.1f} steps/s, {steps_s * TRAIN_BATCH:.0f} examples/s over "
+          f"{len(batches)} unsynchronised steps")
+    wall, by_name = _profile_steps(torch, session, state, batches[:5])
+    if by_name:
+        busy = sum(by_name.values())
+        print(f"[train] profile of 5 steps: wall {wall / 5:.4f} ms/step, device busy "
+              f"{busy / 5:.4f} ms/step, idle share {1 - busy / wall:.3f}, "
+              f"{len(by_name)} kernel names")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"[train]   {ms / 5:8.4f} ms/step  {ms / wall:6.1%} of wall  {name}")
+    else:
+        print("[train] device busy time not measured (the profiler traced no device kernels)")
+    return train_launches
+
+
+def phase_masked_projection(torch, api, dg, seed):
+    """photonic_project(mask=relu'(a_k)) through the fused kernel against the
+    bank kernel times relu'(a_k), on one offchip_bpd step's own e, B(k) and
+    pre-activations, with the step's own noise keys."""
+    from repro_torch.algos import dfa as dfa_lib
+    from repro_torch.core import photonics as ph
+    from repro_torch.core.feedback import feedback_for
+    from repro_torch.utils import prng
+
+    pipe, _ = _digits()
+    session = _mlp_session(api, "offchip_bpd", seed)
+    state = session.init_state()
+    params, cfg = state["params"], session.config.dfa
+    batch = to_device_batch(pipe.batch(0))
+    rng = prng.step_key(seed, 0, "noise")
+    fwd = dfa_lib.forward_with_error(session.model, params, cfg, batch)
+    dg.launches = 0
+    for spec in session.model.segment_specs():
+        p = spec.layer_params(params, 0)
+        x = fwd["saved"][spec.name].inputs[0]
+        mask = (x @ p["weight"].T + p["bias"] > 0).float()  # relu'(a_k)
+        bmat = feedback_for(state["fb"][spec.name], 0)
+        key = prng.fold(prng.fold(rng, spec.name), 0)
+        fused = ph.photonic_project(fwd["e_tap"], bmat, cfg.photonics, key, mask=mask,
+                                    backend="cuda")
+        unfused = ph.photonic_project(fwd["e_tap"], bmat, cfg.photonics, key,
+                                      backend="cuda") * mask
+        sync(torch)
+        rel = (fused - unfused).abs().max().item() / unfused.abs().max().item()
+        print(f"[masked] {spec.name}: δ {tuple(fused.shape)}, kept {mask.mean().item():.3f} of "
+              f"entries; fused vs bank kernel x relu'(a): max |Δ| / max|δ| = {rel:.3e}")
+        check(rel <= 2e-5, f"{spec.name}: fused masked projection differs by {rel:.3e}")
+    launches = dg.launches
+    print(f"[masked] dfa_gradient launches {launches}")
+    check(launches > 0, "the masked projection launched no dfa_gradient kernel")
+    return launches
+
+
 def _device_kernels(torch, prof):
     from torch.autograd import DeviceType
 
@@ -299,7 +560,10 @@ def _device_ms(torch, fn, reps=25):
     the summed durations of the device kernels it ran, read from the
     profiler (CUPTI), so the host's launch overhead is not counted.  Before
     each call a 64 MiB bitwise_not evicts the operands from the 50 MB L2,
-    as a decode step finds its weights, and marks where the call starts."""
+    as a decode step finds its weights, and marks where the call starts.
+    The profiler runs one call more than it counts: it can miss a kernel
+    just after it starts (seen once on the card: 24 of 25 calls), and the
+    median of the last ``reps`` calls is then still a median of whole calls."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
@@ -307,7 +571,7 @@ def _device_ms(torch, fn, reps=25):
         fn()
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(reps + 1):
             flush.bitwise_not_()
             fn()
         sync(torch)
@@ -323,8 +587,8 @@ def _device_ms(torch, fn, reps=25):
         per_call.append(cur)
     if not per_call:
         return None  # the profiler traced no device kernels: not measured
-    check(len(per_call) == reps, f"profiler saw {len(per_call)} of {reps} calls")
-    return statistics.median(per_call) / 1e3
+    check(len(per_call) >= reps, f"profiler saw {len(per_call)} of {reps + 1} calls")
+    return statistics.median(per_call[-reps:]) / 1e3
 
 
 def phase_profile_decode(torch, np, api, seed):
@@ -334,7 +598,7 @@ def phase_profile_decode(torch, np, api, seed):
 
     from repro_torch.serve import DECODE, Request
 
-    session = api.build_session(arch=ARCH, smoke=False, hardware="offchip_bpd",
+    session = api.build_session(arch=ARCH, algo="bp", smoke=False, hardware="offchip_bpd",
                                 backend="cuda", dtype=torch.bfloat16, seed=seed,
                                 device=DEVICE)
     eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
@@ -412,6 +676,44 @@ def phase_timing(torch, pm, card):
     return per_step
 
 
+def phase_timing_train(torch, pm, dg, card):
+    """Both kernels at the DFA projection of the paper's MLP, (T, K, M) =
+    (64, 10, 800) in f32, beside their plain versions, torch.matmul (times
+    the mask for dfa_gradient) and the card's bound."""
+    kind, peaks = card_peaks(card)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    t, k, m = 64, 10, 800
+    a, b = _operands(torch, t, k, m, torch.float32, gen)
+    mask = _masks(torch, t, m, gen)["relu'"]
+    cases = {
+        "photonic_matmul": {"ms": lambda: pm.photonic_matmul_cuda(a, b),
+                            "plain_ms": lambda: pm.photonic_matmul_plain(a, b),
+                            "library_ms": lambda: torch.matmul(a, b.T)},
+        "dfa_gradient": {"ms": lambda: dg.dfa_gradient_cuda(a, b, mask),
+                         "plain_ms": lambda: dg.dfa_gradient_plain(a, b, mask),
+                         "library_ms": lambda: torch.matmul(a, b.T) * mask},
+    }
+    print(f"[timing] training shape T={t} K={k} M={m}, f32 operands, {kind} peaks: "
+          f"{peaks['bw'] / 1e12:.2f} TB/s, {peaks['float32'] / 1e12:.0f} TFLOP/s f32; card: "
+          f"{card}; the bound is far below a kernel launch at this size")
+    print("[timing]                kernel_ms kernel_dev   plain_ms  plain_dev  matmul_ms "
+          "matmul_dev   bound_ms  bound_by")
+    rows = {}
+    for name, fns in cases.items():
+        row = {}
+        for key, fn in fns.items():
+            row[key] = _event_ms(torch, fn)
+            row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn)
+        row["bound_ms"], row["bound_by"] = bound_ms(t, m, k, "float32", peaks,
+                                                    masked=name == "dfa_gradient")
+        rows[name] = row
+        cells = " ".join(_fmt(row[key]) for key in (
+            "ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
+            "bound_ms"))
+        print(f"[timing] {name:15s} {cells}  {row['bound_by']}")
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -426,6 +728,7 @@ def main(argv=None):
     import numpy as np
 
     from repro_torch import api
+    from repro_torch.kernels import dfa_gradient as dg
     from repro_torch.kernels import photonic_matmul as pm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -433,19 +736,37 @@ def main(argv=None):
     t_start = time.perf_counter()
     card = phase_build(torch, pm)
     max_err = phase_kernel_vs_plain(torch, pm)
-    launches = phase_serve(torch, np, pm, api, args.seed)
+    max_err_b = phase_dfa_kernel_vs_plain(torch, pm, dg)
+    serve_launches = phase_serve(torch, np, pm, api, args.seed)
     phase_profile_decode(torch, np, api, args.seed)
     phase_parity(torch, np, api, args.seed)
+    train_launches = phase_train(torch, np, api, pm, dg, args.seed)
+    masked_launches = phase_masked_projection(torch, api, dg, args.seed)
     per_step = phase_timing(torch, pm, card)
+    train_rows = phase_timing_train(torch, pm, dg, card)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
-    record = {"name": "photonic_matmul", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
-              "replaces": "src/repro/kernels/photonic_matmul.py:95",
-              "launches": launches, "max_abs_err": max_err,
-              "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
-              "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
-              "library_ms": per_step["library_ms"]}
-    print(json.dumps({"kernels": [record]}))
+    row_b = train_rows["dfa_gradient"]
+    records = [
+        {"name": "photonic_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
+         "replaces": "src/repro/kernels/photonic_matmul.py:95",
+         "launches": serve_launches + train_launches,
+         "launches_by_path": {"serve": serve_launches, "train": train_launches},
+         "max_abs_err": max_err,
+         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
+         "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
+         "library_ms": per_step["library_ms"]},
+        {"name": "dfa_gradient", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
+         "replaces": "src/repro/kernels/dfa_gradient.py:67",
+         "launches": masked_launches,
+         "launches_by_path": {"masked_projection": masked_launches},
+         "max_abs_err": max_err_b,
+         "ms": row_b["ms"], "plain_ms": row_b["plain_ms"],
+         "bound_ms": row_b["bound_ms"], "bound_by": row_b["bound_by"],
+         "library_ms": row_b["library_ms"]},
+    ]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

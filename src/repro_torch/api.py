@@ -1,19 +1,31 @@
-"""``repro_torch.api`` — the facade over the (model, hardware, backend)
-cell, serving half.  Counterpart of ``repro/api.py``.
+"""``repro_torch.api`` — the one-call facade over the algorithm × hardware ×
+backend matrix.  Counterpart of ``repro/api.py``.
 
-Slice 1 ports serving: ``build_session`` accepts ``algo="bp"`` only (the
-forward-only cell the serve launcher builds), and ``Session.engine()``
-opens a continuous-batching ``serve.Engine`` whose forward projections run
-on the session's photonic backend.  Training (``fit``, the DFA algorithms,
-the schedule autotuner, observability) comes with later slices.
+* **algo**     — a name in ``repro_torch.algos`` (``bp`` | ``dfa`` |
+  ``dfa-fused``)
+* **hardware** — a ``core.photonics`` preset name or a ``PhotonicConfig``
+* **backend**  — how projections execute: ``auto`` | ``ref`` | ``cuda`` (or
+  a ``PhotonicBackend`` instance)
 
 Typical use::
 
     from repro_torch import api
 
-    session = api.build_session(arch="qwen1.5-0.5b", smoke=False,
+    session = api.build_session(arch="mnist_mlp", algo="dfa",
                                 hardware="offchip_bpd", backend="cuda")
-    engine = session.engine(batch_slots=4, max_len=128)
+    state, metrics = session.fit(data_fn, total_steps=512)
+    session.evaluate(state, eval_batches)
+
+    serving = api.build_session(arch="qwen1.5-0.5b", algo="bp", smoke=False,
+                                hardware="offchip_bpd", backend="cuda")
+    engine = serving.engine(batch_slots=4, max_len=128)
+
+The defaults are the reference's: the paper's MLP trained with DFA on ideal
+hardware, SGD momentum 0.9 at lr 0.01 (the paper's §4 optimizer).  Every
+session runs on the card unless ``device="cpu"`` is asked for, and raises
+where CUDA is absent.  The language models serve; their DFA training (and
+the reference's schedule autotuner, ``n_buses=``, checkpointing, data
+parallelism, observer and probe) are ported in later slices.
 """
 
 from __future__ import annotations
@@ -23,8 +35,12 @@ import typing
 
 import torch
 
-from repro_torch import configs
+from repro_torch import algos, configs
+from repro_torch.algos.dfa import DFAConfig
+from repro_torch.core import feedback as fb_lib
 from repro_torch.core import photonics
+from repro_torch.models.base import DFAModel
+from repro_torch.train import SGDM, Trainer, TrainerConfig
 from repro_torch.utils.device import resolve_device
 
 
@@ -52,12 +68,55 @@ def build_model(arch, *, smoke: bool = False, dtype=torch.float32, device=None,
 
 @dataclasses.dataclass
 class Session:
-    """A bound (model, hardware, backend) cell."""
+    """A bound (model, algorithm, hardware, backend) cell of the matrix.
+    ``trainer`` is None for a model the port only serves."""
 
     model: typing.Any
-    photonics: photonics.PhotonicConfig
-    backend: typing.Any
+    algorithm: algos.Algorithm
+    config: TrainerConfig
+    trainer: Trainer | None = None
 
+    @property
+    def photonics(self) -> photonics.PhotonicConfig:
+        return self.config.dfa.photonics
+
+    @property
+    def backend(self):
+        return self.config.dfa.backend
+
+    def _trainer(self) -> Trainer:
+        if self.trainer is None:
+            raise NotImplementedError(
+                f"training {type(self.model).__name__} comes with DFA training of the "
+                "language models, slice 4 of the port (ROADMAP.md)")
+        return self.trainer
+
+    # ---- training ----
+    def init_state(self, seed: int | None = None):
+        return self._trainer().init_state(seed)
+
+    def step(self, state, batch):
+        return self._trainer().step(state, batch)
+
+    def fit(self, data_fn, total_steps: int, eval_fn=None, verbose: bool = True):
+        return self._trainer().fit(data_fn, total_steps, eval_fn=eval_fn, verbose=verbose)
+
+    # ---- gradients / eval ----
+    def value_and_grad(self):
+        """fn(params, extra_state, batch, rng) -> ((loss, metrics), grads)."""
+        self._trainer()
+        return self.algorithm.value_and_grad(self.model, self.config.dfa)
+
+    def fused_step(self, optimizer=None):
+        """Memory-optimised step (algorithm-specific; generic fallback)."""
+        self._trainer()
+        return self.algorithm.fused_step(self.model, self.config.dfa,
+                                         optimizer or self.config.optimizer)
+
+    def evaluate(self, state, batches) -> dict:
+        return self._trainer().evaluate(state, batches)
+
+    # ---- serving ----
     def engine(self, params=None, *, batch_slots: int = 8, max_len: int = 512,
                eos_id: int | None = None, prefill_chunk: int = 16,
                seed: int = 0):
@@ -88,15 +147,33 @@ class Session:
                       photonics=hw_cfg if backend is not None else None, seed=seed)
 
 
-def build_session(*, arch="qwen1.5-0.5b", algo: str = "bp", hardware="ideal",
-                  backend="auto", seed: int = 0, smoke: bool = False,
-                  dtype=torch.float32, device=None) -> Session:
-    """Compose one serving cell: model (built on ``device``, default the
-    card), hardware preset or config, and photonic backend."""
-    if algo != "bp":
-        raise NotImplementedError(
-            f"algo={algo!r}: the training algorithms are ported in slice 2; "
-            "the serving slice takes algo='bp'")
-    photonics.get_backend(backend)  # fail fast on unknown names
+def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
+                  backend="auto", optimizer=None, seed: int = 0, smoke: bool = False,
+                  dtype=torch.float32, error_compress: str = "none",
+                  freeze_norms: bool = False,
+                  feedback: fb_lib.FeedbackConfig | None = None,
+                  microbatches: int = 1, prefetch: int = 2, log_every: int = 50,
+                  log_path: str | None = None, step_deadline_s: float | None = None,
+                  device=None) -> Session:
+    """Compose one cell of the algorithm × hardware × backend matrix, on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
+    algorithm = algos.get(algo)  # fail fast on unknown names
+    photonics.get_backend(backend)  # (likewise for the backend)
     model = build_model(arch, smoke=smoke, dtype=dtype, device=device, seed=seed)
-    return Session(model=model, photonics=resolve_hardware(hardware), backend=backend)
+    trainable = isinstance(model, DFAModel)
+    if not trainable and algo != "bp":
+        raise NotImplementedError(
+            f"algo={algo!r} on {type(model).__name__}: DFA training of the language "
+            "models is ported in slice 4 (ROADMAP.md); they serve with algo='bp'")
+    cfg = TrainerConfig(
+        algo=algo,
+        dfa=DFAConfig(photonics=resolve_hardware(hardware),
+                      feedback=feedback or fb_lib.FeedbackConfig(),
+                      error_compress=error_compress, backend=backend,
+                      freeze_norms=freeze_norms),
+        optimizer=optimizer or SGDM(lr=0.01, momentum=0.9),
+        seed=seed, microbatches=microbatches, prefetch=prefetch, log_every=log_every,
+        log_path=log_path, step_deadline_s=step_deadline_s)
+    trainer = Trainer(model, cfg, device=device) if trainable else None
+    return Session(model=model, algorithm=algorithm, config=cfg, trainer=trainer)

@@ -1,16 +1,22 @@
-"""Architecture registry.  Slice 1 registers qwen1.5-0.5b only; the
-reference's other architectures are ported in later slices."""
+"""Architecture registry.  The port registers qwen1.5-0.5b (served) and
+mnist_mlp (trained); the reference's other architectures are ported in
+later slices."""
 
 from __future__ import annotations
 
-from repro_torch.configs import qwen1_5_0_5b
+from repro_torch.configs import mnist_mlp, qwen1_5_0_5b
 from repro_torch.configs.base import Arch
 
-_MODULES = [qwen1_5_0_5b]
+_MODULES = [qwen1_5_0_5b, mnist_mlp]
 
 REGISTRY: dict[str, Arch] = {m.ARCH.name: m.ARCH for m in _MODULES}
 
-ASSIGNED: tuple[str, ...] = tuple(REGISTRY)
+# the language models (the reference's ASSIGNED leaves out the paper's MLP)
+ASSIGNED: tuple[str, ...] = tuple(n for n in REGISTRY if n != "mnist_mlp")
+
+
+def list_archs() -> list[str]:
+    return list(REGISTRY)
 
 
 def get(name: str) -> Arch:
@@ -19,4 +25,4 @@ def get(name: str) -> Arch:
     return REGISTRY[name]
 
 
-__all__ = ["Arch", "REGISTRY", "ASSIGNED", "get"]
+__all__ = ["Arch", "REGISTRY", "ASSIGNED", "get", "list_archs"]

@@ -1,4 +1,5 @@
-"""Carry weights and caches between the reference's layout and the port's.
+"""Carry weights, feedback and caches between the reference's layout and
+the port's.
 
 The reference keeps parameters in a pytree: nested dicts whose ``blocks``
 subtree stacks every layer on a leading axis (``stack_init``), with
@@ -6,16 +7,26 @@ subtree stacks every layer on a leading axis (``stack_init``), with
 keeps a ``state_dict``: one ``blocks.{i}`` entry per layer, ``weight`` in
 torch layout (out, in), ``bias``.  Every other leaf keeps its name.
 
+The MLP's tree, ``{"embed": {}, "h0": {"w": (1, 784, 800), "b": (1, 800)},
+"h1": ..., "head": {"w", "b"}}``, stacks each one-block segment ``h{i}`` on
+an L = 1 axis; the port's ``h{i}`` is the block itself, so that axis is
+dropped (``h0.weight`` (800, 784)).  Gradient trees have the parameters'
+layout and convert the same way.  DFA feedback (``{"h0": (1, 800, 10), ...,
+"embed": (800, 10)}``) is already in the bank's (M, K) layout on both sides.
+
 This module takes and returns numpy arrays only (pass the reference's
 arrays through ``numpy.asarray``); it imports no JAX.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 _RENAME = {"w": "weight", "b": "bias"}
+_SEGMENT = re.compile(r"h\d+$")  # the MLP's one-block segments
 
 
 def _walk(tree, prefix=()):
@@ -28,8 +39,9 @@ def _walk(tree, prefix=()):
 
 def layout_map(params):
     """Yield ``(torch_name, leaf, layer, transpose)`` for every leaf of a
-    reference pytree: ``layer`` is the index into a stacked ``blocks`` leaf
-    (None elsewhere), ``transpose`` is True for ``Linear`` weights.  Leaves
+    reference pytree: ``layer`` is the index into a stacked leaf (``blocks``
+    or a one-block segment ``h{i}``; None elsewhere), ``transpose`` is True
+    for ``Linear`` weights.  Leaves
     may be arrays or shape structs; nothing is read."""
     for path, leaf in _walk(params):
         last = path[-1]
@@ -38,6 +50,8 @@ def layout_map(params):
         if path[0] == "blocks":
             for i in range(leaf.shape[0]):
                 yield ".".join(("blocks", str(i)) + tail), leaf, i, transpose
+        elif _SEGMENT.match(path[0]):
+            yield ".".join(path[:1] + tail), leaf, 0, transpose
         else:
             yield ".".join(path[:1] + tail), leaf, None, transpose
 
@@ -65,6 +79,13 @@ def state_dict_from_reference(params) -> dict:
             arr = arr.T
         out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
     return out
+
+
+def feedback_from_reference(fb, device=None) -> dict:
+    """The reference's feedback tree (numpy leaves) -> the port's feedback
+    dict of f32 tensors on ``device``, shapes unchanged."""
+    return {name: torch.from_numpy(np.array(b, dtype=np.float32)).to(device)
+            for name, b in fb.items()}
 
 
 def caches_to_reference(caches) -> dict:

@@ -6,7 +6,9 @@ The kernel is ``csrc/photonic_matmul.cu`` (see its header for the design
 and what bounds it).  It is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface at first use, into
 ``build/repro_torch/`` at the repository root, and loaded with ``ctypes``;
-importing this module builds nothing.
+importing this module builds nothing.  The same library holds the fused
+DFA gradient (``dfa_gradient.py``), the kernel with its mask epilogue;
+``launch_kernel`` launches either.
 
 ``photonic_matmul_cuda`` launches the kernel for CUDA tensors, and runs
 ``photonic_matmul_plain`` only because its tensors lie on the CPU.  Noise
@@ -76,6 +78,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
     lib.photonic_matmul_launch.restype = ctypes.c_int
+    lib.dfa_gradient_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+    lib.dfa_gradient_launch.restype = ctypes.c_int
     if lib.photonic_matmul_block_k() != BLOCK_K:
         raise RuntimeError("kernel K tile differs from BLOCK_K; rebuild")
     return lib
@@ -135,7 +142,9 @@ def photonic_matmul_plain(a, b, *, noise=None, seed=None, sigma_step: float = 0.
     return out
 
 
-def _check(a, b, noise):
+def check_operands(a, b, noise, seed):
+    if noise is not None and seed is not None:
+        raise ValueError("give noise or seed, not both")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"need a (T, K) and b (M, K), got {tuple(a.shape)} and {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
@@ -147,35 +156,47 @@ def _check(a, b, noise):
         raise ValueError("noise must be an f32 (T, M) tensor on the operands' device")
 
 
-def photonic_matmul_cuda(a, b, *, noise=None, seed=None, sigma_step: float = 0.0):
-    """C = A @ Bᵀ with optional bank noise.  A:(T,K) B:(M,K) -> (T,M) f32.
-
-    ``noise`` (T, M) f32 selects "input" mode, ``seed`` (an int) "prng"
-    mode with ``sigma_step`` per K tile of ``BLOCK_K``."""
-    global launches
-    if noise is not None and seed is not None:
-        raise ValueError("give noise or seed, not both")
-    _check(a, b, noise)
-    if a.device.type == "cpu":
-        return photonic_matmul_plain(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
+def launch_kernel(a, b, *, mask=None, noise=None, seed=None, sigma_step: float = 0.0):
+    """Launch the CUDA kernel on checked CUDA operands: the bank product,
+    or with ``mask`` (a (T, M) f32 tensor) the fused DFA gradient.  Returns
+    the f32 (T, M) output; raises if the launch fails."""
     if a.device.type != "cuda":
         raise ValueError(f"no photonic_matmul kernel for device {a.device}")
     t, k_dim = a.shape
     m = b.shape[0]
     if min(t, m, k_dim) == 0:
         raise ValueError(f"the kernel takes no empty operands: T={t} M={m} K={k_dim}")
-    if not (a.is_contiguous() and b.is_contiguous()
-            and (noise is None or noise.is_contiguous())):
+    if not all(x is None or x.is_contiguous() for x in (a, b, noise, mask)):
         raise ValueError("the kernel takes contiguous operands")
     mode = "input" if noise is not None else ("prng" if seed is not None else "none")
     out = torch.empty((t, m), device=a.device, dtype=torch.float32)
+    noise_ptr = noise.data_ptr() if noise is not None else None
+    args = (out.data_ptr(), t, m, k_dim, _DTYPES[a.dtype], _MODES[mode],
+            (int(seed) & _M32) if seed is not None else 0, float(sigma_step))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _library().photonic_matmul_launch(
-            a.data_ptr(), b.data_ptr(), noise.data_ptr() if noise is not None else None,
-            out.data_ptr(), t, m, k_dim, _DTYPES[a.dtype], _MODES[mode],
-            (int(seed) & _M32) if seed is not None else 0, float(sigma_step), stream)
+        lib = _library()
+        if mask is None:
+            err = lib.photonic_matmul_launch(a.data_ptr(), b.data_ptr(), noise_ptr, *args,
+                                             stream)
+        else:
+            err = lib.dfa_gradient_launch(a.data_ptr(), b.data_ptr(), mask.data_ptr(),
+                                          noise_ptr, *args, stream)
     if err != 0:
-        raise RuntimeError(f"photonic_matmul kernel launch failed: CUDA error {err}")
+        name = "photonic_matmul" if mask is None else "dfa_gradient"
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def photonic_matmul_cuda(a, b, *, noise=None, seed=None, sigma_step: float = 0.0):
+    """C = A @ Bᵀ with optional bank noise.  A:(T,K) B:(M,K) -> (T,M) f32.
+
+    ``noise`` (T, M) f32 selects "input" mode, ``seed`` (an int) "prng"
+    mode with ``sigma_step`` per K tile of ``BLOCK_K``."""
+    global launches
+    check_operands(a, b, noise, seed)
+    if a.device.type == "cpu":
+        return photonic_matmul_plain(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
+    out = launch_kernel(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     launches += 1
     return out

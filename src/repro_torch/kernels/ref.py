@@ -17,6 +17,15 @@ def photonic_matmul_ref(a, b, *, noise=None):
     return out.to(a.dtype)
 
 
+def dfa_gradient_ref(a, b, mask, *, noise=None):
+    """δ = (A @ Bᵀ + η) ⊙ mask."""
+    out = torch.einsum("tk,mk->tm", a.float(), b.float())
+    if noise is not None:
+        out = out + noise.float()
+    out = out * mask.float()
+    return out.to(a.dtype)
+
+
 def total_noise(key, shape, k_dim: int, cfg, device, dtype=torch.float32):
     """Draw the accumulated bank noise for a (T,M) output with contraction
     length k_dim, in normalised units — used by ``ops`` ("input" mode)."""

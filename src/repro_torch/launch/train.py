@@ -1,0 +1,73 @@
+"""Training launcher — a thin CLI over ``repro_torch.api.build_session``.
+Counterpart of ``repro/launch/train.py``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mnist_mlp \\
+      --algo dfa --preset offchip_bpd --backend cuda --steps 500
+
+Runs on the card; ``--device cpu`` runs on the CPU (the ``cuda`` backend
+then runs its kernels' plain versions).  ``--smoke`` trains the reduced
+64×32×32×10 MLP on the first 64 pixels of each image, as the reference
+launcher does.  Data: MNIST from ``$REPRO_MNIST_DIR`` if the IDX files are
+there, else the procedural digits.
+
+The reference's LM branch, ``--ckpt-dir``, ``--data-parallel``,
+``--recal-every``, ``--n-buses``, ``--autotune``, ``--bench-json``,
+``--trace-out``, ``--metrics-out`` and ``--probe-every`` are ported in later
+slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch import algos, api, configs
+from repro_torch.core import photonics
+from repro_torch.data import mnist, pipeline
+from repro_torch.train import SGDM
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=configs.list_archs())
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--algo", choices=algos.list_algos(), default="dfa")
+    ap.add_argument("--preset", choices=list(photonics.PRESETS), default="ideal")
+    ap.add_argument("--backend", choices=["auto", *photonics.BACKENDS], default="auto")
+    ap.add_argument("--error-compress", choices=["none", "ternary", "int8"], default="none")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--momentum", type=float, default=0.9)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log", default=None, help="CSV of the logged steps' metrics")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="batches kept on the device ahead of the step (0 disables)")
+    ap.add_argument("--device", default=None, help="default: the card (cuda)")
+    args = ap.parse_args(argv)
+
+    if args.arch != "mnist_mlp":
+        raise NotImplementedError(
+            f"training {args.arch}: DFA training of the language models is ported in "
+            "slice 4 (ROADMAP.md); the port trains mnist_mlp")
+    session = api.build_session(
+        arch=args.arch, smoke=args.smoke, algo=args.algo, hardware=args.preset,
+        backend=args.backend, error_compress=args.error_compress,
+        optimizer=SGDM(lr=args.lr, momentum=args.momentum), seed=args.seed,
+        log_path=args.log, log_every=max(1, args.steps // 20), prefetch=args.prefetch,
+        device=args.device)
+    model = session.model
+    data = mnist.load(seed=args.seed)
+    print(f"[data] source={data['source']}")
+    xtr, ytr = data["train"]
+    xte, yte = data["test"]
+    if xtr.shape[1] != model.in_dim:  # --smoke shrinks in_dim
+        xtr, xte = xtr[:, :model.in_dim], xte[:, :model.in_dim]
+    pipe = pipeline.ArrayClassification(xtr, ytr, args.batch, args.seed)
+    state, _ = session.fit(pipe.batch, total_steps=args.steps)
+    ev = session.evaluate(state, pipe.eval_batches(xte, yte, 256))
+    print(f"[eval] {ev}")
+    return ev
+
+
+if __name__ == "__main__":
+    main()

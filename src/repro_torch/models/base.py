@@ -1,12 +1,32 @@
-"""Model interface.  Counterpart of ``repro/models/base.py``.
+"""Model interfaces.  Counterpart of ``repro/models/base.py``.
 
-The reference's ``DFAModel`` protocol serves both training and serving.
-Slice 1 ports the serving half: what ``serve.Engine`` calls.  The training
-half (segments, saved block inputs, the head split for the DFA error tap)
-comes with the training slice.
+The reference's ``DFAModel`` protocol serves both training and serving; the
+port keeps the two halves apart.  ``ServingModel`` is what ``serve.Engine``
+calls.  ``DFAModel`` is what the DFA engine (``algos/dfa.py``) calls: a
+model that decomposes into
+
+    embed  →  segments (stacks of homogeneous blocks)  →  head
+
+A DFA model is an ``nn.Module`` that owns its parameters, but the training
+half is functional: every method takes ``params``, a flat dict in the
+module's ``state_dict`` naming (``"h0.weight"``, ``"head.bias"``, ...), and
+runs the module on it through ``torch.func.functional_call``.  The trainer
+carries that dict as its state, so a step is a function of (params,
+feedback, optimizer state, batch, step), as in the reference.
+
+The forward pass (``run_segments``) saves each block's input — the only
+activation state DFA needs.  The head is split into ``head_logits``
+(parameterised) and ``loss_from_logits`` (pure), so the engine can tap the
+error at the logits (the paper's MLP: e = ∂L/∂logits) or below the
+unembedding (``hidden``).  Head parameters always get exact gradients.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import typing
+
+import torch
 
 from repro_torch.nn.module import Module
 
@@ -32,3 +52,119 @@ class ServingModel(Module):
         streamed token."""
         raise NotImplementedError(
             f"{type(self).__name__} declares no forward GEMM workload")
+
+
+def subtree(params: dict, prefix: str) -> dict:
+    """The entries of a flat parameter dict under ``prefix`` (which ends in
+    "."), keyed relative to it."""
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSpec:
+    """Static description of one stack of homogeneous blocks."""
+
+    name: str
+    n_layers: int
+    d_inject: int  # feature dim at the injection point (block output)
+    # apply(layer_params, x, extras) -> (y, weighted aux loss scalar)
+    apply: typing.Callable = dataclasses.field(compare=False)
+    # The reference's adapt_error / expand_delta hooks serve its
+    # encoder-decoder models, which the port does not have yet.
+
+    def layer_prefix(self, idx: int) -> str:
+        """Where layer ``idx``'s parameters sit in the flat dict: a segment
+        of one block is the block itself, a deeper one a ``ModuleList``."""
+        return f"{self.name}." if self.n_layers == 1 else f"{self.name}.{idx}."
+
+    def layer_params(self, params: dict, idx: int) -> dict:
+        return subtree(params, self.layer_prefix(idx))
+
+
+@dataclasses.dataclass(frozen=True)
+class SavedSegment:
+    """Per-segment forward tape: stacked block inputs + shared extras."""
+
+    inputs: typing.Any  # (L, ...) — the input of each block
+    extras: typing.Any = None  # shared across layers (positions, ...)
+
+
+class DFAModel(Module):
+    """Interface — concrete models implement the methods below."""
+
+    # --- static info ---
+    @property
+    def error_tap(self) -> str:  # "hidden" | "logits"
+        return "hidden"
+
+    @property
+    def d_tap(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def segment_specs(self) -> tuple[SegmentSpec, ...]:
+        raise NotImplementedError
+
+    def param_dict(self) -> dict:
+        """A detached copy of the module's parameters: the trainer's
+        ``params``."""
+        return {k: v.detach().clone() for k, v in self.named_parameters()}
+
+    # --- forward parts ---
+    def embed(self, params, batch):
+        raise NotImplementedError
+
+    def run_segments(self, params, x0):
+        """-> (x_final, {name: SavedSegment}, {name: aux_loss_scalar})"""
+        raise NotImplementedError
+
+    def head_logits(self, params, x_final, batch):
+        raise NotImplementedError
+
+    def loss_from_logits(self, logits, batch):
+        """-> (loss, metrics dict)"""
+        raise NotImplementedError
+
+    # --- composed API ---
+    def loss(self, params, batch):
+        """Plain forward loss — used by the backprop baseline and eval."""
+        x0 = self.embed(params, batch)
+        x_final, _, auxes = self.run_segments(params, x0)
+        logits = self.head_logits(params, x_final, batch)
+        loss, metrics = self.loss_from_logits(logits, batch)
+        aux_total = sum(auxes.values()) if auxes else 0.0
+        metrics = dict(metrics)
+        if auxes:
+            metrics["aux_loss"] = aux_total
+        return loss + aux_total, metrics
+
+    # --- DFA hooks with defaults ---
+    def embed_feedback(self, e_tap, fb_embed, x0, project_fn):
+        """Cotangent injected at the embed output.  Default: one photonic
+        projection of the (flattened-leading) error to x0's feature dim."""
+        delta = project_fn(e_tap, fb_embed)
+        return delta.to(x0.dtype).reshape(x0.shape)
+
+
+def cross_entropy_loss(logits, labels, *, mask=None, label_smoothing: float = 0.0):
+    """Mean CE over valid positions.  logits (..., V), labels (...) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if label_smoothing > 0.0:
+        mean_ll = logits.mean(dim=-1)
+        nll = (1 - label_smoothing) * nll + label_smoothing * (logz - mean_ll)
+    hit = (logits.argmax(-1) == labels).float()
+    if mask is not None:
+        mask = mask.float()
+        denom = mask.sum().clamp_min(1.0)
+        loss = (nll * mask).sum() / denom
+        acc = (hit * mask).sum() / denom
+    else:
+        loss = nll.mean()
+        acc = hit.mean()
+    return loss, {"ce_loss": loss, "accuracy": acc}

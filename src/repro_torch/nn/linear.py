@@ -36,6 +36,27 @@ class Linear(Module):
         return y
 
 
+class DenseBlock(Linear):
+    """linear -> activation, the paper's hidden-layer unit.
+
+    Block-granular DFA applied to this block reproduces the paper's DFA
+    update: injecting delta = B e at the block *output* and differentiating
+    the block locally yields grad_W = (B e ⊙ g'(a)) h_inᵀ (Eq. 1), because
+    the local gradient through g contributes the ⊙ g'(a) Hadamard."""
+
+    def __init__(self, in_dim: int, out_dim: int, activation: str = "relu",
+                 use_bias: bool = True, dtype=torch.float32, device=None):
+        super().__init__(in_dim, out_dim, use_bias, dtype, device)
+        self.activation = activation
+
+    def preact(self, x):
+        return super().forward(x)
+
+    def forward(self, x):
+        g, _ = activations.get(self.activation)
+        return g(self.preact(x))
+
+
 class GatedMLP(Module):
     """SwiGLU gated FFN: down( silu(gate(x)) * up(x) )."""
 

@@ -42,3 +42,9 @@ def fold(seed: int, *names_or_ints) -> int:
 def generator(seed: int, device) -> torch.Generator:
     """A generator on ``device`` seeded with ``seed``."""
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def step_key(seed: int, step: int, name: str = "") -> int:
+    """Seed for a given training step: training noise and data are a pure
+    function of (seed, step), so a restart at step k replays the stream."""
+    return fold(seed, name, int(step)) if name else fold(seed, int(step))

@@ -134,9 +134,10 @@ def test_ref_backend_mask_matches_reference():
     expect = jph.photonic_project(jnp.asarray(a), jnp.asarray(b), jph.PRESETS[IDEAL],
                                   mask=jnp.asarray(mask), backend="ref")
     _close(_np(got), expect, 2e-5)
-    with pytest.raises(NotImplementedError, match="dfa_gradient"):
-        tph.photonic_project(torch.from_numpy(a), torch.from_numpy(b), tph.PRESETS[IDEAL],
-                             mask=torch.from_numpy(mask), backend="cuda")
+    # the cuda backend takes mask= too: the dfa_gradient kernel's wrapper
+    got = tph.photonic_project(torch.from_numpy(a), torch.from_numpy(b), tph.PRESETS[IDEAL],
+                               mask=torch.from_numpy(mask), backend="cuda")
+    _close(_np(got), expect, 2e-5)
 
 
 def test_prng_name_hash_matches_reference():

@@ -229,14 +229,14 @@ def test_noisy_engine_is_seeded(smoke_pair):
 
 
 def test_session_engine_backend_rules():
-    s = api.build_session(arch=ARCH, smoke=True, hardware="ideal", backend="auto",
-                          device="cpu")
+    s = api.build_session(arch=ARCH, algo="bp", smoke=True, hardware="ideal",
+                          backend="auto", device="cpu")
     assert s.engine(batch_slots=1, max_len=8)._backend.name == "ref"
-    s = api.build_session(arch=ARCH, smoke=True, hardware="digital", backend="cuda",
-                          device="cpu")
+    s = api.build_session(arch=ARCH, algo="bp", smoke=True, hardware="digital",
+                          backend="cuda", device="cpu")
     assert not s.engine(batch_slots=1, max_len=8)._photonic
     # the reference serves any backend instance as "ref" (kept as is)
-    s = api.build_session(arch=ARCH, smoke=True, hardware="ideal",
+    s = api.build_session(arch=ARCH, algo="bp", smoke=True, hardware="ideal",
                           backend=tph.BACKENDS["cuda"], device="cpu")
     assert s.engine(batch_slots=1, max_len=8)._backend.name == "ref"
     with pytest.raises(NotImplementedError):
