@@ -4,8 +4,9 @@ backend matrix.  Counterpart of ``repro/api.py``.
 * **algo**     — a name in ``repro_torch.algos`` (``bp`` | ``dfa`` |
   ``dfa-fused``)
 * **hardware** — a ``core.photonics`` preset name or a ``PhotonicConfig``
-* **backend**  — how projections execute: ``auto`` | ``ref`` | ``cuda`` (or
-  a ``PhotonicBackend`` instance)
+* **backend**  — how projections execute: ``auto`` | ``ref`` | ``cuda`` |
+  ``emu`` (device-level emulation, with drift and in-situ recalibration
+  under the trainer), or a ``PhotonicBackend`` instance
 
 Typical use::
 
@@ -19,6 +20,9 @@ Typical use::
     serving = api.build_session(arch="qwen1.5-0.5b", algo="bp", smoke=False,
                                 hardware="offchip_bpd", backend="cuda")
     engine = serving.engine(batch_slots=4, max_len=128)
+
+    emulated = api.build_session(arch="mnist_mlp", hardware="emu_onchip",
+                                 backend="emu")  # drift on, recalibration every 500
 
 The defaults are the reference's: the paper's MLP trained with DFA on ideal
 hardware, SGD momentum 0.9 at lr 0.01 (the paper's §4 optimizer).  Every
@@ -119,7 +123,7 @@ class Session:
     # ---- serving ----
     def engine(self, params=None, *, batch_slots: int = 8, max_len: int = 512,
                eos_id: int | None = None, prefill_chunk: int = 16,
-               seed: int = 0):
+               hw_state=None, seed: int = 0):
         """A ``serve.Engine`` on this session's (hardware, backend) cell.
 
         ``params``: a state dict loaded into the model; None draws fresh
@@ -127,7 +131,9 @@ class Session:
         Backend rules as the reference's: a backend instance serves as
         "ref" (the reference maps any non-string backend to "ref"), "auto"
         with photonics enabled serves "ref", and disabled photonics serve
-        the exact digital forward."""
+        the exact digital forward.  ``emu`` serves through the same emulated
+        banks training used; ``hw_state`` is their drift state (default: a
+        freshly calibrated chip)."""
         from repro_torch.serve import Engine
 
         if params is None:
@@ -144,22 +150,49 @@ class Session:
             backend = None
         return Engine(self.model, batch_slots=batch_slots, max_len=max_len,
                       eos_id=eos_id, prefill_chunk=prefill_chunk, backend=backend,
-                      photonics=hw_cfg if backend is not None else None, seed=seed)
+                      photonics=hw_cfg if backend is not None else None,
+                      hw_state=hw_state, seed=seed)
 
 
 def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
-                  backend="auto", optimizer=None, seed: int = 0, smoke: bool = False,
+                  backend="auto", emu_kernel: str | None = None, optimizer=None,
+                  seed: int = 0, smoke: bool = False,
                   dtype=torch.float32, error_compress: str = "none",
                   freeze_norms: bool = False,
                   feedback: fb_lib.FeedbackConfig | None = None,
-                  microbatches: int = 1, prefetch: int = 2, log_every: int = 50,
+                  microbatches: int = 1, prefetch: int = 2,
+                  recalibrate_every: int | None = None, log_every: int = 50,
                   log_path: str | None = None, step_deadline_s: float | None = None,
                   device=None) -> Session:
     """Compose one cell of the algorithm × hardware × backend matrix, on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card).
+
+    ``emu_kernel`` ("auto" | "ref" | "cuda") picks the emu backend's
+    execution path for the whole session and requires ``backend="emu"``.
+    ``recalibrate_every`` defaults to 500 steps when the device drifts and
+    to 0 (never) otherwise."""
     device = resolve_device(device)
     algorithm = algos.get(algo)  # fail fast on unknown names
-    photonics.get_backend(backend)  # (likewise for the backend)
+    backend_obj = photonics.get_backend(backend)  # (likewise for the backend)
+    if emu_kernel is not None:
+        if not isinstance(backend_obj, photonics.EmulatedMRRBackend):
+            raise ValueError(f"emu_kernel={emu_kernel!r} requires backend='emu', "
+                             f"got {backend_obj.name!r}")
+        from repro_torch.hardware.channel import resolve_emu_kernel
+
+        resolve_emu_kernel(emu_kernel)  # fail fast on unknown names
+        backend = backend_obj = dataclasses.replace(backend_obj, emu_kernel=emu_kernel)
+    hw_cfg = resolve_hardware(hardware)
+    if backend_obj.stateful_hardware and hw_cfg.mrr is None:
+        # a device-level backend on an abstract preset: attach the default
+        # device (drift on) so the emulation has a bank
+        from repro_torch.hardware.mrr import MRRConfig
+
+        hw_cfg = dataclasses.replace(hw_cfg, mrr=MRRConfig())
+    if recalibrate_every is None:
+        drifting = (backend_obj.stateful_hardware and hw_cfg.mrr is not None
+                    and hw_cfg.mrr.stateful)
+        recalibrate_every = 500 if drifting else 0
     model = build_model(arch, smoke=smoke, dtype=dtype, device=device, seed=seed)
     trainable = isinstance(model, DFAModel)
     if not trainable and algo != "bp":
@@ -168,12 +201,13 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
             "models is ported in slice 4 (ROADMAP.md); they serve with algo='bp'")
     cfg = TrainerConfig(
         algo=algo,
-        dfa=DFAConfig(photonics=resolve_hardware(hardware),
+        dfa=DFAConfig(photonics=hw_cfg,
                       feedback=feedback or fb_lib.FeedbackConfig(),
                       error_compress=error_compress, backend=backend,
                       freeze_norms=freeze_norms),
         optimizer=optimizer or SGDM(lr=0.01, momentum=0.9),
-        seed=seed, microbatches=microbatches, prefetch=prefetch, log_every=log_every,
+        seed=seed, microbatches=microbatches, prefetch=prefetch,
+        recalibrate_every=recalibrate_every, log_every=log_every,
         log_path=log_path, step_deadline_s=step_deadline_s)
     trainer = Trainer(model, cfg, device=device) if trainable else None
     return Session(model=model, algorithm=algorithm, config=cfg, trainer=trainer)

@@ -13,6 +13,8 @@ an L = 1 axis; the port's ``h{i}`` is the block itself, so that axis is
 dropped (``h0.weight`` (800, 784)).  Gradient trees have the parameters'
 layout and convert the same way.  DFA feedback (``{"h0": (1, 800, 10), ...,
 "embed": (800, 10)}``) is already in the bank's (M, K) layout on both sides.
+The emulated hardware's drift state ``{"drift", "cal"}`` and a dead-ring
+mask keep their layout too; they convert between numpy and tensors.
 
 This module takes and returns numpy arrays only (pass the reference's
 arrays through ``numpy.asarray``); it imports no JAX.
@@ -92,3 +94,25 @@ def caches_to_reference(caches) -> dict:
     """The port's caches -> the reference's stacked (L, B, S, KVH, D)
     numpy arrays.  The port already keeps the stacked layout."""
     return {name: t.detach().float().cpu().numpy() for name, t in caches.items()}
+
+
+def hw_state_from_reference(hw, device=None) -> dict:
+    """The reference's hardware state ``{"drift", "cal"}`` (numpy leaves,
+    (n_buses, rows, cols)) -> the port's f32 tensors on ``device``."""
+    return {name: torch.from_numpy(np.array(hw[name], dtype=np.float32)).to(device)
+            for name in ("drift", "cal")}
+
+
+def hw_state_to_reference(hw) -> dict:
+    """The port's hardware state -> numpy f32 arrays, as the reference's."""
+    return {name: hw[name].detach().float().cpu().numpy() for name in ("drift", "cal")}
+
+
+def dead_ring_mask_from_reference(mask, device=None):
+    """A dead-ring mask (numpy, any layout) -> an f32 tensor on ``device``."""
+    return torch.from_numpy(np.array(mask, dtype=np.float32)).to(device)
+
+
+def dead_ring_mask_to_reference(mask):
+    """A dead-ring mask tensor -> numpy f32, as the reference's."""
+    return mask.detach().float().cpu().numpy()

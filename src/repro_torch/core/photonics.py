@@ -12,7 +12,9 @@ tensors carry their device, ``stop_gradient`` is ``.detach()``, and a
 "key" is a plain integer seed (``utils.prng.fold``) from which a
 ``torch.Generator`` is made where noise is drawn.  The ``cuda`` backend is
 the counterpart of ``pallas``: it runs the bank product in the CUDA kernel
-of ``kernels/photonic_matmul.py``.
+of ``kernels/photonic_matmul.py``.  The ``emu`` backend emulates the bank
+at device level (``hardware.channel``), its fused panel loop in the CUDA
+kernel of ``kernels/emu_matmul.py``.
 """
 
 from __future__ import annotations
@@ -101,6 +103,14 @@ def active_buses(cfg: PhotonicConfig) -> int:
         raise ValueError(
             f"all {n} buses failed ({sorted(failed)}): no path through the chip")
     return alive
+
+
+def alive_bus_indices(cfg: PhotonicConfig) -> tuple:
+    """Physical indices of the surviving buses, in order: the panel
+    scheduler's logical-bus -> physical-bank map."""
+    n = max(cfg.n_buses, 1)
+    failed = {b for b in cfg.failed_buses if 0 <= b < n}
+    return tuple(b for b in range(n) if b not in failed)
 
 
 def n_bank_passes(k_dim: int, cfg: PhotonicConfig) -> int:
@@ -212,6 +222,30 @@ class AutoBackend(PhotonicBackend):
             a, b, cfg, key=key, mask=mask)
 
 
+@dataclasses.dataclass(frozen=True)
+class EmulatedMRRBackend(PhotonicBackend):
+    """Device-level MRR bank emulation (``hardware.channel``): Lorentzian
+    ring transfer, heater inscription and DAC, thermal crosstalk, dead
+    rings, BPD read and shot noise, per-pass ADC, and under the trainer
+    stateful resonance drift with in-situ recalibration.  ``cfg.mrr``
+    describes the device (None: ``MRRConfig()``).
+
+    ``emu_kernel`` picks the execution path (``channel.resolve_emu_kernel``):
+    "ref" is the unfused chain, "cuda" the fused panel loop in the
+    ``emu_bank_product`` kernel, "auto" the kernel for CUDA tensors and
+    the unfused chain for CPU tensors."""
+
+    name: str = "emu"
+    stateful_hardware = True
+    emu_kernel: str = "auto"
+
+    def matmul(self, a, b, cfg, key=None, *, mask=None):
+        from repro_torch.hardware import channel  # lazy: hardware imports us
+
+        return channel.emulated_matmul(a, b, cfg, key=key, mask=mask,
+                                       kernel=self.emu_kernel)
+
+
 BACKENDS: dict[str, PhotonicBackend] = {}
 
 
@@ -223,16 +257,13 @@ def register_backend(backend: PhotonicBackend) -> PhotonicBackend:
 register_backend(ReferenceBackend())
 register_backend(CudaBackend())
 register_backend(AutoBackend())
+register_backend(EmulatedMRRBackend())
 
 
 def get_backend(spec: str | PhotonicBackend = "auto") -> PhotonicBackend:
     """Resolve a backend: an instance passes through, a name is looked up."""
     if isinstance(spec, PhotonicBackend):
         return spec
-    if spec == "emu":
-        raise NotImplementedError(
-            "the 'emu' backend (device emulation with the fused "
-            "emu_bank_product kernel) is ported in slice 3")
     if spec not in BACKENDS:
         raise KeyError(
             f"unknown photonic backend {spec!r}; registered: {sorted(BACKENDS)}")

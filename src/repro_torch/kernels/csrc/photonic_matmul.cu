@@ -47,7 +47,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
+
+using repro_torch::threefry2x32;
 
 constexpr int BT = 64;        // output rows (A rows) per block
 constexpr int BM = 64;        // output cols (B rows) per block
@@ -59,30 +63,6 @@ enum NoiseMode { kNone = 0, kInput = 1, kPrng = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// threefry2x32, 20 rounds (Salmon et al. 2011), the generator JAX uses.
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  const uint32_t ks[3] = {k0, k1, 0x1BD11BDAu ^ k0 ^ k1};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int r = 0; r < 20; ++r) {
-    x0 += x1;
-    x1 = rotl32(x1, rot[r % 8]);
-    x1 ^= x0;
-    if (r % 4 == 3) {
-      const int i = r / 4 + 1;
-      x0 += ks[i % 3];
-      x1 += ks[(i + 1) % 3] + static_cast<uint32_t>(i);
-    }
-  }
-}
 
 // Box-Muller from 24 high bits of each word, as the TPU kernel's
 // _gaussian_tile: u1 = 0 gives z = 0.

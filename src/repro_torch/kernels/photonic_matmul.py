@@ -7,8 +7,10 @@ and what bounds it).  It is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface at first use, into
 ``build/repro_torch/`` at the repository root, and loaded with ``ctypes``;
 importing this module builds nothing.  The same library holds the fused
-DFA gradient (``dfa_gradient.py``), the kernel with its mask epilogue;
-``launch_kernel`` launches either.
+DFA gradient (``dfa_gradient.py``), the kernel with its mask epilogue
+(``launch_kernel`` launches either), and the emu backend's panel loop
+(``emu_matmul.py``, source ``csrc/emu_matmul.cu``): one ``nvcc`` builds
+both sources.
 
 ``photonic_matmul_cuda`` launches the kernel for CUDA tensors, and runs
 ``photonic_matmul_plain`` only because its tensors lie on the CPU.  Noise
@@ -33,7 +35,9 @@ from repro_torch.kernels.ref import photonic_matmul_ref
 
 BLOCK_K = 32  # the kernel's K tile; prng noise is drawn once per tile
 
-_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "photonic_matmul.cu"
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+# every source of the one library (its file name hashes them all)
+_SOURCES = (_CSRC / "photonic_matmul.cu", _CSRC / "emu_matmul.cu", _CSRC / "threefry.cuh")
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"none": 0, "input": 1, "prng": 2}
@@ -50,17 +54,22 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile the kernel (once per source revision) and return the
-    library's path.  The file name carries a hash of the source, so an
-    edited source is rebuilt and a stale library is never loaded."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libphotonic_matmul-{digest}.so"
+    """Compile the kernels (once per source revision) with one ``nvcc``
+    into one library and return its path.  The file name carries a hash of
+    every source, so an edited source is rebuilt and a stale library is
+    never loaded."""
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    digest = h.hexdigest()[:12]
+    lib = _BUILD_DIR / f"librepro_torch_kernels-{digest}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+           *(str(src) for src in _SOURCES if src.suffix == ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
@@ -83,6 +92,13 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
     lib.dfa_gradient_launch.restype = ctypes.c_int
+    lib.emu_bank_product_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+    lib.emu_bank_product_launch.restype = ctypes.c_int
     if lib.photonic_matmul_block_k() != BLOCK_K:
         raise RuntimeError("kernel K tile differs from BLOCK_K; rebuild")
     return lib

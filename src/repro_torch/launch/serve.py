@@ -3,11 +3,15 @@ digital or photonic forward.  Counterpart of ``repro/launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --no-smoke --backend cuda --hardware offchip_bpd
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --no-smoke --backend emu --hardware emu_offchip
 
 Runs on the card; ``--device cpu`` runs on the CPU (the ``cuda`` backend
-then runs its kernel's plain version).  ``--smoke`` (default on) builds the
-shrunk smoke config; ``--no-smoke`` serves the full-size model (in f32,
-the facade's default, as the reference launcher does).
+then runs its kernel's plain version, the ``emu`` backend its unfused
+chain).  ``--backend emu`` serves through the emulated MRR banks.
+``--smoke`` (default on) builds the shrunk smoke config; ``--no-smoke``
+serves the full-size model (in f32, the facade's default, as the reference
+launcher does).
 The reference's ``--bench-json``, ``--trace-out`` and ``--metrics-out``
 are not ported yet.
 """
@@ -32,9 +36,10 @@ def main(argv=None):
     ap.add_argument("--arch", required=True, choices=list(configs.ASSIGNED))
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True,
                     help="shrunk smoke config (default); --no-smoke for full size")
-    ap.add_argument("--backend", default="auto", choices=["auto", "ref", "cuda"],
+    ap.add_argument("--backend", default="auto", choices=["auto", "ref", "cuda", "emu"],
                     help="forward execution: auto = exact digital; ref / cuda run "
-                         "projections through the photonic bank model")
+                         "projections through the photonic bank model, emu through "
+                         "the MRR device emulation")
     ap.add_argument("--hardware", default=None,
                     help="photonics preset for a photonic backend "
                          "(default: digital for auto, emu_ideal otherwise)")

@@ -3,15 +3,20 @@ Counterpart of ``repro/launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mnist_mlp \\
       --algo dfa --preset offchip_bpd --backend cuda --steps 500
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mnist_mlp \\
+      --backend emu --preset emu_onchip --recal-every 500
 
 Runs on the card; ``--device cpu`` runs on the CPU (the ``cuda`` backend
-then runs its kernels' plain versions).  ``--smoke`` trains the reduced
+then runs its kernels' plain versions, the ``emu`` backend its unfused
+chain).  ``--backend emu`` trains through the emulated MRR banks, which
+drift on the default device and are recalibrated every ``--recal-every``
+steps (default 500 when the device drifts).  ``--smoke`` trains the reduced
 64×32×32×10 MLP on the first 64 pixels of each image, as the reference
 launcher does.  Data: MNIST from ``$REPRO_MNIST_DIR`` if the IDX files are
 there, else the procedural digits.
 
 The reference's LM branch, ``--ckpt-dir``, ``--data-parallel``,
-``--recal-every``, ``--n-buses``, ``--autotune``, ``--bench-json``,
+``--n-buses``, ``--autotune``, ``--bench-json``,
 ``--trace-out``, ``--metrics-out`` and ``--probe-every`` are ported in later
 slices.
 """
@@ -42,6 +47,9 @@ def main(argv=None):
     ap.add_argument("--log", default=None, help="CSV of the logged steps' metrics")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches kept on the device ahead of the step (0 disables)")
+    ap.add_argument("--recal-every", type=int, default=None,
+                    help="in-situ recalibration cadence (steps) for stateful emu "
+                         "hardware; default: 500 when the device drifts")
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
     args = ap.parse_args(argv)
 
@@ -54,7 +62,7 @@ def main(argv=None):
         backend=args.backend, error_compress=args.error_compress,
         optimizer=SGDM(lr=args.lr, momentum=args.momentum), seed=args.seed,
         log_path=args.log, log_every=max(1, args.steps // 20), prefetch=args.prefetch,
-        device=args.device)
+        recalibrate_every=args.recal_every, device=args.device)
     model = session.model
     data = mnist.load(seed=args.seed)
     print(f"[data] source={data['source']}")

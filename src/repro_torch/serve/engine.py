@@ -13,10 +13,12 @@ request walks QUEUED → PREFILL → DECODE → DONE:
   reference: the per-tensor operand scales of the photonic bank span the
   whole batch.  Inactive slots keep their cache and token.
 
-With a photonic backend (``"ref"`` or ``"cuda"``) every ``forward_matmul``
-inside a step runs through ``photonics.forward_execution``; ``None`` (or
-``"auto"``) keeps the exact digital forward.  The model's device is the
-engine's device; steps run under ``torch.no_grad``.
+With a photonic backend (``"ref"``, ``"cuda"`` or ``"emu"``) every
+``forward_matmul`` inside a step runs through ``photonics.forward_execution``;
+``None`` (or ``"auto"``) keeps the exact digital forward.  A drifting
+emulated device serves under ``drift.use_state(hw_state)``; serving never
+advances the drift.  The model's device is the engine's device; steps run
+under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import photonics as ph
+from repro_torch.hardware import drift
 from repro_torch.serve.decode import make_prefill_step, make_serve_step, select_slots
 from repro_torch.utils import prng
 
@@ -68,21 +71,24 @@ class Request:
 class Engine:
     """Continuous-batching engine over ``model.decode_step`` caches.
 
-    ``backend``: None | "auto" (exact digital) | "ref" | "cuda" | a
+    ``backend``: None | "auto" (exact digital) | "ref" | "cuda" | "emu" | a
     ``PhotonicBackend``.  ``photonics``: the hardware config for a photonic
-    backend; defaults to the "digital" preset switched on.  ``seed`` roots
-    the bank-noise seeds: tick n draws from ``prng.fold(seed, n)``.
+    backend; defaults to the "digital" preset switched on, and a backend
+    that emulates stateful hardware gets ``MRRConfig()`` attached when the
+    config has no device.  ``hw_state``: the drift state of a drifting
+    device (default: a freshly calibrated chip, ``drift.init_state``).
+    ``seed`` roots the bank-noise seeds: tick n draws from
+    ``prng.fold(seed, n)``.
 
-    Not ported yet: ``hw_state`` (drift, read only by the emu backend), the
-    ``observer`` traces and ``debug_checks``; passing them raises.
+    Not ported yet: the ``observer`` traces and ``debug_checks``; passing
+    them raises.
     """
 
     def __init__(self, model, *, batch_slots: int = 8, max_len: int = 512,
                  eos_id: int | None = None, prefill_chunk: int = 16,
                  backend=None, photonics=None, hw_state=None, seed: int = 0,
                  observer=None, debug_checks: bool = False):
-        for given, name in ((hw_state is not None, "hw_state"),
-                            (observer is not None, "observer"),
+        for given, name in ((observer is not None, "observer"),
                             (debug_checks, "debug_checks")):
             if given:
                 raise NotImplementedError(f"Engine {name} is not ported yet")
@@ -106,24 +112,35 @@ class Engine:
         self._key = None
         self.photonics = None
         self._backend = None
+        self.hw_state = None
         if self._photonic:
             cfg = photonics if photonics is not None else dataclasses.replace(
                 ph.PRESETS["digital"], enabled=True)
             if not cfg.enabled:
                 cfg = dataclasses.replace(cfg, enabled=True)
             self._backend = ph.get_backend(backend)
-            if self._backend.stateful_hardware:
-                raise NotImplementedError("stateful hardware backends are not ported yet")
+            if self._backend.stateful_hardware and cfg.mrr is None:
+                from repro_torch.hardware.mrr import MRRConfig
+
+                cfg = dataclasses.replace(cfg, mrr=MRRConfig())
             self.photonics = cfg
+            if cfg.mrr is not None and cfg.mrr.stateful:
+                self.hw_state = (hw_state if hw_state is not None
+                                 else drift.init_state(cfg, device=self.device))
             self._key = seed
 
         self._prefill_step = make_prefill_step(model)
         self._serve_step = make_serve_step(model)
 
+    @contextlib.contextmanager
     def _execution(self, key):
         if not self._photonic:
-            return contextlib.nullcontext()
-        return ph.forward_execution(self.photonics, self._backend, key)
+            yield
+            return
+        hw = (drift.use_state(self.hw_state) if self.hw_state is not None
+              else contextlib.nullcontext())
+        with hw, ph.forward_execution(self.photonics, self._backend, key):
+            yield
 
     def _tensor(self, x):
         return torch.as_tensor(x, device=self.device)

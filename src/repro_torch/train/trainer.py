@@ -5,19 +5,25 @@ and a straggler deadline, and evaluation.  Counterpart of
 
 The state is a dict ``{"params", "fb", "opt", "step"}``: ``params`` a flat
 dict of tensors in the model's ``state_dict`` naming, ``fb`` the feedback
-matrices, ``opt`` the optimizer's state, ``step`` an int.  A step returns a
-new state and leaves the one it was given as it was, as the reference's
-jitted step does.  All training randomness (photonic noise, data order) is
+matrices, ``opt`` the optimizer's state, ``step`` an int.  A backend that
+emulates stateful hardware (``emu``) adds ``"hw"``, the per-ring drift and
+calibration state (``hardware.drift``): each step advances it
+(``hardware.calibrate.advance``, recalibrating every
+``TrainerConfig.recalibrate_every`` steps) and runs the gradient under
+``drift.use_state``, so the projections see the step's residual.  A step
+returns a new state and leaves the one it was given as it was, as the
+reference's jitted step does.  All training randomness (photonic noise, data order) is
 a pure function of (seed, step) through ``utils.prng.step_key``.
 
 The trainer runs on the card unless ``device="cpu"`` is asked for, and
 raises where CUDA is absent.  The reference's checkpointing, data
-parallelism, stateful hardware (``state["hw"]``), observer, alignment probe
-and ``debug_checks`` are ported in later slices (``ROADMAP.md``).
+parallelism, observer, alignment probe and ``debug_checks`` are ported in
+later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -27,7 +33,10 @@ import torch
 
 from repro_torch import algos
 from repro_torch.algos.dfa import DFAConfig
+from repro_torch.core import photonics
 from repro_torch.data.pipeline import DevicePrefetcher, to_device
+from repro_torch.hardware import calibrate as hw_calibrate
+from repro_torch.hardware import drift as hw_drift
 from repro_torch.train.optimizer import SGDM
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -44,8 +53,16 @@ class TrainerConfig:
     prefetch: int = 2
     log_every: int = 50
     log_path: str | None = None
+    # in-situ recalibration cadence (steps) for stateful emu hardware;
+    # 0 = never (the stored estimate stays frozen)
+    recalibrate_every: int = 0
     # straggler mitigation: per-step wall deadline (None = off)
     step_deadline_s: float | None = None
+
+
+# residual threshold (in stationary drift σ) past which a ring counts as
+# dead: the port's copy of repro/obs/hwmon.py:40 DEAD_RING_FACTOR
+DEAD_RING_FACTOR = 3.0
 
 
 class Trainer:
@@ -58,6 +75,8 @@ class Trainer:
         self.cfg = cfg
         self.algorithm = algos.get(cfg.algo)
         self._vg = self.algorithm.value_and_grad(model, cfg.dfa)
+        # only backends that consume device state carry a "hw" state
+        self._hw_stateful = photonics.get_backend(cfg.dfa.backend).stateful_hardware
         self._log_file = None
         self._log_keys = None
 
@@ -68,7 +87,11 @@ class Trainer:
         params = self.model.param_dict()
         fb = self.algorithm.init_extra_state(self.model, prng.fold(seed, "feedback"),
                                              self.cfg.dfa)
-        return {"params": params, "fb": fb, "opt": self.cfg.optimizer.init(params), "step": 0}
+        state = {"params": params, "fb": fb, "opt": self.cfg.optimizer.init(params), "step": 0}
+        if self._hw_stateful:
+            state["hw"] = hw_drift.init_state(self.cfg.dfa.photonics, prng.fold(seed, "hardware"),
+                                              device=self.device)
+        return state
 
     # ---------- core step ----------
     def _grads(self, params, fb, batch, rng):
@@ -95,13 +118,36 @@ class Trainer:
 
     def _train_step(self, state, batch):
         rng = prng.step_key(self.cfg.seed, state["step"], "noise")
-        (loss, metrics), grads = self._grads(state["params"], state["fb"], batch, rng)
+        hw = state.get("hw")
+        hw_ctx = contextlib.nullcontext()
+        if hw is not None:
+            # advance the physical device (drift and calibration sweeps) and
+            # expose it to the photonic projections of this step
+            hw = hw_calibrate.advance(
+                hw, self.cfg.dfa.photonics, state["step"],
+                prng.step_key(self.cfg.seed, state["step"], "hardware"),
+                recalibrate_every=self.cfg.recalibrate_every)
+            hw_ctx = hw_drift.use_state(hw)
+        with hw_ctx:
+            (loss, metrics), grads = self._grads(state["params"], state["fb"], batch, rng)
         new_params, new_opt, info = self.cfg.optimizer.update(
             grads, state["opt"], state["params"])
         metrics = dict(metrics)
         metrics.update(info)
         new_state = {"params": new_params, "fb": state["fb"], "opt": new_opt,
                      "step": state["step"] + 1}
+        if hw is not None:
+            new_state["hw"] = hw
+            device = self.cfg.dfa.photonics.mrr
+            # gauges only when the device drifts: a drift-free bank carries a
+            # state that stays zero
+            if device is not None and device.stateful:
+                resid = hw_drift.residual(hw)
+                metrics["hw_drift_rms"] = torch.sqrt(torch.mean(torch.square(hw["drift"])))
+                metrics["hw_residual_rms"] = torch.sqrt(torch.mean(torch.square(resid)))
+                # rings whose uncompensated detuning left the usable range
+                thresh = DEAD_RING_FACTOR * device.drift_sigma
+                metrics["hw_dead_rings"] = torch.sum(resid.abs() > thresh).to(torch.float32)
         return new_state, metrics
 
     def _sync(self):

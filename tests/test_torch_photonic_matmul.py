@@ -112,8 +112,8 @@ def test_get_backend_rules():
     assert tph.get_backend("ref").name == "ref"
     assert tph.get_backend("cuda").name == "cuda"
     assert tph.get_backend(tph.BACKENDS["ref"]) is tph.BACKENDS["ref"]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tph.get_backend("emu")
+    emu = tph.get_backend("emu")  # device emulation, ported in slice 3
+    assert isinstance(emu, tph.EmulatedMRRBackend) and emu.stateful_hardware
     with pytest.raises(KeyError):
         tph.get_backend("pallas")
     # auto: the kernel for CUDA tensors, the plain path for CPU tensors
