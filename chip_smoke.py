@@ -36,8 +36,9 @@ checkout.  Phases:
 9. ``emu_bank_product`` vs its plain version at tests/test_emu_kernel.py's
    shapes, a failed bus with dead rings, a drift residual, path A's
    64×800×10, the reference's emu benchmark 64×1024×1024 on 4 buses and the
-   qwen head at decode, × f32/bf16 × noise off/σ/σ+shot × ADC none/8 bits,
-   counting elements one ADC step apart, and the noise σ;
+   qwen head at decode, × f32/bf16 inputs (f32 detunings, as the port
+   inscribes) × noise off/σ/σ+shot × ADC none/8 bits, counting elements one
+   ADC step apart, and the noise σ;
 10. path A: the paper's MLP at full width trained through the emulated
     banks (``emu`` backend, drift on, recalibration every 500) on
     emu_offchip and emu_onchip, 2 kernel launches per step, the onchip
@@ -46,7 +47,8 @@ checkout.  Phases:
 11. benchmarks/drift_recovery.py's four variants on the port, gated on the
     residual with recalibration lying below the residual without;
 12. path B: qwen1.5-0.5b at full width in bf16 served through the emulated
-    banks (emu_offchip), 169 launches per forward, a profiled decode tick;
+    banks (emu_offchip), 169 launches per forward; the kernel against its
+    plain version on the operands path B gave it; a profiled decode tick;
     then f32 emu_ideal logits, the kernel against the unfused chain;
 13. ``emu_bank_product`` timing at path A's shape and the benchmark shape
     beside its plain version and its bound (bytes, f32 work, PRNG work).
@@ -579,7 +581,7 @@ def _event_ms(torch, fn, reps=25):
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, reps=25, attempts=3, spare=5):
+def _device_ms(torch, fn, reps=25, attempts=3, spare=8):
     """Device time of one call of ``fn``: the median over ``reps`` calls of
     the summed durations of the device kernels it ran, read from the
     profiler (CUPTI), so the host's launch overhead is not counted.  Before
@@ -590,8 +592,7 @@ def _device_ms(torch, fn, reps=25, attempts=3, spare=5):
     every window of the emu kernel), and the median of the last ``reps``
     calls is then still a median of whole calls.  It has also lost most of
     a window on a loaded machine (7 of 26 calls): such a window is profiled
-    again, up to ``attempts`` times, and then the device time is reported
-    as not measured (None)."""
+    again, up to ``attempts`` times, and then the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
@@ -614,14 +615,12 @@ def _device_ms(torch, fn, reps=25, attempts=3, spare=5):
                 cur += e.time_range.end - e.time_range.start
         if cur is not None:
             per_call.append(cur)
-        if not per_call:
-            return None  # the profiler traced no device kernels: not measured
         if len(per_call) >= reps:
             return statistics.median(per_call[-reps:]) / 1e3
         print(f"[timing] the profiler saw {len(per_call)} of {reps + spare} calls; profiling "
               "again")
-    print(f"[timing] device time not measured: the profiler lost calls {attempts} times")
-    return None
+    raise PhaseError(f"device time not measured: the profiler saw fewer than {reps} of "
+                     f"{reps + spare} calls in each of {attempts} windows")
 
 
 def phase_profile_decode(torch, np, api, seed, tag="profile", hardware="offchip_bpd",
@@ -793,20 +792,22 @@ def _emu_case(torch, ph, ch, mrr, t, m, k, pkw, mkw, resid, dtype, gen):
     if resid:
         r = 0.08 * torch.randn((max(cfg.n_buses, 1), cfg.bank_rows, cfg.bank_cols),
                                generator=gen, device=DEVICE)
-    delta = ch.effective_deltas(b_t, cfg, ch.alive_residual(r, cfg))
-    # the port inscribes in f32; the kernel also takes bf16 detunings
-    delta = delta.to(dtype).contiguous()
+    # f32 whatever the operands are (the port inscribes in f32): the bf16
+    # rows hand the kernel bf16 inputs with f32 detunings, as path B does
+    delta = ch.effective_deltas(b_t, cfg, ch.alive_residual(r, cfg)).contiguous()
     return a_t, delta, ch.alive_dead_ring_mask(cfg, DEVICE), n_panels
 
 
 def phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr):
     """emu_bank_product against its plain version at every EMU_SHAPES shape x
-    {f32, bf16} x noise {off, σ, σ + shot} x ADC {none, 8 bits}; the noise
-    σ against noise_sigma_total's per-panel accounting."""
+    inputs {f32, bf16} (detunings f32) x noise {off, σ, σ + shot} x ADC
+    {none, 8 bits}; the noise σ against noise_sigma_total's per-panel
+    accounting."""
     gen = torch.Generator(device=DEVICE).manual_seed(2024)
     max_err, flips_total, pooled = 0.0, 0, []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
+        dtype_err, dtype_flips = 0.0, 0
         for name, t, m, k, pkw, mkw, resid in EMU_SHAPES:
             a_t, delta, mask, n_panels = _emu_case(torch, ph, ch, mrr, t, m, k, pkw, mkw,
                                                    resid, dtype, gen)
@@ -823,13 +824,13 @@ def phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr):
                     flips = 0
                     if adc is not None:
                         flips = int((err >= 20.0 / 127 / 2).sum())
-                    flips_total += flips
+                    dtype_flips += flips
                     worst = err.max().item()
                     check(worst <= EMU_TOL[dname] * scale + 1e-6,
                           f"emu kernel != plain: {name} {dname} {noise} adc={adc} "
                           f"err={worst} max={scale} flips={flips}")
                     check(bool(torch.isfinite(got).all()), f"emu kernel: non-finite {name}")
-                    max_err = max(max_err, worst)
+                    dtype_err = max(dtype_err, worst)
                     outs[noise, adc] = got
             # σ only, no ADC: the accumulated read noise is σ·√n_panels per output
             z = (outs["sigma", None] - outs["off", None]).double() / (0.098 * n_panels ** 0.5)
@@ -837,8 +838,12 @@ def phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr):
                 check(abs(z.std().item() - 1) < 0.05,
                       f"emu noise σ {z.std().item():.4f}·σ_total at {name} {dname}")
             pooled.append(z.flatten())
-        print(f"[emu_kernel] {dname}: {len(EMU_SHAPES)} shapes x noise off/σ/σ+shot x ADC "
-              f"none/8 agree with the plain version (tol {EMU_TOL[dname]} of max|out|)")
+        print(f"[emu_kernel] a_t {dname}, δ float32: {len(EMU_SHAPES)} shapes x noise "
+              f"off/σ/σ+shot x ADC none/8 agree with the plain version (tol {EMU_TOL[dname]} "
+              f"of max|out|): max |kernel - plain| {dtype_err:.3e}, elements one ADC step "
+              f"apart {dtype_flips}")
+        max_err = max(max_err, dtype_err)
+        flips_total += dtype_flips
     allz = torch.cat(pooled)
     std = allz.std().item()
     check(abs(std - 1) < 0.05, f"emu noise σ {std}·σ_total over all shapes")
@@ -976,9 +981,11 @@ def _teacher_forced(torch, np, model, cfg, backend, seed, n_decode=4, chunk=16):
 
 def phase_emu_serve(torch, np, api, em, seed):
     """Path B: qwen1.5-0.5b at full width in bf16 served through emulated
-    banks (emu_offchip, drift state of a freshly calibrated chip); then a
-    profiled decode tick; then noise off in f32, the kernel against the
-    unfused chain."""
+    banks (emu_offchip, drift state of a freshly calibrated chip); the
+    kernel against its plain version on the operands path B gave it (bf16
+    inputs, f32 detunings; the first call of each shape); then a profiled
+    decode tick; then noise off in f32, the kernel against the unfused
+    chain."""
     from repro_torch.core import photonics as ph
     from repro_torch.serve import Request
 
@@ -1002,13 +1009,25 @@ def phase_emu_serve(torch, np, api, em, seed):
 
         setattr(eng, name, wrapped)
     reqs = [Request(prompt=p, max_new=8) for p in _prompts(rng, 4, 32, vocab)]
-    sync(torch)
-    em.launches = 0
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    sync(torch)
-    wall = time.perf_counter() - t0
-    launches = em.launches
+    captured = {}
+    kernel = em.emu_bank_product_cuda
+
+    def capture(a_t, delta_eff, dead_mask, **kw):
+        captured.setdefault((tuple(a_t.shape), tuple(delta_eff.shape)),
+                            (a_t, delta_eff, dead_mask, kw))
+        return kernel(a_t, delta_eff, dead_mask, **kw)
+
+    em.emu_bank_product_cuda = capture
+    try:
+        sync(torch)
+        em.launches = 0
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = em.launches
+    finally:
+        em.emu_bank_product_cuda = kernel
     forwards = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
     tokens = sum(len(r.out) for r in reqs)
     ttft = statistics.median(r.ttft_s for r in reqs)
@@ -1019,6 +1038,26 @@ def phase_emu_serve(torch, np, api, em, seed):
     check(all(r.done and len(r.out) == 8 for r in reqs), "requests unfinished")
     check(launches == 169 * forwards, f"launches {launches} != 169 x {forwards}")
     check(bool(finite.item()), "non-finite logits")
+
+    max_err, flips = 0.0, 0
+    for (a_shape, d_shape), (a_t, delta, mask, kw) in captured.items():
+        check(a_t.dtype == torch.bfloat16 and delta.dtype == torch.float32,
+              f"path B handed the kernel {a_t.dtype} inputs and {delta.dtype} detunings")
+        got = kernel(a_t, delta, mask, **kw)
+        expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
+        err = (got - expect).abs()
+        scale = expect.abs().max().item()
+        worst = err.max().item()
+        if kw["adc_bits"] is not None:
+            flips += int((err >= kw["amax"] / em._levels(kw["adc_bits"]) / 2).sum())
+        check(worst <= EMU_TOL["bfloat16"] * scale + 1e-6,
+              f"emu kernel != plain on path B's operands a_t {a_shape} δ {d_shape}: "
+              f"err={worst} max={scale}")
+        max_err = max(max_err, worst)
+    print(f"[emu_serve] kernel vs plain on path B's own operands (bf16 a_t, f32 δ), "
+          f"{len(captured)} shapes: max |kernel - plain| {max_err:.3e} (tol "
+          f"{EMU_TOL['bfloat16']} of max|out|), elements one ADC step apart {flips}")
+    captured.clear()
 
     del eng, session, model
     torch.cuda.empty_cache()
@@ -1043,7 +1082,7 @@ def phase_emu_serve(torch, np, api, em, seed):
     check(em.launches == 169 * len(cuda_logits), "the parity run missed the kernel")
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, max_err
 
 
 def emu_bound(case, sigma, shot, peaks):
@@ -1066,7 +1105,7 @@ def emu_bound(case, sigma, shot, peaks):
 
 def phase_emu_timing(torch, em, ph, ch, mrr, card):
     """The kernel and its plain version at path A's shape (64, 800, 10; f32,
-    emu_onchip, a drift residual so δ is f32) and at the reference's emu
+    emu_onchip, a drift residual as path A carries) and at the reference's emu
     benchmark shape (64, 1024, 1024 on 4 buses; f32, emu_onchip)."""
     kind, peaks = card_peaks(card)
     gen = torch.Generator(device=DEVICE).manual_seed(77)
@@ -1138,7 +1177,7 @@ def main(argv=None):
     max_err_c = phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr)
     emu_train_launches = phase_emu_train(torch, np, api, em, args.seed)
     phase_drift(torch, api, args.seed)
-    emu_serve_launches = phase_emu_serve(torch, np, api, em, args.seed)
+    emu_serve_launches, max_err_serve = phase_emu_serve(torch, np, api, em, args.seed)
     emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     row_b = train_rows["dfa_gradient"]
@@ -1166,7 +1205,7 @@ def main(argv=None):
          "replaces": "src/repro/kernels/emu_matmul.py:200",
          "launches": emu_train_launches + emu_serve_launches,
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches},
-         "max_abs_err": max_err_c,
+         "max_abs_err": max(max_err_c, max_err_serve),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",

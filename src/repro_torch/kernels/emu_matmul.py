@@ -42,7 +42,7 @@ _IH4_SCALE = 3.0**0.5 / 65536.0
 # (slot counters c0 stay far below 2³¹, so the top bit is free)
 _SHOT_STREAM = 0x80000000
 _M32 = 0xFFFFFFFF
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # of a_t; delta_eff is f32
 
 launches = 0  # kernel launches since the last reset; read by chip_smoke.py
 
@@ -112,8 +112,9 @@ def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed):
     if (q2, nj2, cols2) != (q_buses, nj, cols):
         raise ValueError(f"a_t {tuple(a_t.shape)} and delta_eff {tuple(delta_eff.shape)} "
                          "disagree on (Q, NJ, C)")
-    if a_t.dtype not in _DTYPES or delta_eff.dtype not in _DTYPES:
-        raise TypeError(f"operands are f32 or bf16, got {a_t.dtype} and {delta_eff.dtype}")
+    if a_t.dtype not in _DTYPES or delta_eff.dtype != torch.float32:
+        raise TypeError(f"a_t is f32 or bf16 and delta_eff f32 (the port inscribes in f32), "
+                        f"got {a_t.dtype} and {delta_eff.dtype}")
     if a_t.device != delta_eff.device:
         raise ValueError(f"operands on {a_t.device} and {delta_eff.device}")
     if dead_mask is not None and (tuple(dead_mask.shape) != (q_buses, rows, cols)
@@ -187,8 +188,7 @@ def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sig
             a_t.data_ptr(), delta_eff.data_ptr(),
             dead_mask.data_ptr() if dead_mask is not None else None, out.data_ptr(),
             t, q_buses, nj, cols, nm, rows, n_panels,
-            _DTYPES[a_t.dtype], _DTYPES[delta_eff.dtype],
-            float(gamma * gamma), float(sigma), float(shot), _levels(adc_bits), float(amax),
+            _DTYPES[a_t.dtype], float(gamma * gamma), float(sigma), float(shot), _levels(adc_bits), float(amax),
             k0, k1, stream)
     if err != 0:
         raise RuntimeError(f"emu_bank_product kernel launch failed: CUDA error {err}")
@@ -199,7 +199,7 @@ def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: fl
                           sigma: float, shot: float, adc_bits: int | None, amax: float,
                           seed=None):
     """One fused panel loop for a whole bus-tiled GEMM.  a_t (T, Q, NJ, C)
-    and delta_eff (nm, Q, rows, NJ, C) in f32 or bf16, dead_mask (Q, rows,
+    in f32 or bf16, delta_eff (nm, Q, rows, NJ, C) f32, dead_mask (Q, rows,
     C) f32 or None, seed two uint32 words (needed when σ or shot is
     nonzero) -> the accumulated f32 (T, nm·rows) (the caller slices M)."""
     global launches

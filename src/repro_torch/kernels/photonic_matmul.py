@@ -95,7 +95,7 @@ def _library() -> ctypes.CDLL:
     lib.emu_bank_product_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
     lib.emu_bank_product_launch.restype = ctypes.c_int

@@ -300,17 +300,17 @@ def test_plain_matches_reference_twin_on_device_faults(case, noise):
 
 def test_plain_matches_the_interpreted_tpu_kernel():
     """One noisy shape through the reference's Pallas kernel in interpret
-    mode, as its own tests run it, with bf16 operands (the kernel upcasts
-    inside, as the plain version does)."""
+    mode, as its own tests run it, with bf16 inputs and f32 detunings, as
+    the port's bf16 serving path hands them over (both kernels upcast the
+    inputs inside, as the plain version does)."""
     _, tc = _configs(n_buses=2, mrr_dead_ring_rate=0.05)
     (ja, jd, jmask), _, n_panels = _panel_inputs(6, 61, 83, tc)
-    ja, jd = ja.astype(jnp.bfloat16), jd.astype(jnp.bfloat16)
+    ja = ja.astype(jnp.bfloat16)
     kw = dict(n_panels=n_panels, gamma=1.0, sigma=0.1, shot=0.05, adc_bits=8, amax=20.0)
     expect = np.asarray(jem.emu_bank_product_pallas(
         ja, jd, jmask, seed=jnp.asarray(SEED, jnp.uint32), interpret=True, **kw))
     got = _np(tem.emu_bank_product_cuda(
-        _t(np.asarray(ja.astype(jnp.float32))).to(torch.bfloat16),
-        _t(np.asarray(jd.astype(jnp.float32))).to(torch.bfloat16), _t(jmask),
+        _t(np.asarray(ja.astype(jnp.float32))).to(torch.bfloat16), _t(jd), _t(jmask),
         seed=SEED, **kw))
     assert _adc_flips(got, expect, 8) == 0
     np.testing.assert_allclose(got, expect, rtol=0, atol=TOL * np.abs(expect).max())
@@ -331,6 +331,8 @@ def test_wrapper_runs_plain_on_cpu_and_validates():
         tem.emu_bank_product_cuda(ta[:, :1], td, None, seed=SEED, **kw)
     with pytest.raises(TypeError):
         tem.emu_bank_product_cuda(ta.half(), td, None, seed=SEED, **kw)
+    with pytest.raises(TypeError, match="delta_eff f32"):
+        tem.emu_bank_product_cuda(ta, td.bfloat16(), None, seed=SEED, **kw)
     with pytest.raises(ValueError, match="dead_mask"):
         tem.emu_bank_product_cuda(ta, td, torch.ones(3, 50, 20), seed=SEED, **kw)
     with pytest.raises(ValueError, match="n_panels"):
