@@ -8,18 +8,23 @@ builds the port's CUDA kernels (``photonic_matmul``, ``dfa_gradient`` and
 ``emu_bank_product``, one ``nvcc``, one library) from the sources in the
 checkout.  Phases:
 
-1. card and build: the card's name and power limit, the library's build time;
+1. card and build: the card's name and power limit, the library's build
+   time, and ``nvcc -Xptxas -v``'s registers, shared memory and spills per
+   kernel;
 2. kernel vs plain version at every shape the serving path gives it
-   (T = 4 and 64 rows) plus the ragged 200×300×257 and the paper's
-   64×10×800, in f32 and bf16, noise modes none / input / prng;
+   (T = 4 and 64 rows), the ragged 200×300×257, the paper's 64×10×800,
+   both sides of the planner's seam between the skinny and the tiled
+   variants, and 16-byte-misaligned views (which must take a scalar-load
+   variant), in f32 and bf16, noise modes none / input / prng;
 3. the ``dfa_gradient`` kernel vs its plain version at the reference's
    kernel-test shapes plus the training shapes 64×10×800 and 256×10×800, in
    f32 and bf16, modes none / input / prng, with a binary (relu') and a
    non-binary (tanh') mask;
 4. full-width serve: qwen1.5-0.5b (24 layers, random weights from --seed)
    in bf16 on the ``cuda`` backend with the offchip_bpd preset, counting
-   the kernel's launches; then two decode ticks under the profiler (wall,
-   device busy time, idle share, the kernels that take the time);
+   the kernel's launches; then a prefill tick and two decode ticks under
+   the profiler (wall, device busy time, idle share, the kernels that take
+   the time);
 5. full-width parity: the same model in f32 on the ideal preset, the
    ``cuda`` backend against the ``ref`` backend with teacher forcing;
 6. full-width DFA training: the paper's 784×800×800×10 MLP on the ``cuda``
@@ -32,7 +37,10 @@ checkout.  Phases:
    ``dfa_gradient`` kernel against the bank kernel times relu'(a_k);
 8. timing: device time of each kernel, its plain version and
    ``torch.matmul`` (profiler, cold L2) and the card's bound at each path
-   shape;
+   shape, with the variant that ran, its GB/s, its share of the bound and
+   the host overhead per launch; the sums over one decode step and one
+   prefill forward; the skinny and mma variants side by side at T = 4, 8
+   and 16 (the seam);
 9. ``emu_bank_product`` vs its plain version at tests/test_emu_kernel.py's
    shapes, a failed bus with dead rings, a drift residual, path A's
    64×800×10, the reference's emu benchmark 64×1024×1024 on 4 buses and the
@@ -48,8 +56,9 @@ checkout.  Phases:
     residual with recalibration lying below the residual without;
 12. path B: qwen1.5-0.5b at full width in bf16 served through the emulated
     banks (emu_offchip), 169 launches per forward; the kernel against its
-    plain version on the operands path B gave it; a profiled decode tick;
-    then f32 emu_ideal logits, the kernel against the unfused chain;
+    plain version on the operands path B gave it; a profiled prefill tick
+    and two decode ticks; then f32 emu_ideal logits, the kernel against the
+    unfused chain;
 13. ``emu_bank_product`` timing at path A's shape and the benchmark shape
     beside its plain version and its bound (bytes, f32 work, PRNG work).
 
@@ -113,12 +122,13 @@ def card_peaks(name):
 def bound_ms(t, m, k, dtype_name, peaks, masked=False):
     """Least time for C = A·Bᵀ (⊙ mask): each input read once (the f32
     mask too), the f32 output written once, 2·T·M·K operations at the peak
-    rate of the input type."""
+    rate of the input type.  Returns (ms, what binds, bytes moved)."""
     itemsize = 2 if dtype_name == "bfloat16" else 4
     nbytes = (t * k + m * k) * itemsize + t * m * 4 * (2 if masked else 1)
     ops = 2 * t * m * k
     by_bytes, by_ops = nbytes / peaks["bw"], ops / peaks[dtype_name]
-    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
+    return (max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations",
+            nbytes)
 
 
 def phase_build(torch, pm):
@@ -133,26 +143,91 @@ def phase_build(torch, pm):
     pm._library()
     print(f"[build] {lib.name} ready in {time.perf_counter() - t0:.1f}s "
           f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+    kernels = _ptxas_report(pm.ptxas_log(lib).read_text())
+    check(kernels, "nvcc's ptxas report lists no kernel")
+    print(f"[build] ptxas -v, {len(kernels)} kernels (static shared memory only; the skinny "
+          "variant adds T·K·itemsize of dynamic, the mma variant its 3-stage ring):")
+    for name, info in kernels.items():
+        print(f"[build]   {info['regs']:3d} registers, {info['smem']:6d} B smem, spill "
+              f"{info['spill_st']}/{info['spill_ld']} B st/ld, {info['stack']:3d} B stack  {name}")
     return card
 
 
-def _operands(torch, t, k, m, dtype, gen):
-    # normalised operands, as the wrapper hands them to the kernel
-    a = (torch.rand((t, k), generator=gen, device=DEVICE) * 2 - 1).to(dtype)
-    b = (torch.rand((m, k), generator=gen, device=DEVICE) * 2 - 1).to(dtype)
-    return a, b
+def _demangle(names):
+    try:
+        proc = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                              text=True, timeout=60)
+    except OSError:
+        return list(names)
+    out = proc.stdout.splitlines() if proc.returncode == 0 else []
+    if len(out) != len(names):
+        return list(names)
+    return [n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+            for n in out]
+
+
+def _ptxas_report(log):
+    """Registers, static shared memory, spills and stack per kernel from
+    ``nvcc -Xptxas -v``'s report."""
+    import re
+
+    rows, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rows[name] = {"regs": 0, "smem": 0, "spill_st": 0, "spill_ld": 0, "stack": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[name].update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                              spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[name]["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows[name]["smem"] = int(sm.group(1)) if sm else 0
+    return dict(zip(_demangle(list(rows)), rows.values()))
+
+
+def _operands(torch, t, k, m, dtype, gen, misaligned=False):
+    """Normalised operands, as the wrapper hands them to the kernel;
+    ``misaligned``: contiguous views one element past a 16-byte boundary."""
+    def make(rows):
+        x = (torch.rand((rows, k), generator=gen, device=DEVICE) * 2 - 1).to(dtype)
+        if misaligned:
+            flat = torch.empty(rows * k + 1, device=DEVICE, dtype=dtype)
+            x = flat[1:].view(rows, k).copy_(x)
+        return x
+
+    return make(t), make(m)
+
+
+def seam_shapes(pm):
+    """(T, K, M) on both sides of the planner's seam between the skinny and
+    the tiled variants, at the decode layers' shapes."""
+    return [(t, k, m) for t in (pm.SEAM, pm.SEAM + 1) for (m, k) in ((1024, 1024), (1024, 2816))]
 
 
 def phase_kernel_vs_plain(torch, pm):
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
-    cases = [(t, k, m) for (m, k) in PATH_SHAPES for t in (4, 64)] + EXTRA_SHAPES
+    cases = ([(t, k, m, False) for (m, k) in PATH_SHAPES for t in (4, 64)]
+             + [(t, k, m, False) for t, k, m in EXTRA_SHAPES + seam_shapes(pm)]
+             + [(t, 1024, 1024, True) for t in (4, 64)])  # 16-byte-misaligned views
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = TOL[dname]
-        pooled, pairs = [], []
-        for t, k, m in cases:
-            a, b = _operands(torch, t, k, m, dtype, gen)
+        pooled, pairs, variants = [], [], set()
+        for t, k, m, misaligned in cases:
+            a, b = _operands(torch, t, k, m, dtype, gen, misaligned)
+            plan = pm._plan(t, m, k, dtype, (a.data_ptr(), b.data_ptr()))
+            variants.add(plan.name)
+            check(not misaligned or plan.variant not in pm.VECTOR_VARIANTS,
+                  f"a misaligned view got the vector variant {plan.name}")
             noise = 0.1 * torch.randn((t, m), generator=gen, device=DEVICE)
             for mode, kw in (("none", {}), ("input", {"noise": noise})):
                 got = pm.photonic_matmul_cuda(a, b, **kw)
@@ -196,8 +271,9 @@ def phase_kernel_vs_plain(torch, pm):
         check(abs(corr) < 0.02, f"prng tiles correlated: {corr} over all shapes")
         print(f"[kernel] {dname} prng: mean {mean:.2e}σ over {allz.numel()} samples, "
               f"tile correlation {corr:.2e}")
-        print(f"[kernel] {dname}: {len(cases)} shapes x none/input/prng agree with the plain "
-              f"version (tol {tol})")
+        print(f"[kernel] {dname}: {len(cases)} shapes (seam T = {pm.SEAM} / {pm.SEAM + 1}, "
+              f"2 misaligned views) x none/input/prng agree with the plain version (tol {tol}); "
+              f"variants: {', '.join(sorted(variants))}")
     print(f"[kernel] max |kernel - plain| over none/input: {max_err:.3e}")
     return max_err
 
@@ -623,13 +699,44 @@ def _device_ms(torch, fn, reps=25, attempts=3, spare=8):
                      f"{reps + spare} calls in each of {attempts} windows")
 
 
-def phase_profile_decode(torch, np, api, seed, tag="profile", hardware="offchip_bpd",
-                         backend="cuda", kernel="photonic_matmul"):
-    """One steady decode tick (4 active slots, bf16) under the profiler:
-    wall time, device busy time and idle share, and the kernels that take
-    it."""
+# the device kernels of each hand-written kernel's variants, by name
+KERNEL_PARTS = {"photonic_matmul": ("skinny_kernel", "mma_kernel", "ffma_kernel"),
+                "emu_bank_product": ("emu_bank_product",)}
+
+
+def _profile_ticks(torch, eng, ticks, tag, label, kernel):
+    """``ticks`` engine ticks under the profiler: wall time, device busy
+    time and idle share per tick, and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
 
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        sync(torch)
+        wall = (time.perf_counter() - t0) / ticks * 1e3
+    by_name = {}
+    for e in _device_kernels(torch, prof):
+        ours = any(part in e.name for part in KERNEL_PARTS[kernel])
+        name = kernel if ours else e.name[:70]
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    if not by_name:
+        print(f"[{tag}] {label}: wall {wall:.2f} ms; device time not measured (the profiler "
+              "traced no device kernels)")
+        return
+    busy = sum(by_name.values()) / ticks
+    print(f"[{tag}] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall:.3f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[{tag}]   {ms / ticks:8.3f} ms/tick  {ms / ticks / wall:6.1%} of wall  {name}")
+
+
+def phase_profile_ticks(torch, np, api, seed, tag="profile", hardware="offchip_bpd",
+                        backend="cuda", kernel="photonic_matmul"):
+    """A prefill tick (4 slots x chunk 16: 64 rows through every
+    projection) and two steady decode ticks (4 active slots), bf16, under
+    the profiler."""
     from repro_torch.serve import DECODE, Request
 
     session = api.build_session(arch=ARCH, algo="bp", smoke=False, hardware=hardware,
@@ -639,75 +746,113 @@ def phase_profile_decode(torch, np, api, seed, tag="profile", hardware="offchip_
     rng = np.random.default_rng(seed + 1)
     for p in _prompts(rng, 4, 32, session.model.cfg.vocab_size):
         eng.submit(Request(prompt=p, max_new=8))
-    eng.tick()
-    eng.tick()  # two prefill chunks: every slot now decodes
+    eng.tick()  # the first prefill chunk
+    _profile_ticks(torch, eng, 1, tag, f"prefill tick (4 slots x 16 tokens, bf16, {hardware})",
+                   kernel)
     eng.tick()  # one unprofiled decode tick
     check(all(r is not None and r.state == DECODE for r in eng._requests), "slots not decoding")
-    sync(torch)
-    ticks = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.tick()
-        sync(torch)
-        wall = (time.perf_counter() - t0) / ticks * 1e3
-    by_name = {}
-    for e in _device_kernels(torch, prof):
-        name = kernel if kernel in e.name else e.name[:70]
-        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    _profile_ticks(torch, eng, 2, tag, f"decode tick (4 slots, bf16, {hardware})", kernel)
     del eng, session
     torch.cuda.empty_cache()
-    busy = sum(by_name.values()) / ticks
-    if not by_name:
-        print(f"[{tag}] decode tick wall {wall:.2f} ms; device time not measured "
-              "(the profiler traced no device kernels)")
-        return
-    print(f"[{tag}] decode tick (4 slots, bf16, {hardware}): wall {wall:.2f} ms, device busy "
-          f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[{tag}]   {ms / ticks:8.3f} ms/tick  {ms / ticks / wall:6.1%} of wall  {name}")
 
 
 def _fmt(x):
     return f"{x:10.4f}" if x is not None else "       n/a"
 
 
+def _time_row(torch, fns, bound):
+    """Event and device ms of each function, achieved GB/s and share of the
+    bound from the kernel's device time, host overhead per launch (events
+    minus device) of the kernel and the library call."""
+    row = {}
+    for key, fn in fns.items():
+        row[key] = _event_ms(torch, fn)
+        row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn)
+    row["bound_ms"], row["bound_by"], nbytes = bound
+    row["gb_s"] = nbytes / (row["dev_ms"] * 1e-3) / 1e9
+    row["bound_share"] = row["bound_ms"] / row["dev_ms"]
+    row["host_us"] = (row["ms"] - row["dev_ms"]) * 1e3
+    row["library_host_us"] = (row["library_ms"] - row["library_dev_ms"]) * 1e3
+    return row
+
+
+def _print_row(tag, head, row):
+    cells = " ".join(_fmt(row[key]) for key in (
+        "ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms", "bound_ms"))
+    print(f"[{tag}] {head} {cells}  {row['bound_by']:5s} {row['gb_s']:7.1f} "
+          f"{row['bound_share']:6.1%} {row['host_us']:7.1f} {row['library_host_us']:7.1f}  "
+          f"{row['variant']}")
+
+
+TIMING_HEAD = ("kernel_ms kernel_dev   plain_ms  plain_dev  matmul_ms matmul_dev   bound_ms  "
+               "by       GB/s  bound  host_us  mm_host  variant")
+
+
 def phase_timing(torch, pm, card):
+    """Each bank-product shape of the serving path at T = 4 (decode) and
+    T = 64 (prefill, 4 slots x chunk 16) in bf16: the kernel, its plain
+    version and torch.matmul; the sums over one decode step's and one
+    prefill forward's 169 launches."""
     kind, peaks = card_peaks(card)
     gen = torch.Generator(device=DEVICE).manual_seed(99)
     rows = []
     print(f"[timing] bf16 operands, {kind} peaks: {peaks['bw'] / 1e12:.2f} TB/s, "
           f"{peaks['bfloat16'] / 1e12:.0f} TFLOP/s bf16; card: {card}")
     print("[timing] ms: CUDA events around one call (median of 25, cold L2); dev: the "
-          "call's device kernels only (profiler, median of 25)")
-    print("[timing]      T      M      K  count  kernel_ms kernel_dev   plain_ms  plain_dev  "
-          "matmul_ms matmul_dev   bound_ms  bound_by")
+          "call's device kernels only (profiler, median of 25); GB/s and bound share from the "
+          "kernel's dev; host_us / mm_host: events minus dev per launch, kernel / matmul")
+    print(f"[timing]      T      M      K  count  {TIMING_HEAD}")
     for t in (4, 64):
         for (m, k), count in PATH_SHAPES.items():
             a, b = _operands(torch, t, k, m, torch.bfloat16, gen)
             fns = {"ms": lambda: pm.photonic_matmul_cuda(a, b),
                    "plain_ms": lambda: pm.photonic_matmul_plain(a, b),
                    "library_ms": lambda: torch.matmul(a, b.T)}
-            row = dict(t=t, m=m, k=k, count=count)
-            for key, fn in fns.items():
-                row[key] = _event_ms(torch, fn)
-                row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn)
-            row["bound_ms"], row["bound_by"] = bound_ms(t, m, k, "bfloat16", peaks)
+            bound = bound_ms(t, m, k, "bfloat16", peaks)
+            row = dict(t=t, m=m, k=k, count=count, **_time_row(torch, fns, bound),
+                       variant=pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr())).name)
             rows.append(row)
-            cells = " ".join(_fmt(row[key]) for key in (
-                "ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
-                "bound_ms"))
-            print(f"[timing] {t:6d} {m:6d} {k:6d} {count:6d} {cells}  {row['bound_by']}")
-    step = [r for r in rows if r["t"] == 4]
+            _print_row("timing", f"{t:6d} {m:6d} {k:6d} {count:6d}", row)
     keys = ("ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
             "bound_ms")
-    per_step = {key: (None if any(r[key] is None for r in step)
-                      else sum(r[key] * r["count"] for r in step)) for key in keys}
-    print("[timing] one decode step at T=4 (169 launches), ms: "
-          + ", ".join(f"{key} {_fmt(per_step[key]).strip()}" for key in keys))
-    per_step["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in step)
-                            else "operations")
-    return per_step
+    sums = {}
+    for t, label in ((4, "one decode step at T=4"), (64, "one prefill forward at T=64")):
+        step = [r for r in rows if r["t"] == t]
+        total = {key: sum(r[key] * r["count"] for r in step) for key in keys}
+        total["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in step)
+                             else "operations")
+        total["launches"] = sum(r["count"] for r in step)
+        total["host_us_per_launch"] = (total["ms"] - total["dev_ms"]) / total["launches"] * 1e3
+        total["library_host_us_per_launch"] = ((total["library_ms"] - total["library_dev_ms"])
+                                               / total["launches"] * 1e3)
+        sums[t] = total
+        print(f"[timing] {label} ({total['launches']} launches), ms: "
+              + ", ".join(f"{key} {total[key]:.4f}" for key in keys)
+              + f"; host overhead per launch {total['host_us_per_launch']:.2f} us (matmul "
+              f"{total['library_host_us_per_launch']:.2f} us)")
+    return sums[4], sums[64]
+
+
+def phase_seam(torch, pm, card):
+    """The skinny and the mma variant side by side at T = 4, 8 and 16 on
+    the decode shapes (bf16, device time, cold L2): the measurement behind
+    the planner's seam."""
+    kind, peaks = card_peaks(card)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    print(f"[seam] device ms per call, bf16, cold L2; planner seam T <= {pm.SEAM} -> skinny; "
+          f"card: {card}")
+    print("[seam]      T      M      K     skinny        mma     matmul   bound_ms  planner")
+    for t in (4, 8, 16):
+        for (m, k) in PATH_SHAPES:
+            a, b = _operands(torch, t, k, m, torch.bfloat16, gen)
+            ptrs = (a.data_ptr(), b.data_ptr())
+            tiled = pm._plan(max(t, pm.SEAM + 1), m, k, a.dtype, ptrs)
+            ms = {name: _device_ms(torch, lambda plan=plan: pm.launch_kernel(a, b, plan=plan))
+                  for name, plan in (("skinny", pm.Plan(pm.SKINNY)), ("mma", tiled))}
+            ms["matmul"] = _device_ms(torch, lambda: torch.matmul(a, b.T))
+            bound = bound_ms(t, m, k, "bfloat16", peaks)[0]
+            print(f"[seam] {t:6d} {m:6d} {k:6d} {_fmt(ms['skinny'])} {_fmt(ms['mma'])} "
+                  f"{_fmt(ms['matmul'])} {_fmt(bound)}  {pm._plan(t, m, k, a.dtype, ptrs).name}")
 
 
 def phase_timing_train(torch, pm, dg, card):
@@ -730,21 +875,14 @@ def phase_timing_train(torch, pm, dg, card):
     print(f"[timing] training shape T={t} K={k} M={m}, f32 operands, {kind} peaks: "
           f"{peaks['bw'] / 1e12:.2f} TB/s, {peaks['float32'] / 1e12:.0f} TFLOP/s f32; card: "
           f"{card}; the bound is far below a kernel launch at this size")
-    print("[timing]                kernel_ms kernel_dev   plain_ms  plain_dev  matmul_ms "
-          "matmul_dev   bound_ms  bound_by")
+    print(f"[timing]                {TIMING_HEAD}")
     rows = {}
     for name, fns in cases.items():
-        row = {}
-        for key, fn in fns.items():
-            row[key] = _event_ms(torch, fn)
-            row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn)
-        row["bound_ms"], row["bound_by"] = bound_ms(t, m, k, "float32", peaks,
-                                                    masked=name == "dfa_gradient")
-        rows[name] = row
-        cells = " ".join(_fmt(row[key]) for key in (
-            "ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
-            "bound_ms"))
-        print(f"[timing] {name:15s} {cells}  {row['bound_by']}")
+        masked = name == "dfa_gradient"
+        bound = bound_ms(t, m, k, "float32", peaks, masked=masked)
+        plan = pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr()))
+        rows[name] = row = dict(**_time_row(torch, fns, bound), variant=plan.name)
+        _print_row("timing", f"{name:15s}", row)
     return rows
 
 
@@ -1061,8 +1199,8 @@ def phase_emu_serve(torch, np, api, em, seed):
 
     del eng, session, model
     torch.cuda.empty_cache()
-    phase_profile_decode(torch, np, api, seed, tag="emu_serve", hardware="emu_offchip",
-                         backend="emu", kernel="emu_bank_product")
+    phase_profile_ticks(torch, np, api, seed, tag="emu_serve", hardware="emu_offchip",
+                        backend="emu", kernel="emu_bank_product")
 
     # noise off, f32: the fused kernel against the unfused chain
     model = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
@@ -1168,11 +1306,12 @@ def main(argv=None):
     max_err = phase_kernel_vs_plain(torch, pm)
     max_err_b = phase_dfa_kernel_vs_plain(torch, pm, dg)
     serve_launches = phase_serve(torch, np, pm, api, args.seed)
-    phase_profile_decode(torch, np, api, args.seed)
+    phase_profile_ticks(torch, np, api, args.seed)
     phase_parity(torch, np, api, args.seed)
     train_launches = phase_train(torch, np, api, pm, dg, args.seed)
     masked_launches = phase_masked_projection(torch, api, dg, args.seed)
-    per_step = phase_timing(torch, pm, card)
+    per_step, per_prefill = phase_timing(torch, pm, card)
+    phase_seam(torch, pm, card)
     train_rows = phase_timing_train(torch, pm, dg, card)
     max_err_c = phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr)
     emu_train_launches = phase_emu_train(torch, np, api, em, args.seed)
@@ -1190,7 +1329,8 @@ def main(argv=None):
          "max_abs_err": max_err,
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
-         "library_ms": per_step["library_ms"]},
+         "library_ms": per_step["library_ms"],
+         "decode_step": per_step, "prefill_forward": per_prefill},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",

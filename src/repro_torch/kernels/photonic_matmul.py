@@ -12,6 +12,12 @@ DFA gradient (``dfa_gradient.py``), the kernel with its mask epilogue
 (``emu_matmul.py``, source ``csrc/emu_matmul.cu``): one ``nvcc`` builds
 both sources.
 
+The kernel has three variants (see the source's header): a skinny GEMV
+for decode, tensor-core tiles for bf16 and FFMA tiles for f32 above the
+seam.  ``_plan`` picks one per call from the shape, the dtype and the
+operands' addresses, and ``launch_kernel`` hands the choice to the C entry
+point, so the shape logic is plain Python that the CPU tests reach.
+
 ``photonic_matmul_cuda`` launches the kernel for CUDA tensors, and runs
 ``photonic_matmul_plain`` only because its tensors lie on the CPU.  Noise
 modes follow the reference: ``noise`` (a (T, M) operand) selects "input",
@@ -28,6 +34,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -57,7 +64,8 @@ def build() -> pathlib.Path:
     """Compile the kernels (once per source revision) with one ``nvcc``
     into one library and return its path.  The file name carries a hash of
     every source, so an edited source is rebuilt and a stale library is
-    never loaded."""
+    never loaded.  ptxas's report (registers, shared memory and spills per
+    kernel) is kept beside the library as ``ptxas_log(lib)``."""
     h = hashlib.sha256()
     for src in _SOURCES:
         h.update(src.read_bytes())
@@ -68,13 +76,18 @@ def build() -> pathlib.Path:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
            *(str(src) for src in _SOURCES if src.suffix == ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    ptxas_log(lib).write_text(proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_log(lib: pathlib.Path) -> pathlib.Path:
+    return lib.with_suffix(".ptxas.txt")
 
 
 @functools.cache
@@ -85,12 +98,12 @@ def _library() -> ctypes.CDLL:
     lib.photonic_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.photonic_matmul_launch.restype = ctypes.c_int
     lib.dfa_gradient_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.dfa_gradient_launch.restype = ctypes.c_int
     lib.emu_bank_product_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -172,35 +185,137 @@ def check_operands(a, b, noise, seed):
         raise ValueError("noise must be an f32 (T, M) tensor on the operands' device")
 
 
-def launch_kernel(a, b, *, mask=None, noise=None, seed=None, sigma_step: float = 0.0):
+# ---------------------------------------------------------------------------
+# the planner: which of the kernel's variants runs a call
+# ---------------------------------------------------------------------------
+# the kernel's variants, in the order of csrc/photonic_matmul.cu's Variant
+VARIANTS = ("skinny", "skinny_scalar", "mma", "mma_scalar", "ffma")
+SKINNY, SKINNY_SCALAR, MMA, MMA_SCALAR, FFMA = range(len(VARIANTS))
+VECTOR_VARIANTS = (SKINNY, MMA)  # 16-byte loads of A and B
+SEAM = 8  # T at or below: the skinny GEMV; above: the tiled variants
+MMA_TILE = 64  # the mma variant's output tile edge (T and M)
+MMA_TILE_K = 64  # and its K per pipeline stage
+MAX_SPLIT = 8  # a portable cluster: K is split over at most 8 blocks
+SMEM_MAX = 232448  # an sm_90 block's opt-in shared memory, bytes
+CARD_SMS = 132  # an H100 SXM's SMs
+
+
+class Plan(NamedTuple):
+    variant: int
+    split: int = 1  # cluster blocks sharing one mma tile's K
+
+    @property
+    def name(self) -> str:
+        return VARIANTS[self.variant] + (f"/split{self.split}" if self.split > 1 else "")
+
+
+def _skinny_rows(t: int) -> int:
+    """T rounded up to the skinny variant's accumulator count (2, 4, 8 or
+    16): the rows of A it stages."""
+    return max(2, 1 << (t - 1).bit_length())
+
+
+def _aligned(k: int, itemsize: int, pointers) -> bool:
+    return (k * itemsize) % 16 == 0 and all(p % 16 == 0 for p in pointers)
+
+
+def _plan(t: int, m: int, k: int, dtype, pointers, sms: int = CARD_SMS) -> Plan:
+    """The variant for one call: A (t, k), B (m, k) of ``dtype`` whose
+    first elements lie at ``pointers`` (A's and B's addresses).
+
+    T <= SEAM (decode) takes the skinny GEMV if A fits in shared memory;
+    above it bf16 takes the tensor-core tiles and f32 the FFMA tiles.  The
+    16-byte-load variants need K·itemsize % 16 == 0 and 16-byte-aligned
+    operands; every other call takes the scalar-load twin.  The mma
+    variant splits K over a cluster of 2, 4 or 8 blocks while the tiles
+    alone would leave SMs idle and every block keeps at least two K tiles.
+    """
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    vec = _aligned(k, itemsize, pointers)
+    if t <= SEAM and _skinny_rows(t) * k * itemsize <= SMEM_MAX:
+        return Plan(SKINNY if vec else SKINNY_SCALAR)
+    if dtype != torch.bfloat16:
+        return Plan(FFMA)
+    tiles = math.ceil(t / MMA_TILE) * math.ceil(m / MMA_TILE)
+    k_tiles = math.ceil(k / MMA_TILE_K)
+    split = 1
+    while split < MAX_SPLIT and tiles * split < sms and 4 * split <= k_tiles:
+        split *= 2
+    return Plan(MMA if vec else MMA_SCALAR, split)
+
+
+def _check_plan(plan: Plan, t: int, k: int, dtype, pointers) -> None:
+    """Raise on a plan the kernel cannot run on these operands (a plan
+    handed in by a caller, as the card's tests do for every variant)."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    if plan.variant in VECTOR_VARIANTS and not _aligned(k, itemsize, pointers):
+        raise ValueError(f"{VARIANTS[plan.variant]} needs 16-byte-aligned operands and rows")
+    if plan.variant in (SKINNY, SKINNY_SCALAR) and (
+            t > 16 or _skinny_rows(t) * k * itemsize > SMEM_MAX):
+        raise ValueError(f"the skinny variant takes T <= 16 with A in shared memory, got T={t}")
+    if plan.variant in (MMA, MMA_SCALAR) and dtype != torch.bfloat16:
+        raise ValueError("the mma variant takes bf16 operands")
+    if plan.variant == FFMA and dtype != torch.float32:
+        raise ValueError("the ffma variant takes f32 operands")
+    if plan.split not in (1, 2, 4, 8) or (plan.split > 1 and plan.variant not in (MMA, MMA_SCALAR)):
+        raise ValueError(f"split {plan.split} is not a cluster the {VARIANTS[plan.variant]} "
+                         "variant takes")
+
+
+# ---------------------------------------------------------------------------
+# the launch
+# ---------------------------------------------------------------------------
+@functools.cache
+def _entry_point(masked: bool):
+    """The bound ctypes entry point, looked up once."""
+    lib = _library()
+    return lib.dfa_gradient_launch if masked else lib.photonic_matmul_launch
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_kernel(a, b, *, mask=None, noise=None, seed=None, sigma_step: float = 0.0,
+                  plan: Plan | None = None):
     """Launch the CUDA kernel on checked CUDA operands: the bank product,
-    or with ``mask`` (a (T, M) f32 tensor) the fused DFA gradient.  Returns
-    the f32 (T, M) output; raises if the launch fails."""
-    if a.device.type != "cuda":
-        raise ValueError(f"no photonic_matmul kernel for device {a.device}")
+    or with ``mask`` (a (T, M) f32 tensor) the fused DFA gradient.
+    ``plan`` defaults to ``_plan``'s choice.  Returns the f32 (T, M)
+    output; raises if the launch fails."""
+    device = a.device
+    if device.type != "cuda":
+        raise ValueError(f"no photonic_matmul kernel for device {device}")
     t, k_dim = a.shape
     m = b.shape[0]
     if min(t, m, k_dim) == 0:
         raise ValueError(f"the kernel takes no empty operands: T={t} M={m} K={k_dim}")
-    if not all(x is None or x.is_contiguous() for x in (a, b, noise, mask)):
+    if not (a.is_contiguous() and b.is_contiguous()
+            and (noise is None or noise.is_contiguous())
+            and (mask is None or mask.is_contiguous())):
         raise ValueError("the kernel takes contiguous operands")
+    pointers = (a.data_ptr(), b.data_ptr())
+    index = device.index
+    if plan is None:
+        plan = _plan(t, m, k_dim, a.dtype, pointers, _sm_count(index))
+    else:
+        _check_plan(plan, t, k_dim, a.dtype, pointers)
     mode = "input" if noise is not None else ("prng" if seed is not None else "none")
-    out = torch.empty((t, m), device=a.device, dtype=torch.float32)
-    noise_ptr = noise.data_ptr() if noise is not None else None
-    args = (out.data_ptr(), t, m, k_dim, _DTYPES[a.dtype], _MODES[mode],
+    out = torch.empty((t, m), device=device, dtype=torch.float32)
+    operands = (*pointers, mask.data_ptr()) if mask is not None else pointers
+    args = (*operands, noise.data_ptr() if noise is not None else None, out.data_ptr(),
+            t, m, k_dim, _DTYPES[a.dtype], _MODES[mode],
             (int(seed) & _M32) if seed is not None else 0, float(sigma_step))
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        lib = _library()
-        if mask is None:
-            err = lib.photonic_matmul_launch(a.data_ptr(), b.data_ptr(), noise_ptr, *args,
-                                             stream)
-        else:
-            err = lib.dfa_gradient_launch(a.data_ptr(), b.data_ptr(), mask.data_ptr(),
-                                          noise_ptr, *args, stream)
+    fn = _entry_point(mask is not None)
+    # the raw current stream; a device switch only for operands off the current device
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index), plan.variant, plan.split)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index), plan.variant, plan.split)
     if err != 0:
         name = "photonic_matmul" if mask is None else "dfa_gradient"
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed ({plan.name}): CUDA error {err}")
     return out
 
 

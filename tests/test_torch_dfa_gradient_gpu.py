@@ -20,6 +20,11 @@ pytestmark = pytest.mark.gpu
 # tests/test_kernels.py's shapes and the paper MLP's projection at batch 256
 SHAPES = [(4, 8, 16), (64, 10, 800), (128, 128, 128), (200, 300, 257), (256, 512, 384),
           (256, 10, 800)]
+# the bank kernel's variants and seams (tests/test_torch_kernel_gpu.py's grid)
+TS = [1, 4, pm.SEAM, pm.SEAM + 1, 64, 200]
+KS = [10, 257, 1024, 2816]
+MS = [1, 63, 800, 1024]
+DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
 
 
 @pytest.fixture
@@ -55,6 +60,36 @@ def test_kernel_matches_plain(cuda, t, k, m, dtype, tol, mode, binary):
     torch.testing.assert_close(got, expect, rtol=0,
                                atol=tol * expect.abs().max().item() + 1e-6)
     assert bool((got[mask == 0] == 0).all())
+
+
+def _check_all(cuda, t, k, m, dtype, tol):
+    for binary in (True, False):
+        a, b, mask, noise = _inputs(cuda, t, k, m, dtype, binary)
+        for mode, kw in (("none", {}), ("input", {"noise": noise}),
+                         ("prng", {"seed": 5, "sigma_step": 0.1})):
+            got = dg.dfa_gradient_cuda(a, b, mask, **kw)
+            torch.cuda.synchronize()
+            expect = dg.dfa_gradient_plain(a, b, mask, **kw)
+            assert got.dtype == torch.float32 and got.shape == (t, m)
+            torch.testing.assert_close(got, expect, rtol=0,
+                                       atol=tol * expect.abs().max().item() + 1e-6,
+                                       msg=lambda msg, mode=mode: f"{mode} {binary}: {msg}")
+            assert bool((got[mask == 0] == 0).all())
+
+
+@pytest.mark.parametrize("t", TS)
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_every_variant_and_seam_matches_plain(cuda, t, k, m, dtype, tol):
+    """The planner's variant for each shape across the seams x relu' /
+    tanh' masks x none / input / prng."""
+    _check_all(cuda, t, k, m, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_head_at_decode_matches_plain(cuda, dtype, tol):
+    _check_all(cuda, 4, 1024, 151936, dtype, tol)
 
 
 def test_prng_sigma_on_kept_entries(cuda):

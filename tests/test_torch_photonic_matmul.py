@@ -3,6 +3,7 @@ kernel's plain version, and the ``cuda`` backend's wrapper on CPU tensors,
 each held to ``repro`` in interpret mode on the same numpy inputs."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -280,3 +281,90 @@ def test_prng_tiles_uncorrelated():
         assert abs(z[i].std() - 1.0) < 0.02
         for j in range(i):
             assert abs(np.corrcoef(z[i], z[j])[0, 1]) < 0.02
+
+
+# ---------------------------------------------------------------------------
+# the planner: which of the kernel's variants runs each call
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (T, M, K, dtype) of the main paths -> the variant the kernel runs
+MAIN_PATH_PLANS = {
+    # qwen1.5-0.5b decode, 4 slots: q/k/v/o, gate/up, down, the head
+    (4, 1024, 1024, BF16): "skinny",
+    (4, 2816, 1024, BF16): "skinny",
+    (4, 1024, 2816, BF16): "skinny",
+    (4, 151936, 1024, BF16): "skinny",
+    # prefill, 4 slots x chunk 16: the narrow layers split K over a cluster
+    (64, 1024, 1024, BF16): "mma/split8",
+    (64, 2816, 1024, BF16): "mma/split4",
+    (64, 1024, 2816, BF16): "mma/split8",
+    (64, 151936, 1024, BF16): "mma",
+    # DFA projection of the paper's MLP (K = 10: no 16-byte rows)
+    (64, 800, 10, F32): "ffma",
+    (64, 800, 10, BF16): "mma_scalar",
+    # the f32 parity runs of the serving path
+    (4, 1024, 1024, F32): "skinny",
+    (64, 151936, 1024, F32): "ffma",
+    # the ragged kernel-test shape
+    (200, 257, 300, BF16): "mma_scalar/split2",
+}
+
+
+@pytest.mark.parametrize("shape,name", list(MAIN_PATH_PLANS.items()),
+                         ids=[f"{t}x{m}x{k}-{str(d)[6:]}" for t, m, k, d in MAIN_PATH_PLANS])
+def test_plan_of_main_path_shapes(shape, name):
+    t, m, k, dtype = shape
+    plan = tpm._plan(t, m, k, dtype, (0x7F00_0000_0000, 0x7F00_0100_0000))
+    assert plan.name == name
+    tpm._check_plan(plan, t, k, dtype, (0x7F00_0000_0000, 0x7F00_0100_0000))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_plan_never_gives_misaligned_operands_the_vector_path(dtype):
+    itemsize = 2 if dtype == BF16 else 4
+    rng = np.random.default_rng(17)
+    seen = set()
+    for _ in range(3000):
+        t = int(rng.integers(1, 300))
+        m = int(rng.integers(1, 200_000))
+        k = int(rng.choice([1, 7, 8, 10, 16, 255, 257, 512, 1000, 1024, 2816, 4096]))
+        pointers = tuple(int(0x7F00_0000_0000 + itemsize * rng.choice([0, 1, 3, 8, 64]))
+                         for _ in range(2))
+        plan = tpm._plan(t, m, k, dtype, pointers)
+        seen.add(tpm.VARIANTS[plan.variant])
+        tpm._check_plan(plan, t, k, dtype, pointers)  # the plan is one the kernel takes
+        aligned = (k * itemsize) % 16 == 0 and all(p % 16 == 0 for p in pointers)
+        assert (plan.variant in (tpm.SKINNY, tpm.SKINNY_SCALAR)) == (t <= tpm.SEAM)
+        if t <= tpm.SEAM:
+            assert plan.variant == (tpm.SKINNY if aligned else tpm.SKINNY_SCALAR)
+        else:
+            assert plan.variant == (tpm.FFMA if dtype == F32 else
+                                    tpm.MMA if aligned else tpm.MMA_SCALAR)
+        assert plan.split in (1, 2, 4, 8)
+        if plan.split > 1:
+            # a split leaves every block of the cluster at least two K tiles,
+            # and happens only while the tiles alone leave SMs idle
+            tiles = math.ceil(t / tpm.MMA_TILE) * math.ceil(m / tpm.MMA_TILE)
+            assert 2 * plan.split <= math.ceil(k / tpm.MMA_TILE_K)
+            assert tiles * plan.split // 2 < tpm.CARD_SMS
+        if not aligned:
+            for variant in tpm.VECTOR_VARIANTS:
+                with pytest.raises(ValueError, match="16-byte"):
+                    tpm._check_plan(tpm.Plan(variant), t, k, dtype, pointers)
+    assert seen == ({"skinny", "skinny_scalar", "ffma"} if dtype == F32
+                    else {"skinny", "skinny_scalar", "mma", "mma_scalar"})
+
+
+def test_check_plan_rejects_what_the_kernel_does_not_take():
+    aligned = (0, 0)
+    with pytest.raises(ValueError, match="skinny"):
+        tpm._check_plan(tpm.Plan(tpm.SKINNY), 17, 1024, BF16, aligned)
+    with pytest.raises(ValueError, match="mma"):
+        tpm._check_plan(tpm.Plan(tpm.MMA), 64, 1024, F32, aligned)
+    with pytest.raises(ValueError, match="ffma"):
+        tpm._check_plan(tpm.Plan(tpm.FFMA), 64, 1024, BF16, aligned)
+    with pytest.raises(ValueError, match="split"):
+        tpm._check_plan(tpm.Plan(tpm.MMA, 3), 64, 1024, BF16, aligned)
+    with pytest.raises(ValueError, match="split"):
+        tpm._check_plan(tpm.Plan(tpm.SKINNY, 2), 4, 1024, BF16, aligned)
