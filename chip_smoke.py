@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only emu_kernel,emu_timing,emu_plans]
 
 Run from the repository root of a checkout; it needs one CUDA card and
 builds the port's CUDA kernels (``photonic_matmul``, ``dfa_gradient`` and
@@ -41,12 +41,15 @@ checkout.  Phases:
    the host overhead per launch; the sums over one decode step and one
    prefill forward; the skinny and mma variants side by side at T = 4, 8
    and 16 (the seam);
-9. ``emu_bank_product`` vs its plain version at tests/test_emu_kernel.py's
-   shapes, a failed bus with dead rings, a drift residual, path A's
-   64×800×10, the reference's emu benchmark 64×1024×1024 on 4 buses and the
-   qwen head at decode, × f32/bf16 inputs (f32 detunings, as the port
-   inscribes) × noise off/σ/σ+shot × ADC none/8 bits, counting elements one
-   ADC step apart, and the noise σ;
+9. ``emu_bank_product``: its branch-free division against IEEE division
+   on every float it takes; the kernel vs its plain version, bit for bit,
+   at tests/test_emu_kernel.py's shapes, a failed bus with dead rings, a
+   drift residual, path A's 64×800×10, the reference's emu benchmark
+   64×1024×1024 on 4 buses and the qwen head at decode, × f32/bf16 inputs
+   (f32 detunings, as the port inscribes) × noise off/σ/σ+shot × ADC
+   none/8 bits under the planner's plan, and under every plan of the
+   forced grid (variant × rows per block × T tile); determinism; the
+   noise σ;
 10. path A: the paper's MLP at full width trained through the emulated
     banks (``emu`` backend, drift on, recalibration every 500) on
     emu_offchip and emu_onchip, 2 kernel launches per step, the onchip
@@ -56,11 +59,20 @@ checkout.  Phases:
     residual with recalibration lying below the residual without;
 12. path B: qwen1.5-0.5b at full width in bf16 served through the emulated
     banks (emu_offchip), 169 launches per forward; the kernel against its
-    plain version on the operands path B gave it; a profiled prefill tick
-    and two decode ticks; then f32 emu_ideal logits, the kernel against the
-    unfused chain;
+    plain version on the operands path B gave it, bit for bit under every
+    plan; a profiled prefill tick and two decode ticks with the kernel's
+    ms per tick; then f32 emu_ideal logits, the kernel against the unfused
+    chain;
 13. ``emu_bank_product`` timing at path A's shape and the benchmark shape
-    beside its plain version and its bound (bytes, f32 work, PRNG work).
+    beside its plain version and its bound (bytes, f32 work, PRNG work),
+    then at every bank product of path B at decode (T = 4) and prefill
+    (T = 64) with its plan, share of the bound and GB/s, and the sums per
+    forward.
+
+``--only`` runs the build and the named emu phases alone, a partial run
+that prints no result lines: ``emu_plans`` is the sweep the emu planner's
+cost model was fitted to (rows per block × T tile at every path B shape,
+beside the planner's choice); it is not part of the full run.
 
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
@@ -146,7 +158,8 @@ def phase_build(torch, pm):
     kernels = _ptxas_report(pm.ptxas_log(lib).read_text())
     check(kernels, "nvcc's ptxas report lists no kernel")
     print(f"[build] ptxas -v, {len(kernels)} kernels (static shared memory only; the skinny "
-          "variant adds T·K·itemsize of dynamic, the mma variant its 3-stage ring):")
+          "variant adds T·K·itemsize of dynamic, the mma variant its 3-stage ring, the emu "
+          "kernel its input tile and per-slot values):")
     for name, info in kernels.items():
         print(f"[build]   {info['regs']:3d} registers, {info['smem']:6d} B smem, spill "
               f"{info['spill_st']}/{info['spill_ld']} B st/ld, {info['stack']:3d} B stack  {name}")
@@ -657,7 +670,7 @@ def _event_ms(torch, fn, reps=25):
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, reps=25, attempts=3, spare=8):
+def _device_ms(torch, fn, reps=25, attempts=8, spare=8):
     """Device time of one call of ``fn``: the median over ``reps`` calls of
     the summed durations of the device kernels it ran, read from the
     profiler (CUPTI), so the host's launch overhead is not counted.  Before
@@ -667,8 +680,9 @@ def _device_ms(torch, fn, reps=25, attempts=3, spare=8):
     first calls of a window (seen on the card: 24 of 25, and 23 of 26 in
     every window of the emu kernel), and the median of the last ``reps``
     calls is then still a median of whole calls.  It has also lost most of
-    a window on a loaded machine (7 of 26 calls): such a window is profiled
-    again, up to ``attempts`` times, and then the phase fails."""
+    a window on a loaded machine (7 of 26 calls; 4, 0 and 16 of 33 in three
+    windows in a row): such a window is profiled again after a pause, up to
+    ``attempts`` times, and then the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
@@ -695,6 +709,7 @@ def _device_ms(torch, fn, reps=25, attempts=3, spare=8):
             return statistics.median(per_call[-reps:]) / 1e3
         print(f"[timing] the profiler saw {len(per_call)} of {reps + spare} calls; profiling "
               "again")
+        time.sleep(1.0)
     raise PhaseError(f"device time not measured: the profiler saw fewer than {reps} of "
                      f"{reps + spare} calls in each of {attempts} windows")
 
@@ -727,7 +742,7 @@ def _profile_ticks(torch, eng, ticks, tag, label, kernel):
         return
     busy = sum(by_name.values()) / ticks
     print(f"[{tag}] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
-          f"{1 - busy / wall:.3f}")
+          f"{1 - busy / wall:.3f}; {kernel} {by_name.get(kernel, 0.0) / ticks:.3f} ms per tick")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}]   {ms / ticks:8.3f} ms/tick  {ms / ticks / wall:6.1%} of wall  {name}")
 
@@ -908,7 +923,6 @@ EMU_SHAPES = [
     ("head_decode", 4, 151936, 1024, {}, {}, True),
 ]
 EMU_NOISE = {"off": (0.0, 0.0), "sigma": (0.098, 0.0), "sigma+shot": (0.202, 0.05)}
-EMU_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # of max|out|
 EMU_SEED = (0x1234ABCD, 0x0BADF00D)
 # benchmarks/drift_recovery.py: accelerated drift, its four variants' defaults
 FAST_DRIFT = dict(drift_sigma=2.5, drift_tau=32.0, cal_noise=0.01)
@@ -936,19 +950,51 @@ def _emu_case(torch, ph, ch, mrr, t, m, k, pkw, mkw, resid, dtype, gen):
     return a_t, delta, ch.alive_dead_ring_mask(cfg, DEVICE), n_panels
 
 
+def _emu_candidates(em, a_t, delta, mask):
+    """The planner's plan for these operands and the grid of forced plans."""
+    t, q, nj, cols = a_t.shape
+    nm, _, rows, _, _ = delta.shape
+    return em.candidate_plans(t, nm, rows, q, nj, cols, em._pointers(delta, mask),
+                              em._sm_count(a_t.device.index))
+
+
+def _emu_exact(torch, em, got, expect, kw, what):
+    """Demand the plain version's bits -> max |got - expect| (0); ADC flips
+    are counted for the message."""
+    err = (got - expect).abs()
+    flips = 0
+    if kw["adc_bits"] is not None:
+        flips = int((err >= kw["amax"] / em._levels(kw["adc_bits"]) / 2).sum())
+    worst = err.max().item()
+    check(torch.equal(got, expect),
+          f"emu kernel != plain: {what}: max err {worst}, ADC flips {flips}")
+    return worst
+
+
 def phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr):
-    """emu_bank_product against its plain version at every EMU_SHAPES shape x
-    inputs {f32, bf16} (detunings f32) x noise {off, σ, σ + shot} x ADC
-    {none, 8 bits}; the noise σ against noise_sigma_total's per-panel
-    accounting."""
+    """emu_bank_product against its plain version, demanding the same bits,
+    at every EMU_SHAPES shape x inputs {f32, bf16} (detunings f32) x noise
+    {off, σ, σ + shot} x ADC {none, 8 bits} under the planner's plan; the
+    grid of forced plans (every variant x rows per block x T tile of
+    ``candidate_plans``) at noise off / no ADC and σ + shot / 8 bits;
+    determinism across launches; the noise σ against noise_sigma_total's
+    per-panel accounting."""
+    # the kernel's branch-free division against IEEE division on every float
+    # it takes: the ADC's divisors and the Lorentzian of every δ >= 0 (γ = 1)
+    for kw in ({"divisor": 20.0}, {"divisor": 127.0}, {"divisor": 511.0}, {"gamma": 1.0}):
+        wrong = em.division_mismatches(DEVICE, **kw)
+        check(wrong == 0, f"branch-free division != __fdiv_rn in {wrong} cases ({kw})")
+    print("[emu_kernel] branch-free division equals __fdiv_rn on every float numerator it "
+          "takes over 20, 127 and 511, and on the Lorentzian of every float δ >= 0 (γ = 1)")
     gen = torch.Generator(device=DEVICE).manual_seed(2024)
-    max_err, flips_total, pooled = 0.0, 0, []
+    max_err, pooled, plans_run, n_forced = 0.0, [], set(), 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        dtype_err, dtype_flips = 0.0, 0
         for name, t, m, k, pkw, mkw, resid in EMU_SHAPES:
             a_t, delta, mask, n_panels = _emu_case(torch, ph, ch, mrr, t, m, k, pkw, mkw,
                                                    resid, dtype, gen)
+            plans = _emu_candidates(em, a_t, delta, mask)
+            plans_run.add(plans[0].name)
             outs = {}
             for noise, (sigma, shot) in EMU_NOISE.items():
                 for adc in (None, 8):
@@ -957,19 +1003,18 @@ def phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr):
                     got = em.emu_bank_product_cuda(a_t, delta, mask, **kw)
                     sync(torch)
                     expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
-                    err = (got - expect).abs()
-                    scale = expect.abs().max().item()
-                    flips = 0
-                    if adc is not None:
-                        flips = int((err >= 20.0 / 127 / 2).sum())
-                    dtype_flips += flips
-                    worst = err.max().item()
-                    check(worst <= EMU_TOL[dname] * scale + 1e-6,
-                          f"emu kernel != plain: {name} {dname} {noise} adc={adc} "
-                          f"err={worst} max={scale} flips={flips}")
+                    what = f"{name} {dname} {noise} adc={adc} {plans[0].name}"
+                    max_err = max(max_err, _emu_exact(torch, em, got, expect, kw, what))
                     check(bool(torch.isfinite(got).all()), f"emu kernel: non-finite {name}")
-                    dtype_err = max(dtype_err, worst)
                     outs[noise, adc] = got
+                    if (noise, adc) in (("off", None), ("sigma+shot", 8)):
+                        for plan in plans[1:]:
+                            forced = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
+                            max_err = max(max_err, _emu_exact(torch, em, forced, expect, kw,
+                                                              f"{what} forced {plan.name}"))
+                            n_forced += 1
+                        again = em.emu_bank_product_cuda(a_t, delta, mask, **kw)
+                        check(torch.equal(again, got), f"emu kernel not deterministic: {what}")
             # σ only, no ADC: the accumulated read noise is σ·√n_panels per output
             z = (outs["sigma", None] - outs["off", None]).double() / (0.098 * n_panels ** 0.5)
             if z.numel() >= 10_000:  # 5% is then >= 3.5 standard errors
@@ -977,16 +1022,15 @@ def phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr):
                       f"emu noise σ {z.std().item():.4f}·σ_total at {name} {dname}")
             pooled.append(z.flatten())
         print(f"[emu_kernel] a_t {dname}, δ float32: {len(EMU_SHAPES)} shapes x noise "
-              f"off/σ/σ+shot x ADC none/8 agree with the plain version (tol {EMU_TOL[dname]} "
-              f"of max|out|): max |kernel - plain| {dtype_err:.3e}, elements one ADC step "
-              f"apart {dtype_flips}")
-        max_err = max(max_err, dtype_err)
-        flips_total += dtype_flips
+              f"off/σ/σ+shot x ADC none/8 equal the plain version bit for bit (0 error, 0 ADC "
+              f"flips), deterministic across launches")
     allz = torch.cat(pooled)
     std = allz.std().item()
     check(abs(std - 1) < 0.05, f"emu noise σ {std}·σ_total over all shapes")
-    print(f"[emu_kernel] max |kernel - plain| {max_err:.3e}; elements one ADC step apart: "
-          f"{flips_total}; read noise σ {std:.4f}·σ_total over {allz.numel()} outputs")
+    print(f"[emu_kernel] planner's plans: {', '.join(sorted(plans_run))}; {n_forced} launches "
+          f"of forced plans (every variant x rows x T tile the grid allows) equal the plain "
+          f"version bit for bit (max |kernel - plain| {max_err:.3e}); read noise σ "
+          f"{std:.4f}·σ_total over {allz.numel()} outputs")
     return max_err
 
 
@@ -1177,24 +1221,21 @@ def phase_emu_serve(torch, np, api, em, seed):
     check(launches == 169 * forwards, f"launches {launches} != 169 x {forwards}")
     check(bool(finite.item()), "non-finite logits")
 
-    max_err, flips = 0.0, 0
+    max_err, n_plans = 0.0, 0
     for (a_shape, d_shape), (a_t, delta, mask, kw) in captured.items():
         check(a_t.dtype == torch.bfloat16 and delta.dtype == torch.float32,
               f"path B handed the kernel {a_t.dtype} inputs and {delta.dtype} detunings")
-        got = kernel(a_t, delta, mask, **kw)
         expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
-        err = (got - expect).abs()
-        scale = expect.abs().max().item()
-        worst = err.max().item()
-        if kw["adc_bits"] is not None:
-            flips += int((err >= kw["amax"] / em._levels(kw["adc_bits"]) / 2).sum())
-        check(worst <= EMU_TOL["bfloat16"] * scale + 1e-6,
-              f"emu kernel != plain on path B's operands a_t {a_shape} δ {d_shape}: "
-              f"err={worst} max={scale}")
-        max_err = max(max_err, worst)
+        plans = _emu_candidates(em, a_t, delta, mask)
+        for plan in plans:
+            got = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
+            max_err = max(max_err, _emu_exact(
+                torch, em, got, expect, kw,
+                f"path B's operands a_t {a_shape} δ {d_shape} {plan.name}"))
+        n_plans += len(plans)
     print(f"[emu_serve] kernel vs plain on path B's own operands (bf16 a_t, f32 δ), "
-          f"{len(captured)} shapes: max |kernel - plain| {max_err:.3e} (tol "
-          f"{EMU_TOL['bfloat16']} of max|out|), elements one ADC step apart {flips}")
+          f"{len(captured)} shapes x {n_plans} plans in all (the planner's and the forced "
+          f"grid): equal bit for bit (max |kernel - plain| {max_err:.3e}, 0 ADC flips)")
     captured.clear()
 
     del eng, session, model
@@ -1244,7 +1285,11 @@ def emu_bound(case, sigma, shot, peaks):
 def phase_emu_timing(torch, em, ph, ch, mrr, card):
     """The kernel and its plain version at path A's shape (64, 800, 10; f32,
     emu_onchip, a drift residual as path A carries) and at the reference's emu
-    benchmark shape (64, 1024, 1024 on 4 buses; f32, emu_onchip)."""
+    benchmark shape (64, 1024, 1024 on 4 buses; f32, emu_onchip); then the
+    kernel alone at every bank product of path B (emu_offchip: bf16 inputs,
+    f32 detunings, σ 0.098, 10-bit ADC) at decode (T = 4) and prefill
+    (T = 64), with the plan it ran, and the sums over one forward's 169
+    launches."""
     kind, peaks = card_peaks(card)
     gen = torch.Generator(device=DEVICE).manual_seed(77)
     print(f"[emu_timing] {kind} peaks: {peaks['bw'] / 1e12:.2f} TB/s, "
@@ -1252,7 +1297,7 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
           f"(132 SMs x 64 INT32 lanes x 1.98 GHz), {INT_OPS_PER_DRAW} integer ops per threefry "
           f"draw; card: {card}; no single PyTorch call computes this function (library: none)")
     print("[emu_timing] shape               kernel_ms kernel_dev   plain_ms  plain_dev   bound_ms"
-          "  bound_by (bytes / f32 / int32 ms)")
+          "  bound_by (bytes / f32 / int32 ms)  plan")
     rows = {}
     for name, t, m, k, pkw, resid in (("path_a", 64, 800, 10, {}, True),
                                       ("benchmark", 64, 1024, 1024, {"n_buses": 4}, False)):
@@ -1269,18 +1314,108 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
             row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn, reps=reps)
         row["bound_ms"], row["bound_by"], binding, terms = emu_bound(case, 0.202, 0.0, peaks)
         row["library_ms"] = None
+        row["plan"] = em.plan_for(a_t, delta, mask).name
         rows[name] = row
         cells = " ".join(_fmt(row[key]) for key in ("ms", "dev_ms", "plain_ms", "plain_dev_ms",
                                                      "bound_ms"))
         print(f"[emu_timing] {name:10s} {t:4d}x{m:5d}x{k:5d} {cells}  {binding} "
               f"({terms['bytes'] * 1e3:.5f} / {terms['f32'] * 1e3:.5f} / "
-              f"{terms['int32'] * 1e3:.5f})")
+              f"{terms['int32'] * 1e3:.5f})  {row['plan']}")
+
+    # path B: every bank product of one qwen1.5-0.5b forward through emu_offchip banks
+    print("[emu_timing] path B (emu_offchip: bf16 a_t, f32 δ, σ 0.098, shot 0, 10-bit ADC); "
+          "ms: CUDA events (median of 25, cold L2); dev: profiler (median of 25); share and "
+          "GB/s from dev")
+    print("[emu_timing]      T      M      K  count  kernel_ms kernel_dev   bound_ms  by     "
+          "bytes_ms   int32_ms   share    GB/s  plan")
+    cfg = ph.PRESETS["emu_offchip"]
+    sigma, shot = ch._per_pass_sigma(cfg), cfg.mrr.shot_noise
+    path_b = []
+    for t in (4, 64):
+        for (m, k), count in PATH_SHAPES.items():
+            case = _emu_case(torch, ph, ch, mrr, t, m, k, {}, {"adc_bits": 10}, True,
+                             torch.bfloat16, gen)
+            a_t, delta, mask, n_panels = case
+            kw = dict(n_panels=n_panels, gamma=1.0, sigma=sigma, shot=shot, adc_bits=10,
+                      amax=float(cfg.bank_cols), seed=EMU_SEED)
+
+            def fn():
+                return em.emu_bank_product_cuda(a_t, delta, mask, **kw)
+
+            row = {"t": t, "m": m, "k": k, "count": count, "ms": _event_ms(torch, fn),
+                   "dev_ms": _device_ms(torch, fn)}
+            row["bound_ms"], row["bound_by"], _, terms = emu_bound(case, sigma, shot, peaks)
+            row["bytes_ms"], row["int32_ms"] = terms["bytes"] * 1e3, terms["int32"] * 1e3
+            row["share"] = row["bound_ms"] / row["dev_ms"]
+            nbytes = terms["bytes"] * peaks["bw"]
+            row["gb_s"] = nbytes / (row["dev_ms"] * 1e-3) / 1e9
+            row["plan"] = em.plan_for(a_t, delta, mask).name
+            path_b.append(row)
+            print(f"[emu_timing] {t:6d} {m:6d} {k:6d} {count:6d} {_fmt(row['ms'])} "
+                  f"{_fmt(row['dev_ms'])} {_fmt(row['bound_ms'])}  {row['bound_by'][:5]:5s} "
+                  f"{_fmt(row['bytes_ms'])} {_fmt(row['int32_ms'])} {row['share']:7.1%} "
+                  f"{row['gb_s']:7.1f}  {row['plan']}")
+            del case, a_t, delta, mask
+            torch.cuda.empty_cache()
+    rows["path_b"] = path_b
+    for t, label in ((4, "decode"), (64, "prefill")):
+        step = [r for r in path_b if r["t"] == t]
+        total = {key: sum(r[key] * r["count"] for r in step) for key in ("ms", "dev_ms",
+                                                                           "bound_ms")}
+        total["launches"] = sum(r["count"] for r in step)
+        total["share"] = total["bound_ms"] / total["dev_ms"]
+        rows[f"path_b_{label}_forward"] = total
+        print(f"[emu_timing] path B {label} forward at T={t} ({total['launches']} launches): "
+              f"kernel {total['ms']:.4f} ms events, {total['dev_ms']:.4f} ms device, bound "
+              f"{total['bound_ms']:.4f} ms, share {total['share']:.1%}")
     return rows
+
+
+def phase_emu_plans(torch, em, ph, ch, mrr, card):
+    """The tuning sweep behind the planner (run with --only emu_plans):
+    device ms of the vector variant over rows per block x T tile at every
+    bank product of path B (emu_offchip, bf16 inputs), decode and
+    prefill, beside the planner's choice."""
+    gen = torch.Generator(device=DEVICE).manual_seed(78)
+    cfg = ph.PRESETS["emu_offchip"]
+    print(f"[emu_plans] device ms per call (profiler, median of 25, cold L2), vector variant; "
+          f"card: {card}")
+    for t in (4, 64):
+        for (m, k) in PATH_SHAPES:
+            a_t, delta, mask, n_panels = _emu_case(torch, ph, ch, mrr, t, m, k, {},
+                                                   {"adc_bits": 10}, True, torch.bfloat16, gen)
+            kw = dict(n_panels=n_panels, gamma=1.0, sigma=ch._per_pass_sigma(cfg), shot=0.0,
+                      adc_bits=10, amax=float(cfg.bank_cols), seed=EMU_SEED)
+            n_slots = a_t.shape[1] * a_t.shape[2]
+            chosen = em.plan_for(a_t, delta, mask)
+            most = em.TUPLES // n_slots
+            if t <= em.DECODE_T:  # every row count at decode, a coarse grid above
+                rbs, bts = range(1, most + 1), [t]
+            else:
+                rbs = sorted({1, 2, 3, 4, 5, 7, 10, 14, 19, 29, 39, chosen.rows_per_block}
+                             & set(range(1, most + 1)))
+                bts = [4, 8, 16, 32]
+            cells = []
+            for bt in bts:
+                for rb in rbs:
+                    plan = em.Plan(chosen.variant, rb, bt)
+                    if em.smem_bytes(plan, a_t.shape[1], a_t.shape[2], a_t.shape[3]) > em.SMEM_MAX:
+                        continue
+                    ms = _device_ms(torch, lambda plan=plan: em.launch_kernel(
+                        a_t, delta, mask, plan=plan, **kw))
+                    cells.append(f"r{rb}/t{bt} {ms:.4f}")
+            print(f"[emu_plans] T={t} M={m} K={k} (planner {chosen.name}): " + ", ".join(cells))
+            del a_t, delta, mask
+            torch.cuda.empty_cache()
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated emu phases to run after the build (emu_kernel, "
+                         "emu_timing, emu_plans: the planner's tuning sweep): a partial run, "
+                         "which prints no result lines")
     args = ap.parse_args(argv)
 
     import torch
@@ -1303,6 +1438,14 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = phase_build(torch, pm)
+    if args.only:
+        partial = {"emu_kernel": lambda: phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr),
+                   "emu_timing": lambda: phase_emu_timing(torch, em, ph, ch, mrr, card),
+                   "emu_plans": lambda: phase_emu_plans(torch, em, ph, ch, mrr, card)}
+        for name in args.only.split(","):
+            partial[name]()
+        print(f"[done] partial run ({args.only}) passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     max_err = phase_kernel_vs_plain(torch, pm)
     max_err_b = phase_dfa_kernel_vs_plain(torch, pm, dg)
     serve_launches = phase_serve(torch, np, pm, api, args.seed)

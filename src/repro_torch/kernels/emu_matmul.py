@@ -17,7 +17,10 @@ with z the reference's Irwin–Hall(4) gaussian of one threefry2x32 output
 kernel is ``csrc/emu_matmul.cu`` (see its header for the design and what
 bounds it), built with ``nvcc`` for ``sm_90a`` at first use into the
 library of ``photonic_matmul.build`` and loaded with ``ctypes``; importing
-this module builds nothing.
+this module builds nothing.  ``_plan`` picks, per call, the kernel's
+variant (from C and the operands' addresses), the global output rows each
+block owns and the T tile, so the shape logic is plain Python that the
+CPU tests reach.
 
 Each slot's inner product is a sequence of single-rounding f32
 multiply-adds over c = 0..C−1 from zero, in the kernel (``__fmaf_rn``)
@@ -30,6 +33,9 @@ ADC rounds the same values.  Divisions are IEEE divisions in both.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -164,10 +170,202 @@ def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: f
     return acc.reshape(t, nm * rows)
 
 
+# ---------------------------------------------------------------------------
+# the planner: which variant, row group and T tile run a call
+# ---------------------------------------------------------------------------
+# the kernel's variants, in the order of csrc/emu_matmul.cu's Variant
+VARIANTS = ("vector", "scalar", "generic")
+VECTOR, SCALAR, GENERIC = range(len(VARIANTS))
+BANK_COLS = 20  # C of the vector and scalar variants (the paper's 50×20 bank)
+GENERIC_COLS = 32  # the generic variant's most columns
+THREADS = 256  # the most threads a block runs
+TUPLES = 2048  # (row, slot) tuples a block takes at most: 8 per thread
+DECODE_T = 8  # T at or below: one T tile, so every weight is formed once
+T_TILES = (4, 8, 16, 32)  # the T tiles above it
+SMEM_MAX = 232448  # an sm_90 block's opt-in shared memory, bytes
+CARD_SMS = 132  # an H100 SXM's SMs
+# what one SM holds (sm_90): the kernel's 128 registers a thread
+# (__launch_bounds__(256, 2)), and 1 KB of shared memory reserved per block
+SM_REGISTERS, REGISTERS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 128, 233472, 2048, 32
+# the planner's cost of a block, in units of one T row of one tuple (its
+# FMA chain, draw and ADC): loading a tuple's detunings and forming its
+# weights ≈ 4, staging a T row of inputs ≈ 1/2, the block's launch,
+# barriers and sums ≈ 2 (fitted to the card's sweep: chip_smoke.py --only
+# emu_plans)
+WEIGHT_COST, STAGE_COST, BLOCK_COST = 4.0, 0.5, 2.0
+
+
+class Plan(NamedTuple):
+    variant: int
+    rows_per_block: int  # global output rows (i·rows + r) of one block
+    t_tile: int  # rows of T per block
+
+    @property
+    def name(self) -> str:
+        return f"{VARIANTS[self.variant]}/r{self.rows_per_block}/t{self.t_tile}"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _t_unroll(t_tile: int) -> int:
+    """Rows of T each thread works on at once (the kernel's TU)."""
+    return 1 if t_tile == 1 else 4
+
+
+def _a_bytes(t_tile: int, n_slots: int, cols: int) -> int:
+    """The block's f32 input tile, rounded up to TU rows."""
+    tu = _t_unroll(t_tile)
+    return 4 * _cdiv(t_tile, tu) * tu * n_slots * cols
+
+
+def smem_bytes(plan: Plan, q: int, nj: int, cols: int) -> int:
+    """Dynamic shared memory of one block: the input tile and the per-slot
+    values of its outputs (an odd row stride)."""
+    n_slots = q * nj
+    return (_a_bytes(plan.t_tile, n_slots, cols)
+            + 4 * plan.t_tile * plan.rows_per_block * (n_slots | 1))
+
+
+def grid_blocks(plan: Plan, t: int, nm: int, rows: int) -> int:
+    return _cdiv(nm * rows, plan.rows_per_block) * _cdiv(t, plan.t_tile)
+
+
+def threads_per_block(plan: Plan, q: int, nj: int) -> int:
+    """The kernel's block size: the block's tuples spread evenly over at
+    most THREADS threads, in whole warps."""
+    tuples = plan.rows_per_block * q * nj
+    return _cdiv(_cdiv(tuples, _cdiv(tuples, THREADS)), 32) * 32
+
+
+def _variant(cols: int, pointers) -> int:
+    """``pointers``: the addresses of delta_eff and the dead-ring mask (None
+    for no mask)."""
+    if cols == BANK_COLS:
+        aligned = all(p is None or p % 16 == 0 for p in pointers)
+        return VECTOR if aligned else SCALAR
+    if cols <= GENERIC_COLS:
+        return GENERIC
+    raise ValueError(f"the emu kernel takes banks of at most {GENERIC_COLS} columns, got "
+                     f"C={cols}")
+
+
+def _resident(threads: int, smem: int) -> int:
+    """Blocks of the kernel one SM holds at once."""
+    return min(SM_REGISTERS // (REGISTERS * threads), SM_SMEM // (smem + 1024),
+               SM_THREADS // threads, SM_BLOCKS)
+
+
+@functools.cache
+def _tiling(t: int, m_pad: int, n_slots: int, cols: int, sms: int) -> tuple[int, int]:
+    """(rows per block, T tile) for a shape; see ``_plan``."""
+    best, best_key = (1, 1), None
+    for bt in [t] if t <= DECODE_T else sorted({min(t, b) for b in T_TILES}):
+        for rb in range(1, max(1, min(TUPLES // n_slots, m_pad)) + 1):
+            plan = Plan(VECTOR, rb, bt)
+            smem = smem_bytes(plan, 1, n_slots, cols)
+            if smem > SMEM_MAX:
+                break
+            threads = threads_per_block(plan, 1, n_slots)
+            blocks = grid_blocks(plan, t, m_pad, 1)
+            slots = sms * _resident(threads, smem)
+            waves = _cdiv(blocks, slots)
+            per_thread = _cdiv(rb * n_slots, threads)
+            cost = waves * (per_thread * (bt + WEIGHT_COST) + bt * STAGE_COST + BLOCK_COST)
+            # the share of the waves' thread-tuple slots that hold a tuple
+            used = rb * n_slots * blocks / (waves * slots * threads * per_thread)
+            key = (cost, blocks < sms, -used, -rb * bt)
+            if best_key is None or key < best_key:
+                best, best_key = (rb, bt), key
+    return best
+
+
+def _plan(t: int, nm: int, rows: int, q: int, nj: int, cols: int, pointers,
+          sms: int = CARD_SMS) -> Plan:
+    """The plan of one call: a_t (t, q, nj, cols), delta_eff (nm, q, rows,
+    nj, cols), ``pointers`` the addresses of delta_eff and the mask.
+
+    A block owns ``rows_per_block`` global output rows (every slot of
+    them: at most TUPLES tuples) and a T tile: all of T at decode (T <=
+    DECODE_T: each weight formed once), else one of T_TILES, the T tiles
+    of a row group adjacent so their detunings meet in L2.  Of those, the
+    plan with the least modelled time: waves of resident blocks (by
+    registers, shared memory and threads) times one block's work (its
+    tuples per thread, each forming its weights and working through the T
+    tile, plus the staging and a fixed cost); ties go to plans that give
+    every SM a block, then to the plan whose waves leave the fewest
+    thread-tuple slots idle, then to larger blocks.  Raises ValueError if
+    no plan fits."""
+    rb, bt = _tiling(t, nm * rows, q * nj, cols, sms)
+    plan = Plan(_variant(cols, pointers), rb, bt)
+    _check_plan(plan, t, q, nj, cols, pointers)
+    return plan
+
+
+def _check_plan(plan: Plan, t: int, q: int, nj: int, cols: int, pointers) -> None:
+    """Raise ValueError on a plan the kernel cannot run on these operands
+    (a plan handed in by a caller, as the card's tests do for every plan)."""
+    if plan.variant in (VECTOR, SCALAR) and cols != BANK_COLS:
+        raise ValueError(f"the {VARIANTS[plan.variant]} variant takes C={BANK_COLS}, got "
+                         f"C={cols}")
+    if plan.variant == GENERIC and cols > GENERIC_COLS:
+        raise ValueError(f"the generic variant takes C <= {GENERIC_COLS}, got C={cols}")
+    if plan.variant == VECTOR and any(p is not None and p % 16 for p in pointers):
+        raise ValueError("the vector variant needs 16-byte-aligned detunings and mask")
+    if not (plan.rows_per_block >= 1 and 1 <= plan.t_tile <= t):
+        raise ValueError(f"plan {plan.name}: rows per block >= 1 and T tile in [1, T={t}]")
+    smem = smem_bytes(plan, q, nj, cols)
+    if smem > SMEM_MAX:
+        raise ValueError(f"plan {plan.name} needs {smem} bytes of shared memory, more than "
+                         f"a block's {SMEM_MAX}: S={q * nj} slots at C={cols}")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _pointers(delta_eff, dead_mask):
+    return (delta_eff.data_ptr(), dead_mask.data_ptr() if dead_mask is not None else None)
+
+
+def plan_for(a_t, delta_eff, dead_mask) -> Plan:
+    """The plan ``launch_kernel`` picks for these CUDA operands."""
+    t, q_buses, nj, cols = a_t.shape
+    nm, _q, rows, _nj, _c = delta_eff.shape
+    return _plan(t, nm, rows, q_buses, nj, cols, _pointers(delta_eff, dead_mask),
+                 _sm_count(a_t.device.index))
+
+
+def candidate_plans(t: int, nm: int, rows: int, q: int, nj: int, cols: int, pointers,
+                    sms: int = CARD_SMS) -> list[Plan]:
+    """The planner's plan first, then every other plan of a small grid
+    that the kernel can run on these operands: each variant they allow x
+    rows per block {the planner's, 1, twice the planner's} x T tile {the
+    planner's, 1, 4, all of T}.  The card's checks run them all against
+    the plain version."""
+    chosen = _plan(t, nm, rows, q, nj, cols, pointers, sms)
+    variants = [chosen.variant]
+    if cols == BANK_COLS:
+        variants += [v for v in (SCALAR, GENERIC) if v != chosen.variant]
+    rb, bt = chosen.rows_per_block, chosen.t_tile
+    plans = [chosen]
+    for variant in variants:
+        for r in dict.fromkeys((rb, 1, 2 * rb)):
+            for b in dict.fromkeys((bt, 1, min(t, 4), t)):
+                plan = Plan(variant, r, b)
+                if plan not in plans and smem_bytes(plan, q, nj, cols) <= SMEM_MAX:
+                    plans.append(plan)
+    return plans
+
+
 def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sigma: float,
-                  shot: float, adc_bits: int | None, amax: float, seed=None):
+                  shot: float, adc_bits: int | None, amax: float, seed=None,
+                  plan: Plan | None = None):
     """Launch the CUDA kernel on checked CUDA operands -> f32 (T, nm·rows);
-    raises if the launch fails."""
+    ``plan`` defaults to ``_plan``'s choice.  Raises ValueError for what
+    no plan can run and RuntimeError if the launch fails."""
     if a_t.device.type != "cuda":
         raise ValueError(f"no emu_bank_product kernel for device {a_t.device}")
     if not all(x is None or x.is_contiguous() for x in (a_t, delta_eff, dead_mask)):
@@ -181,18 +379,44 @@ def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sig
     if noisy and seed is None:
         raise ValueError("noisy fused bank requires a PRNG seed")
     k0, k1 = (int(x) & _M32 for x in seed) if noisy else (0, 0)
+    pointers = _pointers(delta_eff, dead_mask)
+    if plan is None:
+        plan = plan_for(a_t, delta_eff, dead_mask)
+    else:
+        _check_plan(plan, t, q_buses, nj, cols, pointers)
     out = torch.empty((t, nm * rows), device=a_t.device, dtype=torch.float32)
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream(a_t.device).cuda_stream
         err = pm._library().emu_bank_product_launch(
-            a_t.data_ptr(), delta_eff.data_ptr(),
-            dead_mask.data_ptr() if dead_mask is not None else None, out.data_ptr(),
+            a_t.data_ptr(), *pointers, out.data_ptr(),
             t, q_buses, nj, cols, nm, rows, n_panels,
-            _DTYPES[a_t.dtype], float(gamma * gamma), float(sigma), float(shot), _levels(adc_bits), float(amax),
-            k0, k1, stream)
+            _DTYPES[a_t.dtype], float(gamma * gamma), float(sigma), float(shot),
+            _levels(adc_bits), float(amax), k0, k1, stream,
+            plan.variant, plan.rows_per_block, plan.t_tile)
     if err != 0:
-        raise RuntimeError(f"emu_bank_product kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"emu_bank_product kernel launch failed ({plan.name}): CUDA error "
+                           f"{err}")
     return out
+
+
+def division_mismatches(device, *, divisor: float | None = None,
+                        gamma: float | None = None) -> int:
+    """The kernel's branch-free division against IEEE division (``__fdiv_rn``)
+    on the card, over every float the kernel sends through it: every
+    numerator over ``divisor`` (the ADC's full scale and levels), or the
+    Lorentzian (δ² − γ²)/(δ² + γ²) of every δ >= 0 for ``gamma`` -> the
+    number of quotients that differ in any bit."""
+    if (divisor is None) == (gamma is None):
+        raise ValueError("give divisor or gamma")
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    mode, g2 = (0, 0.0) if gamma is None else (1, float(gamma) * float(gamma))
+    with torch.cuda.device(count.device):
+        stream = torch.cuda.current_stream(count.device).cuda_stream
+        err = pm._library().emu_division_check(mode, float(divisor or 0.0), g2,
+                                               count.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"division check launch failed: CUDA error {err}")
+    return int(count.item())
 
 
 def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float,

@@ -9,8 +9,8 @@ shared library with a plain C interface at first use, into
 importing this module builds nothing.  The same library holds the fused
 DFA gradient (``dfa_gradient.py``), the kernel with its mask epilogue
 (``launch_kernel`` launches either), and the emu backend's panel loop
-(``emu_matmul.py``, source ``csrc/emu_matmul.cu``): one ``nvcc`` builds
-both sources.
+(``emu_matmul.py``, source ``csrc/emu_matmul.cu``): one ``nvcc`` per
+source, run in parallel, and one link build it.
 
 The kernel has three variants (see the source's header): a skinny GEMV
 for decode, tensor-core tiles for bf16 and FFMA tiles for f32 above the
@@ -61,11 +61,12 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels (once per source revision) with one ``nvcc``
-    into one library and return its path.  The file name carries a hash of
-    every source, so an edited source is rebuilt and a stale library is
-    never loaded.  ptxas's report (registers, shared memory and spills per
-    kernel) is kept beside the library as ``ptxas_log(lib)``."""
+    """Compile the kernels (once per source revision) into one library and
+    return its path: one ``nvcc -c`` per source, all started together, then
+    one link.  The file name carries a hash of every source, so an edited
+    source is rebuilt and a stale library is never loaded.  ptxas's report
+    (registers, shared memory and spills per kernel) is kept beside the
+    library as ``ptxas_log(lib)``."""
     h = hashlib.sha256()
     for src in _SOURCES:
         h.update(src.read_bytes())
@@ -74,14 +75,26 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    sources = [src for src in _SOURCES if src.suffix == ".cu"]
+    objs = [_BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[1] for proc in procs]  # every nvcc ends before any raise
+    for src, proc, log in zip(sources, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *(str(src) for src in _SOURCES if src.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    ptxas_log(lib).write_text(proc.stderr)
+    link = subprocess.run([_nvcc(), *flags, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+    ptxas_log(lib).write_text("".join(logs))
     os.replace(tmp, lib)
     return lib
 
@@ -110,8 +123,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]  # the plan: variant, rows, T tile
     lib.emu_bank_product_launch.restype = ctypes.c_int
+    lib.emu_division_check.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                                       ctypes.c_void_p, ctypes.c_void_p]
+    lib.emu_division_check.restype = ctypes.c_int
     if lib.photonic_matmul_block_k() != BLOCK_K:
         raise RuntimeError("kernel K tile differs from BLOCK_K; rebuild")
     return lib
