@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--only emu_kernel,emu_timing,emu_plans]
+    python3 chip_smoke.py [--seed N]
 
 Run from the repository root of a checkout; it needs one CUDA card and
 builds the port's CUDA kernels (``photonic_matmul``, ``dfa_gradient`` and
@@ -10,7 +10,9 @@ checkout.  Phases:
 
 1. card and build: the card's name and power limit, the library's build
    time, and ``nvcc -Xptxas -v``'s registers, shared memory and spills per
-   kernel;
+   kernel; the SASS instructions of one threefry draw of the emu kernel
+   (``cuobjdump -sass`` of a probe built beside the library), which set
+   the emu kernel's PRNG bound;
 2. kernel vs plain version at every shape the serving path gives it
    (T = 4 and 64 rows), the ragged 200×300×257, the paper's 64×10×800,
    both sides of the planner's seam between the skinny and the tiled
@@ -44,7 +46,8 @@ checkout.  Phases:
 9. ``emu_bank_product``: its branch-free division against IEEE division
    on every float it takes; the kernel vs its plain version, bit for bit,
    at tests/test_emu_kernel.py's shapes, a failed bus with dead rings, a
-   drift residual, path A's 64×800×10, the reference's emu benchmark
+   drift residual, banks of 40 and 64 columns (the generic variant's
+   column chunks), path A's 64×800×10, the reference's emu benchmark
    64×1024×1024 on 4 buses and the qwen head at decode, × f32/bf16 inputs
    (f32 detunings, as the port inscribes) × noise off/σ/σ+shot × ADC
    none/8 bits under the planner's plan, and under every plan of the
@@ -69,11 +72,6 @@ checkout.  Phases:
     (T = 64) with its plan, share of the bound and GB/s, and the sums per
     forward.
 
-``--only`` runs the build and the named emu phases alone, a partial run
-that prints no result lines: ``emu_plans`` is the sweep the emu planner's
-cost model was fitted to (rows per block × T tile at every path B shape,
-beside the planner's choice); it is not part of the full run.
-
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -85,6 +83,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -151,6 +150,7 @@ def phase_build(torch, pm):
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
+    probe = _start_draw_probe(pm)
     lib = pm.build()
     pm._library()
     print(f"[build] {lib.name} ready in {time.perf_counter() - t0:.1f}s "
@@ -163,7 +163,101 @@ def phase_build(torch, pm):
     for name, info in kernels.items():
         print(f"[build]   {info['regs']:3d} registers, {info['smem']:6d} B smem, spill "
               f"{info['spill_st']}/{info['spill_ld']} B st/ld, {info['stack']:3d} B stack  {name}")
-    return card
+    draw = _finish_draw_probe(pm, probe)
+    ops = ", ".join(f"{op} {n}" for op, n in sorted(draw["opcodes"].items()))
+    print(f"[build] one emu threefry draw (ih4_gaussian), SASS: {draw['total']} instructions "
+          f"({ops}); ALU only {draw['alu']}, integer adds and moves {draw['add']}, "
+          f"FMA-heavy only {draw['fma_heavy']}, f32 {draw['fp32']}, conversions {draw['xu']}, "
+          f"uniform and control {draw['other']}: {draw['clocks']:.4f} SM clocks a draw, bound "
+          f"by {draw['by']}")
+    return card, draw
+
+
+def _start_draw_probe(pm):
+    """Start compiling DRAW_PROBE (nvcc -cubin, the library's flags) beside
+    the library -> (process, cubin path)."""
+    out = pm._BUILD_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / f"draw_probe-{os.getpid()}.cu"
+    src.write_text(DRAW_PROBE)
+    cubin = src.with_suffix(".cubin")
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    proc = subprocess.Popen([pm._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                             "-std=c++17", "-O3", "-cubin", "-I", str(csrc), "-o", str(cubin),
+                             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, src, cubin
+
+
+def _sass_opcodes(sass, function):
+    """Opcode counts (without modifiers) of one function of cuobjdump -sass."""
+    import re
+
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = m.group(1) == function
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def draw_cost(opcodes):
+    """One draw's instructions by pipe, and the SM clocks it takes at
+    least: the ALU-only, FMA-heavy-only or conversion instructions over
+    their pipe's rate, or all of them over the issue rate, whichever is
+    most (the adds can go to whichever of the two integer pipes is free)."""
+    pipes = {"alu": 0, "add": 0, "fma_heavy": 0, "fp32": 0, "xu": 0, "other": 0}
+    for op, n in opcodes.items():  # n < 0: one fewer move in the two-draw kernel
+        if op == "NOP":
+            continue
+        if op in ADD_OPS:
+            pipes["add"] += n
+        elif op in FMA_HEAVY_OPS:
+            pipes["fma_heavy"] += n
+        elif op in FP32_OPS:
+            pipes["fp32"] += n
+        elif op in XU_OPS:
+            pipes["xu"] += n
+        elif op.startswith("U") or op in ISSUE_ONLY_OPS:
+            pipes["other"] += n
+        else:
+            pipes["alu"] += n
+    pipes = {pipe: max(n, 0) for pipe, n in pipes.items()}
+    total = sum(pipes.values())
+    clocks = {"alu": pipes["alu"] / PIPE_RATES["alu"],
+              "fma_heavy": pipes["fma_heavy"] / PIPE_RATES["fma_heavy"],
+              "xu": pipes["xu"] / PIPE_RATES["xu"], "issue": total / PIPE_RATES["issue"]}
+    by = max(clocks, key=clocks.get)
+    return {**pipes, "total": total, "clocks": clocks[by], "by": by,
+            "opcodes": dict(opcodes)}
+
+
+def _finish_draw_probe(pm, probe):
+    """Wait for the probe, read its SASS and return one draw's cost."""
+    proc, src, cubin = probe
+    try:
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"nvcc failed on the draw probe:\n{err}")
+        cuobjdump = pathlib.Path(pm._nvcc()).with_name("cuobjdump")
+        dump = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
+                              text=True, timeout=120)
+        check(dump.returncode == 0, f"cuobjdump failed on the draw probe:\n{dump.stderr}")
+    finally:
+        src.unlink(missing_ok=True)
+        cubin.unlink(missing_ok=True)
+    one = _sass_opcodes(dump.stdout, "probe_one_draw")
+    two = _sass_opcodes(dump.stdout, "probe_two_draws")
+    check(one and two, "cuobjdump listed no probe kernel")
+    diff = {op: two.get(op, 0) - one.get(op, 0) for op in set(one) | set(two)}
+    diff = {op: n for op, n in diff.items() if n}
+    # threefry2x32 alone is 20 rounds of an add, a rotate and an xor
+    check(sum(n for op, n in diff.items() if op != "NOP") >= 40,
+          f"the draw probe's SASS difference is not one draw: {diff}")
+    return draw_cost(diff)
 
 
 def _demangle(names):
@@ -907,7 +1001,8 @@ def phase_timing_train(torch, pm, dg, card):
 
 # (name, T, M, K, PhotonicConfig keywords, MRRConfig keywords, drift residual):
 # tests/test_emu_kernel.py's four shapes, its failed bus with dead rings and
-# its carried drift residual, the DFA projection of path A, the reference's
+# its carried drift residual, banks of 40 and 64 columns (PhotonicConfig's
+# bank_cols; the generic variant in chunks), the DFA projection of path A, the reference's
 # emu benchmark GEMM (benchmarks/emu_kernel.py: 64 x 1024 x 1024 on 4 buses)
 # and the qwen1.5-0.5b head at decode (path B's largest launch)
 EMU_SHAPES = [
@@ -918,6 +1013,9 @@ EMU_SHAPES = [
     ("failed_bus_dead_rings", 9, 120, 130, {"n_buses": 3, "failed_buses": (1,)},
      {"dead_ring_rate": 0.05}, False),
     ("drift_residual", 6, 77, 95, {"n_buses": 2}, {}, True),
+    ("wide_bank_40", 6, 90, 130, {"bank_cols": 40}, {}, False),
+    ("wide_bank_64", 5, 77, 300, {"bank_cols": 64, "n_buses": 2}, {"dead_ring_rate": 0.05},
+     True),
     ("path_a", 64, 800, 10, {}, {}, True),
     ("benchmark", 64, 1024, 1024, {"n_buses": 4}, {}, False),
     ("head_decode", 4, 151936, 1024, {}, {}, True),
@@ -926,12 +1024,38 @@ EMU_NOISE = {"off": (0.0, 0.0), "sigma": (0.098, 0.0), "sigma+shot": (0.202, 0.0
 EMU_SEED = (0x1234ABCD, 0x0BADF00D)
 # benchmarks/drift_recovery.py: accelerated drift, its four variants' defaults
 FAST_DRIFT = dict(drift_sigma=2.5, drift_tau=32.0, cal_noise=0.01)
-# threefry2x32: 20 rounds of add, rotate, xor (60), 2 + 10 key additions,
-# and the Irwin-Hall sum (4 lane ops, 3 adds, convert, subtract, scale)
-INT_OPS_PER_DRAW = 82
-# 132 SMs x 64 INT32 lanes x 1.98 GHz boost (NVIDIA Hopper architecture
-# white paper: 64 INT32 units per SM; H100 SXM data sheet: 1980 MHz)
-INT32_RATE = 132 * 64 * 1.98e9
+# SASS opcodes by the pipe they issue to, and each pipe's results per SM
+# per clock (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0): logic, shifts, compares, selects, permutes and
+# the like on the ALU pipe (64); integer dot products on the FMA-heavy half
+# of the FMA pipe (64); conversions and special functions 16.  Integer adds
+# and moves issue to either pipe (IADD3 / VIADD / MOV on the ALU, IMAD as
+# an add or a move on the FMA-heavy half), f32 add/multiply/FMA to either
+# FMA half; uniform (U*) and control instructions take only an issue slot.
+# A warp scheduler issues one instruction a clock: 4 x 32 = 128 lanes per
+# SM per clock over all pipes.  NOPs are the padding after EXIT.
+ADD_OPS = {"IADD3", "IADD", "VIADD", "IMAD", "MOV"}
+FMA_HEAVY_OPS = {"IDP", "IDP4A", "IMUL"}
+FP32_OPS = {"FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I"}
+XU_OPS = {"MUFU", "I2F", "F2I", "F2F", "FRND", "POPC", "FLO", "BREV"}
+ISSUE_ONLY_OPS = {"BRA", "EXIT", "RET", "CALL", "BAR", "BSSY", "BSYNC", "WARPSYNC", "S2R",
+                  "S2UR", "CS2R", "LDC", "LDG", "STG", "LDS", "STS", "DEPBAR", "YIELD"}
+PIPE_RATES = {"alu": 64, "fma_heavy": 64, "xu": 16, "issue": 128}
+SM_CLOCK = 1.98e9  # H100 SXM boost clock (data sheet: 1980 MHz)
+# two straight-line probe kernels that differ by one ih4_gaussian draw: the
+# difference of their SASS is the instructions of one draw as the emu
+# kernel compiles it (the key schedule is shared, in uniform registers)
+DRAW_PROBE = r'''
+#include "emu_matmul.cu"
+extern "C" __global__ void probe_one_draw(unsigned k0, unsigned k1, float* out) {
+  const unsigned c0 = blockIdx.x, c1 = threadIdx.x;
+  out[c0 * blockDim.x + c1] = ih4_gaussian(k0, k1, c0, c1);
+}
+extern "C" __global__ void probe_two_draws(unsigned k0, unsigned k1, float* out) {
+  const unsigned c0 = blockIdx.x, c1 = threadIdx.x;
+  out[c0 * blockDim.x + c1] = ih4_gaussian(k0, k1, c0, c1) + ih4_gaussian(k0, k1, c1, c0);
+}
+'''
 
 
 def _emu_case(torch, ph, ch, mrr, t, m, k, pkw, mkw, resid, dtype, gen):
@@ -1264,11 +1388,12 @@ def phase_emu_serve(torch, np, api, em, seed):
     return launches, max_err
 
 
-def emu_bound(case, sigma, shot, peaks):
+def emu_bound(case, sigma, shot, peaks, draw, sms):
     """Least time for one emu_bank_product call: the larger of its bytes
     (each input once, the f32 output once) over the memory rate, its f32
-    multiply-adds over the f32 rate, and its threefry draws' integer
-    operations over the int32 rate."""
+    multiply-adds over the f32 rate, and its threefry draws at ``draw``'s
+    SM clocks each (``draw_cost`` of one draw's SASS) on ``sms`` SMs at
+    the boost clock."""
     a_t, delta, mask, n_panels = case
     t, q, nj, c = a_t.shape
     nm, _, rows, _, _ = delta.shape
@@ -1277,12 +1402,12 @@ def emu_bound(case, sigma, shot, peaks):
     flops = 2 * t * nm * rows * q * nj * c
     draws = t * nm * rows * n_panels * ((sigma > 0) + (shot > 0))
     terms = {"bytes": nbytes / peaks["bw"], "f32": flops / peaks["float32"],
-             "int32": draws * INT_OPS_PER_DRAW / INT32_RATE}
+             "prng": draws * draw["clocks"] / (sms * SM_CLOCK)}
     binding = max(terms, key=terms.get)
     return terms[binding] * 1e3, ("bytes" if binding == "bytes" else "operations"), binding, terms
 
 
-def phase_emu_timing(torch, em, ph, ch, mrr, card):
+def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
     """The kernel and its plain version at path A's shape (64, 800, 10; f32,
     emu_onchip, a drift residual as path A carries) and at the reference's emu
     benchmark shape (64, 1024, 1024 on 4 buses; f32, emu_onchip); then the
@@ -1291,13 +1416,15 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
     (T = 64), with the plan it ran, and the sums over one forward's 169
     launches."""
     kind, peaks = card_peaks(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device=DEVICE).manual_seed(77)
     print(f"[emu_timing] {kind} peaks: {peaks['bw'] / 1e12:.2f} TB/s, "
-          f"{peaks['float32'] / 1e12:.0f} TFLOP/s f32, {INT32_RATE / 1e12:.2f} T int32 op/s "
-          f"(132 SMs x 64 INT32 lanes x 1.98 GHz), {INT_OPS_PER_DRAW} integer ops per threefry "
-          f"draw; card: {card}; no single PyTorch call computes this function (library: none)")
+          f"{peaks['float32'] / 1e12:.0f} TFLOP/s f32; threefry draws at {draw['clocks']:.4f} "
+          f"SM clocks each (bound by {draw['by']}, SASS of one draw), {sms} SMs x "
+          f"{SM_CLOCK / 1e9:.2f} GHz = {sms * SM_CLOCK / draw['clocks'] / 1e12:.3f} T draws/s; "
+          f"card: {card}; no single PyTorch call computes this function (library: none)")
     print("[emu_timing] shape               kernel_ms kernel_dev   plain_ms  plain_dev   bound_ms"
-          "  bound_by (bytes / f32 / int32 ms)  plan")
+          "  bound_by (bytes / f32 / prng ms)  plan")
     rows = {}
     for name, t, m, k, pkw, resid in (("path_a", 64, 800, 10, {}, True),
                                       ("benchmark", 64, 1024, 1024, {"n_buses": 4}, False)):
@@ -1312,7 +1439,8 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
             reps = 25 if key == "ms" else 5
             row[key] = _event_ms(torch, fn, reps=reps)
             row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn, reps=reps)
-        row["bound_ms"], row["bound_by"], binding, terms = emu_bound(case, 0.202, 0.0, peaks)
+        row["bound_ms"], row["bound_by"], binding, terms = emu_bound(case, 0.202, 0.0, peaks,
+                                                                     draw, sms)
         row["library_ms"] = None
         row["plan"] = em.plan_for(a_t, delta, mask).name
         rows[name] = row
@@ -1320,14 +1448,14 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
                                                      "bound_ms"))
         print(f"[emu_timing] {name:10s} {t:4d}x{m:5d}x{k:5d} {cells}  {binding} "
               f"({terms['bytes'] * 1e3:.5f} / {terms['f32'] * 1e3:.5f} / "
-              f"{terms['int32'] * 1e3:.5f})  {row['plan']}")
+              f"{terms['prng'] * 1e3:.5f})  {row['plan']}")
 
     # path B: every bank product of one qwen1.5-0.5b forward through emu_offchip banks
     print("[emu_timing] path B (emu_offchip: bf16 a_t, f32 δ, σ 0.098, shot 0, 10-bit ADC); "
           "ms: CUDA events (median of 25, cold L2); dev: profiler (median of 25); share and "
           "GB/s from dev")
     print("[emu_timing]      T      M      K  count  kernel_ms kernel_dev   bound_ms  by     "
-          "bytes_ms   int32_ms   share    GB/s  plan")
+          "bytes_ms    prng_ms   share    GB/s  plan")
     cfg = ph.PRESETS["emu_offchip"]
     sigma, shot = ch._per_pass_sigma(cfg), cfg.mrr.shot_noise
     path_b = []
@@ -1344,8 +1472,9 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
 
             row = {"t": t, "m": m, "k": k, "count": count, "ms": _event_ms(torch, fn),
                    "dev_ms": _device_ms(torch, fn)}
-            row["bound_ms"], row["bound_by"], _, terms = emu_bound(case, sigma, shot, peaks)
-            row["bytes_ms"], row["int32_ms"] = terms["bytes"] * 1e3, terms["int32"] * 1e3
+            row["bound_ms"], row["bound_by"], _, terms = emu_bound(case, sigma, shot, peaks,
+                                                                   draw, sms)
+            row["bytes_ms"], row["prng_ms"] = terms["bytes"] * 1e3, terms["prng"] * 1e3
             row["share"] = row["bound_ms"] / row["dev_ms"]
             nbytes = terms["bytes"] * peaks["bw"]
             row["gb_s"] = nbytes / (row["dev_ms"] * 1e-3) / 1e9
@@ -1353,7 +1482,7 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
             path_b.append(row)
             print(f"[emu_timing] {t:6d} {m:6d} {k:6d} {count:6d} {_fmt(row['ms'])} "
                   f"{_fmt(row['dev_ms'])} {_fmt(row['bound_ms'])}  {row['bound_by'][:5]:5s} "
-                  f"{_fmt(row['bytes_ms'])} {_fmt(row['int32_ms'])} {row['share']:7.1%} "
+                  f"{_fmt(row['bytes_ms'])} {_fmt(row['prng_ms'])} {row['share']:7.1%} "
                   f"{row['gb_s']:7.1f}  {row['plan']}")
             del case, a_t, delta, mask
             torch.cuda.empty_cache()
@@ -1371,51 +1500,9 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card):
     return rows
 
 
-def phase_emu_plans(torch, em, ph, ch, mrr, card):
-    """The tuning sweep behind the planner (run with --only emu_plans):
-    device ms of the vector variant over rows per block x T tile at every
-    bank product of path B (emu_offchip, bf16 inputs), decode and
-    prefill, beside the planner's choice."""
-    gen = torch.Generator(device=DEVICE).manual_seed(78)
-    cfg = ph.PRESETS["emu_offchip"]
-    print(f"[emu_plans] device ms per call (profiler, median of 25, cold L2), vector variant; "
-          f"card: {card}")
-    for t in (4, 64):
-        for (m, k) in PATH_SHAPES:
-            a_t, delta, mask, n_panels = _emu_case(torch, ph, ch, mrr, t, m, k, {},
-                                                   {"adc_bits": 10}, True, torch.bfloat16, gen)
-            kw = dict(n_panels=n_panels, gamma=1.0, sigma=ch._per_pass_sigma(cfg), shot=0.0,
-                      adc_bits=10, amax=float(cfg.bank_cols), seed=EMU_SEED)
-            n_slots = a_t.shape[1] * a_t.shape[2]
-            chosen = em.plan_for(a_t, delta, mask)
-            most = em.TUPLES // n_slots
-            if t <= em.DECODE_T:  # every row count at decode, a coarse grid above
-                rbs, bts = range(1, most + 1), [t]
-            else:
-                rbs = sorted({1, 2, 3, 4, 5, 7, 10, 14, 19, 29, 39, chosen.rows_per_block}
-                             & set(range(1, most + 1)))
-                bts = [4, 8, 16, 32]
-            cells = []
-            for bt in bts:
-                for rb in rbs:
-                    plan = em.Plan(chosen.variant, rb, bt)
-                    if em.smem_bytes(plan, a_t.shape[1], a_t.shape[2], a_t.shape[3]) > em.SMEM_MAX:
-                        continue
-                    ms = _device_ms(torch, lambda plan=plan: em.launch_kernel(
-                        a_t, delta, mask, plan=plan, **kw))
-                    cells.append(f"r{rb}/t{bt} {ms:.4f}")
-            print(f"[emu_plans] T={t} M={m} K={k} (planner {chosen.name}): " + ", ".join(cells))
-            del a_t, delta, mask
-            torch.cuda.empty_cache()
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="",
-                    help="comma-separated emu phases to run after the build (emu_kernel, "
-                         "emu_timing, emu_plans: the planner's tuning sweep): a partial run, "
-                         "which prints no result lines")
     args = ap.parse_args(argv)
 
     import torch
@@ -1437,15 +1524,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card = phase_build(torch, pm)
-    if args.only:
-        partial = {"emu_kernel": lambda: phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr),
-                   "emu_timing": lambda: phase_emu_timing(torch, em, ph, ch, mrr, card),
-                   "emu_plans": lambda: phase_emu_plans(torch, em, ph, ch, mrr, card)}
-        for name in args.only.split(","):
-            partial[name]()
-        print(f"[done] partial run ({args.only}) passed in {time.perf_counter() - t_start:.1f}s")
-        return 0
+    card, draw = phase_build(torch, pm)
     max_err = phase_kernel_vs_plain(torch, pm)
     max_err_b = phase_dfa_kernel_vs_plain(torch, pm, dg)
     serve_launches = phase_serve(torch, np, pm, api, args.seed)
@@ -1460,7 +1539,7 @@ def main(argv=None):
     emu_train_launches = phase_emu_train(torch, np, api, em, args.seed)
     phase_drift(torch, api, args.seed)
     emu_serve_launches, max_err_serve = phase_emu_serve(torch, np, api, em, args.seed)
-    emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card)
+    emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card, draw)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     row_b = train_rows["dfa_gradient"]
     records = [
@@ -1492,7 +1571,7 @@ def main(argv=None):
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",
-         "timing": emu_rows},
+         "draw_sass": draw, "timing": emu_rows},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

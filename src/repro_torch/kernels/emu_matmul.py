@@ -177,7 +177,6 @@ def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: f
 VARIANTS = ("vector", "scalar", "generic")
 VECTOR, SCALAR, GENERIC = range(len(VARIANTS))
 BANK_COLS = 20  # C of the vector and scalar variants (the paper's 50×20 bank)
-GENERIC_COLS = 32  # the generic variant's most columns
 THREADS = 256  # the most threads a block runs
 TUPLES = 2048  # (row, slot) tuples a block takes at most: 8 per thread
 DECODE_T = 8  # T at or below: one T tile, so every weight is formed once
@@ -190,8 +189,7 @@ SM_REGISTERS, REGISTERS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 128, 233472, 20
 # the planner's cost of a block, in units of one T row of one tuple (its
 # FMA chain, draw and ADC): loading a tuple's detunings and forming its
 # weights ≈ 4, staging a T row of inputs ≈ 1/2, the block's launch,
-# barriers and sums ≈ 2 (fitted to the card's sweep: chip_smoke.py --only
-# emu_plans)
+# barriers and sums ≈ 2 (fitted to the card's sweep: tools/emu_plan_sweep.py)
 WEIGHT_COST, STAGE_COST, BLOCK_COST = 4.0, 0.5, 2.0
 
 
@@ -245,10 +243,7 @@ def _variant(cols: int, pointers) -> int:
     if cols == BANK_COLS:
         aligned = all(p is None or p % 16 == 0 for p in pointers)
         return VECTOR if aligned else SCALAR
-    if cols <= GENERIC_COLS:
-        return GENERIC
-    raise ValueError(f"the emu kernel takes banks of at most {GENERIC_COLS} columns, got "
-                     f"C={cols}")
+    return GENERIC
 
 
 def _resident(threads: int, smem: int) -> int:
@@ -309,8 +304,6 @@ def _check_plan(plan: Plan, t: int, q: int, nj: int, cols: int, pointers) -> Non
     if plan.variant in (VECTOR, SCALAR) and cols != BANK_COLS:
         raise ValueError(f"the {VARIANTS[plan.variant]} variant takes C={BANK_COLS}, got "
                          f"C={cols}")
-    if plan.variant == GENERIC and cols > GENERIC_COLS:
-        raise ValueError(f"the generic variant takes C <= {GENERIC_COLS}, got C={cols}")
     if plan.variant == VECTOR and any(p is not None and p % 16 for p in pointers):
         raise ValueError("the vector variant needs 16-byte-aligned detunings and mask")
     if not (plan.rows_per_block >= 1 and 1 <= plan.t_tile <= t):

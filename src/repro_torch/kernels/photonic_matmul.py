@@ -80,22 +80,24 @@ def build() -> pathlib.Path:
              "-Xcompiler", "-fPIC"]
     sources = [src for src in _SOURCES if src.suffix == ".cu"]
     objs = [_BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
-    procs = [subprocess.Popen([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for src, obj in zip(sources, objs)]
-    logs = [proc.communicate()[1] for proc in procs]  # every nvcc ends before any raise
-    for src, proc, log in zip(sources, procs, logs):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    link = subprocess.run([_nvcc(), *flags, "-shared", "-o", str(tmp), *map(str, objs)],
-                          capture_output=True, text=True)
-    for obj in objs:
-        obj.unlink()
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
-    ptxas_log(lib).write_text("".join(logs))
-    os.replace(tmp, lib)
+    try:
+        procs = [subprocess.Popen([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[1] for proc in procs]  # every nvcc ends before any raise
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        link = subprocess.run([_nvcc(), *flags, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+        ptxas_log(lib).write_text("".join(logs))
+        os.replace(tmp, lib)
+    finally:  # no object file or partial library stays behind, built or not
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return lib
 
 

@@ -79,7 +79,7 @@ def test_unaligned_operands_take_the_scalar_twin(pointers):
         em._check_plan(plan._replace(variant=em.VECTOR), 4, 1, 52, COLS, pointers)
 
 
-@pytest.mark.parametrize("cols", [1, 3, 19, 21, 32])
+@pytest.mark.parametrize("cols", [1, 3, 19, 21, 32, 33, 40, 64, 106])
 def test_other_bank_widths_take_the_generic_variant(cols):
     plan = em._plan(4, 21, ROWS, 1, 52, cols, ALIGNED)
     assert plan.variant == em.GENERIC
@@ -88,11 +88,28 @@ def test_other_bank_widths_take_the_generic_variant(cols):
 
 
 def test_planner_refuses_what_no_plan_takes():
-    with pytest.raises(ValueError, match="columns"):
-        em._plan(4, 21, ROWS, 1, 52, 33, ALIGNED)
     # one T row of 3000 slots' inputs is 240 KB: more than a block's shared memory
     with pytest.raises(ValueError, match="shared memory"):
         em._plan(1, 1, ROWS, 1, 3000, COLS, ALIGNED)
+    # the same at 64 columns: 1000 slots are 256 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        em._plan(1, 1, ROWS, 1, 1000, 64, ALIGNED)
+
+
+@pytest.mark.parametrize("cols", [40, 64])
+@pytest.mark.parametrize("t", [4, 64])
+def test_wide_banks_plan_within_the_card(cols, t):
+    """Banks wider than one 32-column chunk (PhotonicConfig.bank_cols is a
+    setting) at a 1024×1024 layer: the generic variant, a plan that fits a
+    block and fills the card."""
+    nm, nj = math.ceil(1024 / ROWS), math.ceil(1024 / cols)
+    plan = em._plan(t, nm, ROWS, 1, nj, cols, ALIGNED)
+    assert plan.variant == em.GENERIC
+    assert em.smem_bytes(plan, 1, nj, cols) <= em.SMEM_MAX
+    assert em.grid_blocks(plan, t, nm, ROWS) >= em.CARD_SMS
+    for other in em.candidate_plans(t, nm, ROWS, 1, nj, cols, ALIGNED):
+        assert other.variant == em.GENERIC
+        em._check_plan(other, t, 1, nj, cols, ALIGNED)
 
 
 def test_check_plan_rejects_what_the_kernel_does_not_take():
@@ -103,8 +120,9 @@ def test_check_plan_rejects_what_the_kernel_does_not_take():
             em._check_plan(bad, 4, 1, 52, COLS, ALIGNED)
     with pytest.raises(ValueError, match="shared memory"):
         em._check_plan(em.Plan(em.VECTOR, 1, 64), 64, 1, 141, COLS, ALIGNED)
-    with pytest.raises(ValueError, match="C <= 32"):
-        em._check_plan(em.Plan(em.GENERIC, 1, 1), 4, 1, 52, 40, ALIGNED)
+    with pytest.raises(ValueError, match="C=20"):
+        em._check_plan(em.Plan(em.SCALAR, 1, 1), 4, 1, 52, 40, ALIGNED)
+    em._check_plan(em.Plan(em.GENERIC, 1, 1), 4, 1, 52, 40, ALIGNED)
 
 
 def test_shared_memory_and_threads_of_a_plan():
@@ -147,3 +165,58 @@ def test_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="device"):
         em.launch_kernel(a_t, delta, None, n_panels=1, gamma=1.0, sigma=0.0, shot=0.0,
                          adc_bits=None, amax=20.0)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_draw_sass_is_read_by_function_and_opcode():
+    """chip_smoke.py's PRNG bound reads one draw's instructions from the
+    SASS of two probe kernels: the opcodes of each function, modifiers and
+    predicates dropped."""
+    cs = _chip_smoke()
+    sass = """
+        Function : probe_one_draw
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   IADD3 R2, R0, c[0x0][0x160], RZ ;
+        /*0020*/               @!P0 BRA `(.L_x_1) ;
+        Function : probe_two_draws
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   IADD3 R2, R0, c[0x0][0x160], RZ ;
+        /*0020*/                   SHF.L.W.U32.HI R4, R2, 0xd, R2 ;
+        /*0030*/                   LOP3.LUT R4, R4, R2, RZ, 0x3c, !PT ;
+        /*0040*/                   IDP.2A.LO.U16.U8 R5, R4, 0x101, RZ ;
+        /*0050*/               @P1 UIADD3 UR4, UR4, 0x1, URZ ;
+        /*0060*/               @!P0 BRA `(.L_x_1) ;
+"""
+    assert cs._sass_opcodes(sass, "probe_one_draw") == {"MOV": 1, "IADD3": 1, "BRA": 1}
+    assert cs._sass_opcodes(sass, "probe_two_draws") == {
+        "MOV": 1, "IADD3": 1, "SHF": 1, "LOP3": 1, "IDP": 1, "UIADD3": 1, "BRA": 1}
+
+
+@pytest.mark.parametrize("opcodes,clocks,by", [
+    # threefry's rotates and xors only on the ALU pipe (64 a clock); its
+    # adds go to whichever integer pipe is free
+    ({"IADD3": 22, "SHF": 20, "LOP3": 20, "IDP": 2, "I2FP": 1, "FADD": 2, "FMUL": 1},
+     41 / 64, "alu"),
+    # one move fewer in the two-draw kernel nets out; NOPs are padding
+    ({"IADD3": 20, "SHF": 30, "LOP3": 30, "MOV": -1, "NOP": 6}, 60 / 64, "alu"),
+    # adds spread over both integer pipes: the issue rate binds (128 a clock)
+    ({"IADD3": 60, "IMAD": 40, "LOP3": 20, "UIADD3": 4}, 124 / 128, "issue"),
+    # dot products only on the FMA-heavy half (64 a clock)
+    ({"IDP": 70, "FFMA": 10}, 70 / 64, "fma_heavy"),
+    # a conversion unit at 16 a clock
+    ({"I2F": 20, "IADD3": 20}, 20 / 16, "xu"),
+])
+def test_draw_cost_takes_the_busiest_pipe(opcodes, clocks, by):
+    cost = _chip_smoke().draw_cost(opcodes)
+    assert cost["by"] == by
+    assert cost["clocks"] == pytest.approx(clocks)

@@ -36,6 +36,8 @@ CUTS = {
     "no_stage": [("x[b] = __ldg(src4 + v);", "x[b] = make_uint4(0u, 0u, 0u, 0u);"),
                  ("x[b] = e < n_real ? to_f32(src[e]) : 0.0f;", "x[b] = 0.0f;")],
     "no_delta": [("load_row<CT, kVec>(tu.delta, cols, d);",
+                  "for (int c = 0; c < CM; ++c) d[c] = 0.25f * c;"),
+                 ("load_row<CT, kVec>(tu.delta + c_next, cols - c_next, d);",
                   "for (int c = 0; c < CM; ++c) d[c] = 0.25f * c;")],
     "no_weights": [("w[c] = div_by(num, den, div_reciprocal(den));", "w[c] = num;")],
     "no_prng": [("  threefry2x32(k0, k1, x0, x1);\n", "  x0 ^= k0;\n  x1 ^= k1;\n")],
