@@ -5,14 +5,14 @@
 
 Run from the repository root of a checkout; it needs one CUDA card and
 builds the port's CUDA kernels (``photonic_matmul``, ``dfa_gradient`` and
-``emu_bank_product``, one ``nvcc``, one library) from the sources in the
-checkout.  Phases:
+``emu_bank_product``, one ``nvcc`` per source, one library) from the
+sources in the checkout.  Phases:
 
 1. card and build: the card's name and power limit, the library's build
    time, and ``nvcc -Xptxas -v``'s registers, shared memory and spills per
-   kernel; the SASS instructions of one threefry draw of the emu kernel
-   (``cuobjdump -sass`` of a probe built beside the library), which set
-   the emu kernel's PRNG bound;
+   kernel; the SASS instructions of one threefry draw of the emu kernel and
+   of the bank kernel's prng mode (``cuobjdump -sass`` of probes built
+   beside the library), which set the two kernels' PRNG bounds;
 2. kernel vs plain version at every shape the serving path gives it
    (T = 4 and 64 rows), the ragged 200×300×257, the paper's 64×10×800,
    both sides of the planner's seam between the skinny and the tiled
@@ -130,14 +130,21 @@ def card_peaks(name):
     return "H100 (assumed)", CARDS["H100"]
 
 
-def bound_ms(t, m, k, dtype_name, peaks, masked=False):
-    """Least time for C = A·Bᵀ (⊙ mask): each input read once (the f32
-    mask too), the f32 output written once, 2·T·M·K operations at the peak
-    rate of the input type.  Returns (ms, what binds, bytes moved)."""
+def bound_ms(t, m, k, dtype_name, peaks, masked=False, noise="none", draw=None, sms=None):
+    """Least time for C = A·Bᵀ (+ noise) (⊙ mask): each input read once (the
+    f32 mask and an "input" noise operand too), the f32 output written once,
+    2·T·M·K operations at the peak rate of the input type, and in "prng"
+    mode the T·M·⌈K/32⌉ threefry draws at ``draw``'s SM clocks each (the
+    bank probe's SASS) on ``sms`` SMs at the boost clock.  Returns (ms,
+    what binds, bytes moved)."""
     itemsize = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (t * k + m * k) * itemsize + t * m * 4 * (2 if masked else 1)
+    nbytes = ((t * k + m * k) * itemsize
+              + t * m * 4 * (1 + (noise == "input") + masked))
     ops = 2 * t * m * k
     by_bytes, by_ops = nbytes / peaks["bw"], ops / peaks[dtype_name]
+    if noise == "prng":
+        draws = t * m * math.ceil(k / 32)
+        by_ops = max(by_ops, draws * draw["clocks"] / (sms * SM_CLOCK))
     return (max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations",
             nbytes)
 
@@ -150,7 +157,7 @@ def phase_build(torch, pm):
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     t0 = time.perf_counter()
-    probe = _start_draw_probe(pm)
+    probes = {name: _start_draw_probe(pm, name, src) for name, src in DRAW_PROBES.items()}
     lib = pm.build()
     pm._library()
     print(f"[build] {lib.name} ready in {time.perf_counter() - t0:.1f}s "
@@ -163,23 +170,29 @@ def phase_build(torch, pm):
     for name, info in kernels.items():
         print(f"[build]   {info['regs']:3d} registers, {info['smem']:6d} B smem, spill "
               f"{info['spill_st']}/{info['spill_ld']} B st/ld, {info['stack']:3d} B stack  {name}")
-    draw = _finish_draw_probe(pm, probe)
-    ops = ", ".join(f"{op} {n}" for op, n in sorted(draw["opcodes"].items()))
-    print(f"[build] one emu threefry draw (ih4_gaussian), SASS: {draw['total']} instructions "
-          f"({ops}); ALU only {draw['alu']}, integer adds and moves {draw['add']}, "
-          f"FMA-heavy only {draw['fma_heavy']}, f32 {draw['fp32']}, conversions {draw['xu']}, "
-          f"uniform and control {draw['other']}: {draw['clocks']:.4f} SM clocks a draw, bound "
-          f"by {draw['by']}")
-    return card, draw
+    draws = {name: _finish_draw_probe(pm, probe) for name, probe in probes.items()}
+    for name, what in (("emu", "one emu threefry draw (ih4_gaussian)"),
+                       ("bank", "one bank-kernel prng draw without its Box-Muller transform "
+                                "(threefry2x32 and the two 24-bit conversions)"),
+                       ("bank_full", "one whole bank-kernel draw (counter_gaussian, not a "
+                                     "bound: its log1pf and cosf carry slow paths)")):
+        draw = draws[name]
+        ops = ", ".join(f"{op} {n}" for op, n in sorted(draw["opcodes"].items()))
+        print(f"[build] {what}, SASS: {draw['total']} instructions ({ops}); ALU only "
+              f"{draw['alu']}, integer adds and moves {draw['add']}, FMA-heavy only "
+              f"{draw['fma_heavy']}, f32 {draw['fp32']}, conversions {draw['xu']}, uniform and "
+              f"control {draw['other']}: {draw['clocks']:.4f} SM clocks a draw, bound by "
+              f"{draw['by']}")
+    return card, draws
 
 
-def _start_draw_probe(pm):
-    """Start compiling DRAW_PROBE (nvcc -cubin, the library's flags) beside
-    the library -> (process, cubin path)."""
+def _start_draw_probe(pm, name, source):
+    """Start compiling one draw probe (nvcc -cubin, the library's flags)
+    beside the library -> (process, source path, cubin path)."""
     out = pm._BUILD_DIR
     out.mkdir(parents=True, exist_ok=True)
-    src = out / f"draw_probe-{os.getpid()}.cu"
-    src.write_text(DRAW_PROBE)
+    src = out / f"draw_probe_{name}-{os.getpid()}.cu"
+    src.write_text(source)
     cubin = src.with_suffix(".cubin")
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     proc = subprocess.Popen([pm._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
@@ -590,7 +603,8 @@ def _profile_steps(torch, session, state, batches):
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in _device_kernels(torch, prof):
-        name = e.name if "photonic_matmul" in e.name else e.name[:70]
+        name = next((kernel for kernel, parts in KERNEL_PARTS.items()
+                     if any(part in e.name for part in parts)), e.name[:70])
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     return wall, by_name
 
@@ -764,19 +778,20 @@ def _event_ms(torch, fn, reps=25):
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, reps=25, attempts=8, spare=8):
+def _device_ms(torch, fn, reps=25, attempts=8, spare=16):
     """Device time of one call of ``fn``: the median over ``reps`` calls of
     the summed durations of the device kernels it ran, read from the
     profiler (CUPTI), so the host's launch overhead is not counted.  Before
     each call a 64 MiB bitwise_not evicts the operands from the 50 MB L2,
     as a decode step finds its weights, and marks where the call starts.
-    The profiler runs ``spare`` calls more than it counts: it can miss the
-    first calls of a window (seen on the card: 24 of 25, and 23 of 26 in
-    every window of the emu kernel), and the median of the last ``reps``
-    calls is then still a median of whole calls.  It has also lost most of
-    a window on a loaded machine (7 of 26 calls; 4, 0 and 16 of 33 in three
-    windows in a row): such a window is profiled again after a pause, up to
-    ``attempts`` times, and then the phase fails."""
+    The profiler runs ``spare`` calls more than it counts, after a pause
+    inside the window: it can miss the first calls of a window (seen on the
+    card: 24 of 25, and 23 of 26 in every window of the emu kernel; 24 of
+    33 in eight windows in a row, twice), and the median of the last
+    ``reps`` calls is then still a median of whole calls.  It has also lost
+    most of a window on a loaded machine (7 of 26 calls; 4, 0 and 16 of 33
+    in three windows in a row): such a window is profiled again after a
+    pause, up to ``attempts`` times, and then the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
@@ -785,6 +800,7 @@ def _device_ms(torch, fn, reps=25, attempts=8, spare=8):
     sync(torch)
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
             for _ in range(reps + spare):
                 flush.bitwise_not_()
                 fn()
@@ -869,14 +885,21 @@ def _fmt(x):
     return f"{x:10.4f}" if x is not None else "       n/a"
 
 
-def _time_row(torch, fns, bound):
-    """Event and device ms of each function, achieved GB/s and share of the
-    bound from the kernel's device time, host overhead per launch (events
-    minus device) of the kernel and the library call."""
+def _time_fns(torch, fns, reps):
+    """Event and device ms of each function, ``reps[key]`` calls each."""
     row = {}
     for key, fn in fns.items():
-        row[key] = _event_ms(torch, fn)
-        row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn)
+        row[key] = _event_ms(torch, fn, reps=reps[key])
+        row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn, reps=reps[key])
+    return row
+
+
+def _time_row(torch, fns, bound, reps=None):
+    """Event and device ms of each function (25 calls each unless ``reps``
+    says otherwise), achieved GB/s and share of the bound from the kernel's
+    device time, host overhead per launch (events minus device) of the
+    kernel and the library call."""
+    row = _time_fns(torch, fns, reps or dict.fromkeys(fns, 25))
     row["bound_ms"], row["bound_by"], nbytes = bound
     row["gb_s"] = nbytes / (row["dev_ms"] * 1e-3) / 1e9
     row["bound_share"] = row["bound_ms"] / row["dev_ms"]
@@ -1042,20 +1065,37 @@ ISSUE_ONLY_OPS = {"BRA", "EXIT", "RET", "CALL", "BAR", "BSSY", "BSYNC", "WARPSYN
                   "S2UR", "CS2R", "LDC", "LDG", "STG", "LDS", "STS", "DEPBAR", "YIELD"}
 PIPE_RATES = {"alu": 64, "fma_heavy": 64, "xu": 16, "issue": 128}
 SM_CLOCK = 1.98e9  # H100 SXM boost clock (data sheet: 1980 MHz)
-# two straight-line probe kernels that differ by one ih4_gaussian draw: the
-# difference of their SASS is the instructions of one draw as the emu
-# kernel compiles it (the key schedule is shared, in uniform registers)
-DRAW_PROBE = r'''
-#include "emu_matmul.cu"
+# pairs of straight-line probe kernels that differ by one draw: the
+# difference of their SASS is the instructions of one draw as the kernel's
+# source compiles it (the key schedule is shared, in uniform registers).
+# "emu": the emu kernel's ih4_gaussian.  "bank": the bank kernel's prng draw
+# up to its Box-Muller transform (threefry2x32 and the two 24-bit
+# conversions), the part a lower bound may charge: log1pf and cosf compile
+# with branches to slow paths that a draw never takes, so counting their
+# instructions would overstate the least time.  "bank_full": the whole
+# counter_gaussian, printed beside it.
+_PROBE_PAIR = r'''
 extern "C" __global__ void probe_one_draw(unsigned k0, unsigned k1, float* out) {
   const unsigned c0 = blockIdx.x, c1 = threadIdx.x;
-  out[c0 * blockDim.x + c1] = ih4_gaussian(k0, k1, c0, c1);
+  out[c0 * blockDim.x + c1] = DRAW(k0, k1, c0, c1);
 }
 extern "C" __global__ void probe_two_draws(unsigned k0, unsigned k1, float* out) {
   const unsigned c0 = blockIdx.x, c1 = threadIdx.x;
-  out[c0 * blockDim.x + c1] = ih4_gaussian(k0, k1, c0, c1) + ih4_gaussian(k0, k1, c1, c0);
+  out[c0 * blockDim.x + c1] = DRAW(k0, k1, c0, c1) + DRAW(k0, k1, c1, c0);
 }
 '''
+DRAW_PROBES = {
+    "emu": '#include "emu_matmul.cu"\n#define DRAW ih4_gaussian\n' + _PROBE_PAIR,
+    "bank": r'''#include "photonic_matmul.cu"
+__device__ __forceinline__ float bank_bits(unsigned seed, unsigned kt, unsigned r, unsigned c) {
+  uint32_t x0 = r, x1 = c;
+  threefry2x32(seed, kt, x0, x1);
+  return static_cast<float>(x0 >> 8) + static_cast<float>(x1 >> 8);
+}
+#define DRAW bank_bits
+''' + _PROBE_PAIR,
+    "bank_full": '#include "photonic_matmul.cu"\n#define DRAW counter_gaussian\n' + _PROBE_PAIR,
+}
 
 
 def _emu_case(torch, ph, ch, mrr, t, m, k, pkw, mkw, resid, dtype, gen):
@@ -1434,11 +1474,8 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
                   seed=EMU_SEED)
         fns = {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw),
                "plain_ms": lambda: em.emu_bank_product_plain(a_t, delta, mask, **kw)}
-        row = {"shape": [t, m, k], "n_buses": pkw.get("n_buses", 1)}
-        for key, fn in fns.items():
-            reps = 25 if key == "ms" else 5
-            row[key] = _event_ms(torch, fn, reps=reps)
-            row[key.replace("ms", "dev_ms")] = _device_ms(torch, fn, reps=reps)
+        row = {"shape": [t, m, k], "n_buses": pkw.get("n_buses", 1),
+               **_time_fns(torch, fns, {"ms": 25, "plain_ms": 5})}
         row["bound_ms"], row["bound_by"], binding, terms = emu_bound(case, 0.202, 0.0, peaks,
                                                                      draw, sms)
         row["library_ms"] = None
@@ -1452,10 +1489,10 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
 
     # path B: every bank product of one qwen1.5-0.5b forward through emu_offchip banks
     print("[emu_timing] path B (emu_offchip: bf16 a_t, f32 δ, σ 0.098, shot 0, 10-bit ADC); "
-          "ms: CUDA events (median of 25, cold L2); dev: profiler (median of 25); share and "
-          "GB/s from dev")
-    print("[emu_timing]      T      M      K  count  kernel_ms kernel_dev   bound_ms  by     "
-          "bytes_ms    prng_ms   share    GB/s  plan")
+          "ms: CUDA events (median of 25, cold L2; the plain version's of 3, its device time "
+          "not measured); dev: profiler (median of 25); share and GB/s from dev")
+    print("[emu_timing]      T      M      K  count  kernel_ms kernel_dev   plain_ms   bound_ms  "
+          "by     bytes_ms    prng_ms   share    GB/s  plan")
     cfg = ph.PRESETS["emu_offchip"]
     sigma, shot = ch._per_pass_sigma(cfg), cfg.mrr.shot_noise
     path_b = []
@@ -1467,11 +1504,13 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
             kw = dict(n_panels=n_panels, gamma=1.0, sigma=sigma, shot=shot, adc_bits=10,
                       amax=float(cfg.bank_cols), seed=EMU_SEED)
 
-            def fn():
-                return em.emu_bank_product_cuda(a_t, delta, mask, **kw)
-
-            row = {"t": t, "m": m, "k": k, "count": count, "ms": _event_ms(torch, fn),
-                   "dev_ms": _device_ms(torch, fn)}
+            # the plain version on CUDA events only: its ~10^4 small launches a
+            # call, profiled, overflow the profiler, which then drops the
+            # first calls of every later window (seen on the card)
+            row = {"t": t, "m": m, "k": k, "count": count, **_time_fns(torch, {
+                "ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw)}, {"ms": 25}),
+                "plain_ms": _event_ms(torch, lambda: em.emu_bank_product_plain(
+                    a_t, delta, mask, **kw), reps=3)}
             row["bound_ms"], row["bound_by"], _, terms = emu_bound(case, sigma, shot, peaks,
                                                                    draw, sms)
             row["bytes_ms"], row["prng_ms"] = terms["bytes"] * 1e3, terms["prng"] * 1e3
@@ -1481,7 +1520,8 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
             row["plan"] = em.plan_for(a_t, delta, mask).name
             path_b.append(row)
             print(f"[emu_timing] {t:6d} {m:6d} {k:6d} {count:6d} {_fmt(row['ms'])} "
-                  f"{_fmt(row['dev_ms'])} {_fmt(row['bound_ms'])}  {row['bound_by'][:5]:5s} "
+                  f"{_fmt(row['dev_ms'])} {_fmt(row['plain_ms'])} "
+                  f"{_fmt(row['bound_ms'])}  {row['bound_by'][:5]:5s} "
                   f"{_fmt(row['bytes_ms'])} {_fmt(row['prng_ms'])} {row['share']:7.1%} "
                   f"{row['gb_s']:7.1f}  {row['plan']}")
             del case, a_t, delta, mask
@@ -1489,15 +1529,347 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
     rows["path_b"] = path_b
     for t, label in ((4, "decode"), (64, "prefill")):
         step = [r for r in path_b if r["t"] == t]
-        total = {key: sum(r[key] * r["count"] for r in step) for key in ("ms", "dev_ms",
-                                                                           "bound_ms")}
+        total = {key: sum(r[key] * r["count"] for r in step)
+                 for key in ("ms", "dev_ms", "plain_ms", "bound_ms")}
         total["launches"] = sum(r["count"] for r in step)
         total["share"] = total["bound_ms"] / total["dev_ms"]
         rows[f"path_b_{label}_forward"] = total
         print(f"[emu_timing] path B {label} forward at T={t} ({total['launches']} launches): "
-              f"kernel {total['ms']:.4f} ms events, {total['dev_ms']:.4f} ms device, bound "
+              f"kernel {total['ms']:.4f} ms events, {total['dev_ms']:.4f} ms device, plain "
+              f"{total['plain_ms']:.4f} ms events, bound "
               f"{total['bound_ms']:.4f} ms, share {total['share']:.1%}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# DFA training of the language model: qwen1.5-0.5b at full width
+# ---------------------------------------------------------------------------
+
+LM_BATCH, LM_SEQ = 64, 64  # 4096 rows through every DFA projection
+LM_STEPS, LM_EMU_STEPS = 16, 4
+LM_LAUNCHES = 25  # bank products per dfa step: 24 blocks + the embedding
+
+
+def _lm_session(api, torch, seed, **kw):
+    """qwen1.5-0.5b at full width in f32 (24 layers, d 1024, d_ff 2816,
+    vocab 151936, random weights from ``seed``) on the card."""
+    kw = {"algo": "dfa", "hardware": "offchip_bpd", "backend": "cuda", "log_every": 10**9,
+          **kw}
+    return api.build_session(arch=ARCH, smoke=False, dtype=torch.float32, seed=seed,
+                             device=DEVICE, **kw)
+
+
+def _wrap(module, name, store, limit=None):
+    """Record (args, kwargs, result) of the first ``limit`` calls of
+    ``module.name`` in ``store``; returns the function that restores it."""
+    fn = getattr(module, name)
+
+    def recording(*args, **kw):
+        out = fn(*args, **kw)
+        if limit is None or len(store) < limit:
+            store.append((args, kw, out))
+        return out
+
+    setattr(module, name, recording)
+    return lambda: setattr(module, name, fn)
+
+
+def _lm_step_flops(cfg, rows):
+    """Matrix-product FLOPs of one dfa step (attention scores and the
+    elementwise work left out): the digital forward, each block's
+    recompute and its backward (weights and inputs), the head forward and
+    its two backward products, and the 25 projections."""
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    layer = (2 * cfg.d_model * cfg.n_heads * hd + 2 * cfg.d_model * cfg.n_kv_heads * hd
+             + 3 * cfg.d_model * cfg.d_ff)
+    blocks = 2 * rows * layer * cfg.n_layers
+    head = 2 * rows * cfg.d_model * cfg.v_padded
+    return 4 * blocks + 3 * head + LM_LAUNCHES * 2 * rows * cfg.d_model * cfg.d_model
+
+
+def _max_rel(got, expect):
+    return (got - expect).abs().max().item() / max(expect.abs().max().item(), 1e-30)
+
+
+def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
+    """DFA training of qwen1.5-0.5b at full width: 16 fit steps on
+    offchip_bpd (finite loss at every step, a fixed batch's loss falls, 25
+    bank-kernel launches a step, peak memory); block 0's and the
+    embedding's δ against the plain version on the step's own operands
+    (and in prng mode against the plain twin); ideal cuda vs ref
+    gradients; one bp, dfa-fused and dfa-layerwise step; step time and a
+    profile; the bank kernel at (4096, 1024, 1024) beside its plain
+    version, torch.matmul and its bound; 4 steps on emu_offchip with the
+    emu kernel held bit for bit on a step's own operands and timed; crash
+    and resume of the smoke LM on the card."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import algos
+    from repro_torch.core import photonics as ph
+    from repro_torch.data import tokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.utils import prng
+
+    kind, peaks = card_peaks(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log = pm._BUILD_DIR / f"lm_train-{os.getpid()}.csv"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    session = _lm_session(api, torch, seed, log_every=1, log_path=str(log))
+    model, cfg = session.model, session.model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (24, 1024, 2816, 151936)
+          and model.head["out"].weight.dtype == torch.float32, "not the full f32 model")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = tokens.MarkovTokens(cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    fixed = to_device_batch(gen.batch(10**6))
+    with torch.no_grad():
+        ce0 = model.loss(session.init_state()["params"], fixed)[1]["ce_loss"].item()
+
+    # 16 fit steps
+    sync(torch)
+    pm.launches = 0
+    t0 = time.perf_counter()
+    state, _ = session.fit(gen.batch, total_steps=LM_STEPS, verbose=False)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = pm.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    lines = log.read_text().splitlines()
+    log.unlink()
+    col = lines[0].split(",").index("loss")
+    losses = [float(line.split(",")[col]) for line in lines[1:]]
+    with torch.no_grad():
+        ce1 = model.loss(state["params"], fixed)[1]["ce_loss"].item()
+    print(f"[lm_train] qwen1.5-0.5b full width f32 ({n_params / 1e6:.1f} M parameters), "
+          f"offchip_bpd, cuda backend, batch {LM_BATCH} x seq {LM_SEQ}: {LM_STEPS} fit steps in "
+          f"{wall:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; fixed batch "
+          f"ce_loss {ce0:.4f} -> {ce1:.4f}; photonic_matmul launches {launches} = "
+          f"{launches / LM_STEPS:g} per step; peak device memory {peak_gib:.2f} GiB")
+    check(len(losses) == LM_STEPS and all(math.isfinite(x) for x in losses),
+          f"non-finite or missing step losses: {losses}")
+    check(ce1 < ce0, f"the fixed batch's loss did not fall: {ce0} -> {ce1}")
+    check(launches == LM_LAUNCHES * LM_STEPS,
+          f"{launches} bank-kernel launches, expected {LM_LAUNCHES} per step")
+
+    # one step's own operands: block 0 and the embedding against the plain version
+    rng = prng.step_key(seed, state["step"], "noise")
+    batch = to_device_batch(gen.batch(state["step"]))
+    params, fb, dcfg = state["params"], state["fb"], session.config.dfa
+    calls = []
+    restore = _wrap(kops, "photonic_matmul_cuda", calls)
+    try:
+        (loss, _), grads = session.value_and_grad()(params, fb, batch, rng)
+    finally:
+        restore()
+    check(len(calls) == LM_LAUNCHES, f"{len(calls)} projections in one step")
+    errs = {}
+    for label, idx in (("block 0", 0), ("embedding", LM_LAUNCHES - 1)):
+        (a, b), kw, out = calls[idx]
+        check(tuple(a.shape) == (LM_BATCH * LM_SEQ, cfg.d_model) and "noise" in kw,
+              f"{label}: operands {tuple(a.shape)}, {sorted(kw)}")
+        expect = pm.photonic_matmul_plain(a, b, **kw)
+        errs[label] = err = (out - expect).abs().max().item()
+        scale = expect.abs().max().item()
+        check(err <= TOL["float32"] * scale + 1e-6,
+              f"{label}: δ kernel vs plain {err} of max {scale}")
+    (a, b), kw, _ = calls[0]
+    nk = math.ceil(a.shape[1] / pm.BLOCK_K)
+    step_sigma = ph.noise_sigma_total(a.shape[1], 1.0, 1.0, dcfg.photonics) / math.sqrt(nk)
+    key0 = prng.fold(prng.fold(rng, "blocks"), 0)
+    got = pm.photonic_matmul_cuda(a, b, seed=key0, sigma_step=step_sigma)
+    twin = pm.photonic_matmul_plain(a, b, seed=key0, sigma_step=step_sigma)
+    prng_err = (got - twin).abs().max().item()
+    check(prng_err <= TOL["float32"] * twin.abs().max().item() + 1e-6,
+          f"prng mode kernel vs plain twin at the LM shape: {prng_err}")
+    print(f"[lm_train] one step's own operands (T={a.shape[0]}, K={a.shape[1]}, M={b.shape[0]}, "
+          f"f32, the path's input-mode noise from the step's keys): max |kernel - plain| "
+          f"block 0 {errs['block 0']:.3e}, embedding {errs['embedding']:.3e} (tol "
+          f"{TOL['float32']} of max|δ|); prng mode vs plain twin {prng_err:.3e}")
+
+    # ideal: the cuda backend against the ref backend, every gradient
+    vg = {b_: algos.get("dfa").value_and_grad(model, dataclasses.replace(
+        dcfg, photonics=ph.PRESETS["ideal"], backend=b_)) for b_ in ("cuda", "ref")}
+    (_, _), g_cuda = vg["cuda"](params, fb, batch, rng)
+    (_, _), g_ref = vg["ref"](params, fb, batch, rng)
+    worst = max((_max_rel(g_cuda[k], g_ref[k]), k) for k in g_ref)
+    del g_cuda, g_ref
+    print(f"[lm_train] ideal, cuda vs ref backend: every gradient within {worst[0]:.3e} of its "
+          f"max |value| (worst {worst[1]}; limit 1e-4, the f32 bank tolerance through a block's "
+          f"backward)")
+    check(worst[0] <= 1e-4, f"ideal cuda vs ref gradients differ: {worst}")
+
+    # one bp, dfa-fused and dfa-layerwise step at full width
+    fused = algos.get("dfa-fused").fused_step(model, dcfg, session.config.optimizer)
+    p_f, opt_f, loss_f = fused(params, fb, state["opt"], batch, rng)
+    p_u, opt_u, _ = session.config.optimizer.update(grads, state["opt"], params)
+    worst_p = max(_max_rel(p_f[k], p_u[k]) for k in p_u)
+    worst_m = max((opt_f["mom"][k] - opt_u["mom"][k]).abs().max().item() for k in p_u)
+    del p_f, opt_f, p_u, opt_u, grads, fused, vg
+    others = {}
+    for algo in ("bp", "dfa-layerwise"):
+        sync(torch)
+        t0 = time.perf_counter()
+        (l_a, _), g_a = algos.get(algo).value_and_grad(model, dcfg)(params, fb, batch, rng)
+        sync(torch)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_a.values())
+        others[algo] = (float(l_a), time.perf_counter() - t0, finite)
+        del g_a
+    print(f"[lm_train] dfa-fused vs dfa + SGDM.update: max |Δparam| / max|param| = "
+          f"{worst_p:.3e}, max |Δmomentum| = {worst_m:.3e}, loss {float(loss_f):.6f} vs "
+          f"{float(loss):.6f}; " + "; ".join(
+              f"{algo}: loss {l_a:.4f}, gradients in {dt:.2f}s, finite {fin}"
+              for algo, (l_a, dt, fin) in others.items()))
+    check(worst_p <= 1e-6 and worst_m <= 1e-6 and float(loss_f) == float(loss),
+          "dfa-fused differs from dfa followed by SGDM.update")
+    check(all(math.isfinite(l_a) and fin for l_a, _, fin in others.values()),
+          f"bp / dfa-layerwise step not finite: {others}")
+    torch.cuda.empty_cache()
+
+    # step time (CUDA events) and three steps under the profiler
+    batches = [to_device_batch(gen.batch(i)) for i in range(LM_STEPS, LM_STEPS + 8)]
+    times = []
+    for b_ in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _ = session.step(state, b_)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    step_ms = statistics.median(times[2:])
+    wall_p, by_name = _profile_steps(torch, session, state, batches[:3])
+    flops = _lm_step_flops(cfg, LM_BATCH * LM_SEQ)
+    print(f"[lm_train] dfa step: {step_ms:.2f} ms median of {len(times) - 2} steps (CUDA events, "
+          f"synchronised steps; all: {', '.join(f'{x:.1f}' for x in times)}); matrix products "
+          f"{flops / 1e12:.2f} TFLOP a step, {flops / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s; f32 "
+          f"bound {flops / peaks['float32'] * 1e3:.1f} ms at {peaks['float32'] / 1e12:.0f} "
+          f"TFLOP/s; card: {card}")
+    prof = {"step_ms": step_ms, "step_ms_all": times, "tflop_per_step": flops / 1e12}
+    if by_name:
+        busy = sum(by_name.values()) / 3
+        bank = by_name.get("photonic_matmul", 0.0) / 3
+        prof.update(wall_ms=wall_p / 3, busy_ms=busy, idle_share=1 - busy * 3 / wall_p,
+                    bank_ms=bank)
+        print(f"[lm_train] profile of 3 steps: wall {wall_p / 3:.2f} ms/step, device busy "
+              f"{busy:.2f} ms/step, idle share {1 - busy * 3 / wall_p:.3f}; the bank kernel "
+              f"{bank:.3f} ms/step ({bank / busy:.1%} of busy)")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"[lm_train]   {ms / 3:9.3f} ms/step  {ms / wall_p:6.1%} of wall  {name}")
+    else:
+        print("[lm_train] device busy time not measured (the profiler traced no device kernels)")
+
+    # the bank kernel at the LM shape: the path's input mode and prng mode
+    (a, b), kw, _ = calls[0]
+    t, k, m = a.shape[0], a.shape[1], b.shape[0]
+    noise = kw["noise"]
+    print(f"[lm_timing] bank kernel at (T, K, M) = ({t}, {k}, {m}) f32, {kind} peaks: "
+          f"{peaks['bw'] / 1e12:.2f} TB/s, {peaks['float32'] / 1e12:.0f} TFLOP/s f32, prng draws "
+          f"at {draws['bank']['clocks']:.4f} SM clocks each on {sms} SMs; card: {card}")
+    print(f"[lm_timing]       mode {TIMING_HEAD}")
+    bank_rows = {}
+    for mode, kw_ in (("input", {"noise": noise}),
+                      ("prng", {"seed": key0, "sigma_step": step_sigma})):
+        fns = {"ms": lambda kw_=kw_: pm.photonic_matmul_cuda(a, b, **kw_),
+               "plain_ms": lambda kw_=kw_: pm.photonic_matmul_plain(a, b, **kw_),
+               "library_ms": lambda: torch.matmul(a, b.T)}
+        bound = bound_ms(t, m, k, "float32", peaks, noise=mode, draw=draws["bank"], sms=sms)
+        row = _time_row(torch, fns, bound, reps={"ms": 25, "library_ms": 25,
+                                                 "plain_ms": 25 if mode == "input" else 3})
+        row.update(variant=pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr())).name,
+                   launches_per_step=LM_LAUNCHES if mode == "input" else 0)
+        bank_rows[mode] = row
+        _print_row("lm_timing", f"{mode:>10s}", row)
+    per_step = bank_rows["input"]["dev_ms"] * LM_LAUNCHES
+    print(f"[lm_timing] the path's 25 launches a step: {per_step:.3f} ms device "
+          f"({per_step / step_ms:.1%} of the step's {step_ms:.1f} ms)")
+    del calls, session, model, state, params, fb, batch, batches, a, b, noise, kw
+    torch.cuda.empty_cache()
+
+    # emu_offchip: 4 steps through the emulated banks
+    emu = _lm_session(api, torch, seed, hardware="emu_offchip", backend="emu")
+    ecalls = []
+    restore = _wrap(em, "emu_bank_product_cuda", ecalls, limit=1)
+    try:
+        sync(torch)
+        em.launches = 0
+        t0 = time.perf_counter()
+        e_state, e_metrics = emu.fit(gen.batch, total_steps=LM_EMU_STEPS, verbose=False)
+        sync(torch)
+        e_wall = time.perf_counter() - t0
+        e_launches = em.launches
+    finally:
+        restore()
+    e_host = emu.trainer.to_host(e_metrics)
+    print(f"[lm_emu] emu_offchip (drift on, recalibration every "
+          f"{emu.config.recalibrate_every}): {LM_EMU_STEPS} dfa steps in {e_wall:.2f}s, loss "
+          f"{e_host['loss']:.4f}, hw_residual_rms {e_host.get('hw_residual_rms', float('nan')):.5f}; "
+          f"emu_bank_product launches {e_launches} = {e_launches / LM_EMU_STEPS:g} per step")
+    check(e_launches == LM_LAUNCHES * LM_EMU_STEPS,
+          f"{e_launches} emu launches, expected {LM_LAUNCHES} per step")
+    check(math.isfinite(e_host["loss"]), "emu: non-finite loss")
+    (a_t, delta, mask), ekw, e_out = ecalls[0]
+    ecalls.clear()
+    plan = em.plan_for(a_t, delta, mask)
+    t0 = time.perf_counter()
+    e_expect = em.emu_bank_product_plain(a_t, delta, mask, **ekw)
+    sync(torch)
+    e_plain_s = time.perf_counter() - t0
+    worst = _emu_exact(torch, em, e_out, e_expect, ekw,
+                       f"the LM step's block 0 a_t {tuple(a_t.shape)} {plan.name}")
+    print(f"[lm_emu] block 0 of the first step: a_t {tuple(a_t.shape)} {a_t.dtype}, δ "
+          f"{tuple(delta.shape)}, {ekw['n_panels']} slots, σ {ekw['sigma']:.4f}, shot "
+          f"{ekw['shot']}, ADC {ekw['adc_bits']} bits; plan {plan.name}; kernel equals the plain "
+          f"version bit for bit (max |Δ| {worst:.1e}; plain version {e_plain_s:.2f}s)")
+    e_row = _time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **ekw)},
+                      {"ms": 25})
+    # the plain version on CUDA events only, as path B's (phase_emu_timing)
+    e_row["plain_ms"] = _event_ms(
+        torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **ekw), reps=3)
+    case = (a_t, delta, mask, ekw["n_panels"])
+    e_row["bound_ms"], e_row["bound_by"], binding, terms = emu_bound(
+        case, ekw["sigma"], ekw["shot"], peaks, draws["emu"], sms)
+    e_row.update(library_ms=None, plan=plan.name, launches_per_step=LM_LAUNCHES,
+                 bound_share=e_row["bound_ms"] / e_row["dev_ms"],
+                 terms_ms={name: v * 1e3 for name, v in terms.items()})
+    print(f"[lm_timing] emu_bank_product at (T, K, M) = ({a_t.shape[0]}, {cfg.d_model}, "
+          f"{cfg.d_model}): kernel {e_row['ms']:.4f} / {e_row['dev_ms']:.4f} ms (events / "
+          f"device), plain {e_row['plain_ms']:.4f} (events), bound "
+          f"{e_row['bound_ms']:.4f} ({binding}: bytes {terms['bytes'] * 1e3:.5f} / f32 "
+          f"{terms['f32'] * 1e3:.5f} / prng {terms['prng'] * 1e3:.5f}), share "
+          f"{e_row['bound_share']:.1%}, plan {plan.name}; 25 a step: "
+          f"{e_row['dev_ms'] * LM_LAUNCHES:.3f} ms device; card: {card}")
+    del emu, e_state, a_t, delta, mask, e_out, e_expect, case
+    torch.cuda.empty_cache()
+
+    # crash and resume on the card: the smoke LM on offchip_bpd
+    base = pm._BUILD_DIR / f"lm_ckpt-{os.getpid()}"
+    small = tokens.MarkovTokens(128, 16, 4, seed)
+
+    def trainer(name, every):
+        return api.build_session(arch=ARCH, smoke=True, hardware="offchip_bpd", backend="cuda",
+                                 seed=seed, ckpt_dir=str(base / name), ckpt_every=every,
+                                 log_every=10**9, device=DEVICE).trainer
+
+    try:
+        straight, _ = trainer("a", 100).fit(small.batch, total_steps=6, verbose=False)
+        trainer("b", 3).fit(small.batch, total_steps=3, verbose=False)
+        resumed_tr = trainer("b", 3)
+        start = resumed_tr.restore_or_init()[1]
+        resumed, _ = resumed_tr.fit(small.batch, total_steps=6, verbose=False)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    same = (start == 3 and resumed["step"] == straight["step"] == 6
+            and all(torch.equal(straight["params"][k], resumed["params"][k])
+                    for k in straight["params"])
+            and all(torch.equal(straight["opt"]["mom"][k], resumed["opt"]["mom"][k])
+                    for k in straight["params"]))
+    print(f"[lm_ckpt] smoke LM on the card, offchip_bpd: 3 steps, a new Trainer resumed from "
+          f"step {start} to 6; params and momentum bit-identical to 6 straight steps: {same}")
+    check(same, "crash and resume differ from the straight run")
+    return {"launches": launches, "emu_launches": e_launches, "max_abs_err": max(errs.values()),
+            "max_abs_err_prng": prng_err, "emu_max_abs_err": worst, "bank": bank_rows,
+            "emu": e_row, "profile": prof, "peak_gib": peak_gib}
 
 
 def main(argv=None):
@@ -1524,7 +1896,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card, draw = phase_build(torch, pm)
+    card, draws = phase_build(torch, pm)
     max_err = phase_kernel_vs_plain(torch, pm)
     max_err_b = phase_dfa_kernel_vs_plain(torch, pm, dg)
     serve_launches = phase_serve(torch, np, pm, api, args.seed)
@@ -1539,20 +1911,23 @@ def main(argv=None):
     emu_train_launches = phase_emu_train(torch, np, api, em, args.seed)
     phase_drift(torch, api, args.seed)
     emu_serve_launches, max_err_serve = phase_emu_serve(torch, np, api, em, args.seed)
-    emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card, draw)
+    emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card, draws["emu"])
+    lm = phase_lm_train(torch, np, api, pm, em, args.seed, card, draws)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     row_b = train_rows["dfa_gradient"]
     records = [
         {"name": "photonic_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/photonic_matmul.py:95",
-         "launches": serve_launches + train_launches,
-         "launches_by_path": {"serve": serve_launches, "train": train_launches},
-         "max_abs_err": max_err,
+         "launches": serve_launches + train_launches + lm["launches"],
+         "launches_by_path": {"serve": serve_launches, "train": train_launches,
+                              "lm_train": lm["launches"]},
+         "max_abs_err": max(max_err, lm["max_abs_err"]),
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
          "library_ms": per_step["library_ms"],
-         "decode_step": per_step, "prefill_forward": per_prefill},
+         "decode_step": per_step, "prefill_forward": per_prefill,
+         "lm_train_shape": lm["bank"], "lm_step": lm["profile"], "draw_sass": draws["bank"]},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",
@@ -1565,13 +1940,14 @@ def main(argv=None):
         {"name": "emu_bank_product", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/emu_matmul.cu",
          "replaces": "src/repro/kernels/emu_matmul.py:200",
-         "launches": emu_train_launches + emu_serve_launches,
-         "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches},
-         "max_abs_err": max(max_err_c, max_err_serve),
+         "launches": emu_train_launches + emu_serve_launches + lm["emu_launches"],
+         "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
+                              "lm_train": lm["emu_launches"]},
+         "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",
-         "draw_sass": draw, "timing": emu_rows},
+         "draw_sass": draws["emu"], "timing": {**emu_rows, "lm_train_shape": lm["emu"]}},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -112,14 +112,24 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
     the DFA-family backwards need.  Head gradients are exact; the error is
     tapped per ``model.error_tap``, compressed and detached (on hardware e
     is fetched from SRAM and re-encoded each cycle — never differentiated).
+    The embedding runs with gradient tracking on its ``embed.`` parameters
+    (``embed_vjp`` maps a cotangent at x0 to their gradients, as the
+    reference's ``jax.vjp``); the segments run without.
     """
-    if subtree(params, "embed."):
-        raise NotImplementedError(
-            "DFA feedback into embedding parameters comes with DFA training of "
-            "the language models, slice 4 of the port (ROADMAP.md)")
+    embed = _leaves(subtree(params, "embed."))
+    embed_vjp = None
+    if embed:
+        with torch.enable_grad():
+            x0 = model.embed({**params, **{f"embed.{k}": v for k, v in embed.items()}}, batch)
+
+        def embed_vjp(delta):
+            g = torch.autograd.grad(x0, list(embed.values()), delta)
+            return {f"embed.{k}": gk for k, gk in zip(embed, g)}
+    else:
+        with torch.no_grad():
+            x0 = model.embed(params, batch)
     with torch.no_grad():
-        x0 = model.embed(params, batch)
-        x_final, saved, auxes = model.run_segments(params, x0)
+        x_final, saved, auxes = model.run_segments(params, x0.detach())
     head = _leaves(subtree(params, "head."))
     xf = x_final.detach().requires_grad_()
     with torch.enable_grad():
@@ -128,6 +138,7 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
         loss, metrics = model.loss_from_logits(logits, batch)
         (e_logits,) = torch.autograd.grad(loss, logits, retain_graph=True)
         *g, e_hidden = torch.autograd.grad(logits, list(head.values()) + [xf], e_logits)
+    del logits
     g_head = {f"head.{k}": gk for k, gk in zip(head, g)}
     if model.error_tap == "logits":
         e_tap = e_logits
@@ -135,8 +146,9 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
         # broadcast e in the model's compute dtype, as the reference does
         e_tap = e_hidden.to(x_final.dtype)
     e_tap = compress_error(e_tap, cfg.error_compress).detach()
-    return dict(x0=x0, saved=saved, auxes=auxes, g_head=g_head, e_tap=e_tap,
-                loss=loss.detach(), metrics={k: v.detach() for k, v in metrics.items()})
+    return dict(x0=x0.detach(), embed_vjp=embed_vjp, saved=saved, auxes=auxes,
+                g_head=g_head, e_tap=e_tap, loss=loss.detach(),
+                metrics={k: v.detach() for k, v in metrics.items()})
 
 
 def _block_grads(spec, params, idx, tape, delta_of, cfg: DFAConfig) -> dict:
@@ -198,11 +210,17 @@ def dfa_delta(cfg: DFAConfig):
 
 
 def embed_grads(model, params, cfg: DFAConfig, fwd, fb, rng) -> dict:
-    """DFA gradients of the embedding parameters: none, for a model without
-    them (the MLP); ``forward_with_error`` refuses the others until the
-    language models' DFA training is ported."""
-    del model, params, cfg, fwd, fb, rng
-    return {}
+    """DFA gradients of the embedding parameters: the projected error
+    injected at the embed output (``model.embed_feedback``, key folded with
+    "embed") and carried to the table by the embedding's vjp.  Empty for a
+    model without them (the MLP)."""
+    del params
+    if fwd["embed_vjp"] is None:
+        return {}
+    key = prng.fold(rng, "embed")
+    delta0 = model.embed_feedback(fwd["e_tap"], fb["embed"], fwd["x0"],
+                                  lambda e, b: _project(e, b, cfg, key))
+    return fwd["embed_vjp"](delta0)
 
 
 def _totals(fwd):

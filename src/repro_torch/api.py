@@ -2,7 +2,7 @@
 backend matrix.  Counterpart of ``repro/api.py``.
 
 * **algo**     — a name in ``repro_torch.algos`` (``bp`` | ``dfa`` |
-  ``dfa-fused``)
+  ``dfa-fused`` | ``dfa-layerwise``)
 * **hardware** — a ``core.photonics`` preset name or a ``PhotonicConfig``
 * **backend**  — how projections execute: ``auto`` | ``ref`` | ``cuda`` |
   ``emu`` (device-level emulation, with drift and in-situ recalibration
@@ -11,15 +11,17 @@ backend matrix.  Counterpart of ``repro/api.py``.
 Typical use::
 
     from repro_torch import api
+    from repro_torch.data import tokens
 
     session = api.build_session(arch="mnist_mlp", algo="dfa",
                                 hardware="offchip_bpd", backend="cuda")
     state, metrics = session.fit(data_fn, total_steps=512)
     session.evaluate(state, eval_batches)
 
-    serving = api.build_session(arch="qwen1.5-0.5b", algo="bp", smoke=False,
-                                hardware="offchip_bpd", backend="cuda")
-    engine = serving.engine(batch_slots=4, max_len=128)
+    lm = api.build_session(arch="qwen1.5-0.5b", smoke=False, algo="dfa",
+                           hardware="offchip_bpd", backend="cuda", ckpt_dir="runs/qwen")
+    state, metrics = lm.fit(tokens.MarkovTokens(151936, 64, 64).batch, total_steps=16)
+    engine = lm.engine(state["params"], batch_slots=4, max_len=128)  # serve them
 
     emulated = api.build_session(arch="mnist_mlp", hardware="emu_onchip",
                                  backend="emu")  # drift on, recalibration every 500
@@ -27,9 +29,10 @@ Typical use::
 The defaults are the reference's: the paper's MLP trained with DFA on ideal
 hardware, SGD momentum 0.9 at lr 0.01 (the paper's §4 optimizer).  Every
 session runs on the card unless ``device="cpu"`` is asked for, and raises
-where CUDA is absent.  The language models serve; their DFA training (and
-the reference's schedule autotuner, ``n_buses=``, checkpointing, data
-parallelism, observer and probe) are ported in later slices.
+where CUDA is absent.  Every model trains (with checkpoint and
+auto-resume under ``ckpt_dir``) and the language models serve as well; the
+reference's schedule autotuner, ``n_buses=``, data parallelism, observer
+and probe are ported in later slices.
 """
 
 from __future__ import annotations
@@ -73,7 +76,8 @@ def build_model(arch, *, smoke: bool = False, dtype=torch.float32, device=None,
 @dataclasses.dataclass
 class Session:
     """A bound (model, algorithm, hardware, backend) cell of the matrix.
-    ``trainer`` is None for a model the port only serves."""
+    ``trainer`` is None for a model that is not a ``DFAModel`` (serving
+    only)."""
 
     model: typing.Any
     algorithm: algos.Algorithm
@@ -90,9 +94,7 @@ class Session:
 
     def _trainer(self) -> Trainer:
         if self.trainer is None:
-            raise NotImplementedError(
-                f"training {type(self.model).__name__} comes with DFA training of the "
-                "language models, slice 4 of the port (ROADMAP.md)")
+            raise TypeError(f"{type(self.model).__name__} is not a DFAModel: it serves only")
         return self.trainer
 
     # ---- training ----
@@ -161,7 +163,8 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
                   freeze_norms: bool = False,
                   feedback: fb_lib.FeedbackConfig | None = None,
                   microbatches: int = 1, prefetch: int = 2,
-                  recalibrate_every: int | None = None, log_every: int = 50,
+                  recalibrate_every: int | None = None, ckpt_dir: str | None = None,
+                  ckpt_every: int = 500, log_every: int = 50,
                   log_path: str | None = None, step_deadline_s: float | None = None,
                   device=None) -> Session:
     """Compose one cell of the algorithm × hardware × backend matrix, on
@@ -170,7 +173,10 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
     ``emu_kernel`` ("auto" | "ref" | "cuda") picks the emu backend's
     execution path for the whole session and requires ``backend="emu"``.
     ``recalibrate_every`` defaults to 500 steps when the device drifts and
-    to 0 (never) otherwise."""
+    to 0 (never) otherwise.  ``ckpt_dir``: ``fit`` resumes from the newest
+    snapshot there and saves one every ``ckpt_every`` steps and at the end.
+    A model that is not a ``DFAModel`` (an instance passed as ``arch``)
+    gets no trainer and serves with ``algo="bp"`` only."""
     device = resolve_device(device)
     algorithm = algos.get(algo)  # fail fast on unknown names
     backend_obj = photonics.get_backend(backend)  # (likewise for the backend)
@@ -196,9 +202,8 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
     model = build_model(arch, smoke=smoke, dtype=dtype, device=device, seed=seed)
     trainable = isinstance(model, DFAModel)
     if not trainable and algo != "bp":
-        raise NotImplementedError(
-            f"algo={algo!r} on {type(model).__name__}: DFA training of the language "
-            "models is ported in slice 4 (ROADMAP.md); they serve with algo='bp'")
+        raise TypeError(f"algo={algo!r} on {type(model).__name__}, which is not a DFAModel: "
+                        "it serves only, with algo='bp'")
     cfg = TrainerConfig(
         algo=algo,
         dfa=DFAConfig(photonics=hw_cfg,
@@ -207,7 +212,7 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
                       freeze_norms=freeze_norms),
         optimizer=optimizer or SGDM(lr=0.01, momentum=0.9),
         seed=seed, microbatches=microbatches, prefetch=prefetch,
-        recalibrate_every=recalibrate_every, log_every=log_every,
-        log_path=log_path, step_deadline_s=step_deadline_s)
+        recalibrate_every=recalibrate_every, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+        log_every=log_every, log_path=log_path, step_deadline_s=step_deadline_s)
     trainer = Trainer(model, cfg, device=device) if trainable else None
     return Session(model=model, algorithm=algorithm, config=cfg, trainer=trainer)

@@ -1,3 +1,3 @@
-from repro_torch.data import mnist, pipeline
+from repro_torch.data import mnist, pipeline, tokens
 
-__all__ = ["mnist", "pipeline"]
+__all__ = ["mnist", "pipeline", "tokens"]

@@ -1,9 +1,10 @@
 """Model interfaces.  Counterpart of ``repro/models/base.py``.
 
 The reference's ``DFAModel`` protocol serves both training and serving; the
-port keeps the two halves apart.  ``ServingModel`` is what ``serve.Engine``
-calls.  ``DFAModel`` is what the DFA engine (``algos/dfa.py``) calls: a
-model that decomposes into
+port keeps the two halves apart, and a model that does both (the
+transformer LM) derives from both.  ``ServingModel`` is what
+``serve.Engine`` calls.  ``DFAModel`` is what the DFA engine
+(``algos/dfa.py``) calls: a model that decomposes into
 
     embed  →  segments (stacks of homogeneous blocks)  →  head
 
@@ -69,13 +70,15 @@ class SegmentSpec:
     d_inject: int  # feature dim at the injection point (block output)
     # apply(layer_params, x, extras) -> (y, weighted aux loss scalar)
     apply: typing.Callable = dataclasses.field(compare=False)
+    # True: the layers are a ``ModuleList`` (``blocks.{i}.``); False: the
+    # segment is one block, the module itself (the MLP's ``h{i}.``)
+    stacked: bool = False
     # The reference's adapt_error / expand_delta hooks serve its
     # encoder-decoder models, which the port does not have yet.
 
     def layer_prefix(self, idx: int) -> str:
-        """Where layer ``idx``'s parameters sit in the flat dict: a segment
-        of one block is the block itself, a deeper one a ``ModuleList``."""
-        return f"{self.name}." if self.n_layers == 1 else f"{self.name}.{idx}."
+        """Where layer ``idx``'s parameters sit in the flat dict."""
+        return f"{self.name}.{idx}." if self.stacked else f"{self.name}."
 
     def layer_params(self, params: dict, idx: int) -> dict:
         return subtree(params, self.layer_prefix(idx))

@@ -1,13 +1,15 @@
 """Decoder-only transformer LM.  Counterpart of
 ``repro/models/transformer.py``.
 
-Slice 1 ports the dense GQA path that qwen1.5-0.5b takes: RMSNorm, rotary
-attention with qkv bias, a gated SiLU FFN, and the unembedding, with the
-serving entry points ``init_caches``, ``decode_step`` and
-``prefill_step``.  The reference scans stacked layer parameters; the port
-loops over a ``ModuleList`` (``photonics.scanned_layers`` keeps the
-reference's per-layer noise-key numbering).  Caches keep the reference's
-stacked layout: ``{"k", "v"}`` of shape (L, B, S, KVH, D).
+The port has the dense GQA path that qwen1.5-0.5b takes: RMSNorm, rotary
+attention with qkv bias, a gated SiLU FFN, and the unembedding.  The model
+serves (``init_caches``, ``decode_step``, ``prefill_step``) and trains: it
+is a ``DFAModel`` with the hidden error tap (d_tap = d_model), the blocks
+in one segment ``blocks`` and DFA feedback into the embedding table.  The
+reference scans stacked layer parameters; the port loops over a
+``ModuleList`` (``photonics.scanned_layers`` keeps the reference's
+per-layer noise-key numbering).  Caches keep the reference's stacked
+layout: ``{"k", "v"}`` of shape (L, B, S, KVH, D).
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ import dataclasses
 import typing
 
 import torch
+from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
-from repro_torch.models.base import ServingModel
+from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
+                                     cross_entropy_loss, subtree)
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.linear import GatedMLP, Linear
@@ -86,10 +90,11 @@ class DecoderBlock(Module):
         return x + self.ffn(self.norm2(x)), cache
 
 
-class TransformerLM(ServingModel):
+class TransformerLM(DFAModel, ServingModel):
     """Parameter names follow the reference's tree (``embed.tok.table``,
     ``blocks.{i}.attn.q.weight``, ``head.out.weight``, ...); ``convert.py``
-    maps one onto the other."""
+    maps one onto the other.  The training methods take that flat dict
+    (``DFAModel``); the serving ones run the module's own parameters."""
 
     supports_parallel_prefill = True  # global attention: absolute-indexed caches
 
@@ -114,11 +119,57 @@ class TransformerLM(ServingModel):
     def forward(self, tokens):
         """Full causal forward: tokens (B, S) -> logits (B, S, V)."""
         b, s = tokens.shape
-        x = self.embed["tok"](tokens)
+        x = self._tokens(tokens)
         positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in photonics.scanned_layers(self.blocks):
             x = block(x, positions)
         return self._head(self.head["norm"](x))
+
+    def _tokens(self, token_ids):
+        """The token embedding with the module's own table (the method
+        ``embed`` is the DFA hook, so the ``embed`` ModuleDict is reached
+        by name)."""
+        return self._modules["embed"]["tok"](token_ids)
+
+    # ---- training (DFAModel) ----------------------------------------------
+    @property
+    def d_tap(self) -> int:
+        return self.cfg.d_model  # the hidden tap
+
+    def segment_specs(self):
+        block = self.blocks[0]  # the layers share one structure
+
+        def apply(p, x, extras):
+            y = functional_call(block, p, (x, extras))
+            return y, torch.zeros((), device=x.device)
+
+        return (SegmentSpec("blocks", self.cfg.n_layers, self.cfg.d_model, apply,
+                            stacked=True),)
+
+    def embed(self, params, batch):
+        return params["embed.tok.table"][batch["tokens"]]
+
+    def run_segments(self, params, x0):
+        """Every block's input (L, B, S, d) on the tape, with the positions
+        as the shared extras."""
+        b, s, _ = x0.shape
+        positions = torch.arange(s, device=x0.device)[None, :].expand(b, s)
+        (spec,) = self.segment_specs()
+        inputs = x0.new_empty((spec.n_layers, *x0.shape))
+        x = x0
+        for i in range(spec.n_layers):
+            inputs[i] = x
+            x, _ = spec.apply(spec.layer_params(params, i), x, positions)
+        saved = {"blocks": SavedSegment(inputs=inputs, extras=positions)}
+        return x, saved, {"blocks": torch.zeros((), device=x0.device)}
+
+    def head_logits(self, params, x_final, batch):
+        del batch
+        h = functional_call(self.head["norm"], subtree(params, "head.norm."), (x_final,))
+        return self._head(h, params["head.out.weight"])
+
+    def loss_from_logits(self, logits, batch):
+        return cross_entropy_loss(logits, batch["labels"], mask=batch.get("mask"))
 
     # ---- serving ----------------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=None):
@@ -138,22 +189,22 @@ class TransformerLM(ServingModel):
 
     def decode_step(self, token, caches, cache_len):
         """token: (B, 1) int.  Returns (logits (B, 1, V), new caches)."""
-        x = self.embed["tok"](token)
+        x = self._tokens(token)
         return self._run_layers(
             x, caches, lambda blk, x, cache: blk.decode(x, cache, cache_len))
 
     def prefill_step(self, tokens, caches, cache_len, n_valid):
         """tokens (B, C) -> (logits (B, C, V), new caches).  ``cache_len``
         is not advanced here: the engine owns slot bookkeeping."""
-        x = self.embed["tok"](tokens)
+        x = self._tokens(tokens)
         return self._run_layers(
             x, caches, lambda blk, x, cache: blk.prefill(x, cache, cache_len, n_valid))
 
-    def _head(self, h):
-        """Unembedding, masking padded vocab ids so greedy serving never
-        emits one."""
+    def _head(self, h, weight=None):
+        """Unembedding (by ``weight``, default the module's own), masking
+        padded vocab ids so greedy serving never emits one."""
         c = self.cfg
-        logits = forward_matmul(h, self.head["out"].weight)
+        logits = forward_matmul(h, self.head["out"].weight if weight is None else weight)
         if c.pad_vocab_to:
             pad_mask = torch.arange(c.v_padded, device=logits.device) >= c.vocab_size
             logits = torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype,

@@ -1,0 +1,127 @@
+"""Fault-tolerant checkpointing: atomic snapshots, keep-k rotation, the
+newest step, restore into a template.  Counterpart of
+``repro/train/checkpoint.py``, with the port's own file format.
+
+A snapshot is a training state (nested dicts of tensors and Python
+scalars) flattened to names ``"params/blocks.0.attn.q.weight"``,
+``"opt/mom/head.out.weight"``, ``"step"``: dict keys joined by "/", list
+and tuple items by "#i", as the reference names its leaves.  The leaves go
+to host memory and into one ``torch.save`` file (read back with
+``weights_only=True``: tensors and scalars only, no code).  The reference
+packs raw bytes with msgpack; the two formats do not read each other.
+
+Writes are atomic (a temporary file, ``fsync``, ``os.replace``), so a crash
+mid-write never corrupts the newest snapshot.  ``load`` with a template
+rebuilds the template's structure, with every tensor cast to the
+template's dtype and placed on its device.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import torch
+
+VERSION = 1
+
+
+def _flatten(tree, prefix: str = "", out: dict | None = None) -> dict:
+    out = {} if out is None else out
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], f"{prefix}/{k}" if prefix else str(k), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}#{i}", out)
+    else:
+        out[prefix] = tree
+    return out
+
+
+def _to_host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return x
+
+
+def save(path: str, tree, step: int | None = None):
+    """Atomic write of a snapshot of ``tree``."""
+    payload = {"version": VERSION, "step": -1 if step is None else int(step),
+               "leaves": {k: _to_host(v) for k, v in _flatten(tree).items()}}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _restore_leaf(saved, like):
+    if isinstance(like, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or tuple(saved.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint leaf {getattr(saved, 'shape', saved)} does not fit "
+                             f"the template's {tuple(like.shape)}")
+        return saved.to(device=like.device, dtype=like.dtype)
+    return type(like)(saved) if isinstance(like, (int, float)) else saved
+
+
+def load(path: str, template=None):
+    """Restore -> (tree, step).  Without a template the tree is the flat
+    {name: leaf} dict on the CPU; with one it has the template's structure,
+    dtypes and devices."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    leaves, step = payload["leaves"], payload["step"]
+    if template is None:
+        return leaves, step
+    missing = set(_flatten(template)) - set(leaves)
+    if missing:
+        raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]} …")
+
+    def rebuild(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: rebuild(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v, f"{prefix}#{i}") for i, v in enumerate(node))
+        return _restore_leaf(leaves[prefix], node)
+
+    return rebuild(template), step
+
+
+class CheckpointManager:
+    """Step-tagged snapshots in one directory, keeping the newest ``keep``."""
+
+    PAT = re.compile(r"ckpt_(\d+)\.pt$")
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"ckpt_{step:09d}.pt")
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for m in map(self.PAT.match, os.listdir(self.dir)) if m)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, tree):
+        save(self._path(step), tree, step=step)
+        for old in self.all_steps()[: -self.keep]:
+            try:
+                os.remove(self._path(old))
+            except FileNotFoundError:
+                pass
+
+    def restore(self, template, step: int | None = None):
+        """-> (tree, step) of ``step`` (default the newest), or (None, None)
+        for an empty directory."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None, None
+        return load(self._path(step), template)

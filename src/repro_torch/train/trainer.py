@@ -1,7 +1,7 @@
 """Trainer: the train step of any registered algorithm (bp, dfa,
-dfa-fused), microbatch accumulation, the fit loop with CSV metric logging
-and a straggler deadline, and evaluation.  Counterpart of
-``repro/train/trainer.py``, single device.
+dfa-fused, dfa-layerwise), microbatch accumulation, the fit loop with
+checkpoint and auto-resume, CSV metric logging and a straggler deadline,
+and evaluation.  Counterpart of ``repro/train/trainer.py``, single device.
 
 The state is a dict ``{"params", "fb", "opt", "step"}``: ``params`` a flat
 dict of tensors in the model's ``state_dict`` naming, ``fb`` the feedback
@@ -12,13 +12,18 @@ calibration state (``hardware.drift``): each step advances it
 ``TrainerConfig.recalibrate_every`` steps) and runs the gradient under
 ``drift.use_state``, so the projections see the step's residual.  A step
 returns a new state and leaves the one it was given as it was, as the
-reference's jitted step does.  All training randomness (photonic noise, data order) is
-a pure function of (seed, step) through ``utils.prng.step_key``.
+reference's jitted step does.
+
+Fault tolerance: all training randomness (photonic noise, data order) is a
+pure function of (seed, step) through ``utils.prng.step_key``, so with
+``ckpt_dir`` set ``fit`` resumes from the newest snapshot
+(``train/checkpoint.py``; the ``hw`` state included) and replays the
+uninterrupted run bit for bit.
 
 The trainer runs on the card unless ``device="cpu"`` is asked for, and
-raises where CUDA is absent.  The reference's checkpointing, data
-parallelism, observer, alignment probe and ``debug_checks`` are ported in
-later slices (``ROADMAP.md``).
+raises where CUDA is absent.  The reference's data parallelism, observer,
+alignment probe and ``debug_checks`` are ported in later slices
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from repro_torch.core import photonics
 from repro_torch.data.pipeline import DevicePrefetcher, to_device
 from repro_torch.hardware import calibrate as hw_calibrate
 from repro_torch.hardware import drift as hw_drift
+from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import SGDM
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -56,6 +62,9 @@ class TrainerConfig:
     # in-situ recalibration cadence (steps) for stateful emu hardware;
     # 0 = never (the stored estimate stays frozen)
     recalibrate_every: int = 0
+    ckpt_dir: str | None = None
+    ckpt_every: int = 500
+    keep_ckpts: int = 3
     # straggler mitigation: per-step wall deadline (None = off)
     step_deadline_s: float | None = None
 
@@ -77,6 +86,7 @@ class Trainer:
         self._vg = self.algorithm.value_and_grad(model, cfg.dfa)
         # only backends that consume device state carry a "hw" state
         self._hw_stateful = photonics.get_backend(cfg.dfa.backend).stateful_hardware
+        self.ckpt = CheckpointManager(cfg.ckpt_dir, cfg.keep_ckpts) if cfg.ckpt_dir else None
         self._log_file = None
         self._log_keys = None
 
@@ -174,6 +184,16 @@ class Trainer:
         return self._dispatch(state, self.put(batch))
 
     # ---------- loop ----------
+    def restore_or_init(self, seed: int | None = None):
+        """(state, first step): the newest snapshot in ``ckpt_dir``, cast
+        onto a fresh state, or the fresh state at step 0."""
+        state = self.init_state(seed)
+        if self.ckpt is not None:
+            restored, step = self.ckpt.restore(state)
+            if restored is not None:
+                return restored, int(step)
+        return state, 0
+
     def _log(self, step, row):
         if self.cfg.log_path is None:
             return
@@ -207,11 +227,13 @@ class Trainer:
 
     def fit(self, data_fn, total_steps: int, eval_fn=None, verbose: bool = True):
         """data_fn(step) -> host batch (deterministic — restart-safe).
+        Resumes from the newest snapshot in ``ckpt_dir``, saves one every
+        ``ckpt_every`` steps and at the end.
         Returns (state, eval_fn(state)) or (state, last metrics)."""
-        state = self.init_state()
+        state, start = self.restore_or_init()
         feed = self._make_feed(data_fn, total_steps)
         metrics = {}
-        for step in range(total_steps):
+        for step in range(start, total_steps):
             state, metrics = self._dispatch(state, feed(step))
             if (step + 1) % self.cfg.log_every == 0 or step + 1 == total_steps:
                 host = self.to_host(metrics)
@@ -219,6 +241,10 @@ class Trainer:
                 if verbose:
                     txt = " ".join(f"{k}={v:.4f}" for k, v in sorted(host.items()))
                     print(f"[step {step + 1}/{total_steps}] {txt}", flush=True)
+            if self.ckpt is not None and (step + 1) % self.cfg.ckpt_every == 0:
+                self.ckpt.save(step + 1, state)
+        if self.ckpt is not None:
+            self.ckpt.save(total_steps, state)
         if eval_fn is not None:
             return state, eval_fn(state)
         return state, metrics

@@ -239,8 +239,11 @@ def test_session_engine_backend_rules():
     s = api.build_session(arch=ARCH, algo="bp", smoke=True, hardware="ideal",
                           backend=tph.BACKENDS["cuda"], device="cpu")
     assert s.engine(batch_slots=1, max_len=8)._backend.name == "ref"
-    with pytest.raises(NotImplementedError):
-        api.build_session(arch=ARCH, smoke=True, algo="dfa", device="cpu")
+    # the LM trains as well now: a dfa session has a trainer and serves by
+    # the same rules
+    s = api.build_session(arch=ARCH, smoke=True, algo="dfa", device="cpu")
+    assert s.trainer is not None
+    assert s.engine(batch_slots=1, max_len=8)._backend.name == "ref"
 
 
 def test_launcher_serves_on_cpu(capsys):

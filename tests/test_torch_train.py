@@ -460,13 +460,19 @@ def test_launcher_trains_on_cpu(capsys, monkeypatch):
 
 
 def test_language_models_do_not_train_yet():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tlaunch.main(["--arch", "qwen1.5-0.5b", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        api.build_session(arch="qwen1.5-0.5b", smoke=True, device="cpu")
-    s = api.build_session(arch="qwen1.5-0.5b", smoke=True, algo="bp", device="cpu")
+    """The language models train now (a trainer for every DFAModel); a
+    model that is only a ServingModel still refuses every training call."""
+    from repro_torch.models.base import ServingModel
+
+    s = api.build_session(arch="qwen1.5-0.5b", smoke=True, device="cpu")
+    assert isinstance(s.trainer, Trainer) and s.config.algo == "dfa"
+    assert s.init_state()["step"] == 0
+    serving_only = ServingModel()
+    with pytest.raises(TypeError, match="not a DFAModel"):
+        api.build_session(arch=serving_only, device="cpu")
+    s = api.build_session(arch=serving_only, algo="bp", device="cpu")
     assert s.trainer is None
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(TypeError, match="serves only"):
         s.init_state()
 
 
