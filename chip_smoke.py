@@ -70,7 +70,16 @@ sources in the checkout.  Phases:
     beside its plain version and its bound (bytes, f32 work, PRNG work),
     then at every bank product of path B at decode (T = 4) and prefill
     (T = 64) with its plan, share of the bound and GB/s, and the sums per
-    forward.
+    forward;
+14. DFA training of qwen1.5-0.5b at full width in f32 (``[lm_train]``,
+    ``[lm_timing]``, ``[lm_emu]``, ``[lm_ckpt]``; see ``phase_lm_train``);
+15. the observability plane (``[observe]``, ``phase_observe``): the
+    full-width LM's fit with the null observer, an ``Observer`` and the
+    alignment probe every 4 steps (the probe's rows and launches, probed =
+    unprobed state bit for bit, the trace, step ms of each, the probe's
+    ms and peak memory, ``StepTimer`` and ``step_cost``, ``debug_checks``
+    on a NaN), the MLP on emulated banks with the noise budget and the
+    hardware monitor, and full-width serving with an observer.
 
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
@@ -1872,6 +1881,377 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
             "emu": e_row, "profile": prof, "peak_gib": peak_gib}
 
 
+# ---------------------------------------------------------------------------
+# The observability plane: probe, noise budget, observer, trace, telemetry
+# ---------------------------------------------------------------------------
+
+OBS_STEPS, OBS_PROBE_EVERY = 8, 4
+# the reference's probe rows on the LM (tests/test_torch_introspect.py holds
+# the port's key set to repro's on the CPU)
+LM_PROBE_KEYS = {f"{kind}_{name}" for kind in ("align", "gnorm_dfa", "gnorm_bp", "upd_ratio")
+                 for name in ("blocks", "embed", "head")} | {"align_global"}
+
+
+def _event_timer(torch, bench):
+    """A ``bench.StepTimer`` that also records a CUDA event at every step
+    boundary, so one fit gives synchronised wall times and the stream's own
+    step times."""
+
+    class EventTimer(bench.StepTimer):
+        def start(self):
+            self.events = [torch.cuda.Event(enable_timing=True)]
+            self.events[0].record()
+            super().start()
+
+        def tick(self, sync=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            super().tick(sync)
+
+        def event_ms(self):
+            return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+    return EventTimer(warmup=1)
+
+
+def _count_probe_launches(introspect, counters):
+    """Record the kernels' launches of every ``AlignmentProbe.probe`` call
+    (``counters``: name -> module with a ``launches`` count) in the returned
+    list; returns (list, restore)."""
+    per_call = []
+    fn = introspect.AlignmentProbe.probe
+
+    def counted(self, state, batch):
+        before = {k: m.launches for k, m in counters.items()}
+        out = fn(self, state, batch)
+        per_call.append({k: m.launches - before[k] for k, m in counters.items()})
+        return out
+
+    introspect.AlignmentProbe.probe = counted
+    introspect.AlignmentProbe.__call__ = counted
+
+    def restore():
+        introspect.AlignmentProbe.probe = fn
+        introspect.AlignmentProbe.__call__ = fn
+
+    return per_call, restore
+
+
+def _steady(ms, probe_steps=()):
+    """Median of the event step times after the first, probe steps out."""
+    return statistics.median(x for i, x in enumerate(ms) if i > 0 and i not in probe_steps)
+
+
+def phase_observe(torch, np, api, pm, em, seed, card):
+    """The observability plane on the card.  (a) qwen1.5-0.5b at full width
+    in f32, offchip_bpd, 8 dfa fit steps three times: with the null
+    observer, with an ``Observer`` (JSONL + trace), and with the probe
+    every 4 steps: the probe's rows at steps 0 and 4 with the reference's
+    keys, finite, |cos| <= 1, 25 bank-kernel launches a probe, the final
+    state bit-identical to the unprobed run, the trace's step / probe /
+    drain spans, ``summarize``'s alignment table; the probe's own ms and
+    peak memory; ``StepTimer`` + ``report_throughput`` with ``step_cost``.
+    (b) the paper's MLP on emu_onchip (drift on), the same three fits: the
+    ``nb_*`` rows, closure and thermal-vs-analytic, 2 emu launches a
+    probe, the ``hw_*`` gauges through ``HardwareMonitor``.  (c) full-width
+    serving with an observer: a track per request, a span per tick, the
+    tokens of the unobserved run.  (d) ``debug_checks``: a clean LM step
+    passes, a NaN in one parameter raises."""
+    import contextlib
+    import dataclasses
+    import tempfile
+
+    from repro_torch import bench, obs
+    from repro_torch.data import tokens
+    from repro_torch.lint import runtime
+    from repro_torch.obs import introspect, summarize
+    from repro_torch.serve import Request
+    from repro_torch.train import SGDM, Trainer
+
+    counters = {"photonic_matmul": pm, "emu_bank_product": em}
+    out = {"probe_launches": {}}
+    tmp = tempfile.TemporaryDirectory(prefix="observe-", dir=pm._BUILD_DIR)
+    root = pathlib.Path(tmp.name)
+    try:
+        # (a) the LM at full width
+        gen = tokens.MarkovTokens(151936, LM_SEQ, LM_BATCH, seed)
+        finals, timers, observers, fit_gib = {}, {}, {}, {}
+        per_probe = []
+        for mode in ("null", "observer", "probe"):
+            torch.cuda.empty_cache()
+            session = _lm_session(api, torch, seed, log_every=OBS_PROBE_EVERY,
+                                  probe_every=OBS_PROBE_EVERY if mode == "probe" else None)
+            observer = None
+            if mode != "null":
+                observer = session.observe(metrics_path=str(root / f"lm-{mode}.jsonl"),
+                                           trace_path=str(root / f"lm-{mode}.json"))
+            timer = _event_timer(torch, bench)
+            calls, restore = _count_probe_launches(introspect, counters)
+            try:
+                sync(torch)
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                pm.launches = 0
+                state, _ = session.fit(gen.batch, total_steps=OBS_STEPS, verbose=False,
+                                       timer=timer, observer=observer)
+                sync(torch)
+                launches = pm.launches
+            finally:
+                restore()
+            # the fit's peak above what was resident when it started (the
+            # earlier runs' final parameters stay for the bit-for-bit check)
+            fit_gib[mode] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            if mode == "probe":
+                per_probe = calls
+            finals[mode] = {k: v for k, v in state["params"].items()}
+            timers[mode], observers[mode] = timer, observer
+            check(launches == LM_LAUNCHES * (OBS_STEPS + len(calls)),
+                  f"LM {mode}: {launches} bank launches over {OBS_STEPS} steps and "
+                  f"{len(calls)} probes")
+            if mode == "probe":
+                probe_session, probe_state = session, state
+            else:
+                del state, session
+        same = {mode: all(torch.equal(finals["null"][k], finals[mode][k])
+                          for k in finals["null"])
+                for mode in ("observer", "probe")}
+        del finals
+        ob = observers["probe"]
+        trace_path = ob.close()
+        observers["observer"].close()
+        rows = summarize.read_rows(str(root / "lm-probe.jsonl"))
+        probe_rows = [r for r in rows if "align_global" in r["metrics"]]
+        values = [v for r in probe_rows for v in r["metrics"].values()]
+        cosines = [v for r in probe_rows for k, v in r["metrics"].items() if k.startswith("align_")]
+        doc = json.loads(pathlib.Path(trace_path).read_text())
+        spans = {}
+        for e in doc["traceEvents"]:
+            if e["ph"] == "X":
+                spans[e["name"]] = spans.get(e["name"], 0) + 1
+        lines = []
+        summarize.render_alignment(summarize.alignment_table(rows), out=lines.append)
+        ms = {mode: timers[mode].event_ms() for mode in timers}
+        probe_steps = {i for i in range(OBS_STEPS) if i % OBS_PROBE_EVERY == 0}
+        lm_ms = {"null": _steady(ms["null"]), "observer": _steady(ms["observer"]),
+                 "probe_steps": _steady(ms["probe"], probe_steps),
+                 "probe_mean": statistics.mean(ms["probe"][1:])}
+        with_probe = [ms["probe"][i] for i in sorted(probe_steps) if i > 0]
+        print(f"[observe] qwen1.5-0.5b full width f32, offchip_bpd, cuda backend, batch "
+              f"{LM_BATCH} x seq {LM_SEQ}, {OBS_STEPS} dfa steps, probe every "
+              f"{OBS_PROBE_EVERY}: probe rows at steps {[r['step'] for r in probe_rows]}, "
+              f"{len(probe_rows[0]['metrics']) if probe_rows else 0} keys; bank launches per "
+              f"probe {[c['photonic_matmul'] for c in per_probe]}; final params bit-identical "
+              f"to the unprobed run: observer {same['observer']}, probe {same['probe']}; trace "
+              f"spans {dict(sorted(spans.items()))}")
+        for r in probe_rows:
+            m = r["metrics"]
+            print(f"[observe]   step {r['step']}: " + ", ".join(
+                f"{k} {m[k]:.6g}" for k in sorted(m)))
+        for line in lines:
+            print(f"[observe] {line}")
+        print(f"[observe] LM step ms on CUDA events (median of steps 1-7; card {card}): null "
+              f"observer {lm_ms['null']:.2f}, Observer {lm_ms['observer']:.2f}, with the probe "
+              f"{lm_ms['probe_steps']:.2f} on unprobed steps, {statistics.mean(with_probe):.2f} "
+              f"on the probed step 4, mean {lm_ms['probe_mean']:.2f}; all (null) "
+              f"{', '.join(f'{x:.1f}' for x in ms['null'])}")
+        check([r["step"] for r in probe_rows] == [0, 4], f"probe rows at "
+              f"{[r['step'] for r in probe_rows]}")
+        check(all(set(r["metrics"]) == LM_PROBE_KEYS for r in probe_rows),
+              f"probe keys {sorted(probe_rows[0]['metrics'])}")
+        check(all(math.isfinite(v) for v in values), "non-finite probe values")
+        check(all(abs(v) <= 1 + 1e-6 for v in cosines), f"|cos| > 1: {cosines}")
+        check([c["photonic_matmul"] for c in per_probe] == [LM_LAUNCHES] * 2,
+              f"bank launches per probe {per_probe}")
+        check(same["probe"] and same["observer"], "probe-on or observed state differs")
+        check(all(spans.get(name, 0) > 0 for name in ("step", "probe", "drain")),
+              f"trace spans {spans}")
+        check(any("align_global" in line for line in lines), "no alignment table")
+        out["probe_launches"]["photonic_matmul"] = sum(c["photonic_matmul"] for c in per_probe)
+
+        # the probe's own time and peak memory, beside one plain step's
+        batch = to_device_batch(gen.batch(OBS_STEPS))
+        probe = introspect.AlignmentProbe(probe_session.trainer)
+        peaks, times = {}, {}
+        for what, fn in (("step", lambda: probe_session.trainer.step(probe_state, batch)),
+                         ("probe", lambda: probe(probe_state, batch))):
+            for _ in range(2):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                result = fn()
+                e1.record()
+                e1.synchronize()
+                del result
+                times[what] = e0.elapsed_time(e1)
+                peaks[what] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[observe] the probe alone: {times['probe']:.2f} ms (CUDA events, second call), "
+              f"peak device memory {peaks['probe']:.2f} GiB; one plain step {times['step']:.2f} "
+              f"ms, peak {peaks['step']:.2f} GiB (the same state resident); each fit's peak above "
+              f"the memory resident at its start: " + ", ".join(
+                  f"{mode} {gib:.2f} GiB" for mode, gib in fit_gib.items()))
+        out["lm"] = {**lm_ms, "probe_ms": times["probe"], "step_ms": times["step"],
+                     "fit_peak_gib": fit_gib,
+                     "probe_peak_gib": peaks["probe"], "step_peak_gib": peaks["step"]}
+
+        # StepTimer + report_throughput with step_cost
+        t_null = timers["null"]
+        path, summary = bench.report_throughput(probe_session, probe_state, gen.batch(0), t_null,
+                                                meta={"arch": ARCH, "algo": "dfa",
+                                                      "preset": "offchip_bpd"},
+                                                out_dir=str(root))
+        cost = probe_session.step_cost(probe_state, gen.batch(0))
+        flops = _lm_step_flops(probe_session.model.cfg, LM_BATCH * LM_SEQ)
+        report = bench.load_bench(path)
+        print(f"[observe] StepTimer (synchronised wall, warmup 1): {summary['steps_measured']} "
+              f"steps, {summary['mean_step_s'] * 1e3:.2f} ms mean, {summary['steps_per_s']:.3f} "
+              f"steps/s, {summary['examples_per_s']:.1f} examples/s, macs_per_s "
+              f"{summary['macs_per_s']:.4e}; env {report['env']}")
+        print(f"[observe] step_cost: {cost.flops / 1e12:.4f} TFLOP ({cost.counted_flops / 1e12:.4f} "
+              f"seen by FlopCounterMode, {cost.kernel_flops / 1e12:.4f} in {cost.kernel_launches} "
+              f"bank-kernel launches) against _lm_step_flops {flops / 1e12:.4f}: ratio "
+              f"{cost.flops / flops:.5f} (the difference: attention's score and value products)")
+        check(cost.kernel_launches == LM_LAUNCHES, f"step_cost saw {cost.kernel_launches} launches")
+        check(flops <= cost.flops <= 1.02 * flops, f"step_cost {cost.flops} vs {flops}")
+        check(summary["macs_per_s"] > 0 and report["env"]["device"] == torch.cuda.get_device_name(0),
+              "bench report")
+        out["step_cost"] = {"flops": cost.flops, "lm_step_flops": flops,
+                            "macs_per_s": summary["macs_per_s"]}
+
+        # (d) debug_checks on the same model: a clean step passes, a NaN raises
+        dbg = Trainer(probe_session.model,
+                      dataclasses.replace(probe_session.config, debug_checks=True), device=DEVICE)
+        t0 = time.perf_counter()
+        _, m = dbg.step(probe_state, batch)
+        sync(torch)
+        clean_s = time.perf_counter() - t0
+        name = "blocks.0.attn.q.weight"
+        bad = dict(probe_state, params={**probe_state["params"]})
+        bad["params"][name] = bad["params"][name].clone()
+        bad["params"][name].view(-1)[0] = float("nan")
+        raised = None
+        try:
+            dbg.step(bad, batch)
+        except runtime.NonFiniteError as err:
+            raised = str(err)
+        print(f"[observe] debug_checks: a clean full-width step passes in {clean_s:.2f}s (loss "
+              f"{float(m['loss']):.4f}); with a NaN in {name}: raised {raised!r}")
+        check(raised is not None, "debug_checks let a NaN through")
+        del dbg, bad, probe, probe_session, probe_state, batch, m, timers, observers, ob
+        torch.cuda.empty_cache()
+
+        # (b) the paper's MLP on emu_onchip, drift on
+        pipe, _ = _digits()
+        emu_ms, emu_per_probe = {"null": [], "observer": [], "probe": [], "probed_step": []}, []
+        # two rounds in opposite orders: a session's own spread shows beside the gaps
+        for rnd, mode in enumerate(("null", "observer", "probe", "probe", "observer", "null")):
+            session = api.build_session(
+                arch="mnist_mlp", algo="dfa", hardware="emu_onchip", backend="emu",
+                optimizer=SGDM(lr=0.01, momentum=0.9), seed=seed, log_every=OBS_PROBE_EVERY,
+                probe_every=OBS_PROBE_EVERY if mode == "probe" else None, device=DEVICE)
+            check(session.model.hidden == (800, 800) and session.config.recalibrate_every == 500,
+                  "not the paper's MLP on a drifting, recalibrated bank")
+            observer = session.observe(metrics_path=str(root / f"mlp-{mode}-{rnd}.jsonl")) \
+                if mode != "null" else None
+            timer = _event_timer(torch, bench)
+            calls, restore = _count_probe_launches(introspect, counters)
+            try:
+                sync(torch)
+                em.launches = 0
+                session.fit(pipe.batch, total_steps=OBS_STEPS * 3, verbose=False, timer=timer,
+                            observer=observer)
+                sync(torch)
+                launches = em.launches
+            finally:
+                restore()
+            check(launches == 2 * (OBS_STEPS * 3 + len(calls)),
+                  f"MLP {mode}: {launches} emu launches")
+            probed = {i for i in range(OBS_STEPS * 3) if i % OBS_PROBE_EVERY == 0}
+            emu_ms[mode].append(_steady(timer.event_ms(), probed if mode == "probe" else ()))
+            if mode == "probe":
+                emu_per_probe += calls
+                emu_ms["probed_step"].append(statistics.mean(
+                    timer.event_ms()[i] for i in sorted(probed) if i > 0))
+                hwmon = observer.hwmon
+                mlp_rows = summarize.read_rows(str(root / f"mlp-probe-{rnd}.jsonl"))
+            if observer is not None:
+                observer.close()
+        nb_rows = [r for r in mlp_rows if "nb_total_var" in r["metrics"]]
+        hw_rows = [r for r in mlp_rows if "hw_residual_rms" in r["metrics"]]
+        last = nb_rows[-1]["metrics"] if nb_rows else {}
+        budget = summarize.noise_budget_table(mlp_rows)
+        print(f"[observe] mnist_mlp 784x800x800x10, emu_onchip (drift on, recalibration every "
+              f"500), {OBS_STEPS * 3} dfa steps, probe every {OBS_PROBE_EVERY}: nb rows at "
+              f"{[r['step'] for r in nb_rows]}, closure {last.get('nb_closure', float('nan')):.4f}, "
+              f"thermal vs analytic {last.get('nb_thermal_vs_analytic', float('nan')):.4f}, shares "
+              + ", ".join(f"{k} {v['share']:.3%}" for k, v in budget.get("sources", {}).items())
+              + f"; emu launches per probe {[c['emu_bank_product'] for c in emu_per_probe]}; hw "
+              f"rows {len(hw_rows)} with hwmon gauges "
+              f"{sorted(k for k in hw_rows[-1]['metrics'] if k.startswith('hw_')) if hw_rows else []}")
+        print(f"[observe] MLP step ms on CUDA events (median of steps 1-23, probed steps out; "
+              f"two rounds, the second in the opposite order): " + ", ".join(
+                  f"{label} {' / '.join(f'{x:.3f}' for x in emu_ms[mode])}"
+                  for mode, label in (("null", "null observer"), ("observer", "Observer"),
+                                      ("probe", "with the probe"),
+                                      ("probed_step", "probed steps")))
+              + f"; card {card}")
+        check(len(nb_rows) == 6 and all(
+            f"nb_{src}_var" in r["metrics"] for r in nb_rows
+            for src in ("quantization", "thermal", "shot", "adc", "drift", "crosstalk",
+                        "dead_rings")), f"nb rows {[r['step'] for r in nb_rows]}")
+        check(all(abs(r["metrics"]["nb_closure"] - 1) <= 0.1 for r in nb_rows), "closure")
+        check(all(abs(r["metrics"]["nb_thermal_vs_analytic"] - 1) <= 0.15 for r in nb_rows),
+              "thermal vs analytic")
+        check([c["emu_bank_product"] for c in emu_per_probe] == [2] * 12,
+              f"emu launches per probe {emu_per_probe}")
+        check(hwmon is not None and hw_rows and all(
+            {"hw_expected_sigma", "hw_residual_vs_expected", "hw_effective_bits"}
+            <= set(r["metrics"]) for r in hw_rows), "hw gauges did not go through hwmon")
+        out["probe_launches"]["emu_bank_product"] = sum(c["emu_bank_product"]
+                                                        for c in emu_per_probe)
+        out["mlp"] = emu_ms
+
+        # (c) serving with the observer
+        serve = api.build_session(arch=ARCH, algo="bp", smoke=False, hardware="offchip_bpd",
+                                  backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+        vocab = serve.model.cfg.vocab_size
+        outs, engines = {}, {}
+        o = obs.Observer(trace_path=str(root / "serve.json"))
+        for mode in ("plain", "observer"):
+            rng = np.random.default_rng(seed)
+            reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, 8, 32, vocab)]
+            eng = serve.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed,
+                               observer=o if mode == "observer" else None)
+            sync(torch)
+            t0 = time.perf_counter()
+            eng.run(reqs)
+            sync(torch)
+            outs[mode] = ([r.out for r in reqs], time.perf_counter() - t0)
+            engines[mode] = eng.stats
+        doc = json.loads(pathlib.Path(o.close()).read_text())
+        tracks = {e["id"] for e in doc["traceEvents"]
+                  if e["ph"] == "b" and e["name"].startswith("request-")}
+        ticks = [e for e in doc["traceEvents"]
+                 if e["ph"] == "X" and e["name"] in ("prefill_tick", "decode_tick")]
+        stats = engines["observer"]
+        print(f"[observe] serving qwen1.5-0.5b full width bf16, 4 slots, 8 requests: {len(tracks)} "
+              f"request tracks, {len(ticks)} tick spans = prefill {stats['prefill_steps']} + "
+              f"decode {stats['decode_steps']}; tokens equal to the unobserved run: "
+              f"{outs['plain'][0] == outs['observer'][0]}; wall {outs['plain'][1]:.3f}s unobserved, "
+              f"{outs['observer'][1]:.3f}s observed")
+        check(len(tracks) == 8, f"{len(tracks)} request tracks")
+        check(len(ticks) == stats["prefill_steps"] + stats["decode_steps"], "tick spans")
+        check(outs["plain"][0] == outs["observer"][0], "the observer changed the tokens")
+        del serve, eng
+        torch.cuda.empty_cache()
+    finally:
+        with contextlib.suppress(OSError):
+            tmp.cleanup()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1913,21 +2293,25 @@ def main(argv=None):
     emu_serve_launches, max_err_serve = phase_emu_serve(torch, np, api, em, args.seed)
     emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card, draws["emu"])
     lm = phase_lm_train(torch, np, api, pm, em, args.seed, card, draws)
+    observed = phase_observe(torch, np, api, pm, em, args.seed, card)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     row_b = train_rows["dfa_gradient"]
     records = [
         {"name": "photonic_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/photonic_matmul.py:95",
-         "launches": serve_launches + train_launches + lm["launches"],
+         "launches": (serve_launches + train_launches + lm["launches"]
+                      + observed["probe_launches"]["photonic_matmul"]),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
-                              "lm_train": lm["launches"]},
+                              "lm_train": lm["launches"],
+                              "probe": observed["probe_launches"]["photonic_matmul"]},
          "max_abs_err": max(max_err, lm["max_abs_err"]),
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
          "library_ms": per_step["library_ms"],
          "decode_step": per_step, "prefill_forward": per_prefill,
-         "lm_train_shape": lm["bank"], "lm_step": lm["profile"], "draw_sass": draws["bank"]},
+         "lm_train_shape": lm["bank"], "lm_step": lm["profile"], "draw_sass": draws["bank"],
+         "observe": {k: observed[k] for k in ("lm", "mlp", "step_cost")}},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",
@@ -1940,9 +2324,11 @@ def main(argv=None):
         {"name": "emu_bank_product", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/emu_matmul.cu",
          "replaces": "src/repro/kernels/emu_matmul.py:200",
-         "launches": emu_train_launches + emu_serve_launches + lm["emu_launches"],
+         "launches": (emu_train_launches + emu_serve_launches + lm["emu_launches"]
+                      + observed["probe_launches"]["emu_bank_product"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
-                              "lm_train": lm["emu_launches"]},
+                              "lm_train": lm["emu_launches"],
+                              "probe": observed["probe_launches"]["emu_bank_product"]},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],

@@ -137,14 +137,18 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
                                    xf, batch)
         loss, metrics = model.loss_from_logits(logits, batch)
         (e_logits,) = torch.autograd.grad(loss, logits, retain_graph=True)
-        *g, e_hidden = torch.autograd.grad(logits, list(head.values()) + [xf], e_logits)
+        # the error below the unembedding only where it is tapped: XLA drops
+        # the reference's unused product as dead code
+        tap_logits = model.error_tap == "logits"
+        g = list(torch.autograd.grad(logits, list(head.values()) + ([] if tap_logits else [xf]),
+                                     e_logits))
     del logits
     g_head = {f"head.{k}": gk for k, gk in zip(head, g)}
-    if model.error_tap == "logits":
+    if tap_logits:
         e_tap = e_logits
     else:
         # broadcast e in the model's compute dtype, as the reference does
-        e_tap = e_hidden.to(x_final.dtype)
+        e_tap = g[-1].to(x_final.dtype)
     e_tap = compress_error(e_tap, cfg.error_compress).detach()
     return dict(x0=x0.detach(), embed_vjp=embed_vjp, saved=saved, auxes=auxes,
                 g_head=g_head, e_tap=e_tap, loss=loss.detach(),

@@ -30,9 +30,12 @@ The defaults are the reference's: the paper's MLP trained with DFA on ideal
 hardware, SGD momentum 0.9 at lr 0.01 (the paper's §4 optimizer).  Every
 session runs on the card unless ``device="cpu"`` is asked for, and raises
 where CUDA is absent.  Every model trains (with checkpoint and
-auto-resume under ``ckpt_dir``) and the language models serve as well; the
-reference's schedule autotuner, ``n_buses=``, data parallelism, observer
-and probe are ported in later slices.
+auto-resume under ``ckpt_dir``) and the language models serve as well.
+``observe=`` / ``Session.observe`` attach an ``obs.Observer`` that
+``fit`` and ``engine`` pick up, ``probe_every=`` samples DFA-vs-BP
+alignment during ``fit`` and ``debug_checks=`` arms the runtime
+sanitizers.  The reference's schedule autotuner, ``n_buses=`` and data
+parallelism are ported in later slices.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import typing
 import torch
 
 from repro_torch import algos, configs
+from repro_torch import obs as obs_lib
 from repro_torch.algos.dfa import DFAConfig
 from repro_torch.core import feedback as fb_lib
 from repro_torch.core import photonics
@@ -83,6 +87,9 @@ class Session:
     algorithm: algos.Algorithm
     config: TrainerConfig
     trainer: Trainer | None = None
+    # the bound obs.Observer when built with observe=... (or attached later
+    # with Session.observe()); None means observability is off
+    observer: typing.Any = None
 
     @property
     def photonics(self) -> photonics.PhotonicConfig:
@@ -97,6 +104,16 @@ class Session:
             raise TypeError(f"{type(self.model).__name__} is not a DFAModel: it serves only")
         return self.trainer
 
+    # ---- observability ----
+    def observe(self, *, metrics_path: str | None = None, trace_path: str | None = None):
+        """Attach (and return) an ``obs.Observer`` wired for this session:
+        a hardware monitor on drifting emu hardware, an optional JSONL
+        metrics sink and a trace path written on ``close()``.  ``fit`` and
+        ``engine`` pick it up."""
+        self.observer = obs_lib.for_session(self, metrics_path=metrics_path,
+                                            trace_path=trace_path)
+        return self.observer
+
     # ---- training ----
     def init_state(self, seed: int | None = None):
         return self._trainer().init_state(seed)
@@ -104,8 +121,18 @@ class Session:
     def step(self, state, batch):
         return self._trainer().step(state, batch)
 
-    def fit(self, data_fn, total_steps: int, eval_fn=None, verbose: bool = True):
-        return self._trainer().fit(data_fn, total_steps, eval_fn=eval_fn, verbose=verbose)
+    def fit(self, data_fn, total_steps: int, eval_fn=None, verbose: bool = True,
+            timer=None, observer=None):
+        """Run the training loop.  ``timer``: an optional
+        ``bench.StepTimer``; ``observer``: an ``obs.Observer`` (default: the
+        session's)."""
+        return self._trainer().fit(data_fn, total_steps, eval_fn=eval_fn, verbose=verbose,
+                                   timer=timer, observer=observer if observer is not None
+                                   else self.observer)
+
+    def step_cost(self, state, batch):
+        """Matrix-product FLOPs of one train step (``utils.flop_cost``)."""
+        return self._trainer().step_cost(state, batch)
 
     # ---- gradients / eval ----
     def value_and_grad(self):
@@ -125,7 +152,7 @@ class Session:
     # ---- serving ----
     def engine(self, params=None, *, batch_slots: int = 8, max_len: int = 512,
                eos_id: int | None = None, prefill_chunk: int = 16,
-               hw_state=None, seed: int = 0):
+               hw_state=None, seed: int = 0, observer=None):
         """A ``serve.Engine`` on this session's (hardware, backend) cell.
 
         ``params``: a state dict loaded into the model; None draws fresh
@@ -135,7 +162,9 @@ class Session:
         with photonics enabled serves "ref", and disabled photonics serve
         the exact digital forward.  ``emu`` serves through the same emulated
         banks training used; ``hw_state`` is their drift state (default: a
-        freshly calibrated chip)."""
+        freshly calibrated chip).  ``observer`` (default: the session's)
+        traces the requests and ticks; the session's ``debug_checks`` carry
+        over."""
         from repro_torch.serve import Engine
 
         if params is None:
@@ -153,7 +182,9 @@ class Session:
         return Engine(self.model, batch_slots=batch_slots, max_len=max_len,
                       eos_id=eos_id, prefill_chunk=prefill_chunk, backend=backend,
                       photonics=hw_cfg if backend is not None else None,
-                      hw_state=hw_state, seed=seed)
+                      hw_state=hw_state, seed=seed,
+                      observer=observer if observer is not None else self.observer,
+                      debug_checks=self.config.debug_checks)
 
 
 def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
@@ -166,7 +197,8 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
                   recalibrate_every: int | None = None, ckpt_dir: str | None = None,
                   ckpt_every: int = 500, log_every: int = 50,
                   log_path: str | None = None, step_deadline_s: float | None = None,
-                  device=None) -> Session:
+                  observe=False, probe_every: int | None = None,
+                  debug_checks: bool = False, device=None) -> Session:
     """Compose one cell of the algorithm × hardware × backend matrix, on
     ``device`` (default: the card).
 
@@ -176,7 +208,15 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
     to 0 (never) otherwise.  ``ckpt_dir``: ``fit`` resumes from the newest
     snapshot there and saves one every ``ckpt_every`` steps and at the end.
     A model that is not a ``DFAModel`` (an instance passed as ``arch``)
-    gets no trainer and serves with ``algo="bp"`` only."""
+    gets no trainer and serves with ``algo="bp"`` only.
+
+    ``observe``: False (default) runs without observability; True attaches
+    a session-wired ``obs.Observer``; an ``Observer`` instance is taken as
+    given.  ``probe_every``: every this many steps ``fit`` runs the
+    ``obs.introspect.AlignmentProbe`` (None keeps training bit-identical
+    to an unprobed run anyway).  ``debug_checks``: every train step (and
+    any ``session.engine()``) runs under the ``lint.runtime``
+    sanitizers."""
     device = resolve_device(device)
     algorithm = algos.get(algo)  # fail fast on unknown names
     backend_obj = photonics.get_backend(backend)  # (likewise for the backend)
@@ -213,6 +253,12 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
         optimizer=optimizer or SGDM(lr=0.01, momentum=0.9),
         seed=seed, microbatches=microbatches, prefetch=prefetch,
         recalibrate_every=recalibrate_every, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-        log_every=log_every, log_path=log_path, step_deadline_s=step_deadline_s)
+        log_every=log_every, log_path=log_path, step_deadline_s=step_deadline_s,
+        probe_every=probe_every, debug_checks=debug_checks)
     trainer = Trainer(model, cfg, device=device) if trainable else None
-    return Session(model=model, algorithm=algorithm, config=cfg, trainer=trainer)
+    session = Session(model=model, algorithm=algorithm, config=cfg, trainer=trainer)
+    if observe is True:
+        session.observe()
+    elif observe:
+        session.observer = observe
+    return session

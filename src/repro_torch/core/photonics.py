@@ -26,6 +26,7 @@ import math
 import torch
 
 from repro_torch.hardware.mrr import MRRConfig
+from repro_torch.lint.runtime import check_finite
 from repro_torch.utils import prng
 
 
@@ -167,7 +168,7 @@ def photonic_matmul(a, b, cfg: PhotonicConfig, key=None, *, mask=None):
         noise = torch.randn(out.shape, generator=prng.generator(key, out.device),
                             device=out.device, dtype=out.dtype)
         out = out + sigma * noise
-    out = out * (s_a * s_b)
+    out = check_finite(out * (s_a * s_b), "photonic_matmul output")
     return out * mask if mask is not None else out
 
 

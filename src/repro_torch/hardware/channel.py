@@ -33,6 +33,7 @@ from repro_torch.core import photonics
 from repro_torch.hardware import calibrate
 from repro_torch.hardware import drift as drift_lib
 from repro_torch.hardware import mrr
+from repro_torch.lint.runtime import check_finite
 from repro_torch.utils import prng
 
 
@@ -296,6 +297,6 @@ def emulated_matmul(a, b, cfg, key=None, *, mask=None, state=None,
         from repro_torch.kernels import emu_matmul  # lazy: kernels import us
 
         out = emu_matmul.fused_bank_product(a_n, b_n, cfg, key, residual=residual)
-    out = out * (s_a * s_b)
+    out = check_finite(out * (s_a * s_b), "emulated_matmul output")
     out = out * mask if mask is not None else out
     return out.to(torch.result_type(a, b))

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels.photonic_matmul import (check_operands, launch_kernel,
                                                  photonic_matmul_plain)
+from repro_torch.utils import flop_cost
 
 launches = 0  # kernel launches since the last reset; read by chip_smoke.py
 
@@ -55,4 +56,5 @@ def dfa_gradient_cuda(a, b, mask, *, noise=None, seed=None, sigma_step: float = 
         return dfa_gradient_plain(a, b, mask, noise=noise, seed=seed, sigma_step=sigma_step)
     out = launch_kernel(a, b, mask=mask, noise=noise, seed=seed, sigma_step=sigma_step)
     launches += 1
+    flop_cost.count_launch(2 * a.shape[0] * a.shape[1] * b.shape[0])
     return out

@@ -40,6 +40,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import photonic_matmul as pm
+from repro_torch.lint.runtime import check_finite
+from repro_torch.utils import flop_cost
 
 # Irwin–Hall(4) scale: the sum of four 16-bit uniforms has variance
 # 4·(65536² − 1)/12, and √3/65536 normalises it to 1 − 2.3e-10.
@@ -427,6 +429,9 @@ def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: fl
         return emu_bank_product_plain(a_t, delta_eff, dead_mask, **kw)
     out = launch_kernel(a_t, delta_eff, dead_mask, **kw)
     launches += 1
+    # the launch's MACs: T rows × (nm·rows) outputs × n_panels·C ring products
+    flop_cost.count_launch(2 * a_t.shape[0] * delta_eff.shape[0] * delta_eff.shape[2]
+                           * n_panels * a_t.shape[3])
     return out
 
 
@@ -460,4 +465,4 @@ def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None):
                                 gamma=float(device.gamma), sigma=float(sigma),
                                 shot=float(shot), adc_bits=device.adc_bits,
                                 amax=float(cfg.bank_cols), seed=seed)
-    return out[:t, :m]
+    return check_finite(out[:t, :m], "fused_bank_product output")

@@ -23,6 +23,7 @@ from repro_torch.core import photonics
 from repro_torch.kernels.dfa_gradient import dfa_gradient_cuda
 from repro_torch.kernels.photonic_matmul import BLOCK_K, photonic_matmul_cuda
 from repro_torch.kernels.ref import total_noise
+from repro_torch.lint.runtime import check_finite
 
 
 def photonic_matmul(a, b, cfg, key=None, *, mask=None, noise_mode="auto"):
@@ -61,7 +62,7 @@ def photonic_matmul(a, b, cfg, key=None, *, mask=None, noise_mode="auto"):
         out = kernel(a_n, b_n, seed=key if key is not None else 0, sigma_step=sigma_step)
     else:
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
-    return (out * (s_a * s_b)).to(a.dtype)
+    return check_finite((out * (s_a * s_b)).to(a.dtype), "the bank kernel's output")
 
 
 def dfa_gradient(a, b, mask, cfg, key=None, **kw):

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.ref import photonic_matmul_ref
+from repro_torch.utils import flop_cost
 
 BLOCK_K = 32  # the kernel's K tile; prng noise is drawn once per tile
 
@@ -349,4 +350,5 @@ def photonic_matmul_cuda(a, b, *, noise=None, seed=None, sigma_step: float = 0.0
         return photonic_matmul_plain(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     out = launch_kernel(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     launches += 1
+    flop_cost.count_launch(2 * a.shape[0] * a.shape[1] * b.shape[0])
     return out

@@ -11,9 +11,10 @@ then runs its kernel's plain version, the ``emu`` backend its unfused
 chain).  ``--backend emu`` serves through the emulated MRR banks.
 ``--smoke`` (default on) builds the shrunk smoke config; ``--no-smoke``
 serves the full-size model (in f32, the facade's default, as the reference
-launcher does).
-The reference's ``--bench-json``, ``--trace-out`` and ``--metrics-out``
-are not ported yet.
+launcher does).  ``--bench-json DIR`` writes the measured latency
+distribution as ``BENCH_serve_live.json``; ``--trace-out PATH`` a
+Perfetto-loadable trace with one track per request and a span per tick;
+``--metrics-out PATH`` a metrics JSONL.
 """
 
 from __future__ import annotations
@@ -52,6 +53,14 @@ def main(argv=None):
     ap.add_argument("--arrival-rate", type=float, default=None,
                     help="Poisson arrivals at this rate (req/s); default: "
                          "submit all requests up front")
+    ap.add_argument("--bench-json", default=None, metavar="DIR",
+                    help="write BENCH_serve_live.json with the measured latency "
+                         "distribution to DIR")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto-loadable Chrome trace of the request "
+                         "lifecycles and engine ticks to PATH")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="append obs metrics rows (JSONL) to PATH")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
     args = ap.parse_args(argv)
@@ -61,6 +70,9 @@ def main(argv=None):
     session = api.build_session(arch=args.arch, smoke=args.smoke, algo="bp",
                                 hardware=hardware, backend=args.backend,
                                 seed=args.seed, device=args.device)
+    observer = None
+    if args.trace_out or args.metrics_out:
+        observer = session.observe(metrics_path=args.metrics_out, trace_path=args.trace_out)
     vocab = session.model.cfg.vocab_size
     eng = session.engine(batch_slots=args.slots, max_len=args.max_len,
                          prefill_chunk=args.prefill_chunk, seed=args.seed)
@@ -89,6 +101,34 @@ def main(argv=None):
     for r in done[:4]:
         print(f"  prompt={r.prompt[:4]}{'...' if len(r.prompt) > 4 else ''} "
               f"-> {r.out}")
+
+    if args.bench_json:
+        from repro_torch.bench import write_bench
+
+        metrics = {
+            "requests": float(len(done)),
+            "tokens": float(total_tokens),
+            "wall_s": dt,
+            "tok_per_s": total_tokens / max(dt, 1e-9),
+            "ttft_p50_ms": _pct(ttfts, 50) * 1e3,
+            "ttft_p99_ms": _pct(ttfts, 99) * 1e3,
+            "latency_p50_ms": _pct(lats, 50) * 1e3,
+            "latency_p99_ms": _pct(lats, 99) * 1e3,
+            "prefill_steps": float(eng.stats["prefill_steps"]),
+            "decode_steps": float(eng.stats["decode_steps"]),
+        }
+        meta = {"arch": args.arch, "backend": args.backend, "hardware": hardware,
+                "smoke": args.smoke, "slots": args.slots,
+                "prefill_chunk": args.prefill_chunk, "arrival_rate": args.arrival_rate or 0.0}
+        path = write_bench("serve_live", metrics, meta, args.bench_json)
+        print(f"[serve] wrote {path}")
+
+    if observer is not None:
+        trace_path = observer.close()
+        if trace_path:
+            print(f"[obs] wrote trace {trace_path}")
+        if args.metrics_out:
+            print(f"[obs] wrote metrics {args.metrics_out}")
 
 
 if __name__ == "__main__":

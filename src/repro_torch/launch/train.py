@@ -24,9 +24,16 @@ width: ``api.build_session(smoke=False)``); the final metrics are printed.
 ``--ckpt-dir``: resume from the newest snapshot there, save one every 500
 steps and at the end.
 
+Observability: ``--trace-out PATH`` writes a Perfetto-loadable Chrome
+trace (step, probe and drain spans, recalibration events, hwmon
+counters), ``--metrics-out PATH`` appends the logged rows as JSONL
+(render with ``python -m repro_torch.obs.summarize PATH``),
+``--probe-every N`` logs DFA-vs-BP alignment (and on emu presets the
+noise budget) every N steps, and ``--bench-json DIR`` times every step and
+writes ``BENCH_train_throughput.json`` into DIR.
+
 The reference's whisper and internvl2 branches, ``--data-parallel``,
-``--n-buses``, ``--autotune``, ``--bench-json``, ``--trace-out``,
-``--metrics-out`` and ``--probe-every`` are ported in later slices.
+``--n-buses`` and ``--autotune`` are ported in later slices.
 """
 
 from __future__ import annotations
@@ -61,6 +68,17 @@ def main(argv=None):
                          "hardware; default: 500 when the device drifts")
     ap.add_argument("--ckpt-dir", default=None,
                     help="resume from and save snapshots to this directory")
+    ap.add_argument("--bench-json", default=None, metavar="DIR",
+                    help="measure throughput and write BENCH_train_throughput.json into DIR")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto-loadable Chrome trace of the run (step spans, "
+                         "recal events, hwmon gauges) to PATH")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="append obs metrics rows (JSONL) to PATH; render with "
+                         "python -m repro_torch.obs.summarize")
+    ap.add_argument("--probe-every", type=int, default=None, metavar="N",
+                    help="every N steps log DFA-vs-BP alignment per layer (and the emu "
+                         "noise budget) as observer rows")
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
     args = ap.parse_args(argv)
 
@@ -71,25 +89,62 @@ def main(argv=None):
         backend=args.backend, error_compress=args.error_compress,
         optimizer=SGDM(lr=args.lr, momentum=args.momentum), seed=args.seed,
         log_path=args.log, log_every=max(1, args.steps // 20), prefetch=args.prefetch,
-        recalibrate_every=args.recal_every, ckpt_dir=args.ckpt_dir, device=args.device)
+        recalibrate_every=args.recal_every, ckpt_dir=args.ckpt_dir,
+        probe_every=args.probe_every, device=args.device)
     model = session.model
+    observer = None
+    if args.trace_out or args.metrics_out:
+        observer = session.observe(metrics_path=args.metrics_out, trace_path=args.trace_out)
+    timer = None
+    if args.bench_json is not None:
+        from repro_torch.bench import StepTimer, clamped_warmup
+
+        timer = StepTimer(warmup=clamped_warmup(args.steps, 4))
+
     if args.arch != "mnist_mlp":
         gen = tokens.MarkovTokens(model.cfg.vocab_size, args.seq, args.batch, args.seed)
-        state, metrics = session.fit(gen.batch, total_steps=args.steps)
-        final = session.trainer.to_host(metrics)
-        print(f"[final] {final}")
-        return final
-    data = mnist.load(seed=args.seed)
-    print(f"[data] source={data['source']}")
-    xtr, ytr = data["train"]
-    xte, yte = data["test"]
-    if xtr.shape[1] != model.in_dim:  # --smoke shrinks in_dim
-        xtr, xte = xtr[:, :model.in_dim], xte[:, :model.in_dim]
-    pipe = pipeline.ArrayClassification(xtr, ytr, args.batch, args.seed)
-    state, _ = session.fit(pipe.batch, total_steps=args.steps)
-    ev = session.evaluate(state, pipe.eval_batches(xte, yte, 256))
-    print(f"[eval] {ev}")
-    return ev
+        state, metrics = session.fit(gen.batch, total_steps=args.steps, timer=timer)
+        _report_bench(args, session, state, gen.batch(0), timer)
+        result = session.trainer.to_host(metrics)
+        print(f"[final] {result}")
+    else:
+        data = mnist.load(seed=args.seed)
+        print(f"[data] source={data['source']}")
+        xtr, ytr = data["train"]
+        xte, yte = data["test"]
+        if xtr.shape[1] != model.in_dim:  # --smoke shrinks in_dim
+            xtr, xte = xtr[:, :model.in_dim], xte[:, :model.in_dim]
+        pipe = pipeline.ArrayClassification(xtr, ytr, args.batch, args.seed)
+        state, _ = session.fit(pipe.batch, total_steps=args.steps, timer=timer)
+        _report_bench(args, session, state, pipe.batch(0), timer)
+        result = session.evaluate(state, pipe.eval_batches(xte, yte, 256))
+        print(f"[eval] {result}")
+
+    if observer is not None:
+        trace_path = observer.close()
+        if trace_path:
+            print(f"[obs] wrote trace {trace_path}")
+        if args.metrics_out:
+            print(f"[obs] wrote metrics {args.metrics_out}")
+        if observer.alerts:
+            print(f"[obs] {len(observer.alerts)} alert(s) (hwmon + anomaly); first: "
+                  f"{observer.alerts[0].message}")
+    return result
+
+
+def _report_bench(args, session, state, batch, timer):
+    if timer is None:
+        return
+    if timer.recorded_steps == 0:
+        # e.g. a checkpoint-restored fit that had nothing left to run
+        print("[bench] no steps executed — skipping throughput report", flush=True)
+        return
+    from repro_torch.bench import report_throughput
+
+    report_throughput(session, state, batch, timer,
+                      meta={"arch": args.arch, "algo": args.algo, "preset": args.preset,
+                            "batch": args.batch, "steps": args.steps},
+                      out_dir=args.bench_json)
 
 
 if __name__ == "__main__":

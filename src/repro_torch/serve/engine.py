@@ -19,6 +19,12 @@ With a photonic backend (``"ref"``, ``"cuda"`` or ``"emu"``) every
 emulated device serves under ``drift.use_state(hw_state)``; serving never
 advances the drift.  The model's device is the engine's device; steps run
 under ``torch.no_grad``.
+
+With an ``observer`` every request gets one async trace track (QUEUED →
+PREFILL → DECODE → DONE with a FIRST_TOKEN instant), each prefill/decode
+tick a span, and slot occupancy / queue depth an ``engine`` counter
+series; the sinks are flushed when a run ends.  ``debug_checks`` runs the
+prefill and decode steps under the ``lint.runtime`` sanitizers.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_lib
 from repro_torch.core import photonics as ph
 from repro_torch.hardware import drift
+from repro_torch.lint import runtime as lint_runtime
 from repro_torch.serve.decode import make_prefill_step, make_serve_step, select_slots
 from repro_torch.utils import prng
 
@@ -78,21 +86,24 @@ class Engine:
     config has no device.  ``hw_state``: the drift state of a drifting
     device (default: a freshly calibrated chip, ``drift.init_state``).
     ``seed`` roots the bank-noise seeds: tick n draws from
-    ``prng.fold(seed, n)``.
-
-    Not ported yet: the ``observer`` traces and ``debug_checks``; passing
-    them raises.
+    ``prng.fold(seed, n)``.  ``observer``: an ``obs.Observer`` (or True for
+    a fresh one); None resolves to the shared null observer, which costs a
+    few attribute lookups.  ``debug_checks``: every step's photonic
+    products and outputs are checked finite (``lint.runtime``).
     """
 
     def __init__(self, model, *, batch_slots: int = 8, max_len: int = 512,
                  eos_id: int | None = None, prefill_chunk: int = 16,
                  backend=None, photonics=None, hw_state=None, seed: int = 0,
                  observer=None, debug_checks: bool = False):
-        for given, name in ((observer is not None, "observer"),
-                            (debug_checks, "debug_checks")):
-            if given:
-                raise NotImplementedError(f"Engine {name} is not ported yet")
         self.model = model
+        self.observer = obs_lib.resolve(observer)
+        self._req_seq = 0
+        self._track_ids: dict[int, int] = {}  # id(request) -> async track id
+        if self.observer.enabled:
+            from repro_torch.obs.trace import HOST_PID, HOST_TID
+
+            self.observer.trace.name_thread(HOST_PID, HOST_TID, "serve.Engine")
         self.device = model.device
         self.slots = batch_slots
         self.max_len = max_len
@@ -131,6 +142,9 @@ class Engine:
 
         self._prefill_step = make_prefill_step(model)
         self._serve_step = make_serve_step(model)
+        if debug_checks:
+            self._prefill = lint_runtime.checked(self._prefill, "Engine.prefill")
+            self._decode = lint_runtime.checked(self._decode, "Engine.decode")
 
     @contextlib.contextmanager
     def _execution(self, key):
@@ -169,12 +183,26 @@ class Engine:
         req.state = QUEUED
         req.submit_s = time.monotonic()
         self._pending.append(req)
+        if self.observer.enabled:
+            rid = self._req_seq
+            self._req_seq += 1
+            self._track_ids[id(req)] = rid
+            tr = self.observer.trace
+            tr.async_begin(f"request-{rid}", rid, cat="serve",
+                           prompt_len=len(req.prompt), max_new=req.max_new)
+            tr.async_begin(QUEUED, rid, cat="serve")
 
     def _admit(self):
         for i in range(self.slots):
             if self._requests[i] is None and self._pending:
                 req = self._pending.pop(0)
                 req.state = PREFILL
+                if self.observer.enabled:
+                    rid = self._track_ids.get(id(req))
+                    if rid is not None:
+                        tr = self.observer.trace
+                        tr.async_end(QUEUED, rid, cat="serve")
+                        tr.async_begin(PREFILL, rid, cat="serve", slot=i)
                 self._requests[i] = req
                 self._prompt_pos[i] = 0
                 self._cache_len[i] = 0
@@ -186,6 +214,12 @@ class Engine:
 
     def _finish(self, i: int):
         req = self._requests[i]
+        if self.observer.enabled:
+            rid = self._track_ids.pop(id(req), None)
+            if rid is not None:
+                tr = self.observer.trace
+                tr.async_end(req.state, rid, cat="serve")
+                tr.async_end(f"request-{rid}", rid, cat="serve", new_tokens=len(req.out))
         req.state = DONE
         req.finish_s = time.monotonic()
         self._requests[i] = None
@@ -211,9 +245,11 @@ class Engine:
             take = min(c, len(req.prompt) - pos)
             chunk[i, :take] = req.prompt[pos:pos + take]
             n_valid[i] = take
-        last, self.caches, _ = self._prefill(
-            self._tensor(chunk), self._tensor(n_valid), self._tensor(self._cache_len),
-            self._next_key())
+        with self.observer.span("prefill_tick", cat="serve", slots=len(slots),
+                                tokens=int(n_valid.sum())):
+            last, self.caches, _ = self._prefill(
+                self._tensor(chunk), self._tensor(n_valid), self._tensor(self._cache_len),
+                self._next_key())
         self.stats["prefill_steps"] += 1
         self.stats["prefill_tokens"] += int(n_valid.sum())
         self._cache_len[slots] += n_valid[slots]
@@ -231,6 +267,13 @@ class Engine:
                 req.out.append(tok)
                 req.first_token_s = now
                 req.state = DECODE
+                if self.observer.enabled:
+                    rid = self._track_ids.get(id(req))
+                    if rid is not None:
+                        tr = self.observer.trace
+                        tr.async_end(PREFILL, rid, cat="serve")
+                        tr.async_instant("FIRST_TOKEN", rid, cat="serve", token=tok)
+                        tr.async_begin(DECODE, rid, cat="serve")
                 self._tokens[i, 0] = tok
                 if ((self.eos is not None and tok == self.eos)
                         or len(req.out) >= req.max_new
@@ -245,9 +288,10 @@ class Engine:
             return False
         active = np.zeros((self.slots,), bool)
         active[slots] = True
-        nxt, _, self.caches = self._decode(
-            self._tensor(self._tokens), self._tensor(self._cache_len),
-            self._tensor(active), self._next_key())
+        with self.observer.span("decode_tick", cat="serve", slots=len(slots)):
+            nxt, _, self.caches = self._decode(
+                self._tensor(self._tokens), self._tensor(self._cache_len),
+                self._tensor(active), self._next_key())
         # intentional sync: sampled tokens feed the host-side stop logic
         nxt = nxt.cpu().numpy()
         self.stats["decode_steps"] += 1
@@ -271,6 +315,10 @@ class Engine:
         self._admit()
         did_prefill = self._prefill_tick()
         did_decode = self._decode_tick()
+        if self.observer.enabled:
+            self.observer.counter("engine", {
+                "active_slots": sum(r is not None for r in self._requests),
+                "queued": len(self._pending)})
         if did_prefill or did_decode:
             self.stats["ticks"] += 1
             return True
@@ -280,10 +328,14 @@ class Engine:
         for r in requests:
             self.submit(r)
         ticks = 0
-        while (self._pending or any(r is not None for r in self._requests)) and ticks < max_ticks:
-            if not self.tick():
-                break
-            ticks += 1
+        try:
+            while (self._pending or any(r is not None for r in self._requests)) and ticks < max_ticks:
+                if not self.tick():
+                    break
+                ticks += 1
+        finally:
+            # interrupted or not, buffered observer JSONL reaches disk
+            self.observer.flush()
         return requests, ticks
 
     def run_arrivals(self, requests: list[Request], arrivals, max_ticks: int = 1_000_000):
@@ -292,15 +344,19 @@ class Engine:
         order = sorted(range(len(requests)), key=lambda i: arrivals[i])
         t0 = time.monotonic()
         idx, ticks = 0, 0
-        while ticks < max_ticks:
-            now = time.monotonic() - t0
-            while idx < len(order) and arrivals[order[idx]] <= now:
-                self.submit(requests[order[idx]])
-                idx += 1
-            if self.tick():
-                ticks += 1
-            elif idx < len(order):
-                time.sleep(min(1e-3, max(0.0, arrivals[order[idx]] - (time.monotonic() - t0))))
-            else:
-                break
+        try:
+            while ticks < max_ticks:
+                now = time.monotonic() - t0
+                while idx < len(order) and arrivals[order[idx]] <= now:
+                    self.submit(requests[order[idx]])
+                    idx += 1
+                if self.tick():
+                    ticks += 1
+                elif idx < len(order):
+                    time.sleep(min(1e-3, max(0.0,
+                                             arrivals[order[idx]] - (time.monotonic() - t0))))
+                else:
+                    break
+        finally:
+            self.observer.flush()
         return requests, ticks

@@ -20,10 +20,18 @@ pure function of (seed, step) through ``utils.prng.step_key``, so with
 (``train/checkpoint.py``; the ``hw`` state included) and replays the
 uninterrupted run bit for bit.
 
+Observability: ``fit(timer=, observer=)`` takes a ``bench.StepTimer``
+(each step synchronised on the device and timed) and an ``obs.Observer``
+(a span per step, a recalibration event, one drain per logging interval
+through ``observer.log_step``); with ``probe_every`` the
+``obs.introspect.AlignmentProbe`` logs DFA-vs-BP alignment (and on the emu
+backend the noise budget) before every probe_every-th step, without
+touching the training state.  ``debug_checks`` runs each step under the
+``lint.runtime`` sanitizers.
+
 The trainer runs on the card unless ``device="cpu"`` is asked for, and
-raises where CUDA is absent.  The reference's data parallelism, observer,
-alignment probe and ``debug_checks`` are ported in later slices
-(``ROADMAP.md``).
+raises where CUDA is absent.  The reference's data parallelism is ported
+in a later slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -37,11 +45,14 @@ import typing
 import torch
 
 from repro_torch import algos
+from repro_torch import obs as obs_lib
 from repro_torch.algos.dfa import DFAConfig
 from repro_torch.core import photonics
 from repro_torch.data.pipeline import DevicePrefetcher, to_device
 from repro_torch.hardware import calibrate as hw_calibrate
 from repro_torch.hardware import drift as hw_drift
+from repro_torch.lint import runtime as lint_runtime
+from repro_torch.obs.hwmon import DEAD_RING_FACTOR
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import SGDM
 from repro_torch.utils import prng
@@ -67,11 +78,14 @@ class TrainerConfig:
     keep_ckpts: int = 3
     # straggler mitigation: per-step wall deadline (None = off)
     step_deadline_s: float | None = None
-
-
-# residual threshold (in stationary drift σ) past which a ring counts as
-# dead: the port's copy of repro/obs/hwmon.py:40 DEAD_RING_FACTOR
-DEAD_RING_FACTOR = 3.0
+    # in-situ diagnostics cadence (obs.introspect.AlignmentProbe): every
+    # this many steps fit() logs DFA-vs-BP alignment (plus the emu noise
+    # budget) through the observer.  None/0 = off; the probe consumes no
+    # training randomness, so probed and unprobed runs are bit-identical.
+    probe_every: int | None = None
+    # opt-in runtime sanitizers (lint.runtime): every step runs with the
+    # photonic products' finiteness checks armed and its outputs checked
+    debug_checks: bool = False
 
 
 class Trainer:
@@ -86,9 +100,12 @@ class Trainer:
         self._vg = self.algorithm.value_and_grad(model, cfg.dfa)
         # only backends that consume device state carry a "hw" state
         self._hw_stateful = photonics.get_backend(cfg.dfa.backend).stateful_hardware
+        self._step_fn = (lint_runtime.checked(self._train_step, "Trainer.step")
+                         if cfg.debug_checks else self._train_step)
         self.ckpt = CheckpointManager(cfg.ckpt_dir, cfg.keep_ckpts) if cfg.ckpt_dir else None
         self._log_file = None
         self._log_keys = None
+        self._probe = None  # the AlignmentProbe, built at the first probed fit
 
     # ---------- state ----------
     def init_state(self, seed: int | None = None) -> dict:
@@ -166,7 +183,7 @@ class Trainer:
 
     def _dispatch(self, state, batch):
         t0 = time.monotonic()
-        state, metrics = self._train_step(state, batch)
+        state, metrics = self._step_fn(state, batch)
         if self.cfg.step_deadline_s is not None:
             self._sync()
             dt = time.monotonic() - t0
@@ -182,6 +199,16 @@ class Trainer:
 
     def step(self, state, batch):
         return self._dispatch(state, self.put(batch))
+
+    # ---------- cost model ----------
+    def step_cost(self, state, batch):
+        """Matrix-product FLOPs of one train step (``utils.flop_cost``),
+        counted while running it once on (state, batch); the state is left
+        as it was.  Feeds the bench MACs/s metric."""
+        from repro_torch.utils import flop_cost
+
+        _, cost = flop_cost.measure(self._train_step, state, self.put(batch))
+        return cost
 
     # ---------- loop ----------
     def restore_or_init(self, seed: int | None = None):
@@ -211,13 +238,8 @@ class Trainer:
     @staticmethod
     def to_host(metrics: dict) -> dict:
         """Metrics -> floats with one device-to-host transfer for all the
-        tensors, never one blocking ``item()`` per metric."""
-        keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
-        host = {k: float(v) for k, v in metrics.items() if k not in keys}
-        if keys:
-            vals = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
-            host.update(zip(keys, vals.tolist()))
-        return host
+        tensors (``obs.metrics.Registry.drain``)."""
+        return obs_lib.Registry.drain(metrics)
 
     def _make_feed(self, data_fn, total_steps: int):
         if self.cfg.prefetch <= 0:
@@ -225,24 +247,84 @@ class Trainer:
         return DevicePrefetcher(data_fn, put_fn=self.put, depth=self.cfg.prefetch,
                                 limit=total_steps)
 
-    def fit(self, data_fn, total_steps: int, eval_fn=None, verbose: bool = True):
+    def fit(self, data_fn, total_steps: int, eval_fn=None, verbose: bool = True,
+            timer=None, observer=None):
         """data_fn(step) -> host batch (deterministic — restart-safe).
         Resumes from the newest snapshot in ``ckpt_dir``, saves one every
         ``ckpt_every`` steps and at the end.
+
+        ``timer``: an optional ``bench.StepTimer``; each step is then
+        synchronised on the device and its wall time recorded (bench only:
+        the sync serialises the host with the card).
+
+        ``observer``: an optional ``obs.Observer``: every step gets a span,
+        recalibration steps an instant event, and each logging interval
+        drains the metrics through ``observer.log_step`` (one transfer,
+        hwmon gauges and alerts included).  None resolves to the shared
+        null observer.
+
+        With ``cfg.probe_every`` set, every probe_every-th step first runs
+        the ``obs.introspect.AlignmentProbe`` on the step's own (state,
+        batch); its row lands in the observer at that step (an in-memory
+        observer is made when none is given).
         Returns (state, eval_fn(state)) or (state, last metrics)."""
+        observer = obs_lib.resolve(observer)
+        probe = None
+        if self.cfg.probe_every:
+            if self._probe is None:
+                from repro_torch.obs.introspect import AlignmentProbe
+
+                self._probe = AlignmentProbe(self)
+            probe = self._probe
+            if not observer.enabled:
+                # probe rows need somewhere to land
+                observer = obs_lib.Observer()
         state, start = self.restore_or_init()
         feed = self._make_feed(data_fn, total_steps)
         metrics = {}
-        for step in range(start, total_steps):
-            state, metrics = self._dispatch(state, feed(step))
-            if (step + 1) % self.cfg.log_every == 0 or step + 1 == total_steps:
-                host = self.to_host(metrics)
-                self._log(step + 1, host)
-                if verbose:
-                    txt = " ".join(f"{k}={v:.4f}" for k, v in sorted(host.items()))
-                    print(f"[step {step + 1}/{total_steps}] {txt}", flush=True)
-            if self.ckpt is not None and (step + 1) % self.cfg.ckpt_every == 0:
-                self.ckpt.save(step + 1, state)
+        recal = self.cfg.recalibrate_every if self._hw_stateful else 0
+        if timer is not None:
+            timer.start()
+        try:
+            for step in range(start, total_steps):
+                batch = feed(step)
+                if timer is not None and timer.examples_per_step is None and batch:
+                    timer.examples_per_step = int(next(iter(batch.values())).shape[0])
+                if probe is not None and step % self.cfg.probe_every == 0:
+                    # diagnostics BEFORE the update: the alignment of the DFA
+                    # update this step is about to apply, on its own batch
+                    with observer.span("probe", step=step):
+                        probe_host = observer.log_step(step, probe(state, batch))
+                    if verbose:
+                        print(f"[probe {step}] align_global="
+                              f"{probe_host.get('align_global', float('nan')):.4f}", flush=True)
+                if observer.enabled:
+                    # the span covers dispatch (the card runs asynchronously:
+                    # device time shows up in the drain span instead)
+                    with observer.span("step", step=step, microbatches=self.cfg.microbatches):
+                        state, metrics = self._dispatch(state, batch)
+                    if recal > 0 and step > 0 and step % recal == 0:
+                        # mirrors calibrate.advance's cadence inside the step
+                        observer.event("recalibration", cat="hwmon", step=step)
+                else:
+                    state, metrics = self._dispatch(state, batch)
+                if timer is not None:
+                    timer.tick(self.device)
+                if (step + 1) % self.cfg.log_every == 0 or step + 1 == total_steps:
+                    if observer.enabled:
+                        with observer.span("drain", step=step + 1):
+                            host = observer.log_step(step + 1, metrics)
+                    else:
+                        host = self.to_host(metrics)
+                    self._log(step + 1, host)
+                    if verbose:
+                        txt = " ".join(f"{k}={v:.4f}" for k, v in sorted(host.items()))
+                        print(f"[step {step + 1}/{total_steps}] {txt}", flush=True)
+                if self.ckpt is not None and (step + 1) % self.cfg.ckpt_every == 0:
+                    self.ckpt.save(step + 1, state)
+        finally:
+            # interrupted or not, buffered JSONL rows reach disk
+            observer.flush()
         if self.ckpt is not None:
             self.ckpt.save(total_steps, state)
         if eval_fn is not None:
