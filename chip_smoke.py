@@ -79,7 +79,20 @@ sources in the checkout.  Phases:
     unprobed state bit for bit, the trace, step ms of each, the probe's
     ms and peak memory, ``StepTimer`` and ``step_cost``, ``debug_checks``
     on a NaN), the MLP on emulated banks with the noise budget and the
-    hardware monitor, and full-width serving with an observer.
+    hardware monitor, and full-width serving with an observer;
+16. the Mamba-2 family (``[mamba_*]``, ``phase_mamba``): mamba2-130m at
+    full width (24 layers, d 768, vocab 50280, d_state 128, random
+    weights from --seed) served in bf16 on offchip_bpd through the bank
+    kernel (49 launches a forward; the prefill by the masked decode-scan,
+    49 a prefilled token; the kernel against its plain version on the
+    path's own operands at the three decode shapes) with a profiled
+    prefill tick and two decode ticks; f32 ideal cuda-vs-ref parity and chunk 16 = chunk 1; 4
+    requests through emulated banks (emu_offchip), the emu kernel bit for
+    bit on the path's operands; DFA training in f32 at batch 8 × seq 512
+    (two SSD chunks), 16 steps on ``cuda`` and 4 on ``emu``, 25 launches a
+    step, δ against the plain version, ideal cuda = ref gradients, step
+    ms, profile, peak memory and ``step_cost``; both kernels timed at the
+    Mamba shapes.
 
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
@@ -470,6 +483,22 @@ def _prompts(rng, n, length, vocab):
     return [rng.integers(0, vocab, length).tolist() for _ in range(n)]
 
 
+def _finite_outputs(torch, eng):
+    """Wrap the engine's prefill and decode steps so that every logit they
+    return is checked finite; returns the function that reads the flag."""
+    finite = [torch.ones((), dtype=torch.bool, device=DEVICE)]
+    for name, idx in (("_prefill", 0), ("_decode", 1)):
+        fn = getattr(eng, name)
+
+        def wrapped(*args, fn=fn, idx=idx):
+            out = fn(*args)
+            finite[0] = finite[0] & torch.isfinite(out[idx]).all()
+            return out
+
+        setattr(eng, name, wrapped)
+    return lambda: bool(finite[0].item())
+
+
 def phase_serve(torch, np, pm, api, seed):
     from repro_torch.serve import Request
 
@@ -485,17 +514,7 @@ def phase_serve(torch, np, pm, api, seed):
     warm.run([Request(prompt=_prompts(rng, 1, 8, vocab)[0], max_new=2)])
 
     eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
-    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
-    for name, idx in (("_prefill", 0), ("_decode", 1)):
-        fn = getattr(eng, name)
-
-        def wrapped(*args, fn=fn, idx=idx):
-            nonlocal finite
-            out = fn(*args)
-            finite = finite & torch.isfinite(out[idx]).all()
-            return out
-
-        setattr(eng, name, wrapped)
+    finite = _finite_outputs(torch, eng)
     reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, 8, 32, vocab)]
     sync(torch)
     pm.launches = 0
@@ -514,7 +533,7 @@ def phase_serve(torch, np, pm, api, seed):
           f"{launches == 169 * forwards}")
     check(all(r.done and len(r.out) == 16 for r in reqs), "requests unfinished")
     check(launches == 169 * forwards, f"launches {launches} != 169 x {forwards}")
-    check(bool(finite.item()), "non-finite logits")
+    check(finite(), "non-finite logits")
     del eng, warm, session, model
     torch.cuda.empty_cache()
     return launches
@@ -858,22 +877,24 @@ def _profile_ticks(torch, eng, ticks, tag, label, kernel):
     if not by_name:
         print(f"[{tag}] {label}: wall {wall:.2f} ms; device time not measured (the profiler "
               "traced no device kernels)")
-        return
+        return {"wall_ms": wall}
     busy = sum(by_name.values()) / ticks
     print(f"[{tag}] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
           f"{1 - busy / wall:.3f}; {kernel} {by_name.get(kernel, 0.0) / ticks:.3f} ms per tick")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}]   {ms / ticks:8.3f} ms/tick  {ms / ticks / wall:6.1%} of wall  {name}")
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kernel_ms": by_name.get(kernel, 0.0) / ticks}
 
 
 def phase_profile_ticks(torch, np, api, seed, tag="profile", hardware="offchip_bpd",
-                        backend="cuda", kernel="photonic_matmul"):
-    """A prefill tick (4 slots x chunk 16: 64 rows through every
-    projection) and two steady decode ticks (4 active slots), bf16, under
-    the profiler."""
+                        backend="cuda", kernel="photonic_matmul", arch=ARCH):
+    """A prefill tick (4 slots x chunk 16: 64 rows through every projection
+    of a transformer, 16 decode-scan steps of 4 rows for Mamba) and two
+    steady decode ticks (4 active slots), bf16, under the profiler."""
     from repro_torch.serve import DECODE, Request
 
-    session = api.build_session(arch=ARCH, algo="bp", smoke=False, hardware=hardware,
+    session = api.build_session(arch=arch, algo="bp", smoke=False, hardware=hardware,
                                 backend=backend, dtype=torch.bfloat16, seed=seed,
                                 device=DEVICE)
     eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
@@ -881,13 +902,15 @@ def phase_profile_ticks(torch, np, api, seed, tag="profile", hardware="offchip_b
     for p in _prompts(rng, 4, 32, session.model.cfg.vocab_size):
         eng.submit(Request(prompt=p, max_new=8))
     eng.tick()  # the first prefill chunk
-    _profile_ticks(torch, eng, 1, tag, f"prefill tick (4 slots x 16 tokens, bf16, {hardware})",
-                   kernel)
+    prefill = _profile_ticks(torch, eng, 1, tag,
+                             f"prefill tick (4 slots x 16 tokens, bf16, {hardware})", kernel)
     eng.tick()  # one unprofiled decode tick
     check(all(r is not None and r.state == DECODE for r in eng._requests), "slots not decoding")
-    _profile_ticks(torch, eng, 2, tag, f"decode tick (4 slots, bf16, {hardware})", kernel)
+    decode = _profile_ticks(torch, eng, 2, tag, f"decode tick (4 slots, bf16, {hardware})",
+                            kernel)
     del eng, session
     torch.cuda.empty_cache()
+    return {"prefill_tick": prefill, "decode_tick": decode}
 
 
 def _fmt(x):
@@ -1352,17 +1375,7 @@ def phase_emu_serve(torch, np, api, em, seed):
     rng = np.random.default_rng(seed + 2)
     eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
     check(eng.hw_state is not None and eng._backend.name == "emu", "no drift state / backend")
-    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
-    for name, idx in (("_prefill", 0), ("_decode", 1)):
-        fn = getattr(eng, name)
-
-        def wrapped(*args, fn=fn, idx=idx):
-            nonlocal finite
-            out = fn(*args)
-            finite = finite & torch.isfinite(out[idx]).all()
-            return out
-
-        setattr(eng, name, wrapped)
+    finite = _finite_outputs(torch, eng)
     reqs = [Request(prompt=p, max_new=8) for p in _prompts(rng, 4, 32, vocab)]
     captured = {}
     kernel = em.emu_bank_product_cuda
@@ -1392,7 +1405,7 @@ def phase_emu_serve(torch, np, api, em, seed):
           f"{launches == 169 * forwards}")
     check(all(r.done and len(r.out) == 8 for r in reqs), "requests unfinished")
     check(launches == 169 * forwards, f"launches {launches} != 169 x {forwards}")
-    check(bool(finite.item()), "non-finite logits")
+    check(finite(), "non-finite logits")
 
     max_err, n_plans = 0.0, 0
     for (a_shape, d_shape), (a_t, delta, mask, kw) in captured.items():
@@ -2252,6 +2265,483 @@ def phase_observe(torch, np, api, pm, em, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The Mamba-2 family: mamba2-130m served and DFA-trained at full width
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-130m"
+# bank products of one token: in_proj (3352, 768) and out_proj (768, 1536)
+# in each of the 24 layers, and the head (50280, 768); (M, K): count
+MAMBA_SHAPES = {(3352, 768): 24, (768, 1536): 24, (50280, 768): 1}
+MAMBA_FORWARD = sum(MAMBA_SHAPES.values())  # 49
+MAMBA_BATCH, MAMBA_SEQ = 8, 512  # two SSD chunks of 256; 4096 rows per DFA projection
+MAMBA_STEPS, MAMBA_EMU_STEPS = 16, 4
+
+
+def _mamba_forwards(eng, chunk):
+    """Forwards an engine ran: one per decode step and one per token
+    position of every prefill chunk (the masked decode-scan)."""
+    return eng.stats["decode_steps"] + eng.stats["prefill_steps"] * chunk
+
+
+def _mamba_serve(torch, np, api, pm, seed):
+    """mamba2-130m full() in bf16 on offchip_bpd, ``cuda`` backend, 4 slots:
+    8 requests of 32-token prompts and 16 new tokens, prefill chunk 16; the
+    bank kernel against its plain version on the operands the path gave it
+    (the first call of each of the three shapes)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve import Request
+
+    session = api.build_session(arch=MAMBA, algo="bp", smoke=False, hardware="offchip_bpd",
+                                backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    model = session.model
+    cfg = model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_state, cfg.head_dim, cfg.chunk)
+          == (24, 768, 50280, 128, 64, 256), "not mamba2-130m's full config")
+    n_params = sum(p.numel() for p in model.parameters())
+    check(len(model.forward_gemm_specs()) == MAMBA_FORWARD, "not 49 bank products a token")
+    rng = np.random.default_rng(seed + 3)
+    warm = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
+    warm.run([Request(prompt=_prompts(rng, 1, 8, cfg.vocab_size)[0], max_new=2)])
+    eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
+    finite = _finite_outputs(torch, eng)
+    reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, 8, 32, cfg.vocab_size)]
+    captured = {}
+    kernel = kops.photonic_matmul_cuda
+
+    def capture(a, b, **kw):
+        out = kernel(a, b, **kw)
+        captured.setdefault((tuple(a.shape), tuple(b.shape)), (a, b, kw, out))
+        return out
+
+    kops.photonic_matmul_cuda = capture
+    try:
+        sync(torch)
+        pm.launches = 0
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = pm.launches
+    finally:
+        kops.photonic_matmul_cuda = kernel
+    forwards = _mamba_forwards(eng, 16)
+    tokens = sum(len(r.out) for r in reqs)
+    ttft = statistics.median(r.ttft_s for r in reqs)
+    print(f"[mamba_serve] mamba2-130m full() ({n_params / 1e6:.1f} M parameters) bf16, "
+          f"offchip_bpd, cuda backend: {len(reqs)} requests, {tokens} tokens in {wall:.3f}s: "
+          f"{tokens / wall:.1f} tok/s, ttft p50 {ttft * 1e3:.1f} ms; prefill steps "
+          f"{eng.stats['prefill_steps']} (x 16 token positions, the masked decode-scan), "
+          f"decode steps {eng.stats['decode_steps']}")
+    print(f"[mamba_serve] photonic_matmul launches {launches} = {MAMBA_FORWARD} x {forwards} "
+          f"forwards ({eng.stats['decode_steps']} decode + {eng.stats['prefill_steps'] * 16} "
+          f"prefilled positions): {launches == MAMBA_FORWARD * forwards}")
+    check(all(r.done and len(r.out) == 16 for r in reqs), "requests unfinished")
+    check(launches == MAMBA_FORWARD * forwards,
+          f"launches {launches} != {MAMBA_FORWARD} x {forwards}")
+    check(finite(), "non-finite logits")
+    shapes = {(a[0], a[1], b[0]) for a, b in captured}
+    check(shapes == {(4, k, m) for m, k in MAMBA_SHAPES},
+          f"the path's (T, K, M) {sorted(shapes)}, not the three decode shapes")
+    tol, max_err = TOL["bfloat16"], 0.0
+    modes = sorted({"input" if "noise" in kw else "none" for _, _, kw, _ in captured.values()})
+    for (a_shape, b_shape), (a, b, kw, out) in captured.items():
+        check(a.dtype == b.dtype == torch.bfloat16,
+              f"the path handed the kernel {a.dtype} / {b.dtype} operands")
+        expect = pm.photonic_matmul_plain(a, b, **kw)
+        err = (out - expect).abs().max().item()
+        scale = expect.abs().max().item()
+        check(err <= tol * scale + 1e-6,
+              f"kernel vs plain at a {a_shape} b {b_shape}: {err} of max {scale}")
+        max_err = max(max_err, err / scale)
+    print(f"[mamba_serve] kernel vs plain on the path's own bf16 operands (first call of each "
+          f"(T, K, M): {', '.join(str(x) for x in sorted(shapes))}; "
+          f"{'/'.join(modes)} noise): max |kernel - plain| / max|plain| = {max_err:.3e} "
+          f"(tol {tol})")
+    del eng, warm, session, model, captured
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tok_s": tokens / wall, "ttft_ms": ttft * 1e3,
+            "wall_s": wall, "forwards": forwards, "n_params": n_params, "max_rel_err": max_err}
+
+
+def _mamba_parity(torch, np, api, seed):
+    """full() in f32 on the ideal preset: the ``cuda`` backend against the
+    ``ref`` backend, teacher-forced (two prefill chunks of 16 by the
+    decode-scan, then 8 decode steps); then the engine's greedy tokens at
+    prefill chunk 16 and 1 on ``cuda``."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve.decode import make_prefill_step
+
+    model = api.build_model(MAMBA, dtype=torch.float32, device=DEVICE, seed=seed)
+    rng = np.random.default_rng(seed + 4)
+    prompts = _prompts(rng, 4, 32, model.cfg.vocab_size)
+    tokens = torch.tensor(prompts, device=DEVICE)
+    prefill, chunk, n_decode = make_prefill_step(model), 16, 8
+
+    def run(backend, forced=None):
+        caches = model.init_caches(4)
+        cache_len = torch.zeros(4, dtype=torch.long, device=DEVICE)
+        full = torch.full((4,), chunk, dtype=torch.long, device=DEVICE)
+        logits_seq, chosen = [], []
+        with torch.no_grad(), ph.forward_execution(ph.PRESETS["ideal"], backend):
+            for c0 in range(0, tokens.shape[1], chunk):
+                last, caches, cache_len = prefill(tokens[:, c0:c0 + chunk], full, caches,
+                                                  cache_len)
+                logits_seq.append(last)
+            tok = last.argmax(-1)
+            for s in range(n_decode):
+                tok = forced[s] if forced is not None else tok
+                chosen.append(tok)
+                logits, caches = model.decode_step(tok[:, None], caches, cache_len)
+                cache_len = cache_len + 1
+                logits_seq.append(logits[:, -1].float())
+                tok = logits[:, -1].argmax(-1)
+        return logits_seq, chosen
+
+    ref_logits, ref_tokens = run("ref")
+    cuda_logits, _ = run("cuda", forced=ref_tokens)
+    worst, gated, agree = 0.0, 0, 0
+    for r, c in zip(ref_logits, cuda_logits):
+        scale = r.abs().max().item()
+        worst = max(worst, (r - c).abs().max().item() / scale)
+        top2 = r.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 10 * 1e-4 * scale
+        gated += int(sure.sum())
+        agree += int((r.argmax(-1) == c.argmax(-1))[sure].sum())
+    print(f"[mamba_parity] f32 ideal, cuda vs ref over {len(ref_logits)} forwards (2 decode-scan "
+          f"prefill chunks + {n_decode} decode steps): max |Δlogit| / max|logit| = {worst:.3e} "
+          f"(limit 1e-4); greedy tokens agree at {agree}/{gated} positions with a top-2 gap > "
+          f"1e-3·max|logit|")
+    check(worst <= 1e-4, f"cuda vs ref logits differ by {worst:.3e} of max|logit|")
+    check(agree == gated, "greedy tokens differ where the top-2 gap is clear")
+
+    outs = {}
+    for c in (16, 1):
+        eng = Engine(model, batch_slots=4, max_len=64, prefill_chunk=c, backend="cuda",
+                     photonics=ph.PRESETS["ideal"], seed=seed)
+        reqs = [Request(prompt=list(p), max_new=8) for p in prompts]
+        eng.run(reqs)
+        outs[c] = [r.out for r in reqs]
+    same = outs[16] == outs[1]
+    print(f"[mamba_parity] engine on cuda, f32 ideal: prefill chunk 16 and chunk 1 give the same "
+          f"greedy tokens for 4 requests x 8: {same}")
+    check(same, f"chunked and token-by-token prefill differ: {outs}")
+    del model
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _mamba_emu_serve(torch, np, api, em, seed):
+    """4 requests (16-token prompts, 8 new tokens) on emu_offchip in bf16:
+    49 emu launches a forward; the kernel against its plain version on the
+    operands the path gave it (the first call of each shape), bit for bit
+    under the planner's plan and the forced grid."""
+    from repro_torch.serve import Request
+
+    session = api.build_session(arch=MAMBA, algo="bp", smoke=False, hardware="emu_offchip",
+                                backend="emu", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    vocab = session.model.cfg.vocab_size
+    eng = session.engine(batch_slots=4, max_len=64, prefill_chunk=16, seed=seed)
+    check(eng.hw_state is not None and eng._backend.name == "emu", "no drift state / backend")
+    finite = _finite_outputs(torch, eng)
+    reqs = [Request(prompt=p, max_new=8)
+            for p in _prompts(np.random.default_rng(seed + 5), 4, 16, vocab)]
+    captured = {}
+    kernel = em.emu_bank_product_cuda
+
+    def capture(a_t, delta_eff, dead_mask, **kw):
+        captured.setdefault((tuple(a_t.shape), tuple(delta_eff.shape)),
+                            (a_t, delta_eff, dead_mask, kw))
+        return kernel(a_t, delta_eff, dead_mask, **kw)
+
+    em.emu_bank_product_cuda = capture
+    try:
+        sync(torch)
+        em.launches = 0
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = em.launches
+    finally:
+        em.emu_bank_product_cuda = kernel
+    forwards = _mamba_forwards(eng, 16)
+    tokens = sum(len(r.out) for r in reqs)
+    print(f"[mamba_emu] {len(reqs)} requests, {tokens} tokens in {wall:.3f}s: "
+          f"{tokens / wall:.2f} tok/s; emu_bank_product launches {launches} = {MAMBA_FORWARD} x "
+          f"{forwards} forwards: {launches == MAMBA_FORWARD * forwards}")
+    check(all(r.done and len(r.out) == 8 for r in reqs), "requests unfinished")
+    check(launches == MAMBA_FORWARD * forwards,
+          f"launches {launches} != {MAMBA_FORWARD} x {forwards}")
+    check(finite(), "non-finite logits")
+    max_err, n_plans = 0.0, 0
+    for (a_shape, d_shape), (a_t, delta, mask, kw) in captured.items():
+        check(a_t.dtype == torch.bfloat16 and delta.dtype == torch.float32,
+              f"the path handed the kernel {a_t.dtype} inputs and {delta.dtype} detunings")
+        expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
+        plans = _emu_candidates(em, a_t, delta, mask)
+        for plan in plans:
+            got = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
+            max_err = max(max_err, _emu_exact(
+                torch, em, got, expect, kw, f"mamba's operands a_t {a_shape} δ {d_shape} "
+                f"{plan.name}"))
+        n_plans += len(plans)
+    print(f"[mamba_emu] kernel vs plain on the path's own operands (bf16 a_t, f32 δ; "
+          f"{', '.join(str(a) for a, _ in captured)}), {n_plans} plans in all: equal bit for "
+          f"bit (max |kernel - plain| {max_err:.3e})")
+    check(len(captured) == len(MAMBA_SHAPES), f"{len(captured)} shapes captured")
+    del eng, session, captured
+    torch.cuda.empty_cache()
+    return launches, max_err
+
+
+def _mamba_train(torch, np, api, pm, em, seed, card, draws):
+    """full() in f32, batch 8 x seq 512 of ``MarkovTokens``: 16 ``dfa`` fit
+    steps on offchip_bpd (``cuda``) and 4 on emu_offchip (``emu``)."""
+    import dataclasses
+
+    from repro_torch import algos
+    from repro_torch.core import photonics as ph
+    from repro_torch.data import tokens
+    from repro_torch.kernels import ops as kops
+    from repro_torch.utils import prng
+
+    kind, peaks = card_peaks(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log = pm._BUILD_DIR / f"mamba_train-{os.getpid()}.csv"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    session = api.build_session(arch=MAMBA, smoke=False, dtype=torch.float32, seed=seed,
+                                algo="dfa", hardware="offchip_bpd", backend="cuda",
+                                log_every=1, log_path=str(log), device=DEVICE)
+    model, cfg = session.model, session.model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.chunk) == (24, 768, 50280, 256)
+          and model.head["out"].weight.dtype == torch.float32, "not the full f32 model")
+    check(MAMBA_SEQ // cfg.chunk == 2, "not two SSD chunks")
+    gen = tokens.MarkovTokens(cfg.vocab_size, MAMBA_SEQ, MAMBA_BATCH, seed)
+    fixed = to_device_batch(gen.batch(10**6))
+    with torch.no_grad():
+        ce0 = model.loss(session.init_state()["params"], fixed)[1]["ce_loss"].item()
+    sync(torch)
+    pm.launches = 0
+    t0 = time.perf_counter()
+    state, _ = session.fit(gen.batch, total_steps=MAMBA_STEPS, verbose=False)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = pm.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    lines = log.read_text().splitlines()
+    log.unlink()
+    col = lines[0].split(",").index("loss")
+    losses = [float(line.split(",")[col]) for line in lines[1:]]
+    with torch.no_grad():
+        ce1 = model.loss(state["params"], fixed)[1]["ce_loss"].item()
+    print(f"[mamba_train] mamba2-130m full width f32, offchip_bpd, cuda backend, batch "
+          f"{MAMBA_BATCH} x seq {MAMBA_SEQ} (2 SSD chunks of {cfg.chunk}): {MAMBA_STEPS} fit steps "
+          f"in {wall:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; fixed batch "
+          f"ce_loss {ce0:.4f} -> {ce1:.4f}; photonic_matmul launches {launches} = "
+          f"{launches / MAMBA_STEPS:g} per step; peak device memory {peak_gib:.2f} GiB above "
+          f"the {base_gib:.2f} GiB resident before the session")
+    check(len(losses) == MAMBA_STEPS and all(math.isfinite(x) for x in losses),
+          f"non-finite or missing step losses: {losses}")
+    check(math.isfinite(ce1), "non-finite fixed-batch loss")
+    check(launches == LM_LAUNCHES * MAMBA_STEPS,
+          f"{launches} bank-kernel launches, expected {LM_LAUNCHES} per step")
+
+    # one step's own operands: block 0 and the embedding against the plain version
+    rng = prng.step_key(seed, state["step"], "noise")
+    batch = to_device_batch(gen.batch(state["step"]))
+    params, fb, dcfg = state["params"], state["fb"], session.config.dfa
+    calls = []
+    restore = _wrap(kops, "photonic_matmul_cuda", calls)
+    try:
+        session.value_and_grad()(params, fb, batch, rng)
+    finally:
+        restore()
+    check(len(calls) == LM_LAUNCHES, f"{len(calls)} projections in one step")
+    errs = {}
+    for label, idx in (("block 0", 0), ("embedding", -1)):
+        (a, b), kw, out = calls[idx]
+        check(tuple(a.shape) == (MAMBA_BATCH * MAMBA_SEQ, cfg.d_model) and "noise" in kw,
+              f"{label}: operands {tuple(a.shape)}, {sorted(kw)}")
+        expect = pm.photonic_matmul_plain(a, b, **kw)
+        errs[label] = err = (out - expect).abs().max().item()
+        scale = expect.abs().max().item()
+        check(err <= TOL["float32"] * scale + 1e-6,
+              f"{label}: δ kernel vs plain {err} of max {scale}")
+    print(f"[mamba_train] one step's own operands (T={MAMBA_BATCH * MAMBA_SEQ}, K={cfg.d_model}, "
+          f"M={cfg.d_model}, f32, input-mode noise): max |kernel - plain| block 0 "
+          f"{errs['block 0']:.3e}, embedding {errs['embedding']:.3e} (tol {TOL['float32']} of "
+          f"max|δ|)")
+
+    # ideal: the cuda backend against the ref backend, every gradient
+    g = {b_: algos.get("dfa").value_and_grad(model, dataclasses.replace(
+        dcfg, photonics=ph.PRESETS["ideal"], backend=b_))(params, fb, batch, rng)[1]
+        for b_ in ("cuda", "ref")}
+    worst = max((_max_rel(g["cuda"][k], g["ref"][k]), k) for k in g["ref"])
+    del g
+    print(f"[mamba_train] ideal, cuda vs ref backend: every gradient within {worst[0]:.3e} of "
+          f"its max |value| (worst {worst[1]}; limit 1e-4)")
+    check(worst[0] <= 1e-4, f"ideal cuda vs ref gradients differ: {worst}")
+    torch.cuda.empty_cache()
+
+    # step time on CUDA events, three steps under the profiler, step_cost
+    batches = [to_device_batch(gen.batch(i)) for i in range(MAMBA_STEPS, MAMBA_STEPS + 8)]
+    times = []
+    for b_ in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _ = session.step(state, b_)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    step_ms = statistics.median(times[2:])
+    cost = session.step_cost(state, batches[0])
+    prof = {"step_ms": step_ms, "step_ms_all": times, "tflop_per_step": cost.flops / 1e12,
+            "tflop_s": cost.flops / (step_ms * 1e-3) / 1e12, "peak_gib": peak_gib}
+    print(f"[mamba_train] dfa step: {step_ms:.2f} ms median of {len(times) - 2} steps (CUDA "
+          f"events, synchronised steps; all: {', '.join(f'{x:.1f}' for x in times)}); step_cost "
+          f"{cost.flops / 1e12:.4f} TFLOP ({cost.kernel_launches} kernel launches in it), "
+          f"{prof['tflop_s']:.1f} TFLOP/s; card: {card}")
+    wall_p, by_name = _profile_steps(torch, session, state, batches[:3])
+    if by_name:
+        busy = sum(by_name.values()) / 3
+        bank = by_name.get("photonic_matmul", 0.0) / 3
+        prof.update(wall_ms=wall_p / 3, busy_ms=busy, idle_share=1 - busy * 3 / wall_p,
+                    bank_ms=bank)
+        print(f"[mamba_train] profile of 3 steps: wall {wall_p / 3:.2f} ms/step, device busy "
+              f"{busy:.2f} ms/step, idle share {1 - busy * 3 / wall_p:.3f}; the bank kernel "
+              f"{bank:.3f} ms/step ({bank / busy:.1%} of busy)")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"[mamba_train]   {ms / 3:9.3f} ms/step  {ms / wall_p:6.1%} of wall  {name}")
+    else:
+        print("[mamba_train] device busy time not measured (the profiler traced no device "
+              "kernels)")
+    (a, b), kw, _ = calls[0]
+    operands = (a, b, kw["noise"])
+    del calls, session, model, state, params, fb, batch, batches, a, b, kw
+    torch.cuda.empty_cache()
+
+    # emu_offchip: 4 steps through the emulated banks
+    emu = api.build_session(arch=MAMBA, smoke=False, dtype=torch.float32, seed=seed,
+                            algo="dfa", hardware="emu_offchip", backend="emu",
+                            log_every=10**9, device=DEVICE)
+    ecalls = []
+    restore = _wrap(em, "emu_bank_product_cuda", ecalls, limit=1)
+    try:
+        sync(torch)
+        em.launches = 0
+        t0 = time.perf_counter()
+        _, e_metrics = emu.fit(gen.batch, total_steps=MAMBA_EMU_STEPS, verbose=False)
+        sync(torch)
+        e_wall = time.perf_counter() - t0
+        e_launches = em.launches
+    finally:
+        restore()
+    e_host = emu.trainer.to_host(e_metrics)
+    print(f"[mamba_train] emu_offchip (drift on): {MAMBA_EMU_STEPS} dfa steps in {e_wall:.2f}s, "
+          f"loss {e_host['loss']:.4f}; emu_bank_product launches {e_launches} = "
+          f"{e_launches / MAMBA_EMU_STEPS:g} per step")
+    check(e_launches == LM_LAUNCHES * MAMBA_EMU_STEPS,
+          f"{e_launches} emu launches, expected {LM_LAUNCHES} per step")
+    check(math.isfinite(e_host["loss"]), "emu: non-finite loss")
+    (a_t, delta, mask), ekw, e_out = ecalls[0]
+    ecalls.clear()
+    plan = em.plan_for(a_t, delta, mask)
+    e_expect = em.emu_bank_product_plain(a_t, delta, mask, **ekw)
+    e_err = _emu_exact(torch, em, e_out, e_expect, ekw,
+                       f"mamba's block 0 a_t {tuple(a_t.shape)} {plan.name}")
+    e_row = _time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **ekw)},
+                      {"ms": 25})
+    e_row["plain_ms"] = _event_ms(
+        torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **ekw), reps=3)
+    e_row["bound_ms"], e_row["bound_by"], binding, terms = emu_bound(
+        (a_t, delta, mask, ekw["n_panels"]), ekw["sigma"], ekw["shot"], peaks, draws["emu"], sms)
+    e_row.update(library_ms=None, plan=plan.name, launches_per_step=LM_LAUNCHES,
+                 shape=[a_t.shape[0], cfg.d_model, cfg.d_model], n_panels=ekw["n_panels"],
+                 bound_share=e_row["bound_ms"] / e_row["dev_ms"])
+    print(f"[mamba_timing] emu_bank_product at (T, K, M) = ({a_t.shape[0]}, {cfg.d_model}, "
+          f"{cfg.d_model}) f32, {ekw['n_panels']} slots (the last one part-filled), σ "
+          f"{ekw['sigma']:.4f}, ADC {ekw['adc_bits']} bits: kernel = plain bit for bit (max |Δ| "
+          f"{e_err:.1e}); kernel {e_row['ms']:.4f} / {e_row['dev_ms']:.4f} ms (events / device), "
+          f"plain {e_row['plain_ms']:.4f} (events), bound {e_row['bound_ms']:.4f} ({binding}: "
+          f"bytes {terms['bytes'] * 1e3:.5f} / f32 {terms['f32'] * 1e3:.5f} / prng "
+          f"{terms['prng'] * 1e3:.5f}), share {e_row['bound_share']:.1%}, plan {plan.name}; "
+          f"card: {card}")
+    del emu, a_t, delta, mask, e_out, e_expect
+    torch.cuda.empty_cache()
+    return {"launches": launches, "emu_launches": e_launches, "max_abs_err": max(errs.values()),
+            "emu_max_abs_err": e_err, "operands": operands, "emu": e_row, "profile": prof}
+
+
+def _mamba_bank_row(torch, pm, a, b, kw, peaks, noise):
+    """The bank kernel, its plain version and torch.matmul on (a, b), with
+    the bound, printed as a ``[mamba_timing]`` row."""
+    t, k, m = a.shape[0], a.shape[1], b.shape[0]
+    dtype_name = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+    fns = {"ms": lambda: pm.photonic_matmul_cuda(a, b, **kw),
+           "plain_ms": lambda: pm.photonic_matmul_plain(a, b, **kw),
+           "library_ms": lambda: torch.matmul(a, b.T)}
+    row = dict(t=t, k=k, m=m, dtype=dtype_name, noise=noise,
+               **_time_row(torch, fns, bound_ms(t, m, k, dtype_name, peaks, noise=noise)),
+               variant=pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr())).name)
+    label = "bf16" if dtype_name == "bfloat16" else "f32"
+    _print_row("mamba_timing", f"{t:6d} {k:6d} {m:6d} {label:>5s}", row)
+    return row
+
+
+def phase_mamba(torch, np, api, pm, em, seed, card, draws):
+    """The Mamba-2 family at full width (mamba2-130m: 24 layers, d 768,
+    vocab 50280, d_state 128, chunk 256; random weights from ``seed``):
+    serving in bf16 through the bank kernel (49 launches a forward, the
+    prefill by the masked decode-scan, the kernel against its plain version
+    on the path's operands) with a profiled prefill tick and two
+    decode ticks; f32 cuda-vs-ref parity and chunk 16 = chunk 1; serving
+    through emulated banks with the emu kernel bit for bit; DFA training
+    (16 steps on ``cuda``, 4 on ``emu``, 25 launches a step each); both
+    kernels timed at the Mamba shapes beside their plain versions,
+    torch.matmul and their bounds."""
+    kind, peaks = card_peaks(card)
+    serve = _mamba_serve(torch, np, api, pm, seed)
+    profile = phase_profile_ticks(torch, np, api, seed, tag="mamba_serve", arch=MAMBA)
+    parity = _mamba_parity(torch, np, api, seed)
+    emu_launches, emu_err = _mamba_emu_serve(torch, np, api, em, seed)
+    train = _mamba_train(torch, np, api, pm, em, seed, card, draws)
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    print(f"[mamba_timing] the bank kernel at mamba2-130m's decode shapes (T = 4, bf16) and its "
+          f"training shape (input mode, f32); {kind} peaks; card: {card}")
+    print(f"[mamba_timing]      T      K      M  dtype {TIMING_HEAD}")
+    decode = []
+    for (m, k), count in MAMBA_SHAPES.items():
+        a, b = _operands(torch, 4, k, m, torch.bfloat16, gen)
+        decode.append({**_mamba_bank_row(torch, pm, a, b, {}, peaks, "none"), "count": count})
+    keys = ("ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
+            "bound_ms")
+    per_token = {key: sum(r[key] * r["count"] for r in decode) for key in keys}
+    per_token.update(launches=MAMBA_FORWARD, bound_by="bytes" if all(
+        r["bound_by"] == "bytes" for r in decode) else "operations")
+    print(f"[mamba_timing] one decode forward at T=4 ({MAMBA_FORWARD} launches), ms: "
+          + ", ".join(f"{key} {per_token[key]:.4f}" for key in keys))
+    a, b, noise = train.pop("operands")
+    train_row = _mamba_bank_row(torch, pm, a, b, {"noise": noise}, peaks, "input")
+    train_row["launches_per_step"] = LM_LAUNCHES
+    print(f"[mamba_timing] the path's {LM_LAUNCHES} launches a dfa step: "
+          f"{train_row['dev_ms'] * LM_LAUNCHES:.3f} ms device of the step's "
+          f"{train['profile']['step_ms']:.1f} ms")
+    del a, b, noise
+    torch.cuda.empty_cache()
+    return {"serve_launches": serve["launches"], "train_launches": train["launches"],
+            "emu_serve_launches": emu_launches, "emu_train_launches": train["emu_launches"],
+            "max_abs_err": train["max_abs_err"],
+            "emu_max_abs_err": max(emu_err, train["emu_max_abs_err"]),
+            "serve": serve, "profile": profile, "parity": parity, "decode_forward": per_token,
+            "decode_shapes": decode, "train_shape": train_row, "emu_train_shape": train["emu"],
+            "train": train["profile"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2294,6 +2784,7 @@ def main(argv=None):
     emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card, draws["emu"])
     lm = phase_lm_train(torch, np, api, pm, em, args.seed, card, draws)
     observed = phase_observe(torch, np, api, pm, em, args.seed, card)
+    mamba = phase_mamba(torch, np, api, pm, em, args.seed, card, draws)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     row_b = train_rows["dfa_gradient"]
     records = [
@@ -2301,17 +2792,22 @@ def main(argv=None):
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/photonic_matmul.py:95",
          "launches": (serve_launches + train_launches + lm["launches"]
-                      + observed["probe_launches"]["photonic_matmul"]),
+                      + observed["probe_launches"]["photonic_matmul"]
+                      + mamba["serve_launches"] + mamba["train_launches"]),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
-                              "probe": observed["probe_launches"]["photonic_matmul"]},
-         "max_abs_err": max(max_err, lm["max_abs_err"]),
+                              "probe": observed["probe_launches"]["photonic_matmul"],
+                              "mamba_serve": mamba["serve_launches"],
+                              "mamba_train": mamba["train_launches"]},
+         "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"]),
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
          "library_ms": per_step["library_ms"],
          "decode_step": per_step, "prefill_forward": per_prefill,
          "lm_train_shape": lm["bank"], "lm_step": lm["profile"], "draw_sass": draws["bank"],
-         "observe": {k: observed[k] for k in ("lm", "mlp", "step_cost")}},
+         "observe": {k: observed[k] for k in ("lm", "mlp", "step_cost")},
+         "mamba": {k: mamba[k] for k in ("serve", "profile", "parity", "decode_forward",
+                                         "decode_shapes", "train_shape", "train")}},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",
@@ -2325,15 +2821,20 @@ def main(argv=None):
          "source": "src/repro_torch/kernels/csrc/emu_matmul.cu",
          "replaces": "src/repro/kernels/emu_matmul.py:200",
          "launches": (emu_train_launches + emu_serve_launches + lm["emu_launches"]
-                      + observed["probe_launches"]["emu_bank_product"]),
+                      + observed["probe_launches"]["emu_bank_product"]
+                      + mamba["emu_serve_launches"] + mamba["emu_train_launches"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
-                              "probe": observed["probe_launches"]["emu_bank_product"]},
-         "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"]),
+                              "probe": observed["probe_launches"]["emu_bank_product"],
+                              "mamba_serve": mamba["emu_serve_launches"],
+                              "mamba_train": mamba["emu_train_launches"]},
+         "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
+                            mamba["emu_max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",
-         "draw_sass": draws["emu"], "timing": {**emu_rows, "lm_train_shape": lm["emu"]}},
+         "draw_sass": draws["emu"], "timing": {**emu_rows, "lm_train_shape": lm["emu"],
+                                               "mamba_train_shape": mamba["emu_train_shape"]}},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,13 @@
-"""Architecture registry.  The port registers qwen1.5-0.5b (served) and
-mnist_mlp (trained); the reference's other architectures are ported in
-later slices."""
+"""Architecture registry.  The port registers qwen1.5-0.5b and
+mamba2-130m (served and trained) and mnist_mlp (trained); the reference's
+other architectures are ported in later slices."""
 
 from __future__ import annotations
 
-from repro_torch.configs import mnist_mlp, qwen1_5_0_5b
+from repro_torch.configs import mamba2_130m, mnist_mlp, qwen1_5_0_5b
 from repro_torch.configs.base import Arch
 
-_MODULES = [qwen1_5_0_5b, mnist_mlp]
+_MODULES = [qwen1_5_0_5b, mamba2_130m, mnist_mlp]
 
 REGISTRY: dict[str, Arch] = {m.ARCH.name: m.ARCH for m in _MODULES}
 

@@ -13,7 +13,8 @@ an L = 1 axis; the port's ``h{i}`` is the block itself, so that axis is
 dropped (``h0.weight`` (800, 784)).  Gradient trees have the parameters'
 layout and convert the same way.  DFA feedback (``{"h0": (1, 800, 10), ...,
 "embed": (800, 10)}``) is already in the bank's (M, K) layout on both sides.
-The emulated hardware's drift state ``{"drift", "cal"}`` and a dead-ring
+Serving caches (attention ``{"k", "v"}``, Mamba ``{"ssm", "conv"}``), the
+emulated hardware's drift state ``{"drift", "cal"}`` and a dead-ring
 mask keep their layout too; they convert between numpy and tensors.
 
 This module takes and returns numpy arrays only (pass the reference's
@@ -47,15 +48,13 @@ def layout_map(params):
     may be arrays or shape structs; nothing is read."""
     for path, leaf in _walk(params):
         last = path[-1]
-        tail = path[1:-1] + (_RENAME.get(last, last),)
+        name = path[:-1] + (_RENAME.get(last, last),)  # a top-level leaf: its own name
         transpose = last == "w"
         if path[0] == "blocks":
             for i in range(leaf.shape[0]):
-                yield ".".join(("blocks", str(i)) + tail), leaf, i, transpose
-        elif _SEGMENT.match(path[0]):
-            yield ".".join(path[:1] + tail), leaf, 0, transpose
+                yield ".".join(("blocks", str(i)) + name[1:]), leaf, i, transpose
         else:
-            yield ".".join(path[:1] + tail), leaf, None, transpose
+            yield ".".join(name), leaf, 0 if _SEGMENT.match(path[0]) else None, transpose
 
 
 def torch_shapes(params) -> dict:
@@ -91,9 +90,19 @@ def feedback_from_reference(fb, device=None) -> dict:
 
 
 def caches_to_reference(caches) -> dict:
-    """The port's caches -> the reference's stacked (L, B, S, KVH, D)
-    numpy arrays.  The port already keeps the stacked layout."""
+    """The port's serving caches -> the reference's stacked numpy arrays,
+    leaf for leaf: the attention caches ``{"k", "v"}`` (L, B, S, KVH, D) or
+    the Mamba states ``{"ssm"}`` (L, B, H, N, P) and ``{"conv"}`` (L, B,
+    K-1, C).  The port already keeps the stacked layout; values come back
+    in f32."""
     return {name: t.detach().float().cpu().numpy() for name, t in caches.items()}
+
+
+def caches_from_reference(caches, like) -> dict:
+    """The reference's stacked caches (numpy leaves) -> tensors with the
+    dtype and device of the port's caches ``like`` (``init_caches``)."""
+    return {name: torch.from_numpy(np.array(caches[name], dtype=np.float32)).to(
+        device=t.device, dtype=t.dtype) for name, t in like.items()}
 
 
 def hw_state_from_reference(hw, device=None) -> dict:

@@ -1,12 +1,13 @@
 """Continuous-batching serving engine with a prefill/decode split.
 
 Counterpart of ``repro/serve/engine.py``.  A fixed pool of
-``batch_slots`` KV-cache slots is fed from an admission queue; each
+``batch_slots`` cache slots (KV caches, or a recurrent model's states) is fed from an admission queue; each
 request walks QUEUED → PREFILL → DECODE → DONE:
 
 * **prefill** — the prompt is consumed in chunks of ``prefill_chunk``
   tokens, each chunk one batched forward that writes straight into the
-  slot's cache.  The logits after the last prompt token give the first
+  slot's cache (a recurrent model runs the masked decode-scan over the
+  chunk, ``serve.decode.make_prefill_step``).  The logits after the last prompt token give the first
   output token.
 * **decode** — one greedy step per tick across all slots.  Every slot runs
   (empty and finished ones included, with the token they hold), as in the
@@ -208,7 +209,8 @@ class Engine:
                 self._cache_len[i] = 0
                 self._tokens[i, 0] = 0
                 # reset this slot's cache in place: the engine owns the
-                # tensors (zeros are fine: the length mask guards them)
+                # tensors (zeros are fine: the length mask guards a KV
+                # cache, and zero is a recurrent state's start)
                 for c in self.caches.values():
                     c[:, i] = 0
 
