@@ -92,7 +92,23 @@ sources in the checkout.  Phases:
     (two SSD chunks), 16 steps on ``cuda`` and 4 on ``emu``, 25 launches a
     step, δ against the plain version, ideal cuda = ref gradients, step
     ms, profile, peak memory and ``step_cost``; both kernels timed at the
-    Mamba shapes.
+    Mamba shapes;
+17. the dense attention families (``[dense_*]``, ``phase_dense``):
+    qwen3-1.7b (qk-norm), minicpm3-4b (MLA) and granite-8b at full width,
+    random weights from --seed, each served in bf16 on offchip_bpd through
+    the bank kernel (197, 435 and 253 launches a forward; the kernel
+    against its plain version on the path's own operands at every shape,
+    granite's K = 14336 by both skinny variants in bf16 and f32) with a
+    profiled prefill tick and two decode ticks, and f32 ideal cuda-vs-ref
+    parity; DFA training in f32 at batch 64 x seq 64 of qwen3 (16 steps,
+    29 launches a step, ideal cuda = ref gradients, step ms, profile,
+    ``step_cost``, peak memory; 4 steps on emu_offchip with the emu kernel
+    bit for bit; 2 steps at batch 2 x seq 4096 whose every block runs
+    ``flash_attention``, held to ``reference_attention`` on the card) and
+    of minicpm3 (8 steps, at the depth that leaves 5 GiB of the card free,
+    printed); the bank kernel timed at every decode shape and both
+    training shapes.  One ``{"dense_model": ...}`` line per model precedes
+    the kernels record.
 
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
@@ -103,6 +119,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -539,10 +556,13 @@ def phase_serve(torch, np, pm, api, seed):
     return launches
 
 
-def phase_parity(torch, np, api, seed):
+def phase_parity(torch, np, api, seed, arch=ARCH, tag="parity"):
+    """f32 on the ideal preset: the ``cuda`` backend against the ``ref``
+    backend, teacher-forced (two prefill chunks of 16, then 8 decode
+    steps), on ``arch``."""
     from repro_torch.core import photonics as ph
 
-    model = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
+    model = api.build_model(arch, dtype=torch.float32, device=DEVICE, seed=seed)
     vocab = model.cfg.vocab_size
     rng = np.random.default_rng(seed)
     tokens = torch.tensor(_prompts(rng, 4, 32, vocab), device=DEVICE)
@@ -580,13 +600,14 @@ def phase_parity(torch, np, api, seed):
         sure = (top2[..., 0] - top2[..., 1]) > 10 * 1e-4 * scale
         gated += int(sure.sum())
         agree += int((r.argmax(-1) == c.argmax(-1))[sure].sum())
-    print(f"[parity] f32 ideal, cuda vs ref over {len(ref_logits)} forwards: "
+    print(f"[{tag}] f32 ideal, cuda vs ref over {len(ref_logits)} forwards: "
           f"max |Δlogit| / max|logit| = {worst:.3e} (limit 1e-4); greedy tokens agree at "
           f"{agree}/{gated} positions with a top-2 gap > 1e-3·max|logit|")
     check(worst <= 1e-4, f"cuda vs ref logits differ by {worst:.3e} of max|logit|")
     check(agree == gated, "greedy tokens differ where the top-2 gap is clear")
-    del model
+    del model, ref_logits, cuda_logits
     torch.cuda.empty_cache()
+    return {"max_rel": worst, "clear_positions": gated, "agree": agree}
 
 
 def to_device_batch(batch):
@@ -617,24 +638,31 @@ def _mlp_session(api, preset, seed, algo="dfa"):
     return session
 
 
-def _profile_steps(torch, session, state, batches):
+def _profile_steps(torch, session, run, batches):
     """Wall time and device busy time of len(batches) steps under the
-    profiler, and the kernels that take the device time."""
+    profiler, continuing ``run["state"]``, and the kernels that take the
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
-            state, _ = session.step(state, batch)
+            run["state"], _ = session.step(run["state"], batch)
         sync(torch)
         wall = (time.perf_counter() - t0) * 1e3
+    return wall, _kernel_ms(torch, prof)
+
+
+def _kernel_ms(torch, prof):
+    """{kernel name: device ms} of a profile, the hand-written kernels'
+    variants under their kernel's name."""
     by_name = {}
     for e in _device_kernels(torch, prof):
         name = next((kernel for kernel, parts in KERNEL_PARTS.items()
                      if any(part in e.name for part in parts)), e.name[:70])
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    return wall, by_name
+    return by_name
 
 
 def _time_steps(torch, session, pipe, tag, label):
@@ -664,7 +692,7 @@ def _time_steps(torch, session, pipe, tag, label):
           f"{len(times) - 10} steady steps (CUDA events, synchronised steps); "
           f"{steps_s:.1f} steps/s, {steps_s * TRAIN_BATCH:.0f} examples/s over "
           f"{len(batches)} unsynchronised steps")
-    wall, by_name = _profile_steps(torch, session, state, batches[:5])
+    wall, by_name = _profile_steps(torch, session, {"state": state}, batches[:5])
     if not by_name:
         print(f"[{tag}] device busy time not measured (the profiler traced no device kernels)")
         return
@@ -818,18 +846,22 @@ def _device_ms(torch, fn, reps=25, attempts=8, spare=16):
     33 in eight windows in a row, twice), and the median of the last
     ``reps`` calls is then still a median of whole calls.  It has also lost
     most of a window on a loaded machine (7 of 26 calls; 4, 0 and 16 of 33
-    in three windows in a row): such a window is profiled again after a
-    pause, up to ``attempts`` times, and then the phase fails."""
+    in three windows in a row), and late in a long run it lost the first 18
+    of 41 three-millisecond calls in eight windows in a row: such a window
+    is profiled again after a pause, with twice the spare calls and twice
+    the pause inside the window each time (up to 16 times), up to
+    ``attempts`` times, and then the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
     sync(torch)
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        grow = 1 << min(attempt, 4)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)
-            for _ in range(reps + spare):
+            time.sleep(0.05 * grow)
+            for _ in range(reps + spare * grow):
                 flush.bitwise_not_()
                 fn()
             sync(torch)
@@ -845,11 +877,11 @@ def _device_ms(torch, fn, reps=25, attempts=8, spare=16):
             per_call.append(cur)
         if len(per_call) >= reps:
             return statistics.median(per_call[-reps:]) / 1e3
-        print(f"[timing] the profiler saw {len(per_call)} of {reps + spare} calls; profiling "
-              "again")
+        print(f"[timing] the profiler saw {len(per_call)} of {reps + spare * grow} calls; "
+              "profiling again with more")
         time.sleep(1.0)
-    raise PhaseError(f"device time not measured: the profiler saw fewer than {reps} of "
-                     f"{reps + spare} calls in each of {attempts} windows")
+    raise PhaseError(f"device time not measured: the profiler saw fewer than {reps} calls "
+                     f"in each of {attempts} windows")
 
 
 # the device kernels of each hand-written kernel's variants, by name
@@ -888,15 +920,17 @@ def _profile_ticks(torch, eng, ticks, tag, label, kernel):
 
 
 def phase_profile_ticks(torch, np, api, seed, tag="profile", hardware="offchip_bpd",
-                        backend="cuda", kernel="photonic_matmul", arch=ARCH):
+                        backend="cuda", kernel="photonic_matmul", arch=ARCH, session=None):
     """A prefill tick (4 slots x chunk 16: 64 rows through every projection
     of a transformer, 16 decode-scan steps of 4 rows for Mamba) and two
-    steady decode ticks (4 active slots), bf16, under the profiler."""
+    steady decode ticks (4 active slots), bf16, under the profiler; on a
+    new session of ``arch`` or on the given bf16 serving ``session``."""
     from repro_torch.serve import DECODE, Request
 
-    session = api.build_session(arch=arch, algo="bp", smoke=False, hardware=hardware,
-                                backend=backend, dtype=torch.bfloat16, seed=seed,
-                                device=DEVICE)
+    if session is None:
+        session = api.build_session(arch=arch, algo="bp", smoke=False, hardware=hardware,
+                                    backend=backend, dtype=torch.bfloat16, seed=seed,
+                                    device=DEVICE)
     eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
     rng = np.random.default_rng(seed + 1)
     for p in _prompts(rng, 4, 32, session.model.cfg.vocab_size):
@@ -1613,6 +1647,244 @@ def _max_rel(got, expect):
     return (got - expect).abs().max().item() / max(expect.abs().max().item(), 1e-30)
 
 
+def _fit_logged(torch, pm, session, gen, steps, log):
+    """``steps`` fit steps of a session built with ``log_path=log`` and
+    ``log_every=1``, the bank kernel's count set to 0 just before: a dict
+    that alone holds the final ``state``, with the ``wall`` seconds, the
+    ``launches`` and the log's loss of every step (``losses``)."""
+    sync(torch)
+    pm.launches = 0
+    t0 = time.perf_counter()
+    state, _ = session.fit(gen.batch, total_steps=steps, verbose=False)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = pm.launches
+    lines = log.read_text().splitlines()
+    log.unlink()
+    col = lines[0].split(",").index("loss")
+    return {"state": state, "wall": wall, "launches": launches,
+            "losses": [float(line.split(",")[col]) for line in lines[1:]]}
+
+
+def _check_fit(fit, steps, per_step):
+    """A fit's gates: a finite loss at every step, ``per_step`` bank-kernel
+    launches a step."""
+    losses, launches = fit["losses"], fit["launches"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"non-finite or missing step losses: {losses}")
+    check(launches == per_step * steps,
+          f"{launches} bank-kernel launches, expected {per_step} per step")
+
+
+def _step_projections(torch, pm, session, state, gen, seed, per_step, rows, tag):
+    """One dfa step on the state's next batch with the bank kernel's calls
+    recorded: ``per_step`` projections of ``rows`` rows, and block 0's and
+    the embedding's δ held against the plain version on their own operands
+    with the path's input-mode noise.  -> (the calls, {label: max |kernel -
+    plain|}, the step's (batch, rng), its ((loss, metrics), grads))."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.utils import prng
+
+    d_model = session.model.cfg.d_model
+    rng = prng.step_key(seed, state["step"], "noise")
+    batch = to_device_batch(gen.batch(state["step"]))
+    calls = []
+    restore = _wrap(kops, "photonic_matmul_cuda", calls)
+    try:
+        out = session.value_and_grad()(state["params"], state["fb"], batch, rng)
+    finally:
+        restore()
+    check(len(calls) == per_step, f"{len(calls)} projections in one step")
+    errs = {}
+    for label, idx in (("block 0", 0), ("embedding", -1)):
+        (a, b), kw, got = calls[idx]
+        check(tuple(a.shape) == (rows, d_model) and "noise" in kw,
+              f"{label}: operands {tuple(a.shape)}, {sorted(kw)}")
+        expect = pm.photonic_matmul_plain(a, b, **kw)
+        errs[label] = err = (got - expect).abs().max().item()
+        scale = expect.abs().max().item()
+        check(err <= TOL["float32"] * scale + 1e-6,
+              f"{label}: δ kernel vs plain {err} of max {scale}")
+    print(f"[{tag}] one step's own operands (T={rows}, K={d_model}, M={d_model}, f32, the "
+          f"path's input-mode noise from the step's keys): max |kernel - plain| block 0 "
+          f"{errs['block 0']:.3e}, embedding {errs['embedding']:.3e} (tol {TOL['float32']} of "
+          f"max|δ|)")
+    return calls, errs, (batch, rng), out
+
+
+def _ideal_cuda_vs_ref(torch, session, state, step, tag):
+    """One step's dfa gradients on the ideal preset, the ``cuda`` backend
+    against the ``ref`` backend: each within 1e-4 of its max |value|, the
+    f32 bank tolerance through a block's backward."""
+    import dataclasses
+
+    from repro_torch import algos
+    from repro_torch.core import photonics as ph
+
+    batch, rng = step
+    g = {b_: algos.get("dfa").value_and_grad(session.model, dataclasses.replace(
+        session.config.dfa, photonics=ph.PRESETS["ideal"], backend=b_))(
+            state["params"], state["fb"], batch, rng)[1] for b_ in ("cuda", "ref")}
+    worst = max((_max_rel(g["cuda"][k], g["ref"][k]), k) for k in g["ref"])
+    del g
+    print(f"[{tag}] ideal, cuda vs ref backend: every gradient within {worst[0]:.3e} of its "
+          f"max |value| (worst {worst[1]}; limit 1e-4)")
+    check(worst[0] <= 1e-4, f"ideal cuda vs ref gradients differ: {worst}")
+    return worst
+
+
+def _step_timing(torch, session, fit, batches, warm, n_prof, tag, card, flops=None):
+    """Step time on CUDA events around each synchronised step of
+    ``batches`` (the median after the first ``warm``) and its FLOP rate,
+    then ``n_prof`` steps under the profiler: wall, device busy time, idle
+    share, the bank kernel's share and the largest kernels.  The steps
+    continue ``fit["state"]``, which ``fit`` alone holds: at full width a
+    second live state beside a step's update may not fit the card.
+    ``flops`` is (FLOP a step, what they count); by default
+    ``step_cost``'s."""
+    times = []
+    for batch in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fit["state"], _ = session.step(fit["state"], batch)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    step_ms = statistics.median(times[warm:])
+    if flops is None:
+        cost = session.step_cost(fit["state"], batches[0])
+        flops = (cost.flops, f"step_cost {cost.flops / 1e12:.4f} TFLOP ({cost.kernel_launches} "
+                             "kernel launches in it)")
+    prof = {"step_ms": step_ms, "step_ms_all": times, "tflop_per_step": flops[0] / 1e12,
+            "tflop_s": flops[0] / (step_ms * 1e-3) / 1e12}
+    print(f"[{tag}] dfa step: {step_ms:.2f} ms median of {len(times) - warm} steps (CUDA events, "
+          f"synchronised steps; all: {', '.join(f'{x:.1f}' for x in times)}); {flops[1]}, "
+          f"{prof['tflop_s']:.1f} TFLOP/s; card: {card}")
+    wall_p, by_name = _profile_steps(torch, session, fit, batches[:n_prof])
+    if not by_name:
+        print(f"[{tag}] device busy time not measured (the profiler traced no device kernels)")
+        return prof
+    busy = sum(by_name.values()) / n_prof
+    bank = by_name.get("photonic_matmul", 0.0) / n_prof
+    prof.update(wall_ms=wall_p / n_prof, busy_ms=busy, idle_share=1 - busy * n_prof / wall_p,
+                bank_ms=bank)
+    print(f"[{tag}] profile of {n_prof} steps: wall {wall_p / n_prof:.2f} ms/step, device busy "
+          f"{busy:.2f} ms/step, idle share {prof['idle_share']:.3f}; the bank kernel "
+          f"{bank:.3f} ms/step ({bank / busy:.1%} of busy)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[{tag}]   {ms / n_prof:9.3f} ms/step  {ms / wall_p:6.1%} of wall  {name}")
+    return prof
+
+
+def _emu_fit(torch, em, make_session, gen, steps, per_step, tag, timing_tag, card, draws,
+             label):
+    """``steps`` dfa fit steps of the emulated-bank session that
+    ``make_session`` builds (emu_offchip, drift on), the emu kernel's count
+    set to 0 just before: ``per_step`` launches a step and a finite loss;
+    the first launch (block 0 of the first step) bit for bit against the
+    plain version on its own operands, and the kernel timed at that shape
+    beside its plain version and its bound.  The session is freed before
+    the checks."""
+    peaks = card_peaks(card)[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    emu = make_session()
+    d_model, every = emu.model.cfg.d_model, emu.config.recalibrate_every
+    ecalls = []
+    restore = _wrap(em, "emu_bank_product_cuda", ecalls, limit=1)
+    try:
+        sync(torch)
+        em.launches = 0
+        t0 = time.perf_counter()
+        metrics = emu.fit(gen.batch, total_steps=steps, verbose=False)[1]
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = em.launches
+    finally:
+        restore()
+    host = emu.trainer.to_host(metrics)
+    del emu, metrics
+    torch.cuda.empty_cache()
+    print(f"[{tag}] emu_offchip (drift on, recalibration every {every}): {steps} dfa steps in "
+          f"{wall:.2f}s, loss {host['loss']:.4f}, hw_residual_rms "
+          f"{host.get('hw_residual_rms', float('nan')):.5f}; emu_bank_product launches "
+          f"{launches} = {launches / steps:g} per step")
+    check(launches == per_step * steps, f"{launches} emu launches, expected {per_step} per step")
+    check(math.isfinite(host["loss"]), "emu: non-finite loss")
+    (a_t, delta, mask), kw, out = ecalls.pop()
+    plan = em.plan_for(a_t, delta, mask)
+    t0 = time.perf_counter()
+    expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
+    sync(torch)
+    plain_s = time.perf_counter() - t0
+    err = _emu_exact(torch, em, out, expect, kw,
+                     f"{label}'s block 0 a_t {tuple(a_t.shape)} {plan.name}")
+    print(f"[{tag}] block 0 of the first step: a_t {tuple(a_t.shape)} {a_t.dtype}, δ "
+          f"{tuple(delta.shape)}, {kw['n_panels']} slots, σ {kw['sigma']:.4f}, shot "
+          f"{kw['shot']}, ADC {kw['adc_bits']} bits; plan {plan.name}; kernel equals the plain "
+          f"version bit for bit (max |Δ| {err:.1e}; plain version {plain_s:.2f}s)")
+    row = _time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw)},
+                    {"ms": 25})
+    # the plain version on CUDA events only, as path B's (phase_emu_timing)
+    row["plain_ms"] = _event_ms(
+        torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **kw), reps=3)
+    row["bound_ms"], row["bound_by"], binding, terms = emu_bound(
+        (a_t, delta, mask, kw["n_panels"]), kw["sigma"], kw["shot"], peaks, draws["emu"], sms)
+    row.update(library_ms=None, plan=plan.name, launches_per_step=per_step,
+               shape=[a_t.shape[0], d_model, d_model], n_panels=kw["n_panels"],
+               bound_share=row["bound_ms"] / row["dev_ms"],
+               terms_ms={name: v * 1e3 for name, v in terms.items()})
+    print(f"[{timing_tag}] emu_bank_product at {label}'s (T, K, M) = ({a_t.shape[0]}, {d_model}, "
+          f"{d_model}) f32: kernel {row['ms']:.4f} / {row['dev_ms']:.4f} ms (events / device), "
+          f"plain {row['plain_ms']:.4f} (events), bound {row['bound_ms']:.4f} ({binding}: bytes "
+          f"{terms['bytes'] * 1e3:.5f} / f32 {terms['f32'] * 1e3:.5f} / prng "
+          f"{terms['prng'] * 1e3:.5f}), share {row['bound_share']:.1%}, plan {plan.name}; "
+          f"{per_step} a step: {row['dev_ms'] * per_step:.3f} ms device; card: {card}")
+    del a_t, delta, mask, out, expect
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err, "wall_s": wall, "loss": host["loss"],
+            "row": row}
+
+
+def _bank_row(torch, pm, a, b, kw, peaks, noise, tag, label, reps=None):
+    """The bank kernel, its plain version and torch.matmul on (a, b) with
+    ``kw``, beside the bound, printed as a ``[tag]`` row after ``label``."""
+    t, k, m = a.shape[0], a.shape[1], b.shape[0]
+    dtype_name = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+    fns = {"ms": lambda: pm.photonic_matmul_cuda(a, b, **kw),
+           "plain_ms": lambda: pm.photonic_matmul_plain(a, b, **kw),
+           "library_ms": lambda: torch.matmul(a, b.T)}
+    row = dict(t=t, k=k, m=m, dtype=dtype_name, noise=noise,
+               **_time_row(torch, fns, bound_ms(t, m, k, dtype_name, peaks, noise=noise),
+                           reps=reps),
+               variant=pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr())).name)
+    short = "bf16" if dtype_name == "bfloat16" else "f32"
+    _print_row(tag, f"{label}{t:6d} {k:6d} {m:6d} {short:>5s}", row)
+    return row
+
+
+def _decode_rows(torch, pm, shapes, peaks, gen, tag, label, reps=None):
+    """``_bank_row`` at each (T, K, M) of ``shapes`` ({shape: launches a
+    forward}; bf16, no noise) and the sums over one decode forward."""
+    print(f"[{tag}] {label}     T      K      M  dtype {TIMING_HEAD}")
+    rows = []
+    for (t, k, m), count in shapes.items():
+        a, b = _operands(torch, t, k, m, torch.bfloat16, gen)
+        rows.append({**_bank_row(torch, pm, a, b, {}, peaks, "none", tag, label, reps),
+                     "count": count})
+        del a, b
+    keys = ("ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
+            "bound_ms")
+    forward = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
+    forward.update(launches=sum(r["count"] for r in rows), bound_by="bytes" if all(
+        r["bound_by"] == "bytes" for r in rows) else "operations")
+    print(f"[{tag}] {label.strip() + ': ' if label else ''}one decode forward at T=4 "
+          f"({forward['launches']} launches), ms: "
+          + ", ".join(f"{key} {forward[key]:.4f}" for key in keys))
+    torch.cuda.empty_cache()
+    return rows, forward
+
+
 def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     """DFA training of qwen1.5-0.5b at full width: 16 fit steps on
     offchip_bpd (finite loss at every step, a fixed batch's loss falls, 25
@@ -1624,13 +1896,11 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     version, torch.matmul and its bound; 4 steps on emu_offchip with the
     emu kernel held bit for bit on a step's own operands and timed; crash
     and resume of the smoke LM on the card."""
-    import dataclasses
     import shutil
 
     from repro_torch import algos
     from repro_torch.core import photonics as ph
     from repro_torch.data import tokens
-    from repro_torch.kernels import ops as kops
     from repro_torch.utils import prng
 
     kind, peaks = card_peaks(card)
@@ -1649,52 +1919,25 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
         ce0 = model.loss(session.init_state()["params"], fixed)[1]["ce_loss"].item()
 
     # 16 fit steps
-    sync(torch)
-    pm.launches = 0
-    t0 = time.perf_counter()
-    state, _ = session.fit(gen.batch, total_steps=LM_STEPS, verbose=False)
-    sync(torch)
-    wall = time.perf_counter() - t0
-    launches = pm.launches
+    fit = _fit_logged(torch, pm, session, gen, LM_STEPS, log)
+    launches, losses, state = fit["launches"], fit["losses"], fit["state"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    lines = log.read_text().splitlines()
-    log.unlink()
-    col = lines[0].split(",").index("loss")
-    losses = [float(line.split(",")[col]) for line in lines[1:]]
     with torch.no_grad():
         ce1 = model.loss(state["params"], fixed)[1]["ce_loss"].item()
     print(f"[lm_train] qwen1.5-0.5b full width f32 ({n_params / 1e6:.1f} M parameters), "
           f"offchip_bpd, cuda backend, batch {LM_BATCH} x seq {LM_SEQ}: {LM_STEPS} fit steps in "
-          f"{wall:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; fixed batch "
-          f"ce_loss {ce0:.4f} -> {ce1:.4f}; photonic_matmul launches {launches} = "
+          f"{fit['wall']:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; fixed "
+          f"batch ce_loss {ce0:.4f} -> {ce1:.4f}; photonic_matmul launches {launches} = "
           f"{launches / LM_STEPS:g} per step; peak device memory {peak_gib:.2f} GiB")
-    check(len(losses) == LM_STEPS and all(math.isfinite(x) for x in losses),
-          f"non-finite or missing step losses: {losses}")
+    _check_fit(fit, LM_STEPS, LM_LAUNCHES)
     check(ce1 < ce0, f"the fixed batch's loss did not fall: {ce0} -> {ce1}")
-    check(launches == LM_LAUNCHES * LM_STEPS,
-          f"{launches} bank-kernel launches, expected {LM_LAUNCHES} per step")
 
-    # one step's own operands: block 0 and the embedding against the plain version
-    rng = prng.step_key(seed, state["step"], "noise")
-    batch = to_device_batch(gen.batch(state["step"]))
+    # one step's own operands: block 0 and the embedding against the plain
+    # version, block 0 in prng mode against the plain twin
+    calls, errs, step, ((loss, _), grads) = _step_projections(
+        torch, pm, session, state, gen, seed, LM_LAUNCHES, LM_BATCH * LM_SEQ, "lm_train")
+    batch, rng = step
     params, fb, dcfg = state["params"], state["fb"], session.config.dfa
-    calls = []
-    restore = _wrap(kops, "photonic_matmul_cuda", calls)
-    try:
-        (loss, _), grads = session.value_and_grad()(params, fb, batch, rng)
-    finally:
-        restore()
-    check(len(calls) == LM_LAUNCHES, f"{len(calls)} projections in one step")
-    errs = {}
-    for label, idx in (("block 0", 0), ("embedding", LM_LAUNCHES - 1)):
-        (a, b), kw, out = calls[idx]
-        check(tuple(a.shape) == (LM_BATCH * LM_SEQ, cfg.d_model) and "noise" in kw,
-              f"{label}: operands {tuple(a.shape)}, {sorted(kw)}")
-        expect = pm.photonic_matmul_plain(a, b, **kw)
-        errs[label] = err = (out - expect).abs().max().item()
-        scale = expect.abs().max().item()
-        check(err <= TOL["float32"] * scale + 1e-6,
-              f"{label}: δ kernel vs plain {err} of max {scale}")
     (a, b), kw, _ = calls[0]
     nk = math.ceil(a.shape[1] / pm.BLOCK_K)
     step_sigma = ph.noise_sigma_total(a.shape[1], 1.0, 1.0, dcfg.photonics) / math.sqrt(nk)
@@ -1704,22 +1947,12 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     prng_err = (got - twin).abs().max().item()
     check(prng_err <= TOL["float32"] * twin.abs().max().item() + 1e-6,
           f"prng mode kernel vs plain twin at the LM shape: {prng_err}")
-    print(f"[lm_train] one step's own operands (T={a.shape[0]}, K={a.shape[1]}, M={b.shape[0]}, "
-          f"f32, the path's input-mode noise from the step's keys): max |kernel - plain| "
-          f"block 0 {errs['block 0']:.3e}, embedding {errs['embedding']:.3e} (tol "
-          f"{TOL['float32']} of max|δ|); prng mode vs plain twin {prng_err:.3e}")
+    print(f"[lm_train] block 0 in prng mode (T={a.shape[0]}, K={a.shape[1]}, M={b.shape[0]}): "
+          f"max |kernel - plain twin| {prng_err:.3e}")
+    del got, twin
 
     # ideal: the cuda backend against the ref backend, every gradient
-    vg = {b_: algos.get("dfa").value_and_grad(model, dataclasses.replace(
-        dcfg, photonics=ph.PRESETS["ideal"], backend=b_)) for b_ in ("cuda", "ref")}
-    (_, _), g_cuda = vg["cuda"](params, fb, batch, rng)
-    (_, _), g_ref = vg["ref"](params, fb, batch, rng)
-    worst = max((_max_rel(g_cuda[k], g_ref[k]), k) for k in g_ref)
-    del g_cuda, g_ref
-    print(f"[lm_train] ideal, cuda vs ref backend: every gradient within {worst[0]:.3e} of its "
-          f"max |value| (worst {worst[1]}; limit 1e-4, the f32 bank tolerance through a block's "
-          f"backward)")
-    check(worst[0] <= 1e-4, f"ideal cuda vs ref gradients differ: {worst}")
+    _ideal_cuda_vs_ref(torch, session, state, step, "lm_train")
 
     # one bp, dfa-fused and dfa-layerwise step at full width
     fused = algos.get("dfa-fused").fused_step(model, dcfg, session.config.optimizer)
@@ -1727,7 +1960,7 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     p_u, opt_u, _ = session.config.optimizer.update(grads, state["opt"], params)
     worst_p = max(_max_rel(p_f[k], p_u[k]) for k in p_u)
     worst_m = max((opt_f["mom"][k] - opt_u["mom"][k]).abs().max().item() for k in p_u)
-    del p_f, opt_f, p_u, opt_u, grads, fused, vg
+    del p_f, opt_f, p_u, opt_u, grads, fused
     others = {}
     for algo in ("bp", "dfa-layerwise"):
         sync(torch)
@@ -1746,43 +1979,19 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
           "dfa-fused differs from dfa followed by SGDM.update")
     check(all(math.isfinite(l_a) and fin for l_a, _, fin in others.values()),
           f"bp / dfa-layerwise step not finite: {others}")
+    del state, params, fb, batch, step
     torch.cuda.empty_cache()
 
     # step time (CUDA events) and three steps under the profiler
     batches = [to_device_batch(gen.batch(i)) for i in range(LM_STEPS, LM_STEPS + 8)]
-    times = []
-    for b_ in batches:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        state, _ = session.step(state, b_)
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    step_ms = statistics.median(times[2:])
-    wall_p, by_name = _profile_steps(torch, session, state, batches[:3])
     flops = _lm_step_flops(cfg, LM_BATCH * LM_SEQ)
-    print(f"[lm_train] dfa step: {step_ms:.2f} ms median of {len(times) - 2} steps (CUDA events, "
-          f"synchronised steps; all: {', '.join(f'{x:.1f}' for x in times)}); matrix products "
-          f"{flops / 1e12:.2f} TFLOP a step, {flops / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s; f32 "
-          f"bound {flops / peaks['float32'] * 1e3:.1f} ms at {peaks['float32'] / 1e12:.0f} "
-          f"TFLOP/s; card: {card}")
-    prof = {"step_ms": step_ms, "step_ms_all": times, "tflop_per_step": flops / 1e12}
-    if by_name:
-        busy = sum(by_name.values()) / 3
-        bank = by_name.get("photonic_matmul", 0.0) / 3
-        prof.update(wall_ms=wall_p / 3, busy_ms=busy, idle_share=1 - busy * 3 / wall_p,
-                    bank_ms=bank)
-        print(f"[lm_train] profile of 3 steps: wall {wall_p / 3:.2f} ms/step, device busy "
-              f"{busy:.2f} ms/step, idle share {1 - busy * 3 / wall_p:.3f}; the bank kernel "
-              f"{bank:.3f} ms/step ({bank / busy:.1%} of busy)")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"[lm_train]   {ms / 3:9.3f} ms/step  {ms / wall_p:6.1%} of wall  {name}")
-    else:
-        print("[lm_train] device busy time not measured (the profiler traced no device kernels)")
+    prof = _step_timing(torch, session, fit, batches, 2, 3, "lm_train", card, flops=(
+        flops, f"matrix products {flops / 1e12:.2f} TFLOP a step (f32 bound "
+               f"{flops / peaks['float32'] * 1e3:.1f} ms at {peaks['float32'] / 1e12:.0f} "
+               "TFLOP/s)"))
+    step_ms = prof["step_ms"]
 
     # the bank kernel at the LM shape: the path's input mode and prng mode
-    (a, b), kw, _ = calls[0]
     t, k, m = a.shape[0], a.shape[1], b.shape[0]
     noise = kw["noise"]
     print(f"[lm_timing] bank kernel at (T, K, M) = ({t}, {k}, {m}) f32, {kind} peaks: "
@@ -1805,64 +2014,14 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     per_step = bank_rows["input"]["dev_ms"] * LM_LAUNCHES
     print(f"[lm_timing] the path's 25 launches a step: {per_step:.3f} ms device "
           f"({per_step / step_ms:.1%} of the step's {step_ms:.1f} ms)")
-    del calls, session, model, state, params, fb, batch, batches, a, b, noise, kw
+    del calls, session, model, fit, batches, a, b, noise, kw
     torch.cuda.empty_cache()
 
     # emu_offchip: 4 steps through the emulated banks
-    emu = _lm_session(api, torch, seed, hardware="emu_offchip", backend="emu")
-    ecalls = []
-    restore = _wrap(em, "emu_bank_product_cuda", ecalls, limit=1)
-    try:
-        sync(torch)
-        em.launches = 0
-        t0 = time.perf_counter()
-        e_state, e_metrics = emu.fit(gen.batch, total_steps=LM_EMU_STEPS, verbose=False)
-        sync(torch)
-        e_wall = time.perf_counter() - t0
-        e_launches = em.launches
-    finally:
-        restore()
-    e_host = emu.trainer.to_host(e_metrics)
-    print(f"[lm_emu] emu_offchip (drift on, recalibration every "
-          f"{emu.config.recalibrate_every}): {LM_EMU_STEPS} dfa steps in {e_wall:.2f}s, loss "
-          f"{e_host['loss']:.4f}, hw_residual_rms {e_host.get('hw_residual_rms', float('nan')):.5f}; "
-          f"emu_bank_product launches {e_launches} = {e_launches / LM_EMU_STEPS:g} per step")
-    check(e_launches == LM_LAUNCHES * LM_EMU_STEPS,
-          f"{e_launches} emu launches, expected {LM_LAUNCHES} per step")
-    check(math.isfinite(e_host["loss"]), "emu: non-finite loss")
-    (a_t, delta, mask), ekw, e_out = ecalls[0]
-    ecalls.clear()
-    plan = em.plan_for(a_t, delta, mask)
-    t0 = time.perf_counter()
-    e_expect = em.emu_bank_product_plain(a_t, delta, mask, **ekw)
-    sync(torch)
-    e_plain_s = time.perf_counter() - t0
-    worst = _emu_exact(torch, em, e_out, e_expect, ekw,
-                       f"the LM step's block 0 a_t {tuple(a_t.shape)} {plan.name}")
-    print(f"[lm_emu] block 0 of the first step: a_t {tuple(a_t.shape)} {a_t.dtype}, δ "
-          f"{tuple(delta.shape)}, {ekw['n_panels']} slots, σ {ekw['sigma']:.4f}, shot "
-          f"{ekw['shot']}, ADC {ekw['adc_bits']} bits; plan {plan.name}; kernel equals the plain "
-          f"version bit for bit (max |Δ| {worst:.1e}; plain version {e_plain_s:.2f}s)")
-    e_row = _time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **ekw)},
-                      {"ms": 25})
-    # the plain version on CUDA events only, as path B's (phase_emu_timing)
-    e_row["plain_ms"] = _event_ms(
-        torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **ekw), reps=3)
-    case = (a_t, delta, mask, ekw["n_panels"])
-    e_row["bound_ms"], e_row["bound_by"], binding, terms = emu_bound(
-        case, ekw["sigma"], ekw["shot"], peaks, draws["emu"], sms)
-    e_row.update(library_ms=None, plan=plan.name, launches_per_step=LM_LAUNCHES,
-                 bound_share=e_row["bound_ms"] / e_row["dev_ms"],
-                 terms_ms={name: v * 1e3 for name, v in terms.items()})
-    print(f"[lm_timing] emu_bank_product at (T, K, M) = ({a_t.shape[0]}, {cfg.d_model}, "
-          f"{cfg.d_model}): kernel {e_row['ms']:.4f} / {e_row['dev_ms']:.4f} ms (events / "
-          f"device), plain {e_row['plain_ms']:.4f} (events), bound "
-          f"{e_row['bound_ms']:.4f} ({binding}: bytes {terms['bytes'] * 1e3:.5f} / f32 "
-          f"{terms['f32'] * 1e3:.5f} / prng {terms['prng'] * 1e3:.5f}), share "
-          f"{e_row['bound_share']:.1%}, plan {plan.name}; 25 a step: "
-          f"{e_row['dev_ms'] * LM_LAUNCHES:.3f} ms device; card: {card}")
-    del emu, e_state, a_t, delta, mask, e_out, e_expect, case
-    torch.cuda.empty_cache()
+    emu = _emu_fit(torch, em, lambda: _lm_session(api, torch, seed, hardware="emu_offchip",
+                                                   backend="emu"),
+                   gen, LM_EMU_STEPS, LM_LAUNCHES, "lm_emu", "lm_timing", card, draws,
+                   "the LM step")
 
     # crash and resume on the card: the smoke LM on offchip_bpd
     base = pm._BUILD_DIR / f"lm_ckpt-{os.getpid()}"
@@ -1889,9 +2048,10 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     print(f"[lm_ckpt] smoke LM on the card, offchip_bpd: 3 steps, a new Trainer resumed from "
           f"step {start} to 6; params and momentum bit-identical to 6 straight steps: {same}")
     check(same, "crash and resume differ from the straight run")
-    return {"launches": launches, "emu_launches": e_launches, "max_abs_err": max(errs.values()),
-            "max_abs_err_prng": prng_err, "emu_max_abs_err": worst, "bank": bank_rows,
-            "emu": e_row, "profile": prof, "peak_gib": peak_gib}
+    return {"launches": launches, "emu_launches": emu["launches"],
+            "max_abs_err": max(errs.values()), "max_abs_err_prng": prng_err,
+            "emu_max_abs_err": emu["max_abs_err"], "bank": bank_rows, "emu": emu["row"],
+            "profile": prof, "peak_gib": peak_gib}
 
 
 # ---------------------------------------------------------------------------
@@ -2499,16 +2659,8 @@ def _mamba_emu_serve(torch, np, api, em, seed):
 def _mamba_train(torch, np, api, pm, em, seed, card, draws):
     """full() in f32, batch 8 x seq 512 of ``MarkovTokens``: 16 ``dfa`` fit
     steps on offchip_bpd (``cuda``) and 4 on emu_offchip (``emu``)."""
-    import dataclasses
-
-    from repro_torch import algos
-    from repro_torch.core import photonics as ph
     from repro_torch.data import tokens
-    from repro_torch.kernels import ops as kops
-    from repro_torch.utils import prng
 
-    kind, peaks = card_peaks(card)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log = pm._BUILD_DIR / f"mamba_train-{os.getpid()}.csv"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2524,173 +2676,46 @@ def _mamba_train(torch, np, api, pm, em, seed, card, draws):
     fixed = to_device_batch(gen.batch(10**6))
     with torch.no_grad():
         ce0 = model.loss(session.init_state()["params"], fixed)[1]["ce_loss"].item()
-    sync(torch)
-    pm.launches = 0
-    t0 = time.perf_counter()
-    state, _ = session.fit(gen.batch, total_steps=MAMBA_STEPS, verbose=False)
-    sync(torch)
-    wall = time.perf_counter() - t0
-    launches = pm.launches
+    fit = _fit_logged(torch, pm, session, gen, MAMBA_STEPS, log)
+    launches, losses = fit["launches"], fit["losses"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30 - base_gib
-    lines = log.read_text().splitlines()
-    log.unlink()
-    col = lines[0].split(",").index("loss")
-    losses = [float(line.split(",")[col]) for line in lines[1:]]
     with torch.no_grad():
-        ce1 = model.loss(state["params"], fixed)[1]["ce_loss"].item()
+        ce1 = model.loss(fit["state"]["params"], fixed)[1]["ce_loss"].item()
     print(f"[mamba_train] mamba2-130m full width f32, offchip_bpd, cuda backend, batch "
           f"{MAMBA_BATCH} x seq {MAMBA_SEQ} (2 SSD chunks of {cfg.chunk}): {MAMBA_STEPS} fit steps "
-          f"in {wall:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; fixed batch "
-          f"ce_loss {ce0:.4f} -> {ce1:.4f}; photonic_matmul launches {launches} = "
+          f"in {fit['wall']:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; fixed "
+          f"batch ce_loss {ce0:.4f} -> {ce1:.4f}; photonic_matmul launches {launches} = "
           f"{launches / MAMBA_STEPS:g} per step; peak device memory {peak_gib:.2f} GiB above "
           f"the {base_gib:.2f} GiB resident before the session")
-    check(len(losses) == MAMBA_STEPS and all(math.isfinite(x) for x in losses),
-          f"non-finite or missing step losses: {losses}")
+    _check_fit(fit, MAMBA_STEPS, LM_LAUNCHES)
     check(math.isfinite(ce1), "non-finite fixed-batch loss")
-    check(launches == LM_LAUNCHES * MAMBA_STEPS,
-          f"{launches} bank-kernel launches, expected {LM_LAUNCHES} per step")
 
-    # one step's own operands: block 0 and the embedding against the plain version
-    rng = prng.step_key(seed, state["step"], "noise")
-    batch = to_device_batch(gen.batch(state["step"]))
-    params, fb, dcfg = state["params"], state["fb"], session.config.dfa
-    calls = []
-    restore = _wrap(kops, "photonic_matmul_cuda", calls)
-    try:
-        session.value_and_grad()(params, fb, batch, rng)
-    finally:
-        restore()
-    check(len(calls) == LM_LAUNCHES, f"{len(calls)} projections in one step")
-    errs = {}
-    for label, idx in (("block 0", 0), ("embedding", -1)):
-        (a, b), kw, out = calls[idx]
-        check(tuple(a.shape) == (MAMBA_BATCH * MAMBA_SEQ, cfg.d_model) and "noise" in kw,
-              f"{label}: operands {tuple(a.shape)}, {sorted(kw)}")
-        expect = pm.photonic_matmul_plain(a, b, **kw)
-        errs[label] = err = (out - expect).abs().max().item()
-        scale = expect.abs().max().item()
-        check(err <= TOL["float32"] * scale + 1e-6,
-              f"{label}: δ kernel vs plain {err} of max {scale}")
-    print(f"[mamba_train] one step's own operands (T={MAMBA_BATCH * MAMBA_SEQ}, K={cfg.d_model}, "
-          f"M={cfg.d_model}, f32, input-mode noise): max |kernel - plain| block 0 "
-          f"{errs['block 0']:.3e}, embedding {errs['embedding']:.3e} (tol {TOL['float32']} of "
-          f"max|δ|)")
-
-    # ideal: the cuda backend against the ref backend, every gradient
-    g = {b_: algos.get("dfa").value_and_grad(model, dataclasses.replace(
-        dcfg, photonics=ph.PRESETS["ideal"], backend=b_))(params, fb, batch, rng)[1]
-        for b_ in ("cuda", "ref")}
-    worst = max((_max_rel(g["cuda"][k], g["ref"][k]), k) for k in g["ref"])
-    del g
-    print(f"[mamba_train] ideal, cuda vs ref backend: every gradient within {worst[0]:.3e} of "
-          f"its max |value| (worst {worst[1]}; limit 1e-4)")
-    check(worst[0] <= 1e-4, f"ideal cuda vs ref gradients differ: {worst}")
+    # one step's own operands against the plain version; ideal cuda vs ref
+    calls, errs, step, out = _step_projections(torch, pm, session, fit["state"], gen, seed,
+                                               LM_LAUNCHES, MAMBA_BATCH * MAMBA_SEQ,
+                                               "mamba_train")
+    del out
+    _ideal_cuda_vs_ref(torch, session, fit["state"], step, "mamba_train")
+    (a, b), kw, _ = calls[0]
+    operands = (a, b, kw["noise"])
+    del calls, step, a, b, kw
     torch.cuda.empty_cache()
 
     # step time on CUDA events, three steps under the profiler, step_cost
     batches = [to_device_batch(gen.batch(i)) for i in range(MAMBA_STEPS, MAMBA_STEPS + 8)]
-    times = []
-    for b_ in batches:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        state, _ = session.step(state, b_)
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    step_ms = statistics.median(times[2:])
-    cost = session.step_cost(state, batches[0])
-    prof = {"step_ms": step_ms, "step_ms_all": times, "tflop_per_step": cost.flops / 1e12,
-            "tflop_s": cost.flops / (step_ms * 1e-3) / 1e12, "peak_gib": peak_gib}
-    print(f"[mamba_train] dfa step: {step_ms:.2f} ms median of {len(times) - 2} steps (CUDA "
-          f"events, synchronised steps; all: {', '.join(f'{x:.1f}' for x in times)}); step_cost "
-          f"{cost.flops / 1e12:.4f} TFLOP ({cost.kernel_launches} kernel launches in it), "
-          f"{prof['tflop_s']:.1f} TFLOP/s; card: {card}")
-    wall_p, by_name = _profile_steps(torch, session, state, batches[:3])
-    if by_name:
-        busy = sum(by_name.values()) / 3
-        bank = by_name.get("photonic_matmul", 0.0) / 3
-        prof.update(wall_ms=wall_p / 3, busy_ms=busy, idle_share=1 - busy * 3 / wall_p,
-                    bank_ms=bank)
-        print(f"[mamba_train] profile of 3 steps: wall {wall_p / 3:.2f} ms/step, device busy "
-              f"{busy:.2f} ms/step, idle share {1 - busy * 3 / wall_p:.3f}; the bank kernel "
-              f"{bank:.3f} ms/step ({bank / busy:.1%} of busy)")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"[mamba_train]   {ms / 3:9.3f} ms/step  {ms / wall_p:6.1%} of wall  {name}")
-    else:
-        print("[mamba_train] device busy time not measured (the profiler traced no device "
-              "kernels)")
-    (a, b), kw, _ = calls[0]
-    operands = (a, b, kw["noise"])
-    del calls, session, model, state, params, fb, batch, batches, a, b, kw
+    prof = _step_timing(torch, session, fit, batches, 2, 3, "mamba_train", card)
+    prof["peak_gib"] = peak_gib
+    del session, model, fit, batches
     torch.cuda.empty_cache()
 
     # emu_offchip: 4 steps through the emulated banks
-    emu = api.build_session(arch=MAMBA, smoke=False, dtype=torch.float32, seed=seed,
-                            algo="dfa", hardware="emu_offchip", backend="emu",
-                            log_every=10**9, device=DEVICE)
-    ecalls = []
-    restore = _wrap(em, "emu_bank_product_cuda", ecalls, limit=1)
-    try:
-        sync(torch)
-        em.launches = 0
-        t0 = time.perf_counter()
-        _, e_metrics = emu.fit(gen.batch, total_steps=MAMBA_EMU_STEPS, verbose=False)
-        sync(torch)
-        e_wall = time.perf_counter() - t0
-        e_launches = em.launches
-    finally:
-        restore()
-    e_host = emu.trainer.to_host(e_metrics)
-    print(f"[mamba_train] emu_offchip (drift on): {MAMBA_EMU_STEPS} dfa steps in {e_wall:.2f}s, "
-          f"loss {e_host['loss']:.4f}; emu_bank_product launches {e_launches} = "
-          f"{e_launches / MAMBA_EMU_STEPS:g} per step")
-    check(e_launches == LM_LAUNCHES * MAMBA_EMU_STEPS,
-          f"{e_launches} emu launches, expected {LM_LAUNCHES} per step")
-    check(math.isfinite(e_host["loss"]), "emu: non-finite loss")
-    (a_t, delta, mask), ekw, e_out = ecalls[0]
-    ecalls.clear()
-    plan = em.plan_for(a_t, delta, mask)
-    e_expect = em.emu_bank_product_plain(a_t, delta, mask, **ekw)
-    e_err = _emu_exact(torch, em, e_out, e_expect, ekw,
-                       f"mamba's block 0 a_t {tuple(a_t.shape)} {plan.name}")
-    e_row = _time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **ekw)},
-                      {"ms": 25})
-    e_row["plain_ms"] = _event_ms(
-        torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **ekw), reps=3)
-    e_row["bound_ms"], e_row["bound_by"], binding, terms = emu_bound(
-        (a_t, delta, mask, ekw["n_panels"]), ekw["sigma"], ekw["shot"], peaks, draws["emu"], sms)
-    e_row.update(library_ms=None, plan=plan.name, launches_per_step=LM_LAUNCHES,
-                 shape=[a_t.shape[0], cfg.d_model, cfg.d_model], n_panels=ekw["n_panels"],
-                 bound_share=e_row["bound_ms"] / e_row["dev_ms"])
-    print(f"[mamba_timing] emu_bank_product at (T, K, M) = ({a_t.shape[0]}, {cfg.d_model}, "
-          f"{cfg.d_model}) f32, {ekw['n_panels']} slots (the last one part-filled), σ "
-          f"{ekw['sigma']:.4f}, ADC {ekw['adc_bits']} bits: kernel = plain bit for bit (max |Δ| "
-          f"{e_err:.1e}); kernel {e_row['ms']:.4f} / {e_row['dev_ms']:.4f} ms (events / device), "
-          f"plain {e_row['plain_ms']:.4f} (events), bound {e_row['bound_ms']:.4f} ({binding}: "
-          f"bytes {terms['bytes'] * 1e3:.5f} / f32 {terms['f32'] * 1e3:.5f} / prng "
-          f"{terms['prng'] * 1e3:.5f}), share {e_row['bound_share']:.1%}, plan {plan.name}; "
-          f"card: {card}")
-    del emu, a_t, delta, mask, e_out, e_expect
-    torch.cuda.empty_cache()
-    return {"launches": launches, "emu_launches": e_launches, "max_abs_err": max(errs.values()),
-            "emu_max_abs_err": e_err, "operands": operands, "emu": e_row, "profile": prof}
-
-
-def _mamba_bank_row(torch, pm, a, b, kw, peaks, noise):
-    """The bank kernel, its plain version and torch.matmul on (a, b), with
-    the bound, printed as a ``[mamba_timing]`` row."""
-    t, k, m = a.shape[0], a.shape[1], b.shape[0]
-    dtype_name = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
-    fns = {"ms": lambda: pm.photonic_matmul_cuda(a, b, **kw),
-           "plain_ms": lambda: pm.photonic_matmul_plain(a, b, **kw),
-           "library_ms": lambda: torch.matmul(a, b.T)}
-    row = dict(t=t, k=k, m=m, dtype=dtype_name, noise=noise,
-               **_time_row(torch, fns, bound_ms(t, m, k, dtype_name, peaks, noise=noise)),
-               variant=pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr())).name)
-    label = "bf16" if dtype_name == "bfloat16" else "f32"
-    _print_row("mamba_timing", f"{t:6d} {k:6d} {m:6d} {label:>5s}", row)
-    return row
+    emu = _emu_fit(torch, em, lambda: api.build_session(
+        arch=MAMBA, smoke=False, dtype=torch.float32, seed=seed, algo="dfa",
+        hardware="emu_offchip", backend="emu", log_every=10**9, device=DEVICE),
+        gen, MAMBA_EMU_STEPS, LM_LAUNCHES, "mamba_train", "mamba_timing", card, draws, "mamba")
+    return {"launches": launches, "emu_launches": emu["launches"],
+            "max_abs_err": max(errs.values()), "emu_max_abs_err": emu["max_abs_err"],
+            "operands": operands, "emu": emu["row"], "profile": prof}
 
 
 def phase_mamba(torch, np, api, pm, em, seed, card, draws):
@@ -2713,20 +2738,11 @@ def phase_mamba(torch, np, api, pm, em, seed, card, draws):
     gen = torch.Generator(device=DEVICE).manual_seed(18)
     print(f"[mamba_timing] the bank kernel at mamba2-130m's decode shapes (T = 4, bf16) and its "
           f"training shape (input mode, f32); {kind} peaks; card: {card}")
-    print(f"[mamba_timing]      T      K      M  dtype {TIMING_HEAD}")
-    decode = []
-    for (m, k), count in MAMBA_SHAPES.items():
-        a, b = _operands(torch, 4, k, m, torch.bfloat16, gen)
-        decode.append({**_mamba_bank_row(torch, pm, a, b, {}, peaks, "none"), "count": count})
-    keys = ("ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
-            "bound_ms")
-    per_token = {key: sum(r[key] * r["count"] for r in decode) for key in keys}
-    per_token.update(launches=MAMBA_FORWARD, bound_by="bytes" if all(
-        r["bound_by"] == "bytes" for r in decode) else "operations")
-    print(f"[mamba_timing] one decode forward at T=4 ({MAMBA_FORWARD} launches), ms: "
-          + ", ".join(f"{key} {per_token[key]:.4f}" for key in keys))
+    decode, per_token = _decode_rows(torch, pm, {(4, k, m): count for (m, k), count
+                                                 in MAMBA_SHAPES.items()},
+                                     peaks, gen, "mamba_timing", "")
     a, b, noise = train.pop("operands")
-    train_row = _mamba_bank_row(torch, pm, a, b, {"noise": noise}, peaks, "input")
+    train_row = _bank_row(torch, pm, a, b, {"noise": noise}, peaks, "input", "mamba_timing", "")
     train_row["launches_per_step"] = LM_LAUNCHES
     print(f"[mamba_timing] the path's {LM_LAUNCHES} launches a dfa step: "
           f"{train_row['dev_ms'] * LM_LAUNCHES:.3f} ms device of the step's "
@@ -2740,6 +2756,402 @@ def phase_mamba(torch, np, api, pm, em, seed, card, draws):
             "serve": serve, "profile": profile, "parity": parity, "decode_forward": per_token,
             "decode_shapes": decode, "train_shape": train_row, "emu_train_shape": train["emu"],
             "train": train["profile"]}
+
+
+# ---------------------------------------------------------------------------
+# the dense attention families (phase_dense)
+# ---------------------------------------------------------------------------
+QWEN3, MINICPM3, GRANITE = "qwen3-1.7b", "minicpm3-4b", "granite-8b"
+# (n_layers, d_model, d_ff, vocab) of each full() and its bank products a
+# token: 7 a layer (MLA's q_down, q_up, kv_down and o in place of q, k, v
+# and o; the absorbed k_up / v_up are digital) and the head
+DENSE_FULL = {QWEN3: (28, 2048, 6144, 151936), MINICPM3: (62, 2560, 6400, 73448),
+              GRANITE: (36, 4096, 14336, 49152)}
+DENSE_FORWARD = {arch: 7 * dims[0] + 1 for arch, dims in DENSE_FULL.items()}  # 197, 435, 253
+DENSE_STEPS = {QWEN3: 16, MINICPM3: 8}  # f32 dfa fit steps at batch 64 x seq 64
+DENSE_EMU_STEPS = 4
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 4096, 2  # above 2·k_chunk: flash_attention
+FLASH_TOL = 2e-5  # the reference's flash-vs-reference bound (tests/test_layers.py)
+SKINNY_K = 14336  # granite's down projection: f32 A staged in 229,376 B of shared memory
+FREE_GIB = 5.0  # device memory a training run must leave free
+# copies of the f32 parameters alive at a dfa step's update: the state's,
+# its momentum, the gradients, the new parameters and momentum (the
+# optimizer is functional, as the reference's), and the module's own copy,
+# which the reference does not hold (ROADMAP queue 3)
+STATE_COPIES = 6
+
+
+def _dense_decode_shapes(model):
+    """{(T, K, M): count} of one decode step's bank products (T = 4 slots)."""
+    shapes = {}
+    for _, m, k in model.forward_gemm_specs():
+        shapes[(4, k, m)] = shapes.get((4, k, m), 0) + 1
+    return shapes
+
+
+def _dense_serve(torch, np, api, pm, arch, seed):
+    """``arch``'s full() in bf16 on offchip_bpd, ``cuda`` backend, 4 slots:
+    8 requests of 32-token prompts and 16 new tokens, prefill chunk 16;
+    the bank kernel against its plain version on the path's own operands
+    (the first call of each (T, K, M)); then a prefill tick and two decode
+    ticks under the profiler on the same session."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve import Request
+
+    tag = f"dense_serve {arch}"
+    session = api.build_session(arch=arch, algo="bp", smoke=False, hardware="offchip_bpd",
+                                backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    model = session.model
+    cfg = model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == DENSE_FULL[arch],
+          f"not {arch}'s full config")
+    per_forward = DENSE_FORWARD[arch]
+    check(len(model.forward_gemm_specs()) == per_forward,
+          f"not {per_forward} bank products a token")
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed + 7)
+    warm = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
+    warm.run([Request(prompt=_prompts(rng, 1, 8, cfg.vocab_size)[0], max_new=2)])
+    del warm
+    eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
+    finite = _finite_outputs(torch, eng)
+    reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, 8, 32, cfg.vocab_size)]
+    captured = {}
+    kernel = kops.photonic_matmul_cuda
+
+    def capture(a, b, **kw):
+        out = kernel(a, b, **kw)
+        captured.setdefault((a.shape[0], a.shape[1], b.shape[0]), (a, b, kw, out))
+        return out
+
+    kops.photonic_matmul_cuda = capture
+    try:
+        sync(torch)
+        pm.launches = 0
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = pm.launches
+    finally:
+        kops.photonic_matmul_cuda = kernel
+    forwards = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
+    tokens = sum(len(r.out) for r in reqs)
+    ttft = statistics.median(r.ttft_s for r in reqs)
+    print(f"[{tag}] full() ({n_params / 1e9:.3f} B parameters) bf16, offchip_bpd, cuda "
+          f"backend: {len(reqs)} requests, {tokens} tokens in {wall:.3f}s: {tokens / wall:.1f} "
+          f"tok/s, ttft p50 {ttft * 1e3:.1f} ms; prefill steps {eng.stats['prefill_steps']}, "
+          f"decode steps {eng.stats['decode_steps']}")
+    print(f"[{tag}] photonic_matmul launches {launches} = {per_forward} x {forwards} forwards: "
+          f"{launches == per_forward * forwards}")
+    check(all(r.done and len(r.out) == 16 for r in reqs), "requests unfinished")
+    check(launches == per_forward * forwards,
+          f"launches {launches} != {per_forward} x {forwards}")
+    check(finite(), "non-finite logits")
+    decode = _dense_decode_shapes(model)
+    shapes = set(captured)
+    check({s for s in shapes if s[0] == 4} == set(decode)
+          and {s for s in shapes if s[0] != 4} == {(64, k, m) for _, k, m in decode},
+          f"the path's (T, K, M) {sorted(shapes)}")
+    tol, max_err = TOL["bfloat16"], 0.0
+    for (t, k, m), (a, b, kw, out) in sorted(captured.items()):
+        check(a.dtype == b.dtype == torch.bfloat16,
+              f"the path handed the kernel {a.dtype} / {b.dtype} operands")
+        expect = pm.photonic_matmul_plain(a, b, **kw)
+        err = (out - expect).abs().max().item() / expect.abs().max().item()
+        check(err <= tol, f"kernel vs plain at (T, K, M) = {(t, k, m)}: {err:.3e} of max|plain|")
+        max_err = max(max_err, err)
+    modes = sorted({"input" if "noise" in kw else "none" for _, _, kw, _ in captured.values()})
+    print(f"[{tag}] kernel vs plain on the path's own bf16 operands (first call of each of "
+          f"{len(captured)} (T, K, M): {', '.join(str(s) for s in sorted(shapes))}; "
+          f"{'/'.join(modes)} noise): max |kernel - plain| / max|plain| = {max_err:.3e} "
+          f"(tol {tol})")
+    skinny = {}
+    for (t, k, m), (a, b, kw, _) in sorted(captured.items()):
+        if t != 4 or k != SKINNY_K:
+            continue
+        # the largest K of any path: A staged in shared memory near the limit
+        # in f32 (T·K·4 bytes), by both skinny variants
+        for dtype in (torch.bfloat16, torch.float32):
+            a_, b_ = a.to(dtype).contiguous(), b.to(dtype).contiguous()
+            expect = pm.photonic_matmul_plain(a_, b_, **kw)
+            for plan in (pm.Plan(pm.SKINNY), pm.Plan(pm.SKINNY_SCALAR)):
+                got = pm.launch_kernel(a_, b_, plan=plan, **kw)
+                err = (got - expect).abs().max().item() / expect.abs().max().item()
+                name = f"{plan.name} {str(dtype).split('.')[-1]}"
+                skinny[name] = err
+                check(err <= TOL[str(dtype).split(".")[-1]],
+                      f"{name} at (T, K, M) = {(t, k, m)}: {err:.3e} of max|plain|")
+            del a_, b_, expect, got
+        print(f"[{tag}] (T, K, M) = {(t, k, m)}: A staged in {4 * k * 2} B (bf16) / {4 * k * 4} "
+              f"B (f32) of shared memory (limit {pm.SMEM_MAX}); planner picks "
+              f"{pm._plan(4, m, k, torch.float32, (0, 0)).name} in f32; both skinny variants vs "
+              f"plain: " + ", ".join(f"{n} {e:.3e}" for n, e in skinny.items()))
+    del eng, captured
+    profile = phase_profile_ticks(torch, np, api, seed, tag=tag, session=session)
+    del session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tok_s": tokens / wall, "ttft_ms": ttft * 1e3, "wall_s": wall,
+            "forwards": forwards, "n_params": n_params, "max_rel_err": max_err,
+            "skinny_k14336": skinny, "profile": profile}
+
+
+def _dense_depth(torch, arch, steps_batch_rows):
+    """The depth at which ``arch``'s f32 dfa training leaves FREE_GIB of the
+    card free, reckoned from its parameter counts: STATE_COPIES f32 copies
+    of every parameter, plus the activations of ``steps_batch_rows`` rows
+    (the DFA tape, logits, their softmax and gradient, one block's
+    recompute), under the card's memory.  Full depth where it fits."""
+    from repro_torch import configs
+
+    meta = configs.get(arch).make_model(torch.float32, device="meta")
+    cfg = meta.cfg
+    per_layer = sum(p.numel() for n, p in meta.named_parameters() if n.startswith("blocks.0."))
+    rest = sum(p.numel() for n, p in meta.named_parameters() if not n.startswith("blocks."))
+    rows = steps_batch_rows
+    act = 4 * rows * (4 * cfg.v_padded + 16 * max(cfg.d_ff, cfg.d_model))
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = total - FREE_GIB * 2**30 - STATE_COPIES * 4 * rest - act
+    fit = int(room // (STATE_COPIES * 4 * per_layer + 4 * rows * cfg.d_model))
+    depth = max(1, min(cfg.n_layers, fit))
+    need = STATE_COPIES * 4 * (rest + cfg.n_layers * per_layer) + act
+    return depth, {"layers": cfg.n_layers, "params_per_layer": per_layer, "params_rest": rest,
+                   "reckoned_full_gib": need / 2**30, "card_gib": total / 2**30}
+
+
+def _dense_train(torch, api, pm, arch, seed, card, long_steps=False):
+    """``arch``'s full width in f32 at batch 64 x seq 64 of ``MarkovTokens``
+    (cut in depth where the card's memory needs it, printed): dfa fit
+    steps on offchip_bpd (``cuda``), one block per projection plus the
+    embedding's; block 0's δ against the plain version; for qwen3 the ideal
+    cuda-vs-ref gradients and the steps at batch 2 x seq 4096 through
+    ``flash_attention``; step ms, a profile, step_cost, peak memory; the
+    bank kernel at the training shape."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.models.transformer import TransformerLM
+
+    tag = f"dense_train {arch}"
+    kind, peaks = card_peaks(card)
+    steps = DENSE_STEPS[arch]
+    rows = LM_BATCH * LM_SEQ
+    depth, reckoning = _dense_depth(torch, arch, rows)
+    full_cfg = DENSE_FULL[arch]
+    if depth < full_cfg[0]:
+        print(f"[{tag}] depth cut: {depth} of {full_cfg[0]} layers at full width "
+              f"({reckoning['reckoned_full_gib']:.1f} GiB reckoned at full depth: "
+              f"{STATE_COPIES} f32 copies of {reckoning['params_rest'] / 1e6:.1f} M + "
+              f"{full_cfg[0]} x {reckoning['params_per_layer'] / 1e6:.2f} M parameters and the "
+              f"activations, on a {reckoning['card_gib']:.1f} GiB card that must keep "
+              f"{FREE_GIB:g} GiB free)")
+    log = pm._BUILD_DIR / f"dense_train-{os.getpid()}.csv"
+    gc.collect()  # the serving engines' wrapped steps hold their models in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    meta_cfg = configs.get(arch).make_model(torch.float32, device="meta").cfg
+    model = TransformerLM(dataclasses.replace(meta_cfg, n_layers=depth), device=DEVICE)
+    session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
+                                seed=seed, log_every=1, log_path=str(log), device=DEVICE)
+    cfg = model.cfg
+    check(model.head["out"].weight.dtype == torch.float32
+          and (cfg.d_model, cfg.d_ff, cfg.vocab_size) == full_cfg[1:], "not the full f32 width")
+    per_step = cfg.n_layers + 1  # the blocks' projections and the embedding's
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = tokens.MarkovTokens(cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    fit = _fit_logged(torch, pm, session, gen, steps, log)
+    launches, losses = fit["launches"], fit["losses"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    free_gib = reckoning["card_gib"] - torch.cuda.max_memory_reserved() / 2**30
+    print(f"[{tag}] {cfg.n_layers} layers, full width, f32 ({n_params / 1e9:.3f} B parameters), "
+          f"offchip_bpd, cuda backend, batch {LM_BATCH} x seq {LM_SEQ}: {steps} fit steps in "
+          f"{fit['wall']:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"photonic_matmul launches {launches} = {launches / steps:g} per step; peak device "
+          f"memory {peak_gib:.2f} GiB above the {base_gib:.2f} GiB resident before the session, "
+          f"{free_gib:.2f} GiB of the card never reserved")
+    _check_fit(fit, steps, per_step)
+    check(free_gib >= FREE_GIB, f"the run left {free_gib:.2f} GiB free, under {FREE_GIB} GiB")
+
+    # one step's own operands against the plain version; qwen3: ideal cuda vs ref
+    calls, errs, step, out = _step_projections(torch, pm, session, fit["state"], gen, seed,
+                                               per_step, rows, tag)
+    (a, b), kw, _ = calls[0]
+    operands = (a, b, kw["noise"])
+    del calls, out, a, b, kw
+    ideal = _ideal_cuda_vs_ref(torch, session, fit["state"], step, tag) if arch == QWEN3 else None
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # step time on CUDA events, two steps under the profiler, step_cost
+    n_timed = 5 if arch == QWEN3 else 3
+    batches = [to_device_batch(gen.batch(i)) for i in range(steps, steps + n_timed)]
+    prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
+    prof.update(layers=cfg.n_layers, peak_gib=peak_gib, free_gib=free_gib, losses=losses)
+    del batches, fit
+    torch.cuda.empty_cache()
+    long = _dense_long(torch, session, pm, seed, tag) if long_steps else None
+    del session, model
+    torch.cuda.empty_cache()
+
+    a, b, noise = operands
+    print(f"[dense_timing] {arch} training shape, input mode      T      K      M  dtype "
+          f"{TIMING_HEAD}")
+    row = _bank_row(torch, pm, a, b, {"noise": noise}, peaks, "input", "dense_timing",
+                    f"{arch} training shape, input mode ",
+                    reps={"ms": 25, "plain_ms": 10, "library_ms": 25})
+    row["launches_per_step"] = per_step
+    print(f"[dense_timing] {arch}: the path's {per_step} launches a dfa step: "
+          f"{row['dev_ms'] * per_step:.3f} ms device of the step's {prof['step_ms']:.1f} ms")
+    del a, b, noise, operands
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "max_abs_err": max(errs.values()),
+            "ideal_max_rel": ideal[0] if ideal else None, "profile": prof, "train_shape": row,
+            "long": long, "n_params": n_params}
+
+
+def _dense_long(torch, session, pm, seed, tag):
+    """LONG_STEPS dfa steps at batch 2 x seq 4096 from a fresh state of the
+    training session: every block's forward and recompute run
+    ``flash_attention`` (q_chunk 2048, k_chunk 1024); the first call's q,
+    k, v held against ``reference_attention`` on the card."""
+    from repro_torch.data import tokens
+    from repro_torch.nn import attention
+
+    cfg = session.model.cfg
+    check(LONG_SEQ > 2 * cfg.k_chunk and (cfg.q_chunk, cfg.k_chunk) == (2048, 1024),
+          f"seq {LONG_SEQ} with chunks {cfg.q_chunk} / {cfg.k_chunk}")
+    gen = tokens.MarkovTokens(cfg.vocab_size, LONG_SEQ, LONG_BATCH, seed + 1)
+    flash = attention.flash_attention
+    calls, first = [0], []
+
+    def counted(q, k, v, **kw):
+        calls[0] += 1
+        if not first:
+            first.append((q.detach(), k.detach(), v.detach(), kw))
+        return flash(q, k, v, **kw)
+
+    state = session.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    attention.flash_attention = counted
+    try:
+        sync(torch)
+        pm.launches = 0
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(LONG_STEPS):
+            state, metrics = session.step(state, gen.batch(i))
+            losses.append(float(metrics["loss"]))
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = pm.launches
+    finally:
+        attention.flash_attention = flash
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    per_step = cfg.n_layers + 1
+    print(f"[{tag}] batch {LONG_BATCH} x seq {LONG_SEQ}: {LONG_STEPS} dfa steps in {wall:.2f}s, "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}; flash_attention calls {calls[0]} "
+          f"(forward and recompute of each of {cfg.n_layers} blocks a step); photonic_matmul "
+          f"launches {launches} = {launches / LONG_STEPS:g} per step; peak {peak_gib:.2f} GiB")
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses at seq {LONG_SEQ}: {losses}")
+    check(calls[0] == 2 * cfg.n_layers * LONG_STEPS,
+          f"{calls[0]} flash_attention calls, expected {2 * cfg.n_layers} a step")
+    check(launches == per_step * LONG_STEPS, f"{launches} launches at seq {LONG_SEQ}")
+    del state
+    torch.cuda.empty_cache()
+    q, k, v, kw = first[0]
+    got = flash(q, k, v, **kw)
+    expect = attention.reference_attention(q, k, v, q_pos=kw["q_pos"], kv_pos=kw["kv_pos"],
+                                           causal=kw["causal"], scale=kw["scale"])
+    excess = ((got - expect).abs() - FLASH_TOL * (1 + expect.abs())).max().item()
+    err = (got - expect).abs().max().item()
+    print(f"[{tag}] flash_attention vs reference_attention on block 0's q {tuple(q.shape)}, k/v "
+          f"{tuple(k.shape)} f32 (q_chunk {kw['q_chunk']}, k_chunk {kw['k_chunk']}): max |Δ| "
+          f"{err:.3e} (max|ref| {expect.abs().max().item():.3f}; tol {FLASH_TOL} abs + rel)")
+    check(excess <= 0, f"flash_attention differs from reference_attention by {err:.3e}")
+    del q, k, v, got, expect, first
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "losses": losses, "flash_calls": calls[0], "launches": launches,
+            "flash_max_abs_err": err, "peak_gib": peak_gib}
+
+
+def phase_dense(torch, np, api, pm, em, seed, card, draws):
+    """The dense attention families at full width, random weights from
+    ``seed``: qwen3-1.7b (qk-norm, GQA 16:8), minicpm3-4b (MLA: the latent
+    cache, the absorbed decode and prefill) and granite-8b (GQA 32:8, K up
+    to 14336).  Each serves in bf16 on offchip_bpd through the bank kernel
+    (197, 435 and 253 launches a forward; the kernel against its plain
+    version on the path's own operands at every shape; granite's K = 14336
+    by both skinny variants in bf16 and f32) with a profiled prefill tick
+    and two decode ticks, and holds f32 cuda to ref on ideal.  qwen3 and
+    minicpm3 DFA-train in f32 at batch 64 x seq 64 (29 and 63 launches a
+    step; minicpm3 at the depth the card's memory allows, printed), qwen3
+    also 4 steps through emulated banks (the emu kernel bit for bit) and
+    2 steps at batch 2 x seq 4096 through ``flash_attention``.  The bank
+    kernel is timed at every decode shape and both training shapes."""
+    from repro_torch import configs
+    from repro_torch.data import tokens
+
+    kind, peaks = card_peaks(card)
+    # this phase grows its segments in place: its full-width training runs
+    # allocate multi-GiB tensors of many sizes, and fixed segments strand up
+    # to 12 GiB of the card in unused cached blocks.  The earlier phases run
+    # on the fixed segments their numbers were taken with.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    out = {}
+    for arch in (QWEN3, MINICPM3, GRANITE):
+        t0 = time.perf_counter()
+        res = {"serve": _dense_serve(torch, np, api, pm, arch, seed)}
+        res["parity"] = phase_parity(torch, np, api, seed, arch=arch,
+                                     tag=f"dense_parity {arch}")
+        if arch in DENSE_STEPS:
+            res["train"] = _dense_train(torch, api, pm, arch, seed, card,
+                                        long_steps=arch == QWEN3)
+        if arch == QWEN3:
+            gen = tokens.MarkovTokens(DENSE_FULL[arch][3], LM_SEQ, LM_BATCH, seed)
+            res["emu"] = _emu_fit(torch, em, lambda: api.build_session(
+                arch=arch, smoke=False, dtype=torch.float32, seed=seed, algo="dfa",
+                hardware="emu_offchip", backend="emu", log_every=10**9, device=DEVICE),
+                gen, DENSE_EMU_STEPS, DENSE_FULL[arch][0] + 1, f"dense_emu {arch}",
+                "dense_timing", card, draws, arch)
+        shapes = _dense_decode_shapes(configs.get(arch).make_model(torch.bfloat16,
+                                                                   device="meta"))
+        gen = torch.Generator(device=DEVICE).manual_seed(19)
+        rows, forward = _decode_rows(torch, pm, dict(sorted(shapes.items())), peaks, gen,
+                                     "dense_timing", f"{arch} decode shapes ",
+                                     reps={"ms": 10, "plain_ms": 10, "library_ms": 10})
+        res["decode"] = {"shapes": rows, "forward": forward}
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[dense] {arch} done in {res['seconds']:.1f}s")
+    return out
+
+
+def dense_summary(arch, res):
+    """One model's numbers for its own output line."""
+    serve, tick = res["serve"], res["serve"]["profile"]
+    line = {"arch": arch, "tok_s": serve["tok_s"], "ttft_p50_ms": serve["ttft_ms"],
+            "decode_tick_wall_ms": tick["decode_tick"]["wall_ms"],
+            "decode_tick_busy_ms": tick["decode_tick"].get("busy_ms"),
+            "prefill_tick_wall_ms": tick["prefill_tick"]["wall_ms"],
+            "prefill_tick_busy_ms": tick["prefill_tick"].get("busy_ms"),
+            "serve_launches": serve["launches"], "parity_max_rel": res["parity"]["max_rel"]}
+    if "train" in res:
+        prof = res["train"]["profile"]
+        line.update(train_layers=prof["layers"], step_ms=prof["step_ms"],
+                    tflop_s=prof["tflop_s"], peak_gib=prof["peak_gib"],
+                    idle_share=prof.get("idle_share"), train_launches=res["train"]["launches"])
+        if res["train"]["long"]:
+            line["seq4096_losses"] = res["train"]["long"]["losses"]
+    if "emu" in res:
+        line["emu_launches"] = res["emu"]["launches"]
+    return line
 
 
 def main(argv=None):
@@ -2785,7 +3197,14 @@ def main(argv=None):
     lm = phase_lm_train(torch, np, api, pm, em, args.seed, card, draws)
     observed = phase_observe(torch, np, api, pm, em, args.seed, card)
     mamba = phase_mamba(torch, np, api, pm, em, args.seed, card, draws)
+    dense = phase_dense(torch, np, api, pm, em, args.seed, card, draws)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    for arch, res in dense.items():
+        print(json.dumps({"dense_model": dense_summary(arch, res)}))
+    dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
+                  for arch, res in dense.items() for path in ("serve", "train") if path in res}
+    dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
+    dense_emu = {"qwen3_train": dense[QWEN3]["emu"]["launches"]}
     row_b = train_rows["dfa_gradient"]
     records = [
         {"name": "photonic_matmul", "route": "cuda",
@@ -2793,13 +3212,16 @@ def main(argv=None):
          "replaces": "src/repro/kernels/photonic_matmul.py:95",
          "launches": (serve_launches + train_launches + lm["launches"]
                       + observed["probe_launches"]["photonic_matmul"]
-                      + mamba["serve_launches"] + mamba["train_launches"]),
+                      + mamba["serve_launches"] + mamba["train_launches"]
+                      + sum(dense_bank.values())),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
                               "mamba_serve": mamba["serve_launches"],
-                              "mamba_train": mamba["train_launches"]},
-         "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"]),
+                              "mamba_train": mamba["train_launches"], **dense_bank},
+         "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
+                            *(res["train"]["max_abs_err"] for res in dense.values()
+                              if "train" in res)),
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
          "library_ms": per_step["library_ms"],
@@ -2807,7 +3229,14 @@ def main(argv=None):
          "lm_train_shape": lm["bank"], "lm_step": lm["profile"], "draw_sass": draws["bank"],
          "observe": {k: observed[k] for k in ("lm", "mlp", "step_cost")},
          "mamba": {k: mamba[k] for k in ("serve", "profile", "parity", "decode_forward",
-                                         "decode_shapes", "train_shape", "train")}},
+                                         "decode_shapes", "train_shape", "train")},
+         "dense": {arch: {"decode_forward": res["decode"]["forward"],
+                          "decode_shapes": res["decode"]["shapes"],
+                          "serve_max_rel_err": res["serve"]["max_rel_err"],
+                          "skinny_k14336": res["serve"]["skinny_k14336"],
+                          **({"train_shape": res["train"]["train_shape"]}
+                             if "train" in res else {})}
+                   for arch, res in dense.items()}},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",
@@ -2822,19 +3251,21 @@ def main(argv=None):
          "replaces": "src/repro/kernels/emu_matmul.py:200",
          "launches": (emu_train_launches + emu_serve_launches + lm["emu_launches"]
                       + observed["probe_launches"]["emu_bank_product"]
-                      + mamba["emu_serve_launches"] + mamba["emu_train_launches"]),
+                      + mamba["emu_serve_launches"] + mamba["emu_train_launches"]
+                      + sum(dense_emu.values())),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
                               "mamba_serve": mamba["emu_serve_launches"],
-                              "mamba_train": mamba["emu_train_launches"]},
+                              "mamba_train": mamba["emu_train_launches"], **dense_emu},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
-                            mamba["emu_max_abs_err"]),
+                            mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",
          "draw_sass": draws["emu"], "timing": {**emu_rows, "lm_train_shape": lm["emu"],
-                                               "mamba_train_shape": mamba["emu_train_shape"]}},
+                                               "mamba_train_shape": mamba["emu_train_shape"],
+                                               "qwen3_train_shape": dense[QWEN3]["emu"]["row"]}},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,9 @@ The reference keeps parameters in a pytree: nested dicts whose ``blocks``
 subtree stacks every layer on a leading axis (``stack_init``), with
 ``Linear`` weights ``w`` in (in, out) layout and biases ``b``.  The port
 keeps a ``state_dict``: one ``blocks.{i}`` entry per layer, ``weight`` in
-torch layout (out, in), ``bias``.  Every other leaf keeps its name.
+torch layout (out, in), ``bias``.  Every other leaf keeps its name, as do
+bare-array leaves beside the layers (MLA's ``attn.q_norm_scale`` and
+``attn.kv_norm_scale``, Mamba's ``A_log``).
 
 The MLP's tree, ``{"embed": {}, "h0": {"w": (1, 784, 800), "b": (1, 800)},
 "h1": ..., "head": {"w", "b"}}``, stacks each one-block segment ``h{i}`` on
@@ -13,7 +15,8 @@ an L = 1 axis; the port's ``h{i}`` is the block itself, so that axis is
 dropped (``h0.weight`` (800, 784)).  Gradient trees have the parameters'
 layout and convert the same way.  DFA feedback (``{"h0": (1, 800, 10), ...,
 "embed": (800, 10)}``) is already in the bank's (M, K) layout on both sides.
-Serving caches (attention ``{"k", "v"}``, Mamba ``{"ssm", "conv"}``), the
+Serving caches (attention ``{"k", "v"}``, MLA ``{"c_kv", "k_rope"}``, Mamba
+``{"ssm", "conv"}``), the
 emulated hardware's drift state ``{"drift", "cal"}`` and a dead-ring
 mask keep their layout too; they convert between numpy and tensors.
 
@@ -91,10 +94,11 @@ def feedback_from_reference(fb, device=None) -> dict:
 
 def caches_to_reference(caches) -> dict:
     """The port's serving caches -> the reference's stacked numpy arrays,
-    leaf for leaf: the attention caches ``{"k", "v"}`` (L, B, S, KVH, D) or
-    the Mamba states ``{"ssm"}`` (L, B, H, N, P) and ``{"conv"}`` (L, B,
-    K-1, C).  The port already keeps the stacked layout; values come back
-    in f32."""
+    leaf for leaf: the attention caches ``{"k", "v"}`` (L, B, S, KVH, D),
+    MLA's latent caches ``{"c_kv"}`` (L, B, S, r) and ``{"k_rope"}`` (L,
+    B, S, rope), or the Mamba states ``{"ssm"}`` (L, B, H, N, P) and
+    ``{"conv"}`` (L, B, K-1, C).  The port already keeps the stacked
+    layout; values come back in f32."""
     return {name: t.detach().float().cpu().numpy() for name, t in caches.items()}
 
 

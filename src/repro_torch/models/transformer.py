@@ -1,15 +1,18 @@
 """Decoder-only transformer LM.  Counterpart of
 ``repro/models/transformer.py``.
 
-The port has the dense GQA path that qwen1.5-0.5b takes: RMSNorm, rotary
-attention with qkv bias, a gated SiLU FFN, and the unembedding.  The model
-serves (``init_caches``, ``decode_step``, ``prefill_step``) and trains: it
-is a ``DFAModel`` with the hidden error tap (d_tap = d_model), the blocks
-in one segment ``blocks`` and DFA feedback into the embedding table.  The
+The port has the dense paths: RMSNorm, rotary GQA attention (qkv bias,
+qk-norm) or multi-head latent attention (``cfg.mla``), a gated SiLU FFN,
+and the unembedding (qwen1.5, qwen3, granite, minicpm3).  The model serves
+(``init_caches``, ``decode_step``, ``prefill_step``) and trains: it is a
+``DFAModel`` with the hidden error tap (d_tap = d_model), the blocks in
+one segment ``blocks`` and DFA feedback into the embedding table.  The
 reference scans stacked layer parameters; the port loops over a
 ``ModuleList`` (``photonics.scanned_layers`` keeps the reference's
 per-layer noise-key numbering).  Caches keep the reference's stacked
-layout: ``{"k", "v"}`` of shape (L, B, S, KVH, D).
+layout, one (L, B, ...) tensor per key of the attention's ``init_cache``:
+``{"k", "v"}`` (L, B, S, KVH, D), or MLA's ``{"c_kv", "k_rope"}``.  MoE
+and the vision prefix are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,12 +27,21 @@ from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, subtree)
-from repro_torch.nn.attention import Attention
+from repro_torch.nn.attention import Attention, MLAttention
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
 from repro_torch.nn.norms import RMSNorm
 from repro_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASettings:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +60,12 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     window: int | None = None
     moe: typing.Any = None  # MoE settings: not ported yet
-    mla: typing.Any = None  # MLA settings: not ported yet
+    mla: MLASettings | None = None
     vision: typing.Any = None  # vision prefix: not ported yet
     dtype: torch.dtype = torch.float32
-    k_chunk: int = 1024  # sequences above 2·k_chunk need flash_attention
+    # attention chunking: sequences above 2·k_chunk take flash_attention
+    q_chunk: int = 2048
+    k_chunk: int = 1024
     pad_vocab_to: int | None = None
 
     @property
@@ -62,21 +76,30 @@ class TransformerConfig:
 class DecoderBlock(Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        for field in ("moe", "mla", "vision"):
+        for field in ("moe", "vision"):
             if getattr(cfg, field) is not None:
                 raise NotImplementedError(f"TransformerConfig.{field} is not ported yet")
         c = cfg
         self.cfg = cfg
         self.norm1 = RMSNorm(c.d_model, c.norm_eps, c.dtype, device)
-        self.attn = Attention(c.d_model, c.n_heads, c.n_kv_heads, head_dim=c.head_dim,
-                              qkv_bias=c.qkv_bias, qk_norm=c.qk_norm,
-                              rope_theta=c.rope_theta, window=c.window,
-                              dtype=c.dtype, device=device)
+        if c.mla is not None:
+            m = c.mla
+            self.attn = MLAttention(c.d_model, c.n_heads, q_lora_rank=m.q_lora_rank,
+                                    kv_lora_rank=m.kv_lora_rank, qk_nope_dim=m.qk_nope_dim,
+                                    qk_rope_dim=m.qk_rope_dim, v_head_dim=m.v_head_dim,
+                                    rope_theta=c.rope_theta, dtype=c.dtype, device=device)
+        else:
+            self.attn = Attention(c.d_model, c.n_heads, c.n_kv_heads, head_dim=c.head_dim,
+                                  qkv_bias=c.qkv_bias, qk_norm=c.qk_norm,
+                                  rope_theta=c.rope_theta, window=c.window,
+                                  dtype=c.dtype, device=device)
         self.norm2 = RMSNorm(c.d_model, c.norm_eps, c.dtype, device)
         self.ffn = GatedMLP(c.d_model, c.d_ff, dtype=c.dtype, device=device)
 
     def forward(self, x, positions):
-        x = x + self.attn(self.norm1(x), positions=positions, k_chunk=self.cfg.k_chunk)
+        c = self.cfg
+        x = x + self.attn(self.norm1(x), positions=positions, q_chunk=c.q_chunk,
+                          k_chunk=c.k_chunk)
         return x + self.ffn(self.norm2(x))
 
     def decode(self, x, cache, cache_len):
@@ -179,11 +202,11 @@ class TransformerLM(DFAModel, ServingModel):
                 for n, t in one.items()}
 
     def _run_layers(self, x, caches, step):
-        new = {"k": [], "v": []}
+        new = {n: [] for n in caches}
         for i, block in enumerate(photonics.scanned_layers(self.blocks)):
-            x, cache = step(block, x, {"k": caches["k"][i], "v": caches["v"][i]})
-            new["k"].append(cache["k"])
-            new["v"].append(cache["v"])
+            x, cache = step(block, x, {n: t[i] for n, t in caches.items()})
+            for n in new:
+                new[n].append(cache[n])
         h = self.head["norm"](x)
         return self._head(h), {n: torch.stack(t) for n, t in new.items()}
 
@@ -216,11 +239,22 @@ class TransformerLM(DFAModel, ServingModel):
         token — the products ``photonics.forward_matmul`` routes."""
         c = self.cfg
         hd = c.head_dim or c.d_model // c.n_heads
-        per_layer = [
-            ("attn.q", c.n_heads * hd, c.d_model),
-            ("attn.k", c.n_kv_heads * hd, c.d_model),
-            ("attn.v", c.n_kv_heads * hd, c.d_model),
-            ("attn.o", c.d_model, c.n_heads * hd),
+        if c.mla is not None:
+            m = c.mla
+            per_layer = [
+                ("attn.q_down", m.q_lora_rank, c.d_model),
+                ("attn.q_up", c.n_heads * (m.qk_nope_dim + m.qk_rope_dim), m.q_lora_rank),
+                ("attn.kv_down", m.kv_lora_rank + m.qk_rope_dim, c.d_model),
+                ("attn.o", c.d_model, c.n_heads * m.v_head_dim),
+            ]
+        else:
+            per_layer = [
+                ("attn.q", c.n_heads * hd, c.d_model),
+                ("attn.k", c.n_kv_heads * hd, c.d_model),
+                ("attn.v", c.n_kv_heads * hd, c.d_model),
+                ("attn.o", c.d_model, c.n_heads * hd),
+            ]
+        per_layer += [
             ("ffn.gate", c.d_ff, c.d_model),
             ("ffn.up", c.d_ff, c.d_model),
             ("ffn.down", c.d_model, c.d_ff),

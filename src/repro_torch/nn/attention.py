@@ -1,12 +1,14 @@
-"""Attention: MHA / GQA self-attention with rotary and qkv bias.
+"""Attention: MHA / GQA self-attention (rotary, qkv bias, qk-norm) and
+multi-head latent attention.
 
-Counterpart of ``repro/nn/attention.py``.  Slice 1 ports what serving
-qwen1.5-0.5b runs: ``reference_attention`` (the full forward and chunked
-prefill), ``decode_attention`` against a KV cache, and ``Attention`` with
-its cache paths.  ``flash_attention`` (sequences above 2·k_chunk), sliding
-windows and qk-norm raise ``NotImplementedError``; soft-capping, output
-bias, non-causal and rope-less attention, MLA and cross attention are not
-ported yet.
+Counterpart of ``repro/nn/attention.py``: ``reference_attention`` (the
+O(S²) forward and chunked prefill), ``flash_attention`` (the chunked
+online softmax the forward takes above 2·k_chunk), ``decode_attention``
+against a KV cache, ``Attention`` (qwen1.5, qwen3, granite) and
+``MLAttention`` (minicpm3: a latent cache, absorbed decode and prefill),
+each with its cache paths.  Sliding windows raise ``NotImplementedError``;
+soft-capping, output bias, non-causal and rope-less layers and cross
+attention are not ported yet.
 
 Cache updates are out of place, as in the reference: ``decode`` and
 ``prefill`` return new cache tensors and never write the ones they were
@@ -22,7 +24,8 @@ import torch
 
 from repro_torch.nn.embeddings import apply_rotary, rotary_angles
 from repro_torch.nn.linear import Linear
-from repro_torch.nn.module import Module
+from repro_torch.nn.module import Module, empty_param, init_children
+from repro_torch.nn.norms import rms_normalize
 
 NEG_INF = -1e30
 
@@ -50,6 +53,70 @@ def reference_attention(q, k, v, *, q_pos, kv_pos, causal=True, scale=None):
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)
+
+
+def _attend_chunk(q, k, v, q_pos, k_pos, scale, causal, acc, m_prev, l_prev):
+    """Online-softmax update for one (q-chunk, k-chunk) tile.  All f32."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = torch.ones((q.shape[0], q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[:, None, :] <= q_pos[:, :, None]
+    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
+    m_new = torch.maximum(m_prev, scores.amax(dim=-1))  # (B, H, Sq)
+    # guard fully-masked rows (m_new == NEG_INF) against NaN
+    safe_m = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+    p = torch.exp(scores - safe_m[..., None])
+    p = torch.where(mask[:, None, :, :], p, 0.0)
+    alpha = torch.where(m_prev <= NEG_INF / 2, 0.0, torch.exp(m_prev - safe_m))
+    l_new = alpha * l_prev + p.sum(dim=-1)
+    acc = acc * alpha.transpose(1, 2)[..., None]
+    acc = acc + torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return acc, m_new, l_new
+
+
+def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, scale=None,
+                    q_chunk: int = 2048, k_chunk: int = 1024):
+    """Chunked online-softmax attention; shapes as ``reference_attention``.
+
+    Q runs in static chunks; Q chunk j scans the K chunks [lo, hi) it can
+    reach, so causal work is the exact triangle and a score tile is
+    (q_chunk, k_chunk), never (S, S).  K chunks are folded in one at a time
+    in the reference's order.  Ragged sizes take one tile."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    k = _gqa_expand(k, h)
+    v = _gqa_expand(v, h)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q_chunk = min(q_chunk, sq)
+    k_chunk = min(k_chunk, skv)
+    qf, kf, vf = q.float(), k.float(), v.float()
+
+    def attend(qj, qpj, k_steps):
+        acc = qf.new_zeros((b, qj.shape[1], h, d))
+        m = qf.new_full((b, h, qj.shape[1]), NEG_INF)
+        l = qf.new_zeros((b, h, qj.shape[1]))
+        for k0, k1 in k_steps:
+            acc, m, l = _attend_chunk(qj, kf[:, k0:k1], vf[:, k0:k1], qpj, kv_pos[:, k0:k1],
+                                      scale, causal, acc, m, l)
+        return acc / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
+
+    if sq % q_chunk or skv % k_chunk:
+        # a single-tile pass (ragged sizes only appear in tests)
+        return attend(qf, q_pos, [(0, skv)]).to(q.dtype)
+    n_k = skv // k_chunk
+    out = []
+    # q_pos / kv_pos are monotone per row; with the layouts used here
+    # (training and prefill: both arange) these K ranges are exact
+    for j in range(sq // q_chunk):
+        if causal and sq == skv and q_chunk % k_chunk == 0:
+            hi = (j + 1) * (q_chunk // k_chunk)
+        else:
+            hi = n_k
+        lo = 0  # a sliding window raises it (windows are not ported)
+        rows = slice(j * q_chunk, (j + 1) * q_chunk)
+        out.append(attend(qf[:, rows], q_pos[:, rows],
+                          [(i * k_chunk, (i + 1) * k_chunk) for i in range(lo, hi)]))
+    return torch.cat(out, dim=1).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, *, cache_len, scale=None):
@@ -83,17 +150,29 @@ def write_positions(cache, new, start, n_valid):
     return torch.where(hit.reshape(b, smax, *tail), src, cache)
 
 
+def _self_attention(q, k, v, positions, scale, q_chunk, k_chunk):
+    """Causal self-attention of a whole sequence: O(S²) up to 2·k_chunk,
+    ``flash_attention`` above, as the reference switches."""
+    if q.shape[1] <= 2 * k_chunk:
+        return reference_attention(q, k, v, q_pos=positions, kv_pos=positions, causal=True,
+                                   scale=scale)
+    return flash_attention(q, k, v, q_pos=positions, kv_pos=positions, causal=True,
+                           scale=scale, q_chunk=q_chunk, k_chunk=k_chunk)
+
+
 class Attention(Module):
-    """MHA / GQA causal self-attention with rotary and optional qkv bias —
-    the qwen1.5 layer."""
+    """MHA / GQA causal self-attention with rotary, optional qkv bias and
+    qk-norm — the qwen1.5 (bias), qwen3 (qk-norm) and granite layer.  The
+    reference's qk-norm is ``rms_normalize`` with no learned scale."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int | None = None, qkv_bias: bool = False,
                  qk_norm: bool = False, rope_theta: float = 10000.0,
                  window: int | None = None, dtype=torch.float32, device=None):
         super().__init__()
-        if qk_norm or window is not None:
-            raise NotImplementedError("Attention qk_norm and sliding windows are not ported yet")
+        if window is not None:
+            raise NotImplementedError("sliding-window attention is not ported yet")
+        self.qk_norm = qk_norm
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
         self.hd = head_dim or d_model // n_heads
@@ -109,17 +188,18 @@ class Attention(Module):
         q = self.q(x).reshape(b, s, self.n_heads, self.hd)
         k = self.k(x).reshape(b, s, self.n_kv_heads, self.hd)
         v = self.v(x).reshape(b, s, self.n_kv_heads, self.hd)
+        if self.qk_norm:
+            q = rms_normalize(q)
+            k = rms_normalize(k)
         cos, sin = rotary_angles(positions, self.hd, self.rope_theta)
         return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
-    def forward(self, x, *, positions=None, k_chunk: int = 1024):
+    def forward(self, x, *, positions=None, q_chunk: int = 2048, k_chunk: int = 1024):
         b, s, _ = x.shape
-        if s > 2 * k_chunk:
-            raise NotImplementedError("flash_attention (s > 2·k_chunk) is not ported yet")
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         q, k, v = self.qkv(x, positions)
-        out = reference_attention(q, k, v, q_pos=positions, kv_pos=positions, causal=True)
+        out = _self_attention(q, k, v, positions, None, q_chunk, k_chunk)
         return self.o(out.reshape(b, s, self.n_heads * self.hd))
 
     # ---- decode path ------------------------------------------------------
@@ -157,3 +237,129 @@ class Attention(Module):
                                   causal=True)
         y = self.o(out.reshape(b, c, self.n_heads * self.hd))
         return y, {"k": k_cache, "v": v_cache}
+
+
+class MLAttention(Module):
+    """Multi-head latent attention (MiniCPM3 / DeepSeek-V2 style).
+
+    q: x → q_down → rms_normalize · ``q_norm_scale`` → q_up, per head
+    [nope | rope]; kv: x → kv_down = (c_kv ‖ the shared rotary key), c_kv
+    normalised · ``kv_norm_scale``, then k_up / v_up per head.  The cache
+    holds only ``{"c_kv", "k_rope"}``.  Decode and prefill take the
+    absorbed form: q_nope folded through k_up, the output read back through
+    v_up, both digital einsums on the weights (as in the reference), so a
+    token's bank products are q_down, q_up, kv_down and o."""
+
+    def __init__(self, d_model: int, n_heads: int, q_lora_rank: int = 768,
+                 kv_lora_rank: int = 256, qk_nope_dim: int = 64, qk_rope_dim: int = 32,
+                 v_head_dim: int = 64, rope_theta: float = 10000.0, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.n_heads = n_heads
+        self.kv_lora_rank = kv_lora_rank
+        self.qk_nope_dim = qk_nope_dim
+        self.qk_rope_dim = qk_rope_dim
+        self.v_head_dim = v_head_dim
+        self.rope_theta = rope_theta
+        mk = lambda i, o: Linear(i, o, dtype=dtype, device=device)
+        h = n_heads
+        self.q_down = mk(d_model, q_lora_rank)
+        self.q_norm_scale = empty_param((q_lora_rank,), dtype, device)
+        self.q_up = mk(q_lora_rank, h * self.qk_dim)
+        self.kv_down = mk(d_model, kv_lora_rank + qk_rope_dim)
+        self.kv_norm_scale = empty_param((kv_lora_rank,), dtype, device)
+        self.k_up = mk(kv_lora_rank, h * qk_nope_dim)
+        self.v_up = mk(kv_lora_rank, h * v_head_dim)
+        self.o = mk(h * v_head_dim, d_model)
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    def init(self, seed: int):
+        init_children(self, seed)
+        with torch.no_grad():
+            self.q_norm_scale.fill_(1.0)
+            self.kv_norm_scale.fill_(1.0)
+        return self
+
+    def _latents(self, x, positions):
+        """-> (q (B, S, H, qk_dim), c_kv (B, S, r), k_rope (B, S, rope))."""
+        b, s, _ = x.shape
+        r = self.kv_lora_rank
+        ql = rms_normalize(self.q_down(x)) * self.q_norm_scale
+        q = self.q_up(ql).reshape(b, s, self.n_heads, self.qk_dim)
+        kv = self.kv_down(x)
+        c_kv = rms_normalize(kv[..., :r]) * self.kv_norm_scale
+        cos, sin = rotary_angles(positions, self.qk_rope_dim, self.rope_theta)
+        q_nope, q_rope = q[..., :self.qk_nope_dim], q[..., self.qk_nope_dim:]
+        k_rope = apply_rotary(kv[..., r:][:, :, None, :], cos, sin)[:, :, 0, :]
+        q = torch.cat([q_nope, apply_rotary(q_rope, cos, sin)], dim=-1)
+        return q, c_kv, k_rope
+
+    def forward(self, x, *, positions=None, q_chunk: int = 2048, k_chunk: int = 1024):
+        b, s, _ = x.shape
+        h = self.n_heads
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        q, c_kv, k_rope = self._latents(x, positions)
+        k_nope = self.k_up(c_kv).reshape(b, s, h, self.qk_nope_dim)
+        v = self.v_up(c_kv).reshape(b, s, h, self.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, self.qk_rope_dim)], dim=-1)
+        # v_head_dim != qk_dim: pad V for the shared attention, slice after
+        v = torch.nn.functional.pad(v, (0, self.qk_dim - self.v_head_dim))
+        out = _self_attention(q, k, v, positions, 1.0 / math.sqrt(self.qk_dim), q_chunk,
+                              k_chunk)
+        return self.o(out[..., :self.v_head_dim].reshape(b, s, h * self.v_head_dim))
+
+    # ---- decode path (absorbed form) ---------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        dt = dtype or self.q_down.weight.dtype
+        dev = self.q_down.weight.device
+        return {"c_kv": torch.zeros((batch, max_len, self.kv_lora_rank), dtype=dt, device=dev),
+                "k_rope": torch.zeros((batch, max_len, self.qk_rope_dim), dtype=dt, device=dev)}
+
+    def _absorbed(self, q, c_cache, r_cache, mask, dtype):
+        """Attention of q (B, C, H, qk_dim) against the latent caches, with
+        ``mask`` (B, C, S) -> (B, C, H, v_head_dim) in ``dtype``.  The
+        reference reshapes its (r, H·n) weights to (r, H, n); the port's are
+        (H·n, r), so they are transposed first."""
+        h, r = self.n_heads, self.kv_lora_rank
+        q_nope, q_rope = q[..., :self.qk_nope_dim].float(), q[..., self.qk_nope_dim:].float()
+        w_uk = self.k_up.weight.T.reshape(r, h, self.qk_nope_dim).float()
+        q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+        c = c_cache.float()
+        scores = torch.einsum("bqhr,bkr->bhqk", q_abs, c)
+        scores = scores + torch.einsum("bqhp,bkp->bhqk", q_rope, r_cache.float())
+        scores = scores * (1.0 / math.sqrt(self.qk_dim))
+        scores = torch.where(mask[:, None], scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        out_lat = torch.einsum("bhqk,bkr->bqhr", w, c)
+        w_uv = self.v_up.weight.T.reshape(r, h, self.v_head_dim).float()
+        return torch.einsum("bqhr,rhv->bqhv", out_lat, w_uv).to(dtype)
+
+    def decode(self, x, cache, cache_len):
+        """One token: x (B, 1, d).  Returns (y, new_cache)."""
+        b = x.shape[0]
+        q, c_new, r_new = self._latents(x, cache_len[:, None])
+        one = torch.ones_like(cache_len)
+        c_cache = write_positions(cache["c_kv"], c_new, cache_len, one)
+        r_cache = write_positions(cache["k_rope"], r_new, cache_len, one)
+        valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] < (cache_len + 1)[:, None]
+        out = self._absorbed(q, c_cache, r_cache, valid[:, None, :], x.dtype)
+        y = self.o(out.reshape(b, 1, self.n_heads * self.v_head_dim))
+        return y, {"c_kv": c_cache, "k_rope": r_cache}
+
+    def prefill(self, x, cache, cache_len, n_valid):
+        """Chunked absorbed prefill: the decode math with a query axis (see
+        ``Attention.prefill`` for the write and validity rules)."""
+        b, c, _ = x.shape
+        positions = cache_len[:, None] + torch.arange(c, device=x.device)[None, :]
+        q, c_new, r_new = self._latents(x, positions)
+        c_cache = write_positions(cache["c_kv"], c_new, cache_len, n_valid)
+        r_cache = write_positions(cache["k_rope"], r_new, cache_len, n_valid)
+        smax = c_cache.shape[1]
+        causal = torch.arange(smax, device=x.device)[None, None, :] <= positions[:, :, None]
+        out = self._absorbed(q, c_cache, r_cache, causal, x.dtype)
+        y = self.o(out.reshape(b, c, self.n_heads * self.v_head_dim))
+        return y, {"c_kv": c_cache, "k_rope": r_cache}

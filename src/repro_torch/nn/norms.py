@@ -25,3 +25,11 @@ class RMSNorm(Module):
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         y = x32 * (var + self.eps) ** -0.5
         return (y * self.scale.float()).to(x.dtype)
+
+
+def rms_normalize(x, eps: float = 1e-6):
+    """Parameter-free RMS normalisation (the qk-norm and MLA building
+    block): f32 inside, cast back to the input dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * (var + eps) ** -0.5).to(x.dtype)
