@@ -108,7 +108,23 @@ sources in the checkout.  Phases:
     of minicpm3 (8 steps, at the depth that leaves 5 GiB of the card free,
     printed); the bank kernel timed at every decode shape and both
     training shapes.  One ``{"dense_model": ...}`` line per model precedes
-    the kernels record.
+    the kernels record;
+18. the mixture-of-experts family (``[moe_*]``, ``phase_moe``):
+    qwen2-moe-a2.7b at full width (24 layers, 60 experts top-4, 4 shared;
+    14.32 B parameters, random weights from --seed) served in bf16 on
+    offchip_bpd through the bank kernel (241 launches a forward: each of
+    the experts' three products is one batched launch over all 60; the
+    kernel against its plain version at every (E, T, K, M) of the path,
+    the batched launches against their per-expert 2-D launches bit for
+    bit) with a profiled prefill tick and two decode ticks; f32 ideal
+    cuda-vs-ref parity; emu serving at 2 layers (the emu kernel bit for
+    bit on the path's expert products); f32 ``dfa`` training at batch 64 x
+    seq 64 at the depth the card holds (reckoned and printed; the aux loss
+    and each layer's dropped fraction, ideal cuda = ref gradients, the
+    router's included); kimi-k2-1t-a32b's full() on the meta device and
+    its expert products (384 experts) against the plain version; the bank
+    kernel timed at every decode shape, the experts' prefill shapes and
+    kimi's.  One ``{"moe_model": ...}`` line follows the dense lines.
 
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
@@ -169,20 +185,21 @@ def card_peaks(name):
     return "H100 (assumed)", CARDS["H100"]
 
 
-def bound_ms(t, m, k, dtype_name, peaks, masked=False, noise="none", draw=None, sms=None):
+def bound_ms(t, m, k, dtype_name, peaks, masked=False, noise="none", draw=None, sms=None, e=1):
     """Least time for C = A·Bᵀ (+ noise) (⊙ mask): each input read once (the
     f32 mask and an "input" noise operand too), the f32 output written once,
     2·T·M·K operations at the peak rate of the input type, and in "prng"
     mode the T·M·⌈K/32⌉ threefry draws at ``draw``'s SM clocks each (the
-    bank probe's SASS) on ``sms`` SMs at the boost clock.  Returns (ms,
-    what binds, bytes moved)."""
+    bank probe's SASS) on ``sms`` SMs at the boost clock; ``e`` such
+    products in a batched launch, which reads its one (T, M) noise operand
+    once.  Returns (ms, what binds, bytes moved)."""
     itemsize = 2 if dtype_name == "bfloat16" else 4
-    nbytes = ((t * k + m * k) * itemsize
-              + t * m * 4 * (1 + (noise == "input") + masked))
-    ops = 2 * t * m * k
+    nbytes = (e * ((t * k + m * k) * itemsize + t * m * 4 * (1 + masked))
+              + t * m * 4 * (noise == "input"))
+    ops = 2 * e * t * m * k
     by_bytes, by_ops = nbytes / peaks["bw"], ops / peaks[dtype_name]
     if noise == "prng":
-        draws = t * m * math.ceil(k / 32)
+        draws = e * t * m * math.ceil(k / 32)
         by_ops = max(by_ops, draws * draw["clocks"] / (sms * SM_CLOCK))
     return (max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations",
             nbytes)
@@ -1661,9 +1678,11 @@ def _fit_logged(torch, pm, session, gen, steps, log):
     launches = pm.launches
     lines = log.read_text().splitlines()
     log.unlink()
-    col = lines[0].split(",").index("loss")
-    return {"state": state, "wall": wall, "launches": launches,
-            "losses": [float(line.split(",")[col]) for line in lines[1:]]}
+    cols = lines[0].split(",")
+    logged = {name: [float(line.split(",")[i]) for line in lines[1:]]
+              for i, name in enumerate(cols)}
+    return {"state": state, "wall": wall, "launches": launches, "losses": logged["loss"],
+            "log": logged}
 
 
 def _check_fit(fit, steps, per_step):
@@ -1712,10 +1731,11 @@ def _step_projections(torch, pm, session, state, gen, seed, per_step, rows, tag)
     return calls, errs, (batch, rng), out
 
 
-def _ideal_cuda_vs_ref(torch, session, state, step, tag):
+def _ideal_cuda_vs_ref(torch, session, state, step, tag, watch=()):
     """One step's dfa gradients on the ideal preset, the ``cuda`` backend
     against the ``ref`` backend: each within 1e-4 of its max |value|, the
-    f32 bank tolerance through a block's backward."""
+    f32 bank tolerance through a block's backward; the gradients named in
+    ``watch`` are printed on their own."""
     import dataclasses
 
     from repro_torch import algos
@@ -1726,9 +1746,11 @@ def _ideal_cuda_vs_ref(torch, session, state, step, tag):
         session.config.dfa, photonics=ph.PRESETS["ideal"], backend=b_))(
             state["params"], state["fb"], batch, rng)[1] for b_ in ("cuda", "ref")}
     worst = max((_max_rel(g["cuda"][k], g["ref"][k]), k) for k in g["ref"])
+    watched = {k: _max_rel(g["cuda"][k], g["ref"][k]) for k in watch}
     del g
     print(f"[{tag}] ideal, cuda vs ref backend: every gradient within {worst[0]:.3e} of its "
-          f"max |value| (worst {worst[1]}; limit 1e-4)")
+          f"max |value| (worst {worst[1]}; limit 1e-4)"
+          + "".join(f"; {k} {v:.3e}" for k, v in watched.items()))
     check(worst[0] <= 1e-4, f"ideal cuda vs ref gradients differ: {worst}")
     return worst
 
@@ -2592,21 +2614,10 @@ def _mamba_parity(torch, np, api, seed):
     return worst
 
 
-def _mamba_emu_serve(torch, np, api, em, seed):
-    """4 requests (16-token prompts, 8 new tokens) on emu_offchip in bf16:
-    49 emu launches a forward; the kernel against its plain version on the
-    operands the path gave it (the first call of each shape), bit for bit
-    under the planner's plan and the forced grid."""
-    from repro_torch.serve import Request
-
-    session = api.build_session(arch=MAMBA, algo="bp", smoke=False, hardware="emu_offchip",
-                                backend="emu", dtype=torch.bfloat16, seed=seed, device=DEVICE)
-    vocab = session.model.cfg.vocab_size
-    eng = session.engine(batch_slots=4, max_len=64, prefill_chunk=16, seed=seed)
-    check(eng.hw_state is not None and eng._backend.name == "emu", "no drift state / backend")
-    finite = _finite_outputs(torch, eng)
-    reqs = [Request(prompt=p, max_new=8)
-            for p in _prompts(np.random.default_rng(seed + 5), 4, 16, vocab)]
+def _emu_run_captured(torch, em, eng, reqs):
+    """Run ``reqs`` on ``eng`` with the emu kernel's launches counted and
+    the first call of each (a_t, δ) shape captured.  -> (captured {shapes:
+    (a_t, δ, dead mask, kw)}, launches, wall seconds)."""
     captured = {}
     kernel = em.emu_bank_product_cuda
 
@@ -2626,15 +2637,13 @@ def _mamba_emu_serve(torch, np, api, em, seed):
         launches = em.launches
     finally:
         em.emu_bank_product_cuda = kernel
-    forwards = _mamba_forwards(eng, 16)
-    tokens = sum(len(r.out) for r in reqs)
-    print(f"[mamba_emu] {len(reqs)} requests, {tokens} tokens in {wall:.3f}s: "
-          f"{tokens / wall:.2f} tok/s; emu_bank_product launches {launches} = {MAMBA_FORWARD} x "
-          f"{forwards} forwards: {launches == MAMBA_FORWARD * forwards}")
-    check(all(r.done and len(r.out) == 8 for r in reqs), "requests unfinished")
-    check(launches == MAMBA_FORWARD * forwards,
-          f"launches {launches} != {MAMBA_FORWARD} x {forwards}")
-    check(finite(), "non-finite logits")
+    return captured, launches, wall
+
+
+def _emu_path_exact(torch, em, captured, label):
+    """The emu kernel against its plain version on each captured path
+    operand set (bf16 inputs, f32 detunings), bit for bit under every plan
+    of the forced grid.  -> (max |kernel - plain|, plans run)."""
     max_err, n_plans = 0.0, 0
     for (a_shape, d_shape), (a_t, delta, mask, kw) in captured.items():
         check(a_t.dtype == torch.bfloat16 and delta.dtype == torch.float32,
@@ -2644,9 +2653,38 @@ def _mamba_emu_serve(torch, np, api, em, seed):
         for plan in plans:
             got = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
             max_err = max(max_err, _emu_exact(
-                torch, em, got, expect, kw, f"mamba's operands a_t {a_shape} δ {d_shape} "
+                torch, em, got, expect, kw, f"{label}'s operands a_t {a_shape} δ {d_shape} "
                 f"{plan.name}"))
         n_plans += len(plans)
+    return max_err, n_plans
+
+
+def _mamba_emu_serve(torch, np, api, em, seed):
+    """4 requests (16-token prompts, 8 new tokens) on emu_offchip in bf16:
+    49 emu launches a forward; the kernel against its plain version on the
+    operands the path gave it (the first call of each shape), bit for bit
+    under the planner's plan and the forced grid."""
+    from repro_torch.serve import Request
+
+    session = api.build_session(arch=MAMBA, algo="bp", smoke=False, hardware="emu_offchip",
+                                backend="emu", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    vocab = session.model.cfg.vocab_size
+    eng = session.engine(batch_slots=4, max_len=64, prefill_chunk=16, seed=seed)
+    check(eng.hw_state is not None and eng._backend.name == "emu", "no drift state / backend")
+    finite = _finite_outputs(torch, eng)
+    reqs = [Request(prompt=p, max_new=8)
+            for p in _prompts(np.random.default_rng(seed + 5), 4, 16, vocab)]
+    captured, launches, wall = _emu_run_captured(torch, em, eng, reqs)
+    forwards = _mamba_forwards(eng, 16)
+    tokens = sum(len(r.out) for r in reqs)
+    print(f"[mamba_emu] {len(reqs)} requests, {tokens} tokens in {wall:.3f}s: "
+          f"{tokens / wall:.2f} tok/s; emu_bank_product launches {launches} = {MAMBA_FORWARD} x "
+          f"{forwards} forwards: {launches == MAMBA_FORWARD * forwards}")
+    check(all(r.done and len(r.out) == 8 for r in reqs), "requests unfinished")
+    check(launches == MAMBA_FORWARD * forwards,
+          f"launches {launches} != {MAMBA_FORWARD} x {forwards}")
+    check(finite(), "non-finite logits")
+    max_err, n_plans = _emu_path_exact(torch, em, captured, "mamba")
     print(f"[mamba_emu] kernel vs plain on the path's own operands (bf16 a_t, f32 δ; "
           f"{', '.join(str(a) for a, _ in captured)}), {n_plans} plans in all: equal bit for "
           f"bit (max |kernel - plain| {max_err:.3e})")
@@ -2789,39 +2827,31 @@ def _dense_decode_shapes(model):
     return shapes
 
 
-def _dense_serve(torch, np, api, pm, arch, seed):
-    """``arch``'s full() in bf16 on offchip_bpd, ``cuda`` backend, 4 slots:
-    8 requests of 32-token prompts and 16 new tokens, prefill chunk 16;
-    the bank kernel against its plain version on the path's own operands
-    (the first call of each (T, K, M)); then a prefill tick and two decode
-    ticks under the profiler on the same session."""
+def _serve_captured(torch, np, pm, session, seed, key, per_forward, tag):
+    """Serve ``session``'s model (4 slots, prefill chunk 16): a warm-up
+    request, then 8 requests of 32-token prompts and 16 new tokens with the
+    bank kernel's launches counted (``per_forward`` a forward) and the first
+    call of each ``key(a, b)`` captured as (a, b, kw, out); the requests
+    finish, the logits are finite.  -> the run's numbers with ``captured``."""
     from repro_torch.kernels import ops as kops
     from repro_torch.serve import Request
 
-    tag = f"dense_serve {arch}"
-    session = api.build_session(arch=arch, algo="bp", smoke=False, hardware="offchip_bpd",
-                                backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
     model = session.model
-    cfg = model.cfg
-    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == DENSE_FULL[arch],
-          f"not {arch}'s full config")
-    per_forward = DENSE_FORWARD[arch]
-    check(len(model.forward_gemm_specs()) == per_forward,
-          f"not {per_forward} bank products a token")
+    vocab = model.cfg.vocab_size
     n_params = sum(p.numel() for p in model.parameters())
     rng = np.random.default_rng(seed + 7)
     warm = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
-    warm.run([Request(prompt=_prompts(rng, 1, 8, cfg.vocab_size)[0], max_new=2)])
+    warm.run([Request(prompt=_prompts(rng, 1, 8, vocab)[0], max_new=2)])
     del warm
     eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
     finite = _finite_outputs(torch, eng)
-    reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, 8, 32, cfg.vocab_size)]
+    reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, 8, 32, vocab)]
     captured = {}
     kernel = kops.photonic_matmul_cuda
 
     def capture(a, b, **kw):
         out = kernel(a, b, **kw)
-        captured.setdefault((a.shape[0], a.shape[1], b.shape[0]), (a, b, kw, out))
+        captured.setdefault(key(a, b), (a, b, kw, out))
         return out
 
     kops.photonic_matmul_cuda = capture
@@ -2848,19 +2878,52 @@ def _dense_serve(torch, np, api, pm, arch, seed):
     check(launches == per_forward * forwards,
           f"launches {launches} != {per_forward} x {forwards}")
     check(finite(), "non-finite logits")
+    return {"launches": launches, "tok_s": tokens / wall, "ttft_ms": ttft * 1e3, "wall_s": wall,
+            "forwards": forwards, "n_params": n_params, "captured": captured}
+
+
+def _captured_vs_plain(torch, pm, captured, what):
+    """Each captured bf16 launch (a, b, kw, out) against the plain version
+    on its own operands, within the bf16 bound of max|plain|.  -> the
+    largest such difference."""
+    tol, max_err = TOL["bfloat16"], 0.0
+    for key, (a, b, kw, out) in sorted(captured.items()):
+        check(a.dtype == b.dtype == torch.bfloat16,
+              f"the path handed the kernel {a.dtype} / {b.dtype} operands")
+        expect = pm.photonic_matmul_plain(a, b, **kw)
+        err = (out - expect).abs().max().item() / expect.abs().max().item()
+        check(err <= tol, f"kernel vs plain at {what} = {key}: {err:.3e} of max|plain|")
+        max_err = max(max_err, err)
+        del expect
+    return max_err
+
+
+def _dense_serve(torch, np, api, pm, arch, seed):
+    """``arch``'s full() in bf16 on offchip_bpd, ``cuda`` backend, 4 slots:
+    8 requests of 32-token prompts and 16 new tokens, prefill chunk 16;
+    the bank kernel against its plain version on the path's own operands
+    (the first call of each (T, K, M)); then a prefill tick and two decode
+    ticks under the profiler on the same session."""
+    tag = f"dense_serve {arch}"
+    session = api.build_session(arch=arch, algo="bp", smoke=False, hardware="offchip_bpd",
+                                backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    model = session.model
+    cfg = model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == DENSE_FULL[arch],
+          f"not {arch}'s full config")
+    per_forward = DENSE_FORWARD[arch]
+    check(len(model.forward_gemm_specs()) == per_forward,
+          f"not {per_forward} bank products a token")
+    run = _serve_captured(torch, np, pm, session, seed,
+                          lambda a, b: (a.shape[0], a.shape[1], b.shape[0]), per_forward, tag)
+    captured = run.pop("captured")
     decode = _dense_decode_shapes(model)
     shapes = set(captured)
     check({s for s in shapes if s[0] == 4} == set(decode)
           and {s for s in shapes if s[0] != 4} == {(64, k, m) for _, k, m in decode},
           f"the path's (T, K, M) {sorted(shapes)}")
-    tol, max_err = TOL["bfloat16"], 0.0
-    for (t, k, m), (a, b, kw, out) in sorted(captured.items()):
-        check(a.dtype == b.dtype == torch.bfloat16,
-              f"the path handed the kernel {a.dtype} / {b.dtype} operands")
-        expect = pm.photonic_matmul_plain(a, b, **kw)
-        err = (out - expect).abs().max().item() / expect.abs().max().item()
-        check(err <= tol, f"kernel vs plain at (T, K, M) = {(t, k, m)}: {err:.3e} of max|plain|")
-        max_err = max(max_err, err)
+    tol = TOL["bfloat16"]
+    max_err = _captured_vs_plain(torch, pm, captured, "(T, K, M)")
     modes = sorted({"input" if "noise" in kw else "none" for _, _, kw, _ in captured.values()})
     print(f"[{tag}] kernel vs plain on the path's own bf16 operands (first call of each of "
           f"{len(captured)} (T, K, M): {', '.join(str(s) for s in sorted(shapes))}; "
@@ -2887,22 +2950,22 @@ def _dense_serve(torch, np, api, pm, arch, seed):
               f"B (f32) of shared memory (limit {pm.SMEM_MAX}); planner picks "
               f"{pm._plan(4, m, k, torch.float32, (0, 0)).name} in f32; both skinny variants vs "
               f"plain: " + ", ".join(f"{n} {e:.3e}" for n, e in skinny.items()))
-    del eng, captured
+    del captured
     profile = phase_profile_ticks(torch, np, api, seed, tag=tag, session=session)
     del session, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "tok_s": tokens / wall, "ttft_ms": ttft * 1e3, "wall_s": wall,
-            "forwards": forwards, "n_params": n_params, "max_rel_err": max_err,
-            "skinny_k14336": skinny, "profile": profile}
+    return {**run, "max_rel_err": max_err, "skinny_k14336": skinny, "profile": profile}
 
 
-def _dense_depth(torch, arch, steps_batch_rows):
+def _dense_depth(torch, arch, steps_batch_rows, act=None):
     """The depth at which ``arch``'s f32 dfa training leaves FREE_GIB of the
     card free, reckoned from its parameter counts: STATE_COPIES f32 copies
     of every parameter, plus the activations of ``steps_batch_rows`` rows
     (the DFA tape, logits, their softmax and gradient, one block's
-    recompute), under the card's memory.  Full depth where it fits."""
+    recompute), under the card's memory.  Full depth where it fits.
+    ``act`` gives the activations in bytes, measured, in place of the
+    reckoning."""
     from repro_torch import configs
 
     meta = configs.get(arch).make_model(torch.float32, device="meta")
@@ -2910,14 +2973,16 @@ def _dense_depth(torch, arch, steps_batch_rows):
     per_layer = sum(p.numel() for n, p in meta.named_parameters() if n.startswith("blocks.0."))
     rest = sum(p.numel() for n, p in meta.named_parameters() if not n.startswith("blocks."))
     rows = steps_batch_rows
-    act = 4 * rows * (4 * cfg.v_padded + 16 * max(cfg.d_ff, cfg.d_model))
+    if act is None:
+        act = 4 * rows * (4 * cfg.v_padded + 16 * max(cfg.d_ff, cfg.d_model))
     total = torch.cuda.get_device_properties(0).total_memory
     room = total - FREE_GIB * 2**30 - STATE_COPIES * 4 * rest - act
     fit = int(room // (STATE_COPIES * 4 * per_layer + 4 * rows * cfg.d_model))
     depth = max(1, min(cfg.n_layers, fit))
     need = STATE_COPIES * 4 * (rest + cfg.n_layers * per_layer) + act
     return depth, {"layers": cfg.n_layers, "params_per_layer": per_layer, "params_rest": rest,
-                   "reckoned_full_gib": need / 2**30, "card_gib": total / 2**30}
+                   "reckoned_full_gib": need / 2**30, "card_gib": total / 2**30,
+                   "act_gib": act / 2**30, "room_gib": room / 2**30}
 
 
 def _dense_train(torch, api, pm, arch, seed, card, long_steps=False):
@@ -3154,6 +3219,458 @@ def dense_summary(arch, res):
     return line
 
 
+# ---------------------------------------------------------------------------
+# the mixture-of-experts family (phase_moe)
+# ---------------------------------------------------------------------------
+QWEN2MOE, KIMI = "qwen2-moe-a2.7b", "kimi-k2-1t-a32b"
+# (n_layers, d_model, n_experts, top_k, d_ff_expert, shared d_ff, vocab) of each full()
+MOE_FULL = {QWEN2MOE: (24, 2048, 60, 4, 1408, 4 * 1408, 151936),
+            KIMI: (61, 7168, 384, 8, 2048, 2048, 163840)}
+MOE_STEPS = 8  # f32 dfa fit steps at batch 64 x seq 64: one group of 4096 tokens
+MOE_EMU_LAYERS = 2  # the emu serve's depth at full width
+KIMI_SLICE = 32  # experts a slice of kimi's plain version (1.9 GB of f32 weights)
+
+
+def _moe_meta(torch, arch):
+    """``arch``'s full() in bf16 on the meta device."""
+    from repro_torch import configs
+
+    return configs.get(arch).make_model(torch.bfloat16, device="meta")
+
+
+def _moe_launches(cfg):
+    """Bank launches a forward: a layer's 4 attention products, its 3
+    expert products (one batched launch each over every expert) and its
+    shared experts' 3, and the head."""
+    return 10 * cfg.n_layers + 1
+
+
+def _moe_shapes(model, t):
+    """{(E, rows, K, M): launches} of ``model``'s forward over ``t`` tokens;
+    E is 0 for a 2-D launch, and the experts' rows are their capacity."""
+    cfg, mo = model.cfg, model.cfg.moe
+    d, hd, n_l = cfg.d_model, cfg.head_dim, cfg.n_layers
+    cap = model.blocks[0].ffn.capacity(t)
+    sh = mo.n_shared_experts * mo.d_ff_shared
+    out = {}
+    for key, n in (((0, t, d, cfg.n_heads * hd), n_l), ((0, t, d, cfg.n_kv_heads * hd), 2 * n_l),
+                   ((0, t, cfg.n_heads * hd, d), n_l),
+                   ((mo.n_experts, cap, d, mo.d_ff_expert), 2 * n_l),
+                   ((mo.n_experts, cap, mo.d_ff_expert, d), n_l),
+                   ((0, t, d, sh), 2 * n_l), ((0, t, sh, d), n_l), ((0, t, d, cfg.v_padded), 1)):
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def _shape_key(a, b):
+    return (a.shape[0] if a.ndim == 3 else 0, a.shape[-2], a.shape[-1], b.shape[-2])
+
+
+def _batched_vs_single(torch, pm, a, b, kw):
+    """A batched launch against one 2-D launch of each index under the
+    batched launch's plan: equal bit for bit.  -> the plan's name."""
+    e, t, k = a.shape
+    m = b.shape[-2]
+    plan = pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr()), e=e)
+    got = pm.launch_kernel(a, b, plan=plan, **kw)
+    for i in range(e):
+        one = pm.launch_kernel(a[i], b[i], plan=plan, **kw)
+        check(torch.equal(got[i], one),
+              f"batched launch index {i} != its 2-D launch at (E, T, K, M) = {(e, t, k, m)} "
+              f"{plan.name}")
+    return plan.name
+
+
+def _moe_serve(torch, np, api, pm, seed):
+    """qwen2-moe's full() in bf16 on offchip_bpd, ``cuda`` backend, 4
+    slots: 8 requests of 32-token prompts and 16 new tokens, prefill chunk
+    16; 241 launches a forward; the kernel against its plain version on
+    the path's own operands at every (E, T, K, M) it launched (the first
+    call of each), and each batched expert launch against its E 2-D
+    launches bit for bit; then a prefill tick and two decode ticks under
+    the profiler."""
+    tag = "moe_serve"
+    session = api.build_session(arch=QWEN2MOE, algo="bp", smoke=False, hardware="offchip_bpd",
+                                backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    model = session.model
+    cfg, mo = model.cfg, model.cfg.moe
+    check((cfg.n_layers, cfg.d_model, mo.n_experts, mo.top_k, mo.d_ff_expert,
+           mo.n_shared_experts * mo.d_ff_shared, cfg.vocab_size) == MOE_FULL[QWEN2MOE],
+          "not qwen2-moe's full config")
+    per_forward = _moe_launches(cfg)
+    check(per_forward == 241, f"{per_forward} bank launches a forward")
+    run = _serve_captured(torch, np, pm, session, seed, _shape_key, per_forward, tag)
+    captured = run.pop("captured")
+    want = set(_moe_shapes(model, 4)) | set(_moe_shapes(model, 64))
+    check(set(captured) == want, f"the path's (E, T, K, M) {sorted(captured)}, not {sorted(want)}")
+    max_err = _captured_vs_plain(torch, pm, captured, "(E, T, K, M)")
+    single = {key: _batched_vs_single(torch, pm, a, b, kw)
+              for key, (a, b, kw, _) in sorted(captured.items()) if key[0]}
+    modes = sorted({"input" if "noise" in kw else "none" for _, _, kw, _ in captured.values()})
+    print(f"[{tag}] kernel vs plain on the path's own bf16 operands (first call of each of "
+          f"{len(captured)} (E, T, K, M), E = 0 for a 2-D launch: "
+          f"{', '.join(str(k) for k in sorted(captured))}; {'/'.join(modes)} noise): max "
+          f"|kernel - plain| / max|plain| = {max_err:.3e} (tol {TOL['bfloat16']})")
+    print(f"[{tag}] layer 0's batched expert launches against their E 2-D launches under the "
+          f"same plan: equal bit for bit at " + ", ".join(f"{k} ({v})" for k, v in
+                                                          single.items()))
+    del captured
+    profile = phase_profile_ticks(torch, np, api, seed, tag=tag, session=session)
+    del session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "max_rel_err": max_err,
+            "batched_vs_single": {str(k): v for k, v in single.items()}, "profile": profile}
+
+
+def _moe_emu_serve(torch, np, api, em, seed):
+    """qwen2-moe at full width cut to MOE_EMU_LAYERS layers, bf16, on
+    emu_offchip: 2 requests (16-token prompts, 4 new tokens) on 2 slots,
+    one emu launch a layer's attention and shared product and a expert's
+    product; the emu kernel against its plain version on the path's own
+    operands (the first call of each shape), bit for bit under every plan
+    of the forced grid."""
+    import dataclasses
+
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve import Request
+
+    tag = "moe_emu"
+    cfg = dataclasses.replace(_moe_meta(torch, QWEN2MOE).cfg, n_layers=MOE_EMU_LAYERS)
+    model = TransformerLM(cfg, device=DEVICE).init(seed)
+    session = api.build_session(arch=model, algo="bp", hardware="emu_offchip", backend="emu",
+                                seed=seed, device=DEVICE)
+    eng = session.engine(batch_slots=2, max_len=64, prefill_chunk=16, seed=seed)
+    check(eng.hw_state is not None and eng._backend.name == "emu", "no drift state / backend")
+    finite = _finite_outputs(torch, eng)
+    reqs = [Request(prompt=p, max_new=4)
+            for p in _prompts(np.random.default_rng(seed + 11), 2, 16, cfg.vocab_size)]
+    per_forward = cfg.n_layers * (7 + 3 * cfg.moe.n_experts) + 1
+    captured, launches, wall = _emu_run_captured(torch, em, eng, reqs)
+    forwards = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
+    tokens = sum(len(r.out) for r in reqs)
+    print(f"[{tag}] {cfg.n_layers} of 24 layers at full width, bf16, emu_offchip: {len(reqs)} "
+          f"requests, {tokens} tokens in {wall:.3f}s ({forwards} forwards); emu_bank_product "
+          f"launches {launches} = {per_forward} x {forwards}: {launches == per_forward * forwards}"
+          f" (a layer: 4 attention, 3 x {cfg.moe.n_experts} expert, 3 shared; and the head)")
+    check(all(r.done and len(r.out) == 4 for r in reqs), "requests unfinished")
+    check(launches == per_forward * forwards,
+          f"launches {launches} != {per_forward} x {forwards}")
+    check(finite(), "non-finite logits")
+    max_err, n_plans = _emu_path_exact(torch, em, captured, "qwen2-moe")
+    print(f"[{tag}] kernel vs plain on the path's own operands (bf16 a_t, f32 δ; "
+          f"{len(captured)} shapes: {', '.join(str(a) for a, _ in captured)}), {n_plans} plans "
+          f"in all: equal bit for bit (max |kernel - plain| {max_err:.3e})")
+    del eng, session, model, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, "wall_s": wall, "forwards": forwards,
+            "layers": cfg.n_layers}
+
+
+def _moe_act_probe(torch, api, seed, rows):
+    """The activations of qwen2-moe's f32 dfa step at full width, measured:
+    the peak device memory of two fit steps of a 1-layer model above the
+    memory resident before it, less STATE_COPIES f32 copies of its
+    parameters (at least 0).  What they hold (the logits, one block's
+    recompute with its (rows, E, cap) routing tensors) does not grow with
+    depth.  -> bytes."""
+    import dataclasses
+
+    from repro_torch.data import tokens
+    from repro_torch.models.transformer import TransformerLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(_moe_meta(torch, QWEN2MOE).cfg, n_layers=1, dtype=torch.float32)
+    model = TransformerLM(cfg, device=DEVICE)
+    session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
+                                seed=seed, device=DEVICE)
+    gen = tokens.MarkovTokens(cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    state, _ = session.fit(gen.batch, total_steps=2, verbose=False)
+    sync(torch)
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(p.numel() for p in model.parameters())
+    check(rows == LM_BATCH * LM_SEQ, "the probe's rows differ from the run's")
+    del state, session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    act = max(0, peak - STATE_COPIES * 4 * n_params)
+    print(f"[moe_train] activations measured on a 1-layer model ({n_params / 1e9:.3f} B "
+          f"parameters, 2 f32 dfa steps at {rows} rows): peak {peak / 2**30:.2f} GiB above "
+          f"resident, less {STATE_COPIES} f32 copies of its parameters "
+          f"({STATE_COPIES * 4 * n_params / 2**30:.2f} GiB): {act / 2**30:.2f} GiB")
+    return act
+
+
+def _moe_train(torch, api, pm, seed, card):
+    """qwen2-moe at full width in f32, batch 64 x seq 64 of ``MarkovTokens``
+    (one routing group of 4096 tokens, capacity 341), at the depth the
+    card's memory holds (reckoned with the activations measured on one
+    layer, and printed): MOE_STEPS dfa fit steps on
+    offchip_bpd (``cuda``), one launch a block and the embedding's, a
+    finite loss and aux loss at every step; one step's aux terms per layer
+    (the dropped fraction among them); block 0's and the embedding's δ
+    against the plain version; ideal cuda = ref gradients, the router's
+    included; step ms, a profile, step_cost and peak memory."""
+    import dataclasses
+
+    from repro_torch.data import tokens
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.nn import moe as moe_lib
+
+    tag = "moe_train"
+    rows = LM_BATCH * LM_SEQ
+    depth, reck = _dense_depth(torch, QWEN2MOE, rows,
+                               act=_moe_act_probe(torch, api, seed, rows))
+    full = MOE_FULL[QWEN2MOE]
+    print(f"[{tag}] depth {depth} of {full[0]} layers at full width: {STATE_COPIES} f32 copies "
+          f"of {reck['params_rest'] / 1e6:.1f} M parameters outside the blocks "
+          f"({STATE_COPIES * 4 * reck['params_rest'] / 2**30:.2f} GiB) and of "
+          f"{reck['params_per_layer'] / 1e6:.2f} M a layer "
+          f"({STATE_COPIES * 4 * reck['params_per_layer'] / 2**30:.2f} GiB), "
+          f"{reck['act_gib']:.2f} GiB of activations (measured, the routing tensors in them) "
+          f"and {FREE_GIB:g} GiB kept free on a {reck['card_gib']:.1f} GiB card: "
+          f"{reck['room_gib']:.1f} GiB for the blocks; {reck['reckoned_full_gib']:.1f} GiB at "
+          f"full depth")
+    log = pm._BUILD_DIR / f"moe_train-{os.getpid()}.csv"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    cfg = dataclasses.replace(_moe_meta(torch, QWEN2MOE).cfg, n_layers=depth,
+                              dtype=torch.float32)
+    model = TransformerLM(cfg, device=DEVICE)
+    session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
+                                seed=seed, log_every=1, log_path=str(log), device=DEVICE)
+    check(model.head["out"].weight.dtype == torch.float32
+          and model.blocks[0].ffn.experts.gate.weight.shape == (60, 1408, 2048),
+          "not the full f32 width")
+    per_step = cfg.n_layers + 1
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = tokens.MarkovTokens(cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    fit = _fit_logged(torch, pm, session, gen, MOE_STEPS, log)
+    launches, losses, aux = fit["launches"], fit["losses"], fit["log"]["aux_loss"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    free_gib = reck["card_gib"] - torch.cuda.max_memory_reserved() / 2**30
+    print(f"[{tag}] {cfg.n_layers} layers, full width, f32 ({n_params / 1e9:.3f} B parameters), "
+          f"offchip_bpd, cuda backend, batch {LM_BATCH} x seq {LM_SEQ} (capacity "
+          f"{model.blocks[0].ffn.capacity(rows)} a expert): {MOE_STEPS} fit steps in "
+          f"{fit['wall']:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; aux_loss "
+          f"per step {', '.join(f'{x:.5f}' for x in aux)}; photonic_matmul launches {launches} = "
+          f"{launches / MOE_STEPS:g} per step; peak device memory {peak_gib:.2f} GiB above the "
+          f"{base_gib:.2f} GiB resident before the session, {free_gib:.2f} GiB of the card never "
+          f"reserved")
+    _check_fit(fit, MOE_STEPS, per_step)
+    check(all(math.isfinite(x) and x > 0 for x in aux), f"aux losses {aux}")
+
+    # one step: its aux terms per MoE call, its own operands against plain
+    routed = []
+    forward = moe_lib.MoE.forward
+
+    def recording(self, x, with_aux=True):
+        y, terms = forward(self, x, with_aux)
+        routed.append({k: float(v.detach()) for k, v in terms.items()})
+        return y, terms
+
+    moe_lib.MoE.forward = recording
+    try:
+        calls, errs, step, out = _step_projections(torch, pm, session, fit["state"], gen, seed,
+                                                   per_step, rows, tag)
+    finally:
+        moe_lib.MoE.forward = forward
+    check(len(routed) == 2 * cfg.n_layers, f"{len(routed)} MoE calls in one dfa step")
+    print(f"[{tag}] one step's routing, layer by layer (forward; the recompute gives the same): "
+          + "; ".join(f"layer {i} lb {r['lb_loss']:.4f} z {r['z_loss']:.3f} dropped "
+                      f"{r['dropped_frac']:.4f}" for i, r in enumerate(routed[:cfg.n_layers])))
+    check(all(0.0 <= r["dropped_frac"] < 1.0 for r in routed), "dropped fraction out of range")
+    del calls, out
+    ideal = _ideal_cuda_vs_ref(torch, session, fit["state"], step, tag,
+                               watch=("blocks.0.ffn.router.weight",
+                                      "blocks.0.ffn.experts.gate.weight"))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    batches = [to_device_batch(gen.batch(i)) for i in range(MOE_STEPS, MOE_STEPS + 4)]
+    prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
+    prof.update(layers=cfg.n_layers, peak_gib=peak_gib, free_gib=free_gib, losses=losses,
+                aux_losses=aux, dropped_frac=[r["dropped_frac"] for r in routed[:cfg.n_layers]])
+    del batches, fit, session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "max_abs_err": max(errs.values()),
+            "ideal_max_rel": ideal[0], "profile": prof, "n_params": n_params}
+
+
+def _moe_row(torch, pm, a, b, kw, peaks, noise, tag, label, reps=None):
+    """``_bank_row`` for a batched launch: the kernel, its plain version and
+    ``torch.bmm`` on (a, b), beside the bound of E products."""
+    e, t, k = a.shape
+    m = b.shape[-2]
+    dtype_name = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+    fns = {"ms": lambda: pm.photonic_matmul_cuda(a, b, **kw),
+           "plain_ms": lambda: pm.photonic_matmul_plain(a, b, **kw),
+           "library_ms": lambda: torch.bmm(a, b.mT)}
+    row = dict(e=e, t=t, k=k, m=m, dtype=dtype_name, noise=noise,
+               **_time_row(torch, fns, bound_ms(t, m, k, dtype_name, peaks, noise=noise, e=e),
+                           reps=reps),
+               variant=pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr()), e=e).name)
+    short = "bf16" if dtype_name == "bfloat16" else "f32"
+    _print_row(tag, f"{label}{e:4d} {t:4d} {k:6d} {m:6d} {short:>5s}", row)
+    return row
+
+
+def _moe_timing(torch, pm, model, peaks, gen, label):
+    """Every shape of ``model``'s decode forward (T = 4) timed, the sums over
+    the forward's launches; and the experts' prefill shapes (4 x 16 rows:
+    capacity 5 for qwen2-moe)."""
+    decode = _moe_shapes(model, 4)
+    print(f"[moe_timing] {label} decode forward (E = 0: a 2-D launch; rows are the experts' "
+          f"capacity)     E    T      K      M  dtype {TIMING_HEAD}")
+    rows = []
+    reps = {"ms": 10, "plain_ms": 5, "library_ms": 10}
+    for (e, t, k, m), count in sorted(decode.items()):
+        if e:
+            a = (torch.rand((e, t, k), generator=gen, device=DEVICE) * 2 - 1).to(torch.bfloat16)
+            b = (torch.rand((e, m, k), generator=gen, device=DEVICE) * 2 - 1).to(torch.bfloat16)
+            row = _moe_row(torch, pm, a, b, {}, peaks, "none", "moe_timing", f"{label} ")
+        else:
+            a, b = _operands(torch, t, k, m, torch.bfloat16, gen)
+            row = _bank_row(torch, pm, a, b, {}, peaks, "none", "moe_timing", f"{label}    0 ")
+        rows.append({**row, "e": e, "count": count})
+        del a, b
+    keys = ("ms", "dev_ms", "plain_ms", "plain_dev_ms", "library_ms", "library_dev_ms",
+            "bound_ms")
+    forward = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
+    forward.update(launches=sum(r["count"] for r in rows), bound_by="bytes" if all(
+        r["bound_by"] == "bytes" for r in rows) else "operations")
+    print(f"[moe_timing] {label}: one decode forward at T = 4 ({forward['launches']} launches), "
+          "ms: " + ", ".join(f"{key} {forward[key]:.4f}" for key in keys))
+    prefill = []
+    for (e, t, k, m), _ in sorted(_moe_shapes(model, 64).items()):
+        if e:
+            a = (torch.rand((e, t, k), generator=gen, device=DEVICE) * 2 - 1).to(torch.bfloat16)
+            b = (torch.rand((e, m, k), generator=gen, device=DEVICE) * 2 - 1).to(torch.bfloat16)
+            prefill.append(_moe_row(torch, pm, a, b, {}, peaks, "none", "moe_timing",
+                                    f"{label} prefill "))
+            del a, b
+    torch.cuda.empty_cache()
+    return rows, forward, prefill
+
+
+def _kimi(torch, pm, peaks, gen):
+    """kimi-k2 at full width: its full() on the meta device (1.04 T
+    parameters, the stacked (384, M, K) expert weights), and the batched
+    kernel against its plain version at its decode expert shapes (384
+    experts, 1 row each: gate / up 7168 -> 2048 and down 2048 -> 7168,
+    bf16; B is 11.3 GB), the plain version in slices of KIMI_SLICE experts;
+    each shape timed beside ``torch.bmm`` and its bound."""
+    from repro_torch import configs
+
+    tag = "moe_kimi"
+    meta = configs.get(KIMI).make_model(torch.bfloat16, device="meta")
+    cfg, mo = meta.cfg, meta.cfg.moe
+    n_params = sum(p.numel() for p in meta.parameters())
+    gate = tuple(meta.blocks[0].ffn.experts.gate.weight.shape)
+    down = tuple(meta.blocks[0].ffn.experts.down.weight.shape)
+    check((cfg.n_layers, cfg.d_model, mo.n_experts, mo.top_k, mo.d_ff_expert,
+           mo.n_shared_experts * mo.d_ff_shared, cfg.vocab_size) == MOE_FULL[KIMI]
+          and gate == (384, 2048, 7168) and down == (384, 7168, 2048),
+          f"not kimi-k2's full config: {gate}, {down}")
+    print(f"[{tag}] full() on the meta device: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{mo.n_experts} experts top-{mo.top_k}, {n_params / 1e12:.4f} T parameters "
+          f"({2 * n_params / 1e12:.2f} TB in bf16); experts gate/up {gate}, down {down}; "
+          f"{_moe_launches(cfg)} bank launches a forward")
+    del meta
+    rows, max_err = [], 0.0
+    tol = TOL["bfloat16"]
+    for k, m in ((7168, 2048), (2048, 7168)):
+        b = torch.empty((384, m, k), device=DEVICE, dtype=torch.bfloat16).uniform_(
+            -1, 1, generator=gen)
+        a = torch.empty((384, 1, k), device=DEVICE, dtype=torch.bfloat16).uniform_(
+            -1, 1, generator=gen)
+        noise = 0.05 * torch.randn((1, m), generator=gen, device=DEVICE)
+        got = pm.photonic_matmul_cuda(a, b, noise=noise)
+        worst = scale = 0.0
+        for e0 in range(0, 384, KIMI_SLICE):
+            part = slice(e0, e0 + KIMI_SLICE)
+            expect = pm.photonic_matmul_plain(a[part], b[part], noise=noise)
+            worst = max(worst, (got[part] - expect).abs().max().item())
+            scale = max(scale, expect.abs().max().item())
+            del expect
+        err = worst / scale
+        check(err <= tol, f"kimi expert shape (384, 1, {k}) -> {m}: {err:.3e} of max|plain|")
+        max_err = max(max_err, err)
+        print(f"[{tag}] batched kernel vs plain at (E, T, K, M) = (384, 1, {k}, {m}) bf16, input "
+              f"noise (plain in slices of {KIMI_SLICE} experts): max |kernel - plain| / "
+              f"max|plain| = {err:.3e} (tol {tol})")
+        del got
+        torch.cuda.empty_cache()
+        row = _moe_row(torch, pm, a, b, {}, peaks, "none", "moe_timing", "kimi-k2 decode ",
+                       reps={"ms": 10, "plain_ms": 3, "library_ms": 10})
+        rows.append(row)
+        del a, b, noise
+        torch.cuda.empty_cache()
+    return {"n_params": n_params, "max_rel_err": max_err, "rows": rows}
+
+
+def phase_moe(torch, np, api, pm, em, seed, card, draws):
+    """The mixture-of-experts family at full width, random weights from
+    ``seed``: qwen2-moe-a2.7b (24 layers, d 2048, 60 experts top-4 with
+    d_ff 1408, 4 shared, vocab 151936; 14.32 B parameters) served in bf16
+    through the bank kernel (241 launches a forward, the experts' three
+    products one batched launch each; the kernel against its plain version
+    at every (E, T, K, M) of the path; the batched launches against their
+    2-D launches bit for bit) with a profiled prefill tick and two decode
+    ticks; f32 ideal cuda-vs-ref parity (57.3 GB of f32 weights, alone on
+    the card); emu serving at MOE_EMU_LAYERS layers with the emu kernel
+    bit for bit; f32 dfa training at the depth the card holds (printed);
+    kimi-k2's layout on the meta device and its expert products at full
+    width; the bank kernel timed at every decode shape and the experts'
+    prefill shapes."""
+    kind, peaks = card_peaks(card)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serve": _moe_serve(torch, np, api, pm, seed)}
+    out["parity"] = phase_parity(torch, np, api, seed, arch=QWEN2MOE, tag="moe_parity")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["emu"] = _moe_emu_serve(torch, np, api, em, seed)
+    out["train"] = _moe_train(torch, api, pm, seed, card)
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    print(f"[moe_timing] {kind} peaks; card: {card}")
+    rows, forward, prefill = _moe_timing(torch, pm, _moe_meta(torch, QWEN2MOE), peaks, gen,
+                                         "qwen2-moe")
+    out["decode"] = {"shapes": rows, "forward": forward, "prefill_experts": prefill}
+    out["kimi"] = _kimi(torch, pm, peaks, gen)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[moe] done in {out['seconds']:.1f}s")
+    return out
+
+
+def moe_summary(res):
+    """qwen2-moe's numbers for its own output line."""
+    serve, tick = res["serve"], res["serve"]["profile"]
+    prof = res["train"]["profile"]
+    return {"arch": QWEN2MOE, "tok_s": serve["tok_s"], "ttft_p50_ms": serve["ttft_ms"],
+            "decode_tick_wall_ms": tick["decode_tick"]["wall_ms"],
+            "decode_tick_busy_ms": tick["decode_tick"].get("busy_ms"),
+            "prefill_tick_wall_ms": tick["prefill_tick"]["wall_ms"],
+            "prefill_tick_busy_ms": tick["prefill_tick"].get("busy_ms"),
+            "serve_launches": serve["launches"], "parity_max_rel": res["parity"]["max_rel"],
+            "emu_layers": res["emu"]["layers"], "emu_launches": res["emu"]["launches"],
+            "train_layers": prof["layers"], "step_ms": prof["step_ms"],
+            "tflop_s": prof["tflop_s"], "peak_gib": prof["peak_gib"],
+            "idle_share": prof.get("idle_share"), "train_launches": res["train"]["launches"],
+            "aux_losses": prof["aux_losses"], "dropped_frac": prof["dropped_frac"],
+            "decode_forward_dev_ms": res["decode"]["forward"]["dev_ms"],
+            "kimi_params": res["kimi"]["n_params"], "seconds": res["seconds"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3178,33 +3695,44 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card, draws = phase_build(torch, pm)
-    max_err = phase_kernel_vs_plain(torch, pm)
-    max_err_b = phase_dfa_kernel_vs_plain(torch, pm, dg)
-    serve_launches = phase_serve(torch, np, pm, api, args.seed)
-    phase_profile_ticks(torch, np, api, args.seed)
-    phase_parity(torch, np, api, args.seed)
-    train_launches = phase_train(torch, np, api, pm, dg, args.seed)
-    masked_launches = phase_masked_projection(torch, api, dg, args.seed)
-    per_step, per_prefill = phase_timing(torch, pm, card)
-    phase_seam(torch, pm, card)
-    train_rows = phase_timing_train(torch, pm, dg, card)
-    max_err_c = phase_emu_kernel_vs_plain(torch, em, ph, ch, mrr)
-    emu_train_launches = phase_emu_train(torch, np, api, em, args.seed)
-    phase_drift(torch, api, args.seed)
-    emu_serve_launches, max_err_serve = phase_emu_serve(torch, np, api, em, args.seed)
-    emu_rows = phase_emu_timing(torch, em, ph, ch, mrr, card, draws["emu"])
-    lm = phase_lm_train(torch, np, api, pm, em, args.seed, card, draws)
-    observed = phase_observe(torch, np, api, pm, em, args.seed, card)
-    mamba = phase_mamba(torch, np, api, pm, em, args.seed, card, draws)
-    dense = phase_dense(torch, np, api, pm, em, args.seed, card, draws)
+    def timed(phase, *args):
+        """Run one phase and print its wall time (the script's limit is 1200 s)."""
+        t0 = time.perf_counter()
+        result = phase(*args)
+        print(f"[phase] {phase.__name__} done in {time.perf_counter() - t0:.1f}s, "
+              f"{time.perf_counter() - t_start:.1f}s in all")
+        return result
+
+    card, draws = timed(phase_build, torch, pm)
+    max_err = timed(phase_kernel_vs_plain, torch, pm)
+    max_err_b = timed(phase_dfa_kernel_vs_plain, torch, pm, dg)
+    serve_launches = timed(phase_serve, torch, np, pm, api, args.seed)
+    timed(phase_profile_ticks, torch, np, api, args.seed)
+    timed(phase_parity, torch, np, api, args.seed)
+    train_launches = timed(phase_train, torch, np, api, pm, dg, args.seed)
+    masked_launches = timed(phase_masked_projection, torch, api, dg, args.seed)
+    per_step, per_prefill = timed(phase_timing, torch, pm, card)
+    timed(phase_seam, torch, pm, card)
+    train_rows = timed(phase_timing_train, torch, pm, dg, card)
+    max_err_c = timed(phase_emu_kernel_vs_plain, torch, em, ph, ch, mrr)
+    emu_train_launches = timed(phase_emu_train, torch, np, api, em, args.seed)
+    timed(phase_drift, torch, api, args.seed)
+    emu_serve_launches, max_err_serve = timed(phase_emu_serve, torch, np, api, em, args.seed)
+    emu_rows = timed(phase_emu_timing, torch, em, ph, ch, mrr, card, draws["emu"])
+    lm = timed(phase_lm_train, torch, np, api, pm, em, args.seed, card, draws)
+    observed = timed(phase_observe, torch, np, api, pm, em, args.seed, card)
+    mamba = timed(phase_mamba, torch, np, api, pm, em, args.seed, card, draws)
+    dense = timed(phase_dense, torch, np, api, pm, em, args.seed, card, draws)
+    moe = timed(phase_moe, torch, np, api, pm, em, args.seed, card, draws)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     for arch, res in dense.items():
         print(json.dumps({"dense_model": dense_summary(arch, res)}))
+    print(json.dumps({"moe_model": moe_summary(moe)}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
     dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
     dense_emu = {"qwen3_train": dense[QWEN3]["emu"]["launches"]}
+    moe_bank = {"moe_serve": moe["serve"]["launches"], "moe_train": moe["train"]["launches"]}
     row_b = train_rows["dfa_gradient"]
     records = [
         {"name": "photonic_matmul", "route": "cuda",
@@ -3213,15 +3741,16 @@ def main(argv=None):
          "launches": (serve_launches + train_launches + lm["launches"]
                       + observed["probe_launches"]["photonic_matmul"]
                       + mamba["serve_launches"] + mamba["train_launches"]
-                      + sum(dense_bank.values())),
+                      + sum(dense_bank.values()) + sum(moe_bank.values())),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
                               "mamba_serve": mamba["serve_launches"],
-                              "mamba_train": mamba["train_launches"], **dense_bank},
+                              "mamba_train": mamba["train_launches"], **dense_bank,
+                              **moe_bank},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
-                              if "train" in res)),
+                              if "train" in res), moe["train"]["max_abs_err"]),
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
          "library_ms": per_step["library_ms"],
@@ -3236,7 +3765,15 @@ def main(argv=None):
                           "skinny_k14336": res["serve"]["skinny_k14336"],
                           **({"train_shape": res["train"]["train_shape"]}
                              if "train" in res else {})}
-                   for arch, res in dense.items()}},
+                   for arch, res in dense.items()},
+         "moe": {"decode_forward": moe["decode"]["forward"],
+                 "decode_shapes": moe["decode"]["shapes"],
+                 "prefill_experts": moe["decode"]["prefill_experts"],
+                 "kimi_experts": moe["kimi"]["rows"],
+                 "serve_max_rel_err": moe["serve"]["max_rel_err"],
+                 "kimi_max_rel_err": moe["kimi"]["max_rel_err"],
+                 "batched_vs_single": moe["serve"]["batched_vs_single"],
+                 "train": moe["train"]["profile"]}},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",
@@ -3252,14 +3789,16 @@ def main(argv=None):
          "launches": (emu_train_launches + emu_serve_launches + lm["emu_launches"]
                       + observed["probe_launches"]["emu_bank_product"]
                       + mamba["emu_serve_launches"] + mamba["emu_train_launches"]
-                      + sum(dense_emu.values())),
+                      + sum(dense_emu.values()) + moe["emu"]["launches"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
                               "mamba_serve": mamba["emu_serve_launches"],
-                              "mamba_train": mamba["emu_train_launches"], **dense_emu},
+                              "mamba_train": mamba["emu_train_launches"], **dense_emu,
+                              "moe_emu_serve": moe["emu"]["launches"]},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
-                            mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"]),
+                            mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"],
+                            moe["emu"]["max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",

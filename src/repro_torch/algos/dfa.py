@@ -165,7 +165,7 @@ def _block_grads(spec, params, idx, tape, delta_of, cfg: DFAConfig) -> dict:
     with torch.enable_grad():
         y, aux = spec.apply(leaves, tape.inputs[idx], tape.extras)
         outs, cots = [y], [delta_of(y).to(y.dtype)]
-        if aux.requires_grad:
+        if aux is not None and aux.requires_grad:
             outs.append(aux)
             cots.append(torch.ones_like(aux))
         live = [k for k, v in leaves.items() if v.requires_grad]

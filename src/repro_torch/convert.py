@@ -5,7 +5,9 @@ The reference keeps parameters in a pytree: nested dicts whose ``blocks``
 subtree stacks every layer on a leading axis (``stack_init``), with
 ``Linear`` weights ``w`` in (in, out) layout and biases ``b``.  The port
 keeps a ``state_dict``: one ``blocks.{i}`` entry per layer, ``weight`` in
-torch layout (out, in), ``bias``.  Every other leaf keeps its name, as do
+torch layout (out, in), ``bias``.  A stacked weight (a mixture of experts'
+``experts.gate.w`` (E, in, out)) swaps its last two axes to (E, out, in).
+Every other leaf keeps its name, as do
 bare-array leaves beside the layers (MLA's ``attn.q_norm_scale`` and
 ``attn.kv_norm_scale``, Mamba's ``A_log``).
 
@@ -66,7 +68,7 @@ def torch_shapes(params) -> dict:
     out = {}
     for name, leaf, layer, transpose in layout_map(params):
         shape = tuple(leaf.shape[1:] if layer is not None else leaf.shape)
-        out[name] = shape[::-1] if transpose else shape
+        out[name] = shape[:-2] + shape[-2:][::-1] if transpose else shape
     return out
 
 
@@ -79,8 +81,8 @@ def state_dict_from_reference(params) -> dict:
         arr = np.asarray(leaf)
         if layer is not None:
             arr = arr[layer]
-        if transpose:
-            arr = arr.T
+        if transpose and arr.ndim >= 2:
+            arr = np.swapaxes(arr, -1, -2)
         out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
     return out
 

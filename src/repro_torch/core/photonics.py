@@ -15,6 +15,14 @@ the counterpart of ``pallas``: it runs the bank product in the CUDA kernel
 of ``kernels/photonic_matmul.py``.  The ``emu`` backend emulates the bank
 at device level (``hardware.channel``), its fused panel loop in the CUDA
 kernel of ``kernels/emu_matmul.py``.
+
+A stacked weight (E, M, K), a mixture of experts' (``nn/moe.py``), makes
+``forward_matmul`` the counterpart of ``jax.vmap(forward_matmul)``: one
+key for all E products, each normalised by its own scales, one noise draw
+in normalised units shared by all of them (the reference's key is not
+batched), and every backend takes the batch: ``ref`` as one einsum,
+``cuda`` as one batched kernel launch, ``emu`` as one 2-D product per
+index with the same key and drift residual.
 """
 
 from __future__ import annotations
@@ -142,30 +150,41 @@ def normalise_operands(a, b, cfg: PhotonicConfig):
     DAC/weight fake-quant -> (a_n, b_n, s_a, s_b).
 
     The division runs in the operand dtype (bf16 at full size) and the
-    scales stay on the device, as in the reference: no host sync."""
-    s_a = a.detach().abs().amax().clamp_min(1e-12)
-    s_b = b.detach().abs().amax().clamp_min(1e-12)
+    scales stay on the device, as in the reference: no host sync.  A
+    stacked b (E, M, K) with a (E, T, K) takes one scale per index, (E, 1,
+    1) each, as the reference's vmap gives."""
+    dims = (-2, -1) if b.ndim == 3 else None
+    s_a = _amax(a.detach().abs(), dims).clamp_min(1e-12)
+    s_b = _amax(b.detach().abs(), dims).clamp_min(1e-12)
     a_n = fake_quant(a / s_a, cfg.input_bits, 1.0)
     b_n = fake_quant(b / s_b, cfg.weight_bits, 1.0)
     return a_n, b_n, s_a, s_b
+
+
+def _amax(x, dims):
+    return x.amax() if dims is None else x.amax(dim=dims, keepdim=True)
 
 
 def photonic_matmul(a, b, cfg: PhotonicConfig, key=None, *, mask=None):
     """Noisy C = A @ Bᵀ (the weight-bank product), plain-torch path.
 
     a: (..., T, K); b: (M, K); mask: optional (..., T, M) epilogue applied
-    after the noise.  ``key`` is an integer seed.  Returns (..., T, M)."""
+    after the noise.  ``key`` is an integer seed.  Returns (..., T, M).
+    A stacked b (E, M, K) with a (E, T, K) gives (E, T, M): each index
+    normalised by its own scales, one (T, M) noise draw added to all."""
+    eq = "...tk,...mk->...tm" if b.ndim == 3 else "...tk,mk->...tm"
     if not cfg.enabled:
-        out = torch.einsum("...tk,mk->...tm", a, b)
+        out = torch.einsum(eq, a, b)
         return out * mask if mask is not None else out
 
     a_n, b_n, s_a, s_b = normalise_operands(a, b, cfg)
-    out = torch.einsum("...tk,mk->...tm", a_n, b_n)
+    out = torch.einsum(eq, a_n, b_n)
     if cfg.noise_std > 0.0:
         if key is None:
             raise ValueError("noise_std > 0 requires a PRNG key")
         sigma = noise_sigma_total(a.shape[-1], 1.0, 1.0, cfg)  # normalised units
-        noise = torch.randn(out.shape, generator=prng.generator(key, out.device),
+        shape = out.shape[-2:] if b.ndim == 3 else out.shape
+        noise = torch.randn(shape, generator=prng.generator(key, out.device),
                             device=out.device, dtype=out.dtype)
         out = out + sigma * noise
     out = check_finite(out * (s_a * s_b), "photonic_matmul output")
@@ -243,6 +262,12 @@ class EmulatedMRRBackend(PhotonicBackend):
     def matmul(self, a, b, cfg, key=None, *, mask=None):
         from repro_torch.hardware import channel  # lazy: hardware imports us
 
+        if b.ndim == 3:  # a stack of experts: one 2-D product each, one key
+            return torch.stack([
+                channel.emulated_matmul(a[i], b[i], cfg, key=key,
+                                        mask=mask[i] if mask is not None else None,
+                                        kernel=self.emu_kernel)
+                for i in range(b.shape[0])])
         return channel.emulated_matmul(a, b, cfg, key=key, mask=mask,
                                        kernel=self.emu_kernel)
 
@@ -344,13 +369,18 @@ def forward_matmul(x, w):
     """THE forward projection seam: ``x @ wᵀ`` with x: (..., K) and w in
     torch layout (M, K), so the bank's B operand is ``w`` itself.
 
-    Digital (no active context / ``enabled=False``): the exact product.
-    Photonic: flatten leading dims to a (T, K) stream and run the bank
-    product through the context's backend."""
+    Leading dims flatten to a (T, K) stream.  Digital (no active context /
+    ``enabled=False``): the exact product.  Photonic: the bank product
+    through the context's backend.
+
+    A stacked w (E, M, K) with x (E, ..., K) is the counterpart of the
+    reference's ``jax.vmap(forward_matmul)``: x flattens to (E, T, K), the
+    digital product is ``x @ w.mT``, and the photonic one is one backend
+    call on the batch with one key."""
     ctx = active_forward()
+    a = x.reshape(*w.shape[:-2], -1, x.shape[-1])  # (T, K), or (E, T, K) for a stack
     if ctx is None or not ctx.cfg.enabled:
-        return x @ w.T
-    lead = x.shape[:-1]
-    a = x.reshape(-1, x.shape[-1])
-    out = ctx.backend.matmul(a, w, ctx.cfg, key=ctx.next_key())
-    return out.reshape(*lead, w.shape[0]).to(torch.result_type(x, w))
+        out = a @ w.mT
+    else:
+        out = ctx.backend.matmul(a, w, ctx.cfg, key=ctx.next_key())
+    return out.reshape(*x.shape[:-1], w.shape[-2]).to(torch.result_type(x, w))

@@ -25,6 +25,15 @@
 // The mask multiplies after the noise, as the TPU kernel applies it at its
 // last K step.  No atomics anywhere: the same seed gives the same bits.
 //
+// Batch axis: A (E, T, K) and B (E, M, K) give C (E, T, M) in one launch,
+// the counterpart of the reference's jax.vmap over stacked experts (its
+// pallas_call batching rule adds a grid axis).  Index e reads A[e] and B[e]
+// and writes C[e] (and the mask's [e]); the noise is one (T, M) operand
+// read at every index (batch stride 0) and prng mode draws with the same
+// seed at every index, as the reference's unbatched key does.  Each variant
+// takes e from one grid axis, so index e of a batched launch computes what
+// a 2-D launch of A[e], B[e] computes under the same plan, bit for bit.
+//
 // Three variants; the wrapper's planner (photonic_matmul.py::_plan) picks
 // one per call from (T, M, K, dtype, operand addresses) and passes it in.
 //
@@ -181,6 +190,13 @@ skinny_kernel(const T* __restrict__ a, const T* __restrict__ b,
               float* __restrict__ c, int n_t, int n_m, int n_k, int mode, uint32_t seed,
               float sigma_step) {
   extern __shared__ uint4 smem[];  // A: [TT][n_k] in T
+  {  // this block's batch index
+    const size_t e = blockIdx.y;
+    a += e * n_t * n_k;
+    b += e * n_m * n_k;
+    c += e * n_t * n_m;
+    if constexpr (kMask) mask += e * n_t * n_m;
+  }
   constexpr int E = kVec ? 16 / sizeof(T) : 1;  // elements per load
   using Load = typename std::conditional<kVec, uint4, T>::type;
   const int tid = threadIdx.x;
@@ -297,8 +313,8 @@ skinny_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 template <typename T, int TT, int U, bool kMask, bool kVec>
 cudaError_t launch_skinny_tt(const T* a, const T* b, const float* mask, const float* noise,
-                             float* c, int n_t, int n_m, int n_k, int mode, uint32_t seed,
-                             float sigma_step, cudaStream_t s) {
+                             float* c, int n_e, int n_t, int n_m, int n_k, int mode,
+                             uint32_t seed, float sigma_step, cudaStream_t s) {
   const auto kernel = skinny_kernel<T, TT, U, kMask, kVec>;
   const int smem = TT * n_k * static_cast<int>(sizeof(T));
   if (smem > kSmemMax) return cudaErrorInvalidValue;
@@ -320,47 +336,50 @@ cudaError_t launch_skinny_tt(const T* a, const T* b, const float* mask, const fl
     occ_blocks = blocks > 0 ? blocks : 1;
     occ_smem = smem;
   }
+  // the card's resident blocks shared over the batch: each index walks its
+  // rows with ⌈resident / E⌉ blocks (or one warp per row, if fewer)
+  if (n_e > 65535) return cudaErrorInvalidValue;
   const int rows_grid = (n_m + SK_WARPS - 1) / SK_WARPS;
-  const int resident = num_sms() * occ_blocks;
-  const int grid = rows_grid < resident ? rows_grid : resident;
-  kernel<<<grid, SK_THREADS, smem, s>>>(a, b, mask, noise, c, n_t, n_m, n_k, mode, seed,
-                                        sigma_step);
+  const int resident = (num_sms() * occ_blocks + n_e - 1) / n_e;
+  const int grid_x = rows_grid < resident ? rows_grid : resident;
+  kernel<<<dim3(grid_x, n_e), SK_THREADS, smem, s>>>(a, b, mask, noise, c, n_t, n_m, n_k,
+                                                     mode, seed, sigma_step);
   return cudaGetLastError();
 }
 
 template <typename T, int U, bool kMask, bool kVec>
 cudaError_t launch_skinny_u(const T* a, const T* b, const float* mask, const float* noise,
-                            float* c, int n_t, int n_m, int n_k, int mode, uint32_t seed,
-                            float sigma_step, cudaStream_t s) {
+                            float* c, int n_e, int n_t, int n_m, int n_k, int mode,
+                            uint32_t seed, float sigma_step, cudaStream_t s) {
   if (n_t <= 2)
-    return launch_skinny_tt<T, 2, U, kMask, kVec>(a, b, mask, noise, c, n_t, n_m, n_k, mode,
-                                                  seed, sigma_step, s);
+    return launch_skinny_tt<T, 2, U, kMask, kVec>(a, b, mask, noise, c, n_e, n_t, n_m, n_k,
+                                                    mode, seed, sigma_step, s);
   if (n_t <= 4)
-    return launch_skinny_tt<T, 4, U, kMask, kVec>(a, b, mask, noise, c, n_t, n_m, n_k, mode,
-                                                  seed, sigma_step, s);
+    return launch_skinny_tt<T, 4, U, kMask, kVec>(a, b, mask, noise, c, n_e, n_t, n_m, n_k,
+                                                    mode, seed, sigma_step, s);
   if (n_t <= 8)
-    return launch_skinny_tt<T, 8, U, kMask, kVec>(a, b, mask, noise, c, n_t, n_m, n_k, mode,
-                                                  seed, sigma_step, s);
+    return launch_skinny_tt<T, 8, U, kMask, kVec>(a, b, mask, noise, c, n_e, n_t, n_m, n_k,
+                                                    mode, seed, sigma_step, s);
   if (n_t <= 16)
-    return launch_skinny_tt<T, 16, U, kMask, kVec>(a, b, mask, noise, c, n_t, n_m, n_k, mode,
-                                                   seed, sigma_step, s);
+    return launch_skinny_tt<T, 16, U, kMask, kVec>(a, b, mask, noise, c, n_e, n_t, n_m, n_k,
+                                                     mode, seed, sigma_step, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T, bool kMask, bool kVec>
 cudaError_t launch_skinny(const T* a, const T* b, const float* mask, const float* noise,
-                          float* c, int n_t, int n_m, int n_k, int mode, uint32_t seed,
+                          float* c, int n_e, int n_t, int n_m, int n_k, int mode, uint32_t seed,
                           float sigma_step, cudaStream_t s) {
   if constexpr (!kVec) {
-    return launch_skinny_u<T, SK_SCALAR, kMask, false>(a, b, mask, noise, c, n_t, n_m, n_k,
-                                                       mode, seed, sigma_step, s);
+    return launch_skinny_u<T, SK_SCALAR, kMask, false>(a, b, mask, noise, c, n_e, n_t, n_m,
+                                                       n_k, mode, seed, sigma_step, s);
   } else {
     const int loads_per_lane = (n_k * static_cast<int>(sizeof(T)) / 16 + 31) / 32;
     if (loads_per_lane <= SK_SHORT)
-      return launch_skinny_u<T, SK_SHORT, kMask, true>(a, b, mask, noise, c, n_t, n_m, n_k,
-                                                       mode, seed, sigma_step, s);
-    return launch_skinny_u<T, SK_LONG, kMask, true>(a, b, mask, noise, c, n_t, n_m, n_k, mode,
-                                                    seed, sigma_step, s);
+      return launch_skinny_u<T, SK_SHORT, kMask, true>(a, b, mask, noise, c, n_e, n_t, n_m,
+                                                       n_k, mode, seed, sigma_step, s);
+    return launch_skinny_u<T, SK_LONG, kMask, true>(a, b, mask, noise, c, n_e, n_t, n_m, n_k,
+                                                    mode, seed, sigma_step, s);
   }
 }
 
@@ -465,8 +484,9 @@ __device__ __forceinline__ void reduce_cluster(float* part, int rank, int row0, 
   }
 }
 
-// grid (split, ⌈T/64⌉, ⌈M/64⌉), cluster (split, 1, 1): cluster rank r
-// multiplies the MT_BK-wide K tiles [r·n/split, (r+1)·n/split).
+// grid (split, ⌈T/64⌉, E·⌈M/64⌉), cluster (split, 1, 1): cluster rank r
+// multiplies the MT_BK-wide K tiles [r·n/split, (r+1)·n/split); z holds
+// the batch index e and the column tile, e major.
 template <bool kMask, bool kVec>
 __global__ void __launch_bounds__(MT_THREADS)
 mma_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
@@ -481,7 +501,15 @@ mma_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict_
   const int split = gridDim.x;
   const int rank = blockIdx.x;
   const int row0 = blockIdx.y * MT_BT;
-  const int col0 = blockIdx.z * MT_BM;
+  const int m_tiles = (n_m + MT_BM - 1) / MT_BM;
+  const int col0 = (blockIdx.z % m_tiles) * MT_BM;
+  {  // this block's batch index
+    const size_t e = blockIdx.z / m_tiles;
+    a += e * n_t * n_k;
+    b += e * n_m * n_k;
+    c += e * n_t * n_m;
+    if constexpr (kMask) mask += e * n_t * n_m;
+  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -637,9 +665,11 @@ mma_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict_
 
 template <bool kMask, bool kVec>
 cudaError_t launch_mma(const __nv_bfloat16* a, const __nv_bfloat16* b, const float* mask,
-                       const float* noise, float* c, int n_t, int n_m, int n_k, int mode,
-                       uint32_t seed, float sigma_step, int split, cudaStream_t s) {
+                       const float* noise, float* c, int n_e, int n_t, int n_m, int n_k,
+                       int mode, uint32_t seed, float sigma_step, int split, cudaStream_t s) {
   if (split != 1 && split != 2 && split != 4 && split != 8) return cudaErrorInvalidValue;
+  const long long z = static_cast<long long>(n_e) * ((n_m + MT_BM - 1) / MT_BM);
+  if (z > 65535) return cudaErrorInvalidValue;  // grid z's limit
   const auto kernel = mma_kernel<kMask, kVec>;
   static bool opted_in = false;  // once per instantiation: above 48 KB
   if (!opted_in) {
@@ -649,7 +679,7 @@ cudaError_t launch_mma(const __nv_bfloat16* a, const __nv_bfloat16* b, const flo
     opted_in = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, (n_t + MT_BT - 1) / MT_BT, (n_m + MT_BM - 1) / MT_BM);
+  cfg.gridDim = dim3(split, (n_t + MT_BT - 1) / MT_BT, static_cast<unsigned>(z));
   cfg.blockDim = dim3(MT_THREADS);
   cfg.dynamicSmemBytes = MT_SMEM;
   cfg.stream = s;
@@ -683,6 +713,13 @@ ffma_kernel(const float* __restrict__ a, const float* __restrict__ b,
   // [row][k], one word of padding: a column of b_tile is conflict-free
   __shared__ float a_tile[FF_BT][BK + 1];
   __shared__ float b_tile[FF_BM][BK + 1];
+  {  // this block's batch index
+    const size_t e = blockIdx.z;
+    a += e * n_t * n_k;
+    b += e * n_m * n_k;
+    c += e * n_t * n_m;
+    if constexpr (kMask) mask += e * n_t * n_m;
+  }
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -760,9 +797,10 @@ ffma_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 template <bool kMask>
 cudaError_t launch_ffma(const float* a, const float* b, const float* mask, const float* noise,
-                        float* c, int n_t, int n_m, int n_k, int mode, uint32_t seed,
+                        float* c, int n_e, int n_t, int n_m, int n_k, int mode, uint32_t seed,
                         float sigma_step, cudaStream_t s) {
-  const dim3 grid((n_m + FF_BM - 1) / FF_BM, (n_t + FF_BT - 1) / FF_BT);
+  if (n_e > 65535) return cudaErrorInvalidValue;  // grid z's limit
+  const dim3 grid((n_m + FF_BM - 1) / FF_BM, (n_t + FF_BT - 1) / FF_BT, n_e);
   ffma_kernel<kMask><<<grid, FF_THREADS, 0, s>>>(a, b, mask, noise, c, n_t, n_m, n_k, mode,
                                                  seed, sigma_step);
   return cudaGetLastError();
@@ -772,42 +810,44 @@ cudaError_t launch_ffma(const float* a, const float* b, const float* mask, const
 
 template <bool kMask>
 int launch(const void* a, const void* b, const float* mask, const float* noise, float* c,
-           int n_t, int n_m, int n_k, int dtype, int mode, unsigned int seed, float sigma_step,
-           void* stream, int variant, int split) {
+           int n_e, int n_t, int n_m, int n_k, int dtype, int mode, unsigned int seed,
+           float sigma_step, void* stream, int variant, int split) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* af = static_cast<const float*>(a);
   const auto* bf = static_cast<const float*>(b);
   const auto* ah = static_cast<const __nv_bfloat16*>(a);
   const auto* bh = static_cast<const __nv_bfloat16*>(b);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return static_cast<int>(err);
+  if ((dtype != 0 && dtype != 1) || n_e < 1) return static_cast<int>(err);
   switch (variant) {
     case kSkinny:
-      err = dtype == 0 ? launch_skinny<float, kMask, true>(af, bf, mask, noise, c, n_t, n_m, n_k,
-                                                           mode, seed, sigma_step, s)
+      err = dtype == 0 ? launch_skinny<float, kMask, true>(af, bf, mask, noise, c, n_e, n_t, n_m,
+                                                           n_k, mode, seed, sigma_step, s)
                        : launch_skinny<__nv_bfloat16, kMask, true>(
-                             ah, bh, mask, noise, c, n_t, n_m, n_k, mode, seed, sigma_step, s);
+                             ah, bh, mask, noise, c, n_e, n_t, n_m, n_k, mode, seed, sigma_step,
+                             s);
       break;
     case kSkinnyScalar:
-      err = dtype == 0 ? launch_skinny<float, kMask, false>(af, bf, mask, noise, c, n_t, n_m,
-                                                            n_k, mode, seed, sigma_step, s)
+      err = dtype == 0 ? launch_skinny<float, kMask, false>(af, bf, mask, noise, c, n_e, n_t,
+                                                            n_m, n_k, mode, seed, sigma_step, s)
                        : launch_skinny<__nv_bfloat16, kMask, false>(
-                             ah, bh, mask, noise, c, n_t, n_m, n_k, mode, seed, sigma_step, s);
+                             ah, bh, mask, noise, c, n_e, n_t, n_m, n_k, mode, seed, sigma_step,
+                             s);
       break;
     case kMma:
       if (dtype == 1)
-        err = launch_mma<kMask, true>(ah, bh, mask, noise, c, n_t, n_m, n_k, mode, seed,
+        err = launch_mma<kMask, true>(ah, bh, mask, noise, c, n_e, n_t, n_m, n_k, mode, seed,
                                       sigma_step, split, s);
       break;
     case kMmaScalar:
       if (dtype == 1)
-        err = launch_mma<kMask, false>(ah, bh, mask, noise, c, n_t, n_m, n_k, mode, seed,
+        err = launch_mma<kMask, false>(ah, bh, mask, noise, c, n_e, n_t, n_m, n_k, mode, seed,
                                        sigma_step, split, s);
       break;
     case kFfma:
       if (dtype == 0)
-        err = launch_ffma<kMask>(af, bf, mask, noise, c, n_t, n_m, n_k, mode, seed, sigma_step,
-                                 s);
+        err = launch_ffma<kMask>(af, bf, mask, noise, c, n_e, n_t, n_m, n_k, mode, seed,
+                                 sigma_step, s);
       break;
     default:
       break;
@@ -819,22 +859,23 @@ int launch(const void* a, const void* b, const float* mask, const float* noise, 
 
 extern "C" int photonic_matmul_block_k() { return BK; }
 
-// dtype: 0 = f32, 1 = bf16; variant and split from photonic_matmul.py::_plan.
-// Returns the launch's CUDA error (0 on success).
+// n_e: the batch count (1 for a 2-D product); dtype: 0 = f32, 1 = bf16;
+// variant and split from photonic_matmul.py::_plan.  Returns the launch's
+// CUDA error (0 on success).
 extern "C" int photonic_matmul_launch(const void* a, const void* b, const float* noise,
-                                      float* c, int n_t, int n_m, int n_k, int dtype,
+                                      float* c, int n_e, int n_t, int n_m, int n_k, int dtype,
                                       int mode, unsigned int seed, float sigma_step,
                                       void* stream, int variant, int split) {
-  return launch<false>(a, b, nullptr, noise, c, n_t, n_m, n_k, dtype, mode, seed, sigma_step,
-                       stream, variant, split);
+  return launch<false>(a, b, nullptr, noise, c, n_e, n_t, n_m, n_k, dtype, mode, seed,
+                       sigma_step, stream, variant, split);
 }
 
 // The fused DFA gradient: as photonic_matmul_launch, then out *= mask with
-// mask a contiguous (T, M) f32 operand.
+// mask a contiguous (E, T, M) f32 operand.
 extern "C" int dfa_gradient_launch(const void* a, const void* b, const float* mask,
-                                   const float* noise, float* c, int n_t, int n_m, int n_k,
-                                   int dtype, int mode, unsigned int seed, float sigma_step,
-                                   void* stream, int variant, int split) {
-  return launch<true>(a, b, mask, noise, c, n_t, n_m, n_k, dtype, mode, seed, sigma_step,
+                                   const float* noise, float* c, int n_e, int n_t, int n_m,
+                                   int n_k, int dtype, int mode, unsigned int seed,
+                                   float sigma_step, void* stream, int variant, int split) {
+  return launch<true>(a, b, mask, noise, c, n_e, n_t, n_m, n_k, dtype, mode, seed, sigma_step,
                       stream, variant, split);
 }

@@ -35,9 +35,9 @@ def dfa_gradient_plain(a, b, mask, *, noise=None, seed=None, sigma_step: float =
 
 
 def _check_mask(a, b, mask):
-    shape = (a.shape[0], b.shape[0])
+    shape = (*a.shape[:-1], b.shape[-2])
     if tuple(mask.shape) != shape:
-        raise ValueError(f"mask must be (T, M) = {shape}, got {tuple(mask.shape)}")
+        raise ValueError(f"mask must be the output's {shape}, got {tuple(mask.shape)}")
     if mask.dtype != torch.float32:
         raise TypeError(f"the mask is f32, got {mask.dtype}")
     if mask.device != a.device:
@@ -45,7 +45,8 @@ def _check_mask(a, b, mask):
 
 
 def dfa_gradient_cuda(a, b, mask, *, noise=None, seed=None, sigma_step: float = 0.0):
-    """δ = (A @ Bᵀ + η) ⊙ mask.  A:(T,K) B:(M,K) mask:(T,M) f32 -> (T,M) f32.
+    """δ = (A @ Bᵀ + η) ⊙ mask.  A:(T,K) B:(M,K) mask:(T,M) f32 -> (T,M) f32
+    (or batched, mask (E, T, M), as ``photonic_matmul_cuda``).
 
     ``noise`` (T, M) f32 selects "input" mode, ``seed`` (an int) "prng"
     mode with ``sigma_step`` per K tile, as ``photonic_matmul_cuda``."""
@@ -56,5 +57,5 @@ def dfa_gradient_cuda(a, b, mask, *, noise=None, seed=None, sigma_step: float = 
         return dfa_gradient_plain(a, b, mask, noise=noise, seed=seed, sigma_step=sigma_step)
     out = launch_kernel(a, b, mask=mask, noise=noise, seed=seed, sigma_step=sigma_step)
     launches += 1
-    flop_cost.count_launch(2 * a.shape[0] * a.shape[1] * b.shape[0])
+    flop_cost.count_launch(2 * a.numel() * b.shape[-2])
     return out

@@ -31,7 +31,9 @@ def photonic_matmul(a, b, cfg, key=None, *, mask=None, noise_mode="auto"):
 
     a: (T, K) inputs; b: (M, K) weights; mask: optional (T, M) epilogue,
     applied after the noise and before the rescale by s_a·s_b, in the
-    ``dfa_gradient`` kernel; ``key`` an integer seed.
+    ``dfa_gradient`` kernel; ``key`` an integer seed.  A batch a (E, T, K),
+    b (E, M, K) runs as one launch, with each index's own scales and one
+    noise draw for all (the reference's vmap over experts).
     noise_mode: auto|none|input|prng — "auto" picks ``input`` when a key is
     given and the hardware is noisy, else ``none``.
     """
@@ -46,7 +48,7 @@ def photonic_matmul(a, b, cfg, key=None, *, mask=None, noise_mode="auto"):
     if not cfg.enabled:
         return kernel(a, b).to(a.dtype)
 
-    k_dim = a.shape[1]
+    k_dim = a.shape[-1]
     a_n, b_n, s_a, s_b = photonics.normalise_operands(a, b, cfg)
     if noise_mode == "auto":
         noise_mode = "input" if (cfg.noise_std > 0 and key is not None) else "none"
@@ -54,7 +56,7 @@ def photonic_matmul(a, b, cfg, key=None, *, mask=None, noise_mode="auto"):
     if noise_mode == "none":
         out = kernel(a_n, b_n)
     elif noise_mode == "input":
-        noise = total_noise(key, (a.shape[0], b.shape[0]), k_dim, cfg, a.device)
+        noise = total_noise(key, (a.shape[-2], b.shape[-2]), k_dim, cfg, a.device)
         out = kernel(a_n, b_n, noise=noise)
     elif noise_mode == "prng":
         nk = math.ceil(k_dim / BLOCK_K)

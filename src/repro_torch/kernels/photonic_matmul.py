@@ -22,6 +22,13 @@ point, so the shape logic is plain Python that the CPU tests reach.
 ``photonic_matmul_plain`` only because its tensors lie on the CPU.  Noise
 modes follow the reference: ``noise`` (a (T, M) operand) selects "input",
 ``seed`` selects "prng", neither gives the exact product.
+
+Every entry takes a batch axis as well: A (E, T, K) and B (E, M, K) give
+(E, T, M) in one launch, the counterpart of the reference's ``jax.vmap``
+over stacked experts (``nn/moe.py``).  The noise stays one (T, M) operand
+and prng mode one seed for every index, as the reference's unbatched key
+gives; index e of a batched launch equals a 2-D launch of ``a[e]``,
+``b[e]`` under the same plan, bit for bit.
 """
 
 from __future__ import annotations
@@ -113,12 +120,12 @@ def _library() -> ctypes.CDLL:
     lib.photonic_matmul_block_k.restype = ctypes.c_int
     lib.photonic_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.photonic_matmul_launch.restype = ctypes.c_int
     lib.dfa_gradient_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.dfa_gradient_launch.restype = ctypes.c_int
     lib.emu_bank_product_launch.argtypes = [
@@ -172,7 +179,8 @@ def counter_gaussian(seed: int, ktile: int, rows, cols):
 
 
 def prng_noise(seed: int, shape, k_dim: int, sigma_step: float, device):
-    """The kernel's "prng" noise summed over its K tiles: (T, M) f32."""
+    """The kernel's "prng" noise summed over its K tiles: (T, M) f32, the
+    same at every batch index."""
     t, m = shape
     rows = torch.arange(t, device=device, dtype=torch.int64)[:, None].expand(t, m)
     cols = torch.arange(m, device=device, dtype=torch.int64)[None, :].expand(t, m)
@@ -184,23 +192,29 @@ def prng_noise(seed: int, shape, k_dim: int, sigma_step: float, device):
 
 def photonic_matmul_plain(a, b, *, noise=None, seed=None, sigma_step: float = 0.0):
     """The kernel's function in plain torch: the f32 oracle
-    (``ref.photonic_matmul_ref``) plus the kernel's prng noise -> f32."""
+    (``ref.photonic_matmul_ref``) plus the kernel's prng noise -> f32.
+    a (T, K), b (M, K) -> (T, M), or a (E, T, K), b (E, M, K) -> (E, T, M)
+    with the (T, M) noise added at every index."""
     out = photonic_matmul_ref(a.float(), b.float(), noise=noise)
     if seed is not None and sigma_step > 0.0:
-        out = out + prng_noise(int(seed) & _M32, out.shape, a.shape[1], sigma_step, out.device)
+        out = out + prng_noise(int(seed) & _M32, out.shape[-2:], a.shape[-1], sigma_step,
+                               out.device)
     return out
 
 
 def check_operands(a, b, noise, seed):
+    """a (T, K) and b (M, K), or a batch of each: a (E, T, K), b (E, M, K)."""
     if noise is not None and seed is not None:
         raise ValueError("give noise or seed, not both")
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
-        raise ValueError(f"need a (T, K) and b (M, K), got {tuple(a.shape)} and {tuple(b.shape)}")
+    if (a.ndim not in (2, 3) or b.ndim != a.ndim or a.shape[-1] != b.shape[-1]
+            or a.shape[:-2] != b.shape[:-2]):
+        raise ValueError("need a (T, K) and b (M, K), or a (E, T, K) and b (E, M, K), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise TypeError(f"operands must share a dtype in {list(_DTYPES)}, got {a.dtype}, {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    if noise is not None and (noise.shape != (a.shape[0], b.shape[0])
+    if noise is not None and (noise.shape != (a.shape[-2], b.shape[-2])
                               or noise.dtype != torch.float32 or noise.device != a.device):
         raise ValueError("noise must be an f32 (T, M) tensor on the operands' device")
 
@@ -239,16 +253,18 @@ def _aligned(k: int, itemsize: int, pointers) -> bool:
     return (k * itemsize) % 16 == 0 and all(p % 16 == 0 for p in pointers)
 
 
-def _plan(t: int, m: int, k: int, dtype, pointers, sms: int = CARD_SMS) -> Plan:
+def _plan(t: int, m: int, k: int, dtype, pointers, sms: int = CARD_SMS, e: int = 1) -> Plan:
     """The variant for one call: A (t, k), B (m, k) of ``dtype`` whose
-    first elements lie at ``pointers`` (A's and B's addresses).
+    first elements lie at ``pointers`` (A's and B's addresses), ``e`` of
+    them in a batched launch.
 
     T <= SEAM (decode) takes the skinny GEMV if A fits in shared memory;
     above it bf16 takes the tensor-core tiles and f32 the FFMA tiles.  The
     16-byte-load variants need K·itemsize % 16 == 0 and 16-byte-aligned
     operands; every other call takes the scalar-load twin.  The mma
     variant splits K over a cluster of 2, 4 or 8 blocks while the tiles
-    alone would leave SMs idle and every block keeps at least two K tiles.
+    alone would leave SMs idle and every block keeps at least two K tiles;
+    a batch of ``e`` products has ``e`` times the tiles.
     """
     itemsize = 2 if dtype == torch.bfloat16 else 4
     vec = _aligned(k, itemsize, pointers)
@@ -256,7 +272,7 @@ def _plan(t: int, m: int, k: int, dtype, pointers, sms: int = CARD_SMS) -> Plan:
         return Plan(SKINNY if vec else SKINNY_SCALAR)
     if dtype != torch.bfloat16:
         return Plan(FFMA)
-    tiles = math.ceil(t / MMA_TILE) * math.ceil(m / MMA_TILE)
+    tiles = e * math.ceil(t / MMA_TILE) * math.ceil(m / MMA_TILE)
     k_tiles = math.ceil(k / MMA_TILE_K)
     split = 1
     while split < MAX_SPLIT and tiles * split < sms and 4 * split <= k_tiles:
@@ -300,16 +316,18 @@ def _sm_count(index: int) -> int:
 def launch_kernel(a, b, *, mask=None, noise=None, seed=None, sigma_step: float = 0.0,
                   plan: Plan | None = None):
     """Launch the CUDA kernel on checked CUDA operands: the bank product,
-    or with ``mask`` (a (T, M) f32 tensor) the fused DFA gradient.
-    ``plan`` defaults to ``_plan``'s choice.  Returns the f32 (T, M)
-    output; raises if the launch fails."""
+    or with ``mask`` (an f32 tensor of the output's shape) the fused DFA
+    gradient; a (E, T, K) and b (E, M, K) run as one batched launch.
+    ``plan`` defaults to ``_plan``'s choice.  Returns the f32 (T, M) or
+    (E, T, M) output; raises if the launch fails."""
     device = a.device
     if device.type != "cuda":
         raise ValueError(f"no photonic_matmul kernel for device {device}")
-    t, k_dim = a.shape
-    m = b.shape[0]
-    if min(t, m, k_dim) == 0:
-        raise ValueError(f"the kernel takes no empty operands: T={t} M={m} K={k_dim}")
+    n_e = a.shape[0] if a.ndim == 3 else 1
+    t, k_dim = a.shape[-2:]
+    m = b.shape[-2]
+    if min(n_e, t, m, k_dim) == 0:
+        raise ValueError(f"the kernel takes no empty operands: E={n_e} T={t} M={m} K={k_dim}")
     if not (a.is_contiguous() and b.is_contiguous()
             and (noise is None or noise.is_contiguous())
             and (mask is None or mask.is_contiguous())):
@@ -317,14 +335,14 @@ def launch_kernel(a, b, *, mask=None, noise=None, seed=None, sigma_step: float =
     pointers = (a.data_ptr(), b.data_ptr())
     index = device.index
     if plan is None:
-        plan = _plan(t, m, k_dim, a.dtype, pointers, _sm_count(index))
+        plan = _plan(t, m, k_dim, a.dtype, pointers, _sm_count(index), n_e)
     else:
         _check_plan(plan, t, k_dim, a.dtype, pointers)
     mode = "input" if noise is not None else ("prng" if seed is not None else "none")
-    out = torch.empty((t, m), device=device, dtype=torch.float32)
+    out = torch.empty((*a.shape[:-2], t, m), device=device, dtype=torch.float32)
     operands = (*pointers, mask.data_ptr()) if mask is not None else pointers
     args = (*operands, noise.data_ptr() if noise is not None else None, out.data_ptr(),
-            t, m, k_dim, _DTYPES[a.dtype], _MODES[mode],
+            n_e, t, m, k_dim, _DTYPES[a.dtype], _MODES[mode],
             (int(seed) & _M32) if seed is not None else 0, float(sigma_step))
     fn = _entry_point(mask is not None)
     # the raw current stream; a device switch only for operands off the current device
@@ -340,15 +358,17 @@ def launch_kernel(a, b, *, mask=None, noise=None, seed=None, sigma_step: float =
 
 
 def photonic_matmul_cuda(a, b, *, noise=None, seed=None, sigma_step: float = 0.0):
-    """C = A @ Bᵀ with optional bank noise.  A:(T,K) B:(M,K) -> (T,M) f32.
+    """C = A @ Bᵀ with optional bank noise.  A:(T,K) B:(M,K) -> (T,M) f32,
+    or a batch in one launch: A:(E,T,K) B:(E,M,K) -> (E,T,M) f32.
 
     ``noise`` (T, M) f32 selects "input" mode, ``seed`` (an int) "prng"
-    mode with ``sigma_step`` per K tile of ``BLOCK_K``."""
+    mode with ``sigma_step`` per K tile of ``BLOCK_K``; both are the same
+    at every batch index."""
     global launches
     check_operands(a, b, noise, seed)
     if a.device.type == "cpu":
         return photonic_matmul_plain(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     out = launch_kernel(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     launches += 1
-    flop_cost.count_launch(2 * a.shape[0] * a.shape[1] * b.shape[0])
+    flop_cost.count_launch(2 * a.numel() * b.shape[-2])
     return out

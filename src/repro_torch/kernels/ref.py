@@ -10,8 +10,9 @@ from repro_torch.utils import prng
 
 
 def photonic_matmul_ref(a, b, *, noise=None):
-    """C = A @ Bᵀ (+ noise).  a:(T,K) b:(M,K) noise:(T,M)|None."""
-    out = torch.einsum("tk,mk->tm", a.float(), b.float())
+    """C = A @ Bᵀ (+ noise).  a:(T,K) b:(M,K) noise:(T,M)|None, or a batch
+    a:(E,T,K) b:(E,M,K) with the (T, M) noise at every index."""
+    out = torch.einsum("...tk,...mk->...tm", a.float(), b.float())
     if noise is not None:
         out = out + noise.float()
     return out.to(a.dtype)

@@ -68,7 +68,7 @@ class SegmentSpec:
     name: str
     n_layers: int
     d_inject: int  # feature dim at the injection point (block output)
-    # apply(layer_params, x, extras) -> (y, weighted aux loss scalar)
+    # apply(layer_params, x, extras) -> (y, weighted aux loss scalar or None)
     apply: typing.Callable = dataclasses.field(compare=False)
     # True: the layers are a ``ModuleList`` (``blocks.{i}.``); False: the
     # segment is one block, the module itself (the MLP's ``h{i}.``)

@@ -1,9 +1,10 @@
 """Decoder-only transformer LM.  Counterpart of
 ``repro/models/transformer.py``.
 
-The port has the dense paths: RMSNorm, rotary GQA attention (qkv bias,
-qk-norm) or multi-head latent attention (``cfg.mla``), a gated SiLU FFN,
-and the unembedding (qwen1.5, qwen3, granite, minicpm3).  The model serves
+The port has RMSNorm, rotary GQA attention (qkv bias, qk-norm) or
+multi-head latent attention (``cfg.mla``), a gated SiLU FFN or a mixture
+of experts (``cfg.moe``, ``nn/moe.py``), and the unembedding (qwen1.5,
+qwen3, granite, minicpm3, qwen2-moe, kimi-k2).  The model serves
 (``init_caches``, ``decode_step``, ``prefill_step``) and trains: it is a
 ``DFAModel`` with the hidden error tap (d_tap = d_model), the blocks in
 one segment ``blocks`` and DFA feedback into the embedding table.  The
@@ -11,8 +12,12 @@ reference scans stacked layer parameters; the port loops over a
 ``ModuleList`` (``photonics.scanned_layers`` keeps the reference's
 per-layer noise-key numbering).  Caches keep the reference's stacked
 layout, one (L, B, ...) tensor per key of the attention's ``init_cache``:
-``{"k", "v"}`` (L, B, S, KVH, D), or MLA's ``{"c_kv", "k_rope"}``.  MoE
-and the vision prefix are not ported yet.
+``{"k", "v"}`` (L, B, S, KVH, D), or MLA's ``{"c_kv", "k_rope"}``.  A
+block returns its output and, under MoE, its weighted aux loss
+lb_weight·lb_loss + z_weight·z_loss (None for a dense FFN), which
+``run_segments`` sums over the layers and the DFA engine differentiates
+with cotangent 1; serving does not compute it.  The vision prefix is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -31,8 +36,22 @@ from repro_torch.nn.attention import Attention, MLAttention
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
+from repro_torch.nn.moe import MoE
 from repro_torch.nn.norms import RMSNorm
 from repro_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    d_ff_shared: int | None = None
+    capacity_factor: float = 1.25
+    lb_weight: float = 0.01
+    z_weight: float = 1e-3
+    dispatch: str = "einsum"  # einsum | gather (see nn/moe.py)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +78,7 @@ class TransformerConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     window: int | None = None
-    moe: typing.Any = None  # MoE settings: not ported yet
+    moe: MoESettings | None = None
     mla: MLASettings | None = None
     vision: typing.Any = None  # vision prefix: not ported yet
     dtype: torch.dtype = torch.float32
@@ -76,9 +95,8 @@ class TransformerConfig:
 class DecoderBlock(Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        for field in ("moe", "vision"):
-            if getattr(cfg, field) is not None:
-                raise NotImplementedError(f"TransformerConfig.{field} is not ported yet")
+        if cfg.vision is not None:
+            raise NotImplementedError("TransformerConfig.vision is not ported yet")
         c = cfg
         self.cfg = cfg
         self.norm1 = RMSNorm(c.d_model, c.norm_eps, c.dtype, device)
@@ -94,23 +112,41 @@ class DecoderBlock(Module):
                                   rope_theta=c.rope_theta, window=c.window,
                                   dtype=c.dtype, device=device)
         self.norm2 = RMSNorm(c.d_model, c.norm_eps, c.dtype, device)
-        self.ffn = GatedMLP(c.d_model, c.d_ff, dtype=c.dtype, device=device)
+        if c.moe is not None:
+            m = c.moe
+            self.ffn = MoE(c.d_model, m.d_ff_expert, m.n_experts, m.top_k,
+                           n_shared_experts=m.n_shared_experts, d_ff_shared=m.d_ff_shared,
+                           capacity_factor=m.capacity_factor, dispatch=m.dispatch,
+                           dtype=c.dtype, device=device)
+        else:
+            self.ffn = GatedMLP(c.d_model, c.d_ff, dtype=c.dtype, device=device)
 
     def forward(self, x, positions):
+        """-> (y, the weighted aux loss, or None for a dense FFN)."""
         c = self.cfg
         x = x + self.attn(self.norm1(x), positions=positions, q_chunk=c.q_chunk,
                           k_chunk=c.k_chunk)
-        return x + self.ffn(self.norm2(x))
+        if c.moe is None:
+            return x + self.ffn(self.norm2(x)), None
+        h, aux = self.ffn(self.norm2(x))
+        return x + h, c.moe.lb_weight * aux["lb_loss"] + c.moe.z_weight * aux["z_loss"]
+
+    def _serve_ffn(self, h):
+        """The FFN's output alone: serving computes no aux terms."""
+        return self.ffn(h) if self.cfg.moe is None else self.ffn(h, with_aux=False)[0]
 
     def decode(self, x, cache, cache_len):
         h, cache = self.attn.decode(self.norm1(x), cache, cache_len)
         x = x + h
-        return x + self.ffn(self.norm2(x)), cache
+        return x + self._serve_ffn(self.norm2(x)), cache
 
     def prefill(self, x, cache, cache_len, n_valid):
+        """Chunked cache fill: x (B, C, d).  Padded chunk positions still
+        run the FFN; under MoE they compete for expert capacity, as in the
+        reference."""
         h, cache = self.attn.prefill(self.norm1(x), cache, cache_len, n_valid)
         x = x + h
-        return x + self.ffn(self.norm2(x)), cache
+        return x + self._serve_ffn(self.norm2(x)), cache
 
 
 class TransformerLM(DFAModel, ServingModel):
@@ -145,7 +181,7 @@ class TransformerLM(DFAModel, ServingModel):
         x = self._tokens(tokens)
         positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         for block in photonics.scanned_layers(self.blocks):
-            x = block(x, positions)
+            x, _ = block(x, positions)
         return self._head(self.head["norm"](x))
 
     def _tokens(self, token_ids):
@@ -163,8 +199,7 @@ class TransformerLM(DFAModel, ServingModel):
         block = self.blocks[0]  # the layers share one structure
 
         def apply(p, x, extras):
-            y = functional_call(block, p, (x, extras))
-            return y, torch.zeros((), device=x.device)
+            return functional_call(block, p, (x, extras))
 
         return (SegmentSpec("blocks", self.cfg.n_layers, self.cfg.d_model, apply,
                             stacked=True),)
@@ -174,17 +209,20 @@ class TransformerLM(DFAModel, ServingModel):
 
     def run_segments(self, params, x0):
         """Every block's input (L, B, S, d) on the tape, with the positions
-        as the shared extras."""
+        as the shared extras; the blocks' aux losses summed (zero with
+        none)."""
         b, s, _ = x0.shape
         positions = torch.arange(s, device=x0.device)[None, :].expand(b, s)
         (spec,) = self.segment_specs()
         inputs = x0.new_empty((spec.n_layers, *x0.shape))
-        x = x0
+        x, aux_total = x0, torch.zeros((), device=x0.device)
         for i in range(spec.n_layers):
             inputs[i] = x
-            x, _ = spec.apply(spec.layer_params(params, i), x, positions)
+            x, aux = spec.apply(spec.layer_params(params, i), x, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
         saved = {"blocks": SavedSegment(inputs=inputs, extras=positions)}
-        return x, saved, {"blocks": torch.zeros((), device=x0.device)}
+        return x, saved, {"blocks": aux_total}
 
     def head_logits(self, params, x_final, batch):
         del batch
@@ -236,7 +274,10 @@ class TransformerLM(DFAModel, ServingModel):
 
     def forward_gemm_specs(self):
         """(name, m, k) of every weight-stationary forward projection of one
-        token — the products ``photonics.forward_matmul`` routes."""
+        token, as the reference lists them.  Under MoE that is the router
+        (which runs digitally) and one FFN of the top-k experts' and the
+        shared experts' widths merged: not the bank launches, which are
+        one batched launch over every expert per product."""
         c = self.cfg
         hd = c.head_dim or c.d_model // c.n_heads
         if c.mla is not None:
@@ -254,10 +295,18 @@ class TransformerLM(DFAModel, ServingModel):
                 ("attn.v", c.n_kv_heads * hd, c.d_model),
                 ("attn.o", c.d_model, c.n_heads * hd),
             ]
+        if c.moe is not None:
+            mo = c.moe
+            ff = mo.top_k * mo.d_ff_expert
+            if mo.n_shared_experts:
+                ff += mo.n_shared_experts * (mo.d_ff_shared or mo.d_ff_expert)
+            per_layer.append(("ffn.router", mo.n_experts, c.d_model))
+        else:
+            ff = c.d_ff
         per_layer += [
-            ("ffn.gate", c.d_ff, c.d_model),
-            ("ffn.up", c.d_ff, c.d_model),
-            ("ffn.down", c.d_model, c.d_ff),
+            ("ffn.gate", ff, c.d_model),
+            ("ffn.up", ff, c.d_model),
+            ("ffn.down", c.d_model, ff),
         ]
         specs = []
         for i in range(c.n_layers):

@@ -1,7 +1,10 @@
 """Linear / MLP layers.  Counterpart of ``repro/nn/linear.py``.
 
 Weights are in torch layout (out, in): ``forward_matmul`` hands ``weight``
-to the bank as its (M, K) operand with no copy."""
+to the bank as its (M, K) operand with no copy.  ``stack=E`` holds E such
+weights in one (E, out, in) parameter, the reference's ``stack_init`` of a
+module run under ``jax.vmap`` (a mixture of experts' expert FFNs): each
+product then runs over the stack as one batched bank product."""
 
 from __future__ import annotations
 
@@ -15,9 +18,10 @@ from repro_torch.utils import prng
 
 class Linear(Module):
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, stack: int | None = None):
         super().__init__()
-        self.weight = empty_param((out_dim, in_dim), dtype, device)
+        lead = (stack,) if stack else ()
+        self.weight = empty_param((*lead, out_dim, in_dim), dtype, device)
         self.bias = empty_param((out_dim,), dtype, device) if use_bias else None
 
     def init(self, seed: int):
@@ -58,13 +62,16 @@ class DenseBlock(Linear):
 
 
 class GatedMLP(Module):
-    """SwiGLU gated FFN: down( silu(gate(x)) * up(x) )."""
+    """SwiGLU gated FFN: down( silu(gate(x)) * up(x) ).  With ``stack=E``
+    it is E FFNs on stacked weights, x (E, ..., d_model) -> (E, ...,
+    d_model)."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype=torch.float32, device=None):
+    def __init__(self, d_model: int, d_ff: int, dtype=torch.float32, device=None,
+                 stack: int | None = None):
         super().__init__()
-        self.gate = Linear(d_model, d_ff, dtype=dtype, device=device)
-        self.up = Linear(d_model, d_ff, dtype=dtype, device=device)
-        self.down = Linear(d_ff, d_model, dtype=dtype, device=device)
+        self.gate = Linear(d_model, d_ff, dtype=dtype, device=device, stack=stack)
+        self.up = Linear(d_model, d_ff, dtype=dtype, device=device, stack=stack)
+        self.down = Linear(d_ff, d_model, dtype=dtype, device=device, stack=stack)
 
     def forward(self, x):
         gate = activations.silu(forward_matmul(x, self.gate.weight))

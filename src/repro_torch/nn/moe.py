@@ -1,0 +1,148 @@
+"""Mixture-of-Experts FFN (qwen2-moe, kimi-k2).  Counterpart of
+``repro/nn/moe.py``.
+
+Dispatch is the GShard one-hot capacity formulation: a (T, E, C) dispatch
+tensor scatters each token into its experts' capacity slots, the experts
+run as one stacked FFN over (E, C, d), and a (T, E, C) combine tensor
+gathers their outputs weighted by the router's top-k probabilities.
+Tokens beyond an expert's capacity are dropped in position-in-expert
+order; shared experts run densely on every token.  ``dispatch="gather"``
+reaches the same result through slot indices, with no routing products.
+
+The router is a digital ``x @ Wᵀ``, as in the reference.  The expert FFN's
+three products run through ``forward_matmul`` on the stacked (E, M, K)
+weights, the counterpart of the reference's ``jax.vmap(expert)``: under a
+photonic forward each is one batched bank product with one key.  Token
+groups longer than ``group_size`` are cut along the sequence axis and
+routed one group at a time; the reference scans them, tracing the body
+once, so every group reuses the same three expert keys, and the port
+rewinds the key counter per group (``photonics.scanned_layers``).
+
+Aux losses: the load-balancing loss (Switch) and the router z-loss, with
+the dropped fraction, returned for the trainer to weight.  Serving asks
+for none (``with_aux=False``) and the layer skips computing them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import photonics
+from repro_torch.nn.linear import GatedMLP, Linear
+from repro_torch.nn.module import Module
+
+
+class MoE(Module):
+    def __init__(self, d_model: int, d_ff_expert: int, n_experts: int, top_k: int,
+                 n_shared_experts: int = 0, d_ff_shared: int | None = None,
+                 capacity_factor: float = 1.25, norm_topk_prob: bool = True,
+                 group_size: int = 4096, dispatch: str = "einsum", dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if dispatch not in ("einsum", "gather"):
+            raise ValueError(f"unknown dispatch {dispatch!r}")
+        self.d_model, self.n_experts, self.top_k = d_model, n_experts, top_k
+        self.capacity_factor, self.norm_topk_prob = capacity_factor, norm_topk_prob
+        self.group_size, self.dispatch = group_size, dispatch
+        self.router = Linear(d_model, n_experts, dtype=dtype, device=device)
+        self.experts = GatedMLP(d_model, d_ff_expert, dtype=dtype, device=device,
+                                stack=n_experts)
+        self.shared = (GatedMLP(d_model, (d_ff_shared or d_ff_expert) * n_shared_experts,
+                                dtype=dtype, device=device) if n_shared_experts else None)
+
+    def capacity(self, t: int) -> int:
+        """Slots per expert for a group of ``t`` tokens."""
+        return max(1, int(self.capacity_factor * self.top_k * t / self.n_experts))
+
+    def _route_topk(self, x_flat, with_aux=True):
+        """The routing prelude: (topv (T, K), topi (T, K), keep (T, K, E),
+        pos (T, K), cap, aux); aux is None unless ``with_aux``."""
+        t, e = x_flat.shape[0], self.n_experts
+        cap = self.capacity(t)
+        logits = (x_flat @ self.router.weight.T).float()  # (T, E)
+        probs = torch.softmax(logits, dim=-1)
+        topv, topi = torch.topk(probs, self.top_k, dim=-1)
+        if self.norm_topk_prob:
+            topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+        # one-hot expert assignment per k-slot, and each (token, slot)'s
+        # position in its expert's queue
+        assign = torch.nn.functional.one_hot(topi, e).float()  # (T, K, E)
+        flat = assign.reshape(t * self.top_k, e)
+        pos_in_expert = (torch.cumsum(flat, dim=0) - flat).reshape(t, self.top_k, e)
+        keep = (pos_in_expert < cap).float() * assign
+        pos = torch.einsum("tke,tke->tk", pos_in_expert, keep).long()
+        if not with_aux:
+            return topv, topi, keep, pos, cap, None
+        me = probs.mean(dim=0)  # (E,)
+        ce = assign.sum(dim=1).mean(dim=0)  # the fraction routed to each expert
+        aux = {"lb_loss": e * torch.sum(me * ce),
+               "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+               "dropped_frac": 1.0 - keep.sum() / (t * self.top_k)}
+        return topv, topi, keep, pos, cap, aux
+
+    def _route(self, x_flat, with_aux=True):
+        """x_flat (T, d) -> (combine (T, E, C), dispatch (T, E, C), aux)."""
+        topv, _, keep, pos, cap, aux = self._route_topk(x_flat, with_aux)
+        pos_oh = torch.nn.functional.one_hot(pos, cap).float()  # (T, K, C)
+        dispatch = torch.einsum("tke,tkc->tec", keep, pos_oh)  # in {0, 1}
+        combine = torch.einsum("tk,tke,tkc->tec", topv, keep, pos_oh)
+        return combine, dispatch, aux
+
+    def _group_forward(self, x_flat, with_aux=True):
+        """Route and compute one token group: x_flat (Tg, d) -> (y, aux)."""
+        if self.dispatch == "gather":
+            return self._group_forward_gather(x_flat, with_aux)
+        combine, dispatch, aux = self._route(x_flat, with_aux)
+        expert_in = torch.einsum("tec,td->ecd", dispatch.to(x_flat.dtype), x_flat)
+        expert_out = self.experts(expert_in)  # (E, C, d)
+        y = torch.einsum("tec,ecd->td", combine.to(x_flat.dtype), expert_out)
+        return y, aux
+
+    def _group_forward_gather(self, x_flat, with_aux=True):
+        """Slot-indexed dispatch: token ids scattered into E·C slots (plus
+        one overflow slot that takes every dropped (token, k)), token rows
+        gathered, the experts run, and each (token, k)'s slot output
+        gathered back.  The routing and capacity of the einsum path with
+        no routing products."""
+        t, d = x_flat.shape
+        e = self.n_experts
+        topv, topi, keep, pos, cap, aux = self._route_topk(x_flat, with_aux)
+        kept = keep.sum(-1) > 0  # (T, K): this (token, k) was admitted
+        n_slots = e * cap
+        slot = torch.where(kept, topi * cap + pos, torch.full_like(topi, n_slots))
+        tok_ids = torch.arange(t, device=x_flat.device)[:, None].expand_as(slot)
+        slot_tok = torch.zeros(n_slots + 1, dtype=torch.long, device=x_flat.device)
+        slot_tok[slot.reshape(-1)] = tok_ids.reshape(-1)  # kept slots are unique
+        slot_valid = torch.zeros(n_slots + 1, dtype=x_flat.dtype, device=x_flat.device)
+        slot_valid[slot.reshape(-1)] = 1.0
+        expert_in = x_flat[slot_tok[:n_slots]] * slot_valid[:n_slots, None]
+        expert_out = self.experts(expert_in.reshape(e, cap, d))  # (E, C, d)
+        out_flat = torch.cat([expert_out.reshape(n_slots, d),
+                              expert_out.new_zeros((1, d))], dim=0)
+        per_k = out_flat[slot]  # (T, K, d); the overflow row is zeros
+        y = torch.einsum("tk,tkd->td", topv.to(per_k.dtype), per_k)
+        return y, aux
+
+    def forward(self, x, with_aux=True):
+        """x (B, S, d) -> (y (B, S, d), aux), aux None unless ``with_aux``.
+
+        Above ``group_size`` tokens the groups are cut along the sequence
+        axis, (B, chunk) tokens each, and the aux terms are their means."""
+        b, s, d = x.shape
+        t = b * s
+        chunk = max(1, self.group_size // b)
+        if t <= self.group_size or s % chunk != 0:
+            y, aux = self._group_forward(x.reshape(t, d), with_aux)
+        else:
+            xg = x.reshape(b, s // chunk, chunk, d).transpose(0, 1)  # (G, B, chunk, d)
+            ys, auxes = [], []
+            for xt in photonics.scanned_layers(xg):  # every group: the same expert keys
+                yt, auxt = self._group_forward(xt.reshape(b * chunk, d), with_aux)
+                ys.append(yt.reshape(b, chunk, d))
+                auxes.append(auxt)
+            y = torch.stack(ys).transpose(0, 1).reshape(t, d)
+            aux = ({k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+                   if with_aux else None)
+        if self.shared is not None:
+            y = y + self.shared(x.reshape(t, d))
+        return y.reshape(b, s, d), aux

@@ -6,9 +6,10 @@ FLOPs (2 · |out| · contracted).  The port runs eagerly, so it counts the
 products as they run, with ``torch.utils.flop_counter.FlopCounterMode``,
 and adds the hand-written kernels, which the mode cannot see (they are
 launched through ``ctypes``): each wrapper calls ``count_launch`` with the
-work of its launch, 2·T·K·M from its operands' shapes.  On CPU tensors a
-wrapper runs its plain version, which the mode counts, and reports
-nothing, so no product is counted twice.
+work of its launch, 2·T·K·M from its operands' shapes (2·E·T·K·M for a
+batched launch of E products).  On CPU tensors a wrapper runs its plain
+version, which the mode counts, and reports nothing, so no product is
+counted twice.
 
 Two rules bring the count to the reference's:
 
