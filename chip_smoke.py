@@ -100,12 +100,12 @@ sources in the checkout.  Phases:
     against its plain version on the path's own operands at every shape,
     granite's K = 14336 by both skinny variants in bf16 and f32) with a
     profiled prefill tick and two decode ticks, and f32 ideal cuda-vs-ref
-    parity; DFA training in f32 at batch 64 x seq 64 of qwen3 (16 steps,
+    parity; DFA training in f32 at batch 64 x seq 64 of qwen3 (8 steps,
     29 launches a step, ideal cuda = ref gradients, step ms, profile,
     ``step_cost``, peak memory; 4 steps on emu_offchip with the emu kernel
     bit for bit; 2 steps at batch 2 x seq 4096 whose every block runs
     ``flash_attention``, held to ``reference_attention`` on the card) and
-    of minicpm3 (8 steps, at the depth that leaves 5 GiB of the card free,
+    of minicpm3 (4 steps, at the depth that leaves 5 GiB of the card free,
     printed); the bank kernel timed at every decode shape and both
     training shapes.  One ``{"dense_model": ...}`` line per model precedes
     the kernels record;
@@ -124,7 +124,24 @@ sources in the checkout.  Phases:
     router's included); kimi-k2-1t-a32b's full() on the meta device and
     its expert products (384 experts) against the plain version; the bank
     kernel timed at every decode shape, the experts' prefill shapes and
-    kimi's.  One ``{"moe_model": ...}`` line follows the dense lines.
+    kimi's.  One ``{"moe_model": ...}`` line follows the dense lines;
+19. the recurrentgemma family (``[rg_*]``, ``phase_recurrentgemma``):
+    recurrentgemma-9b at full width (38 layers = 12 x (RG-LRU, RG-LRU,
+    local attention) + 2 RG-LRU, d 4096, vocab 256000, window 2048; 10.44
+    B parameters, random weights from --seed) served in bf16 on
+    offchip_bpd through the bank kernel (293 launches a forward; the
+    prefill by the masked decode-scan; the kernel against its plain
+    version at every (T, K, M) of the path, the K = 12288 down projection
+    by both skinny variants) with a profiled prefill tick and two decode
+    ticks; f32 ideal cuda-vs-ref parity; a full-width local attention
+    layer decoding 2100 tokens through its 2048-slot ring against its
+    windowed forward, and the windowed ``flash_attention`` at batch 2 x
+    seq 4096 against its oracle; f32 ``dfa`` training at 4 layers (one of
+    each segment) at the largest batch of 64 / 32 / 16 x seq 64 that
+    leaves 5 GiB free (printed), ideal cuda = ref gradients; emu serving
+    at 4 layers with the emu kernel bit for bit; the bank kernel timed at
+    every decode shape.  One ``{"rg_model": ...}`` line follows the MoE
+    line.
 
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
@@ -573,6 +590,20 @@ def phase_serve(torch, np, pm, api, seed):
     return launches
 
 
+def _logit_agreement(ref_logits, cuda_logits):
+    """(max |Δlogit| / max|logit|, positions with a clear top-2 gap, of
+    them where the greedy tokens agree) over paired logits."""
+    worst, gated, agree = 0.0, 0, 0
+    for r, c in zip(ref_logits, cuda_logits):
+        scale = r.abs().max().item()
+        worst = max(worst, (r - c).abs().max().item() / scale)
+        top2 = r.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 10 * 1e-4 * scale
+        gated += int(sure.sum())
+        agree += int((r.argmax(-1) == c.argmax(-1))[sure].sum())
+    return worst, gated, agree
+
+
 def phase_parity(torch, np, api, seed, arch=ARCH, tag="parity"):
     """f32 on the ideal preset: the ``cuda`` backend against the ``ref``
     backend, teacher-forced (two prefill chunks of 16, then 8 decode
@@ -608,15 +639,7 @@ def phase_parity(torch, np, api, seed, arch=ARCH, tag="parity"):
 
     ref_logits, ref_tokens = run("ref")
     cuda_logits, _ = run("cuda", forced=ref_tokens)
-    worst, gated, agree = 0.0, 0, 0
-    for r, c in zip(ref_logits, cuda_logits):
-        scale = r.abs().max().item()
-        rel = (r - c).abs().max().item() / scale
-        worst = max(worst, rel)
-        top2 = r.topk(2, dim=-1).values
-        sure = (top2[..., 0] - top2[..., 1]) > 10 * 1e-4 * scale
-        gated += int(sure.sum())
-        agree += int((r.argmax(-1) == c.argmax(-1))[sure].sum())
+    worst, gated, agree = _logit_agreement(ref_logits, cuda_logits)
     print(f"[{tag}] f32 ideal, cuda vs ref over {len(ref_logits)} forwards: "
           f"max |Δlogit| / max|logit| = {worst:.3e} (limit 1e-4); greedy tokens agree at "
           f"{agree}/{gated} positions with a top-2 gap > 1e-3·max|logit|")
@@ -830,13 +853,14 @@ def _device_kernels(torch, prof):
                   key=lambda e: e.time_range.start)
 
 
-def _event_ms(torch, fn, reps=25):
+def _event_ms(torch, fn, reps=25, warm=3):
     """Time of one call of ``fn`` on CUDA events: the median over ``reps``
-    single calls, each after a write of 64 MiB that evicts the operands
-    from the 50 MB L2.  The interval opens before the call is issued, so
-    it includes the host's launch overhead when that exceeds the kernel."""
+    single calls after ``warm`` unmeasured ones, each after a write of 64
+    MiB that evicts the operands from the 50 MB L2.  The interval opens
+    before the call is issued, so it includes the host's launch overhead
+    when that exceeds the kernel."""
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -1545,10 +1569,16 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
         a_t, delta, mask, n_panels = case
         kw = dict(n_panels=n_panels, gamma=1.0, sigma=0.202, shot=0.0, adc_bits=8, amax=20.0,
                   seed=EMU_SEED)
-        fns = {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw),
-               "plain_ms": lambda: em.emu_bank_product_plain(a_t, delta, mask, **kw)}
+        def plain():
+            return em.emu_bank_product_plain(a_t, delta, mask, **kw)
+
+        # the plain version's device time from one profiled call: its ~10^4
+        # small launches a call make a window of many calls slow to read
         row = {"shape": [t, m, k], "n_buses": pkw.get("n_buses", 1),
-               **_time_fns(torch, fns, {"ms": 25, "plain_ms": 5})}
+               **_time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(
+                   a_t, delta, mask, **kw)}, {"ms": 25}),
+               "plain_ms": _event_ms(torch, plain, reps=5),
+               "plain_dev_ms": _device_ms(torch, plain, reps=1, spare=2)}
         row["bound_ms"], row["bound_by"], binding, terms = emu_bound(case, 0.202, 0.0, peaks,
                                                                      draw, sms)
         row["library_ms"] = None
@@ -1562,8 +1592,9 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
 
     # path B: every bank product of one qwen1.5-0.5b forward through emu_offchip banks
     print("[emu_timing] path B (emu_offchip: bf16 a_t, f32 δ, σ 0.098, shot 0, 10-bit ADC); "
-          "ms: CUDA events (median of 25, cold L2; the plain version's of 3, its device time "
-          "not measured); dev: profiler (median of 25); share and GB/s from dev")
+          "ms: CUDA events (median of 25, cold L2; the plain version's: one call after one "
+          "warm-up, its device time not measured); dev: profiler (median of 25); share and GB/s "
+          "from dev")
     print("[emu_timing]      T      M      K  count  kernel_ms kernel_dev   plain_ms   bound_ms  "
           "by     bytes_ms    prng_ms   share    GB/s  plan")
     cfg = ph.PRESETS["emu_offchip"]
@@ -1579,11 +1610,12 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
 
             # the plain version on CUDA events only: its ~10^4 small launches a
             # call, profiled, overflow the profiler, which then drops the
-            # first calls of every later window (seen on the card)
+            # first calls of every later window (seen on the card).  One
+            # call after one warm-up: the plain version is a yardstick
             row = {"t": t, "m": m, "k": k, "count": count, **_time_fns(torch, {
                 "ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw)}, {"ms": 25}),
                 "plain_ms": _event_ms(torch, lambda: em.emu_bank_product_plain(
-                    a_t, delta, mask, **kw), reps=3)}
+                    a_t, delta, mask, **kw), reps=1, warm=1)}
             row["bound_ms"], row["bound_by"], _, terms = emu_bound(case, sigma, shot, peaks,
                                                                    draw, sms)
             row["bytes_ms"], row["prng_ms"] = terms["bytes"] * 1e3, terms["prng"] * 1e3
@@ -1847,9 +1879,10 @@ def _emu_fit(torch, em, make_session, gen, steps, per_step, tag, timing_tag, car
           f"version bit for bit (max |Δ| {err:.1e}; plain version {plain_s:.2f}s)")
     row = _time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw)},
                     {"ms": 25})
-    # the plain version on CUDA events only, as path B's (phase_emu_timing)
+    # the plain version on CUDA events only, one call after one warm-up, as
+    # path B's (phase_emu_timing)
     row["plain_ms"] = _event_ms(
-        torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **kw), reps=3)
+        torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **kw), reps=1, warm=1)
     row["bound_ms"], row["bound_by"], binding, terms = emu_bound(
         (a_t, delta, mask, kw["n_panels"]), kw["sigma"], kw["shot"], peaks, draws["emu"], sms)
     row.update(library_ms=None, plan=plan.name, launches_per_step=per_step,
@@ -2583,14 +2616,7 @@ def _mamba_parity(torch, np, api, seed):
 
     ref_logits, ref_tokens = run("ref")
     cuda_logits, _ = run("cuda", forced=ref_tokens)
-    worst, gated, agree = 0.0, 0, 0
-    for r, c in zip(ref_logits, cuda_logits):
-        scale = r.abs().max().item()
-        worst = max(worst, (r - c).abs().max().item() / scale)
-        top2 = r.topk(2, dim=-1).values
-        sure = (top2[..., 0] - top2[..., 1]) > 10 * 1e-4 * scale
-        gated += int(sure.sum())
-        agree += int((r.argmax(-1) == c.argmax(-1))[sure].sum())
+    worst, gated, agree = _logit_agreement(ref_logits, cuda_logits)
     print(f"[mamba_parity] f32 ideal, cuda vs ref over {len(ref_logits)} forwards (2 decode-scan "
           f"prefill chunks + {n_decode} decode steps): max |Δlogit| / max|logit| = {worst:.3e} "
           f"(limit 1e-4); greedy tokens agree at {agree}/{gated} positions with a top-2 gap > "
@@ -2806,7 +2832,7 @@ QWEN3, MINICPM3, GRANITE = "qwen3-1.7b", "minicpm3-4b", "granite-8b"
 DENSE_FULL = {QWEN3: (28, 2048, 6144, 151936), MINICPM3: (62, 2560, 6400, 73448),
               GRANITE: (36, 4096, 14336, 49152)}
 DENSE_FORWARD = {arch: 7 * dims[0] + 1 for arch, dims in DENSE_FULL.items()}  # 197, 435, 253
-DENSE_STEPS = {QWEN3: 16, MINICPM3: 8}  # f32 dfa fit steps at batch 64 x seq 64
+DENSE_STEPS = {QWEN3: 8, MINICPM3: 4}  # f32 dfa fit steps at batch 64 x seq 64
 DENSE_EMU_STEPS = 4
 LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 4096, 2  # above 2·k_chunk: flash_attention
 FLASH_TOL = 2e-5  # the reference's flash-vs-reference bound (tests/test_layers.py)
@@ -2827,12 +2853,14 @@ def _dense_decode_shapes(model):
     return shapes
 
 
-def _serve_captured(torch, np, pm, session, seed, key, per_forward, tag):
+def _serve_captured(torch, np, pm, session, seed, key, per_forward, tag, scan=False):
     """Serve ``session``'s model (4 slots, prefill chunk 16): a warm-up
     request, then 8 requests of 32-token prompts and 16 new tokens with the
     bank kernel's launches counted (``per_forward`` a forward) and the first
     call of each ``key(a, b)`` captured as (a, b, kw, out); the requests
-    finish, the logits are finite.  -> the run's numbers with ``captured``."""
+    finish, the logits are finite.  ``scan``: the model prefills by the
+    masked decode-scan, one forward a token position of each chunk.  -> the
+    run's numbers with ``captured``."""
     from repro_torch.kernels import ops as kops
     from repro_torch.serve import Request
 
@@ -2865,7 +2893,8 @@ def _serve_captured(torch, np, pm, session, seed, key, per_forward, tag):
         launches = pm.launches
     finally:
         kops.photonic_matmul_cuda = kernel
-    forwards = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
+    forwards = (_mamba_forwards(eng, 16) if scan
+                else eng.stats["prefill_steps"] + eng.stats["decode_steps"])
     tokens = sum(len(r.out) for r in reqs)
     ttft = statistics.median(r.ttft_s for r in reqs)
     print(f"[{tag}] full() ({n_params / 1e9:.3f} B parameters) bf16, offchip_bpd, cuda "
@@ -2931,25 +2960,8 @@ def _dense_serve(torch, np, api, pm, arch, seed):
           f"(tol {tol})")
     skinny = {}
     for (t, k, m), (a, b, kw, _) in sorted(captured.items()):
-        if t != 4 or k != SKINNY_K:
-            continue
-        # the largest K of any path: A staged in shared memory near the limit
-        # in f32 (T·K·4 bytes), by both skinny variants
-        for dtype in (torch.bfloat16, torch.float32):
-            a_, b_ = a.to(dtype).contiguous(), b.to(dtype).contiguous()
-            expect = pm.photonic_matmul_plain(a_, b_, **kw)
-            for plan in (pm.Plan(pm.SKINNY), pm.Plan(pm.SKINNY_SCALAR)):
-                got = pm.launch_kernel(a_, b_, plan=plan, **kw)
-                err = (got - expect).abs().max().item() / expect.abs().max().item()
-                name = f"{plan.name} {str(dtype).split('.')[-1]}"
-                skinny[name] = err
-                check(err <= TOL[str(dtype).split(".")[-1]],
-                      f"{name} at (T, K, M) = {(t, k, m)}: {err:.3e} of max|plain|")
-            del a_, b_, expect, got
-        print(f"[{tag}] (T, K, M) = {(t, k, m)}: A staged in {4 * k * 2} B (bf16) / {4 * k * 4} "
-              f"B (f32) of shared memory (limit {pm.SMEM_MAX}); planner picks "
-              f"{pm._plan(4, m, k, torch.float32, (0, 0)).name} in f32; both skinny variants vs "
-              f"plain: " + ", ".join(f"{n} {e:.3e}" for n, e in skinny.items()))
+        if t == 4 and k == SKINNY_K:
+            skinny = _skinny_variants(torch, pm, a, b, kw, tag)
     del captured
     profile = phase_profile_ticks(torch, np, api, seed, tag=tag, session=session)
     del session, model
@@ -2958,20 +2970,57 @@ def _dense_serve(torch, np, api, pm, arch, seed):
     return {**run, "max_rel_err": max_err, "skinny_k14336": skinny, "profile": profile}
 
 
+def _skinny_variants(torch, pm, a, b, kw, tag):
+    """A path's largest-K decode product (A staged in shared memory near
+    the limit in f32, T·K·4 bytes) by both skinny variants, in bf16 and
+    f32, against the plain version.  -> {variant dtype: error of
+    max|plain|}."""
+    (t, k), m = a.shape, b.shape[0]
+    skinny = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        a_, b_ = a.to(dtype).contiguous(), b.to(dtype).contiguous()
+        expect = pm.photonic_matmul_plain(a_, b_, **kw)
+        for plan in (pm.Plan(pm.SKINNY), pm.Plan(pm.SKINNY_SCALAR)):
+            got = pm.launch_kernel(a_, b_, plan=plan, **kw)
+            err = (got - expect).abs().max().item() / expect.abs().max().item()
+            name = f"{plan.name} {str(dtype).split('.')[-1]}"
+            skinny[name] = err
+            check(err <= TOL[str(dtype).split(".")[-1]],
+                  f"{name} at (T, K, M) = {(t, k, m)}: {err:.3e} of max|plain|")
+        del a_, b_, expect, got
+    print(f"[{tag}] (T, K, M) = {(t, k, m)}: A staged in {t * k * 2} B (bf16) / {t * k * 4} "
+          f"B (f32) of shared memory (limit {pm.SMEM_MAX}); planner picks "
+          f"{pm._plan(t, m, k, torch.float32, (0, 0)).name} in f32; both skinny variants vs "
+          f"plain: " + ", ".join(f"{n} {e:.3e}" for n, e in skinny.items()))
+    return skinny
+
+
+def _segment_params(model):
+    """({segment: parameters of its layer 0}, parameters outside every
+    segment) of a model, read from its ``segment_specs``."""
+    specs = model.segment_specs()
+    per_layer = {sp.name: sum(p.numel() for n, p in model.named_parameters()
+                              if n.startswith(sp.layer_prefix(0))) for sp in specs}
+    inside = tuple(f"{sp.name}." for sp in specs)
+    rest = sum(p.numel() for n, p in model.named_parameters() if not n.startswith(inside))
+    return per_layer, rest
+
+
 def _dense_depth(torch, arch, steps_batch_rows, act=None):
     """The depth at which ``arch``'s f32 dfa training leaves FREE_GIB of the
     card free, reckoned from its parameter counts: STATE_COPIES f32 copies
     of every parameter, plus the activations of ``steps_batch_rows`` rows
     (the DFA tape, logits, their softmax and gradient, one block's
-    recompute), under the card's memory.  Full depth where it fits.
-    ``act`` gives the activations in bytes, measured, in place of the
-    reckoning."""
+    recompute), under the card's memory.  Full depth where it fits.  A
+    layer's parameters are its segment's layer 0's (``_segment_params``;
+    these models have one segment).  ``act`` gives the activations in
+    bytes, measured, in place of the reckoning."""
     from repro_torch import configs
 
     meta = configs.get(arch).make_model(torch.float32, device="meta")
     cfg = meta.cfg
-    per_layer = sum(p.numel() for n, p in meta.named_parameters() if n.startswith("blocks.0."))
-    rest = sum(p.numel() for n, p in meta.named_parameters() if not n.startswith("blocks."))
+    segments, rest = _segment_params(meta)
+    per_layer = max(segments.values())  # one segment of homogeneous blocks here
     rows = steps_batch_rows
     if act is None:
         act = 4 * rows * (4 * cfg.v_padded + 16 * max(cfg.d_ff, cfg.d_model))
@@ -3231,11 +3280,11 @@ MOE_EMU_LAYERS = 2  # the emu serve's depth at full width
 KIMI_SLICE = 32  # experts a slice of kimi's plain version (1.9 GB of f32 weights)
 
 
-def _moe_meta(torch, arch):
-    """``arch``'s full() in bf16 on the meta device."""
+def _meta_model(torch, arch, dtype=None):
+    """``arch``'s full() on the meta device, in bf16 unless ``dtype``."""
     from repro_torch import configs
 
-    return configs.get(arch).make_model(torch.bfloat16, device="meta")
+    return configs.get(arch).make_model(dtype or torch.bfloat16, device="meta")
 
 
 def _moe_launches(cfg):
@@ -3336,7 +3385,7 @@ def _moe_emu_serve(torch, np, api, em, seed):
     from repro_torch.serve import Request
 
     tag = "moe_emu"
-    cfg = dataclasses.replace(_moe_meta(torch, QWEN2MOE).cfg, n_layers=MOE_EMU_LAYERS)
+    cfg = dataclasses.replace(_meta_model(torch, QWEN2MOE).cfg, n_layers=MOE_EMU_LAYERS)
     model = TransformerLM(cfg, device=DEVICE).init(seed)
     session = api.build_session(arch=model, algo="bp", hardware="emu_offchip", backend="emu",
                                 seed=seed, device=DEVICE)
@@ -3384,7 +3433,7 @@ def _moe_act_probe(torch, api, seed, rows):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    cfg = dataclasses.replace(_moe_meta(torch, QWEN2MOE).cfg, n_layers=1, dtype=torch.float32)
+    cfg = dataclasses.replace(_meta_model(torch, QWEN2MOE).cfg, n_layers=1, dtype=torch.float32)
     model = TransformerLM(cfg, device=DEVICE)
     session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
                                 seed=seed, device=DEVICE)
@@ -3440,7 +3489,7 @@ def _moe_train(torch, api, pm, seed, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_gib = torch.cuda.memory_allocated() / 2**30
-    cfg = dataclasses.replace(_moe_meta(torch, QWEN2MOE).cfg, n_layers=depth,
+    cfg = dataclasses.replace(_meta_model(torch, QWEN2MOE).cfg, n_layers=depth,
                               dtype=torch.float32)
     model = TransformerLM(cfg, device=DEVICE)
     session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
@@ -3643,7 +3692,7 @@ def phase_moe(torch, np, api, pm, em, seed, card, draws):
     out["train"] = _moe_train(torch, api, pm, seed, card)
     gen = torch.Generator(device=DEVICE).manual_seed(20)
     print(f"[moe_timing] {kind} peaks; card: {card}")
-    rows, forward, prefill = _moe_timing(torch, pm, _moe_meta(torch, QWEN2MOE), peaks, gen,
+    rows, forward, prefill = _moe_timing(torch, pm, _meta_model(torch, QWEN2MOE), peaks, gen,
                                          "qwen2-moe")
     out["decode"] = {"shapes": rows, "forward": forward, "prefill_experts": prefill}
     out["kimi"] = _kimi(torch, pm, peaks, gen)
@@ -3669,6 +3718,404 @@ def moe_summary(res):
             "aux_losses": prof["aux_losses"], "dropped_frac": prof["dropped_frac"],
             "decode_forward_dev_ms": res["decode"]["forward"]["dev_ms"],
             "kimi_params": res["kimi"]["n_params"], "seconds": res["seconds"]}
+
+
+# ---------------------------------------------------------------------------
+# the recurrentgemma family (phase_recurrentgemma)
+# ---------------------------------------------------------------------------
+RG = "recurrentgemma-9b"
+# (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, d_rnn, window) of its full()
+RG_FULL = (38, 4096, 16, 1, 12288, 256000, 4096, 2048)
+# bank products a token: 26 recurrent layers x 8 (in_x, w_a, w_i, in_gate,
+# out, the MLP's 3), 12 attention layers x 7 (q, k, v, o, the MLP's 3), the head
+RG_FORWARD = 26 * 8 + 12 * 7 + 1  # 293
+RG_DEPTH = 4  # training: one (rec, rec, attn) group and one tail layer
+RG_STEPS = 8  # f32 dfa fit steps
+RG_BATCHES = (64, 32, 16)  # x LM_SEQ: the largest that leaves FREE_GIB free
+# the memory probe's steps: the allocator's reserve above the allocated peak
+# grows after the first step (seen on the card)
+RG_PROBE_STEPS = 2
+RG_EMU_LAYERS = 4
+RG_RING_TOKENS = 2100  # past the 2048-slot ring
+
+
+def _rg_cfg(torch, depth=None, dtype=None):
+    """recurrentgemma-9b's full config in ``dtype`` (f32 by default), cut to
+    ``depth`` layers."""
+    import dataclasses
+
+    cfg = _meta_model(torch, RG, dtype or torch.float32).cfg
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers)
+
+
+def _rg_serve(torch, np, api, pm, seed):
+    """recurrentgemma-9b's full() in bf16 on offchip_bpd, ``cuda`` backend,
+    4 slots: 8 requests of 32-token prompts and 16 new tokens, prefill
+    chunk 16 by the masked decode-scan; 293 launches a forward; the kernel
+    against its plain version on the path's own operands at every (T, K,
+    M) (the first call of each), the K = 12288 down projection by both
+    skinny variants; a prefill tick and two decode ticks under the
+    profiler."""
+    tag = "rg_serve"
+    session = api.build_session(arch=RG, algo="bp", smoke=False, hardware="offchip_bpd",
+                                backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    model = session.model
+    c = model.cfg
+    check((c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff, c.vocab_size, c.d_rnn,
+           c.window) == RG_FULL and not model.supports_parallel_prefill,
+          "not recurrentgemma-9b's full config")
+    check(len(model.forward_gemm_specs()) == RG_FORWARD, f"not {RG_FORWARD} bank products")
+    run = _serve_captured(torch, np, pm, session, seed,
+                          lambda a, b: (a.shape[0], a.shape[1], b.shape[0]), RG_FORWARD, tag,
+                          scan=True)
+    captured = run.pop("captured")
+    decode = _dense_decode_shapes(model)
+    check(set(captured) == set(decode), f"the path's (T, K, M) {sorted(captured)}, not "
+                                        f"{sorted(decode)}")
+    max_err = _captured_vs_plain(torch, pm, captured, "(T, K, M)")
+    modes = sorted({"input" if "noise" in kw else "none" for _, _, kw, _ in captured.values()})
+    print(f"[{tag}] kernel vs plain on the path's own bf16 operands (first call of each of "
+          f"{len(captured)} (T, K, M): {', '.join(str(x) for x in sorted(captured))}; "
+          f"{'/'.join(modes)} noise): max |kernel - plain| / max|plain| = {max_err:.3e} "
+          f"(tol {TOL['bfloat16']})")
+    a, b, kw, _ = captured[(4, c.d_ff, c.d_model)]
+    skinny = _skinny_variants(torch, pm, a, b, kw, tag)
+    del captured, a, b, kw
+    profile = phase_profile_ticks(torch, np, api, seed, tag=tag, session=session)
+    del session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "max_rel_err": max_err, "skinny_k12288": skinny, "profile": profile}
+
+
+def _rg_parity(torch, np, api, seed):
+    """full() in f32 (41.8 GB of weights, one model for both backends) on
+    the ideal preset: the ``cuda`` backend against the ``ref`` backend,
+    teacher-forced (one prefill chunk of 16 by the decode-scan, then 8
+    decode steps)."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.serve.decode import make_prefill_step
+
+    model = api.build_model(RG, dtype=torch.float32, device=DEVICE, seed=seed)
+    tokens = torch.tensor(_prompts(np.random.default_rng(seed + 12), 4, 16, RG_FULL[5]),
+                          device=DEVICE)
+    prefill, n_decode = make_prefill_step(model), 8
+
+    def run(backend, forced=None):
+        caches = model.init_caches(4, 128)
+        cache_len = torch.zeros(4, dtype=torch.long, device=DEVICE)
+        full = torch.full((4,), tokens.shape[1], dtype=torch.long, device=DEVICE)
+        logits_seq, chosen = [], []
+        with torch.no_grad(), ph.forward_execution(ph.PRESETS["ideal"], backend):
+            last, caches, cache_len = prefill(tokens, full, caches, cache_len)
+            logits_seq.append(last)
+            tok = last.argmax(-1)
+            for s in range(n_decode):
+                tok = forced[s] if forced is not None else tok
+                chosen.append(tok)
+                logits, caches = model.decode_step(tok[:, None], caches, cache_len)
+                cache_len = cache_len + 1
+                logits_seq.append(logits[:, -1].float())
+                tok = logits[:, -1].argmax(-1)
+        return logits_seq, chosen
+
+    ref_logits, ref_tokens = run("ref")
+    cuda_logits, _ = run("cuda", forced=ref_tokens)
+    worst, gated, agree = _logit_agreement(ref_logits, cuda_logits)
+    print(f"[rg_parity] f32 ideal, cuda vs ref over {len(ref_logits)} forwards' last logits (a "
+          f"decode-scan prefill of 16 positions + {n_decode} decode steps): max |Δlogit| / "
+          f"max|logit| = {worst:.3e} (limit 1e-4); greedy tokens agree at {agree}/{gated} "
+          f"positions with a top-2 gap > 1e-3·max|logit|")
+    check(worst <= 1e-4, f"cuda vs ref logits differ by {worst:.3e} of max|logit|")
+    check(agree == gated, "greedy tokens differ where the top-2 gap is clear")
+    del model, ref_logits, cuda_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_rel": worst, "clear_positions": gated, "agree": agree}
+
+
+def _rg_attention(torch, seed):
+    """One full-width local attention layer (d 4096, 16 heads, kv 1, head
+    dim 256, window 2048) in f32: RG_RING_TOKENS decode steps through its
+    2048-slot ring buffer against its windowed full forward on the same
+    tokens (tests/test_layers.py's bound); then ``flash_attention`` at
+    batch 2 x seq 4096 with window 2048 against the windowed
+    ``reference_attention`` within FLASH_TOL."""
+    from repro_torch.nn import attention
+
+    tag = "rg_attention"
+    c = _rg_cfg(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
+    layer = attention.Attention(c.d_model, c.n_heads, c.n_kv_heads, window=c.window,
+                                rope_theta=c.rope_theta, device=DEVICE).init(seed)
+    x = torch.randn((2, RG_RING_TOKENS, c.d_model), generator=gen, device=DEVICE)
+    with torch.no_grad():
+        full = layer(x, q_chunk=c.q_chunk, k_chunk=c.k_chunk)
+        cache = layer.init_cache(2, 4096)
+        slots = cache["k"].shape[1]
+        check(slots == c.window, f"a {slots}-slot cache, not the window's {c.window}")
+        t0 = time.perf_counter()
+        outs = []
+        for t in range(RG_RING_TOKENS):
+            y, cache = layer.decode(x[:, t:t + 1], cache,
+                                    torch.full((2,), t, dtype=torch.long, device=DEVICE))
+            outs.append(y)
+        dec = torch.cat(outs, dim=1)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    excess = ((dec - full).abs() - (2e-5 + 1e-4 * full.abs())).max().item()
+    ring_err = (dec - full).abs().max().item()
+    wrapped = (dec[:, c.window:] - full[:, c.window:]).abs().max().item()
+    print(f"[{tag}] ring buffer: {RG_RING_TOKENS} decode steps of 2 rows through {slots} slots "
+          f"(the ring wraps at token {c.window}) in {wall:.2f}s against the windowed full "
+          f"forward (seq {RG_RING_TOKENS}, f32): max |Δ| {ring_err:.3e} (past the wrap "
+          f"{wrapped:.3e}; max|y| {full.abs().max().item():.3f}; tol 2e-5 + 1e-4·|y|)")
+    check(excess <= 0, f"the ring-buffer decode differs from the windowed forward by {ring_err}")
+    del layer, x, full, cache, outs, dec
+
+    shape = (LONG_BATCH, LONG_SEQ)
+    q = torch.randn((*shape, c.n_heads, c.d_model // c.n_heads), generator=gen, device=DEVICE)
+    k = torch.randn((*shape, c.n_kv_heads, c.d_model // c.n_heads), generator=gen,
+                    device=DEVICE)
+    v = torch.randn_like(k)
+    pos = torch.arange(LONG_SEQ, device=DEVICE)[None, :].expand(*shape)
+    kw = dict(q_pos=pos, kv_pos=pos, causal=True, window=c.window)
+    got = attention.flash_attention(q, k, v, q_chunk=c.q_chunk, k_chunk=c.k_chunk, **kw)
+    expect = attention.reference_attention(q, k, v, **kw)
+    excess = ((got - expect).abs() - FLASH_TOL * (1 + expect.abs())).max().item()
+    flash_err = (got - expect).abs().max().item()
+    print(f"[{tag}] flash_attention vs reference_attention, window {c.window}, q "
+          f"{tuple(q.shape)}, k/v {tuple(k.shape)} f32 (q_chunk {c.q_chunk}, k_chunk "
+          f"{c.k_chunk}): max |Δ| {flash_err:.3e} (max|ref| {expect.abs().max().item():.3f}; "
+          f"tol {FLASH_TOL} abs + rel)")
+    check(excess <= 0, f"windowed flash_attention differs from the oracle by {flash_err:.3e}")
+    del q, k, v, got, expect
+    torch.cuda.empty_cache()
+    return {"ring_max_abs_err": ring_err, "ring_wall_s": wall, "flash_max_abs_err": flash_err}
+
+
+def _rg_train(torch, api, pm, seed, card):
+    """recurrentgemma at full width in f32, cut to RG_DEPTH layers (one
+    (rec, rec, attn) group and one tail layer, so every segment trains):
+    RG_PROBE_STEPS dfa steps at batch 16 measure the activations and what
+    the allocator reserves above them, the largest batch of RG_BATCHES x
+    seq 64 that leaves FREE_GIB free by that measure is taken (printed);
+    RG_STEPS dfa fit steps on offchip_bpd (``cuda``), one
+    launch a block and the embedding's; block 0's and the embedding's δ
+    against the plain version; ideal cuda = ref gradients; step ms, a
+    profile, step_cost and peak memory."""
+    from repro_torch.data import tokens
+    from repro_torch.models.recurrentgemma import RecurrentGemmaLM
+
+    tag = "rg_train"
+    kind, peaks = card_peaks(card)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log = pm._BUILD_DIR / f"rg_train-{os.getpid()}.csv"
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = _rg_cfg(torch, RG_DEPTH)
+    model = RecurrentGemmaLM(cfg, device=DEVICE)
+    check(cfg.n_groups == 1 and cfg.n_tail == 1
+          and [s.n_layers for s in model.segment_specs()] == [1, 1, 1, 1],
+          "not one layer in each of the four segments")
+    session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
+                                seed=seed, log_every=1, log_path=str(log), device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    segments, rest = _segment_params(model)
+    states = STATE_COPIES * 4 * n_params
+
+    # steps at batch 16: their activations and the allocator's reserve
+    # above their allocated peak, measured
+    small = 16 * LM_SEQ
+    probe_gen = tokens.MarkovTokens(cfg.vocab_size, LM_SEQ, 16, seed + 1)
+    torch.cuda.reset_peak_memory_stats()
+    state = session.init_state()
+    for i in range(RG_PROBE_STEPS):
+        state, _ = session.step(state, probe_gen.batch(i))
+    sync(torch)
+    peak = torch.cuda.max_memory_allocated() - base
+    reserve = torch.cuda.max_memory_reserved() - torch.cuda.max_memory_allocated()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    act_row = max(0, peak - states) / small
+    fits = [b for b in RG_BATCHES
+            if base + states + act_row * b * LM_SEQ + reserve + FREE_GIB * 2**30 <= total]
+    batch = fits[0] if fits else RG_BATCHES[-1]
+    rows = batch * LM_SEQ
+    print(f"[{tag}] depth {cfg.n_layers} of {RG_FULL[0]} layers at full width (one group: "
+          + ", ".join(f"{n} {p / 1e6:.1f} M" for n, p in segments.items())
+          + f" parameters a layer; {rest / 1e9:.3f} B in the embedding, head and norms): "
+          f"{n_params / 1e9:.3f} B parameters, {STATE_COPIES} f32 copies "
+          f"{states / 2**30:.2f} GiB; {RG_PROBE_STEPS} steps at batch 16 x seq {LM_SEQ} peaked "
+          f"{peak / 2**30:.2f} GiB above resident: activations {act_row * small / 2**30:.2f} "
+          f"GiB, {act_row / 2**20:.3f} MiB a row, and the allocator reserved "
+          f"{reserve / 2**30:.2f} GiB above the peak; batch {batch} x seq {LM_SEQ} ({rows} "
+          f"rows) is the largest of {', '.join(map(str, RG_BATCHES))} that leaves "
+          f"{FREE_GIB:g} GiB of the {total / 2**30:.1f} GiB card free")
+
+    torch.cuda.reset_peak_memory_stats()
+    per_step = cfg.n_layers + 1
+    gen = tokens.MarkovTokens(cfg.vocab_size, LM_SEQ, batch, seed)
+    fit = _fit_logged(torch, pm, session, gen, RG_STEPS, log)
+    launches, losses = fit["launches"], fit["losses"]
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    free_gib = (total - torch.cuda.max_memory_reserved()) / 2**30
+    print(f"[{tag}] {cfg.n_layers} layers, full width, f32, offchip_bpd, cuda backend, batch "
+          f"{batch} x seq {LM_SEQ}: {RG_STEPS} fit steps in {fit['wall']:.2f}s; loss per step "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; photonic_matmul launches {launches} = "
+          f"{launches / RG_STEPS:g} per step; peak device memory {peak_gib:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB resident before the session, {free_gib:.2f} GiB of the card "
+          f"never reserved")
+    _check_fit(fit, RG_STEPS, per_step)
+    check(free_gib >= FREE_GIB, f"the run left {free_gib:.2f} GiB free, under {FREE_GIB} GiB")
+
+    calls, errs, step, out = _step_projections(torch, pm, session, fit["state"], gen, seed,
+                                               per_step, rows, tag)
+    (a, b), kw, _ = calls[0]
+    operands = (a, b, kw["noise"])
+    del calls, out, a, b, kw
+    ideal = _ideal_cuda_vs_ref(torch, session, fit["state"], step, tag,
+                               watch=("grp_rec1.0.mixer.lambda", "grp_rec1.0.mixer.conv_w",
+                                      "grp_attn.0.mixer.q.weight", "embed.tok.table"))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    batches = [to_device_batch(gen.batch(i)) for i in range(RG_STEPS, RG_STEPS + 4)]
+    prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
+    prof.update(layers=cfg.n_layers, batch=batch, peak_gib=peak_gib, free_gib=free_gib,
+                losses=losses, act_gib=act_row * rows / 2**30, reserve_gib=reserve / 2**30)
+    del batches, fit, session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    a, b, noise = operands
+    print(f"[rg_timing] recurrentgemma training shape, input mode      T      K      M  dtype "
+          f"{TIMING_HEAD}")
+    row = _bank_row(torch, pm, a, b, {"noise": noise}, peaks, "input", "rg_timing",
+                    "recurrentgemma training shape, input mode ",
+                    reps={"ms": 25, "plain_ms": 10, "library_ms": 25})
+    row["launches_per_step"] = per_step
+    print(f"[rg_timing] the path's {per_step} launches a dfa step: "
+          f"{row['dev_ms'] * per_step:.3f} ms device of the step's {prof['step_ms']:.1f} ms")
+    del a, b, noise, operands
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "max_abs_err": max(errs.values()),
+            "ideal_max_rel": ideal[0], "profile": prof, "train_shape": row,
+            "n_params": n_params}
+
+
+def _rg_emu_serve(torch, np, api, em, seed):
+    """recurrentgemma at full width cut to RG_EMU_LAYERS layers (3
+    recurrent, 1 attention), bf16, on emu_offchip: 2 requests (8-token
+    prompts, 4 new tokens) on 2 slots, prefill chunk 8 by the decode-scan,
+    one emu launch a bank product; the emu kernel against its plain
+    version on the path's own operands (the first call of each shape), bit
+    for bit under every plan of the forced grid."""
+    from repro_torch.models.recurrentgemma import RecurrentGemmaLM
+    from repro_torch.serve import Request
+
+    tag = "rg_emu"
+    cfg = _rg_cfg(torch, RG_EMU_LAYERS, torch.bfloat16)
+    model = RecurrentGemmaLM(cfg, device=DEVICE).init(seed)
+    session = api.build_session(arch=model, algo="bp", hardware="emu_offchip", backend="emu",
+                                seed=seed, device=DEVICE)
+    eng = session.engine(batch_slots=2, max_len=64, prefill_chunk=8, seed=seed)
+    check(eng.hw_state is not None and eng._backend.name == "emu", "no drift state / backend")
+    finite = _finite_outputs(torch, eng)
+    reqs = [Request(prompt=p, max_new=4)
+            for p in _prompts(np.random.default_rng(seed + 13), 2, 8, cfg.vocab_size)]
+    per_forward = len(model.forward_gemm_specs())
+    check(per_forward == 3 * 8 + 7 + 1, f"{per_forward} bank products a forward")
+    captured, launches, wall = _emu_run_captured(torch, em, eng, reqs)
+    forwards = _mamba_forwards(eng, 8)
+    tokens = sum(len(r.out) for r in reqs)
+    print(f"[{tag}] {cfg.n_layers} of {RG_FULL[0]} layers at full width, bf16, emu_offchip: "
+          f"{len(reqs)} requests, {tokens} tokens in {wall:.3f}s ({forwards} forwards, the "
+          f"prefill by the decode-scan); emu_bank_product launches {launches} = {per_forward} x "
+          f"{forwards}: {launches == per_forward * forwards}")
+    check(all(r.done and len(r.out) == 4 for r in reqs), "requests unfinished")
+    check(launches == per_forward * forwards,
+          f"launches {launches} != {per_forward} x {forwards}")
+    check(finite(), "non-finite logits")
+    max_err, n_plans = _emu_path_exact(torch, em, captured, "recurrentgemma")
+    print(f"[{tag}] kernel vs plain on the path's own operands (bf16 a_t, f32 δ; "
+          f"{len(captured)} shapes: {', '.join(str(a) for a, _ in captured)}), {n_plans} plans "
+          f"in all: equal bit for bit (max |kernel - plain| {max_err:.3e})")
+    check(len(captured) == len({(m, k) for _, m, k in model.forward_gemm_specs()}),
+          f"{len(captured)} shapes captured")
+    del eng, session, model, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, "wall_s": wall, "forwards": forwards,
+            "layers": cfg.n_layers}
+
+
+def phase_recurrentgemma(torch, np, api, pm, em, seed, card, draws):
+    """The recurrentgemma family at full width, random weights from
+    ``seed``: recurrentgemma-9b (38 layers = 12 x (rec, rec, local attn) +
+    2 rec, d 4096, 16 heads, kv 1, d_ff 12288, vocab 256000, window 2048;
+    10.44 B parameters) served in bf16 through the bank kernel (293
+    launches a forward, the prefill by the masked decode-scan; the kernel
+    against its plain version at every (T, K, M) of the path) with a
+    profiled prefill tick and two decode ticks; f32 ideal cuda-vs-ref
+    parity; one full-width local attention layer decoding past its
+    2048-slot ring against its windowed forward, and the windowed
+    ``flash_attention`` at seq 4096 against its oracle; f32 dfa training
+    at RG_DEPTH layers (every segment) at the largest batch the card
+    holds; emu serving at RG_EMU_LAYERS layers with the emu kernel bit for
+    bit; the bank kernel timed at every decode shape."""
+    del draws
+    kind, peaks = card_peaks(card)
+    t0 = time.perf_counter()
+    # grow the allocator's segments in place, as phase_dense sets it (also
+    # when this phase runs alone): the f32 training run is sized to the card
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    print(f"[rg] seed {seed}; {RG}: {RG_FULL[0]} layers, d {RG_FULL[1]}, {RG_FULL[2]} heads, "
+          f"kv {RG_FULL[3]}, d_ff {RG_FULL[4]}, vocab {RG_FULL[5]}, d_rnn {RG_FULL[6]}, window "
+          f"{RG_FULL[7]}; {RG_FORWARD} bank products a token; training depth {RG_DEPTH}, "
+          f"{RG_STEPS} steps; emu serve depth {RG_EMU_LAYERS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serve": _rg_serve(torch, np, api, pm, seed)}
+    out["parity"] = _rg_parity(torch, np, api, seed)
+    out["attention"] = _rg_attention(torch, seed)
+    out["train"] = _rg_train(torch, api, pm, seed, card)
+    out["emu"] = _rg_emu_serve(torch, np, api, em, seed)
+    shapes = _dense_decode_shapes(_meta_model(torch, RG))
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    print(f"[rg_timing] {kind} peaks; card: {card}")
+    rows, forward = _decode_rows(torch, pm, dict(sorted(shapes.items())), peaks, gen,
+                                 "rg_timing", "recurrentgemma decode shapes ",
+                                 reps={"ms": 10, "plain_ms": 10, "library_ms": 10})
+    check(forward["launches"] == RG_FORWARD, f"{forward['launches']} launches timed")
+    out["decode"] = {"shapes": rows, "forward": forward}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[rg] done in {out['seconds']:.1f}s")
+    return out
+
+
+def rg_summary(res):
+    """recurrentgemma's numbers for its own output line."""
+    serve, tick = res["serve"], res["serve"]["profile"]
+    prof = res["train"]["profile"]
+    return {"arch": RG, "tok_s": serve["tok_s"], "ttft_p50_ms": serve["ttft_ms"],
+            "decode_tick_wall_ms": tick["decode_tick"]["wall_ms"],
+            "decode_tick_busy_ms": tick["decode_tick"].get("busy_ms"),
+            "decode_tick_idle_share": tick["decode_tick"].get("idle_share"),
+            "prefill_tick_wall_ms": tick["prefill_tick"]["wall_ms"],
+            "prefill_tick_busy_ms": tick["prefill_tick"].get("busy_ms"),
+            "serve_launches": serve["launches"], "parity_max_rel": res["parity"]["max_rel"],
+            "ring_max_abs_err": res["attention"]["ring_max_abs_err"],
+            "flash_max_abs_err": res["attention"]["flash_max_abs_err"],
+            "emu_layers": res["emu"]["layers"], "emu_launches": res["emu"]["launches"],
+            "train_layers": prof["layers"], "train_batch": prof["batch"],
+            "step_ms": prof["step_ms"], "tflop_s": prof["tflop_s"], "peak_gib": prof["peak_gib"],
+            "idle_share": prof.get("idle_share"), "train_launches": res["train"]["launches"],
+            "decode_forward_dev_ms": res["decode"]["forward"]["dev_ms"],
+            "seconds": res["seconds"]}
 
 
 def main(argv=None):
@@ -3724,15 +4171,18 @@ def main(argv=None):
     mamba = timed(phase_mamba, torch, np, api, pm, em, args.seed, card, draws)
     dense = timed(phase_dense, torch, np, api, pm, em, args.seed, card, draws)
     moe = timed(phase_moe, torch, np, api, pm, em, args.seed, card, draws)
+    rg = timed(phase_recurrentgemma, torch, np, api, pm, em, args.seed, card, draws)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     for arch, res in dense.items():
         print(json.dumps({"dense_model": dense_summary(arch, res)}))
     print(json.dumps({"moe_model": moe_summary(moe)}))
+    print(json.dumps({"rg_model": rg_summary(rg)}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
     dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
     dense_emu = {"qwen3_train": dense[QWEN3]["emu"]["launches"]}
     moe_bank = {"moe_serve": moe["serve"]["launches"], "moe_train": moe["train"]["launches"]}
+    rg_bank = {"rg_serve": rg["serve"]["launches"], "rg_train": rg["train"]["launches"]}
     row_b = train_rows["dfa_gradient"]
     records = [
         {"name": "photonic_matmul", "route": "cuda",
@@ -3741,16 +4191,18 @@ def main(argv=None):
          "launches": (serve_launches + train_launches + lm["launches"]
                       + observed["probe_launches"]["photonic_matmul"]
                       + mamba["serve_launches"] + mamba["train_launches"]
-                      + sum(dense_bank.values()) + sum(moe_bank.values())),
+                      + sum(dense_bank.values()) + sum(moe_bank.values())
+                      + sum(rg_bank.values())),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
                               "mamba_serve": mamba["serve_launches"],
                               "mamba_train": mamba["train_launches"], **dense_bank,
-                              **moe_bank},
+                              **moe_bank, **rg_bank},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
-                              if "train" in res), moe["train"]["max_abs_err"]),
+                              if "train" in res), moe["train"]["max_abs_err"],
+                            rg["train"]["max_abs_err"]),
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
          "library_ms": per_step["library_ms"],
@@ -3773,7 +4225,13 @@ def main(argv=None):
                  "serve_max_rel_err": moe["serve"]["max_rel_err"],
                  "kimi_max_rel_err": moe["kimi"]["max_rel_err"],
                  "batched_vs_single": moe["serve"]["batched_vs_single"],
-                 "train": moe["train"]["profile"]}},
+                 "train": moe["train"]["profile"]},
+         "recurrentgemma": {"decode_forward": rg["decode"]["forward"],
+                            "decode_shapes": rg["decode"]["shapes"],
+                            "serve_max_rel_err": rg["serve"]["max_rel_err"],
+                            "skinny_k12288": rg["serve"]["skinny_k12288"],
+                            "train_shape": rg["train"]["train_shape"],
+                            "train": rg["train"]["profile"]}},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",
@@ -3789,16 +4247,18 @@ def main(argv=None):
          "launches": (emu_train_launches + emu_serve_launches + lm["emu_launches"]
                       + observed["probe_launches"]["emu_bank_product"]
                       + mamba["emu_serve_launches"] + mamba["emu_train_launches"]
-                      + sum(dense_emu.values()) + moe["emu"]["launches"]),
+                      + sum(dense_emu.values()) + moe["emu"]["launches"]
+                      + rg["emu"]["launches"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
                               "mamba_serve": mamba["emu_serve_launches"],
                               "mamba_train": mamba["emu_train_launches"], **dense_emu,
-                              "moe_emu_serve": moe["emu"]["launches"]},
+                              "moe_emu_serve": moe["emu"]["launches"],
+                              "rg_emu_serve": rg["emu"]["launches"]},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
                             mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"],
-                            moe["emu"]["max_abs_err"]),
+                            moe["emu"]["max_abs_err"], rg["emu"]["max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",

@@ -63,6 +63,12 @@ def _is_norm_path(path: str) -> bool:
     return any(p in path for p in _NORM_PAT)
 
 
+def freeze_norm_leaves(params: dict) -> dict:
+    """The norm-scale entries of a flat parameter dict detached, so their
+    gradients are zero (the reference's ``stop_gradient`` on them)."""
+    return {k: v.detach() if _is_norm_path(k) else v for k, v in params.items()}
+
+
 def compress_error(e, mode: str):
     """Compress the error before broadcast/projection (ref [48])."""
     if mode == "none":

@@ -1,15 +1,17 @@
 """Carry weights, feedback and caches between the reference's layout and
 the port's.
 
-The reference keeps parameters in a pytree: nested dicts whose ``blocks``
-subtree stacks every layer on a leading axis (``stack_init``), with
-``Linear`` weights ``w`` in (in, out) layout and biases ``b``.  The port
-keeps a ``state_dict``: one ``blocks.{i}`` entry per layer, ``weight`` in
-torch layout (out, in), ``bias``.  A stacked weight (a mixture of experts'
-``experts.gate.w`` (E, in, out)) swaps its last two axes to (E, out, in).
+The reference keeps parameters in a pytree: nested dicts whose stacked
+segments (``blocks``; recurrentgemma's ``grp_rec1``, ``grp_rec2``,
+``grp_attn`` and ``tail_rec``) stack every layer on a leading axis
+(``stack_init``), with ``Linear`` weights ``w`` in (in, out) layout and
+biases ``b``.  The port keeps a ``state_dict``: one ``{segment}.{i}``
+entry per layer, ``weight`` in torch layout (out, in), ``bias``.  A
+stacked weight (a mixture of experts' ``experts.gate.w`` (E, in, out))
+swaps its last two axes to (E, out, in).
 Every other leaf keeps its name, as do
 bare-array leaves beside the layers (MLA's ``attn.q_norm_scale`` and
-``attn.kv_norm_scale``, Mamba's ``A_log``).
+``attn.kv_norm_scale``, Mamba's ``A_log``, the RG-LRU's ``lambda``).
 
 The MLP's tree, ``{"embed": {}, "h0": {"w": (1, 784, 800), "b": (1, 800)},
 "h1": ..., "head": {"w", "b"}}``, stacks each one-block segment ``h{i}`` on
@@ -18,7 +20,9 @@ dropped (``h0.weight`` (800, 784)).  Gradient trees have the parameters'
 layout and convert the same way.  DFA feedback (``{"h0": (1, 800, 10), ...,
 "embed": (800, 10)}``) is already in the bank's (M, K) layout on both sides.
 Serving caches (attention ``{"k", "v"}``, MLA ``{"c_kv", "k_rope"}``, Mamba
-``{"ssm", "conv"}``), the
+``{"ssm", "conv"}``) keep their stacked layout; recurrentgemma's nested
+per-segment caches (``{"grp_rec1": {"h", "conv"}, "grp_attn": {"k", "v"},
+...}``) are the port's flat ``grp_rec1.h``, ``grp_attn.k``, ....  The
 emulated hardware's drift state ``{"drift", "cal"}`` and a dead-ring
 mask keep their layout too; they convert between numpy and tensors.
 
@@ -35,6 +39,8 @@ import torch
 
 _RENAME = {"w": "weight", "b": "bias"}
 _SEGMENT = re.compile(r"h\d+$")  # the MLP's one-block segments
+# the stacked segments, one layer per index of the leading axis
+_STACKED = ("blocks", "grp_rec1", "grp_rec2", "grp_attn", "tail_rec")
 
 
 def _walk(tree, prefix=()):
@@ -47,17 +53,17 @@ def _walk(tree, prefix=()):
 
 def layout_map(params):
     """Yield ``(torch_name, leaf, layer, transpose)`` for every leaf of a
-    reference pytree: ``layer`` is the index into a stacked leaf (``blocks``
-    or a one-block segment ``h{i}``; None elsewhere), ``transpose`` is True
-    for ``Linear`` weights.  Leaves
-    may be arrays or shape structs; nothing is read."""
+    reference pytree: ``layer`` is the index into a stacked leaf (a stacked
+    segment or a one-block segment ``h{i}``; None elsewhere), ``transpose``
+    is True for ``Linear`` weights.  Leaves may be arrays or shape structs;
+    nothing is read."""
     for path, leaf in _walk(params):
         last = path[-1]
         name = path[:-1] + (_RENAME.get(last, last),)  # a top-level leaf: its own name
         transpose = last == "w"
-        if path[0] == "blocks":
+        if path[0] in _STACKED:
             for i in range(leaf.shape[0]):
-                yield ".".join(("blocks", str(i)) + name[1:]), leaf, i, transpose
+                yield ".".join((path[0], str(i)) + name[1:]), leaf, i, transpose
         else:
             yield ".".join(name), leaf, 0 if _SEGMENT.match(path[0]) else None, transpose
 
@@ -99,15 +105,30 @@ def caches_to_reference(caches) -> dict:
     leaf for leaf: the attention caches ``{"k", "v"}`` (L, B, S, KVH, D),
     MLA's latent caches ``{"c_kv"}`` (L, B, S, r) and ``{"k_rope"}`` (L,
     B, S, rope), or the Mamba states ``{"ssm"}`` (L, B, H, N, P) and
-    ``{"conv"}`` (L, B, K-1, C).  The port already keeps the stacked
-    layout; values come back in f32."""
-    return {name: t.detach().float().cpu().numpy() for name, t in caches.items()}
+    ``{"conv"}`` (L, B, K-1, C).  A flat ``segment.leaf`` name nests as
+    ``{segment: {leaf: ...}}`` (recurrentgemma).  The port already keeps
+    the stacked layout; values come back in f32."""
+    out = {}
+    for name, t in caches.items():
+        *segment, leaf = name.split(".")
+        node = out
+        for part in segment:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().float().cpu().numpy()
+    return out
 
 
 def caches_from_reference(caches, like) -> dict:
-    """The reference's stacked caches (numpy leaves) -> tensors with the
-    dtype and device of the port's caches ``like`` (``init_caches``)."""
-    return {name: torch.from_numpy(np.array(caches[name], dtype=np.float32)).to(
+    """The reference's stacked caches (numpy leaves, nested per segment
+    where the model has several) -> tensors with the dtype and device of
+    the port's caches ``like`` (``init_caches``)."""
+    def leaf(name):
+        node = caches
+        for part in name.split("."):
+            node = node[part]
+        return node
+
+    return {name: torch.from_numpy(np.array(leaf(name), dtype=np.float32)).to(
         device=t.device, dtype=t.dtype) for name, t in like.items()}
 
 

@@ -155,7 +155,11 @@ class TransformerLM(DFAModel, ServingModel):
     maps one onto the other.  The training methods take that flat dict
     (``DFAModel``); the serving ones run the module's own parameters."""
 
-    supports_parallel_prefill = True  # global attention: absolute-indexed caches
+    @property
+    def supports_parallel_prefill(self) -> bool:
+        """Global attention's caches are absolute-indexed and prefill in one
+        batched forward; windowed ring buffers take the decode-scan."""
+        return self.cfg.window is None
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()

@@ -6,9 +6,13 @@ O(S²) forward and chunked prefill), ``flash_attention`` (the chunked
 online softmax the forward takes above 2·k_chunk), ``decode_attention``
 against a KV cache, ``Attention`` (qwen1.5, qwen3, granite) and
 ``MLAttention`` (minicpm3: a latent cache, absorbed decode and prefill),
-each with its cache paths.  Sliding windows raise ``NotImplementedError``;
-soft-capping, output bias, non-causal and rope-less layers and cross
-attention are not ported yet.
+each with its cache paths.  ``window`` (a sliding window: position q sees
+keys q - window < k <= q) and ``logit_softcap`` (scores through
+cap·tanh(s / cap)) are parameters of the three attention functions and
+fields of ``Attention`` (recurrentgemma's local layers); a windowed layer
+whose cache holds ``window`` slots decodes into it as a ring buffer.
+Output bias, non-causal and rope-less layers and cross attention are not
+ported yet.
 
 Cache updates are out of place, as in the reference: ``decode`` and
 ``prefill`` return new cache tensors and never write the ones they were
@@ -38,7 +42,23 @@ def _gqa_expand(kv, n_heads: int):
     return kv.repeat_interleave(n_heads // kvh, dim=2)
 
 
-def reference_attention(q, k, v, *, q_pos, kv_pos, causal=True, scale=None):
+def _softcap(scores, cap):
+    return cap * torch.tanh(scores / cap) if cap else scores
+
+
+def _mask(b, q_pos, kv_pos, causal, window):
+    """(B, Sq, Skv): which keys each query sees."""
+    mask = torch.ones((b, q_pos.shape[1], kv_pos.shape[1]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        mask &= q_pos[:, :, None] - kv_pos[:, None, :] < window
+    return mask
+
+
+def reference_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None, scale=None,
+                        logit_softcap=None):
     """O(S²) attention in f32.  q:(B,Sq,H,D) k,v:(B,Skv,KVH,D);
     q_pos (B,Sq) and kv_pos (B,Skv) absolute positions."""
     b, sq, h, d = q.shape
@@ -46,21 +66,19 @@ def reference_attention(q, k, v, *, q_pos, kv_pos, causal=True, scale=None):
     v = _gqa_expand(v, h)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = torch.ones((b, sq, kv_pos.shape[1]), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos[:, None, :] <= q_pos[:, :, None]
+    scores = _softcap(scores, logit_softcap)
+    mask = _mask(b, q_pos, kv_pos, causal, window)
     scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)
 
 
-def _attend_chunk(q, k, v, q_pos, k_pos, scale, causal, acc, m_prev, l_prev):
+def _attend_chunk(q, k, v, q_pos, k_pos, scale, causal, window, logit_softcap, acc, m_prev,
+                  l_prev):
     """Online-softmax update for one (q-chunk, k-chunk) tile.  All f32."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    mask = torch.ones((q.shape[0], q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos[:, None, :] <= q_pos[:, :, None]
+    scores = _softcap(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, logit_softcap)
+    mask = _mask(q.shape[0], q_pos, k_pos, causal, window)
     scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
     m_new = torch.maximum(m_prev, scores.amax(dim=-1))  # (B, H, Sq)
     # guard fully-masked rows (m_new == NEG_INF) against NaN
@@ -74,12 +92,14 @@ def _attend_chunk(q, k, v, q_pos, k_pos, scale, causal, acc, m_prev, l_prev):
     return acc, m_new, l_new
 
 
-def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, scale=None,
-                    q_chunk: int = 2048, k_chunk: int = 1024):
+def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None, scale=None,
+                    logit_softcap=None, q_chunk: int = 2048, k_chunk: int = 1024):
     """Chunked online-softmax attention; shapes as ``reference_attention``.
 
     Q runs in static chunks; Q chunk j scans the K chunks [lo, hi) it can
-    reach, so causal work is the exact triangle and a score tile is
+    reach (a window raises lo past the chunks that lie wholly before it),
+    so causal work is the exact triangle (the band, windowed) and a score
+    tile is
     (q_chunk, k_chunk), never (S, S).  K chunks are folded in one at a time
     in the reference's order.  Ragged sizes take one tile."""
     b, sq, h, d = q.shape
@@ -97,7 +117,7 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, scale=None,
         l = qf.new_zeros((b, h, qj.shape[1]))
         for k0, k1 in k_steps:
             acc, m, l = _attend_chunk(qj, kf[:, k0:k1], vf[:, k0:k1], qpj, kv_pos[:, k0:k1],
-                                      scale, causal, acc, m, l)
+                                      scale, causal, window, logit_softcap, acc, m, l)
         return acc / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
 
     if sq % q_chunk or skv % k_chunk:
@@ -112,24 +132,35 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, scale=None,
             hi = (j + 1) * (q_chunk // k_chunk)
         else:
             hi = n_k
-        lo = 0  # a sliding window raises it (windows are not ported)
+        if window is not None and causal and sq == skv:
+            lo = max(0, (j * q_chunk - window) // k_chunk)
+        else:
+            lo = 0
         rows = slice(j * q_chunk, (j + 1) * q_chunk)
         out.append(attend(qf[:, rows], q_pos[:, rows],
                           [(i * k_chunk, (i + 1) * k_chunk) for i in range(lo, hi)]))
     return torch.cat(out, dim=1).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, *, cache_len, scale=None):
+def decode_attention(q, k_cache, v_cache, *, cache_len, window=None, q_pos=None, scale=None,
+                     logit_softcap=None):
     """Single-step attention against a cache.  q: (B, 1, H, D); caches
     (B, Smax, KVH, D); cache_len (B,) valid lengths (the new token's K/V
-    already written at cache_len-1).  Returns (B, 1, H, D)."""
+    already written at cache_len-1).  With ``window``, cache slot k is seen
+    only where q_pos - k < window (q_pos defaults to cache_len - 1).
+    Returns (B, 1, H, D)."""
     h, d = q.shape[2], q.shape[3]
     smax = k_cache.shape[1]
     k = _gqa_expand(k_cache, h)
     v = _gqa_expand(v_cache, h)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    valid = torch.arange(smax, device=q.device)[None, :] < cache_len[:, None]
+    scores = _softcap(scores, logit_softcap)
+    kv_pos = torch.arange(smax, device=q.device)[None, :]
+    valid = kv_pos < cache_len[:, None]
+    if window is not None:
+        qp = cache_len - 1 if q_pos is None else q_pos
+        valid &= qp[:, None] - kv_pos < window
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
@@ -150,28 +181,30 @@ def write_positions(cache, new, start, n_valid):
     return torch.where(hit.reshape(b, smax, *tail), src, cache)
 
 
-def _self_attention(q, k, v, positions, scale, q_chunk, k_chunk):
+def _self_attention(q, k, v, positions, scale, q_chunk, k_chunk, window=None,
+                    logit_softcap=None):
     """Causal self-attention of a whole sequence: O(S²) up to 2·k_chunk,
     ``flash_attention`` above, as the reference switches."""
+    kw = dict(q_pos=positions, kv_pos=positions, causal=True, window=window, scale=scale,
+              logit_softcap=logit_softcap)
     if q.shape[1] <= 2 * k_chunk:
-        return reference_attention(q, k, v, q_pos=positions, kv_pos=positions, causal=True,
-                                   scale=scale)
-    return flash_attention(q, k, v, q_pos=positions, kv_pos=positions, causal=True,
-                           scale=scale, q_chunk=q_chunk, k_chunk=k_chunk)
+        return reference_attention(q, k, v, **kw)
+    return flash_attention(q, k, v, q_chunk=q_chunk, k_chunk=k_chunk, **kw)
 
 
 class Attention(Module):
-    """MHA / GQA causal self-attention with rotary, optional qkv bias and
-    qk-norm — the qwen1.5 (bias), qwen3 (qk-norm) and granite layer.  The
+    """MHA / GQA causal self-attention with rotary, optional qkv bias,
+    qk-norm, sliding window and logit soft-capping — the qwen1.5 (bias),
+    qwen3 (qk-norm), granite and recurrentgemma local (window) layer.  The
     reference's qk-norm is ``rms_normalize`` with no learned scale."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int | None = None, qkv_bias: bool = False,
                  qk_norm: bool = False, rope_theta: float = 10000.0,
-                 window: int | None = None, dtype=torch.float32, device=None):
+                 window: int | None = None, logit_softcap: float | None = None,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        if window is not None:
-            raise NotImplementedError("sliding-window attention is not ported yet")
+        self.window, self.logit_softcap = window, logit_softcap
         self.qk_norm = qk_norm
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
@@ -199,25 +232,43 @@ class Attention(Module):
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         q, k, v = self.qkv(x, positions)
-        out = _self_attention(q, k, v, positions, None, q_chunk, k_chunk)
+        out = _self_attention(q, k, v, positions, None, q_chunk, k_chunk, self.window,
+                              self.logit_softcap)
         return self.o(out.reshape(b, s, self.n_heads * self.hd))
 
     # ---- decode path ------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None):
-        shape = (batch, max_len, self.n_kv_heads, self.hd)
+        """(B, S, KVH, D) ``{"k", "v"}``; a windowed layer holds
+        min(max_len, window) slots."""
+        slots = max_len if self.window is None else min(max_len, self.window)
+        shape = (batch, slots, self.n_kv_heads, self.hd)
         dt = dtype or self.q.weight.dtype
         dev = self.q.weight.device
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev)}
 
     def decode(self, x, cache, cache_len):
-        """One token: x (B, 1, d).  Returns (y, new_cache)."""
+        """One token: x (B, 1, d).  Returns (y, new_cache).
+
+        A windowed cache of ``window`` slots is a ring buffer: the token at
+        position p goes to slot p mod window, every stored slot lies within
+        the window by construction, and the first min(p + 1, window) slots
+        are valid."""
         b = x.shape[0]
         q, k, v = self.qkv(x, cache_len[:, None])
+        smax = cache["k"].shape[1]
+        ring = self.window is not None and smax == self.window
+        slot = cache_len % smax if ring else cache_len
         one = torch.ones_like(cache_len)
-        k_cache = write_positions(cache["k"], k, cache_len, one)
-        v_cache = write_positions(cache["v"], v, cache_len, one)
-        out = decode_attention(q, k_cache, v_cache, cache_len=cache_len + 1)
+        k_cache = write_positions(cache["k"], k, slot, one)
+        v_cache = write_positions(cache["v"], v, slot, one)
+        if ring:
+            out = decode_attention(q, k_cache, v_cache,
+                                   cache_len=torch.clamp(cache_len + 1, max=smax),
+                                   logit_softcap=self.logit_softcap)
+        else:
+            out = decode_attention(q, k_cache, v_cache, cache_len=cache_len + 1,
+                                   window=self.window, logit_softcap=self.logit_softcap)
         y = self.o(out.reshape(b, 1, self.n_heads * self.hd))
         return y, {"k": k_cache, "v": v_cache}
 
@@ -225,7 +276,12 @@ class Attention(Module):
         """Chunked cache fill: x (B, C, d) is the next C prompt tokens of
         every slot (``n_valid`` of them real), written at positions
         ``cache_len + j`` and attended causally against the whole cache in
-        one batched forward.  Slots with ``n_valid == 0`` keep their cache."""
+        one batched forward.  Slots with ``n_valid == 0`` keep their cache.
+        Only for absolute-indexed caches: a windowed layer's ring buffer
+        fills by the engine's masked decode-scan
+        (``serve.decode.make_prefill_step``), as in the reference."""
+        if self.window is not None:
+            raise ValueError("windowed caches prefill via the decode-scan")
         b, c, _ = x.shape
         positions = cache_len[:, None] + torch.arange(c, device=x.device)[None, :]
         q, k, v = self.qkv(x, positions)
@@ -234,7 +290,7 @@ class Attention(Module):
         smax = k_cache.shape[1]
         kv_pos = torch.arange(smax, device=x.device)[None, :].expand(b, smax)
         out = reference_attention(q, k_cache, v_cache, q_pos=positions, kv_pos=kv_pos,
-                                  causal=True)
+                                  causal=True, logit_softcap=self.logit_softcap)
         y = self.o(out.reshape(b, c, self.n_heads * self.hd))
         return y, {"k": k_cache, "v": v_cache}
 

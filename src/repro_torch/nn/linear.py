@@ -62,18 +62,21 @@ class DenseBlock(Linear):
 
 
 class GatedMLP(Module):
-    """SwiGLU gated FFN: down( silu(gate(x)) * up(x) ).  With ``stack=E``
-    it is E FFNs on stacked weights, x (E, ..., d_model) -> (E, ...,
-    d_model)."""
+    """Gated FFN: down( act(gate(x)) * up(x) ), SwiGLU by default
+    (``activation="silu"``; recurrentgemma's is ``"gelu"``, the tanh
+    form).  With ``stack=E`` it is E FFNs on stacked weights, x (E, ...,
+    d_model) -> (E, ..., d_model)."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype=torch.float32, device=None,
-                 stack: int | None = None):
+    def __init__(self, d_model: int, d_ff: int, activation: str = "silu",
+                 dtype=torch.float32, device=None, stack: int | None = None):
         super().__init__()
+        self.activation = activation
         self.gate = Linear(d_model, d_ff, dtype=dtype, device=device, stack=stack)
         self.up = Linear(d_model, d_ff, dtype=dtype, device=device, stack=stack)
         self.down = Linear(d_ff, d_model, dtype=dtype, device=device, stack=stack)
 
     def forward(self, x):
-        gate = activations.silu(forward_matmul(x, self.gate.weight))
+        g, _ = activations.get(self.activation)
+        gate = g(forward_matmul(x, self.gate.weight))
         up = forward_matmul(x, self.up.weight)
         return forward_matmul(gate * up, self.down.weight)

@@ -6,7 +6,8 @@ tensor scatters each token into its experts' capacity slots, the experts
 run as one stacked FFN over (E, C, d), and a (T, E, C) combine tensor
 gathers their outputs weighted by the router's top-k probabilities.
 Tokens beyond an expert's capacity are dropped in position-in-expert
-order; shared experts run densely on every token.  ``dispatch="gather"``
+order; the top k breaks ties toward the lower expert index, as the
+reference's ``jax.lax.top_k`` (``top_k``); shared experts run densely on every token.  ``dispatch="gather"``
 reaches the same result through slot indices, with no routing products.
 
 The router is a digital ``x @ Wᵀ``, as in the reference.  The expert FFN's
@@ -30,6 +31,16 @@ import torch
 from repro_torch.core import photonics
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
+
+
+def top_k(x, k: int):
+    """The k largest values along the last axis and their indices, equal
+    values in index order (the lower index first), as ``jax.lax.top_k``
+    orders them.  ``torch.topk`` leaves the order of ties unspecified (its
+    CPU build picks higher indices), so a stable descending sort takes its
+    place; it breaks ties alike on the CPU and on CUDA."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 class MoE(Module):
@@ -61,7 +72,7 @@ class MoE(Module):
         cap = self.capacity(t)
         logits = (x_flat @ self.router.weight.T).float()  # (T, E)
         probs = torch.softmax(logits, dim=-1)
-        topv, topi = torch.topk(probs, self.top_k, dim=-1)
+        topv, topi = top_k(probs, self.top_k)
         if self.norm_topk_prob:
             topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
         # one-hot expert assignment per k-slot, and each (token, slot)'s

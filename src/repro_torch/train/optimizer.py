@@ -56,9 +56,13 @@ class SGDM:
             g32, m = grads[k].float(), state["mom"][k]
             if self.weight_decay:
                 g32 = g32 + self.weight_decay * p.float()
-            m_new = self.momentum * m.float() + g32
+            # momentum·m + g and p − lr·d, rounded step by step as written,
+            # each built in its result's own storage: no parameter-sized
+            # temporary beside the new parameter and momentum
+            m_new = m.float().mul(self.momentum).add_(g32)
             d = (g32 + self.momentum * m_new) if self.nesterov else m_new
-            new_params[k] = (p.float() - lr * d).to(p.dtype)
+            new_p = torch.mul(d, lr)
+            new_params[k] = torch.sub(p.float(), new_p, out=new_p).to(p.dtype)
             new_mom[k] = m_new.to(m.dtype)
         info = {"lr": lr}
         if norm is not None:
