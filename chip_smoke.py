@@ -100,12 +100,12 @@ sources in the checkout.  Phases:
     against its plain version on the path's own operands at every shape,
     granite's K = 14336 by both skinny variants in bf16 and f32) with a
     profiled prefill tick and two decode ticks, and f32 ideal cuda-vs-ref
-    parity; DFA training in f32 at batch 64 x seq 64 of qwen3 (8 steps,
+    parity; DFA training in f32 at batch 64 x seq 64 of qwen3 (4 steps,
     29 launches a step, ideal cuda = ref gradients, step ms, profile,
-    ``step_cost``, peak memory; 4 steps on emu_offchip with the emu kernel
-    bit for bit; 2 steps at batch 2 x seq 4096 whose every block runs
+    ``step_cost``, peak memory; 2 steps on emu_offchip with the emu kernel
+    bit for bit; 1 step at batch 2 x seq 4096 whose every block runs
     ``flash_attention``, held to ``reference_attention`` on the card) and
-    of minicpm3 (4 steps, at the depth that leaves 5 GiB of the card free,
+    of minicpm3 (2 steps, at the depth that leaves 5 GiB of the card free,
     printed); the bank kernel timed at every decode shape and both
     training shapes.  One ``{"dense_model": ...}`` line per model precedes
     the kernels record;
@@ -141,7 +141,31 @@ sources in the checkout.  Phases:
     leaves 5 GiB free (printed), ideal cuda = ref gradients; emu serving
     at 4 layers with the emu kernel bit for bit; the bank kernel timed at
     every decode shape.  One ``{"rg_model": ...}`` line follows the MoE
-    line.
+    line;
+20. whisper-small (``[whisper_*]``, ``phase_whisper``): the
+    encoder-decoder at full width (12 + 12 layers, d 768, vocab 51865,
+    1500 frames; 279.6 M parameters, random weights from --seed) served
+    in bf16 on offchip_bpd through the bank kernel: 4 clips encoded once
+    (72 launches at T = 6000) and 4 prompt + 16 greedy decode steps
+    through ``make_serve_step(whisper_enc=True)`` (72 a step; the cross
+    attention and the head digital), the kernel against its plain version
+    at every path shape, a profiled encode and two decode steps; f32 ideal
+    cuda-vs-ref parity of the encoder output and the logits; f32 ``dfa``
+    training at full depth, batch 8 x seq 64 (25 launches a step, the
+    encoder's 12 on the pooled error), ideal cuda = ref gradients and
+    ``head.ln_enc``'s exactly zero; 2 steps on emu_offchip with the emu
+    kernel bit for bit at both shapes; the bank kernel timed at the
+    encode, decode and training shapes.  One ``{"whisper_model": ...}``
+    line;
+21. internvl2-2b (``[internvl2_*]``, ``phase_internvl2``): full width (24
+    layers, d 2048, vocab 92553, a 256-patch vision prefix; 1.891 B
+    parameters) served text-only in bf16 like qwen1.5 (169 launches a
+    forward, the odd 92553-row head held to the plain version), f32
+    parity, f32 ``dfa`` training at full depth with the patch prefix and
+    seq 64 at the largest batch of 64 / 32 / 16 that leaves 5 GiB free
+    (25 launches a step, ideal cuda = ref gradients); the bank kernel
+    timed at every decode shape and the training shape.  One
+    ``{"internvl2_model": ...}`` line.
 
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
@@ -875,7 +899,7 @@ def _event_ms(torch, fn, reps=25, warm=3):
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, reps=25, attempts=8, spare=16):
+def _device_ms(torch, fn, reps=25, attempts=8, spare=24):
     """Device time of one call of ``fn``: the median over ``reps`` calls of
     the summed durations of the device kernels it ran, read from the
     profiler (CUPTI), so the host's launch overhead is not counted.  Before
@@ -888,7 +912,9 @@ def _device_ms(torch, fn, reps=25, attempts=8, spare=16):
     ``reps`` calls is then still a median of whole calls.  It has also lost
     most of a window on a loaded machine (7 of 26 calls; 4, 0 and 16 of 33
     in three windows in a row), and late in a long run it lost the first 18
-    of 41 three-millisecond calls in eight windows in a row: such a window
+    of 41 three-millisecond calls in eight windows in a row (and the first
+    16 or 17 of most windows of 26 or 41 calls late in the full script,
+    when 16 spare calls were run: 24 are now): such a window
     is profiled again after a pause, with twice the spare calls and twice
     the pause inside the window each time (up to 16 times), up to
     ``attempts`` times, and then the phase fails."""
@@ -1664,14 +1690,21 @@ def _lm_session(api, torch, seed, **kw):
                              device=DEVICE, **kw)
 
 
-def _wrap(module, name, store, limit=None):
+def _wrap(module, name, store, limit=None, key=None):
     """Record (args, kwargs, result) of the first ``limit`` calls of
-    ``module.name`` in ``store``; returns the function that restores it."""
+    ``module.name`` in ``store`` (with ``key``: the first call of each
+    ``key(*args)``); returns the function that restores it."""
     fn = getattr(module, name)
+    seen = set()
 
     def recording(*args, **kw):
         out = fn(*args, **kw)
-        if limit is None or len(store) < limit:
+        if key is not None:
+            k = key(*args)
+            if k not in seen:
+                seen.add(k)
+                store.append((args, kw, out))
+        elif limit is None or len(store) < limit:
             store.append((args, kw, out))
         return out
 
@@ -1727,12 +1760,14 @@ def _check_fit(fit, steps, per_step):
           f"{launches} bank-kernel launches, expected {per_step} per step")
 
 
-def _step_projections(torch, pm, session, state, gen, seed, per_step, rows, tag):
+def _step_projections(torch, pm, session, state, gen, seed, per_step, rows, tag, picks=None):
     """One dfa step on the state's next batch with the bank kernel's calls
-    recorded: ``per_step`` projections of ``rows`` rows, and block 0's and
-    the embedding's δ held against the plain version on their own operands
-    with the path's input-mode noise.  -> (the calls, {label: max |kernel -
-    plain|}, the step's (batch, rng), its ((loss, metrics), grads))."""
+    recorded: ``per_step`` projections, and block 0's and the embedding's
+    δ (``picks``: (label, call index, rows) of each, by default the first
+    and the last call, ``rows`` rows each) held against the plain version
+    on their own operands with the path's input-mode noise.  -> (the
+    calls, {label: max |kernel - plain|}, the step's (batch, rng), its
+    ((loss, metrics), grads))."""
     from repro_torch.kernels import ops as kops
     from repro_torch.utils import prng
 
@@ -1747,27 +1782,32 @@ def _step_projections(torch, pm, session, state, gen, seed, per_step, rows, tag)
         restore()
     check(len(calls) == per_step, f"{len(calls)} projections in one step")
     errs = {}
-    for label, idx in (("block 0", 0), ("embedding", -1)):
+    picks = picks or (("block 0", 0, rows), ("embedding", -1, rows))
+    for label, idx, n in picks:
         (a, b), kw, got = calls[idx]
-        check(tuple(a.shape) == (rows, d_model) and "noise" in kw,
+        check(tuple(a.shape) == (n, d_model) and "noise" in kw,
               f"{label}: operands {tuple(a.shape)}, {sorted(kw)}")
         expect = pm.photonic_matmul_plain(a, b, **kw)
         errs[label] = err = (got - expect).abs().max().item()
         scale = expect.abs().max().item()
         check(err <= TOL["float32"] * scale + 1e-6,
               f"{label}: δ kernel vs plain {err} of max {scale}")
-    print(f"[{tag}] one step's own operands (T={rows}, K={d_model}, M={d_model}, f32, the "
-          f"path's input-mode noise from the step's keys): max |kernel - plain| block 0 "
-          f"{errs['block 0']:.3e}, embedding {errs['embedding']:.3e} (tol {TOL['float32']} of "
-          f"max|δ|)")
+    t_rows = "/".join(str(n) for n in dict.fromkeys(n for _, _, n in picks))
+    print(f"[{tag}] one step's own operands (T={t_rows}, K={d_model}, M={d_model}, f32, the "
+          f"path's input-mode noise from the step's keys): max |kernel - plain| "
+          + ", ".join(f"{label} {errs[label]:.3e}" for label, _, _ in picks)
+          + f" (tol {TOL['float32']} of max|δ|)")
     return calls, errs, (batch, rng), out
 
 
-def _ideal_cuda_vs_ref(torch, session, state, step, tag, watch=()):
+def _ideal_cuda_vs_ref(torch, session, state, step, tag, watch=(), scale_of=None):
     """One step's dfa gradients on the ideal preset, the ``cuda`` backend
     against the ``ref`` backend: each within 1e-4 of its max |value|, the
-    f32 bank tolerance through a block's backward; the gradients named in
-    ``watch`` are printed on their own."""
+    f32 bank tolerance through a block's backward (``scale_of(name)``: the
+    gradient whose max |value| is its scale, for one that is near zero in
+    exact arithmetic; their error against their own max is printed too);
+    the gradients named in ``watch`` are printed on their own.  -> (the
+    worst difference, its gradient's name)."""
     import dataclasses
 
     from repro_torch import algos
@@ -1777,11 +1817,21 @@ def _ideal_cuda_vs_ref(torch, session, state, step, tag, watch=()):
     g = {b_: algos.get("dfa").value_and_grad(session.model, dataclasses.replace(
         session.config.dfa, photonics=ph.PRESETS["ideal"], backend=b_))(
             state["params"], state["fb"], batch, rng)[1] for b_ in ("cuda", "ref")}
-    worst = max((_max_rel(g["cuda"][k], g["ref"][k]), k) for k in g["ref"])
-    watched = {k: _max_rel(g["cuda"][k], g["ref"][k]) for k in watch}
+    scale_of = scale_of or (lambda k: k)
+
+    def rel(k):
+        diff = (g["cuda"][k] - g["ref"][k]).abs().max().item()
+        return diff / max(g["ref"][scale_of(k)].abs().max().item(), 1e-30)
+
+    worst = max((rel(k), k) for k in g["ref"])
+    watched = {k: rel(k) for k in watch}
+    scaled = [k for k in g["ref"] if scale_of(k) != k]
+    own = max((_max_rel(g["cuda"][k], g["ref"][k]), k) for k in scaled) if scaled else None
     del g
     print(f"[{tag}] ideal, cuda vs ref backend: every gradient within {worst[0]:.3e} of its "
-          f"max |value| (worst {worst[1]}; limit 1e-4)"
+          f"max |value| (worst {worst[1]}; limit 1e-4"
+          + (f"; {len(scaled)} held to another's scale, within {own[0]:.3e} of their own "
+             f"max, worst {own[1]}" if own else "") + ")"
           + "".join(f"; {k} {v:.3e}" for k, v in watched.items()))
     check(worst[0] <= 1e-4, f"ideal cuda vs ref gradients differ: {worst}")
     return worst
@@ -1832,20 +1882,23 @@ def _step_timing(torch, session, fit, batches, warm, n_prof, tag, card, flops=No
 
 
 def _emu_fit(torch, em, make_session, gen, steps, per_step, tag, timing_tag, card, draws,
-             label):
+             label, per_shape=False):
     """``steps`` dfa fit steps of the emulated-bank session that
     ``make_session`` builds (emu_offchip, drift on), the emu kernel's count
     set to 0 just before: ``per_step`` launches a step and a finite loss;
     the first launch (block 0 of the first step) bit for bit against the
     plain version on its own operands, and the kernel timed at that shape
-    beside its plain version and its bound.  The session is freed before
-    the checks."""
+    beside its plain version and its bound.  ``per_shape``: the first
+    launch of every other (a_t, δ) shape too, bit for bit under every plan
+    of the forced grid.  The session is freed before the checks."""
     peaks = card_peaks(card)[1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emu = make_session()
     d_model, every = emu.model.cfg.d_model, emu.config.recalibrate_every
     ecalls = []
-    restore = _wrap(em, "emu_bank_product_cuda", ecalls, limit=1)
+    restore = _wrap(em, "emu_bank_product_cuda", ecalls, limit=1,
+                    key=(lambda a_t, delta, mask: (tuple(a_t.shape), tuple(delta.shape)))
+                    if per_shape else None)
     try:
         sync(torch)
         em.launches = 0
@@ -1865,7 +1918,18 @@ def _emu_fit(torch, em, make_session, gen, steps, per_step, tag, timing_tag, car
           f"{launches} = {launches / steps:g} per step")
     check(launches == per_step * steps, f"{launches} emu launches, expected {per_step} per step")
     check(math.isfinite(host["loss"]), "emu: non-finite loss")
-    (a_t, delta, mask), kw, out = ecalls.pop()
+    n_plans = 0
+    for (a_t, delta, mask), kw, out in ecalls[1:]:
+        expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
+        plans = _emu_candidates(em, a_t, delta, mask)
+        for plan in plans:
+            _emu_exact(torch, em, em.launch_kernel(a_t, delta, mask, plan=plan, **kw), expect,
+                       kw, f"{label}'s a_t {tuple(a_t.shape)} {plan.name}")
+        n_plans += len(plans)
+        print(f"[{tag}] the first launch at a_t {tuple(a_t.shape)}, δ {tuple(delta.shape)}: "
+              f"kernel equals the plain version bit for bit under {len(plans)} plans")
+    (a_t, delta, mask), kw, out = ecalls[0]
+    del ecalls
     plan = em.plan_for(a_t, delta, mask)
     t0 = time.perf_counter()
     expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
@@ -1898,7 +1962,7 @@ def _emu_fit(torch, em, make_session, gen, steps, per_step, tag, timing_tag, car
     del a_t, delta, mask, out, expect
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": err, "wall_s": wall, "loss": host["loss"],
-            "row": row}
+            "row": row, "other_shape_plans": n_plans}
 
 
 def _bank_row(torch, pm, a, b, kw, peaks, noise, tag, label, reps=None):
@@ -1918,9 +1982,10 @@ def _bank_row(torch, pm, a, b, kw, peaks, noise, tag, label, reps=None):
     return row
 
 
-def _decode_rows(torch, pm, shapes, peaks, gen, tag, label, reps=None):
+def _decode_rows(torch, pm, shapes, peaks, gen, tag, label, reps=None,
+                 what="one decode forward at T=4"):
     """``_bank_row`` at each (T, K, M) of ``shapes`` ({shape: launches a
-    forward}; bf16, no noise) and the sums over one decode forward."""
+    forward}; bf16, no noise) and the sums over one forward (``what``)."""
     print(f"[{tag}] {label}     T      K      M  dtype {TIMING_HEAD}")
     rows = []
     for (t, k, m), count in shapes.items():
@@ -1933,7 +1998,7 @@ def _decode_rows(torch, pm, shapes, peaks, gen, tag, label, reps=None):
     forward = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
     forward.update(launches=sum(r["count"] for r in rows), bound_by="bytes" if all(
         r["bound_by"] == "bytes" for r in rows) else "operations")
-    print(f"[{tag}] {label.strip() + ': ' if label else ''}one decode forward at T=4 "
+    print(f"[{tag}] {label.strip() + ': ' if label else ''}{what} "
           f"({forward['launches']} launches), ms: "
           + ", ".join(f"{key} {forward[key]:.4f}" for key in keys))
     torch.cuda.empty_cache()
@@ -2832,9 +2897,9 @@ QWEN3, MINICPM3, GRANITE = "qwen3-1.7b", "minicpm3-4b", "granite-8b"
 DENSE_FULL = {QWEN3: (28, 2048, 6144, 151936), MINICPM3: (62, 2560, 6400, 73448),
               GRANITE: (36, 4096, 14336, 49152)}
 DENSE_FORWARD = {arch: 7 * dims[0] + 1 for arch, dims in DENSE_FULL.items()}  # 197, 435, 253
-DENSE_STEPS = {QWEN3: 8, MINICPM3: 4}  # f32 dfa fit steps at batch 64 x seq 64
-DENSE_EMU_STEPS = 4
-LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 4096, 2  # above 2·k_chunk: flash_attention
+DENSE_STEPS = {QWEN3: 4, MINICPM3: 2}  # f32 dfa fit steps at batch 64 x seq 64
+DENSE_EMU_STEPS = 2
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 4096, 1  # above 2·k_chunk: flash_attention
 FLASH_TOL = 2e-5  # the reference's flash-vs-reference bound (tests/test_layers.py)
 SKINNY_K = 14336  # granite's down projection: f32 A staged in 229,376 B of shared memory
 FREE_GIB = 5.0  # device memory a training run must leave free
@@ -2853,9 +2918,10 @@ def _dense_decode_shapes(model):
     return shapes
 
 
-def _serve_captured(torch, np, pm, session, seed, key, per_forward, tag, scan=False):
+def _serve_captured(torch, np, pm, session, seed, key, per_forward, tag, scan=False,
+                    n_requests=8):
     """Serve ``session``'s model (4 slots, prefill chunk 16): a warm-up
-    request, then 8 requests of 32-token prompts and 16 new tokens with the
+    request, then ``n_requests`` of 32-token prompts and 16 new tokens with the
     bank kernel's launches counted (``per_forward`` a forward) and the first
     call of each ``key(a, b)`` captured as (a, b, kw, out); the requests
     finish, the logits are finite.  ``scan``: the model prefills by the
@@ -2873,7 +2939,7 @@ def _serve_captured(torch, np, pm, session, seed, key, per_forward, tag, scan=Fa
     del warm
     eng = session.engine(batch_slots=4, max_len=128, prefill_chunk=16, seed=seed)
     finite = _finite_outputs(torch, eng)
-    reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, 8, 32, vocab)]
+    reqs = [Request(prompt=p, max_new=16) for p in _prompts(rng, n_requests, 32, vocab)]
     captured = {}
     kernel = kops.photonic_matmul_cuda
 
@@ -3101,7 +3167,7 @@ def _dense_train(torch, api, pm, arch, seed, card, long_steps=False):
     torch.cuda.empty_cache()
 
     # step time on CUDA events, two steps under the profiler, step_cost
-    n_timed = 5 if arch == QWEN3 else 3
+    n_timed = 3
     batches = [to_device_batch(gen.batch(i)) for i in range(steps, steps + n_timed)]
     prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
     prof.update(layers=cfg.n_layers, peak_gib=peak_gib, free_gib=free_gib, losses=losses)
@@ -3203,8 +3269,8 @@ def phase_dense(torch, np, api, pm, em, seed, card, draws):
     and two decode ticks, and holds f32 cuda to ref on ideal.  qwen3 and
     minicpm3 DFA-train in f32 at batch 64 x seq 64 (29 and 63 launches a
     step; minicpm3 at the depth the card's memory allows, printed), qwen3
-    also 4 steps through emulated banks (the emu kernel bit for bit) and
-    2 steps at batch 2 x seq 4096 through ``flash_attention``.  The bank
+    also 2 steps through emulated banks (the emu kernel bit for bit) and
+    1 step at batch 2 x seq 4096 through ``flash_attention``.  The bank
     kernel is timed at every decode shape and both training shapes."""
     from repro_torch import configs
     from repro_torch.data import tokens
@@ -3275,7 +3341,7 @@ QWEN2MOE, KIMI = "qwen2-moe-a2.7b", "kimi-k2-1t-a32b"
 # (n_layers, d_model, n_experts, top_k, d_ff_expert, shared d_ff, vocab) of each full()
 MOE_FULL = {QWEN2MOE: (24, 2048, 60, 4, 1408, 4 * 1408, 151936),
             KIMI: (61, 7168, 384, 8, 2048, 2048, 163840)}
-MOE_STEPS = 8  # f32 dfa fit steps at batch 64 x seq 64: one group of 4096 tokens
+MOE_STEPS = 4  # f32 dfa fit steps at batch 64 x seq 64: one group of 4096 tokens
 MOE_EMU_LAYERS = 2  # the emu serve's depth at full width
 KIMI_SLICE = 32  # experts a slice of kimi's plain version (1.9 GB of f32 weights)
 
@@ -3730,7 +3796,7 @@ RG_FULL = (38, 4096, 16, 1, 12288, 256000, 4096, 2048)
 # out, the MLP's 3), 12 attention layers x 7 (q, k, v, o, the MLP's 3), the head
 RG_FORWARD = 26 * 8 + 12 * 7 + 1  # 293
 RG_DEPTH = 4  # training: one (rec, rec, attn) group and one tail layer
-RG_STEPS = 8  # f32 dfa fit steps
+RG_STEPS = 4  # f32 dfa fit steps
 RG_BATCHES = (64, 32, 16)  # x LM_SEQ: the largest that leaves FREE_GIB free
 # the memory probe's steps: the allocator's reserve above the allocated peak
 # grows after the first step (seen on the card)
@@ -3750,7 +3816,7 @@ def _rg_cfg(torch, depth=None, dtype=None):
 
 def _rg_serve(torch, np, api, pm, seed):
     """recurrentgemma-9b's full() in bf16 on offchip_bpd, ``cuda`` backend,
-    4 slots: 8 requests of 32-token prompts and 16 new tokens, prefill
+    4 slots: 4 requests of 32-token prompts and 16 new tokens, prefill
     chunk 16 by the masked decode-scan; 293 launches a forward; the kernel
     against its plain version on the path's own operands at every (T, K,
     M) (the first call of each), the K = 12288 down projection by both
@@ -3767,7 +3833,7 @@ def _rg_serve(torch, np, api, pm, seed):
     check(len(model.forward_gemm_specs()) == RG_FORWARD, f"not {RG_FORWARD} bank products")
     run = _serve_captured(torch, np, pm, session, seed,
                           lambda a, b: (a.shape[0], a.shape[1], b.shape[0]), RG_FORWARD, tag,
-                          scan=True)
+                          scan=True, n_requests=4)
     captured = run.pop("captured")
     decode = _dense_decode_shapes(model)
     check(set(captured) == set(decode), f"the path's (T, K, M) {sorted(captured)}, not "
@@ -4118,6 +4184,599 @@ def rg_summary(res):
             "seconds": res["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# whisper-small and internvl2-2b (phase_whisper, phase_internvl2)
+# ---------------------------------------------------------------------------
+WHISPER, INTERNVL2 = "whisper-small", "internvl2-2b"
+# (enc layers, dec layers, d_model, heads, d_ff, vocab, frames, max_target) of its full()
+WHISPER_FULL = (12, 12, 768, 12, 3072, 51865, 1500, 448)
+# bank products of an encode or a decode forward: q, k, v, o, fc1 and fc2 in
+# each of 12 layers; the cross attention and the head are digital
+WHISPER_FORWARD = 6 * 12  # 72
+WHISPER_CLIPS, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 16  # served: 4 clips, 4 + 16 decode steps
+WHISPER_BATCH, WHISPER_STEPS, WHISPER_EMU_STEPS = 8, 8, 2  # f32 dfa: batch 8 x seq 64
+# a dfa step's projections: 12 encoder blocks (the pooled error, one row a
+# clip), 12 decoder blocks and the embedding (every target position)
+WHISPER_LAUNCHES = 25
+# (n_layers, d_model, heads, kv heads, d_ff, vocab, patches, d_vision) of its full()
+INTERNVL2_FULL = (24, 2048, 16, 8, 8192, 92553, 256, 1024)
+INTERNVL2_FORWARD = 7 * 24 + 1  # 169: q, k, v, o and the MLP's 3 a layer, the head
+INTERNVL2_STEPS = 4  # f32 dfa fit steps, 256 patches + seq 64
+INTERNVL2_BATCHES = (64, 32, 16)  # the largest that leaves FREE_GIB free
+INTERNVL2_PROBE_BATCH = 16
+
+
+def _whisper_inputs(torch, np, cfg, seed):
+    """WHISPER_CLIPS clips of frame embeddings (0.1 x normal, as the
+    training launcher draws them) and WHISPER_PROMPT-token prompts."""
+    rng = np.random.default_rng(seed)
+    frames = rng.normal(size=(WHISPER_CLIPS, cfg.n_frames, cfg.d_model)).astype("float32") * 0.1
+    prompt = rng.integers(0, cfg.vocab_size, (WHISPER_CLIPS, WHISPER_PROMPT))
+    return torch.tensor(frames, device=DEVICE), torch.tensor(prompt, device=DEVICE)
+
+
+def _whisper_serve(torch, np, api, pm, seed, card):
+    """whisper-small full() in bf16 on offchip_bpd, ``cuda`` backend: 4
+    clips of 1500 frames encoded once (72 launches at T = 6000), then a
+    4-token prompt fed a token at a time and 16 greedy tokens through
+    ``make_serve_step(whisper_enc=True)`` (72 launches a step, T = 4); the
+    kernel against its plain version on the path's own operands at every
+    (T, K, M) (the first call of each); one encode and two decode steps
+    under the profiler."""
+    import types
+
+    from repro_torch.core import photonics as ph
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve.decode import make_serve_step
+    from repro_torch.utils import prng
+
+    tag = "whisper_serve"
+    model = api.build_model(WHISPER, dtype=torch.bfloat16, device=DEVICE, seed=seed)
+    c = model.cfg
+    check((c.n_enc_layers, c.n_dec_layers, c.d_model, c.n_heads, c.d_ff, c.vocab_size,
+           c.n_frames, c.max_target) == WHISPER_FULL, "not whisper-small's full config")
+    n_params = sum(p.numel() for p in model.parameters())
+    frames, prompt = _whisper_inputs(torch, np, c, seed + 30)
+    serve_step = make_serve_step(model, whisper_enc=True)
+    hw = ph.PRESETS["offchip_bpd"]
+    n = WHISPER_CLIPS
+    max_len = 32
+
+    def encode(key):
+        with torch.no_grad(), ph.forward_execution(hw, "cuda", key):
+            return model.encode(frames)
+
+    def decode(tok, caches, pos, enc, key):
+        with torch.no_grad(), ph.forward_execution(hw, "cuda", key):
+            return serve_step(tok, caches, torch.full((n,), pos, device=DEVICE), enc)
+
+    # warm-up: one encode and one decode step (allocator, first launches)
+    enc = encode(prng.fold(seed, "warm"))
+    decode(prompt[:, :1], model.init_caches(n, max_len), 0, enc, prng.fold(seed, "warm"))
+    sync(torch)
+    del enc
+    captured = []
+    restore = _wrap(kops, "photonic_matmul_cuda", captured,
+                    key=lambda a, b: (a.shape[0], a.shape[1], b.shape[0]))
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    steps = WHISPER_PROMPT + WHISPER_NEW
+    try:
+        sync(torch)
+        pm.launches = 0
+        t0 = time.perf_counter()
+        enc = encode(prng.fold(seed, "encode"))
+        sync(torch)
+        encode_wall = time.perf_counter() - t0
+        encode_launches = pm.launches
+        caches, out, step_s = model.init_caches(n, max_len), [], []
+        tok = prompt[:, :1]
+        for t in range(steps):
+            tok = prompt[:, t:t + 1] if t < WHISPER_PROMPT else tok
+            t1 = time.perf_counter()
+            tok, logits, caches = decode(tok, caches, t, enc, prng.fold(seed, t))
+            finite &= torch.isfinite(logits).all()
+            sync(torch)
+            step_s.append(time.perf_counter() - t1)
+            if t >= WHISPER_PROMPT - 1:
+                out.append(tok)
+        launches = pm.launches
+    finally:
+        restore()
+    forwards = 1 + steps
+    new_tokens = n * (len(out) - 1)
+    decode_wall = sum(step_s)
+    print(f"[{tag}] full() ({n_params / 1e6:.1f} M parameters) bf16, offchip_bpd, cuda backend: "
+          f"encode of {n} clips x {c.n_frames} frames in {encode_wall * 1e3:.2f} ms; {steps} "
+          f"decode steps ({WHISPER_PROMPT} prompt tokens fed one at a time, then "
+          f"{WHISPER_NEW} greedy) in {decode_wall:.3f}s: step wall median "
+          f"{statistics.median(step_s) * 1e3:.2f} ms, {new_tokens / decode_wall:.1f} tok/s "
+          f"over the steps")
+    print(f"[{tag}] photonic_matmul launches: encode {encode_launches}, all {launches} = "
+          f"{WHISPER_FORWARD} x {forwards} forwards (1 encode + {steps} decode steps): "
+          f"{launches == WHISPER_FORWARD * forwards}")
+    check(encode_launches == WHISPER_FORWARD, f"{encode_launches} launches in the encode")
+    check(launches == WHISPER_FORWARD * forwards,
+          f"launches {launches} != {WHISPER_FORWARD} x {forwards}")
+    check(bool(finite.item()), "non-finite logits")
+    check(len(out) == WHISPER_NEW + 1, "greedy tokens missing")
+    captured = {(a.shape[0], a.shape[1], b.shape[0]): (a, b, kw, got)
+                for (a, b), kw, got in captured}
+    t_enc = n * c.n_frames
+    layer = {(c.d_model, c.d_model), (c.d_model, c.d_ff), (c.d_ff, c.d_model)}
+    expect_shapes = {(t, k, m) for t in (t_enc, n) for k, m in layer}
+    check(set(captured) == expect_shapes,
+          f"the path's (T, K, M) {sorted(captured)}, not {sorted(expect_shapes)}")
+    max_err = _captured_vs_plain(torch, pm, captured, "(T, K, M)")
+    enc_err = _captured_vs_plain(torch, pm, {s: v for s, v in captured.items() if s[0] == t_enc},
+                                 "(T, K, M)")
+    modes = sorted({"input" if "noise" in kw else "none" for _, _, kw, _ in captured.values()})
+    print(f"[{tag}] kernel vs plain on the path's own bf16 operands (first call of each of "
+          f"{len(captured)} (T, K, M): {', '.join(str(x) for x in sorted(captured))}; "
+          f"{'/'.join(modes)} noise): max |kernel - plain| / max|plain| = {max_err:.3e}, at T = "
+          f"{t_enc} {enc_err:.3e} (tol {TOL['bfloat16']}); variants at T = {t_enc}: "
+          + ", ".join(f"{k}x{m} {pm._plan(t_enc, m, k, torch.bfloat16, (0, 0)).name}"
+                      for (_, k, m) in sorted(s for s in captured if s[0] == t_enc)))
+    del captured
+    # one encode and two decode steps under the profiler
+    keys = iter(range(10**6, 10**6 + 3))
+    profile = {"encode": _profile_ticks(
+        torch, types.SimpleNamespace(tick=lambda: encode(next(keys))), 1, tag,
+        f"encode ({n} clips x {c.n_frames} frames, bf16, offchip_bpd)", "photonic_matmul")}
+    state = {"tok": tok, "caches": caches, "t": steps}
+
+    def tick():
+        state["tok"], _, state["caches"] = decode(state["tok"], state["caches"], state["t"], enc,
+                                                  next(keys))
+        state["t"] += 1
+
+    profile["decode_step"] = _profile_ticks(torch, types.SimpleNamespace(tick=tick), 2, tag,
+                                            f"decode step ({n} clips, bf16, offchip_bpd)",
+                                            "photonic_matmul")
+    print(f"[{tag}] card: {card}")
+    del model, enc, caches, state, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "encode_launches": encode_launches, "forwards": forwards,
+            "encode_ms": encode_wall * 1e3, "step_ms": statistics.median(step_s) * 1e3,
+            "tok_s": new_tokens / decode_wall, "n_params": n_params, "max_rel_err": max_err,
+            "encode_max_rel_err": enc_err, "profile": profile}
+
+
+def _whisper_parity(torch, np, api, seed):
+    """full() in f32 on the ideal preset: the ``cuda`` backend against the
+    ``ref`` backend, teacher-forced: the encode, the 4-token prompt and 8
+    greedy steps; the encoder output and each step's logits."""
+    from repro_torch.core import photonics as ph
+
+    model = api.build_model(WHISPER, dtype=torch.float32, device=DEVICE, seed=seed)
+    frames, prompt = _whisper_inputs(torch, np, model.cfg, seed + 31)
+    n, n_decode = WHISPER_CLIPS, 8
+
+    def run(backend, forced=None):
+        logits_seq, chosen = [], []
+        with torch.no_grad(), ph.forward_execution(ph.PRESETS["ideal"], backend):
+            enc = model.encode(frames)
+            caches = model.init_caches(n, 32)
+            tok = prompt[:, :1]
+            for t in range(WHISPER_PROMPT + n_decode):
+                if t < WHISPER_PROMPT:
+                    tok = prompt[:, t:t + 1]
+                else:
+                    tok = forced[t - WHISPER_PROMPT] if forced is not None else tok
+                    chosen.append(tok)
+                logits, caches = model.decode_step(tok, enc, caches,
+                                                   torch.full((n,), t, device=DEVICE))
+                logits_seq.append(logits[:, -1].float())
+                tok = logits[:, -1].argmax(-1)[:, None]
+        return enc, logits_seq, chosen
+
+    ref_enc, ref_logits, ref_tokens = run("ref")
+    cuda_enc, cuda_logits, _ = run("cuda", forced=ref_tokens)
+    enc_rel = _max_rel(cuda_enc, ref_enc)
+    worst, gated, agree = _logit_agreement(ref_logits, cuda_logits)
+    print(f"[whisper_parity] f32 ideal, cuda vs ref: encoder output max |Δ| / max|ref| = "
+          f"{enc_rel:.3e}; {len(ref_logits)} decode steps' logits ({WHISPER_PROMPT} prompt + "
+          f"{n_decode} teacher-forced): max |Δlogit| / max|logit| = {worst:.3e} (limit 1e-4); "
+          f"greedy tokens agree at {agree}/{gated} positions with a top-2 gap > "
+          f"1e-3·max|logit|")
+    check(worst <= 1e-4, f"cuda vs ref logits differ by {worst:.3e} of max|logit|")
+    check(enc_rel <= 1e-4, f"cuda vs ref encoder outputs differ by {enc_rel:.3e}")
+    check(agree == gated, "greedy tokens differ where the top-2 gap is clear")
+    del model, ref_logits, cuda_logits, ref_enc, cuda_enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_rel": worst, "encode_max_rel": enc_rel, "clear_positions": gated,
+            "agree": agree}
+
+
+def _qk_scale(name):
+    """The gradient whose max |value| scales ``name``'s in whisper's ideal
+    cuda-vs-ref check: for the rope-less self-attention's q and k
+    parameters, the attention's v parameter of the same kind.  Their
+    gradients act only through the softmax's departure from uniform, small
+    at random init: the key bias's is zero in exact arithmetic (it shifts
+    every score of a query alike) and q.weight's lies orders of magnitude
+    below v.weight's (``_whisper_train`` prints both), so the f32 rounding
+    of δ shows there amplified.  Every other gradient is held to its own
+    max."""
+    for attn in (".attn.", ".self."):
+        for proj in ("q.", "k."):
+            if attn + proj in name:
+                return name.replace(attn + proj, attn + "v.")
+    return name
+
+
+def _whisper_train(torch, np, api, pm, em, seed, card, draws):
+    """full() in f32, batch 8 x seq 64 with 1500 frames a clip: WHISPER_STEPS
+    dfa fit steps on offchip_bpd (``cuda``), 25 launches a step; the
+    encoder's, the decoder's and the embedding's first δ against the plain
+    version; the serving-only ``head.ln_enc`` with an exactly zero
+    gradient; ideal cuda = ref gradients; step ms, a profile, step_cost
+    and peak memory; WHISPER_EMU_STEPS steps on emu_offchip with the emu
+    kernel bit for bit at both of its shapes."""
+    import types
+
+    from repro_torch.launch.train import lm_batches
+
+    tag = "whisper_train"
+    log = pm._BUILD_DIR / f"whisper_train-{os.getpid()}.csv"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    session = api.build_session(arch=WHISPER, smoke=False, dtype=torch.float32, seed=seed,
+                                algo="dfa", hardware="offchip_bpd", backend="cuda", log_every=1,
+                                log_path=str(log), device=DEVICE)
+    model, cfg = session.model, session.model.cfg
+    check((cfg.n_enc_layers, cfg.n_dec_layers, cfg.d_model, cfg.vocab_size) == (
+        12, 12, 768, 51865) and model.head["out"].weight.dtype == torch.float32,
+        "not the full f32 model")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = types.SimpleNamespace(batch=lm_batches(WHISPER, cfg, LM_SEQ, WHISPER_BATCH, seed))
+    fit = _fit_logged(torch, pm, session, gen, WHISPER_STEPS, log)
+    launches, losses = fit["launches"], fit["losses"]
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    free_gib = (total - torch.cuda.max_memory_reserved()) / 2**30
+    print(f"[{tag}] whisper-small full width f32 ({n_params / 1e6:.1f} M parameters), "
+          f"offchip_bpd, cuda backend, batch {WHISPER_BATCH} x seq {LM_SEQ} with "
+          f"{cfg.n_frames} frames a clip: {WHISPER_STEPS} fit steps in {fit['wall']:.2f}s; loss "
+          f"per step {', '.join(f'{x:.4f}' for x in losses)}; photonic_matmul launches "
+          f"{launches} = {launches / WHISPER_STEPS:g} per step; peak device memory "
+          f"{peak_gib:.2f} GiB above the {base / 2**30:.2f} GiB resident, {free_gib:.2f} GiB of "
+          f"the card never reserved")
+    _check_fit(fit, WHISPER_STEPS, WHISPER_LAUNCHES)
+
+    rows = WHISPER_BATCH * LM_SEQ
+    calls, errs, step, out = _step_projections(
+        torch, pm, session, fit["state"], gen, seed, WHISPER_LAUNCHES, rows, tag,
+        picks=(("encoder block 0", 0, WHISPER_BATCH), ("decoder block 0", cfg.n_enc_layers, rows),
+               ("embedding", -1, rows)))
+    grads = out[1]
+    ln_enc = max(grads[k].abs().max().item() for k in ("head.ln_enc.scale", "head.ln_enc.bias"))
+    trained = min(grads[k].abs().max().item() for k in ("embed.audio.pos", "embed.audio.ln.scale",
+                                                        "dec.0.cross.k.weight"))
+    qkv = {p: max(grads[k].abs().max().item() for k in grads
+                  if k.startswith("dec.") and f".self.{p}.weight" in k) for p in "qkv"}
+    print(f"[{tag}] head.ln_enc's gradient max |g| = {ln_enc:.1e} (serving alone reads it, as "
+          f"in the reference); the audio stub's and the cross attention's are live (min of "
+          f"their max |g| {trained:.3e}); the decoder self-attention's q / k / v weights' max "
+          f"|g| {qkv['q']:.3e} / {qkv['k']:.3e} / {qkv['v']:.3e}")
+    check(ln_enc == 0.0, f"head.ln_enc has a gradient ({ln_enc})")
+    check(trained > 0, "a frontend or cross-attention gradient is zero")
+    operands = {label: (a, b, kw["noise"]) for label, i in (("encoder", 0),
+                                                           ("decoder", cfg.n_enc_layers))
+                for (a, b), kw, _ in [calls[i]]}
+    del calls, out, grads
+    ideal = _ideal_cuda_vs_ref(torch, session, fit["state"], step, tag,
+                               watch=("embed.audio.pos", "enc.0.attn.q.weight",
+                                      "dec.0.cross.k.weight", "enc.0.attn.k.bias"),
+                               scale_of=_qk_scale)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = [to_device_batch(gen.batch(i)) for i in range(WHISPER_STEPS, WHISPER_STEPS + 4)]
+    prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
+    prof.update(batch=WHISPER_BATCH, peak_gib=peak_gib, free_gib=free_gib, losses=losses)
+    del batches, fit, session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emu = _emu_fit(torch, em, lambda: api.build_session(
+        arch=WHISPER, smoke=False, dtype=torch.float32, seed=seed, algo="dfa",
+        hardware="emu_offchip", backend="emu", log_every=10**9, device=DEVICE),
+        gen, WHISPER_EMU_STEPS, WHISPER_LAUNCHES, "whisper_emu", "whisper_timing", card, draws,
+        "whisper", per_shape=True)
+    check(emu["other_shape_plans"] > 0, "the emu path gave one shape only")
+    return {"launches": launches, "per_step": WHISPER_LAUNCHES,
+            "max_abs_err": max(errs.values()), "ideal_max_rel": ideal[0], "profile": prof,
+            "operands": operands, "emu": emu, "n_params": n_params}
+
+
+def _timing_rows(torch, pm, operands, peaks, tag, label, per_step, step_ms):
+    """The bank kernel at a dfa step's training shapes (input mode, f32):
+    {name: row}, each with its launches a step."""
+    print(f"[{tag}] {label} training shapes, input mode      T      K      M  dtype "
+          f"{TIMING_HEAD}")
+    rows = {}
+    for name, (a, b, noise) in operands.items():
+        rows[name] = _bank_row(torch, pm, a, b, {"noise": noise}, peaks, "input", tag,
+                               f"{label} {name:>12s}, input mode ",
+                               reps={"ms": 25, "plain_ms": 10, "library_ms": 25})
+        rows[name]["launches_per_step"] = per_step[name]
+    dev = sum(r["dev_ms"] * r["launches_per_step"] for r in rows.values())
+    print(f"[{tag}] {label}: the path's {sum(per_step.values())} launches a dfa step: "
+          f"{dev:.3f} ms device of the step's {step_ms:.1f} ms")
+    return rows
+
+
+def phase_whisper(torch, np, api, pm, em, seed, card, draws):
+    """whisper-small at full width, random weights from ``seed`` (12 + 12
+    layers, d 768, 12 heads, d_ff 3072, vocab 51865, 1500 frames; 279.6 M
+    parameters): served in bf16 through the bank kernel (72 launches an
+    encode at T = 6000 and a decode step at T = 4; cross attention and the
+    head digital; the kernel against its plain version at every path
+    shape) with a profiled encode and two decode steps; f32 ideal cuda vs
+    ref (encoder output and logits); f32 dfa training at full depth (25
+    launches a step: the encoder's blocks take the pooled error), ideal
+    cuda = ref gradients, the zero ``ln_enc`` gradient; 2 steps on emulated
+    banks with the emu kernel bit for bit; the bank kernel timed at the
+    encode, decode and training shapes."""
+    kind, peaks = card_peaks(card)
+    t0 = time.perf_counter()
+    print(f"[whisper] seed {seed}; {WHISPER}: {WHISPER_FULL[0]} + {WHISPER_FULL[1]} layers, d "
+          f"{WHISPER_FULL[2]}, {WHISPER_FULL[3]} heads, d_ff {WHISPER_FULL[4]}, vocab "
+          f"{WHISPER_FULL[5]}, {WHISPER_FULL[6]} frames, max_target {WHISPER_FULL[7]}; "
+          f"{WHISPER_FORWARD} bank products a forward; training batch {WHISPER_BATCH} x seq "
+          f"{LM_SEQ}, {WHISPER_STEPS} steps, {WHISPER_EMU_STEPS} on emu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serve": _whisper_serve(torch, np, api, pm, seed, card)}
+    out["parity"] = _whisper_parity(torch, np, api, seed)
+    out["train"] = _whisper_train(torch, np, api, pm, em, seed, card, draws)
+    c = _meta_model(torch, WHISPER).cfg
+    layer = {(c.d_model, c.d_model): 4, (c.d_model, c.d_ff): 1, (c.d_ff, c.d_model): 1}
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    print(f"[whisper_timing] {kind} peaks; card: {card}")
+    t_enc = WHISPER_CLIPS * c.n_frames
+    forwards = {}
+    for t, what in ((t_enc, "encode"), (WHISPER_CLIPS, "decode")):
+        shapes = {(t, k, m): n * c.n_enc_layers for (k, m), n in sorted(layer.items())}
+        rows, fwd = _decode_rows(torch, pm, shapes, peaks, gen, "whisper_timing",
+                                 f"whisper {what} shapes ",
+                                 reps={"ms": 10, "plain_ms": 10, "library_ms": 10},
+                                 what=f"one {what} forward at T={t}")
+        check(fwd["launches"] == WHISPER_FORWARD, f"{fwd['launches']} launches timed")
+        forwards[what] = {"shapes": rows, "forward": fwd}
+    out["timing"] = forwards
+    train = out["train"]
+    out["train_shapes"] = _timing_rows(
+        torch, pm, train.pop("operands"), peaks, "whisper_timing", "whisper",
+        {"encoder": c.n_enc_layers, "decoder": c.n_dec_layers + 1},
+        train["profile"]["step_ms"])
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[whisper] done in {out['seconds']:.1f}s")
+    return out
+
+
+def whisper_summary(res):
+    """whisper's numbers for its own output line."""
+    serve, prof = res["serve"], res["train"]["profile"]
+    dec = serve["profile"]["decode_step"]
+    return {"arch": WHISPER, "encode_ms": serve["encode_ms"], "step_ms_wall": serve["step_ms"],
+            "tok_s": serve["tok_s"], "decode_step_busy_ms": dec.get("busy_ms"),
+            "decode_step_idle_share": dec.get("idle_share"),
+            "encode_busy_ms": serve["profile"]["encode"].get("busy_ms"),
+            "serve_launches": serve["launches"], "parity_max_rel": res["parity"]["max_rel"],
+            "train_step_ms": prof["step_ms"], "tflop_s": prof["tflop_s"],
+            "peak_gib": prof["peak_gib"], "train_idle_share": prof.get("idle_share"),
+            "train_launches": res["train"]["launches"],
+            "emu_launches": res["train"]["emu"]["launches"],
+            "encode_forward_dev_ms": res["timing"]["encode"]["forward"]["dev_ms"],
+            "decode_forward_dev_ms": res["timing"]["decode"]["forward"]["dev_ms"],
+            "seconds": res["seconds"]}
+
+
+def _internvl2_serve(torch, np, api, pm, seed):
+    """internvl2-2b full() in bf16 on offchip_bpd, ``cuda`` backend, text
+    only, as the reference serves it: 8 requests of 32-token prompts and
+    16 new tokens on 4 slots, prefill chunk 16; 169 launches a forward; the
+    kernel against its plain version at every (T, K, M) of the path, the
+    92553-row head at T = 4 and 64 among them; a prefill tick and two
+    decode ticks under the profiler."""
+    tag = "internvl2_serve"
+    session = api.build_session(arch=INTERNVL2, algo="bp", smoke=False, hardware="offchip_bpd",
+                                backend="cuda", dtype=torch.bfloat16, seed=seed, device=DEVICE)
+    model = session.model
+    c = model.cfg
+    check((c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff, c.vocab_size,
+           c.vision.n_patches, c.vision.d_vision) == INTERNVL2_FULL,
+          "not internvl2-2b's full config")
+    check(len(model.forward_gemm_specs()) == INTERNVL2_FORWARD,
+          f"not {INTERNVL2_FORWARD} bank products a token")
+    run = _serve_captured(torch, np, pm, session, seed,
+                          lambda a, b: (a.shape[0], a.shape[1], b.shape[0]), INTERNVL2_FORWARD,
+                          tag)
+    captured = run.pop("captured")
+    decode = _dense_decode_shapes(model)
+    shapes = set(captured)
+    check({s for s in shapes if s[0] == 4} == set(decode)
+          and {s for s in shapes if s[0] != 4} == {(64, k, m) for _, k, m in decode},
+          f"the path's (T, K, M) {sorted(shapes)}")
+    max_err = _captured_vs_plain(torch, pm, captured, "(T, K, M)")
+    heads = {s: v for s, v in captured.items() if s[2] == c.vocab_size}
+    head_err = _captured_vs_plain(torch, pm, heads, "the head's (T, K, M)")
+    print(f"[{tag}] kernel vs plain on the path's own bf16 operands (first call of each of "
+          f"{len(captured)} (T, K, M): {', '.join(str(s) for s in sorted(shapes))}): max "
+          f"|kernel - plain| / max|plain| = {max_err:.3e}; the head (M = {c.vocab_size}, odd) "
+          + ", ".join(f"T = {s[0]} {pm._plan(s[0], s[2], s[1], torch.bfloat16, (0, 0)).name}"
+                      for s in sorted(heads))
+          + f": {head_err:.3e} (tol {TOL['bfloat16']})")
+    del captured, heads
+    profile = phase_profile_ticks(torch, np, api, seed, tag=tag, session=session)
+    del session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "max_rel_err": max_err, "head_max_rel_err": head_err, "profile": profile}
+
+
+def _internvl2_train(torch, np, api, pm, seed, card):
+    """internvl2-2b at full depth and width in f32 with the 256-patch
+    prefix and seq 64 (320 positions a row): RG_PROBE_STEPS steps at
+    batch INTERNVL2_PROBE_BATCH measure the activations and the allocator's reserve, the
+    largest batch of INTERNVL2_BATCHES that leaves FREE_GIB free by that
+    measure is taken (printed); INTERNVL2_STEPS dfa fit steps on
+    offchip_bpd (``cuda``), 25 launches a step; block 0's and the
+    embedding's δ against the plain version; ideal cuda = ref gradients;
+    step ms, a profile, step_cost and peak memory."""
+    import types
+
+    from repro_torch.launch.train import lm_batches
+
+    tag = "internvl2_train"
+    total = torch.cuda.get_device_properties(0).total_memory
+    log = pm._BUILD_DIR / f"internvl2_train-{os.getpid()}.csv"
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    session = api.build_session(arch=INTERNVL2, smoke=False, dtype=torch.float32, seed=seed,
+                                algo="dfa", hardware="offchip_bpd", backend="cuda", log_every=1,
+                                log_path=str(log), device=DEVICE)
+    model, cfg = session.model, session.model.cfg
+    check(model.head["out"].weight.dtype == torch.float32 and cfg.n_layers == INTERNVL2_FULL[0],
+          "not the full f32 model")
+    n_params = sum(p.numel() for p in model.parameters())
+    states = STATE_COPIES * 4 * n_params
+    width = cfg.vision.n_patches + LM_SEQ
+
+    def batches_of(batch):
+        return types.SimpleNamespace(batch=lm_batches(INTERNVL2, cfg, LM_SEQ, batch, seed))
+
+    small = INTERNVL2_PROBE_BATCH * width
+    probe = batches_of(INTERNVL2_PROBE_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    state = session.init_state()
+    for i in range(RG_PROBE_STEPS):
+        state, _ = session.step(state, probe.batch(i))
+    sync(torch)
+    peak = torch.cuda.max_memory_allocated() - base
+    reserve = torch.cuda.max_memory_reserved() - torch.cuda.max_memory_allocated()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    act_row = max(0, peak - states) / small
+    fits = [b for b in INTERNVL2_BATCHES
+            if base + states + act_row * b * width + reserve + FREE_GIB * 2**30 <= total]
+    batch = fits[0] if fits else INTERNVL2_BATCHES[-1]
+    rows = batch * width
+    print(f"[{tag}] full depth and width, f32: {n_params / 1e9:.3f} B parameters, "
+          f"{STATE_COPIES} f32 copies {states / 2**30:.2f} GiB; {RG_PROBE_STEPS} steps at batch "
+          f"{INTERNVL2_PROBE_BATCH} x ({cfg.vision.n_patches} patches + {LM_SEQ} tokens) peaked "
+          f"{peak / 2**30:.2f} GiB above resident: activations {act_row * small / 2**30:.2f} "
+          f"GiB, {act_row / 2**20:.3f} MiB a row, the allocator reserved {reserve / 2**30:.2f} "
+          f"GiB above the peak; batch {batch} ({rows} rows) is the largest of "
+          f"{', '.join(map(str, INTERNVL2_BATCHES))} that leaves {FREE_GIB:g} GiB of the "
+          f"{total / 2**30:.1f} GiB card free")
+
+    torch.cuda.reset_peak_memory_stats()
+    per_step = cfg.n_layers + 1
+    gen = batches_of(batch)
+    fit = _fit_logged(torch, pm, session, gen, INTERNVL2_STEPS, log)
+    launches, losses = fit["launches"], fit["losses"]
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    free_gib = (total - torch.cuda.max_memory_reserved()) / 2**30
+    print(f"[{tag}] {cfg.n_layers} layers, full width, f32, offchip_bpd, cuda backend, batch "
+          f"{batch} x ({cfg.vision.n_patches} + {LM_SEQ}): {INTERNVL2_STEPS} fit steps in "
+          f"{fit['wall']:.2f}s; loss per step {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"photonic_matmul launches {launches} = {launches / INTERNVL2_STEPS:g} per step; peak "
+          f"device memory {peak_gib:.2f} GiB above the {base / 2**30:.2f} GiB resident, "
+          f"{free_gib:.2f} GiB of the card never reserved")
+    _check_fit(fit, INTERNVL2_STEPS, per_step)
+    check(free_gib >= FREE_GIB, f"the run left {free_gib:.2f} GiB free, under {FREE_GIB} GiB")
+
+    calls, errs, step, out = _step_projections(torch, pm, session, fit["state"], gen, seed,
+                                               per_step, rows, tag)
+    (a, b), kw, _ = calls[0]
+    operands = {"blocks": (a, b, kw["noise"])}
+    del calls, out, a, b, kw
+    ideal = _ideal_cuda_vs_ref(torch, session, fit["state"], step, tag,
+                               watch=("blocks.0.attn.q.weight", "embed.tok.table"))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = [to_device_batch(gen.batch(i)) for i in range(INTERNVL2_STEPS,
+                                                            INTERNVL2_STEPS + 3)]
+    prof = _step_timing(torch, session, fit, batches, 1, 1, tag, card)
+    prof.update(batch=batch, peak_gib=peak_gib, free_gib=free_gib, losses=losses,
+                act_gib=act_row * rows / 2**30, reserve_gib=reserve / 2**30)
+    del batches, fit, session, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "max_abs_err": max(errs.values()),
+            "ideal_max_rel": ideal[0], "profile": prof, "operands": operands,
+            "n_params": n_params}
+
+
+def phase_internvl2(torch, np, api, pm, em, seed, card, draws):
+    """internvl2-2b at full width, random weights from ``seed`` (24
+    layers, d 2048, 16 / 8 heads, d_ff 8192, vocab 92553, a 256-patch
+    vision prefix; 1.891 B parameters): served text-only in bf16 through
+    the bank kernel (169 launches a forward, the kernel against its plain
+    version at every shape, the odd 92553-row head among them) with a
+    profiled prefill tick and two decode ticks; f32 ideal cuda-vs-ref
+    parity; f32 dfa training at full depth with the patch prefix at the
+    largest batch the card holds, ideal cuda = ref gradients; the bank
+    kernel timed at every decode shape and the training shape."""
+    del em, draws
+    kind, peaks = card_peaks(card)
+    t0 = time.perf_counter()
+    print(f"[internvl2] seed {seed}; {INTERNVL2}: {INTERNVL2_FULL[0]} layers, d "
+          f"{INTERNVL2_FULL[1]}, {INTERNVL2_FULL[2]} / {INTERNVL2_FULL[3]} heads, d_ff "
+          f"{INTERNVL2_FULL[4]}, vocab {INTERNVL2_FULL[5]}, {INTERNVL2_FULL[6]} patches x "
+          f"{INTERNVL2_FULL[7]}; {INTERNVL2_FORWARD} bank products a token; training "
+          f"{INTERNVL2_STEPS} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serve": _internvl2_serve(torch, np, api, pm, seed)}
+    out["parity"] = phase_parity(torch, np, api, seed, arch=INTERNVL2, tag="internvl2_parity")
+    out["train"] = _internvl2_train(torch, np, api, pm, seed, card)
+    shapes = _dense_decode_shapes(_meta_model(torch, INTERNVL2))
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    print(f"[internvl2_timing] {kind} peaks; card: {card}")
+    rows, forward = _decode_rows(torch, pm, dict(sorted(shapes.items())), peaks, gen,
+                                 "internvl2_timing", "internvl2 decode shapes ",
+                                 reps={"ms": 10, "plain_ms": 10, "library_ms": 10})
+    check(forward["launches"] == INTERNVL2_FORWARD, f"{forward['launches']} launches timed")
+    out["decode"] = {"shapes": rows, "forward": forward}
+    train = out["train"]
+    out["train_shapes"] = _timing_rows(torch, pm, train.pop("operands"), peaks,
+                                       "internvl2_timing", "internvl2",
+                                       {"blocks": train["per_step"]},
+                                       train["profile"]["step_ms"])
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[internvl2] done in {out['seconds']:.1f}s")
+    return out
+
+
+def internvl2_summary(res):
+    """internvl2's numbers for its own output line."""
+    serve, tick = res["serve"], res["serve"]["profile"]
+    prof = res["train"]["profile"]
+    return {"arch": INTERNVL2, "tok_s": serve["tok_s"], "ttft_p50_ms": serve["ttft_ms"],
+            "decode_tick_wall_ms": tick["decode_tick"]["wall_ms"],
+            "decode_tick_busy_ms": tick["decode_tick"].get("busy_ms"),
+            "decode_tick_idle_share": tick["decode_tick"].get("idle_share"),
+            "prefill_tick_wall_ms": tick["prefill_tick"]["wall_ms"],
+            "prefill_tick_busy_ms": tick["prefill_tick"].get("busy_ms"),
+            "serve_launches": serve["launches"], "parity_max_rel": res["parity"]["max_rel"],
+            "train_batch": prof["batch"], "step_ms": prof["step_ms"],
+            "tflop_s": prof["tflop_s"], "peak_gib": prof["peak_gib"],
+            "idle_share": prof.get("idle_share"), "train_launches": res["train"]["launches"],
+            "decode_forward_dev_ms": res["decode"]["forward"]["dev_ms"],
+            "seconds": res["seconds"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4172,17 +4831,26 @@ def main(argv=None):
     dense = timed(phase_dense, torch, np, api, pm, em, args.seed, card, draws)
     moe = timed(phase_moe, torch, np, api, pm, em, args.seed, card, draws)
     rg = timed(phase_recurrentgemma, torch, np, api, pm, em, args.seed, card, draws)
+    whisper = timed(phase_whisper, torch, np, api, pm, em, args.seed, card, draws)
+    internvl2 = timed(phase_internvl2, torch, np, api, pm, em, args.seed, card, draws)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     for arch, res in dense.items():
         print(json.dumps({"dense_model": dense_summary(arch, res)}))
     print(json.dumps({"moe_model": moe_summary(moe)}))
     print(json.dumps({"rg_model": rg_summary(rg)}))
+    print(json.dumps({"whisper_model": whisper_summary(whisper)}))
+    print(json.dumps({"internvl2_model": internvl2_summary(internvl2)}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
     dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
     dense_emu = {"qwen3_train": dense[QWEN3]["emu"]["launches"]}
     moe_bank = {"moe_serve": moe["serve"]["launches"], "moe_train": moe["train"]["launches"]}
     rg_bank = {"rg_serve": rg["serve"]["launches"], "rg_train": rg["train"]["launches"]}
+    slice12_bank = {"whisper_serve": whisper["serve"]["launches"],
+                    "whisper_train": whisper["train"]["launches"],
+                    "internvl2_serve": internvl2["serve"]["launches"],
+                    "internvl2_train": internvl2["train"]["launches"]}
+    whisper_emu = whisper["train"]["emu"]
     row_b = train_rows["dfa_gradient"]
     records = [
         {"name": "photonic_matmul", "route": "cuda",
@@ -4192,17 +4860,18 @@ def main(argv=None):
                       + observed["probe_launches"]["photonic_matmul"]
                       + mamba["serve_launches"] + mamba["train_launches"]
                       + sum(dense_bank.values()) + sum(moe_bank.values())
-                      + sum(rg_bank.values())),
+                      + sum(rg_bank.values()) + sum(slice12_bank.values())),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
                               "mamba_serve": mamba["serve_launches"],
                               "mamba_train": mamba["train_launches"], **dense_bank,
-                              **moe_bank, **rg_bank},
+                              **moe_bank, **rg_bank, **slice12_bank},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
                               if "train" in res), moe["train"]["max_abs_err"],
-                            rg["train"]["max_abs_err"]),
+                            rg["train"]["max_abs_err"], whisper["train"]["max_abs_err"],
+                            internvl2["train"]["max_abs_err"]),
          "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
          "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
          "library_ms": per_step["library_ms"],
@@ -4231,7 +4900,20 @@ def main(argv=None):
                             "serve_max_rel_err": rg["serve"]["max_rel_err"],
                             "skinny_k12288": rg["serve"]["skinny_k12288"],
                             "train_shape": rg["train"]["train_shape"],
-                            "train": rg["train"]["profile"]}},
+                            "train": rg["train"]["profile"]},
+         "whisper": {"encode_forward": whisper["timing"]["encode"]["forward"],
+                     "encode_shapes": whisper["timing"]["encode"]["shapes"],
+                     "decode_forward": whisper["timing"]["decode"]["forward"],
+                     "decode_shapes": whisper["timing"]["decode"]["shapes"],
+                     "serve_max_rel_err": whisper["serve"]["max_rel_err"],
+                     "train_shapes": whisper["train_shapes"],
+                     "train": whisper["train"]["profile"]},
+         "internvl2": {"decode_forward": internvl2["decode"]["forward"],
+                       "decode_shapes": internvl2["decode"]["shapes"],
+                       "serve_max_rel_err": internvl2["serve"]["max_rel_err"],
+                       "head_max_rel_err": internvl2["serve"]["head_max_rel_err"],
+                       "train_shapes": internvl2["train_shapes"],
+                       "train": internvl2["train"]["profile"]}},
         {"name": "dfa_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/photonic_matmul.cu",
          "replaces": "src/repro/kernels/dfa_gradient.py:67",
@@ -4248,23 +4930,26 @@ def main(argv=None):
                       + observed["probe_launches"]["emu_bank_product"]
                       + mamba["emu_serve_launches"] + mamba["emu_train_launches"]
                       + sum(dense_emu.values()) + moe["emu"]["launches"]
-                      + rg["emu"]["launches"]),
+                      + rg["emu"]["launches"] + whisper_emu["launches"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
                               "mamba_serve": mamba["emu_serve_launches"],
                               "mamba_train": mamba["emu_train_launches"], **dense_emu,
                               "moe_emu_serve": moe["emu"]["launches"],
-                              "rg_emu_serve": rg["emu"]["launches"]},
+                              "rg_emu_serve": rg["emu"]["launches"],
+                              "whisper_emu_train": whisper_emu["launches"]},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
                             mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"],
-                            moe["emu"]["max_abs_err"], rg["emu"]["max_abs_err"]),
+                            moe["emu"]["max_abs_err"], rg["emu"]["max_abs_err"],
+                            whisper_emu["max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",
          "draw_sass": draws["emu"], "timing": {**emu_rows, "lm_train_shape": lm["emu"],
                                                "mamba_train_shape": mamba["emu_train_shape"],
-                                               "qwen3_train_shape": dense[QWEN3]["emu"]["row"]}},
+                                               "qwen3_train_shape": dense[QWEN3]["emu"]["row"],
+                                               "whisper_train_shape": whisper_emu["row"]}},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

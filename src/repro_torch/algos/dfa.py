@@ -113,6 +113,25 @@ def _leaves(params: dict) -> dict:
     return {k: v.detach().requires_grad_() for k, v in params.items()}
 
 
+def _parts(x, like=None) -> list:
+    """The tensors of an embed output or its cotangent: the tensor itself,
+    or a dict's values (in ``like``'s key order)."""
+    if not isinstance(x, dict):
+        return [x]
+    return [x[k] for k in (like if like is not None else x)]
+
+
+def _detached(x):
+    return {k: v.detach() for k, v in x.items()} if isinstance(x, dict) else x.detach()
+
+
+def _grads_or_zeros(outs, inputs: list, cots) -> list:
+    """∂outs/∂inputs against ``cots``, zeros for an input the outputs do
+    not reach (as the reference's vjp gives)."""
+    g = torch.autograd.grad(outs, inputs, cots, allow_unused=True)
+    return [torch.zeros_like(v) if gk is None else gk for v, gk in zip(inputs, g)]
+
+
 def forward_with_error(model, params, cfg: DFAConfig, batch):
     """Shared forward: embed → segments → head → loss, returning everything
     the DFA-family backwards need.  Head gradients are exact; the error is
@@ -120,7 +139,10 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
     is fetched from SRAM and re-encoded each cycle — never differentiated).
     The embedding runs with gradient tracking on its ``embed.`` parameters
     (``embed_vjp`` maps a cotangent at x0 to their gradients, as the
-    reference's ``jax.vjp``); the segments run without.
+    reference's ``jax.vjp``, zeros where x0 does not depend on one, such as
+    internvl2's vision stub on a text-only batch); the segments run
+    without.  x0 is a tensor, or a dict of tensors (whisper's ``{"enc",
+    "dec"}``) with a cotangent of the same keys.
     """
     embed = _leaves(subtree(params, "embed."))
     embed_vjp = None
@@ -129,13 +151,13 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
             x0 = model.embed({**params, **{f"embed.{k}": v for k, v in embed.items()}}, batch)
 
         def embed_vjp(delta):
-            g = torch.autograd.grad(x0, list(embed.values()), delta)
+            g = _grads_or_zeros(_parts(x0), list(embed.values()), _parts(delta, like=x0))
             return {f"embed.{k}": gk for k, gk in zip(embed, g)}
     else:
         with torch.no_grad():
             x0 = model.embed(params, batch)
     with torch.no_grad():
-        x_final, saved, auxes = model.run_segments(params, x0.detach())
+        x_final, saved, auxes = model.run_segments(params, _detached(x0))
     head = _leaves(subtree(params, "head."))
     xf = x_final.detach().requires_grad_()
     with torch.enable_grad():
@@ -146,8 +168,9 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
         # the error below the unembedding only where it is tapped: XLA drops
         # the reference's unused product as dead code
         tap_logits = model.error_tap == "logits"
-        g = list(torch.autograd.grad(logits, list(head.values()) + ([] if tap_logits else [xf]),
-                                     e_logits))
+        # a head parameter the training head does not read (whisper's
+        # ln_enc, a serving-only norm) gets zeros, as from the reference's vjp
+        g = _grads_or_zeros(logits, list(head.values()) + ([] if tap_logits else [xf]), e_logits)
     del logits
     g_head = {f"head.{k}": gk for k, gk in zip(head, g)}
     if tap_logits:
@@ -156,7 +179,7 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
         # broadcast e in the model's compute dtype, as the reference does
         e_tap = g[-1].to(x_final.dtype)
     e_tap = compress_error(e_tap, cfg.error_compress).detach()
-    return dict(x0=x0.detach(), embed_vjp=embed_vjp, saved=saved, auxes=auxes,
+    return dict(x0=_detached(x0), embed_vjp=embed_vjp, saved=saved, auxes=auxes,
                 g_head=g_head, e_tap=e_tap, loss=loss.detach(),
                 metrics={k: v.detach() for k, v in metrics.items()})
 
@@ -184,16 +207,18 @@ def _block_grads(spec, params, idx, tape, delta_of, cfg: DFAConfig) -> dict:
 def _block_inputs(model, fwd, fb, rng, delta_fn):
     """Yield (spec, idx, tape, delta_of) for every block: the same keys
     (rng folded with the segment name, then the layer index) for ``dfa`` and
-    ``dfa-fused``."""
+    ``dfa-fused``.  A segment's error is the tapped one through its
+    ``adapt_error`` where it has one."""
     for spec in model.segment_specs():
         tape = fwd["saved"][spec.name]
         seg_key = prng.fold(rng, spec.name)
+        e_seg = spec.adapt_error(fwd["e_tap"]) if spec.adapt_error else fwd["e_tap"]
         for idx in range(spec.n_layers):
             bmat = fb_lib.feedback_for(fb[spec.name], idx)
             key = prng.fold(seg_key, idx)
 
-            def delta_of(y, spec=spec, bmat=bmat, key=key):
-                return delta_fn(spec, fwd["e_tap"], bmat, key, y)
+            def delta_of(y, spec=spec, bmat=bmat, key=key, e_seg=e_seg):
+                return delta_fn(spec, e_seg, bmat, key, y)
 
             yield spec, idx, tape, delta_of
 
@@ -213,8 +238,10 @@ def dfa_delta(cfg: DFAConfig):
     """Eq. 1's cotangent: the global error projected through B(k)."""
 
     def delta_fn(spec, e_seg, bmat, key, y):
-        del spec
-        return _project(e_seg, bmat, cfg, key).reshape(y.shape)
+        delta = _project(e_seg, bmat, cfg, key)
+        if spec.expand_delta is not None:
+            return spec.expand_delta(delta, y.shape)
+        return delta.reshape(y.shape)
 
     return delta_fn
 

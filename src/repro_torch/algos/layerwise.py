@@ -15,8 +15,10 @@ B(k) as usual:
 For ``error_tap == "logits"`` models t_k feeds ``loss_from_logits``
 directly; for ``"hidden"`` models (the LMs) t_k is a pseudo-hidden state
 pushed through the exactly trained head (final norm and unembedding).  The
-readout runs in f32 on the detached block output.  Head and embedding
-updates are those of ``dfa``.
+readout runs in f32 on the detached block output.  A segment with an error
+adapter or expander (whisper's pooled encoder) falls back to the global
+error, as in the reference: its local tap would not line up with the loss.
+Head and embedding updates are those of ``dfa``.
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ def value_and_grad(model, cfg: dfa_lib.DFAConfig):
 
     def fn(params, fb, batch, rng):
         fwd = dfa_lib.forward_with_error(model, params, cfg, batch)
+        global_delta = dfa_lib.dfa_delta(cfg)
 
         def delta_fn(spec, e_seg, bmat, key, y):
-            del spec, e_seg
+            if spec.adapt_error is not None or spec.expand_delta is not None:
+                return global_delta(spec, e_seg, bmat, key, y)
             tap = y.detach().float() @ bmat.float()
             e_loc = dfa_lib.compress_error(local_error(params, batch, tap), cfg.error_compress)
             delta = dfa_lib._project(e_loc.to(y.dtype).detach(), bmat, cfg, key)

@@ -1,13 +1,14 @@
-"""Architecture registry.  The port registers qwen1.5-0.5b, minicpm3-4b,
-qwen3-1.7b, granite-8b, qwen2-moe-a2.7b, kimi-k2-1t-a32b, mamba2-130m and
-recurrentgemma-9b (served and trained) and mnist_mlp (trained), in the
-reference's order; the reference's other architectures (internvl2-2b,
-whisper-small) are ported in later slices."""
+"""Architecture registry: the reference's ten assigned architectures
+(qwen1.5-0.5b, minicpm3-4b, qwen3-1.7b, granite-8b, qwen2-moe-a2.7b,
+kimi-k2-1t-a32b, mamba2-130m, internvl2-2b, recurrentgemma-9b and
+whisper-small, served and trained) and the paper's mnist_mlp (trained), in
+the reference's order."""
 
 from __future__ import annotations
 
 from repro_torch.configs import (
     granite_8b,
+    internvl2_2b,
     kimi_k2_1t_a32b,
     mamba2_130m,
     minicpm3_4b,
@@ -16,11 +17,12 @@ from repro_torch.configs import (
     qwen2_moe_a2_7b,
     qwen3_1_7b,
     recurrentgemma_9b,
+    whisper_small,
 )
 from repro_torch.configs.base import Arch
 
 _MODULES = [qwen1_5_0_5b, minicpm3_4b, qwen3_1_7b, granite_8b, qwen2_moe_a2_7b, kimi_k2_1t_a32b,
-            mamba2_130m, recurrentgemma_9b, mnist_mlp]
+            mamba2_130m, internvl2_2b, recurrentgemma_9b, whisper_small, mnist_mlp]
 
 REGISTRY: dict[str, Arch] = {m.ARCH.name: m.ARCH for m in _MODULES}
 

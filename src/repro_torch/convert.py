@@ -3,7 +3,8 @@ the port's.
 
 The reference keeps parameters in a pytree: nested dicts whose stacked
 segments (``blocks``; recurrentgemma's ``grp_rec1``, ``grp_rec2``,
-``grp_attn`` and ``tail_rec``) stack every layer on a leading axis
+``grp_attn`` and ``tail_rec``; whisper's ``enc`` and ``dec``) stack every
+layer on a leading axis
 (``stack_init``), with ``Linear`` weights ``w`` in (in, out) layout and
 biases ``b``.  The port keeps a ``state_dict``: one ``{segment}.{i}``
 entry per layer, ``weight`` in torch layout (out, in), ``bias``.  A
@@ -11,7 +12,9 @@ stacked weight (a mixture of experts' ``experts.gate.w`` (E, in, out))
 swaps its last two axes to (E, out, in).
 Every other leaf keeps its name, as do
 bare-array leaves beside the layers (MLA's ``attn.q_norm_scale`` and
-``attn.kv_norm_scale``, Mamba's ``A_log``, the RG-LRU's ``lambda``).
+``attn.kv_norm_scale``, Mamba's ``A_log``, the RG-LRU's ``lambda``,
+whisper's ``embed.pos`` and ``embed.audio.pos``) and the LayerNorms'
+``scale`` and ``bias``.
 
 The MLP's tree, ``{"embed": {}, "h0": {"w": (1, 784, 800), "b": (1, 800)},
 "h1": ..., "head": {"w", "b"}}``, stacks each one-block segment ``h{i}`` on
@@ -40,7 +43,7 @@ import torch
 _RENAME = {"w": "weight", "b": "bias"}
 _SEGMENT = re.compile(r"h\d+$")  # the MLP's one-block segments
 # the stacked segments, one layer per index of the leading axis
-_STACKED = ("blocks", "grp_rec1", "grp_rec2", "grp_attn", "tail_rec")
+_STACKED = ("blocks", "grp_rec1", "grp_rec2", "grp_attn", "tail_rec", "enc", "dec")
 
 
 def _walk(tree, prefix=()):

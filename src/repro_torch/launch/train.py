@@ -22,7 +22,10 @@ A language model (``--arch qwen1.5-0.5b``) trains on the synthetic
 always in its reduced smoke config, as the reference launcher does (full
 width: ``api.build_session(smoke=False)``); the final metrics are printed.
 ``--ckpt-dir``: resume from the newest snapshot there, save one every 500
-steps and at the end.
+steps and at the end.  whisper-small's batches also carry frame embeddings
+(B, n_frames, d_model) and internvl2-2b's patch embeddings (B, n_patches,
+d_vision), 0.1 × normal draws from ``np.random.default_rng((seed, step,
+7))`` and ``(seed, step, 8)``, the reference launcher's batches.
 
 Observability: ``--trace-out PATH`` writes a Perfetto-loadable Chrome
 trace (step, probe and drain spans, recalibration events, hwmon
@@ -32,13 +35,15 @@ counters), ``--metrics-out PATH`` appends the logged rows as JSONL
 noise budget) every N steps, and ``--bench-json DIR`` times every step and
 writes ``BENCH_train_throughput.json`` into DIR.
 
-The reference's whisper and internvl2 branches, ``--data-parallel``,
-``--n-buses`` and ``--autotune`` are ported in later slices.
+The reference's ``--data-parallel``, ``--n-buses`` and ``--autotune`` are
+ported in later slices.
 """
 
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 from repro_torch import algos, api, configs
 from repro_torch.core import photonics
@@ -102,9 +107,9 @@ def main(argv=None):
         timer = StepTimer(warmup=clamped_warmup(args.steps, 4))
 
     if args.arch != "mnist_mlp":
-        gen = tokens.MarkovTokens(model.cfg.vocab_size, args.seq, args.batch, args.seed)
-        state, metrics = session.fit(gen.batch, total_steps=args.steps, timer=timer)
-        _report_bench(args, session, state, gen.batch(0), timer)
+        batch_fn = lm_batches(args.arch, model.cfg, args.seq, args.batch, args.seed)
+        state, metrics = session.fit(batch_fn, total_steps=args.steps, timer=timer)
+        _report_bench(args, session, state, batch_fn(0), timer)
         result = session.trainer.to_host(metrics)
         print(f"[final] {result}")
     else:
@@ -130,6 +135,28 @@ def main(argv=None):
             print(f"[obs] {len(observer.alerts)} alert(s) (hwmon + anomaly); first: "
                   f"{observer.alerts[0].message}")
     return result
+
+
+def lm_batches(arch: str, cfg, seq: int, batch: int, seed: int):
+    """step -> the language model's host batch: ``MarkovTokens``, plus the
+    frontend stubs' inputs for whisper-small (frames) and internvl2-2b
+    (patch embeddings)."""
+    gen = tokens.MarkovTokens(cfg.vocab_size, seq, batch, seed)
+
+    def batch_fn(step):
+        b = gen.batch(step)
+        if arch == "whisper-small":
+            rng = np.random.default_rng((seed, step, 7))
+            b["frames"] = rng.normal(size=(batch, cfg.n_frames,
+                                           cfg.d_model)).astype("float32") * 0.1
+        if arch == "internvl2-2b":
+            rng = np.random.default_rng((seed, step, 8))
+            v = cfg.vision
+            b["patch_embeds"] = rng.normal(size=(batch, v.n_patches,
+                                                 v.d_vision)).astype("float32") * 0.1
+        return b
+
+    return batch_fn
 
 
 def _report_bench(args, session, state, batch, timer):

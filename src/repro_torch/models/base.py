@@ -73,8 +73,12 @@ class SegmentSpec:
     # True: the layers are a ``ModuleList`` (``blocks.{i}.``); False: the
     # segment is one block, the module itself (the MLP's ``h{i}.``)
     stacked: bool = False
-    # The reference's adapt_error / expand_delta hooks serve its
-    # encoder-decoder models, which the port does not have yet.
+    # optional: transform the tapped error before projection (whisper's
+    # encoder pools the decoder error over its positions)
+    adapt_error: typing.Callable | None = dataclasses.field(default=None, compare=False)
+    # optional: expand the projected delta to the block-output shape
+    # (default: reshape), e.g. broadcast a pooled delta over positions
+    expand_delta: typing.Callable | None = dataclasses.field(default=None, compare=False)
 
     def layer_prefix(self, idx: int) -> str:
         """Where layer ``idx``'s parameters sit in the flat dict."""
@@ -121,7 +125,8 @@ class DFAModel(Module):
         raise NotImplementedError
 
     def run_segments(self, params, x0):
-        """-> (x_final, {name: SavedSegment}, {name: aux_loss_scalar})"""
+        """x0: ``embed``'s output (a tensor, or a dict of tensors) ->
+        (x_final, {name: SavedSegment}, {name: aux_loss_scalar})"""
         raise NotImplementedError
 
     def head_logits(self, params, x_final, batch):
@@ -146,8 +151,10 @@ class DFAModel(Module):
 
     # --- DFA hooks with defaults ---
     def embed_feedback(self, e_tap, fb_embed, x0, project_fn):
-        """Cotangent injected at the embed output.  Default: one photonic
-        projection of the (flattened-leading) error to x0's feature dim."""
+        """Cotangent injected at the embed output, shaped as ``x0`` (a
+        tensor, or a dict of them for an encoder-decoder).  Default: one
+        photonic projection of the (flattened-leading) error to x0's
+        feature dim."""
         delta = project_fn(e_tap, fb_embed)
         return delta.to(x0.dtype).reshape(x0.shape)
 

@@ -4,7 +4,7 @@
 The port has RMSNorm, rotary GQA attention (qkv bias, qk-norm) or
 multi-head latent attention (``cfg.mla``), a gated SiLU FFN or a mixture
 of experts (``cfg.moe``, ``nn/moe.py``), and the unembedding (qwen1.5,
-qwen3, granite, minicpm3, qwen2-moe, kimi-k2).  The model serves
+qwen3, granite, minicpm3, qwen2-moe, kimi-k2, internvl2).  The model serves
 (``init_caches``, ``decode_step``, ``prefill_step``) and trains: it is a
 ``DFAModel`` with the hidden error tap (d_tap = d_model), the blocks in
 one segment ``blocks`` and DFA feedback into the embedding table.  The
@@ -16,14 +16,17 @@ layout, one (L, B, ...) tensor per key of the attention's ``init_cache``:
 block returns its output and, under MoE, its weighted aux loss
 lb_weight·lb_loss + z_weight·z_loss (None for a dense FFN), which
 ``run_segments`` sums over the layers and the DFA engine differentiates
-with cotangent 1; serving does not compute it.  The vision prefix is not
-ported yet.
+with cotangent 1; serving does not compute it.  With ``cfg.vision``
+(internvl2) the embedding holds the vision stub ``embed.vision``
+(``nn/frontends.py``): a training batch that carries ``patch_embeds``
+(B, P, d_vision) gets their projections as a prefix before its tokens,
+positions run over prefix and text, and the loss reads only the text
+region; serving is text-only, as the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import typing
 
 import torch
 from torch.func import functional_call
@@ -34,6 +37,7 @@ from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, Servin
                                      cross_entropy_loss, subtree)
 from repro_torch.nn.attention import Attention, MLAttention
 from repro_torch.nn.embeddings import Embedding
+from repro_torch.nn.frontends import VisionFrontendStub
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
 from repro_torch.nn.moe import MoE
@@ -64,6 +68,12 @@ class MLASettings:
 
 
 @dataclasses.dataclass(frozen=True)
+class VisionSettings:
+    d_vision: int = 1024
+    n_patches: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     name: str
     n_layers: int
@@ -80,7 +90,7 @@ class TransformerConfig:
     window: int | None = None
     moe: MoESettings | None = None
     mla: MLASettings | None = None
-    vision: typing.Any = None  # vision prefix: not ported yet
+    vision: VisionSettings | None = None
     dtype: torch.dtype = torch.float32
     # attention chunking: sequences above 2·k_chunk take flash_attention
     q_chunk: int = 2048
@@ -95,8 +105,6 @@ class TransformerConfig:
 class DecoderBlock(Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        if cfg.vision is not None:
-            raise NotImplementedError("TransformerConfig.vision is not ported yet")
         c = cfg
         self.cfg = cfg
         self.norm1 = RMSNorm(c.d_model, c.norm_eps, c.dtype, device)
@@ -166,8 +174,10 @@ class TransformerLM(DFAModel, ServingModel):
         device = resolve_device(device)
         c = cfg
         self.cfg = cfg
-        self.embed = torch.nn.ModuleDict(
-            {"tok": Embedding(c.v_padded, c.d_model, c.dtype, device)})
+        embed = {"tok": Embedding(c.v_padded, c.d_model, c.dtype, device)}
+        if c.vision is not None:
+            embed["vision"] = VisionFrontendStub(c.vision.d_vision, c.d_model, c.dtype, device)
+        self.embed = torch.nn.ModuleDict(embed)
         self.blocks = torch.nn.ModuleList(
             DecoderBlock(c, device) for _ in range(c.n_layers))
         self.head = torch.nn.ModuleDict({
@@ -209,7 +219,13 @@ class TransformerLM(DFAModel, ServingModel):
                             stacked=True),)
 
     def embed(self, params, batch):
-        return params["embed.tok.table"][batch["tokens"]]
+        tok = params["embed.tok.table"][batch["tokens"]]
+        if self.cfg.vision is None or "patch_embeds" not in batch:
+            return tok
+        # the vision prefix is optional: text-only batches are valid
+        pre = functional_call(self._modules["embed"]["vision"], subtree(params, "embed.vision."),
+                              (batch["patch_embeds"],))
+        return torch.cat([pre.to(tok.dtype), tok], dim=1)
 
     def run_segments(self, params, x0):
         """Every block's input (L, B, S, d) on the tape, with the positions
@@ -234,6 +250,9 @@ class TransformerLM(DFAModel, ServingModel):
         return self._head(h, params["head.out.weight"])
 
     def loss_from_logits(self, logits, batch):
+        if self.cfg.vision is not None:
+            # the loss reads only the text region, after the patch prefix
+            logits = logits[:, -batch["labels"].shape[1]:]
         return cross_entropy_loss(logits, batch["labels"], mask=batch.get("mask"))
 
     # ---- serving ----------------------------------------------------------

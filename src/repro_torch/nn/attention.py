@@ -11,8 +11,10 @@ keys q - window < k <= q) and ``logit_softcap`` (scores through
 cap·tanh(s / cap)) are parameters of the three attention functions and
 fields of ``Attention`` (recurrentgemma's local layers); a windowed layer
 whose cache holds ``window`` slots decodes into it as a ring buffer.
-Output bias, non-causal and rope-less layers and cross attention are not
-ported yet.
+``Attention``'s ``out_bias``, ``rope`` and ``causal`` fields give whisper's
+rope-less layers with an output bias, non-causal in its encoder, and
+``CrossAttention`` its decoder's attention to the encoder output, whose
+products are digital (raw ``@``), as the reference's.
 
 Cache updates are out of place, as in the reference: ``decode`` and
 ``prefill`` return new cache tensors and never write the ones they were
@@ -182,10 +184,10 @@ def write_positions(cache, new, start, n_valid):
 
 
 def _self_attention(q, k, v, positions, scale, q_chunk, k_chunk, window=None,
-                    logit_softcap=None):
-    """Causal self-attention of a whole sequence: O(S²) up to 2·k_chunk,
-    ``flash_attention`` above, as the reference switches."""
-    kw = dict(q_pos=positions, kv_pos=positions, causal=True, window=window, scale=scale,
+                    logit_softcap=None, causal=True):
+    """Self-attention of a whole sequence (causal by default): O(S²) up to
+    2·k_chunk, ``flash_attention`` above, as the reference switches."""
+    kw = dict(q_pos=positions, kv_pos=positions, causal=causal, window=window, scale=scale,
               logit_softcap=logit_softcap)
     if q.shape[1] <= 2 * k_chunk:
         return reference_attention(q, k, v, **kw)
@@ -193,18 +195,22 @@ def _self_attention(q, k, v, positions, scale, q_chunk, k_chunk, window=None,
 
 
 class Attention(Module):
-    """MHA / GQA causal self-attention with rotary, optional qkv bias,
-    qk-norm, sliding window and logit soft-capping — the qwen1.5 (bias),
-    qwen3 (qk-norm), granite and recurrentgemma local (window) layer.  The
-    reference's qk-norm is ``rms_normalize`` with no learned scale."""
+    """MHA / GQA self-attention with rotary, optional qkv bias, output
+    bias, qk-norm, sliding window and logit soft-capping — the qwen1.5
+    (bias), qwen3 (qk-norm), granite, internvl2, recurrentgemma local
+    (window) and whisper (``rope=False``, ``out_bias``; ``causal=False`` in
+    the encoder) layer.  The reference's qk-norm is ``rms_normalize`` with
+    no learned scale."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int | None = None, qkv_bias: bool = False,
                  qk_norm: bool = False, rope_theta: float = 10000.0,
                  window: int | None = None, logit_softcap: float | None = None,
+                 out_bias: bool = False, rope: bool = True, causal: bool = True,
                  dtype=torch.float32, device=None):
         super().__init__()
         self.window, self.logit_softcap = window, logit_softcap
+        self.rope, self.causal = rope, causal
         self.qk_norm = qk_norm
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
@@ -214,7 +220,7 @@ class Attention(Module):
         self.q = mk(d_model, n_heads * self.hd, qkv_bias)
         self.k = mk(d_model, n_kv_heads * self.hd, qkv_bias)
         self.v = mk(d_model, n_kv_heads * self.hd, qkv_bias)
-        self.o = mk(n_heads * self.hd, d_model, False)
+        self.o = mk(n_heads * self.hd, d_model, out_bias)
 
     def qkv(self, x, positions):
         b, s, _ = x.shape
@@ -224,6 +230,8 @@ class Attention(Module):
         if self.qk_norm:
             q = rms_normalize(q)
             k = rms_normalize(k)
+        if not self.rope:
+            return q, k, v
         cos, sin = rotary_angles(positions, self.hd, self.rope_theta)
         return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
@@ -233,7 +241,7 @@ class Attention(Module):
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         q, k, v = self.qkv(x, positions)
         out = _self_attention(q, k, v, positions, None, q_chunk, k_chunk, self.window,
-                              self.logit_softcap)
+                              self.logit_softcap, self.causal)
         return self.o(out.reshape(b, s, self.n_heads * self.hd))
 
     # ---- decode path ------------------------------------------------------
@@ -293,6 +301,48 @@ class Attention(Module):
                                   causal=True, logit_softcap=self.logit_softcap)
         y = self.o(out.reshape(b, c, self.n_heads * self.hd))
         return y, {"k": k_cache, "v": v_cache}
+
+
+class CrossAttention(Module):
+    """Encoder-decoder cross attention (whisper): queries from the decoder
+    stream, keys and values from every encoder frame, non-causal.  q, v and
+    o carry a bias, k none.  Every product is a digital ``@``, as in the
+    reference: none reaches the bank."""
+
+    def __init__(self, d_model: int, n_heads: int, use_bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.n_heads = n_heads
+        self.hd = d_model // n_heads
+        mk = lambda b: Linear(d_model, d_model, use_bias=b, dtype=dtype, device=device)
+        self.q, self.k, self.v, self.o = mk(use_bias), mk(False), mk(use_bias), mk(use_bias)
+
+    @staticmethod
+    def _digital(x, lin):
+        y = x @ lin.weight.T
+        return y if lin.bias is None else y + lin.bias
+
+    def forward(self, x, enc, q_chunk: int = 2048):
+        """x (B, S, d), enc (B, Se, d) -> (B, S, d).  Queries run in chunks
+        of ``q_chunk`` where S is a multiple above it, as the reference's
+        ``lax.map``, so a score tensor stays (q_chunk, Se)."""
+        b, s, d = x.shape
+        se = enc.shape[1]
+        h, hd = self.n_heads, self.hd
+        q = self._digital(x, self.q).reshape(b, s, h, hd)
+        k = self._digital(enc, self.k).reshape(b, se, h, hd)
+        v = self._digital(enc, self.v).reshape(b, se, h, hd)
+        kp = torch.arange(se, device=x.device)[None, :].expand(b, se)
+
+        def attend(qc):
+            qp = torch.arange(qc.shape[1], device=x.device)[None, :].expand(b, qc.shape[1])
+            return reference_attention(qc, k, v, q_pos=qp, kv_pos=kp, causal=False)
+
+        if s > q_chunk and s % q_chunk == 0:
+            out = torch.cat([attend(q[:, i:i + q_chunk]) for i in range(0, s, q_chunk)], dim=1)
+        else:
+            out = attend(q)
+        return self._digital(out.reshape(b, s, d), self.o)
 
 
 class MLAttention(Module):

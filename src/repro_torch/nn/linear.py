@@ -1,4 +1,6 @@
-"""Linear / MLP layers.  Counterpart of ``repro/nn/linear.py``.
+"""Linear / MLP layers.  Counterpart of ``repro/nn/linear.py``: ``Linear``,
+the paper's ``DenseBlock``, the gated ``GatedMLP`` and whisper's plain
+two-layer ``MLP``.
 
 Weights are in torch layout (out, in): ``forward_matmul`` hands ``weight``
 to the bank as its (M, K) operand with no copy.  ``stack=E`` holds E such
@@ -80,3 +82,19 @@ class GatedMLP(Module):
         gate = g(forward_matmul(x, self.gate.weight))
         up = forward_matmul(x, self.up.weight)
         return forward_matmul(gate * up, self.down.weight)
+
+
+class MLP(Module):
+    """Plain two-layer MLP (whisper's FFN): fc2(act(fc1(x))), both products
+    on the bank, biases on by default, GELU (the tanh form) by default."""
+
+    def __init__(self, d_model: int, d_ff: int, activation: str = "gelu",
+                 use_bias: bool = True, dtype=torch.float32, device=None):
+        super().__init__()
+        self.activation = activation
+        self.fc1 = Linear(d_model, d_ff, use_bias, dtype, device)
+        self.fc2 = Linear(d_ff, d_model, use_bias, dtype, device)
+
+    def forward(self, x):
+        g, _ = activations.get(self.activation)
+        return self.fc2(g(self.fc1(x)))

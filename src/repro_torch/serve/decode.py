@@ -12,13 +12,19 @@ import torch
 from repro_torch.core import photonics
 
 
-def make_serve_step(model, *, sample: str = "greedy"):
-    """Returns step(token, caches, cache_len) -> (next_token, logits, new_caches)."""
+def make_serve_step(model, *, sample: str = "greedy", whisper_enc: bool = False):
+    """Returns step(token, caches, cache_len[, enc]) -> (next_token, logits,
+    new_caches).  ``whisper_enc``: the model decodes against an encoder
+    output ``enc`` (whisper's ``decode_step(token, enc, caches,
+    cache_len)``), passed as the step's last argument."""
     if sample != "greedy":
         raise ValueError(sample)
 
-    def step(token, caches, cache_len):
-        logits, new_caches = model.decode_step(token, caches, cache_len)
+    def step(token, caches, cache_len, *extra):
+        if whisper_enc:
+            logits, new_caches = model.decode_step(token, extra[0], caches, cache_len)
+        else:
+            logits, new_caches = model.decode_step(token, caches, cache_len)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
         return nxt, logits, new_caches
 

@@ -580,4 +580,4 @@ def test_launchers_run_recurrentgemma_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[serve] 3 requests, 9 tokens" in out
     assert ARCH in tconfigs.ASSIGNED
-    assert tconfigs.list_archs().index(ARCH) == tconfigs.list_archs().index("mamba2-130m") + 1
+    assert tconfigs.list_archs().index(ARCH) == tconfigs.list_archs().index("internvl2-2b") + 1
