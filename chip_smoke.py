@@ -80,7 +80,20 @@ sources in the checkout.  Phases:
     ms and peak memory, ``StepTimer`` and ``step_cost``, ``debug_checks``
     on a NaN), the MLP on emulated banks with the noise budget and the
     hardware monitor, and full-width serving with an observer;
-16. the Mamba-2 family (``[mamba_*]``, ``phase_mamba``): mamba2-130m at
+16. the simulator, the energy model and the autotuned schedule
+    (``[schedule]``, ``phase_schedule``): the energy model's headline
+    numbers (the modelled photonic chip's, not the card's); qwen1.5-0.5b at
+    full width in f32 tuned by ``build_session(schedule="auto",
+    power_budget_w=78, recalibrate_every="auto")`` on emu_onchip (the
+    reference's pick: 2 buses at 10 GHz, recalibration every 100 steps,
+    drift budget 0.025; the hardware monitor carries it), 2 dfa steps with
+    the observer at 25 emu launches a step at q = 2; tuned again without a
+    budget (8 buses) and 1 step at q = 8 (nj = 7, four padded slots); the
+    emu kernel bit for bit on the first launch of each run (under every
+    plan at q = 8) and timed; the search again with the card's measured
+    step as its digital time; ``autotune_serving`` on a 200 req/s Poisson
+    trace (1 bus, 5 GHz, 4 slots); both trace exporters into one file;
+17. the Mamba-2 family (``[mamba_*]``, ``phase_mamba``): mamba2-130m at
     full width (24 layers, d 768, vocab 50280, d_state 128, random
     weights from --seed) served in bf16 on offchip_bpd through the bank
     kernel (49 launches a forward; the prefill by the masked decode-scan,
@@ -93,7 +106,7 @@ sources in the checkout.  Phases:
     step, δ against the plain version, ideal cuda = ref gradients, step
     ms, profile, peak memory and ``step_cost``; both kernels timed at the
     Mamba shapes;
-17. the dense attention families (``[dense_*]``, ``phase_dense``):
+18. the dense attention families (``[dense_*]``, ``phase_dense``):
     qwen3-1.7b (qk-norm), minicpm3-4b (MLA) and granite-8b at full width,
     random weights from --seed, each served in bf16 on offchip_bpd through
     the bank kernel (197, 435 and 253 launches a forward; the kernel
@@ -109,7 +122,7 @@ sources in the checkout.  Phases:
     printed); the bank kernel timed at every decode shape and both
     training shapes.  One ``{"dense_model": ...}`` line per model precedes
     the kernels record;
-18. the mixture-of-experts family (``[moe_*]``, ``phase_moe``):
+19. the mixture-of-experts family (``[moe_*]``, ``phase_moe``):
     qwen2-moe-a2.7b at full width (24 layers, 60 experts top-4, 4 shared;
     14.32 B parameters, random weights from --seed) served in bf16 on
     offchip_bpd through the bank kernel (241 launches a forward: each of
@@ -117,15 +130,18 @@ sources in the checkout.  Phases:
     kernel against its plain version at every (E, T, K, M) of the path,
     the batched launches against their per-expert 2-D launches bit for
     bit) with a profiled prefill tick and two decode ticks; f32 ideal
-    cuda-vs-ref parity; emu serving at 2 layers (the emu kernel bit for
-    bit on the path's expert products); f32 ``dfa`` training at batch 64 x
+    cuda-vs-ref parity; emu serving at 2 layers (21 emu launches a forward,
+    each expert product one batched launch over the 60 experts; the emu
+    kernel bit for bit on the path's operands and each batched launch's
+    index e = the 2-D launch of expert e under every plan; the batched
+    launches timed beside the loop of 60 they replace); f32 ``dfa`` training at batch 64 x
     seq 64 at the depth the card holds (reckoned and printed; the aux loss
     and each layer's dropped fraction, ideal cuda = ref gradients, the
     router's included); kimi-k2-1t-a32b's full() on the meta device and
     its expert products (384 experts) against the plain version; the bank
     kernel timed at every decode shape, the experts' prefill shapes and
     kimi's.  One ``{"moe_model": ...}`` line follows the dense lines;
-19. the recurrentgemma family (``[rg_*]``, ``phase_recurrentgemma``):
+20. the recurrentgemma family (``[rg_*]``, ``phase_recurrentgemma``):
     recurrentgemma-9b at full width (38 layers = 12 x (RG-LRU, RG-LRU,
     local attention) + 2 RG-LRU, d 4096, vocab 256000, window 2048; 10.44
     B parameters, random weights from --seed) served in bf16 on
@@ -142,7 +158,7 @@ sources in the checkout.  Phases:
     at 4 layers with the emu kernel bit for bit; the bank kernel timed at
     every decode shape.  One ``{"rg_model": ...}`` line follows the MoE
     line;
-20. whisper-small (``[whisper_*]``, ``phase_whisper``): the
+21. whisper-small (``[whisper_*]``, ``phase_whisper``): the
     encoder-decoder at full width (12 + 12 layers, d 768, vocab 51865,
     1500 frames; 279.6 M parameters, random weights from --seed) served
     in bf16 on offchip_bpd through the bank kernel: 4 clips encoded once
@@ -157,7 +173,7 @@ sources in the checkout.  Phases:
     kernel bit for bit at both shapes; the bank kernel timed at the
     encode, decode and training shapes.  One ``{"whisper_model": ...}``
     line;
-21. internvl2-2b (``[internvl2_*]``, ``phase_internvl2``): full width (24
+22. internvl2-2b (``[internvl2_*]``, ``phase_internvl2``): full width (24
     layers, d 2048, vocab 92553, a 256-patch vision prefix; 1.891 B
     parameters) served text-only in bf16 like qwen1.5 (169 launches a
     forward, the odd 92553-row head held to the plain version), f32
@@ -176,6 +192,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import math
@@ -725,7 +742,7 @@ def _kernel_ms(torch, prof):
     for e in _device_kernels(torch, prof):
         name = next((kernel for kernel, parts in KERNEL_PARTS.items()
                      if any(part in e.name for part in parts)), e.name[:70])
-        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + e.us / 1e3
     return by_name
 
 
@@ -870,11 +887,25 @@ def phase_masked_projection(torch, api, dg, seed):
     return launches
 
 
+DeviceEvent = collections.namedtuple("DeviceEvent", "name start_us us")
+
+
 def _device_kernels(torch, prof):
+    """The device's events in a profile (kernels, copies and fills), in the
+    order they started, each with its duration in µs.  They are read from
+    the profiler's raw results: building its FunctionEvent tree costs host
+    time for every event, host operators included, which came to most of a
+    minute for one profiled prefill tick of a scanned model, and only the
+    device events are needed here."""
     from torch.autograd import DeviceType
 
-    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    events = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        events.append(DeviceEvent(torch._C._demangle(e.name()), e.start_ns() / 1e3,
+                                  (e.end_ns() - e.start_ns()) / 1e3))
+    return sorted(events, key=lambda e: e.start_us)
 
 
 def _event_ms(torch, fn, reps=25, warm=3):
@@ -939,7 +970,7 @@ def _device_ms(torch, fn, reps=25, attempts=8, spare=24):
                     per_call.append(cur)
                 cur = 0.0
             elif cur is not None:
-                cur += e.time_range.end - e.time_range.start
+                cur += e.us
         if cur is not None:
             per_call.append(cur)
         if len(per_call) >= reps:
@@ -972,7 +1003,7 @@ def _profile_ticks(torch, eng, ticks, tag, label, kernel):
     for e in _device_kernels(torch, prof):
         ours = any(part in e.name for part in KERNEL_PARTS[kernel])
         name = kernel if ours else e.name[:70]
-        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + e.us / 1e3
     if not by_name:
         print(f"[{tag}] {label}: wall {wall:.2f} ms; device time not measured (the profiler "
               "traced no device kernels)")
@@ -1207,6 +1238,9 @@ SM_CLOCK = 1.98e9  # H100 SXM boost clock (data sheet: 1980 MHz)
 # with branches to slow paths that a draw never takes, so counting their
 # instructions would overstate the least time.  "bank_full": the whole
 # counter_gaussian, printed beside it.
+# The probes take the sources' device functions alone (no entry point, so
+# no kernel of the library is compiled again beside the library's own build).
+_PROBE_HEAD = "#define REPRO_DEVICE_FUNCTIONS_ONLY\n"
 _PROBE_PAIR = r'''
 extern "C" __global__ void probe_one_draw(unsigned k0, unsigned k1, float* out) {
   const unsigned c0 = blockIdx.x, c1 = threadIdx.x;
@@ -1218,8 +1252,8 @@ extern "C" __global__ void probe_two_draws(unsigned k0, unsigned k1, float* out)
 }
 '''
 DRAW_PROBES = {
-    "emu": '#include "emu_matmul.cu"\n#define DRAW ih4_gaussian\n' + _PROBE_PAIR,
-    "bank": r'''#include "photonic_matmul.cu"
+    "emu": _PROBE_HEAD + '#include "emu_matmul.cu"\n#define DRAW ih4_gaussian\n' + _PROBE_PAIR,
+    "bank": _PROBE_HEAD + r'''#include "photonic_matmul.cu"
 __device__ __forceinline__ float bank_bits(unsigned seed, unsigned kt, unsigned r, unsigned c) {
   uint32_t x0 = r, x1 = c;
   threefry2x32(seed, kt, x0, x1);
@@ -1227,7 +1261,8 @@ __device__ __forceinline__ float bank_bits(unsigned seed, unsigned kt, unsigned 
 }
 #define DRAW bank_bits
 ''' + _PROBE_PAIR,
-    "bank_full": '#include "photonic_matmul.cu"\n#define DRAW counter_gaussian\n' + _PROBE_PAIR,
+    "bank_full": (_PROBE_HEAD + '#include "photonic_matmul.cu"\n#define DRAW counter_gaussian\n'
+                  + _PROBE_PAIR),
 }
 
 
@@ -1248,11 +1283,12 @@ def _emu_case(torch, ph, ch, mrr, t, m, k, pkw, mkw, resid, dtype, gen):
 
 
 def _emu_candidates(em, a_t, delta, mask):
-    """The planner's plan for these operands and the grid of forced plans."""
-    t, q, nj, cols = a_t.shape
-    nm, _, rows, _, _ = delta.shape
+    """The planner's plan for these operands (a stack of E products too) and
+    the grid of forced plans."""
+    t, q, nj, cols = a_t.shape[-4:]
+    nm, _, rows, _, _ = delta.shape[-5:]
     return em.candidate_plans(t, nm, rows, q, nj, cols, em._pointers(delta, mask),
-                              em._sm_count(a_t.device.index))
+                              em._sm_count(a_t.device.index), em._stack(a_t))
 
 
 def _emu_exact(torch, em, got, expect, kw, what):
@@ -1556,13 +1592,16 @@ def emu_bound(case, sigma, shot, peaks, draw, sms):
     (each input once, the f32 output once) over the memory rate, its f32
     multiply-adds over the f32 rate, and its threefry draws at ``draw``'s
     SM clocks each (``draw_cost`` of one draw's SASS) on ``sms`` SMs at
-    the boost clock."""
+    the boost clock.  A stack of E products moves E times the operands and
+    does E times the multiply-adds, but draws one product's noise: every
+    product shares it."""
     a_t, delta, mask, n_panels = case
-    t, q, nj, c = a_t.shape
-    nm, _, rows, _, _ = delta.shape
+    t, q, nj, c = a_t.shape[-4:]
+    nm, _, rows, _, _ = delta.shape[-5:]
+    e = a_t.shape[0] if a_t.ndim == 5 else 1
     nbytes = (a_t.numel() * a_t.element_size() + delta.numel() * delta.element_size()
-              + (mask.numel() * 4 if mask is not None else 0) + t * nm * rows * 4)
-    flops = 2 * t * nm * rows * q * nj * c
+              + (mask.numel() * 4 if mask is not None else 0) + e * t * nm * rows * 4)
+    flops = 2 * e * t * nm * rows * q * nj * c
     draws = t * nm * rows * n_panels * ((sigma > 0) + (shot > 0))
     terms = {"bytes": nbytes / peaks["bw"], "f32": flops / peaks["float32"],
              "prng": draws * draw["clocks"] / (sms * SM_CLOCK)}
@@ -1677,7 +1716,7 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
 # ---------------------------------------------------------------------------
 
 LM_BATCH, LM_SEQ = 64, 64  # 4096 rows through every DFA projection
-LM_STEPS, LM_EMU_STEPS = 16, 4
+LM_STEPS, LM_EMU_STEPS = 16, 2
 LM_LAUNCHES = 25  # bank products per dfa step: 24 blocks + the embedding
 
 
@@ -2013,7 +2052,7 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     (and in prng mode against the plain twin); ideal cuda vs ref
     gradients; one bp, dfa-fused and dfa-layerwise step; step time and a
     profile; the bank kernel at (4096, 1024, 1024) beside its plain
-    version, torch.matmul and its bound; 4 steps on emu_offchip with the
+    version, torch.matmul and its bound; 2 steps on emu_offchip with the
     emu kernel held bit for bit on a step's own operands and timed; crash
     and resume of the smoke LM on the card."""
     import shutil
@@ -2543,6 +2582,234 @@ def phase_observe(torch, np, api, pm, em, seed, card):
         with contextlib.suppress(OSError):
             tmp.cleanup()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The simulator, the energy model and the autotuned schedule
+# ---------------------------------------------------------------------------
+
+SCHED_BUDGET_W = 78.0  # the modelled chip's wall-plug budget: room for 2 buses at 10 GHz
+SCHED_STEPS = 2  # tuned dfa fit steps at batch LM_BATCH x seq LM_SEQ
+# the reference's picks (sim.autotune on its own model, CPU): (buses, f_s,
+# recalibration cadence) at SCHED_BUDGET_W and unconstrained, and the drift
+# budget 0.5·drift_sigma of emu_onchip's device
+SCHED_PICKS = {SCHED_BUDGET_W: (2, 10e9, 100), None: (8, 10e9, 100)}
+SCHED_DRIFT_BUDGET = 0.025
+# sim.autotune_serving's trace: 200 req/s, 256 requests of 32-token prompts
+# and 16 decode tokens, p99 under 50 ms at 100 W; the reference picks (1
+# bus, 5 GHz, 4 slots)
+SERVE_TRACE = dict(rate=200.0, n=256, prompt_len=32, decode_len=16, seed=0)
+SERVE_SLO_S, SERVE_BUDGET_W, SERVE_PICK = 0.05, 100.0, (1, 5e9, 4)
+
+
+def _tuned_fit(torch, api, pm, em, seed, budget, steps, tag):
+    """qwen1.5-0.5b at full width in f32 on emu_onchip, tuned by
+    ``build_session(schedule="auto", power_budget_w=budget,
+    recalibrate_every="auto")`` with the observer on, and ``steps`` dfa fit
+    steps at LM_BATCH x LM_SEQ with the emu kernel's count set to 0 just
+    before and its first launch captured; then one more step timed on the
+    card.  Gates: the reference's pick (SCHED_PICKS) and drift budget, the
+    monitor's budget the schedule's, a finite loss each step, LM_LAUNCHES
+    emu launches a step at q = the tuned bus count, the drift state over
+    the tuned buses.  -> a dict; the session is freed."""
+    from repro_torch.data import tokens
+
+    log = pm._BUILD_DIR / f"schedule-{os.getpid()}.csv"
+    torch.cuda.empty_cache()
+    session = _lm_session(api, torch, seed, hardware="emu_onchip", backend="emu",
+                          schedule="auto", power_budget_w=budget, recalibrate_every="auto",
+                          schedule_batch=LM_BATCH * LM_SEQ, observe=True, log_every=1,
+                          log_path=str(log))
+    tuned, hw = session.schedule, session.photonics
+    got = (tuned.n_buses, tuned.f_s, tuned.recalibrate_every)
+    print(f"[{tag}] build_session(schedule='auto', power_budget_w={budget}, "
+          f"recalibrate_every='auto') on qwen1.5-0.5b's DFA backward ({LM_BATCH * LM_SEQ} "
+          f"vectors, emu_onchip), the modelled chip: {tuned.describe()}; drift budget "
+          f"{tuned.drift_budget}; {len(tuned.candidates)} candidates")
+    check(got == SCHED_PICKS[budget] and tuned.drift_budget == SCHED_DRIFT_BUDGET
+          and (hw.n_buses, hw.f_s) == got[:2] and session.config.recalibrate_every == got[2],
+          f"tuned schedule {got}, drift budget {tuned.drift_budget}, not the reference's "
+          f"{SCHED_PICKS[budget]}, {SCHED_DRIFT_BUDGET}")
+    hwmon = session.observer.hwmon
+    check(hwmon is not None and hwmon.drift_budget == tuned.drift_budget,
+          "the hardware monitor does not carry the schedule's drift budget")
+    gen = tokens.MarkovTokens(session.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    calls = []
+    restore = _wrap(em, "emu_bank_product_cuda", calls, limit=1)
+    try:
+        sync(torch)
+        em.launches = 0
+        t0 = time.perf_counter()
+        state, _ = session.fit(gen.batch, total_steps=steps, verbose=False)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        launches = em.launches
+    finally:
+        restore()
+    lines = log.read_text().splitlines()
+    log.unlink()
+    col = lines[0].split(",").index("loss")
+    losses = [float(line.split(",")[col]) for line in lines[1:]]
+    drift = tuple(state["hw"]["drift"].shape)
+    batch = to_device_batch(gen.batch(steps))
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state, _ = session.step(state, batch)
+    e1.record()
+    e1.synchronize()
+    step_ms = e0.elapsed_time(e1)
+    print(f"[{tag}] {steps} dfa steps on the tuned chip ({hw.n_buses} buses, f32, batch "
+          f"{LM_BATCH} x seq {LM_SEQ}, observer on) in {wall:.2f}s: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; emu_bank_product launches {launches} = "
+          f"{launches / steps:g} a step; drift state {drift}; monitor budget "
+          f"{hwmon.drift_budget}; one more step {step_ms:.2f} ms (CUDA events)")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"non-finite or missing step losses: {losses}")
+    check(launches == LM_LAUNCHES * steps,
+          f"{launches} emu launches, expected {LM_LAUNCHES} a step")
+    check(drift == (hw.n_buses, hw.bank_rows, hw.bank_cols), f"drift state {drift}")
+    (a_t, delta, mask), kw, out = calls[0]
+    check(a_t.shape[1] == hw.n_buses, f"the path ran a_t {tuple(a_t.shape)}")
+    del state, session, batch
+    torch.cuda.empty_cache()
+    return {"tuned": tuned, "launches": launches, "losses": losses, "wall_s": wall,
+            "step_ms": step_ms, "call": ((a_t, delta, mask), kw, out)}
+
+
+def _emu_row(torch, em, case, kw, peaks, draw, sms, reps=25):
+    """The emu kernel on ``case`` (a_t, δ, mask, n_panels) beside its plain
+    version (CUDA events, one call after one warm-up) and its bound."""
+    a_t, delta, mask, _ = case
+    row = _time_fns(torch, {"ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw)},
+                    {"ms": reps})
+    row["plain_ms"] = _event_ms(torch, lambda: em.emu_bank_product_plain(a_t, delta, mask, **kw),
+                                reps=1, warm=1)
+    row["bound_ms"], row["bound_by"], binding, terms = emu_bound(case, kw["sigma"], kw["shot"],
+                                                                 peaks, draw, sms)
+    row.update(library_ms=None, plan=em.plan_for(a_t, delta, mask).name, binding=binding,
+               terms_ms={name: v * 1e3 for name, v in terms.items()},
+               bound_share=row["bound_ms"] / row["dev_ms"])
+    return row
+
+
+def _print_emu_row(tag, label, row):
+    print(f"[{tag}] {label}: kernel {row['ms']:.4f} / {row['dev_ms']:.4f} ms (events / device), "
+          f"plain {row['plain_ms']:.4f} (events), bound {row['bound_ms']:.4f} ({row['binding']}: "
+          + " / ".join(f"{k} {v:.5f}" for k, v in row["terms_ms"].items())
+          + f"), share {row['bound_share']:.1%}, plan {row['plan']}")
+
+
+def phase_schedule(torch, np, api, pm, em, seed, card, draws):
+    """The simulator and the energy model on the path they steer.  The
+    energy model's headline numbers (the modelled photonic chip's); a
+    full-width f32 qwen1.5-0.5b session tuned by ``build_session(
+    schedule="auto", power_budget_w=78, recalibrate_every="auto")`` on
+    emu_onchip (``_tuned_fit``: the reference's pick, 2 buses at 10 GHz,
+    recalibration every 100 steps, drift budget 0.025), 2 dfa fit steps
+    with the observer, 25 emu launches a step at q = 2; tuned again without
+    a budget (8 buses) and 1 step at q = 8 (nj = 7, four padded slots); the
+    kernel against its plain version bit for bit on the first launch of
+    each run, under every plan at q = 8, and timed; the search again with
+    the card's measured step as the digital time; ``autotune_serving`` on a
+    Poisson trace; both trace exporters into one file that loads."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import sim
+    from repro_torch.core import energy
+    from repro_torch.core import photonics as ph
+    from repro_torch.obs import export
+
+    tag = "schedule"
+    peaks = card_peaks(card)[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    heat, trim = energy.EnergyConfig(), energy.EnergyConfig(trimming=True)
+    head = {"tops": energy.ops_per_second(50, 20, heat) / 1e12,
+            "pj_per_op_heaters": energy.energy_per_op(50, 20, heat) * 1e12,
+            "pj_per_op_trimmed": energy.energy_per_op(50, 20, trim) * 1e12,
+            "tops_mm2": energy.compute_density_tops_mm2(50, 20, heat),
+            "bus_w": {n: energy.total_power(50, 20, dataclasses.replace(heat, n_buses=n))
+                      for n in (1, 2, 4, 8)}}
+    print(f"[{tag}] energy model (the modelled photonic chip, not the card): a 50x20 bank at "
+          f"10 GHz {head['tops']:.2f} TOPS, {head['pj_per_op_heaters']:.4f} pJ/op with heaters, "
+          f"{head['pj_per_op_trimmed']:.4f} pJ/op trimmed, {head['tops_mm2']:.4f} TOPS/mm²; "
+          "wall-plug W by buses " + ", ".join(f"{n}: {w:.2f}" for n, w in head["bus_w"].items()))
+    check(round(head["tops"], 6) == 20.0 and abs(head["pj_per_op_heaters"] - 1.0) < 0.05
+          and abs(head["pj_per_op_trimmed"] - 0.28) < 0.02 and abs(head["tops_mm2"] - 5.78) < 0.05,
+          f"energy model headline numbers: {head}")
+
+    runs, rows, err, n_plans = {}, {}, 0.0, 0
+    for name, budget, steps in (("q2", SCHED_BUDGET_W, SCHED_STEPS), ("q8", None, 1)):
+        run = runs[name] = _tuned_fit(torch, api, pm, em, seed, budget, steps, tag)
+        (a_t, delta, mask), kw, out = run.pop("call")
+        nj = -(-52 // run["tuned"].n_buses)
+        check(a_t.shape[-3:-1] == (run["tuned"].n_buses, nj) and kw["n_panels"] == 52,
+              f"{name}: a_t {tuple(a_t.shape)}, {kw['n_panels']} panels")
+        expect = em.emu_bank_product_plain(a_t, delta, mask, **kw)
+        err = max(err, _emu_exact(torch, em, out, expect, kw, f"the {name} path's first launch"))
+        plans = _emu_candidates(em, a_t, delta, mask) if name == "q8" else []
+        for plan in plans:
+            err = max(err, _emu_exact(torch, em, em.launch_kernel(a_t, delta, mask, plan=plan,
+                                                                  **kw),
+                                      expect, kw, f"{name} {plan.name}"))
+        n_plans += len(plans)
+        del expect, out
+        rows[name] = _emu_row(torch, em, (a_t, delta, mask, kw["n_panels"]), kw, peaks,
+                              draws["emu"], sms)
+        _print_emu_row(tag, f"the {name} path's first launch, a_t {tuple(a_t.shape)} "
+                       f"({LM_BATCH * LM_SEQ}, 1024, 1024) f32, σ {kw['sigma']}, ADC "
+                       f"{kw['adc_bits']} bits: kernel = plain bit for bit"
+                       + (f" under {len(plans)} plans" if plans else ""), rows[name])
+        del a_t, delta, mask
+        torch.cuda.empty_cache()
+    tuned = runs["q2"]["tuned"]
+
+    # the card's measured step as the digital step the photonic stream
+    # overlaps: the same search on the meta device (nothing allocated)
+    step_s = runs["q2"]["step_ms"] * 1e-3
+    overlap = api.build_session(
+        arch=ARCH, smoke=False, hardware="emu_onchip", backend="emu", schedule="auto",
+        power_budget_w=SCHED_BUDGET_W, recalibrate_every="auto",
+        schedule_batch=LM_BATCH * LM_SEQ, digital_step_s=step_s, device="meta").schedule
+    meta = api.build_model(ARCH, device="meta")
+    print(f"[{tag}] with the card's measured step ({step_s * 1e3:.2f} ms, {card}) as "
+          f"digital_s, the modelled chip: {overlap.describe()}; without: {tuned.describe()}")
+    check(overlap.digital_s == step_s and overlap.wall_clock_s >= step_s,
+          "the overlapped step is shorter than its digital part")
+
+    # serving: the SLO-constrained search on a Poisson trace
+    reqs = sim.poisson_requests(**SERVE_TRACE)
+    serving = sim.autotune_serving(meta, reqs, ph.PhotonicConfig(), slo_p99_s=SERVE_SLO_S,
+                                   power_budget_w=SERVE_BUDGET_W)
+    print(f"[{tag}] autotune_serving, {SERVE_TRACE['n']} requests at {SERVE_TRACE['rate']} req/s,"
+          f" p99 SLO {SERVE_SLO_S * 1e3:.0f} ms, {SERVE_BUDGET_W} W, the modelled chip: "
+          f"{serving.describe()}")
+    check((serving.n_buses, serving.f_s, serving.batch_slots) == SERVE_PICK,
+          f"serving pick {(serving.n_buses, serving.f_s, serving.batch_slots)}")
+
+    # both exporters into one trace file
+    with tempfile.TemporaryDirectory(prefix="schedule-", dir=pm._BUILD_DIR) as tmp:
+        rec = export.pipeline_to_trace(tuned.report)
+        svc = sim.service_model(meta, ph.PhotonicConfig(n_buses=serving.n_buses),
+                                f_s=serving.f_s)
+        sim.simulate_serving(reqs, svc, batch_slots=serving.batch_slots, trace=rec)
+        path = export.write(rec, os.path.join(tmp, "sim.json"))
+        events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    pipe = {(e["pid"], e["tid"]) for e in events
+            if e["ph"] == "X" and e["pid"] == export.SIM_PIPELINE_PID}
+    rounds = sum(e["ph"] == "X" and e["pid"] == export.SIM_SERVING_PID for e in events)
+    lifecycles = sum(e["ph"] == "b" for e in events)
+    want = tuned.n_buses * (len(sim.STAGES) + 1)
+    print(f"[{tag}] trace: {len(events)} events, {len(pipe)} pipeline tracks (one per bus x "
+          f"stage: {want}), {rounds} serving rounds, {lifecycles} request tracks")
+    check(len(pipe) == want and lifecycles == SERVE_TRACE["n"] and rounds > 0,
+          f"trace tracks {len(pipe)} (want {want}), {lifecycles} requests")
+    return {"launches": {name: run["launches"] for name, run in runs.items()},
+            "q8_plans": n_plans, "max_abs_err": err, "energy": head,
+            "tuned": {name: run["tuned"].describe() for name, run in runs.items()},
+            "overlap": overlap.describe(), "serving": serving.describe(),
+            "step_ms": {name: run["step_ms"] for name, run in runs.items()},
+            "losses": {name: run["losses"] for name, run in runs.items()}, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -3438,13 +3705,76 @@ def _moe_serve(torch, np, api, pm, seed):
             "batched_vs_single": {str(k): v for k, v in single.items()}, "profile": profile}
 
 
-def _moe_emu_serve(torch, np, api, em, seed):
+def _stack_dims(a_t, delta, widths):
+    """(E, T, K, M) of a captured expert stack: its tiled K and M padded to
+    the bank (panels x C, row blocks x rows), read back as the model's
+    width each pads (``widths``)."""
+    e, t, q, nj, cols = a_t.shape
+    nm, rows = delta.shape[1], delta.shape[3]
+    by_k = {-(-w // cols) * cols: w for w in widths}
+    by_m = {-(-w // rows) * rows: w for w in widths}
+    return e, t, by_k[q * nj * cols], by_m[nm * rows]
+
+
+def _stack_vs_2d(torch, em, captured, widths):
+    """Each captured stack of expert products (a_t (E, T, Q, NJ, C)) under
+    every plan of the forced grid: index e of the batched launch equals the
+    2-D launch of product e under the same plan, bit for bit.  -> {(E, T,
+    K, M): plans}."""
+    out = {}
+    for (a_shape, _), (a_t, delta, mask, kw) in captured.items():
+        if a_t.ndim != 5:
+            continue
+        plans = _emu_candidates(em, a_t, delta, mask)
+        for plan in plans:
+            got = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
+            for i in range(a_t.shape[0]):
+                one = em.launch_kernel(a_t[i], delta[i], mask, plan=plan, **kw)
+                check(torch.equal(got[i], one),
+                      f"batched emu launch index {i} != its 2-D launch: a_t {a_shape} "
+                      f"{plan.name}")
+        out[_stack_dims(a_t, delta, widths)] = len(plans)
+    return out
+
+
+def _stack_rows(torch, em, captured, widths, peaks, draw, sms, tag):
+    """The batched launch of each captured expert stack beside the loop of
+    E 2-D launches it replaces, the batched plain version and the bound."""
+    rows = []
+    for _, (a_t, delta, mask, kw) in sorted(captured.items()):
+        if a_t.ndim != 5:
+            continue
+        e = a_t.shape[0]
+        row = _time_fns(torch, {
+            "ms": lambda: em.emu_bank_product_cuda(a_t, delta, mask, **kw),
+            "loop_ms": lambda: [em.emu_bank_product_cuda(a_t[i], delta[i], mask, **kw)
+                                for i in range(e)]}, {"ms": 25, "loop_ms": 25})
+        row["plain_ms"] = _event_ms(torch, lambda: em.emu_bank_product_plain(
+            a_t, delta, mask, **kw), reps=1, warm=1)
+        row["bound_ms"], row["bound_by"], binding, terms = emu_bound(
+            (a_t, delta, mask, kw["n_panels"]), kw["sigma"], kw["shot"], peaks, draw, sms)
+        _, t, k, m = _stack_dims(a_t, delta, widths)
+        row.update(e=e, t=t, k=k, m=m, library_ms=None,
+                   plan=em.plan_for(a_t, delta, mask).name, binding=binding)
+        rows.append(row)
+        print(f"[{tag}] ({e}, {row['t']}, {row['k']} -> {row['m']} rows) bf16 a_t, f32 δ: "
+              f"batched {row['ms']:.4f} / {row['dev_ms']:.4f} ms (events / device), the loop of "
+              f"{e} 2-D launches {row['loop_ms']:.4f} / {row['loop_dev_ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f} (events), bound {row['bound_ms']:.4f} ({binding}: bytes "
+              f"{terms['bytes'] * 1e3:.5f} / f32 {terms['f32'] * 1e3:.5f} / prng "
+              f"{terms['prng'] * 1e3:.5f}), plan {row['plan']}")
+    return rows
+
+
+def _moe_emu_serve(torch, np, api, em, seed, card, draws):
     """qwen2-moe at full width cut to MOE_EMU_LAYERS layers, bf16, on
     emu_offchip: 2 requests (16-token prompts, 4 new tokens) on 2 slots,
-    one emu launch a layer's attention and shared product and a expert's
-    product; the emu kernel against its plain version on the path's own
-    operands (the first call of each shape), bit for bit under every plan
-    of the forced grid."""
+    one emu launch a layer's attention and shared product and one batched
+    launch a stack of expert products (all 60); the emu kernel against its
+    plain version on the path's own operands (the first call of each
+    shape), bit for bit under every plan of the forced grid, and each
+    batched launch's index e against the 2-D launch of expert e under each
+    plan; the batched launches timed beside the loop of 60 they replace."""
     import dataclasses
 
     from repro_torch.models.transformer import TransformerLM
@@ -3460,27 +3790,40 @@ def _moe_emu_serve(torch, np, api, em, seed):
     finite = _finite_outputs(torch, eng)
     reqs = [Request(prompt=p, max_new=4)
             for p in _prompts(np.random.default_rng(seed + 11), 2, 16, cfg.vocab_size)]
-    per_forward = cfg.n_layers * (7 + 3 * cfg.moe.n_experts) + 1
+    per_forward = cfg.n_layers * (4 + 3 + 3) + 1
     captured, launches, wall = _emu_run_captured(torch, em, eng, reqs)
     forwards = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
     tokens = sum(len(r.out) for r in reqs)
     print(f"[{tag}] {cfg.n_layers} of 24 layers at full width, bf16, emu_offchip: {len(reqs)} "
           f"requests, {tokens} tokens in {wall:.3f}s ({forwards} forwards); emu_bank_product "
           f"launches {launches} = {per_forward} x {forwards}: {launches == per_forward * forwards}"
-          f" (a layer: 4 attention, 3 x {cfg.moe.n_experts} expert, 3 shared; and the head)")
+          f" (a layer: 4 attention, 3 batched over {cfg.moe.n_experts} experts, 3 shared; and "
+          "the head)")
     check(all(r.done and len(r.out) == 4 for r in reqs), "requests unfinished")
     check(launches == per_forward * forwards,
           f"launches {launches} != {per_forward} x {forwards}")
     check(finite(), "non-finite logits")
+    del eng, session, model
+    gc.collect()
+    torch.cuda.empty_cache()
     max_err, n_plans = _emu_path_exact(torch, em, captured, "qwen2-moe")
     print(f"[{tag}] kernel vs plain on the path's own operands (bf16 a_t, f32 δ; "
           f"{len(captured)} shapes: {', '.join(str(a) for a, _ in captured)}), {n_plans} plans "
           f"in all: equal bit for bit (max |kernel - plain| {max_err:.3e})")
-    del eng, session, model, captured
-    gc.collect()
+    widths = (cfg.d_model, cfg.moe.d_ff_expert)
+    stacks = _stack_vs_2d(torch, em, captured, widths)
+    check(len(stacks) >= 2, f"the path launched {len(stacks)} expert stack shapes")
+    print(f"[{tag}] each batched expert launch against the 2-D launch of each of its experts "
+          f"under every plan: equal bit for bit at " + ", ".join(
+              f"(E, T, K, M) = {k} ({v} plans)" for k, v in stacks.items()))
+    peaks = card_peaks(card)[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = _stack_rows(torch, em, captured, widths, peaks, draws["emu"], sms, tag)
+    del captured
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": max_err, "wall_s": wall, "forwards": forwards,
-            "layers": cfg.n_layers}
+            "layers": cfg.n_layers, "per_forward": per_forward,
+            "stack_vs_2d": {str(k): v for k, v in stacks.items()}, "stack_rows": rows}
 
 
 def _moe_act_probe(torch, api, seed, rows):
@@ -3741,8 +4084,10 @@ def phase_moe(torch, np, api, pm, em, seed, card, draws):
     at every (E, T, K, M) of the path; the batched launches against their
     2-D launches bit for bit) with a profiled prefill tick and two decode
     ticks; f32 ideal cuda-vs-ref parity (57.3 GB of f32 weights, alone on
-    the card); emu serving at MOE_EMU_LAYERS layers with the emu kernel
-    bit for bit; f32 dfa training at the depth the card holds (printed);
+    the card); emu serving at MOE_EMU_LAYERS layers (21 launches a forward,
+    each expert product one batched launch) with the emu kernel bit for
+    bit and each batched launch = its 2-D launches, timed beside the loop
+    of 60 it replaces; f32 dfa training at the depth the card holds (printed);
     kimi-k2's layout on the meta device and its expert products at full
     width; the bank kernel timed at every decode shape and the experts'
     prefill shapes."""
@@ -3754,7 +4099,7 @@ def phase_moe(torch, np, api, pm, em, seed, card, draws):
     out["parity"] = phase_parity(torch, np, api, seed, arch=QWEN2MOE, tag="moe_parity")
     gc.collect()
     torch.cuda.empty_cache()
-    out["emu"] = _moe_emu_serve(torch, np, api, em, seed)
+    out["emu"] = _moe_emu_serve(torch, np, api, em, seed, card, draws)
     out["train"] = _moe_train(torch, api, pm, seed, card)
     gen = torch.Generator(device=DEVICE).manual_seed(20)
     print(f"[moe_timing] {kind} peaks; card: {card}")
@@ -3796,7 +4141,7 @@ RG_FULL = (38, 4096, 16, 1, 12288, 256000, 4096, 2048)
 # out, the MLP's 3), 12 attention layers x 7 (q, k, v, o, the MLP's 3), the head
 RG_FORWARD = 26 * 8 + 12 * 7 + 1  # 293
 RG_DEPTH = 4  # training: one (rec, rec, attn) group and one tail layer
-RG_STEPS = 4  # f32 dfa fit steps
+RG_STEPS = 2  # f32 dfa fit steps
 RG_BATCHES = (64, 32, 16)  # x LM_SEQ: the largest that leaves FREE_GIB free
 # the memory probe's steps: the allocator's reserve above the allocated peak
 # grows after the first step (seen on the card)
@@ -4201,7 +4546,7 @@ WHISPER_LAUNCHES = 25
 # (n_layers, d_model, heads, kv heads, d_ff, vocab, patches, d_vision) of its full()
 INTERNVL2_FULL = (24, 2048, 16, 8, 8192, 92553, 256, 1024)
 INTERNVL2_FORWARD = 7 * 24 + 1  # 169: q, k, v, o and the MLP's 3 a layer, the head
-INTERNVL2_STEPS = 4  # f32 dfa fit steps, 256 patches + seq 64
+INTERNVL2_STEPS = 2  # f32 dfa fit steps, 256 patches + seq 64
 INTERNVL2_BATCHES = (64, 32, 16)  # the largest that leaves FREE_GIB free
 INTERNVL2_PROBE_BATCH = 16
 
@@ -4705,7 +5050,7 @@ def _internvl2_train(torch, np, api, pm, seed, card):
     gc.collect()
     torch.cuda.empty_cache()
     batches = [to_device_batch(gen.batch(i)) for i in range(INTERNVL2_STEPS,
-                                                            INTERNVL2_STEPS + 3)]
+                                                            INTERNVL2_STEPS + 2)]
     prof = _step_timing(torch, session, fit, batches, 1, 1, tag, card)
     prof.update(batch=batch, peak_gib=peak_gib, free_gib=free_gib, losses=losses,
                 act_gib=act_row * rows / 2**30, reserve_gib=reserve / 2**30)
@@ -4827,6 +5172,7 @@ def main(argv=None):
     emu_rows = timed(phase_emu_timing, torch, em, ph, ch, mrr, card, draws["emu"])
     lm = timed(phase_lm_train, torch, np, api, pm, em, args.seed, card, draws)
     observed = timed(phase_observe, torch, np, api, pm, em, args.seed, card)
+    sched = timed(phase_schedule, torch, np, api, pm, em, args.seed, card, draws)
     mamba = timed(phase_mamba, torch, np, api, pm, em, args.seed, card, draws)
     dense = timed(phase_dense, torch, np, api, pm, em, args.seed, card, draws)
     moe = timed(phase_moe, torch, np, api, pm, em, args.seed, card, draws)
@@ -4840,6 +5186,8 @@ def main(argv=None):
     print(json.dumps({"rg_model": rg_summary(rg)}))
     print(json.dumps({"whisper_model": whisper_summary(whisper)}))
     print(json.dumps({"internvl2_model": internvl2_summary(internvl2)}))
+    print(json.dumps({"schedule": {k: sched[k] for k in ("energy", "tuned", "overlap",
+                                                         "serving", "step_ms", "losses")}}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
     dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
@@ -4930,7 +5278,8 @@ def main(argv=None):
                       + observed["probe_launches"]["emu_bank_product"]
                       + mamba["emu_serve_launches"] + mamba["emu_train_launches"]
                       + sum(dense_emu.values()) + moe["emu"]["launches"]
-                      + rg["emu"]["launches"] + whisper_emu["launches"]),
+                      + rg["emu"]["launches"] + whisper_emu["launches"]
+                      + sum(sched["launches"].values())),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
@@ -4938,18 +5287,23 @@ def main(argv=None):
                               "mamba_train": mamba["emu_train_launches"], **dense_emu,
                               "moe_emu_serve": moe["emu"]["launches"],
                               "rg_emu_serve": rg["emu"]["launches"],
-                              "whisper_emu_train": whisper_emu["launches"]},
+                              "whisper_emu_train": whisper_emu["launches"],
+                              "schedule_train": sched["launches"]["q2"],
+                              "schedule_q8": sched["launches"]["q8"]},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
                             mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"],
                             moe["emu"]["max_abs_err"], rg["emu"]["max_abs_err"],
-                            whisper_emu["max_abs_err"]),
+                            whisper_emu["max_abs_err"], sched["max_abs_err"]),
          "ms": emu_rows["path_a"]["ms"], "plain_ms": emu_rows["path_a"]["plain_ms"],
          "bound_ms": emu_rows["path_a"]["bound_ms"], "bound_by": emu_rows["path_a"]["bound_by"],
          "library_ms": None, "library": "none: no single PyTorch call computes it",
          "draw_sass": draws["emu"], "timing": {**emu_rows, "lm_train_shape": lm["emu"],
                                                "mamba_train_shape": mamba["emu_train_shape"],
                                                "qwen3_train_shape": dense[QWEN3]["emu"]["row"],
-                                               "whisper_train_shape": whisper_emu["row"]}},
+                                               "whisper_train_shape": whisper_emu["row"],
+                                               "schedule_q2": sched["rows"]["q2"],
+                                               "schedule_q8": sched["rows"]["q8"],
+                                               "moe_stacks": moe["emu"]["stack_rows"]}},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,8 +34,17 @@ auto-resume under ``ckpt_dir``) and the language models serve as well.
 ``observe=`` / ``Session.observe`` attach an ``obs.Observer`` that
 ``fit`` and ``engine`` pick up, ``probe_every=`` samples DFA-vs-BP
 alignment during ``fit`` and ``debug_checks=`` arms the runtime
-sanitizers.  The reference's schedule autotuner, ``n_buses=`` and data
-parallelism are ported in later slices.
+sanitizers.  ``n_buses=`` sets the chip's WDM bus count, and
+``schedule="auto"`` runs the ``sim`` autotuner on the model's DFA backward
+(under ``power_budget_w=``; with ``recalibrate_every="auto"`` it picks the
+recalibration cadence too) and trains on the schedule it picks::
+
+    tuned = api.build_session(arch="qwen1.5-0.5b", smoke=False, hardware="emu_onchip",
+                              backend="emu", schedule="auto", power_budget_w=78.0,
+                              recalibrate_every="auto", schedule_batch=4096)
+    tuned.schedule.describe()  # n_buses=2 ... recal@100: the modelled chip's step
+
+The reference's data parallelism is ported in a later slice.
 """
 
 from __future__ import annotations
@@ -90,6 +99,8 @@ class Session:
     # the bound obs.Observer when built with observe=... (or attached later
     # with Session.observe()); None means observability is off
     observer: typing.Any = None
+    # the sim.TunedSchedule the session runs on (schedule="auto"), else None
+    schedule: typing.Any = None
 
     @property
     def photonics(self) -> photonics.PhotonicConfig:
@@ -193,8 +204,12 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
                   dtype=torch.float32, error_compress: str = "none",
                   freeze_norms: bool = False,
                   feedback: fb_lib.FeedbackConfig | None = None,
+                  n_buses: int | None = None, schedule: str | None = None,
+                  power_budget_w: float | None = None,
+                  schedule_batch: int | None = None,
                   microbatches: int = 1, prefetch: int = 2,
-                  recalibrate_every: int | None = None, ckpt_dir: str | None = None,
+                  digital_step_s: float | None = None,
+                  recalibrate_every: int | str | None = None, ckpt_dir: str | None = None,
                   ckpt_every: int = 500, log_every: int = 50,
                   log_path: str | None = None, step_deadline_s: float | None = None,
                   observe=False, probe_every: int | None = None,
@@ -205,7 +220,19 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
     ``emu_kernel`` ("auto" | "ref" | "cuda") picks the emu backend's
     execution path for the whole session and requires ``backend="emu"``.
     ``recalibrate_every`` defaults to 500 steps when the device drifts and
-    to 0 (never) otherwise.  ``ckpt_dir``: ``fit`` resumes from the newest
+    to 0 (never) otherwise.
+
+    ``n_buses`` overrides the preset's WDM bus count.  ``schedule="auto"``
+    searches (n_buses, f_s) with ``sim.autotune`` on this model's DFA
+    backward at ``schedule_batch`` vectors a step (default 64) under
+    ``power_budget_w``, overlapping ``digital_step_s`` (a measured step
+    time), and runs the session on the winner (``Session.schedule``); a
+    pinned ``n_buses`` narrows the search to that count.  Only the
+    "panel" tiling, the layout the emulator runs, is searched.  With
+    ``recalibrate_every="auto"`` the cadence is searched too, under a
+    drift budget of half the device's stationary drift σ.  The budget
+    arguments without ``schedule="auto"`` raise ValueError: they would
+    enforce nothing.  ``ckpt_dir``: ``fit`` resumes from the newest
     snapshot there and saves one every ``ckpt_every`` steps and at the end.
     A model that is not a ``DFAModel`` (an instance passed as ``arch``)
     gets no trainer and serves with ``algo="bp"`` only.
@@ -228,18 +255,34 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
 
         resolve_emu_kernel(emu_kernel)  # fail fast on unknown names
         backend = backend_obj = dataclasses.replace(backend_obj, emu_kernel=emu_kernel)
+    if schedule not in (None, "auto"):
+        raise ValueError(f"unknown schedule {schedule!r} (None | 'auto')")
+    if schedule is None and (power_budget_w is not None or schedule_batch is not None
+                             or digital_step_s is not None or recalibrate_every == "auto"):
+        # these only steer the autotuner: without it they would enforce nothing
+        raise ValueError("power_budget_w/schedule_batch/digital_step_s/"
+                         "recalibrate_every='auto' require schedule='auto'")
     hw_cfg = resolve_hardware(hardware)
+    if n_buses is not None:
+        hw_cfg = dataclasses.replace(hw_cfg, n_buses=n_buses)
     if backend_obj.stateful_hardware and hw_cfg.mrr is None:
         # a device-level backend on an abstract preset: attach the default
-        # device (drift on) so the emulation has a bank
+        # device (drift on) so the emulation has a bank (before the
+        # schedule search, so the autotuner sees the device too)
         from repro_torch.hardware.mrr import MRRConfig
 
         hw_cfg = dataclasses.replace(hw_cfg, mrr=MRRConfig())
+    model = build_model(arch, smoke=smoke, dtype=dtype, device=device, seed=seed)
+    tuned = None
+    if schedule == "auto":
+        hw_cfg, tuned = _autotune(model, hw_cfg, n_buses, power_budget_w, schedule_batch,
+                                  digital_step_s, recalibrate_every == "auto")
+        if recalibrate_every == "auto":
+            recalibrate_every = tuned.recalibrate_every
     if recalibrate_every is None:
         drifting = (backend_obj.stateful_hardware and hw_cfg.mrr is not None
                     and hw_cfg.mrr.stateful)
         recalibrate_every = 500 if drifting else 0
-    model = build_model(arch, smoke=smoke, dtype=dtype, device=device, seed=seed)
     trainable = isinstance(model, DFAModel)
     if not trainable and algo != "bp":
         raise TypeError(f"algo={algo!r} on {type(model).__name__}, which is not a DFAModel: "
@@ -256,9 +299,36 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
         log_every=log_every, log_path=log_path, step_deadline_s=step_deadline_s,
         probe_every=probe_every, debug_checks=debug_checks)
     trainer = Trainer(model, cfg, device=device) if trainable else None
-    session = Session(model=model, algorithm=algorithm, config=cfg, trainer=trainer)
+    session = Session(model=model, algorithm=algorithm, config=cfg, trainer=trainer,
+                      schedule=tuned)
     if observe is True:
         session.observe()
     elif observe:
         session.observer = observe
     return session
+
+
+def _autotune(model, hw_cfg, n_buses, power_budget_w, schedule_batch, digital_step_s,
+              tune_recal: bool):
+    """``sim.autotune`` on ``model``'s DFA backward at ``schedule_batch``
+    vectors a step (relative ranking is batch-insensitive: fills and heater
+    epilogues amortise) -> (the tuned config, the ``TunedSchedule``).  Only
+    the "panel" tiling is searched: it is the layout the emulator runs, so
+    the applied (n_buses, f_s) is optimal for the schedule the session
+    really runs.  ``tune_recal`` co-searches the recalibration cadence under
+    a drift budget of half the stationary drift (the regime where drift
+    recovery keeps DFA training)."""
+    from repro_torch import sim
+
+    workload = sim.dfa_backward_workload(model, t=schedule_batch or 64)
+    bus_counts = (n_buses,) if n_buses is not None else sim.DEFAULT_BUS_COUNTS
+    recal_candidates, drift_budget = (0,), None
+    if tune_recal:
+        recal_candidates = sim.DEFAULT_RECAL_CANDIDATES
+        if hw_cfg.mrr is not None and hw_cfg.mrr.drift_sigma > 0:
+            drift_budget = 0.5 * hw_cfg.mrr.drift_sigma
+    tuned = sim.autotune(workload, hw_cfg, power_budget_w=power_budget_w,
+                         bus_counts=bus_counts, tilings=("panel",),
+                         digital_s=digital_step_s or 0.0,
+                         recal_candidates=recal_candidates, drift_budget=drift_budget)
+    return tuned.apply(hw_cfg), tuned

@@ -21,8 +21,8 @@ A stacked weight (E, M, K), a mixture of experts' (``nn/moe.py``), makes
 key for all E products, each normalised by its own scales, one noise draw
 in normalised units shared by all of them (the reference's key is not
 batched), and every backend takes the batch: ``ref`` as one einsum,
-``cuda`` as one batched kernel launch, ``emu`` as one 2-D product per
-index with the same key and drift residual.
+``cuda`` as one batched kernel launch, ``emu`` with one key and drift
+residual for all, its fused kernel in one batched launch.
 """
 
 from __future__ import annotations
@@ -262,12 +262,6 @@ class EmulatedMRRBackend(PhotonicBackend):
     def matmul(self, a, b, cfg, key=None, *, mask=None):
         from repro_torch.hardware import channel  # lazy: hardware imports us
 
-        if b.ndim == 3:  # a stack of experts: one 2-D product each, one key
-            return torch.stack([
-                channel.emulated_matmul(a[i], b[i], cfg, key=key,
-                                        mask=mask[i] if mask is not None else None,
-                                        kernel=self.emu_kernel)
-                for i in range(b.shape[0])])
         return channel.emulated_matmul(a, b, cfg, key=key, mask=mask,
                                        kernel=self.emu_kernel)
 

@@ -51,19 +51,21 @@ def tile_operands(a_n, b_n, cfg):
     buses: a_n (T, K) -> a_t (T, n_alive, nj, cols); b_n (M, K) -> b_t (nm,
     n_alive, rows, nj, cols); returns (a_t, b_t, n_panels) with n_panels =
     ⌈K/cols⌉ real contraction panels, panel p on cycle p // n_alive of
-    alive bus p % n_alive.  Zero padding is harmless (see the reference)."""
+    alive bus p % n_alive.  Zero padding is harmless (see the reference).
+    A stack (E, T, K), (E, M, K) tiles each product alike, in one pass."""
     rows, cols = cfg.bank_rows, cfg.bank_cols
     n_buses = photonics.active_buses(cfg)
-    t = a_n.shape[0]
-    a_p = _pad_axis(a_n, cols, 1)
-    nk = a_p.shape[1] // cols
-    a_t = _pad_axis(a_p.reshape(t, nk, cols), n_buses, 1)
-    nj = a_t.shape[1] // n_buses
-    a_t = a_t.reshape(t, nj, n_buses, cols).permute(0, 2, 1, 3).contiguous()
-    b_p = _pad_axis(_pad_axis(b_n, rows, 0), cols, 1)
-    nm = b_p.shape[0] // rows
-    b_t = _pad_axis(b_p.reshape(nm, rows, nk, cols), n_buses, 2)
-    b_t = b_t.reshape(nm, rows, nj, n_buses, cols).permute(0, 3, 1, 2, 4).contiguous()
+    lead = tuple(a_n.shape[:-2])
+    t = a_n.shape[-2]
+    a_p = _pad_axis(a_n, cols, -1)
+    nk = a_p.shape[-1] // cols
+    a_t = _pad_axis(a_p.reshape(*lead, t, nk, cols), n_buses, -2)
+    nj = a_t.shape[-2] // n_buses
+    a_t = a_t.reshape(*lead, t, nj, n_buses, cols).transpose(-3, -2).contiguous()
+    b_p = _pad_axis(_pad_axis(b_n, rows, -2), cols, -1)
+    nm = b_p.shape[-2] // rows
+    b_t = _pad_axis(b_p.reshape(*lead, nm, rows, nk, cols), n_buses, -2)
+    b_t = b_t.reshape(*lead, nm, rows, nj, n_buses, cols).movedim(-2, -4).contiguous()
     return a_t, b_t, nk
 
 
@@ -280,18 +282,25 @@ def emulated_matmul(a, b, cfg, key=None, *, mask=None, state=None,
                     kernel: str | None = None):
     """Device-emulated C = A @ Bᵀ, drop-in for ``photonics.photonic_matmul``
     (the ``emu`` backend).  a: (T, K); b: (M, K); mask: optional (T, M)
-    post-detection epilogue.  ``state`` overrides the drift state, else the
+    post-detection epilogue.  A stack a (E, T, K), b (E, M, K), mask (E, T,
+    M) gives (E, T, M): each product normalised by its own scales, one key,
+    residual and dead-ring mask for all, as the reference's ``jax.vmap``;
+    the fused kernel takes the stack in one launch, the unfused chain one
+    product at a time.  ``state`` overrides the drift state, else the
     active ``drift.use_state`` context is read; with neither the bank is
     drift-free.  ``kernel``: see ``resolve_emu_kernel``."""
     if not cfg.enabled:
-        out = torch.einsum("tk,mk->tm", a, b)
+        out = torch.einsum("...tk,...mk->...tm" if b.ndim == 3 else "tk,mk->tm", a, b)
         return out * mask if mask is not None else out
     kernel = resolve_emu_kernel(kernel, a.device)
     a_n, b_n, s_a, s_b = photonics.normalise_operands(a, b, cfg)
     if state is None:
         state = drift_lib.active_state()
     residual = drift_lib.residual(state) if state is not None else None
-    if kernel == "ref":
+    if kernel == "ref" and b.ndim == 3:
+        out = torch.stack([bank_product(a_n[i], b_n[i], cfg, key, residual=residual)
+                           for i in range(b.shape[0])])
+    elif kernel == "ref":
         out = bank_product(a_n, b_n, cfg, key, residual=residual)
     else:
         from repro_torch.kernels import emu_matmul  # lazy: kernels import us

@@ -857,6 +857,11 @@ int launch(const void* a, const void* b, const float* mask, const float* noise, 
 
 }  // namespace
 
+// A file that includes this one for its device functions alone (the draw
+// probes of chip_smoke.py) defines REPRO_DEVICE_FUNCTIONS_ONLY: the entry
+// points below are left out, so no kernel template is instantiated.
+#ifndef REPRO_DEVICE_FUNCTIONS_ONLY
+
 extern "C" int photonic_matmul_block_k() { return BK; }
 
 // n_e: the batch count (1 for a 2-D product); dtype: 0 = f32, 1 = bf16;
@@ -879,3 +884,5 @@ extern "C" int dfa_gradient_launch(const void* a, const void* b, const float* ma
   return launch<true>(a, b, mask, noise, c, n_e, n_t, n_m, n_k, dtype, mode, seed, sigma_step,
                       stream, variant, split);
 }
+
+#endif  // REPRO_DEVICE_FUNCTIONS_ONLY

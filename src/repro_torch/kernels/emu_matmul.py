@@ -13,9 +13,17 @@ schedule:
     c0 = i·(Q·NJ) + s,  c1 = t·rows + r,  valid_s = s < n_panels
 
 with z the reference's Irwin–Hall(4) gaussian of one threefry2x32 output
-(``counter_gaussian``), so the noise is the reference's bit for bit.  The
-kernel is ``csrc/emu_matmul.cu`` (see its header for the design and what
-bounds it), built with ``nvcc`` for ``sm_90a`` at first use into the
+(``counter_gaussian``), so the noise is the reference's bit for bit.
+
+A stack of E products (a mixture of experts' weights) is one launch:
+a_t (E, T, Q, NJ, C) and delta_eff (E, nm, Q, rows, NJ, C) give (E, T,
+nm·rows), the index on the kernel's grid y, as the reference's kernel under
+``jax.vmap`` gains a leading grid axis.  The counters do not read the
+index, so every product draws the same noise, and the dead-ring mask is one
+chip's.
+
+The kernel is ``csrc/emu_matmul.cu`` (see its header for the design and
+what bounds it), built with ``nvcc`` for ``sm_90a`` at first use into the
 library of ``photonic_matmul.build`` and loaded with ``ctypes``; importing
 this module builds nothing.  ``_plan`` picks, per call, the kernel's
 variant (from C and the operands' addresses), the global output rows each
@@ -102,24 +110,31 @@ def _slot_noise(part, k0: int, k1: int, c0, c1, valid: float, sigma: float, shot
 
 def _fma_dot(a, w):
     """Σ_c a[..., c]·w[..., c] as f32 multiply-adds with one rounding each,
-    in order c = 0..C−1 from zero.  a: (T, C), w: (R, C) f32 -> (T, R)."""
-    acc = torch.zeros((a.shape[0], w.shape[0]), dtype=torch.float32, device=a.device)
+    in order c = 0..C−1 from zero.  a: (E, T, C), w: (E, R, C) f32 -> (E,
+    T, R)."""
+    acc = torch.zeros((*a.shape[:-1], w.shape[-2]), dtype=torch.float32, device=a.device)
     a64, w64 = a.double(), w.double()
-    for c in range(a.shape[1]):
+    for c in range(a.shape[-1]):
         # the f32 product is exact in f64: one rounding per step, as fmaf
-        acc = (acc.double() + a64[:, c, None] * w64[None, :, c]).float()
+        acc = (acc.double() + a64[..., :, c, None] * w64[..., None, :, c]).float()
     return acc
 
 
 def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed):
-    if a_t.ndim != 4 or delta_eff.ndim != 5:
-        raise ValueError(f"need a_t (T, Q, NJ, C) and delta_eff (nm, Q, rows, NJ, C), got "
-                         f"{tuple(a_t.shape)} and {tuple(delta_eff.shape)}")
-    t, q_buses, nj, cols = a_t.shape
-    nm, q2, rows, nj2, cols2 = delta_eff.shape
+    """Raise on operands the kernel does not take: a_t (T, Q, NJ, C) with
+    delta_eff (nm, Q, rows, NJ, C), or a stack of E of each."""
+    if not ((a_t.ndim, delta_eff.ndim) in ((4, 5), (5, 6))
+            and a_t.shape[:-4] == delta_eff.shape[:-5]):
+        raise ValueError(f"need a_t ([E,] T, Q, NJ, C) and delta_eff ([E,] nm, Q, rows, NJ, "
+                         f"C), got {tuple(a_t.shape)} and {tuple(delta_eff.shape)}")
+    t, q_buses, nj, cols = a_t.shape[-4:]
+    nm, q2, rows, nj2, cols2 = delta_eff.shape[-5:]
     if (q2, nj2, cols2) != (q_buses, nj, cols):
         raise ValueError(f"a_t {tuple(a_t.shape)} and delta_eff {tuple(delta_eff.shape)} "
                          "disagree on (Q, NJ, C)")
+    if a_t.ndim == 5 and not 1 <= a_t.shape[0] <= MAX_STACK:
+        raise ValueError(f"a stack of {a_t.shape[0]} products: the kernel takes 1 to "
+                         f"{MAX_STACK}")
     if a_t.dtype not in _DTYPES or delta_eff.dtype != torch.float32:
         raise TypeError(f"a_t is f32 or bf16 and delta_eff f32 (the port inscribes in f32), "
                         f"got {a_t.dtype} and {delta_eff.dtype}")
@@ -140,9 +155,13 @@ def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: f
                            sigma: float, shot: float, adc_bits: int | None, amax: float,
                            seed=None):
     """The kernel's function in plain torch, slot by slot in the kernel's
-    order, with its counters -> f32 (T, nm·rows)."""
-    t, q_buses, nj, cols = a_t.shape
-    nm, _q, rows, _nj, _c = delta_eff.shape
+    order, with its counters -> f32 (T, nm·rows), or (E, T, nm·rows) for a
+    stack: every product with the same counters and mask."""
+    batched = a_t.ndim == 5
+    if not batched:
+        a_t, delta_eff = a_t[None], delta_eff[None]
+    n_e, t, q_buses, nj, cols = a_t.shape
+    nm, _q, rows, _nj, _c = delta_eff.shape[1:]
     noisy = sigma > 0.0 or shot > 0.0
     if noisy and seed is None:
         raise ValueError("noisy fused bank requires a PRNG seed")
@@ -151,7 +170,7 @@ def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: f
     d2 = torch.square(delta_eff.float())
     w = (d2 - g2) / (d2 + g2)  # Lorentzian BPD transfer; tensor / tensor is IEEE
     if dead_mask is not None:
-        w = w * dead_mask[None, :, :, None, :]
+        w = w * dead_mask[:, :, None, :]
     a = a_t.float()
     n_slots = q_buses * nj
     if noisy:
@@ -159,17 +178,19 @@ def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: f
         ii = torch.arange(nm, device=dev, dtype=torch.int64)[None, :, None]
         c1 = (torch.arange(t, device=dev, dtype=torch.int64)[:, None, None] * rows
               + torch.arange(rows, device=dev, dtype=torch.int64)[None, None, :])
-    acc = torch.zeros((t, nm, rows), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_e, t, nm, rows), dtype=torch.float32, device=dev)
     for j in range(nj):
         for q in range(q_buses):
             s = j * q_buses + q
-            part = _fma_dot(a[:, q, j, :], w[:, q, :, j, :].reshape(nm * rows, cols))
-            part = part.reshape(t, nm, rows)
+            part = _fma_dot(a[:, :, q, j, :],
+                            w[:, :, q, :, j, :].reshape(n_e, nm * rows, cols))
+            part = part.reshape(n_e, t, nm, rows)
             if noisy:
                 c0 = ii * n_slots + s
                 part = _slot_noise(part, k0, k1, c0, c1, float(s < n_panels), sigma, shot)
             acc = acc + _adc(part, adc_bits, amax)
-    return acc.reshape(t, nm * rows)
+    out = acc.reshape(n_e, t, nm * rows)
+    return out if batched else out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +209,7 @@ CARD_SMS = 132  # an H100 SXM's SMs
 # what one SM holds (sm_90): the kernel's 128 registers a thread
 # (__launch_bounds__(256, 2)), and 1 KB of shared memory reserved per block
 SM_REGISTERS, REGISTERS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 128, 233472, 2048, 32
+MAX_STACK = 65535  # products a launch takes (the grid's y extent)
 # the planner's cost of a block, in units of one T row of one tuple (its
 # FMA chain, draw and ADC): loading a tuple's detunings and forming its
 # weights ≈ 4, staging a T row of inputs ≈ 1/2, the block's launch,
@@ -228,8 +250,9 @@ def smem_bytes(plan: Plan, q: int, nj: int, cols: int) -> int:
             + 4 * plan.t_tile * plan.rows_per_block * (n_slots | 1))
 
 
-def grid_blocks(plan: Plan, t: int, nm: int, rows: int) -> int:
-    return _cdiv(nm * rows, plan.rows_per_block) * _cdiv(t, plan.t_tile)
+def grid_blocks(plan: Plan, t: int, nm: int, rows: int, e: int = 1) -> int:
+    """Blocks of one launch: row groups x T tiles, for each of ``e`` products."""
+    return e * _cdiv(nm * rows, plan.rows_per_block) * _cdiv(t, plan.t_tile)
 
 
 def threads_per_block(plan: Plan, q: int, nj: int) -> int:
@@ -255,7 +278,8 @@ def _resident(threads: int, smem: int) -> int:
 
 
 @functools.cache
-def _tiling(t: int, m_pad: int, n_slots: int, cols: int, sms: int) -> tuple[int, int]:
+def _tiling(t: int, m_pad: int, n_slots: int, cols: int, sms: int,
+            e: int = 1) -> tuple[int, int]:
     """(rows per block, T tile) for a shape; see ``_plan``."""
     best, best_key = (1, 1), None
     for bt in [t] if t <= DECODE_T else sorted({min(t, b) for b in T_TILES}):
@@ -265,7 +289,7 @@ def _tiling(t: int, m_pad: int, n_slots: int, cols: int, sms: int) -> tuple[int,
             if smem > SMEM_MAX:
                 break
             threads = threads_per_block(plan, 1, n_slots)
-            blocks = grid_blocks(plan, t, m_pad, 1)
+            blocks = grid_blocks(plan, t, m_pad, 1, e)
             slots = sms * _resident(threads, smem)
             waves = _cdiv(blocks, slots)
             per_thread = _cdiv(rb * n_slots, threads)
@@ -279,9 +303,10 @@ def _tiling(t: int, m_pad: int, n_slots: int, cols: int, sms: int) -> tuple[int,
 
 
 def _plan(t: int, nm: int, rows: int, q: int, nj: int, cols: int, pointers,
-          sms: int = CARD_SMS) -> Plan:
-    """The plan of one call: a_t (t, q, nj, cols), delta_eff (nm, q, rows,
-    nj, cols), ``pointers`` the addresses of delta_eff and the mask.
+          sms: int = CARD_SMS, e: int = 1) -> Plan:
+    """The plan of one call: a_t ([e,] t, q, nj, cols), delta_eff ([e,] nm,
+    q, rows, nj, cols), ``pointers`` the addresses of delta_eff and the mask
+    (and of a stack's second product).
 
     A block owns ``rows_per_block`` global output rows (every slot of
     them: at most TUPLES tuples) and a T tile: all of T at decode (T <=
@@ -290,11 +315,12 @@ def _plan(t: int, nm: int, rows: int, q: int, nj: int, cols: int, pointers,
     plan with the least modelled time: waves of resident blocks (by
     registers, shared memory and threads) times one block's work (its
     tuples per thread, each forming its weights and working through the T
-    tile, plus the staging and a fixed cost); ties go to plans that give
+    tile, plus the staging and a fixed cost), over the ``e`` products'
+    blocks; ties go to plans that give
     every SM a block, then to the plan whose waves leave the fewest
     thread-tuple slots idle, then to larger blocks.  Raises ValueError if
     no plan fits."""
-    rb, bt = _tiling(t, nm * rows, q * nj, cols, sms)
+    rb, bt = _tiling(t, nm * rows, q * nj, cols, sms, e)
     plan = Plan(_variant(cols, pointers), rb, bt)
     _check_plan(plan, t, q, nj, cols, pointers)
     return plan
@@ -322,25 +348,36 @@ def _sm_count(index: int) -> int:
 
 
 def _pointers(delta_eff, dead_mask):
-    return (delta_eff.data_ptr(), dead_mask.data_ptr() if dead_mask is not None else None)
+    """The addresses the vector variant loads 16 bytes at a time from: the
+    detunings, the mask, and for a stack the second product's detunings (so
+    that every product's offset is checked)."""
+    out = (delta_eff.data_ptr(), dead_mask.data_ptr() if dead_mask is not None else None)
+    if delta_eff.ndim == 6 and delta_eff.shape[0] > 1:
+        out += (delta_eff[1].data_ptr(),)
+    return out
+
+
+def _stack(a_t) -> int:
+    """The products in a launch: E of a stack, else 1."""
+    return a_t.shape[0] if a_t.ndim == 5 else 1
 
 
 def plan_for(a_t, delta_eff, dead_mask) -> Plan:
     """The plan ``launch_kernel`` picks for these CUDA operands."""
-    t, q_buses, nj, cols = a_t.shape
-    nm, _q, rows, _nj, _c = delta_eff.shape
+    t, q_buses, nj, cols = a_t.shape[-4:]
+    nm, _q, rows, _nj, _c = delta_eff.shape[-5:]
     return _plan(t, nm, rows, q_buses, nj, cols, _pointers(delta_eff, dead_mask),
-                 _sm_count(a_t.device.index))
+                 _sm_count(a_t.device.index), _stack(a_t))
 
 
 def candidate_plans(t: int, nm: int, rows: int, q: int, nj: int, cols: int, pointers,
-                    sms: int = CARD_SMS) -> list[Plan]:
+                    sms: int = CARD_SMS, e: int = 1) -> list[Plan]:
     """The planner's plan first, then every other plan of a small grid
     that the kernel can run on these operands: each variant they allow x
     rows per block {the planner's, 1, twice the planner's} x T tile {the
     planner's, 1, 4, all of T}.  The card's checks run them all against
     the plain version."""
-    chosen = _plan(t, nm, rows, q, nj, cols, pointers, sms)
+    chosen = _plan(t, nm, rows, q, nj, cols, pointers, sms, e)
     variants = [chosen.variant]
     if cols == BANK_COLS:
         variants += [v for v in (SCALAR, GENERIC) if v != chosen.variant]
@@ -358,15 +395,17 @@ def candidate_plans(t: int, nm: int, rows: int, q: int, nj: int, cols: int, poin
 def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sigma: float,
                   shot: float, adc_bits: int | None, amax: float, seed=None,
                   plan: Plan | None = None):
-    """Launch the CUDA kernel on checked CUDA operands -> f32 (T, nm·rows);
-    ``plan`` defaults to ``_plan``'s choice.  Raises ValueError for what
-    no plan can run and RuntimeError if the launch fails."""
+    """Launch the CUDA kernel on checked CUDA operands -> f32 (T, nm·rows),
+    or (E, T, nm·rows) for a stack; ``plan`` defaults to ``_plan``'s
+    choice.  Raises ValueError for what no plan can run and RuntimeError if
+    the launch fails."""
     if a_t.device.type != "cuda":
         raise ValueError(f"no emu_bank_product kernel for device {a_t.device}")
     if not all(x is None or x.is_contiguous() for x in (a_t, delta_eff, dead_mask)):
         raise ValueError("the kernel takes contiguous operands")
-    t, q_buses, nj, cols = a_t.shape
-    nm, _q, rows, _nj, _c = delta_eff.shape
+    t, q_buses, nj, cols = a_t.shape[-4:]
+    nm, _q, rows, _nj, _c = delta_eff.shape[-5:]
+    n_e = _stack(a_t)
     if min(t, nm, rows, cols) == 0:
         raise ValueError(f"the kernel takes no empty operands: T={t} nm={nm} rows={rows} "
                          f"C={cols}")
@@ -379,12 +418,13 @@ def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sig
         plan = plan_for(a_t, delta_eff, dead_mask)
     else:
         _check_plan(plan, t, q_buses, nj, cols, pointers)
-    out = torch.empty((t, nm * rows), device=a_t.device, dtype=torch.float32)
+    out = torch.empty((*a_t.shape[:-4], t, nm * rows), device=a_t.device,
+                      dtype=torch.float32)
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream(a_t.device).cuda_stream
         err = pm._library().emu_bank_product_launch(
-            a_t.data_ptr(), *pointers, out.data_ptr(),
-            t, q_buses, nj, cols, nm, rows, n_panels,
+            a_t.data_ptr(), *pointers[:2], out.data_ptr(),
+            n_e, t, q_buses, nj, cols, nm, rows, n_panels,
             _DTYPES[a_t.dtype], float(gamma * gamma), float(sigma), float(shot),
             _levels(adc_bits), float(amax), k0, k1, stream,
             plan.variant, plan.rows_per_block, plan.t_tile)
@@ -417,10 +457,11 @@ def division_mismatches(device, *, divisor: float | None = None,
 def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float,
                           sigma: float, shot: float, adc_bits: int | None, amax: float,
                           seed=None):
-    """One fused panel loop for a whole bus-tiled GEMM.  a_t (T, Q, NJ, C)
-    in f32 or bf16, delta_eff (nm, Q, rows, NJ, C) f32, dead_mask (Q, rows,
-    C) f32 or None, seed two uint32 words (needed when σ or shot is
-    nonzero) -> the accumulated f32 (T, nm·rows) (the caller slices M)."""
+    """One fused panel loop for a whole bus-tiled GEMM, or for a stack of E
+    of them in one launch.  a_t ([E,] T, Q, NJ, C) in f32 or bf16, delta_eff
+    ([E,] nm, Q, rows, NJ, C) f32, dead_mask (Q, rows, C) f32 or None, seed
+    two uint32 words (needed when σ or shot is nonzero) -> the accumulated
+    f32 ([E,] T, nm·rows) (the caller slices M)."""
     global launches
     check_operands(a_t, delta_eff, dead_mask, n_panels, seed)
     kw = dict(n_panels=n_panels, gamma=gamma, sigma=sigma, shot=shot, adc_bits=adc_bits,
@@ -429,9 +470,10 @@ def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: fl
         return emu_bank_product_plain(a_t, delta_eff, dead_mask, **kw)
     out = launch_kernel(a_t, delta_eff, dead_mask, **kw)
     launches += 1
-    # the launch's MACs: T rows × (nm·rows) outputs × n_panels·C ring products
-    flop_cost.count_launch(2 * a_t.shape[0] * delta_eff.shape[0] * delta_eff.shape[2]
-                           * n_panels * a_t.shape[3])
+    # the launch's MACs: E products × T rows × (nm·rows) outputs × n_panels·C
+    # ring products
+    flop_cost.count_launch(2 * _stack(a_t) * a_t.shape[-4] * delta_eff.shape[-5]
+                           * delta_eff.shape[-3] * n_panels * a_t.shape[-1])
     return out
 
 
@@ -444,12 +486,13 @@ def seed_words(key: int) -> tuple[int, int]:
 def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None):
     """Drop-in for ``hardware.channel.bank_product`` on the fused path:
     a_n (T, K), b_n (M, K) normalised operands -> (T, M) in bank output units
-    (the caller rescales by s_a·s_b)."""
+    (the caller rescales by s_a·s_b).  A stack a_n (E, T, K), b_n (E, M, K)
+    is tiled in one pass and runs as one launch -> (E, T, M)."""
     from repro_torch.hardware import channel  # lazy: channel imports us lazily
     from repro_torch.hardware import mrr
 
     device = cfg.mrr or mrr.MRRConfig()
-    t, m = a_n.shape[0], b_n.shape[0]
+    t, m = a_n.shape[-2], b_n.shape[-2]
     a_t, b_t, n_panels = channel.tile_operands(a_n, b_n, cfg)
     residual = channel.alive_residual(residual, cfg)
     delta_eff = channel.effective_deltas(b_t, cfg, residual).contiguous()
@@ -465,4 +508,4 @@ def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None):
                                 gamma=float(device.gamma), sigma=float(sigma),
                                 shot=float(shot), adc_bits=device.adc_bits,
                                 amax=float(cfg.bank_cols), seed=seed)
-    return check_finite(out[:t, :m], "fused_bank_product output")
+    return check_finite(out[..., :t, :m], "fused_bank_product output")

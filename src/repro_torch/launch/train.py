@@ -35,8 +35,15 @@ counters), ``--metrics-out PATH`` appends the logged rows as JSONL
 noise budget) every N steps, and ``--bench-json DIR`` times every step and
 writes ``BENCH_train_throughput.json`` into DIR.
 
-The reference's ``--data-parallel``, ``--n-buses`` and ``--autotune`` are
-ported in later slices.
+``--n-buses`` sets the chip's WDM bus count; ``--autotune`` picks the
+fastest (n_buses, f_s) for the model's DFA backward on the modelled chip
+(``sim.autotune``) under ``--power-budget-w``, prints ``[sim] autotuned
+schedule: ...`` and trains on it::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --preset emu_onchip --backend emu --autotune --power-budget-w 78
+
+The reference's ``--data-parallel`` is ported in a later slice.
 """
 
 from __future__ import annotations
@@ -73,6 +80,15 @@ def main(argv=None):
                          "hardware; default: 500 when the device drifts")
     ap.add_argument("--ckpt-dir", default=None,
                     help="resume from and save snapshots to this directory")
+    ap.add_argument("--n-buses", type=int, default=None,
+                    help="parallel WDM buses (multi-wavelength scale-out); default: the "
+                         "preset's bus count (1)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sim schedule autotuning: pick the fastest (n_buses, f_s) for this "
+                         "model's DFA backward under --power-budget-w")
+    ap.add_argument("--power-budget-w", type=float, default=None,
+                    help="wall-plug power budget [W] of the modelled chip for --autotune "
+                         "(default: unconstrained)")
     ap.add_argument("--bench-json", default=None, metavar="DIR",
                     help="measure throughput and write BENCH_train_throughput.json into DIR")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
@@ -86,6 +102,8 @@ def main(argv=None):
                          "noise budget) as observer rows")
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
     args = ap.parse_args(argv)
+    if args.power_budget_w is not None and not args.autotune:
+        ap.error("--power-budget-w only steers --autotune")
 
     # the language models always train their reduced config here
     smoke = args.smoke or args.arch != "mnist_mlp"
@@ -94,12 +112,16 @@ def main(argv=None):
         backend=args.backend, error_compress=args.error_compress,
         optimizer=SGDM(lr=args.lr, momentum=args.momentum), seed=args.seed,
         log_path=args.log, log_every=max(1, args.steps // 20), prefetch=args.prefetch,
-        recalibrate_every=args.recal_every, ckpt_dir=args.ckpt_dir,
+        recalibrate_every=args.recal_every, ckpt_dir=args.ckpt_dir, n_buses=args.n_buses,
+        schedule="auto" if args.autotune else None, power_budget_w=args.power_budget_w,
+        schedule_batch=args.batch if args.autotune else None,
         probe_every=args.probe_every, device=args.device)
     model = session.model
     observer = None
     if args.trace_out or args.metrics_out:
         observer = session.observe(metrics_path=args.metrics_out, trace_path=args.trace_out)
+    if session.schedule is not None:
+        print(f"[sim] autotuned schedule: {session.schedule.describe()}")
     timer = None
     if args.bench_json is not None:
         from repro_torch.bench import StepTimer, clamped_warmup

@@ -208,17 +208,20 @@ def for_session(session, *, metrics_path: str | None = None,
     """An ``Observer`` wired for one ``api.Session``: when the session's
     backend carries stateful hardware AND the device actually drifts
     (``MRRConfig.stateful``), a ``HardwareMonitor`` is attached with the
-    session's device description and recalibration cadence (the budget
-    is the monitor's default: the port has no schedule autotuner).
-    Drift-free devices (``emu_ideal``) and the ref/cuda backends get no
-    monitor, so their rows carry no vacuous ``hw_*`` gauges."""
+    session's device description, recalibration cadence and — when the
+    schedule autotuner planned one — its ``drift_budget``.  Drift-free
+    devices (``emu_ideal``) and the ref/cuda backends get no monitor, so
+    their rows carry no vacuous ``hw_*`` gauges."""
     hwmon = None
     cfg = session.config
     device = cfg.dfa.photonics.mrr
     if (getattr(session.trainer, "_hw_stateful", False)
             and device is not None and device.stateful):
+        budget = None
+        if session.schedule is not None:
+            budget = session.schedule.drift_budget
         hwmon = HardwareMonitor(
-            device, recalibrate_every=cfg.recalibrate_every,
+            device, recalibrate_every=cfg.recalibrate_every, drift_budget=budget,
             n_failed_buses=len(cfg.dfa.photonics.failed_buses))
     return Observer(hwmon=hwmon, metrics_path=metrics_path,
                     trace_path=trace_path)

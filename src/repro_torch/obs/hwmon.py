@@ -8,9 +8,9 @@ step already returns the summary scalars (``hw_drift_rms``,
 in the fit loop's one transfer per logging interval).  The monitor
 compares the *observed* residual against the OU prediction for the run's
 recalibration cadence (``expected_drift_sigma``) every logged step and
-raises a warn-level alert the moment a ``drift_budget`` is crossed.  The
-reference's schedule autotuner, which plans such a budget, is not ported:
-the budget defaults to half the stationary drift σ, as there.
+raises a warn-level alert the moment a ``drift_budget`` is crossed: the
+budget the schedule autotuner planned against (``sim.autotune``, passed by
+``obs.for_session``), else half the stationary drift σ, as in the reference.
 
 Alerts are edge-triggered: one alert per budget crossing, re-armed when
 the residual recovers below the budget (a recalibration sweep landing),
@@ -32,30 +32,14 @@ Derived gauges per sample:
 from __future__ import annotations
 
 import dataclasses
-import math
 
 from repro_torch.core.photonics import sigma_to_resolution
+from repro_torch.sim.autotune import expected_drift_sigma
 
 # residual threshold (in stationary drift σ) past which a ring counts as
 # dead — shared by the trainer's in-step ``hw_dead_rings`` metric and the
 # monitor's gauge so the two always agree
 DEAD_RING_FACTOR = 3.0
-
-
-def expected_drift_sigma(device, recalibrate_every: int) -> float:
-    """Expected per-ring detuning residual (OU model) at the end of a
-    recalibration window of ``recalibrate_every`` steps — the port's copy
-    of the reference's ``sim.autotune.expected_drift_sigma``::
-
-        σ_resid² = drift_sigma² · (1 − exp(−2·every/τ)) + cal_noise²
-
-    ``recalibrate_every <= 0`` means never: the stationary drift_sigma."""
-    if device is None or device.drift_sigma <= 0:
-        return 0.0
-    if recalibrate_every <= 0:
-        return float(device.drift_sigma)
-    grow = 1.0 - math.exp(-2.0 * recalibrate_every / device.drift_tau)
-    return math.sqrt(device.drift_sigma ** 2 * grow + device.cal_noise ** 2)
 
 
 @dataclasses.dataclass(frozen=True)

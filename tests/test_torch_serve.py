@@ -259,13 +259,16 @@ def test_launcher_serves_on_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and neither jax nor repro is then
-    loaded."""
+    """Every module of the port imports, the simulator and the energy model
+    among them, and neither jax nor repro is then loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "want = ['repro_torch.core.energy'] + ['repro_torch.sim.' + m for m in\n"
+        "        ('components', 'pipeline', 'serving', 'autotune')]\n"
+        "assert all(n in sys.modules for n in want), want\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
