@@ -12,7 +12,9 @@ sources in the checkout.  Phases:
    time, and ``nvcc -Xptxas -v``'s registers, shared memory and spills per
    kernel; the SASS instructions of one threefry draw of the emu kernel and
    of the bank kernel's prng mode (``cuobjdump -sass`` of probes built
-   beside the library), which set the two kernels' PRNG bounds;
+   beside the library), which set the two kernels' PRNG bounds; then the
+   static linter (``python -m repro_torch.lint src/repro_torch``, no
+   baseline), failing on any finding;
 2. kernel vs plain version at every shape the serving path gives it
    (T = 4 and 64 rows), the ragged 200×300×257, the paper's 64×10×800,
    both sides of the planner's seam between the skinny and the tiled
@@ -41,8 +43,10 @@ sources in the checkout.  Phases:
    ``torch.matmul`` (profiler, cold L2) and the card's bound at each path
    shape, with the variant that ran, its GB/s, its share of the bound and
    the host overhead per launch; the sums over one decode step and one
-   prefill forward; the skinny and mma variants side by side at T = 4, 8
-   and 16 (the seam);
+   prefill forward; at each shape the bytes the wrapper reports to
+   ``utils.flop_cost`` (= the kernel's ``launch_bytes``), and the decode
+   step's bytes over the memory rate = the recorded bound within 0.5%; the
+   skinny and mma variants side by side at T = 4, 8 and 16 (the seam);
 9. ``emu_bank_product``: its branch-free division against IEEE division
    on every float it takes; the kernel vs its plain version, bit for bit,
    at tests/test_emu_kernel.py's shapes, a failed bus with dead rings, a
@@ -183,6 +187,15 @@ sources in the checkout.  Phases:
     timed at every decode shape and the training shape.  One
     ``{"internvl2_model": ...}`` line.
 
+Every timed full-width training step (``_step_timing``: qwen1.5, Mamba,
+qwen3, minicpm3, qwen2-moe, recurrentgemma, whisper, internvl2) and the
+tuned q = 2 step read ``step_cost`` with their launches' shapes captured
+(``_captured_cost``) and print the step against the card's roofline
+(``_step_roofline``): ``mem_bytes`` and ``kernel_bytes``, t_compute at the
+f32 peak, t_memory, the bound, the step and the share bound / step, and
+the model FLOPs utilisation; ``kernel_bytes`` must equal the kernels'
+helpers over the captured launches and every share be at most 1.05.
+
 Every phase that fails raises and the script exits non-zero.  The line
 before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -217,6 +230,7 @@ DFA_SHAPES = [(4, 8, 16), (64, 10, 800), (128, 128, 128), (200, 300, 257), (256,
 TRAIN_PRESETS = ("ideal", "offchip_bpd", "onchip_bpd")
 TRAIN_STEPS, TRAIN_BATCH = 96, 64  # tests/test_train.py's protocol
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's kernel-test bounds
+DECODE_BOUND_MS = 0.2794  # PERF.md's bound of one T = 4 bf16 decode step (169 launches)
 # published dense peaks (NVIDIA data sheets, SXM parts): bytes/s and op/s by type
 CARDS = {"H100": {"bw": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
          "H200": {"bw": 4.8e12, "bfloat16": 989e12, "float32": 67e12}}
@@ -250,10 +264,15 @@ def bound_ms(t, m, k, dtype_name, peaks, masked=False, noise="none", draw=None, 
     mode the T·M·⌈K/32⌉ threefry draws at ``draw``'s SM clocks each (the
     bank probe's SASS) on ``sms`` SMs at the boost clock; ``e`` such
     products in a batched launch, which reads its one (T, M) noise operand
-    once.  Returns (ms, what binds, bytes moved)."""
+    once.  The bytes are the kernel's own helper's (``launch_bytes``), the
+    ones its wrapper reports to ``step_cost``.  Returns (ms, what binds,
+    bytes moved)."""
+    from repro_torch.kernels import dfa_gradient as dg
+    from repro_torch.kernels import photonic_matmul as pm
+
     itemsize = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (e * ((t * k + m * k) * itemsize + t * m * 4 * (1 + masked))
-              + t * m * 4 * (noise == "input"))
+    helper = dg.launch_bytes if masked else pm.launch_bytes
+    nbytes = helper(t, m, k, itemsize, e=e, noise=noise == "input")
     ops = 2 * e * t * m * k
     by_bytes, by_ops = nbytes / peaks["bw"], ops / peaks[dtype_name]
     if noise == "prng":
@@ -298,6 +317,25 @@ def phase_build(torch, pm):
               f"control {draw['other']}: {draw['clocks']:.4f} SM clocks a draw, bound by "
               f"{draw['by']}")
     return card, draws
+
+
+def phase_lint(torch):
+    """The static linter (``python -m repro_torch.lint``, stdlib only) over
+    ``src/repro_torch`` with no baseline: any finding fails the run."""
+    del torch
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.lint", "src/repro_torch",
+                          "--format", "json"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    report = json.loads(out.stdout) if out.returncode in (0, 1) else {}
+    print(f"[lint] python -m repro_torch.lint src/repro_torch: exit {out.returncode}, "
+          f"{len(report.get('findings', []))} finding(s), {report.get('suppressed')} "
+          f"suppressed inline, {time.perf_counter() - t0:.2f}s")
+    for f in report.get("findings", []):
+        print(f"[lint]   {f['path']}:{f['line']}: {f['rule']} {f['message']}")
+    check(out.returncode == 0 and not report.get("findings"),
+          f"the linter failed (exit {out.returncode}): {out.stderr[-2000:]}")
+    return report
 
 
 def _start_draw_probe(pm, name, source):
@@ -1088,7 +1126,12 @@ def phase_timing(torch, pm, card):
     """Each bank-product shape of the serving path at T = 4 (decode) and
     T = 64 (prefill, 4 slots x chunk 16) in bf16: the kernel, its plain
     version and torch.matmul; the sums over one decode step's and one
-    prefill forward's 169 launches."""
+    prefill forward's 169 launches.  At each shape one call under
+    ``flop_cost.measure`` reports the bank helper's bytes, and the decode
+    step's helper bytes over the card's memory rate give PERF.md's bound
+    (DECODE_BOUND_MS) within 0.5%."""
+    from repro_torch.utils import flop_cost
+
     kind, peaks = card_peaks(card)
     gen = torch.Generator(device=DEVICE).manual_seed(99)
     rows = []
@@ -1105,6 +1148,11 @@ def phase_timing(torch, pm, card):
                    "plain_ms": lambda: pm.photonic_matmul_plain(a, b),
                    "library_ms": lambda: torch.matmul(a, b.T)}
             bound = bound_ms(t, m, k, "bfloat16", peaks)
+            _, cost = flop_cost.measure(pm.photonic_matmul_cuda, a, b)
+            helper = pm.launch_bytes(t, m, k, a.element_size())
+            check(cost.kernel_launches == 1 and cost.kernel_bytes == helper == bound[2],
+                  f"({t}, {k}, {m}): the wrapper reported {cost.kernel_bytes} B in "
+                  f"{cost.kernel_launches} launches, the helper gives {helper}")
             row = dict(t=t, m=m, k=k, count=count, **_time_row(torch, fns, bound),
                        variant=pm._plan(t, m, k, a.dtype, (a.data_ptr(), b.data_ptr())).name)
             rows.append(row)
@@ -1121,11 +1169,19 @@ def phase_timing(torch, pm, card):
         total["host_us_per_launch"] = (total["ms"] - total["dev_ms"]) / total["launches"] * 1e3
         total["library_host_us_per_launch"] = ((total["library_ms"] - total["library_dev_ms"])
                                                / total["launches"] * 1e3)
+        total["kernel_bytes"] = sum(pm.launch_bytes(t, r["m"], r["k"], 2) * r["count"]
+                                    for r in step)
         sums[t] = total
         print(f"[timing] {label} ({total['launches']} launches), ms: "
               + ", ".join(f"{key} {total[key]:.4f}" for key in keys)
               + f"; host overhead per launch {total['host_us_per_launch']:.2f} us (matmul "
               f"{total['library_host_us_per_launch']:.2f} us)")
+    decode_ms = sums[4]["kernel_bytes"] / CARDS["H100"]["bw"] * 1e3
+    print(f"[timing] the decode step's kernel bytes (each shape's, as its wrapper reports them "
+          f"to step_cost): {sums[4]['kernel_bytes']} B, {decode_ms:.4f} ms at "
+          f"{CARDS['H100']['bw'] / 1e12:.2f} TB/s against PERF.md's {DECODE_BOUND_MS} ms bound")
+    check(abs(decode_ms / DECODE_BOUND_MS - 1) <= 0.005,
+          f"the decode step's helper bytes give {decode_ms:.4f} ms, not {DECODE_BOUND_MS}")
     return sums[4], sums[64]
 
 
@@ -1594,13 +1650,16 @@ def emu_bound(case, sigma, shot, peaks, draw, sms):
     SM clocks each (``draw_cost`` of one draw's SASS) on ``sms`` SMs at
     the boost clock.  A stack of E products moves E times the operands and
     does E times the multiply-adds, but draws one product's noise: every
-    product shares it."""
+    product shares it.  The bytes are ``emu_matmul.launch_bytes``'s, the
+    ones the wrapper reports to ``step_cost``."""
+    from repro_torch.kernels import emu_matmul as em
+
     a_t, delta, mask, n_panels = case
     t, q, nj, c = a_t.shape[-4:]
     nm, _, rows, _, _ = delta.shape[-5:]
     e = a_t.shape[0] if a_t.ndim == 5 else 1
-    nbytes = (a_t.numel() * a_t.element_size() + delta.numel() * delta.element_size()
-              + (mask.numel() * 4 if mask is not None else 0) + e * t * nm * rows * 4)
+    nbytes = em.launch_bytes(tuple(a_t.shape), a_t.element_size(), tuple(delta.shape),
+                             mask is not None)
     flops = 2 * e * t * nm * rows * q * nj * c
     draws = t * nm * rows * n_panels * ((sigma > 0) + (shot > 0))
     terms = {"bytes": nbytes / peaks["bw"], "f32": flops / peaks["float32"],
@@ -1876,7 +1935,82 @@ def _ideal_cuda_vs_ref(torch, session, state, step, tag, watch=(), scale_of=None
     return worst
 
 
-def _step_timing(torch, session, fit, batches, warm, n_prof, tag, card, flops=None):
+def _captured_cost(session, state, batch):
+    """``session.step_cost`` of one step with the shapes of its kernel
+    launches captured -> (the ``StepCost``, the launches, the bytes the
+    kernels' helpers give for those shapes): what the wrappers report, as
+    the script recomputes it."""
+    from repro_torch.kernels import emu_matmul as em
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import photonic_matmul as pm
+
+    shapes = []
+    bank, emu = kops.photonic_matmul_cuda, em.emu_bank_product_cuda
+
+    def bank_capture(a, b, **kw):
+        shapes.append(("bank", a.shape[-2], b.shape[-2], a.shape[-1], a.element_size(),
+                       a.shape[0] if a.ndim == 3 else 1, kw.get("noise") is not None))
+        return bank(a, b, **kw)
+
+    def emu_capture(a_t, delta, mask, **kw):
+        shapes.append(("emu", tuple(a_t.shape), a_t.element_size(), tuple(delta.shape),
+                       mask is not None))
+        return emu(a_t, delta, mask, **kw)
+
+    kops.photonic_matmul_cuda, em.emu_bank_product_cuda = bank_capture, emu_capture
+    try:
+        cost = session.step_cost(state, batch)
+    finally:
+        kops.photonic_matmul_cuda, em.emu_bank_product_cuda = bank, emu
+    nbytes = sum(pm.launch_bytes(t, m, k, size, e=e, noise=noise)
+                 for _, t, m, k, size, e, noise in (x for x in shapes if x[0] == "bank"))
+    nbytes += sum(em.launch_bytes(*x[1:]) for x in shapes if x[0] == "emu")
+    return cost, shapes, nbytes
+
+
+def _step_roofline(session, state, batch, step_ms, tag, card, captured):
+    """The step's cost against the card's roofline (``launch/analysis``):
+    its bytes (``mem_bytes``, the kernels' ``kernel_bytes``), t_compute at
+    the f32 peak, t_memory, the bound, the measured step and the share
+    bound / step, and model FLOPs utilisation, 6·N·D (N the active
+    parameters, D the batch's tokens) over the step at the f32 peak.  Gates:
+    ``kernel_bytes`` = the helpers' bytes over the captured launches, every
+    launch counted, ``mem_bytes`` > ``kernel_bytes``, and a share of at most
+    1.05 (more is impossible: the count would be wrong).  ``captured`` is
+    ``_captured_cost``'s reading of the step.  -> a dict."""
+    from repro_torch.launch import analysis
+
+    cost, shapes, expect = captured
+    peak = analysis.PEAK_FLOPS_F32
+    terms = analysis.roofline_terms(cost.flops, cost.mem_bytes, 0.0, 1, peak_flops=peak)
+    step_s = step_ms * 1e-3
+    active = analysis.active_param_count(state["params"], session.model)
+    n_tokens = int(batch["tokens"].numel())
+    model_flops = analysis.model_flops_reference(active, n_tokens, "train")
+    out = {"flops": cost.flops, "mem_bytes": cost.mem_bytes, "kernel_bytes": cost.kernel_bytes,
+           "kernel_launches": cost.kernel_launches, "t_compute_ms": terms["t_compute_s"] * 1e3,
+           "t_memory_ms": terms["t_memory_s"] * 1e3, "bound_ms": terms["bound_s"] * 1e3,
+           "dominant": terms["dominant"], "step_ms": step_ms,
+           "share": terms["bound_s"] / step_s, "active_params": active, "tokens": n_tokens,
+           "model_flops": model_flops, "mfu": model_flops / (step_s * peak)}
+    print(f"[{tag}] roofline (NVIDIA H100 SXM peaks: {peak / 1e12:.0f} TFLOP/s f32, "
+          f"{analysis.HBM_BW / 1e12:.2f} TB/s; card: {card}): step_cost {cost.flops / 1e12:.4f} "
+          f"TFLOP, mem_bytes {cost.mem_bytes / 1e9:.4f} GB of which kernel_bytes "
+          f"{cost.kernel_bytes / 1e9:.4f} GB in {cost.kernel_launches} launches; t_compute "
+          f"{out['t_compute_ms']:.2f} ms, t_memory {out['t_memory_ms']:.2f} ms, bound "
+          f"{out['bound_ms']:.2f} ms ({terms['dominant']}), step {step_ms:.2f} ms: share "
+          f"{out['share']:.3f}; MFU {out['mfu']:.4f} (6·N·D, N {active / 1e9:.4f} B active, "
+          f"D {n_tokens} tokens)")
+    check(cost.kernel_bytes == expect and cost.kernel_launches == len(shapes),
+          f"kernel_bytes {cost.kernel_bytes} in {cost.kernel_launches} launches, the helpers "
+          f"give {expect} over {len(shapes)} captured launches")
+    check(cost.mem_bytes > cost.kernel_bytes, f"mem_bytes {cost.mem_bytes} <= kernel_bytes")
+    check(out["share"] <= 1.05, f"bound / step {out['share']:.3f} > 1.05: the count is wrong")
+    return out
+
+
+def _step_timing(torch, session, fit, batches, warm, n_prof, tag, card, flops=None,
+                 launches=None):
     """Step time on CUDA events around each synchronised step of
     ``batches`` (the median after the first ``warm``) and its FLOP rate,
     then ``n_prof`` steps under the profiler: wall, device busy time, idle
@@ -1884,7 +2018,9 @@ def _step_timing(torch, session, fit, batches, warm, n_prof, tag, card, flops=No
     continue ``fit["state"]``, which ``fit`` alone holds: at full width a
     second live state beside a step's update may not fit the card.
     ``flops`` is (FLOP a step, what they count); by default
-    ``step_cost``'s."""
+    ``step_cost``'s.  ``step_cost`` is read in any case, for the roofline
+    (``_step_roofline``); ``launches``, where given, is its kernel launches
+    a step."""
     times = []
     for batch in batches:
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1895,8 +2031,11 @@ def _step_timing(torch, session, fit, batches, warm, n_prof, tag, card, flops=No
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     step_ms = statistics.median(times[warm:])
+    captured = _captured_cost(session, fit["state"], batches[0])
+    cost = captured[0]
+    check(launches is None or cost.kernel_launches == launches,
+          f"step_cost saw {cost.kernel_launches} launches, expected {launches}")
     if flops is None:
-        cost = session.step_cost(fit["state"], batches[0])
         flops = (cost.flops, f"step_cost {cost.flops / 1e12:.4f} TFLOP ({cost.kernel_launches} "
                              "kernel launches in it)")
     prof = {"step_ms": step_ms, "step_ms_all": times, "tflop_per_step": flops[0] / 1e12,
@@ -1904,6 +2043,8 @@ def _step_timing(torch, session, fit, batches, warm, n_prof, tag, card, flops=No
     print(f"[{tag}] dfa step: {step_ms:.2f} ms median of {len(times) - warm} steps (CUDA events, "
           f"synchronised steps; all: {', '.join(f'{x:.1f}' for x in times)}); {flops[1]}, "
           f"{prof['tflop_s']:.1f} TFLOP/s; card: {card}")
+    prof["roofline"] = _step_roofline(session, fit["state"], batches[0], step_ms, tag, card,
+                                      captured)
     wall_p, by_name = _profile_steps(torch, session, fit, batches[:n_prof])
     if not by_name:
         print(f"[{tag}] device busy time not measured (the profiler traced no device kernels)")
@@ -2147,7 +2288,7 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
     prof = _step_timing(torch, session, fit, batches, 2, 3, "lm_train", card, flops=(
         flops, f"matrix products {flops / 1e12:.2f} TFLOP a step (f32 bound "
                f"{flops / peaks['float32'] * 1e3:.1f} ms at {peaks['float32'] / 1e12:.0f} "
-               "TFLOP/s)"))
+               "TFLOP/s)"), launches=LM_LAUNCHES)
     step_ms = prof["step_ms"]
 
     # the bank kernel at the LM shape: the path's input mode and prng mode
@@ -2434,7 +2575,7 @@ def phase_observe(torch, np, api, pm, em, seed, card):
                                                 meta={"arch": ARCH, "algo": "dfa",
                                                       "preset": "offchip_bpd"},
                                                 out_dir=str(root))
-        cost = probe_session.step_cost(probe_state, gen.batch(0))
+        cost, _, kernel_bytes = _captured_cost(probe_session, probe_state, gen.batch(0))
         flops = _lm_step_flops(probe_session.model.cfg, LM_BATCH * LM_SEQ)
         report = bench.load_bench(path)
         print(f"[observe] StepTimer (synchronised wall, warmup 1): {summary['steps_measured']} "
@@ -2444,13 +2585,20 @@ def phase_observe(torch, np, api, pm, em, seed, card):
         print(f"[observe] step_cost: {cost.flops / 1e12:.4f} TFLOP ({cost.counted_flops / 1e12:.4f} "
               f"seen by FlopCounterMode, {cost.kernel_flops / 1e12:.4f} in {cost.kernel_launches} "
               f"bank-kernel launches) against _lm_step_flops {flops / 1e12:.4f}: ratio "
-              f"{cost.flops / flops:.5f} (the difference: attention's score and value products)")
+              f"{cost.flops / flops:.5f} (the difference: attention's score and value products); "
+              f"mem_bytes {cost.mem_bytes / 1e9:.4f} GB, kernel_bytes "
+              f"{cost.kernel_bytes / 1e9:.4f} GB (the helpers over its launches: "
+              f"{kernel_bytes / 1e9:.4f} GB)")
         check(cost.kernel_launches == LM_LAUNCHES, f"step_cost saw {cost.kernel_launches} launches")
+        check(cost.kernel_bytes == kernel_bytes and cost.mem_bytes > cost.kernel_bytes,
+              f"step_cost bytes: mem {cost.mem_bytes}, kernels {cost.kernel_bytes}, the "
+              f"helpers {kernel_bytes}")
         check(flops <= cost.flops <= 1.02 * flops, f"step_cost {cost.flops} vs {flops}")
         check(summary["macs_per_s"] > 0 and report["env"]["device"] == torch.cuda.get_device_name(0),
               "bench report")
         out["step_cost"] = {"flops": cost.flops, "lm_step_flops": flops,
-                            "macs_per_s": summary["macs_per_s"]}
+                            "macs_per_s": summary["macs_per_s"], "mem_bytes": cost.mem_bytes,
+                            "kernel_bytes": cost.kernel_bytes}
 
         # (d) debug_checks on the same model: a clean step passes, a NaN raises
         dbg = Trainer(probe_session.model,
@@ -2602,7 +2750,7 @@ SERVE_TRACE = dict(rate=200.0, n=256, prompt_len=32, decode_len=16, seed=0)
 SERVE_SLO_S, SERVE_BUDGET_W, SERVE_PICK = 0.05, 100.0, (1, 5e9, 4)
 
 
-def _tuned_fit(torch, api, pm, em, seed, budget, steps, tag):
+def _tuned_fit(torch, api, pm, em, seed, budget, steps, tag, card):
     """qwen1.5-0.5b at full width in f32 on emu_onchip, tuned by
     ``build_session(schedule="auto", power_budget_w=budget,
     recalibrate_every="auto")`` with the observer on, and ``steps`` dfa fit
@@ -2658,6 +2806,21 @@ def _tuned_fit(torch, api, pm, em, seed, budget, steps, tag):
     e1.record()
     e1.synchronize()
     step_ms = e0.elapsed_time(e1)
+    roofline = None
+    if budget is not None:
+        # one step_cost of the tuned step: LM_LAUNCHES emu launches at the
+        # first launch's shapes, each the emu helper's bytes
+        captured = _captured_cost(session, state, batch)
+        (a_t, delta, mask), _, _ = calls[0]
+        per_launch = em.launch_bytes(tuple(a_t.shape), a_t.element_size(), tuple(delta.shape),
+                                     mask is not None)
+        cost = captured[0]
+        check(cost.kernel_launches == LM_LAUNCHES
+              and cost.kernel_bytes == LM_LAUNCHES * per_launch,
+              f"the tuned step's step_cost: {cost.kernel_launches} launches, kernel_bytes "
+              f"{cost.kernel_bytes}, expected {LM_LAUNCHES} x {per_launch}")
+        roofline = _step_roofline(session, state, batch, step_ms, tag, card, captured)
+        del a_t, delta, mask
     print(f"[{tag}] {steps} dfa steps on the tuned chip ({hw.n_buses} buses, f32, batch "
           f"{LM_BATCH} x seq {LM_SEQ}, observer on) in {wall:.2f}s: losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; emu_bank_product launches {launches} = "
@@ -2673,7 +2836,7 @@ def _tuned_fit(torch, api, pm, em, seed, budget, steps, tag):
     del state, session, batch
     torch.cuda.empty_cache()
     return {"tuned": tuned, "launches": launches, "losses": losses, "wall_s": wall,
-            "step_ms": step_ms, "call": ((a_t, delta, mask), kw, out)}
+            "step_ms": step_ms, "roofline": roofline, "call": ((a_t, delta, mask), kw, out)}
 
 
 def _emu_row(torch, em, case, kw, peaks, draw, sms, reps=25):
@@ -2740,7 +2903,7 @@ def phase_schedule(torch, np, api, pm, em, seed, card, draws):
 
     runs, rows, err, n_plans = {}, {}, 0.0, 0
     for name, budget, steps in (("q2", SCHED_BUDGET_W, SCHED_STEPS), ("q8", None, 1)):
-        run = runs[name] = _tuned_fit(torch, api, pm, em, seed, budget, steps, tag)
+        run = runs[name] = _tuned_fit(torch, api, pm, em, seed, budget, steps, tag, card)
         (a_t, delta, mask), kw, out = run.pop("call")
         nj = -(-52 // run["tuned"].n_buses)
         check(a_t.shape[-3:-1] == (run["tuned"].n_buses, nj) and kw["n_panels"] == 52,
@@ -2809,6 +2972,7 @@ def phase_schedule(torch, np, api, pm, em, seed, card, draws):
             "tuned": {name: run["tuned"].describe() for name, run in runs.items()},
             "overlap": overlap.describe(), "serving": serving.describe(),
             "step_ms": {name: run["step_ms"] for name, run in runs.items()},
+            "roofline": runs["q2"]["roofline"],
             "losses": {name: run["losses"] for name, run in runs.items()}, "rows": rows}
 
 
@@ -5155,6 +5319,7 @@ def main(argv=None):
         return result
 
     card, draws = timed(phase_build, torch, pm)
+    timed(phase_lint, torch)
     max_err = timed(phase_kernel_vs_plain, torch, pm)
     max_err_b = timed(phase_dfa_kernel_vs_plain, torch, pm, dg)
     serve_launches = timed(phase_serve, torch, np, pm, api, args.seed)

@@ -191,6 +191,7 @@ class Session:
         if not hw_cfg.enabled:
             backend = None
         return Engine(self.model, batch_slots=batch_slots, max_len=max_len,
+                      # lint: disable=RL001 init folds parameter names, the engine ticks
                       eos_id=eos_id, prefill_chunk=prefill_chunk, backend=backend,
                       photonics=hw_cfg if backend is not None else None,
                       hw_state=hw_state, seed=seed,
@@ -288,6 +289,7 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
         raise TypeError(f"algo={algo!r} on {type(model).__name__}, which is not a DFAModel: "
                         "it serves only, with algo='bp'")
     cfg = TrainerConfig(
+        # lint: disable=RL001 init folds parameter names, the trainer (step, name)
         algo=algo,
         dfa=DFAConfig(photonics=hw_cfg,
                       feedback=feedback or fb_lib.FeedbackConfig(),

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import photonic_matmul as pm
 from repro_torch.kernels.photonic_matmul import (check_operands, launch_kernel,
                                                  photonic_matmul_plain)
 from repro_torch.utils import flop_cost
@@ -32,6 +33,13 @@ def dfa_gradient_plain(a, b, mask, *, noise=None, seed=None, sigma_step: float =
     """The kernel's function in plain torch -> f32 (T, M)."""
     out = photonic_matmul_plain(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     return out * mask
+
+
+def launch_bytes(t: int, m: int, k: int, itemsize: int, *, e: int = 1,
+                 noise: bool = False) -> int:
+    """Bytes one launch must move: the bank kernel's (A, B, input mode's
+    noise, the output) and the f32 (E, T, M) mask read once."""
+    return pm.launch_bytes(t, m, k, itemsize, e=e, noise=noise) + e * t * m * 4
 
 
 def _check_mask(a, b, mask):
@@ -57,5 +65,8 @@ def dfa_gradient_cuda(a, b, mask, *, noise=None, seed=None, sigma_step: float = 
         return dfa_gradient_plain(a, b, mask, noise=noise, seed=seed, sigma_step=sigma_step)
     out = launch_kernel(a, b, mask=mask, noise=noise, seed=seed, sigma_step=sigma_step)
     launches += 1
-    flop_cost.count_launch(2 * a.numel() * b.shape[-2])
+    e = a.shape[0] if a.ndim == 3 else 1
+    t, k, m = a.shape[-2], a.shape[-1], b.shape[-2]
+    flop_cost.count_launch(2 * e * t * k * m, launch_bytes(t, m, k, a.element_size(), e=e,
+                                                           noise=noise is not None))
     return out

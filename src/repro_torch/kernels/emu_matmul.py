@@ -43,6 +43,7 @@ ADC rounds the same values.  Divisions are IEEE divisions in both.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -362,6 +363,19 @@ def _stack(a_t) -> int:
     return a_t.shape[0] if a_t.ndim == 5 else 1
 
 
+def launch_bytes(a_shape, a_itemsize: int, delta_shape, masked: bool) -> int:
+    """Bytes one launch must move: a_t ([E,] T, Q, NJ, C) in its dtype,
+    δ ([E,] nm, Q, rows, NJ, C) f32 and the (Q, rows, C) f32 dead-ring mask
+    read once, the f32 ([E,] T, nm·rows) output written once.  The wrapper
+    reports these to ``utils.flop_cost``; ``chip_smoke.py``'s bounds divide
+    them by the card's memory rate."""
+    e = a_shape[0] if len(a_shape) == 5 else 1
+    t, q, nj, cols = a_shape[-4:]
+    nm, _q, rows, _nj, _c = delta_shape[-5:]
+    return (math.prod(a_shape) * a_itemsize + math.prod(delta_shape) * 4
+            + q * rows * cols * 4 * bool(masked) + e * t * nm * rows * 4)
+
+
 def plan_for(a_t, delta_eff, dead_mask) -> Plan:
     """The plan ``launch_kernel`` picks for these CUDA operands."""
     t, q_buses, nj, cols = a_t.shape[-4:]
@@ -473,7 +487,9 @@ def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: fl
     # the launch's MACs: E products × T rows × (nm·rows) outputs × n_panels·C
     # ring products
     flop_cost.count_launch(2 * _stack(a_t) * a_t.shape[-4] * delta_eff.shape[-5]
-                           * delta_eff.shape[-3] * n_panels * a_t.shape[-1])
+                           * delta_eff.shape[-3] * n_panels * a_t.shape[-1],
+                           launch_bytes(a_t.shape, a_t.element_size(), delta_eff.shape,
+                                        dead_mask is not None))
     return out
 
 

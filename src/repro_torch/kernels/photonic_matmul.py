@@ -187,7 +187,8 @@ def prng_noise(seed: int, shape, k_dim: int, sigma_step: float, device):
     cols = torch.arange(m, device=device, dtype=torch.int64)[None, :].expand(t, m)
     total = torch.zeros((t, m), device=device, dtype=torch.float32)
     for kt in range(math.ceil(k_dim / BLOCK_K)):
-        total += sigma_step * counter_gaussian(seed, kt, rows, cols)
+        total += sigma_step * counter_gaussian(  # lint: disable=RL001 counter kt per K tile
+            seed, kt, rows, cols)
     return total
 
 
@@ -358,6 +359,25 @@ def launch_kernel(a, b, *, mask=None, noise=None, seed=None, sigma_step: float =
     return out
 
 
+def launch_bytes(t: int, m: int, k: int, itemsize: int, *, e: int = 1,
+                 noise: bool = False) -> int:
+    """Bytes one bank-kernel launch must move: A (E, T, K) and B (E, M, K)
+    in their dtype read once, input mode's (T, M) f32 noise read once (every
+    index of a batch shares it), the f32 (E, T, M) output written once.
+    The wrapper reports these to ``utils.flop_cost``; ``chip_smoke.py``'s
+    bounds divide them by the card's memory rate."""
+    return e * ((t * k + m * k) * itemsize + t * m * 4) + t * m * 4 * bool(noise)
+
+
+def launch_cost(a, b, noise) -> tuple[int, int]:
+    """(FLOPs, bytes) of the launch on these operands: 2·E·T·K·M and
+    ``launch_bytes``."""
+    e = a.shape[0] if a.ndim == 3 else 1
+    t, k, m = a.shape[-2], a.shape[-1], b.shape[-2]
+    return 2 * e * t * k * m, launch_bytes(t, m, k, a.element_size(), e=e,
+                                           noise=noise is not None)
+
+
 def photonic_matmul_cuda(a, b, *, noise=None, seed=None, sigma_step: float = 0.0):
     """C = A @ Bᵀ with optional bank noise.  A:(T,K) B:(M,K) -> (T,M) f32,
     or a batch in one launch: A:(E,T,K) B:(E,M,K) -> (E,T,M) f32.
@@ -371,5 +391,5 @@ def photonic_matmul_cuda(a, b, *, noise=None, seed=None, sigma_step: float = 0.0
         return photonic_matmul_plain(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     out = launch_kernel(a, b, noise=noise, seed=seed, sigma_step=sigma_step)
     launches += 1
-    flop_cost.count_launch(2 * a.numel() * b.shape[-2])
+    flop_cost.count_launch(*launch_cost(a, b, noise))
     return out

@@ -110,7 +110,8 @@ class AlignmentProbe:
         with hw_ctx:
             (_, _), dfa_grads = trainer._grads(state["params"], state["fb"], batch, rng)
         # the exact gradient of the same batch; BP sees the same step key
-        (_, _), bp_grads = self._bp_vg(state["params"], state["fb"], batch, rng)
+        (_, _), bp_grads = self._bp_vg(state["params"], state["fb"], batch,
+                                       rng)  # lint: disable=RL001 one draw for DFA and BP
 
         out = {}
         lr = _resolve_lr(cfg.optimizer, state.get("opt"))

@@ -261,7 +261,7 @@ class Engine:
             self._prompt_pos[i] += int(n_valid[i])
         if completed:
             # intentional sync: finished prompts surface their first token
-            first = torch.argmax(last, dim=-1).cpu().numpy()
+            first = torch.argmax(last, dim=-1).cpu().numpy()  # lint: disable=RL002 once a tick
             now = time.monotonic()
             for i in completed:
                 req = self._requests[i]
@@ -295,7 +295,7 @@ class Engine:
                 self._tensor(self._tokens), self._tensor(self._cache_len),
                 self._tensor(active), self._next_key())
         # intentional sync: sampled tokens feed the host-side stop logic
-        nxt = nxt.cpu().numpy()
+        nxt = nxt.cpu().numpy()  # lint: disable=RL002 tokens leave the card once a tick
         self.stats["decode_steps"] += 1
         self.stats["decode_tokens"] += len(slots)
         self._cache_len[slots] += 1

@@ -15,13 +15,11 @@ import typing
 
 import torch
 
+from repro_torch.utils.tree import global_norm
+
 
 def _lr_at(lr, step: int):
     return lr(step) if callable(lr) else lr
-
-
-def global_norm(tree: dict):
-    return torch.sqrt(sum((x.float() ** 2).sum() for x in tree.values()))
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):

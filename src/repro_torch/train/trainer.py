@@ -179,7 +179,7 @@ class Trainer:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # lint: disable=RL002 a deadline times the step
 
     def _dispatch(self, state, batch):
         t0 = time.monotonic()

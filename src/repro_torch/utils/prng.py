@@ -39,6 +39,17 @@ def fold(seed: int, *names_or_ints) -> int:
     return s & (_MASK64 >> 1)
 
 
+def consume(seed: int) -> int:
+    """Mark ``seed`` as spent: identity at runtime, a kill to the linter.
+
+    Pass a key through ``consume`` at its FINAL use site —
+    ``generator(consume(key), device)`` — and ``repro_torch.lint`` (RL001)
+    flags any later use of the same binding instead of silently allowing
+    one more stream equal to the one already drawn.
+    """
+    return seed
+
+
 def generator(seed: int, device) -> torch.Generator:
     """A generator on ``device`` seeded with ``seed``."""
     return torch.Generator(device=device).manual_seed(int(seed))
