@@ -117,7 +117,7 @@ sources in the checkout.  Phases:
     against its plain version on the path's own operands at every shape,
     granite's K = 14336 by both skinny variants in bf16 and f32) with a
     profiled prefill tick and two decode ticks, and f32 ideal cuda-vs-ref
-    parity; DFA training in f32 at batch 64 x seq 64 of qwen3 (4 steps,
+    parity; DFA training in f32 at batch 64 x seq 64 of qwen3 (2 steps,
     29 launches a step, ideal cuda = ref gradients, step ms, profile,
     ``step_cost``, peak memory; 2 steps on emu_offchip with the emu kernel
     bit for bit; 1 step at batch 2 x seq 4096 whose every block runs
@@ -186,6 +186,23 @@ sources in the checkout.  Phases:
     (25 launches a step, ideal cuda = ref gradients); the bank kernel
     timed at every decode shape and the training shape.  One
     ``{"internvl2_model": ...}`` line.
+
+23. data parallelism (``[dp]``, ``phase_data_parallel``, after the
+    schedule phase): qwen1.5-0.5b at full width, f32, offchip_bpd, two dfa
+    steps with ``data_parallel=True`` (a world of one NCCL rank) equal the
+    single-device steps bit for bit; the emu kernel on rows [r, T) with
+    ``row_base = r`` = its plain version and rows [r, T) of a whole launch
+    under every candidate plan; two ranks spawned on the one card over gloo
+    (NCCL refuses two ranks on one device): step 1's loss and gradients
+    within 1e-5 of the one-process step, 25 bank launches a rank a step
+    (rank 0's profile too), the group's s_a and each rank's rows of the
+    global noise in use (rank-local noise misses by more than 1e-3), the
+    parameters after 2 steps within 1e-5, step ms and the gradient
+    all-reduce's ms (gloo staged through host memory, not a multi-card
+    rate); the MLP on emu_offchip (gradients within 1e-5, the hardware
+    state equal on both ranks); the step-2 snapshot resumed by one process,
+    whose step 3 equals rank 0's within 1e-5.  One ``{"data_parallel":
+    ...}`` line.
 
 Every timed full-width training step (``_step_timing``: qwen1.5, Mamba,
 qwen3, minicpm3, qwen2-moe, recurrentgemma, whisper, internvl2) and the
@@ -2355,6 +2372,589 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
 
 
 # ---------------------------------------------------------------------------
+# Data parallelism: a world of one over NCCL, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2  # ranks on the one card, over gloo (NCCL refuses two ranks on one device)
+DP_STEPS = 2  # fit steps of the two-rank run; it saves at the last and runs one more
+DP_TOL = 1e-5  # of each leaf's max |value|: step-1 gradients, parameters after a step
+DP_LOCAL_MIN = 1e-3  # a rank drawing rank-local noise misses the one-process step by more
+DP_MLP_BATCH = 64  # the emu MLP step's rows, 32 a rank
+# (T, K, M, buses) of the emu kernel's row-base check: path A's projection
+# (64 rows, the error's 10 columns -> 800) and an LM projection on 2 buses
+DP_ROW_SHAPES = [(64, 10, 800, 1), (256, 1024, 1024, 2)]
+DP_TIMEOUT_S = 420.0  # the two ranks' run, set-up included
+
+
+def _dp_world_one(torch, api, pm, seed):
+    """qwen1.5-0.5b at full width, f32, offchip_bpd: two dfa steps with
+    data_parallel=True (a world of one NCCL rank, made by the trainer) and
+    with data_parallel=False; the losses and parameters must be equal bit
+    for bit, 25 bank launches a step each."""
+    import torch.distributed as dist
+
+    from repro_torch.data import tokens
+
+    runs = {}
+    try:
+        for dp in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            session = _lm_session(api, torch, seed, data_parallel=dp)
+            gen = tokens.MarkovTokens(session.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+            batches = [gen.batch(i) for i in range(2)]
+            if dp:
+                check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+                      and tuple(session.mesh.shape) == (1, 1),
+                      f"not a world of one NCCL rank: {session.mesh}")
+            state = session.init_state()
+            losses, step_ms = [], []
+            sync(torch)
+            pm.launches = 0
+            for batch in batches:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                state, metrics = session.step(state, batch)
+                e1.record()
+                losses.append(metrics["loss"].item())
+                e1.synchronize()
+                step_ms.append(e0.elapsed_time(e1))
+            runs[dp] = {"losses": losses, "launches": pm.launches, "step_ms": step_ms,
+                        "params": {k: v.cpu() for k, v in state["params"].items()}}
+            del session, state, metrics
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    one, many = runs[False], runs[True]
+    same = one["losses"] == many["losses"] and all(
+        torch.equal(one["params"][k], many["params"][k]) for k in one["params"])
+    print(f"[dp] world of one over NCCL (data_parallel=True, no launcher): qwen1.5-0.5b full "
+          f"width f32, offchip_bpd, batch {LM_BATCH} x seq {LM_SEQ}, 2 dfa steps, losses "
+          f"{', '.join(f'{x:.6f}' for x in many['losses'])}, step ms (CUDA events; the first "
+          f"starts NCCL) {', '.join(f'{x:.2f}' for x in many['step_ms'])}, "
+          f"{many['launches']} bank launches; one process "
+          f"{', '.join(f'{x:.6f}' for x in one['losses'])}, "
+          f"{', '.join(f'{x:.2f}' for x in one['step_ms'])} ms, {one['launches']}; losses and "
+          f"parameters bit for bit: {same}")
+    check(same, "the world-of-one data-parallel steps differ from the single-device steps")
+    check(many["launches"] == one["launches"] == 2 * LM_LAUNCHES,
+          f"bank launches {many['launches']} / {one['launches']}, expected {2 * LM_LAUNCHES}")
+    return {"bit_for_bit": same, "launches": many["launches"], "losses": many["losses"],
+            "step_ms": many["step_ms"], "one_process_step_ms": one["step_ms"]}
+
+
+def _dp_row_base(torch, em):
+    """The emu kernel on rows [r, T) of a batch with row_base = r, under the
+    planner's plan and every candidate plan, against its plain version and
+    against rows [r, T) of a row_base = 0 launch over the whole batch under
+    every plan: bit for bit."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.hardware import channel, mrr
+
+    rows_out = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for t, k, m, q in DP_ROW_SHAPES:
+        cfg = ph.PhotonicConfig(noise_std=0.202, n_buses=q,
+                                mrr=mrr.MRRConfig(adc_bits=8, shot_noise=0.05))
+        g = torch.Generator(device=DEVICE).manual_seed(t + k + m)
+        a = torch.rand((t, k), generator=g, device=DEVICE) * 2 - 1
+        b = torch.rand((m, k), generator=g, device=DEVICE) * 2 - 1
+        a_t, b_t, n_panels = channel.tile_operands(a, b, cfg)
+        delta = channel.effective_deltas(b_t, cfg).contiguous()
+        mask = channel.alive_dead_ring_mask(cfg, DEVICE)
+        kw = dict(n_panels=n_panels, gamma=float(cfg.mrr.gamma), sigma=0.202, shot=0.05,
+                  adc_bits=8, amax=float(cfg.bank_cols), seed=EMU_SEED)
+        r = t // 2
+        part = a_t[r:].contiguous()
+        _t, qb, nj, cols = a_t.shape
+        nm, _q, rows, _nj, _c = delta.shape
+        ptrs = em._pointers(delta, mask)
+        plain = em.emu_bank_product_plain(part, delta, mask, row_base=r, **kw)
+        bad, plans = [], 0
+        for plan in em.candidate_plans(t - r, nm, rows, qb, nj, cols, ptrs, sms):
+            plans += 1
+            if not torch.equal(em.launch_kernel(part, delta, mask, plan=plan, row_base=r, **kw),
+                               plain):
+                bad.append(f"part {plan.name}")
+        for plan in em.candidate_plans(t, nm, rows, qb, nj, cols, ptrs, sms):
+            plans += 1
+            whole = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
+            if not torch.equal(whole[r:], plain):
+                bad.append(f"whole {plan.name}")
+        sync(torch)
+        print(f"[dp] emu kernel row_base: (T={t}, K={k}, M={m}, {q} bus{'es' * (q > 1)}) rows "
+              f"[{r}, {t}) with row_base={r}: {plans} launches under every candidate plan, "
+              f"= the plain version and rows [{r}, {t}) of the row_base=0 launches bit for bit: "
+              f"{not bad}")
+        check(not bad, f"row_base launches differ: {bad}")
+        rows_out.append({"shape": [t, k, m, q], "row_base": r, "plans": plans})
+    return rows_out
+
+
+def _dp_rank(rank, world, port, seed, base, queue):
+    """One rank of the two-rank run (a spawned process): its results, or its
+    traceback, go to ``queue``; a failure then re-raises, so the rank exits
+    nonzero."""
+    import traceback
+
+    try:
+        queue.put((rank, _dp_rank_work(rank, world, port, seed, base), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _dp_rank_work(rank, world, port, seed, base):
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import api
+    from repro_torch.kernels import photonic_matmul as pm
+
+    # the kernels load the library phase_build built (its file exists, so
+    # no rank runs nvcc)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    t0 = time.perf_counter()
+    try:
+        out = _dp_lm_rank(torch, api, pm, rank, seed, base)
+        t1 = time.perf_counter()
+        out.update(_dp_emu_rank(torch, api, rank, seed))
+        out["seconds"] = {"lm": t1 - t0, "emu": time.perf_counter() - t1}
+        peer = out.pop("peer")  # rank 1's first projection's noise rows and s_a, to rank 0
+        for t in peer:
+            dist.broadcast(t, src=1)
+    finally:
+        dist.destroy_process_group()
+    # the one-process checks: step 1 and 2 steps on rank 0, the resume on
+    # rank 1, side by side
+    t1 = time.perf_counter()
+    if rank == 0:
+        out["noise"] = (out["noise"], peer[0].cpu())
+        out["s_a"] = (out["s_a"], peer[1].item())
+        out.update(_dp_one_process(torch, api, seed, out))
+    else:
+        out.update(_dp_resume(torch, api, seed, base, out))
+    out["seconds"]["one_process"] = time.perf_counter() - t1
+    for key in ("grads", "local", "params2", "params3", "noise", "emu_grads"):
+        out.pop(key, None)  # tensors stay in the rank
+    return out
+
+
+def _dp_capture(ph, pm, store):
+    """Record the first bank-kernel launch's input-mode noise and the first
+    s_a of a step -> the function that restores both."""
+    launch, normalise = pm.photonic_matmul_cuda, ph.normalise_operands
+
+    def launch_rec(a, b, **kw):
+        if "noise" not in store:
+            store["noise"] = kw["noise"].detach().cpu()
+        return launch(a, b, **kw)
+
+    def normalise_rec(a, b, cfg):
+        out = normalise(a, b, cfg)
+        store.setdefault("s_a", out[2].detach().clone())
+        return out
+
+    pm.photonic_matmul_cuda, ph.normalise_operands = launch_rec, normalise_rec
+
+    def restore():
+        pm.photonic_matmul_cuda, ph.normalise_operands = launch, normalise
+
+    return restore
+
+
+def _dp_lm_rank(torch, api, pm, rank, seed, base):
+    """This rank's share of the full-width LM: a 2-step fit that saves at
+    step 2 (step 1's gradients, its first projection's noise and s_a
+    captured; step ms and the gradient all-reduce's ms on CUDA events),
+    step 3's gradients with rank-local noise (rank 0 profiled), and step 3."""
+    import contextlib
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import photonics as ph
+    from repro_torch.data import tokens
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.utils import prng
+
+    session = _lm_session(api, torch, seed, data_parallel=True, ckpt_dir=str(base / "lm"))
+    trainer = session.trainer
+    gen = tokens.MarkovTokens(session.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    rows = trainer.put(gen.batch(0)).rows
+    check(tuple(rows) == (rank * LM_BATCH // DP_WORLD, LM_BATCH // DP_WORLD, LM_BATCH),
+          f"rank {rank} holds rows {rows}")
+    # the fit, with step 1's gradients and its first projection's operands
+    # kept, each step and each large all-reduce timed on CUDA events
+    cap, first, steps, reduces = {}, {}, [], []
+    step_fn, grads_fn, mean = trainer._step_fn, trainer._grads, sharding.all_reduce_mean
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed_step(state, batch):
+        e0, e1 = events()
+        e0.record()
+        result = step_fn(state, batch)
+        e1.record()
+        e1.synchronize()
+        steps.append(e0.elapsed_time(e1))
+        return result
+
+    def first_grads(*args):
+        out = grads_fn(*args)
+        if not first:
+            (loss, _), grads = out
+            first.update(loss=loss.item(), grads={k: v.cpu() for k, v in grads.items()}
+                         if rank == 0 else None)
+            restore()  # the capture sees step 1 only
+        return out
+
+    def timed_mean(tensors, group, world, *args, **kw):
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        if nbytes < 1 << 24:
+            return mean(tensors, group, world, *args, **kw)
+        e0, e1 = events()
+        e0.record()
+        result = mean(tensors, group, world, *args, **kw)
+        e1.record()
+        e1.synchronize()
+        reduces.append((e0.elapsed_time(e1), nbytes))
+        return result
+
+    restore = _dp_capture(ph, ops, cap)  # ops calls the bank kernel's wrapper
+    trainer._step_fn, trainer._grads, sharding.all_reduce_mean = \
+        timed_step, first_grads, timed_mean
+    try:
+        pm.launches = 0
+        t0 = time.perf_counter()
+        state2, _ = session.fit(gen.batch, DP_STEPS, verbose=False)
+        fit_s = time.perf_counter() - t0
+        fit_launches = pm.launches
+    finally:
+        restore()
+        trainer._step_fn, sharding.all_reduce_mean = step_fn, mean
+        del trainer._grads
+    out = {"loss1": first["loss"], "grads": first["grads"], "noise": cap["noise"],
+           "s_a": cap["s_a"].item(), "fit_launches": fit_launches, "fit_s": fit_s}
+    # step 3's gradients with rank-local noise (the group's s_a, this rank's
+    # own draw); rank 0 profiles it (again, up to 3 times, where the profiler
+    # missed launches at the start of its window), both ranks repeat it
+    batch3, rng3 = trainer.put(gen.batch(DP_STEPS)), prng.step_key(seed, DP_STEPS, "noise")
+    trainer._window = lambda rows: ph.RowWindow(0, rows.count, rows.count, trainer._group)
+    try:
+        for _attempt in range(3):
+            local = None
+            pm.launches = 0
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                  if rank == 0 else contextlib.nullcontext()) as prof:
+                time.sleep(0.05)
+                (_, _), local = trainer._grads(state2["params"], state2["fb"], batch3, rng3)
+                sync(torch)
+            grad_launches = pm.launches
+            profiled = (sum(any(part in e.name for part in KERNEL_PARTS["photonic_matmul"])
+                            for e in _device_kernels(torch, prof)) if rank == 0 else None)
+            done = torch.tensor([rank != 0 or profiled >= LM_LAUNCHES], device=DEVICE)
+            dist.broadcast(done, src=0)
+            if done.item():
+                break
+    finally:
+        del trainer._window
+    out.update(local={k: v.cpu() for k, v in local.items()} if rank == 1 else None,
+               grad_launches=grad_launches, profiled=profiled)
+    del local
+    trainer._step_fn = timed_step
+    try:
+        state3, metrics3 = session.step(state2, gen.batch(DP_STEPS))
+    finally:
+        trainer._step_fn = step_fn
+    trainer.check_replicas(state3)  # rank 1's step 3 is rank 0's
+    out.update(step_ms=steps, reduce=reduces, loss3=metrics3["loss"].item())
+    if rank == 0:
+        out["params2"] = {k: v.cpu() for k, v in state2["params"].items()}
+    else:
+        out["params3"] = {k: v.cpu() for k, v in state3["params"].items()}
+    out["peer"] = [torch.zeros(cap["noise"].shape, device=DEVICE) if rank == 0
+                   else cap["noise"].to(DEVICE),
+                   torch.tensor([out["s_a"]], device=DEVICE)]
+    del session, trainer, state2, state3, metrics3
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_mlp_batch(seed):
+    from repro_torch.data import mnist
+
+    x, y = mnist.procedural_digits(DP_MLP_BATCH, seed=seed)
+    return {"x": x, "y": y}
+
+
+def _dp_emu_session(api, seed, data_parallel):
+    return api.build_session(arch="mnist_mlp", hardware="emu_offchip", backend="emu",
+                             seed=seed, data_parallel=data_parallel, log_every=10**9,
+                             device=DEVICE)
+
+
+def _dp_emu_grads(torch, session, batch):
+    """-> (loss, gradients, the emu kernel's launches) of one step's
+    gradients at the initial hardware state, and the state after one step."""
+    from repro_torch.hardware import drift
+    from repro_torch.kernels import emu_matmul as em
+
+    state = session.init_state()
+    em.launches = 0
+    with drift.use_state(state["hw"]):
+        (loss, _), grads = session.trainer._grads(state["params"], state["fb"],
+                                                  session.trainer.put(batch), 7)
+    sync(torch)
+    launches = em.launches
+    new, _ = session.step(state, batch)
+    return (loss.item(), {k: v.cpu() for k, v in grads.items()}, launches,
+            {k: v.cpu().numpy() for k, v in new["hw"].items()})
+
+
+def _dp_emu_rank(torch, api, rank, seed):
+    """The paper's MLP on emu_offchip, 32 rows a rank: one step's gradients
+    through the emu kernel (2 launches, its counters from the rank's global
+    row) and the hardware state after one step."""
+    session = _dp_emu_session(api, seed, True)
+    loss, grads, launches, hw = _dp_emu_grads(torch, session, _dp_mlp_batch(seed))
+    return {"emu_loss": loss, "emu_grads": grads if rank == 0 else None, "emu_hw": hw,
+            "emu_launches": launches}
+
+
+def _dp_rel(got: dict, expect: dict) -> tuple[float, str]:
+    """(max over leaves of max |got - expect| / max |expect|, that leaf)."""
+    return max(((got[k].double() - e.double()).abs().max().item()
+                / max(e.abs().max().item(), 1e-30), k) for k, e in expect.items())
+
+
+def _dp_one_process(torch, api, seed, dp):
+    """Rank 0 after the group is gone: the one-process step 1 (gradients,
+    its first projection's s_a and noise) and 2 steps, and the emu MLP's
+    step, against the two-rank run's."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.data import tokens
+    from repro_torch.kernels import ops
+    from repro_torch.utils import prng
+
+    session = _lm_session(api, torch, seed, data_parallel=False)
+    trainer = session.trainer
+    gen = tokens.MarkovTokens(session.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    state = session.init_state()
+    cap = {}
+    restore = _dp_capture(ph, ops, cap)
+    try:
+        (loss1, _), grads = trainer._grads(state["params"], state["fb"],
+                                           trainer.put(gen.batch(0)),
+                                           prng.step_key(seed, 0, "noise"))
+    finally:
+        restore()
+    sync(torch)
+    grads = {k: v.cpu() for k, v in grads.items()}
+    t_local = LM_BATCH // DP_WORLD * LM_SEQ
+    noise = cap["noise"]
+    out = {"loss1_one": loss1.item(), "grad_err": _dp_rel(dp["grads"], grads),
+           "noise_rows": [torch.equal(dp["noise"][r], noise[r * t_local:(r + 1) * t_local])
+                          for r in range(DP_WORLD)],
+           "s_a_one": cap["s_a"].item()}
+    del grads
+    for i in range(DP_STEPS):  # the fit's steps, from the same initial state
+        state, _ = session.step(state, gen.batch(i))
+    out["params2_err"] = _dp_rel({k: v.cpu() for k, v in state["params"].items()},
+                                 dp["params2"])
+    del state, session, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss, grads, _, hw = _dp_emu_grads(torch, _dp_emu_session(api, seed, False),
+                                       _dp_mlp_batch(seed))
+    out.update(emu_loss_one=loss, emu_grad_err=_dp_rel(dp["emu_grads"], grads),
+               emu_hw_one=hw)
+    return out
+
+
+def _dp_resume(torch, api, seed, base, dp):
+    """Rank 1 after the group is gone, beside rank 0's one-process checks:
+    the two-rank run's step-2 snapshot resumed in one process; its step 3's
+    gradients against the rank-local noise run's, and its step 3 against
+    the replicas' (rank 1's = rank 0's, checked before the group went)."""
+    from repro_torch.data import tokens
+    from repro_torch.utils import prng
+
+    resumed = _lm_session(api, torch, seed, data_parallel=False, ckpt_dir=str(base / "lm"))
+    gen = tokens.MarkovTokens(resumed.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    state, start = resumed.trainer.restore_or_init()
+    (_, _), grads3 = resumed.trainer._grads(state["params"], state["fb"],
+                                            resumed.trainer.put(gen.batch(DP_STEPS)),
+                                            prng.step_key(seed, DP_STEPS, "noise"))
+    out = {"local_err": _dp_rel(dp["local"], {k: v.cpu() for k, v in grads3.items()})}
+    del grads3
+    state3, metrics3 = resumed.step(state, gen.batch(DP_STEPS))
+    out.update(resume_start=start, loss3_one=metrics3["loss"].item(),
+               params3_err=_dp_rel({k: v.cpu() for k, v in state3["params"].items()},
+                                   dp["params3"]))
+    del resumed, state, state3, metrics3
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_two_ranks(torch, pm, seed):
+    """Two ranks on the one card over gloo (spawned: the parent has CUDA).
+    Each loads the library phase_build built.  Returns (rank 0's results,
+    rank 1's, the run's seconds); any rank's failure fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_lib
+    import shutil
+    import socket
+
+    base = pm._BUILD_DIR / f"dp-{os.getpid()}"
+    base.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, port, seed, base, queue))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    results, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        while len(results) + len(errors) < DP_WORLD:
+            if time.perf_counter() - t0 > DP_TIMEOUT_S:
+                raise PhaseError(f"the two-rank run passed {DP_TIMEOUT_S} s")
+            try:
+                rank, res, err = queue.get(timeout=5.0)
+            except queue_lib.Empty:  # see whether a rank died without a word
+                dead = [i for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and i not in results]
+                if dead:
+                    raise PhaseError(f"rank {dead[0]} exited with {procs[dead[0]].exitcode}")
+                continue
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+                break
+            results[rank] = res
+        if errors:
+            raise PhaseError("a rank failed:\n" + "\n".join(errors))
+        for p in procs:
+            p.join(timeout=60)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * DP_WORLD, f"rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(base, ignore_errors=True)
+    return results[0], results[1], time.perf_counter() - t0
+
+
+def phase_data_parallel(torch, np, api, pm, em, seed, card):
+    """Data parallelism on the one card: a world of one NCCL rank equals one
+    process bit for bit (qwen1.5-0.5b at full width, 2 dfa steps); the emu
+    kernel's row_base bit for bit under every plan; two ranks on the card
+    over gloo (qwen1.5-0.5b full width f32 on offchip_bpd, 32 x 64 rows a
+    rank): step 1's loss and every gradient leaf within 1e-5 of its max |g|
+    of the one-process step, 25 bank launches a rank a step (rank 0's
+    profile too), the group's s_a and each rank's rows of the global noise
+    in use (a rank-local draw misses by more than 1e-3), the parameters
+    after 2 steps within 1e-5, step ms and the gradient all-reduce's ms
+    (gloo staged through the host, not a multi-card rate); the MLP on
+    emu_offchip (gradients within 1e-5, the hardware state equal on both
+    ranks); the step-2 snapshot resumed in one process, whose step 3 equals
+    rank 0's within 1e-5."""
+    t0 = time.perf_counter()
+    print(f"[dp] card: {card}; torch {torch.__version__}")
+    out = {"world1": _dp_world_one(torch, api, pm, seed)}
+    out["row_base"] = _dp_row_base(torch, em)
+    r0, r1, wall = _dp_two_ranks(torch, pm, seed)
+    per_step = {r: res["fit_launches"] / DP_STEPS for r, res in ((0, r0), (1, r1))}
+    for r, res in ((0, r0), (1, r1)):
+        ms = res["step_ms"]
+        red = res["reduce"]
+        print(f"[dp] rank {r} of {DP_WORLD} on one card (gloo): {DP_STEPS} fit steps at "
+              f"{LM_BATCH // DP_WORLD} x {LM_SEQ} rows, step ms (CUDA events) "
+              f"{', '.join(f'{x:.2f}' for x in ms)}; gradient all-reduce (gloo, staged "
+              f"through host memory: not a multi-card rate) "
+              f"{', '.join(f'{x:.2f} ms of {b / 1e9:.3f} GB' for x, b in red)}; bank launches "
+              f"{res['fit_launches']} in the fit, {res['grad_launches']} in step 3's gradients "
+              f"({per_step[r]:g} a step); emu launches {res['emu_launches']} a step; the fit "
+              f"{res['fit_s']:.1f}s (init and broadcast included, rank 0 saves at its end), the "
+              f"LM part {res['seconds']['lm']:.1f}s, the emu MLP {res['seconds']['emu']:.1f}s, "
+              f"the one-process checks {res['seconds']['one_process']:.1f}s")
+    print(f"[dp] rank 0's profile of step 3's gradients: {r0['profiled']} bank-kernel launches "
+          f"on the device")
+    s_a_rel = abs(r0["s_a"][0] - DP_WORLD * r0["s_a_one"]) / (DP_WORLD * r0["s_a_one"])
+    print(f"[dp] step 1: loss {r0['loss1']:.6f} (rank 1 {r1['loss1']:.6f}) vs one process "
+          f"{r0['loss1_one']:.6f}; max |g - g_one| / max |g_one| over leaves "
+          f"{r0['grad_err'][0]:.3e} ({r0['grad_err'][1]}); step 3's with rank-local noise vs the "
+          f"resumed one process's {r1['local_err'][0]:.3e} ({r1['local_err'][1]}); s_a of the "
+          f"first projection "
+          f"{r0['s_a'][0]:.9g} / {r0['s_a'][1]:.9g} on ranks 0 / 1, {DP_WORLD} x the one "
+          f"process's {r0['s_a_one']:.9g} within {s_a_rel:.3e} (a rank's error is its rows' "
+          f"mean loss's, {DP_WORLD} x the global mean's, up to the head product's rounding); "
+          f"each rank's noise = its rows of the one-process draw: {r0['noise_rows']}")
+    print(f"[dp] parameters after {DP_STEPS} steps vs one process: max rel "
+          f"{r0['params2_err'][0]:.3e} ({r0['params2_err'][1]}); the step-{DP_STEPS} snapshot "
+          f"resumed in one process at step {r1['resume_start']}: step {DP_STEPS + 1} loss "
+          f"{r1['loss3_one']:.6f} vs rank 0's {r0['loss3']:.6f}, parameters max rel "
+          f"{r1['params3_err'][0]:.3e} ({r1['params3_err'][1]}) (the ranks' step-3 states "
+          f"agree)")
+    hw_same = all(np.array_equal(r0["emu_hw"][k], r1["emu_hw"][k])
+                  and np.array_equal(r0["emu_hw"][k], r0["emu_hw_one"][k]) for k in r0["emu_hw"])
+    print(f"[dp] MLP on emu_offchip, {DP_MLP_BATCH // DP_WORLD} rows a rank: loss "
+          f"{r0['emu_loss']:.6f} vs one process {r0['emu_loss_one']:.6f}, gradients max rel "
+          f"{r0['emu_grad_err'][0]:.3e}; hardware state equal on both ranks and to one process: "
+          f"{hw_same}; the two-rank run took {wall:.1f}s")
+    check(per_step[0] == per_step[1] == LM_LAUNCHES
+          and r0["grad_launches"] == r1["grad_launches"] == LM_LAUNCHES,
+          f"bank launches a step {per_step}, expected {LM_LAUNCHES}")
+    check(r0["profiled"] == LM_LAUNCHES,
+          f"rank 0's profile saw {r0['profiled']} bank launches, expected {LM_LAUNCHES}")
+    check(r0["loss1"] == r1["loss1"] and abs(r0["loss1"] - r0["loss1_one"]) <= DP_TOL
+          * abs(r0["loss1_one"]), "step 1's loss differs from one process")
+    check(r0["grad_err"][0] <= DP_TOL, f"gradients {r0['grad_err']} from one process")
+    check(r1["local_err"][0] > DP_LOCAL_MIN,
+          f"rank-local noise passed the check: {r1['local_err']}")
+    # one MAX over the group: both ranks hold it, and it is the one
+    # process's scale (x the world, up to the rounding of the rows' values)
+    check(r0["s_a"][0] == r0["s_a"][1] and s_a_rel <= DP_TOL,
+          f"s_a {r0['s_a']} vs {DP_WORLD} x {r0['s_a_one']}: not the group's MAX")
+    check(all(r0["noise_rows"]), f"noise rows in use {r0['noise_rows']}")
+    check(r0["params2_err"][0] <= DP_TOL,
+          f"parameters after {DP_STEPS} steps {r0['params2_err']}")
+    check(r1["resume_start"] == DP_STEPS and r0["loss3"] == r1["loss3"]
+          and abs(r0["loss3"] - r1["loss3_one"]) <= DP_TOL * abs(r1["loss3_one"])
+          and r1["params3_err"][0] <= DP_TOL, "the resumed step 3 differs from rank 0's")
+    check(r0["emu_grad_err"][0] <= DP_TOL and r0["emu_launches"] == r1["emu_launches"] == 2
+          and hw_same, "the emu MLP's two-rank step differs from one process")
+    out["two_ranks"] = {k: r0[k] for k in ("loss1", "loss1_one", "grad_err", "params2_err",
+                                            "emu_grad_err", "profiled")}
+    out["two_ranks"].update({k: r1[k] for k in ("local_err", "params3_err", "loss3_one")})
+    out["two_ranks"].update(step_ms=[r0["step_ms"], r1["step_ms"]],
+                            allreduce_ms=[[x for x, _ in r["reduce"]] for r in (r0, r1)],
+                            bank_launches=r0["fit_launches"] + r0["grad_launches"],
+                            emu_launches=r0["emu_launches"], wall_s=wall)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[dp] done in {out['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The observability plane: probe, noise budget, observer, trace, telemetry
 # ---------------------------------------------------------------------------
 
@@ -3328,7 +3928,7 @@ QWEN3, MINICPM3, GRANITE = "qwen3-1.7b", "minicpm3-4b", "granite-8b"
 DENSE_FULL = {QWEN3: (28, 2048, 6144, 151936), MINICPM3: (62, 2560, 6400, 73448),
               GRANITE: (36, 4096, 14336, 49152)}
 DENSE_FORWARD = {arch: 7 * dims[0] + 1 for arch, dims in DENSE_FULL.items()}  # 197, 435, 253
-DENSE_STEPS = {QWEN3: 4, MINICPM3: 2}  # f32 dfa fit steps at batch 64 x seq 64
+DENSE_STEPS = {QWEN3: 2, MINICPM3: 2}  # f32 dfa fit steps at batch 64 x seq 64
 DENSE_EMU_STEPS = 2
 LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 4096, 1  # above 2·k_chunk: flash_attention
 FLASH_TOL = 2e-5  # the reference's flash-vs-reference bound (tests/test_layers.py)
@@ -3597,10 +4197,10 @@ def _dense_train(torch, api, pm, arch, seed, card, long_steps=False):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # step time on CUDA events, two steps under the profiler, step_cost
-    n_timed = 3
+    # step time on CUDA events, a step under the profiler, step_cost
+    n_timed = 2
     batches = [to_device_batch(gen.batch(i)) for i in range(steps, steps + n_timed)]
-    prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
+    prof = _step_timing(torch, session, fit, batches, 1, 1, tag, card)
     prof.update(layers=cfg.n_layers, peak_gib=peak_gib, free_gib=free_gib, losses=losses)
     del batches, fit
     torch.cuda.empty_cache()
@@ -4116,8 +4716,8 @@ def _moe_train(torch, api, pm, seed, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    batches = [to_device_batch(gen.batch(i)) for i in range(MOE_STEPS, MOE_STEPS + 4)]
-    prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
+    batches = [to_device_batch(gen.batch(i)) for i in range(MOE_STEPS, MOE_STEPS + 2)]
+    prof = _step_timing(torch, session, fit, batches, 1, 1, tag, card)
     prof.update(layers=cfg.n_layers, peak_gib=peak_gib, free_gib=free_gib, losses=losses,
                 aux_losses=aux, dropped_frac=[r["dropped_frac"] for r in routed[:cfg.n_layers]])
     del batches, fit, session, model
@@ -4558,8 +5158,8 @@ def _rg_train(torch, api, pm, seed, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    batches = [to_device_batch(gen.batch(i)) for i in range(RG_STEPS, RG_STEPS + 4)]
-    prof = _step_timing(torch, session, fit, batches, 1, 2, tag, card)
+    batches = [to_device_batch(gen.batch(i)) for i in range(RG_STEPS, RG_STEPS + 2)]
+    prof = _step_timing(torch, session, fit, batches, 1, 1, tag, card)
     prof.update(layers=cfg.n_layers, batch=batch, peak_gib=peak_gib, free_gib=free_gib,
                 losses=losses, act_gib=act_row * rows / 2**30, reserve_gib=reserve / 2**30)
     del batches, fit, session, model
@@ -5213,9 +5813,10 @@ def _internvl2_train(torch, np, api, pm, seed, card):
     del step
     gc.collect()
     torch.cuda.empty_cache()
-    batches = [to_device_batch(gen.batch(i)) for i in range(INTERNVL2_STEPS,
-                                                            INTERNVL2_STEPS + 2)]
-    prof = _step_timing(torch, session, fit, batches, 1, 1, tag, card)
+    # one timed step: the fit's steps, the projections' and the ideal
+    # gradients' have run the same shapes before it
+    batches = [to_device_batch(gen.batch(INTERNVL2_STEPS))]
+    prof = _step_timing(torch, session, fit, batches, 0, 1, tag, card)
     prof.update(batch=batch, peak_gib=peak_gib, free_gib=free_gib, losses=losses,
                 act_gib=act_row * rows / 2**30, reserve_gib=reserve / 2**30)
     del batches, fit, session, model
@@ -5338,6 +5939,7 @@ def main(argv=None):
     lm = timed(phase_lm_train, torch, np, api, pm, em, args.seed, card, draws)
     observed = timed(phase_observe, torch, np, api, pm, em, args.seed, card)
     sched = timed(phase_schedule, torch, np, api, pm, em, args.seed, card, draws)
+    dp = timed(phase_data_parallel, torch, np, api, pm, em, args.seed, card)
     mamba = timed(phase_mamba, torch, np, api, pm, em, args.seed, card, draws)
     dense = timed(phase_dense, torch, np, api, pm, em, args.seed, card, draws)
     moe = timed(phase_moe, torch, np, api, pm, em, args.seed, card, draws)
@@ -5353,6 +5955,8 @@ def main(argv=None):
     print(json.dumps({"internvl2_model": internvl2_summary(internvl2)}))
     print(json.dumps({"schedule": {k: sched[k] for k in ("energy", "tuned", "overlap",
                                                          "serving", "step_ms", "losses")}}))
+    print(json.dumps({"data_parallel": {k: dp[k] for k in ("world1", "two_ranks",
+                                                            "seconds")}}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
     dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
@@ -5373,13 +5977,16 @@ def main(argv=None):
                       + observed["probe_launches"]["photonic_matmul"]
                       + mamba["serve_launches"] + mamba["train_launches"]
                       + sum(dense_bank.values()) + sum(moe_bank.values())
-                      + sum(rg_bank.values()) + sum(slice12_bank.values())),
+                      + sum(rg_bank.values()) + sum(slice12_bank.values())
+                      + dp["world1"]["launches"] + dp["two_ranks"]["bank_launches"]),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
                               "mamba_serve": mamba["serve_launches"],
                               "mamba_train": mamba["train_launches"], **dense_bank,
-                              **moe_bank, **rg_bank, **slice12_bank},
+                              **moe_bank, **rg_bank, **slice12_bank,
+                              "dp_world1": dp["world1"]["launches"],
+                              "dp_rank0": dp["two_ranks"]["bank_launches"]},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
                               if "train" in res), moe["train"]["max_abs_err"],
@@ -5444,7 +6051,7 @@ def main(argv=None):
                       + mamba["emu_serve_launches"] + mamba["emu_train_launches"]
                       + sum(dense_emu.values()) + moe["emu"]["launches"]
                       + rg["emu"]["launches"] + whisper_emu["launches"]
-                      + sum(sched["launches"].values())),
+                      + sum(sched["launches"].values()) + dp["two_ranks"]["emu_launches"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
@@ -5454,7 +6061,11 @@ def main(argv=None):
                               "rg_emu_serve": rg["emu"]["launches"],
                               "whisper_emu_train": whisper_emu["launches"],
                               "schedule_train": sched["launches"]["q2"],
-                              "schedule_q8": sched["launches"]["q8"]},
+                              "schedule_q8": sched["launches"]["q8"],
+                              "dp_rank0": dp["two_ranks"]["emu_launches"]},
+         "row_base": {"check": "rows [r, T) launched with row_base = r = the plain version "
+                               "and rows [r, T) of a row_base = 0 launch, bit for bit, under "
+                               "every candidate plan", "shapes": dp["row_base"]},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
                             mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"],
                             moe["emu"]["max_abs_err"], rg["emu"]["max_abs_err"],

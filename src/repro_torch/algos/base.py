@@ -30,12 +30,17 @@ class Algorithm:
     def value_and_grad(self, model, cfg):
         raise NotImplementedError
 
-    def fused_step(self, model, cfg, optimizer):
-        """Generic fallback: value_and_grad composed with optimizer.update."""
+    def fused_step(self, model, cfg, optimizer, reduce=None):
+        """Generic fallback: value_and_grad composed with optimizer.update.
+        ``reduce`` (data parallelism): maps a dict of gradients (and the
+        loss) to their mean over the data group before the update."""
         vg = self.value_and_grad(model, cfg)
 
         def step(params, extra, opt_state, batch, rng):
             (loss, _metrics), grads = vg(params, extra, batch, rng)
+            if reduce is not None:
+                grads = reduce(grads)
+                loss = reduce({"loss": loss})["loss"]
             new_params, new_opt, _info = optimizer.update(grads, opt_state, params)
             return new_params, new_opt, loss
 

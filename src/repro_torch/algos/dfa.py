@@ -287,12 +287,15 @@ def value_and_grad(model, cfg: DFAConfig):
     return fn
 
 
-def make_fused_train_step(model, cfg: DFAConfig, optimizer):
+def make_fused_train_step(model, cfg: DFAConfig, optimizer, reduce=None):
     """DFA backward with the SGD-momentum update applied per block: each
     block's gradient is consumed by its parameter / momentum update as soon
     as it exists.  This is possible only because the DFA backward has no
     inter-block dependency.  As in the reference, the update is plain SGDM
     (lr, momentum, weight_decay); nesterov and clip_norm are not applied.
+    ``reduce`` (data parallelism) maps each block's gradients, the head's,
+    the embedding's and the loss to their mean over the data group before
+    they are applied.
 
     Returns step(params, fb, opt_state, batch, rng) ->
     (new_params, new_opt_state, loss).
@@ -320,15 +323,21 @@ def make_fused_train_step(model, cfg: DFAConfig, optimizer):
         new_mom = dict(mom)
         for spec, idx, tape, delta_of in _block_inputs(model, fwd, fb, rng, dfa_delta(cfg)):
             g = _block_grads(spec, params, idx, tape, delta_of, cfg)
+            if reduce is not None:
+                g = reduce(g)
             p, m = _apply(params, mom, g, lr)
             new_params.update(p)
             new_mom.update(m)
         # head (exact grads) + embed (DFA) updated out of the block loop
         for grads in (fwd["g_head"], embed_grads(model, params, cfg, fwd, fb, rng)):
+            if reduce is not None:
+                grads = reduce(grads)
             p, m = _apply(params, mom, grads, lr)
             new_params.update(p)
             new_mom.update(m)
         total, _metrics = _totals(fwd)
+        if reduce is not None:
+            total = reduce({"loss": total})["loss"]
         return new_params, {"mom": new_mom, "step": opt_step}, total
 
     return step
@@ -373,8 +382,8 @@ class FusedDFAAlgorithm(DFAAlgorithm):
 
     name = "dfa-fused"
 
-    def fused_step(self, model, cfg: DFAConfig, optimizer):
-        return make_fused_train_step(model, cfg, optimizer)
+    def fused_step(self, model, cfg: DFAConfig, optimizer, reduce=None):
+        return make_fused_train_step(model, cfg, optimizer, reduce)
 
 
 base.register(DFAAlgorithm())

@@ -31,8 +31,10 @@ hardware, SGD momentum 0.9 at lr 0.01 (the paper's §4 optimizer).  Every
 session runs on the card unless ``device="cpu"`` is asked for, and raises
 where CUDA is absent.  Every model trains (with checkpoint and
 auto-resume under ``ckpt_dir``) and the language models serve as well.
-``observe=`` / ``Session.observe`` attach an ``obs.Observer`` that
-``fit`` and ``engine`` pick up, ``probe_every=`` samples DFA-vs-BP
+``data_parallel=`` splits each batch over the ranks of a
+``torch.distributed`` group (``torchrun --nproc-per-node N``, one rank per
+card; ``Session.mesh``).  ``observe=`` / ``Session.observe`` attach an
+``obs.Observer`` that ``fit`` and ``engine`` pick up, ``probe_every=`` samples DFA-vs-BP
 alignment during ``fit`` and ``debug_checks=`` arms the runtime
 sanitizers.  ``n_buses=`` sets the chip's WDM bus count, and
 ``schedule="auto"`` runs the ``sim`` autotuner on the model's DFA backward
@@ -43,8 +45,6 @@ recalibration cadence too) and trains on the schedule it picks::
                               backend="emu", schedule="auto", power_budget_w=78.0,
                               recalibrate_every="auto", schedule_batch=4096)
     tuned.schedule.describe()  # n_buses=2 ... recal@100: the modelled chip's step
-
-The reference's data parallelism is ported in a later slice.
 """
 
 from __future__ import annotations
@@ -110,6 +110,11 @@ class Session:
     def backend(self):
         return self.config.dfa.backend
 
+    @property
+    def mesh(self):
+        """The active data-parallel mesh (None on the single-device path)."""
+        return self.trainer.mesh if self.trainer is not None else None
+
     def _trainer(self) -> Trainer:
         if self.trainer is None:
             raise TypeError(f"{type(self.model).__name__} is not a DFAModel: it serves only")
@@ -152,10 +157,24 @@ class Session:
         return self.algorithm.value_and_grad(self.model, self.config.dfa)
 
     def fused_step(self, optimizer=None):
-        """Memory-optimised step (algorithm-specific; generic fallback)."""
-        self._trainer()
-        return self.algorithm.fused_step(self.model, self.config.dfa,
-                                         optimizer or self.config.optimizer)
+        """Memory-optimised step (algorithm-specific; generic fallback).
+        Under a mesh it takes this rank's share of a batch (``trainer.put``)
+        and averages each gradient over the data group before applying it."""
+        trainer = self._trainer()
+        optimizer = optimizer or self.config.optimizer
+        plain = self.algorithm.fused_step(self.model, self.config.dfa, optimizer)
+        if trainer.mesh is None:
+            return plain
+        split = self.algorithm.fused_step(self.model, self.config.dfa, optimizer,
+                                          reduce=trainer.mean_tree)
+
+        def step(params, extra, opt_state, batch, rng):
+            if getattr(batch, "rows", None) is None:  # replicated: every rank the same
+                return plain(params, extra, opt_state, batch, rng)
+            with trainer.window(batch):
+                return split(params, extra, opt_state, batch, rng)
+
+        return step
 
     def evaluate(self, state, batches) -> dict:
         return self._trainer().evaluate(state, batches)
@@ -208,7 +227,8 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
                   n_buses: int | None = None, schedule: str | None = None,
                   power_budget_w: float | None = None,
                   schedule_batch: int | None = None,
-                  microbatches: int = 1, prefetch: int = 2,
+                  microbatches: int = 1, data_parallel: bool | str = "auto",
+                  prefetch: int = 2,
                   digital_step_s: float | None = None,
                   recalibrate_every: int | str | None = None, ckpt_dir: str | None = None,
                   ckpt_every: int = 500, log_every: int = 50,
@@ -222,6 +242,10 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
     execution path for the whole session and requires ``backend="emu"``.
     ``recalibrate_every`` defaults to 500 steps when the device drifts and
     to 0 (never) otherwise.
+
+    ``data_parallel``: "auto" (on when a launcher started more than one
+    rank), "on" / True (a world of one rank without a launcher), "off" /
+    False (the single-device path, bit for bit); see ``train.Trainer``.
 
     ``n_buses`` overrides the preset's WDM bus count.  ``schedule="auto"``
     searches (n_buses, f_s) with ``sim.autotune`` on this model's DFA
@@ -296,7 +320,8 @@ def build_session(*, arch="mnist_mlp", algo: str = "dfa", hardware="ideal",
                       error_compress=error_compress, backend=backend,
                       freeze_norms=freeze_norms),
         optimizer=optimizer or SGDM(lr=0.01, momentum=0.9),
-        seed=seed, microbatches=microbatches, prefetch=prefetch,
+        seed=seed, microbatches=microbatches, data_parallel=data_parallel,
+        prefetch=prefetch,
         recalibrate_every=recalibrate_every, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
         log_every=log_every, log_path=log_path, step_deadline_s=step_deadline_s,
         probe_every=probe_every, debug_checks=debug_checks)

@@ -118,22 +118,33 @@ def load_bench(path: str) -> dict:
         return validate(json.load(f))
 
 
-def _shard_multiplier(batch) -> int:
-    """Devices the step's flops are split over: 1 until data parallelism
-    is ported (the reference's is the mesh size when the batch shards)."""
-    del batch
-    return 1
+def _shard_multiplier(mesh, batch, microbatches: int = 1) -> int:
+    """Devices the step's flops are split over: the data group's size only
+    when the batch actually splits (``dist.sharding.batch_rows``); the
+    replication fallback has every rank compute the full batch, so the
+    multiplier is 1 (anything else records a phantom speedup)."""
+    if mesh is None:
+        return 1
+    from repro_torch.dist import sharding
+
+    sizes = {len(v) for v in batch.values()}
+    if len(sizes) != 1 or sharding.batch_rows(mesh, sizes.pop(), microbatches) is None:
+        return 1
+    return sharding.data_index(mesh)[1]
 
 
 def report_throughput(session, state, batch, timer, meta: dict | None = None,
                       out_dir: str = ".") -> tuple[str, dict]:
     """Finish a timed ``session.fit``: attach the step's flops
-    (``session.step_cost``) to ``timer``, write
-    BENCH_train_throughput.json, and print the headline numbers."""
-    n_dev = _shard_multiplier(batch)
+    (``session.step_cost``, per rank under a mesh) to ``timer``, with the
+    ranks the batch is split over, write BENCH_train_throughput.json (rank
+    0 only under a mesh), and print the headline numbers."""
+    n_dev = _shard_multiplier(session.mesh, batch, session.config.microbatches)
     timer.set_step_cost(session.step_cost(state, batch).flops, device_count=n_dev)
     summary = timer.summary()
-    base = {"data_parallel": False, "devices": int(n_dev)}
+    if not session.trainer.is_chief:
+        return None, summary
+    base = {"data_parallel": session.mesh is not None, "devices": int(n_dev)}
     base.update(meta or {})
     path = write_bench("train_throughput", summary, meta=base, out_dir=out_dir)
     print(f"[bench] {path}: steps/s={summary['steps_per_s']:.2f} "

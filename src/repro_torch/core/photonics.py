@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import typing
 
 import torch
 
@@ -154,7 +155,14 @@ def normalise_operands(a, b, cfg: PhotonicConfig):
     stacked b (E, M, K) with a (E, T, K) takes one scale per index, (E, 1,
     1) each, as the reference's vmap gives."""
     dims = (-2, -1) if b.ndim == 3 else None
-    s_a = _amax(a.detach().abs(), dims).clamp_min(1e-12)
+    window = active_window()
+    if window is None:
+        s_a = _amax(a.detach().abs(), dims).clamp_min(1e-12)
+    elif dims is None:
+        s_a = window.amax(a).clamp_min(1e-12)
+    else:
+        raise ValueError("a stacked bank product inside a data-parallel row window: the "
+                         "trainer's projections are 2-D")
     s_b = _amax(b.detach().abs(), dims).clamp_min(1e-12)
     a_n = fake_quant(a / s_a, cfg.input_bits, 1.0)
     b_n = fake_quant(b / s_b, cfg.weight_bits, 1.0)
@@ -184,11 +192,104 @@ def photonic_matmul(a, b, cfg: PhotonicConfig, key=None, *, mask=None):
             raise ValueError("noise_std > 0 requires a PRNG key")
         sigma = noise_sigma_total(a.shape[-1], 1.0, 1.0, cfg)  # normalised units
         shape = out.shape[-2:] if b.ndim == 3 else out.shape
-        noise = torch.randn(shape, generator=prng.generator(key, out.device),
-                            device=out.device, dtype=out.dtype)
+        noise = randn_rows(shape, prng.generator(key, out.device), out.device, out.dtype)
         out = out + sigma * noise
     out = check_finite(out * (s_a * s_b), "photonic_matmul output")
     return out * mask if mask is not None else out
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel row window
+# ---------------------------------------------------------------------------
+# Under data parallelism each rank projects its own rows of the step's
+# global error.  The reference runs one SPMD program over the global
+# array, so two things a rank would otherwise take from its rows alone come
+# from the global array: the operand's max-abs scale s_a (it sets the DAC
+# grid and the noise's absolute size) is the MAX over the data group, and
+# noise drawn from a key is this rank's rows of the global draw (the emu
+# kernel counts its noise counters from the global row).  The trainer opens
+# a window around each data-parallel gradient; outside one every result is
+# the single-device one, bit for bit.
+
+
+@dataclasses.dataclass
+class RowWindow:
+    """This rank's rows of a step's global batch: ``start`` its first
+    example, ``count`` its examples, ``total`` the global examples; the
+    scale's MAX runs over ``group`` (a ``torch.distributed`` process group;
+    None for a world of one).  A projection's operand has t rows for the
+    ``count`` examples: t / count rows an example (tokens for a language
+    model)."""
+
+    start: int
+    count: int
+    total: int
+    group: typing.Any = None
+    _scales: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def rows(self, t: int) -> tuple[int, int]:
+        """(first global row, global row count) of a t-row operand."""
+        if t % self.count:
+            raise ValueError(f"an operand of {t} rows over {self.count} examples: the rows "
+                             "of a data-parallel projection are whole examples")
+        per = t // self.count
+        return self.start * per, self.total * per
+
+    def amax(self, a):
+        """max |a| over the group's rows of the operand ``a`` is this rank's
+        share of: one MAX all-reduce per distinct operand of the window
+        (every projection of a step reads the same error)."""
+        key = (a.untyped_storage().data_ptr(), a.storage_offset(), tuple(a.shape),
+               a.stride(), a._version)
+        if key not in self._scales:
+            s = a.detach().abs().amax()
+            if self.group is not None:
+                import torch.distributed as dist
+
+                dist.all_reduce(s, op=dist.ReduceOp.MAX, group=self.group)
+            # the operand is held until the window closes, so its storage
+            # cannot be reused under the same key
+            self._scales[key] = (a, s)
+        return self._scales[key][1]
+
+
+_WINDOW: list = []
+
+
+@contextlib.contextmanager
+def row_window(window: RowWindow | None):
+    """Run the block's projections on this rank's rows of the global batch
+    (None: no window, the single-device path)."""
+    if window is None:
+        yield None
+        return
+    _WINDOW.append(window)
+    try:
+        yield window
+    finally:
+        _WINDOW.pop()
+
+
+def active_window() -> RowWindow | None:
+    return _WINDOW[-1] if _WINDOW else None
+
+
+def global_rows(t: int) -> tuple[int, int]:
+    """(first global row, global row count) of a t-row operand: (0, t)
+    outside a row window."""
+    window = active_window()
+    return (0, t) if window is None else window.rows(t)
+
+
+def randn_rows(shape, generator, device, dtype):
+    """``torch.randn(shape)`` from ``generator``, whose leading dim is the
+    operand's rows: inside a row window this rank's rows of the draw over
+    the global rows."""
+    base, total = global_rows(shape[0])
+    if (base, total) == (0, shape[0]):
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    full = torch.randn((total, *shape[1:]), generator=generator, device=device, dtype=dtype)
+    return full[base: base + shape[0]]
 
 
 # ---------------------------------------------------------------------------

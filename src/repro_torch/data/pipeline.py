@@ -4,7 +4,9 @@
 All batching is a pure function of (seed, step): a restart at step k
 replays the identical stream, with no iterator state to save.  Batches are
 numpy on the host; ``to_device`` turns one into tensors on the trainer's
-device, and ``DevicePrefetcher`` keeps the next few already there.
+device, and ``DevicePrefetcher`` keeps the next few already there.  Under a
+data-parallel mesh the trainer's ``put_fn`` is ``dist.sharding.put_batch``:
+every rank reads the same global batch and keeps its rows.
 """
 
 from __future__ import annotations

@@ -1,0 +1,448 @@
+"""Sharding policy: mesh axes, parameter and batch placement rules, and the
+activation annotations.  Counterpart of ``repro/dist/sharding.py``.
+
+Mesh axes (``launch/mesh.py``):
+
+* ``data``  — FSDP axis: parameters are sharded along their first dim
+  (ZeRO-3) and, for training, the batch's rows;
+* ``model`` — tensor-parallel axis: matmul output dims, the embedding's
+  vocabulary, the expert dim, and the feedback's injection dim;
+* ``pod``   — optional leading axis (multi-pod); joins ``data`` for batch
+  sharding only.
+
+A spec (``P``) names a mesh axis (or a tuple of them, or None) for each
+dim of a leaf, as ``jax.sharding.PartitionSpec`` does.  The rule tables are
+the reference's, written for its layout: (d_in, d_out) weights and "a/b/c"
+paths.  The port's own leaves are matched through ``ref_path`` (its dotted
+``state_dict`` name read as the reference's path: "blocks.0.attn.q.weight"
+→ "blocks/attn/q/w"), and a Linear ``weight``, stored (d_out, d_in) in
+torch layout, takes the rule's spec with its last two entries swapped, so
+a leaf splits along the same logical dims in both packages.  A spec becomes
+``DTensor`` placements (``placements``): ``Shard(d)`` on each mesh dim that
+splits tensor dim d, ``Replicate()`` on the others.
+
+Single-process contract: without an active mesh ``annotate`` and
+``unshard_fsdp`` return their argument itself (identity, not a copy), as
+the reference's do.  Under ``use_mesh`` they redistribute a ``DTensor`` to
+the rule's placements.  The models do not call them yet: data-parallel
+training replicates the state and splits the batch (``put_batch``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import typing
+
+import torch
+
+from repro_torch.utils.tree import leaves, path_map
+
+MODEL = "model"
+FSDP = "data"
+POD = "pod"
+
+
+class P(tuple):
+    """A partition spec: one entry per dim, a mesh axis name, a tuple of
+    names or None (the counterpart of ``jax.sharding.PartitionSpec``)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+# ---------------------------------------------------------------------------
+# active mesh
+# ---------------------------------------------------------------------------
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Activate ``mesh`` for annotate / unshard_fsdp within the block."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+def current_mesh():
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def _axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes the batch dim is sharded over (pod joins data if present)."""
+    return (POD, FSDP) if POD in mesh.mesh_dim_names else (FSDP,)
+
+
+# ---------------------------------------------------------------------------
+# parameter placement rules (the reference's tables)
+# ---------------------------------------------------------------------------
+# Each rule is (substring, spec); first match wins, "" is the catch-all.
+# Specs are written for the *trailing* dims of a leaf — ``_fit_spec``
+# right-aligns them (stacked layer axes get leading None) and the
+# divisibility fallback drops any axis that does not divide the dim.
+
+PARAM_RULES: tuple = (
+    ("experts", P(MODEL, FSDP, None)),   # (E, d_in, d_out): expert parallel
+    ("embed", P(MODEL, FSDP)),           # (V, d): vocab on model
+    ("norm", P()),                       # tiny scale vectors: replicate
+    ("/ln", P()),
+    ("ln1", P()), ("ln2", P()), ("ln3", P()), ("ln_enc", P()),
+    ("", P(FSDP, MODEL)),                # default 2D weight (d_in, d_out)
+)
+
+# Feedback matrices are (L, d_inject, d_tap): shard the injection dim on
+# model (it is the photonic projection's output dim), replicate d_tap.
+FEEDBACK_RULES: tuple = (
+    ("", P(None, MODEL, None)),
+)
+
+_RENAME = {"weight": "w", "bias": "b"}
+
+
+def ref_path(path: str) -> str:
+    """A port path -> the reference's: dots split names like slashes, layer
+    indices drop out (the reference stacks layers on a leading axis), and a
+    Linear's ``weight`` / ``bias`` are its ``w`` / ``b``.  A reference path
+    comes back unchanged."""
+    parts = [p for part in path.split("/") for p in part.split(".") if not p.isdigit()]
+    if parts:
+        parts[-1] = _RENAME.get(parts[-1], parts[-1])
+    return "/".join(parts)
+
+
+def _transposed(path: str, ndim: int) -> bool:
+    """A Linear weight, which the port stores (..., d_out, d_in)."""
+    return ndim >= 2 and path.split("/")[-1].split(".")[-1] == "weight"
+
+
+def spec_for_path(path: str, rules: tuple = PARAM_RULES):
+    """-> (spec, rule_substring) for a parameter path, port or reference."""
+    ref = ref_path(path)
+    for pat, spec in rules:
+        if pat in ref:
+            return spec, pat
+    return P(), ""
+
+
+def _fit_spec(spec, ndim: int) -> P:
+    """Right-align ``spec`` to an ndim-rank leaf: pad leading None for
+    stacked layer axes, drop leading entries when the leaf has fewer dims
+    (a (d_out,) bias keeps the weight spec's trailing MODEL entry)."""
+    entries = tuple(spec)
+    if len(entries) > ndim:
+        entries = entries[len(entries) - ndim:]
+    elif len(entries) < ndim:
+        entries = (None,) * (ndim - len(entries)) + entries
+    return P(*entries)
+
+
+def _axes(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _axis_size(mesh, entry) -> int:
+    sizes = _axis_sizes(mesh)
+    return math.prod(sizes[a] for a in _axes(entry))
+
+
+def _divisible(spec, shape, mesh) -> P:
+    """Drop spec entries whose mesh-axis product does not divide the dim —
+    the odd-vocab fallback (73448 is not 16-way shardable)."""
+    names = set(mesh.mesh_dim_names)
+    out = []
+    for dim, entry in zip(shape, tuple(spec)):
+        if entry is None or any(a not in names for a in _axes(entry)):
+            out.append(None)
+        elif dim % _axis_size(mesh, entry) != 0:
+            out.append(None)
+        else:
+            out.append(entry)
+    return P(*out)
+
+
+def _oriented(path: str, ndim: int, rules: tuple) -> P:
+    """A leaf's rule fitted to its rank, the last two entries swapped for a
+    torch-layout weight."""
+    spec = _fit_spec(spec_for_path(path, rules)[0], ndim)
+    if _transposed(path, ndim):
+        spec = P(*spec[:-2], spec[-1], spec[-2])
+    return spec
+
+
+def leaf_spec(path: str, shape, mesh, rules: tuple = PARAM_RULES) -> P:
+    """The spec of one port leaf: its rule fitted to its rank (a weight's
+    last two entries swapped), then the divisibility fallback."""
+    return _divisible(_oriented(path, len(shape), rules), shape, mesh)
+
+
+def placements(spec, mesh) -> tuple:
+    """A spec -> ``DTensor`` placements, one per mesh dim: ``Shard(d)`` where
+    the mesh dim splits tensor dim d, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, entry in enumerate(spec) if entry is not None and name in _axes(entry)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+class Sharding(typing.NamedTuple):
+    """Where a leaf lives: the mesh, the spec and its ``DTensor`` placements
+    (the counterpart of ``jax.sharding.NamedSharding``)."""
+
+    mesh: typing.Any
+    spec: P
+    placements: tuple
+
+
+def named(mesh, spec) -> Sharding:
+    return Sharding(mesh, P(*spec), placements(spec, mesh))
+
+
+def make_param_shardings(mesh, tree, rules: tuple = PARAM_RULES):
+    """A ``Sharding`` for every tensor leaf of a parameter tree (a flat
+    ``state_dict``-named dict or nested dicts); a non-tensor leaf (a step
+    count) is replicated."""
+
+    def assign(path, leaf):
+        shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+        return named(mesh, leaf_spec(path, shape, mesh, rules) if shape else P())
+
+    return path_map(assign, tree)
+
+
+def make_batch_shardings(mesh, tree):
+    """Batch inputs: dim 0 over (pod, data) when divisible, the rest
+    replicated."""
+    b = batch_axes(mesh)
+    n = _axis_size(mesh, b)
+
+    def assign(path, leaf):
+        del path
+        spec = [None] * leaf.ndim
+        if leaf.ndim >= 1 and leaf.shape[0] % n == 0:
+            spec[0] = b if len(b) > 1 else b[0]
+        return named(mesh, P(*spec))
+
+    return path_map(assign, tree)
+
+
+def replicated(mesh) -> Sharding:
+    return named(mesh, P())
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: replicated state, split batch
+# ---------------------------------------------------------------------------
+
+
+def data_group(mesh):
+    """The process group of the mesh's ``data`` axis, over which the batch
+    is split and the gradients are averaged.  A pod mesh splits the batch
+    over two mesh dims; data parallelism runs on ``make_data_mesh``."""
+    if POD in mesh.mesh_dim_names:
+        raise ValueError("data-parallel training runs on a (data, model) mesh "
+                         "(launch.mesh.make_data_mesh), not a pod mesh")
+    return mesh.get_group(FSDP)
+
+
+def data_index(mesh) -> tuple[int, int]:
+    """(this rank's index on the batch axes, their size)."""
+    sizes = _axis_sizes(mesh)
+    index = 0
+    for a in batch_axes(mesh):
+        index = index * sizes[a] + mesh.get_local_rank(a)
+    return index, _axis_size(mesh, batch_axes(mesh))
+
+
+def _bucket(tensors, limit: int):
+    """Tensors in groups of one dtype and at most ``limit`` elements (a
+    larger tensor alone)."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        bucket, size = [], 0
+        for t in group:
+            if bucket and size + t.numel() > limit:
+                yield bucket
+                bucket, size = [], 0
+            bucket.append(t)
+            size += t.numel()
+        if bucket:
+            yield bucket
+
+
+BUCKET_ELEMENTS = 1 << 24  # 64 MiB of f32 a collective
+
+
+def _flat_collective(tensors, op, limit: int = BUCKET_ELEMENTS) -> None:
+    """Run ``op(flat)`` on each bucket of ``tensors`` flattened into one
+    buffer, then copy the result back into the tensors (in place; a tensor
+    listed twice is taken once)."""
+    tensors = list({id(t): t for t in tensors}.values())
+    for bucket in _bucket(tensors, limit):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        op(flat)
+        offset = 0
+        for t in bucket:
+            t.copy_(flat[offset: offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def all_reduce_mean(tensors, group, world: int, limit: int = BUCKET_ELEMENTS) -> None:
+    """Mean all-reduce of ``tensors`` over ``group``, in place, in flat
+    buckets of one dtype and at most ``limit`` elements: a sum, then a
+    division by ``world`` (gloo has no ``ReduceOp.AVG``).  A failed
+    collective raises."""
+    import torch.distributed as dist
+
+    def reduce(flat):
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat.div_(world)
+
+    _flat_collective(tensors, reduce, limit)
+
+
+def replicate(mesh, tree):
+    """Every tensor leaf of ``tree`` replicated over the mesh: broadcast
+    in place from the mesh's first rank, in flat buckets -> ``tree``.  The
+    placement of the state for pure data-parallel training."""
+    import torch.distributed as dist
+
+    group = data_group(mesh)
+    src = dist.get_global_rank(group, 0)
+    _flat_collective(tensor_leaves(tree),
+                     lambda flat: dist.broadcast(flat, src=src, group=group))
+    return tree
+
+
+def tensor_leaves(tree) -> list:
+    """The tree's tensor leaves, detached (a step count is left out)."""
+    return [x.detach() for x in leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+class BatchRows(typing.NamedTuple):
+    """This rank's rows of each microbatch of a split global batch: its
+    first row, its row count and the microbatch's global row count."""
+
+    start: int
+    count: int
+    total: int
+
+
+def batch_rows(mesh, n: int, microbatches: int = 1) -> BatchRows | None:
+    """The rows ``put_batch`` gives this rank of an ``n``-row batch, or
+    None where ``n`` does not split into ``microbatches`` x the batch
+    axes' size (the batch is then replicated)."""
+    index, world = data_index(mesh)
+    mb = max(1, microbatches)
+    if n % (world * mb):
+        return None
+    count = n // (world * mb)
+    return BatchRows(index * count, count, n // mb)
+
+
+class LocalBatch(dict):
+    """This rank's rows of a global batch, keyed as the batch; ``rows`` is
+    its ``BatchRows``, or None where the batch is replicated."""
+
+    rows: BatchRows | None = None
+
+
+def put_batch(mesh, batch, device=None, microbatches: int = 1) -> LocalBatch:
+    """Host -> device transfer of this rank's rows of a global batch: dim 0
+    split over the data axes, or the whole batch where its size does not
+    divide (the replication fallback, as ``make_batch_shardings``).
+
+    Microbatch i of the global batch is its rows [i·n/mb, (i+1)·n/mb), as
+    the reference's reshape of the global array gives; a rank holds its
+    share of each microbatch, the microbatches one after another, so that
+    splitting its rows into ``microbatches`` equal parts gives its share of
+    each."""
+    from repro_torch.data.pipeline import to_device
+
+    tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
+    sizes = {t.shape[0] if t.ndim else None for t in tensors.values()}
+    n = sizes.pop() if len(sizes) == 1 else None
+    rows = batch_rows(mesh, n, microbatches) if n is not None else None
+    if rows is not None:
+        starts = [i * rows.total + rows.start for i in range(max(1, microbatches))]
+        tensors = {k: torch.cat([t[a:a + rows.count] for a in starts])
+                   for k, t in tensors.items()}
+    out = LocalBatch(to_device(tensors, device if device is not None else "cpu"))
+    out.rows = rows
+    return out
+
+
+# ---------------------------------------------------------------------------
+# activation annotations
+# ---------------------------------------------------------------------------
+# Named constraint points for the models.  _B marks the batch dim (bound to
+# batch_axes(mesh) at call time).
+
+_B = "__batch__"
+
+ACT_RULES: dict[str, tuple] = {
+    "act_btd": (_B, None, None),          # residual stream (B, S, D)
+    "tape_lbsd": (None, _B, None, MODEL), # DFA tape: model-sharded feature
+    "logits": (_B, None, MODEL),          # (B, S, V): vocab on model
+    "delta_tm": (_B, MODEL),              # projected error (T, M)
+    "expert_ecd": (MODEL, None, None),    # MoE buffers (E, C, D)
+}
+
+
+def _redistribute(x, mesh, spec):
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def annotate(x, name: str):
+    """Redistribute a ``DTensor`` to the rule's placements; identity
+    without a mesh, for an unknown name or a plain tensor."""
+    mesh = current_mesh()
+    if mesh is None or name not in ACT_RULES:
+        return x
+    b = batch_axes(mesh)
+    entries = tuple((b if len(b) > 1 else b[0]) if e is _B else e for e in ACT_RULES[name])
+    spec = _divisible(_fit_spec(P(*entries), x.ndim), x.shape, mesh)
+    return _redistribute(x, mesh, spec)
+
+
+def _strip_fsdp(entry):
+    if entry == FSDP:
+        return None
+    if isinstance(entry, tuple):
+        kept = tuple(a for a in entry if a != FSDP)
+        return kept if kept else None
+    return entry
+
+
+def unshard_fsdp(tree):
+    """ZeRO-3 gather: each ``DTensor`` leaf redistributed to its rule's
+    placements with the FSDP axis removed (replicated over data, still
+    split over model).  Identity without a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return tree
+
+    def gather(path, x):
+        spec = P(*(_strip_fsdp(e) for e in _oriented(path, x.ndim, PARAM_RULES)))
+        return _redistribute(x, mesh, _divisible(spec, x.shape, mesh))
+
+    return path_map(gather, tree)

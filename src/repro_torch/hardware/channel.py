@@ -174,16 +174,16 @@ def bank_product(a_n, b_n, cfg, key=None, *, residual=None):
     if sigma > 0.0 or device.shot_noise > 0.0:
         if key is None:
             raise ValueError("noisy emulated bank requires a PRNG key")
+        # rows of T: inside a data-parallel row window, this rank's rows of
+        # the draw over the global rows
         noise = torch.zeros_like(p)
         if sigma > 0.0:
             gen = prng.generator(prng.fold(key, 0), p.device)
-            noise = noise + sigma * torch.randn(p.shape, generator=gen, device=p.device,
-                                                dtype=p.dtype)
+            noise = noise + sigma * photonics.randn_rows(p.shape, gen, p.device, p.dtype)
         if device.shot_noise > 0.0:
             gen = prng.generator(prng.fold(key, 1), p.device)
             noise = noise + (device.shot_noise * torch.sqrt(torch.abs(p))
-                             * torch.randn(p.shape, generator=gen, device=p.device,
-                                           dtype=p.dtype))
+                             * photonics.randn_rows(p.shape, gen, p.device, p.dtype))
         if n_buses * nj != n_panels:
             # idle buses of the last cycle never fire: mask their draws so
             # the accumulated noise counts the real panels only

@@ -10,10 +10,13 @@ schedule:
     out = Σ_s ADC( Σ_c a_t[t,q,j,c]·w[i,q,r,j,c] + valid_s·noise )
     w   = (δ² − γ²)/(δ² + γ²) · dead_mask[q,r,c]
     noise = σ·z(c0, c1) + shot·√|p|·z(c0 ^ 0x80000000, c1)
-    c0 = i·(Q·NJ) + s,  c1 = t·rows + r,  valid_s = s < n_panels
+    c0 = i·(Q·NJ) + s,  c1 = (row_base + t)·rows + r,  valid_s = s < n_panels
 
 with z the reference's Irwin–Hall(4) gaussian of one threefry2x32 output
 (``counter_gaussian``), so the noise is the reference's bit for bit.
+``row_base`` is the global row of the first row of a_t: a data-parallel
+rank that holds rows [r, r + T) of a batch passes r and draws the noise
+those rows draw in one launch over the whole batch (0 on one process).
 
 A stack of E products (a mixture of experts' weights) is one launch:
 a_t (E, T, Q, NJ, C) and delta_eff (E, nm, Q, rows, NJ, C) give (E, T,
@@ -121,9 +124,10 @@ def _fma_dot(a, w):
     return acc
 
 
-def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed):
+def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed, row_base: int = 0):
     """Raise on operands the kernel does not take: a_t (T, Q, NJ, C) with
-    delta_eff (nm, Q, rows, NJ, C), or a stack of E of each."""
+    delta_eff (nm, Q, rows, NJ, C), or a stack of E of each; a ``row_base``
+    whose noise counters (row_base + T)·rows would pass 2³²."""
     if not ((a_t.ndim, delta_eff.ndim) in ((4, 5), (5, 6))
             and a_t.shape[:-4] == delta_eff.shape[:-5]):
         raise ValueError(f"need a_t ([E,] T, Q, NJ, C) and delta_eff ([E,] nm, Q, rows, NJ, "
@@ -150,11 +154,14 @@ def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed):
         raise ValueError(f"n_panels {n_panels} outside [1, Q·NJ = {q_buses * nj}]")
     if seed is not None and len(seed) != 2:
         raise ValueError("seed is two uint32 words")
+    if row_base < 0 or (row_base + t) * rows > COUNTER_ROWS:
+        raise ValueError(f"row_base {row_base}: the noise counters (row_base + T={t})·"
+                         f"rows={rows} pass 2**32")
 
 
 def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float,
                            sigma: float, shot: float, adc_bits: int | None, amax: float,
-                           seed=None):
+                           seed=None, row_base: int = 0):
     """The kernel's function in plain torch, slot by slot in the kernel's
     order, with its counters -> f32 (T, nm·rows), or (E, T, nm·rows) for a
     stack: every product with the same counters and mask."""
@@ -177,7 +184,7 @@ def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: f
     if noisy:
         k0, k1 = (int(x) & _M32 for x in seed)
         ii = torch.arange(nm, device=dev, dtype=torch.int64)[None, :, None]
-        c1 = (torch.arange(t, device=dev, dtype=torch.int64)[:, None, None] * rows
+        c1 = ((row_base + torch.arange(t, device=dev, dtype=torch.int64))[:, None, None] * rows
               + torch.arange(rows, device=dev, dtype=torch.int64)[None, None, :])
     acc = torch.zeros((n_e, t, nm, rows), dtype=torch.float32, device=dev)
     for j in range(nj):
@@ -211,6 +218,7 @@ CARD_SMS = 132  # an H100 SXM's SMs
 # (__launch_bounds__(256, 2)), and 1 KB of shared memory reserved per block
 SM_REGISTERS, REGISTERS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 128, 233472, 2048, 32
 MAX_STACK = 65535  # products a launch takes (the grid's y extent)
+COUNTER_ROWS = 1 << 32  # (row_base + T)·rows at most: the noise counter c1 is 32 bits
 # the planner's cost of a block, in units of one T row of one tuple (its
 # FMA chain, draw and ADC): loading a tuple's detunings and forming its
 # weights ≈ 4, staging a T row of inputs ≈ 1/2, the block's launch,
@@ -408,10 +416,11 @@ def candidate_plans(t: int, nm: int, rows: int, q: int, nj: int, cols: int, poin
 
 def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sigma: float,
                   shot: float, adc_bits: int | None, amax: float, seed=None,
-                  plan: Plan | None = None):
+                  plan: Plan | None = None, row_base: int = 0):
     """Launch the CUDA kernel on checked CUDA operands -> f32 (T, nm·rows),
     or (E, T, nm·rows) for a stack; ``plan`` defaults to ``_plan``'s
-    choice.  Raises ValueError for what no plan can run and RuntimeError if
+    choice, ``row_base`` is the global row of a_t's first row.  Raises
+    ValueError for what no plan can run and RuntimeError if
     the launch fails."""
     if a_t.device.type != "cuda":
         raise ValueError(f"no emu_bank_product kernel for device {a_t.device}")
@@ -441,7 +450,7 @@ def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sig
             n_e, t, q_buses, nj, cols, nm, rows, n_panels,
             _DTYPES[a_t.dtype], float(gamma * gamma), float(sigma), float(shot),
             _levels(adc_bits), float(amax), k0, k1, stream,
-            plan.variant, plan.rows_per_block, plan.t_tile)
+            plan.variant, plan.rows_per_block, plan.t_tile, int(row_base))
     if err != 0:
         raise RuntimeError(f"emu_bank_product kernel launch failed ({plan.name}): CUDA error "
                            f"{err}")
@@ -470,16 +479,17 @@ def division_mismatches(device, *, divisor: float | None = None,
 
 def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float,
                           sigma: float, shot: float, adc_bits: int | None, amax: float,
-                          seed=None):
+                          seed=None, row_base: int = 0):
     """One fused panel loop for a whole bus-tiled GEMM, or for a stack of E
     of them in one launch.  a_t ([E,] T, Q, NJ, C) in f32 or bf16, delta_eff
     ([E,] nm, Q, rows, NJ, C) f32, dead_mask (Q, rows, C) f32 or None, seed
-    two uint32 words (needed when σ or shot is nonzero) -> the accumulated
-    f32 ([E,] T, nm·rows) (the caller slices M)."""
+    two uint32 words (needed when σ or shot is nonzero), ``row_base`` the
+    global row of a_t's first row -> the accumulated f32 ([E,] T, nm·rows)
+    (the caller slices M)."""
     global launches
-    check_operands(a_t, delta_eff, dead_mask, n_panels, seed)
+    check_operands(a_t, delta_eff, dead_mask, n_panels, seed, row_base)
     kw = dict(n_panels=n_panels, gamma=gamma, sigma=sigma, shot=shot, adc_bits=adc_bits,
-              amax=amax, seed=seed)
+              amax=amax, seed=seed, row_base=row_base)
     if a_t.device.type == "cpu":
         return emu_bank_product_plain(a_t, delta_eff, dead_mask, **kw)
     out = launch_kernel(a_t, delta_eff, dead_mask, **kw)
@@ -503,7 +513,10 @@ def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None):
     """Drop-in for ``hardware.channel.bank_product`` on the fused path:
     a_n (T, K), b_n (M, K) normalised operands -> (T, M) in bank output units
     (the caller rescales by s_a·s_b).  A stack a_n (E, T, K), b_n (E, M, K)
-    is tiled in one pass and runs as one launch -> (E, T, M)."""
+    is tiled in one pass and runs as one launch -> (E, T, M).  Inside a
+    data-parallel row window the noise counters start at this rank's first
+    global row."""
+    from repro_torch.core import photonics
     from repro_torch.hardware import channel  # lazy: channel imports us lazily
     from repro_torch.hardware import mrr
 
@@ -523,5 +536,6 @@ def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None):
     out = emu_bank_product_cuda(a_t, delta_eff, dead_mask, n_panels=n_panels,
                                 gamma=float(device.gamma), sigma=float(sigma),
                                 shot=float(shot), adc_bits=device.adc_bits,
-                                amax=float(cfg.bank_cols), seed=seed)
+                                amax=float(cfg.bank_cols), seed=seed,
+                                row_base=photonics.global_rows(t)[0])
     return check_finite(out[..., :t, :m], "fused_bank_product output")

@@ -43,14 +43,23 @@ schedule: ...`` and trains on it::
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --preset emu_onchip --backend emu --autotune --power-budget-w 78
 
-The reference's ``--data-parallel`` is ported in a later slice.
+``--data-parallel {auto,on,off}``: under ``torchrun`` (one rank per card)
+each step splits its batch over the ranks and averages the gradients
+(``train.Trainer``); "auto" turns it on when the launcher started more than
+one rank, "on" without a launcher runs a world of one.  Only rank 0
+prints, logs and writes::
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --backend cuda --preset offchip_bpd --data-parallel on
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import algos, api, configs
 from repro_torch.core import photonics
@@ -73,6 +82,9 @@ def main(argv=None):
     ap.add_argument("--momentum", type=float, default=0.9)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log", default=None, help="CSV of the logged steps' metrics")
+    ap.add_argument("--data-parallel", choices=["auto", "on", "off"], default="auto",
+                    help="split each batch over the launcher's ranks, one per card (auto: "
+                         "when torchrun started more than one)")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches kept on the device ahead of the step (0 disables)")
     ap.add_argument("--recal-every", type=int, default=None,
@@ -107,6 +119,7 @@ def main(argv=None):
 
     # the language models always train their reduced config here
     smoke = args.smoke or args.arch != "mnist_mlp"
+    owned = not dist.is_initialized()
     session = api.build_session(
         arch=args.arch, smoke=smoke, algo=args.algo, hardware=args.preset,
         backend=args.backend, error_compress=args.error_compress,
@@ -115,13 +128,33 @@ def main(argv=None):
         recalibrate_every=args.recal_every, ckpt_dir=args.ckpt_dir, n_buses=args.n_buses,
         schedule="auto" if args.autotune else None, power_budget_w=args.power_budget_w,
         schedule_batch=args.batch if args.autotune else None,
+        data_parallel={"auto": "auto", "on": True, "off": False}[args.data_parallel],
         probe_every=args.probe_every, device=args.device)
+    with _process_group(session, owned):
+        return _run(args, session)
+
+
+@contextlib.contextmanager
+def _process_group(session, owned: bool):
+    """Tear down, when the run ends, the process group the session started."""
+    try:
+        yield
+    finally:
+        if owned and session.mesh is not None:
+            dist.destroy_process_group()
+
+
+def _run(args, session):
+    chief = session.trainer.is_chief
+    say = print if chief else (lambda *a, **k: None)
     model = session.model
     observer = None
-    if args.trace_out or args.metrics_out:
+    if chief and (args.trace_out or args.metrics_out):
         observer = session.observe(metrics_path=args.metrics_out, trace_path=args.trace_out)
+    if session.mesh is not None:
+        say(f"[dist] data-parallel over {session.mesh.size()} ranks")
     if session.schedule is not None:
-        print(f"[sim] autotuned schedule: {session.schedule.describe()}")
+        say(f"[sim] autotuned schedule: {session.schedule.describe()}")
     timer = None
     if args.bench_json is not None:
         from repro_torch.bench import StepTimer, clamped_warmup
@@ -133,10 +166,10 @@ def main(argv=None):
         state, metrics = session.fit(batch_fn, total_steps=args.steps, timer=timer)
         _report_bench(args, session, state, batch_fn(0), timer)
         result = session.trainer.to_host(metrics)
-        print(f"[final] {result}")
+        say(f"[final] {result}")
     else:
         data = mnist.load(seed=args.seed)
-        print(f"[data] source={data['source']}")
+        say(f"[data] source={data['source']}")
         xtr, ytr = data["train"]
         xte, yte = data["test"]
         if xtr.shape[1] != model.in_dim:  # --smoke shrinks in_dim
@@ -145,7 +178,7 @@ def main(argv=None):
         state, _ = session.fit(pipe.batch, total_steps=args.steps, timer=timer)
         _report_bench(args, session, state, pipe.batch(0), timer)
         result = session.evaluate(state, pipe.eval_batches(xte, yte, 256))
-        print(f"[eval] {result}")
+        say(f"[eval] {result}")
 
     if observer is not None:
         trace_path = observer.close()

@@ -110,8 +110,10 @@ class AlignmentProbe:
         with hw_ctx:
             (_, _), dfa_grads = trainer._grads(state["params"], state["fb"], batch, rng)
         # the exact gradient of the same batch; BP sees the same step key
-        (_, _), bp_grads = self._bp_vg(state["params"], state["fb"], batch,
-                                       rng)  # lint: disable=RL001 one draw for DFA and BP
+        # (under a mesh both are means over the data group, as the step's are)
+        bp = self._bp_vg(state["params"], state["fb"], batch,
+                         rng)  # lint: disable=RL001 one draw for DFA and BP
+        (_, _), bp_grads = trainer.data_mean(bp, batch)
 
         out = {}
         lr = _resolve_lr(cfg.optimizer, state.get("opt"))

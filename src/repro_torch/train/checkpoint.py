@@ -14,6 +14,15 @@ Writes are atomic (a temporary file, ``fsync``, ``os.replace``), so a crash
 mid-write never corrupts the newest snapshot.  ``load`` with a template
 rebuilds the template's structure, with every tensor cast to the
 template's dtype and placed on its device.
+
+Elastic restore (the reference's contract): a snapshot holds *logical*
+tensors, whatever the layout they were saved from.  ``save`` of a tree with
+``DTensor`` leaves gathers each (every rank calls it) and rank 0 writes;
+``load(..., shardings=)`` places each leaf under a new mesh's
+``dist.sharding.Sharding`` (from ``make_param_shardings``), each rank
+taking its own shard of the logical tensor, so a snapshot taken on one
+mesh restores on a mesh of another size.  The format is the same with or
+without a mesh.
 """
 
 from __future__ import annotations
@@ -39,16 +48,41 @@ def _flatten(tree, prefix: str = "", out: dict | None = None) -> dict:
     return out
 
 
+def _is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor) or type(x) in (torch.Tensor, torch.nn.Parameter):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _to_host(x):
+    if _is_dtensor(x):
+        x = x.full_tensor()  # a collective: every rank gathers the logical tensor
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return x
 
 
 def save(path: str, tree, step: int | None = None):
-    """Atomic write of a snapshot of ``tree``."""
+    """Atomic write of a snapshot of ``tree``.  With ``DTensor`` leaves every
+    rank calls it: each leaf is gathered, rank 0 writes, and no rank
+    returns before the file is in place."""
+    flat = _flatten(tree)
+    sharded = any(_is_dtensor(v) for v in flat.values())
     payload = {"version": VERSION, "step": -1 if step is None else int(step),
-               "leaves": {k: _to_host(v) for k, v in _flatten(tree).items()}}
+               "leaves": {k: _to_host(v) for k, v in flat.items()}}
+    if sharded:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            _write(path, payload)
+        dist.barrier()
+    else:
+        _write(path, payload)
+
+
+def _write(path: str, payload: dict):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -58,19 +92,29 @@ def save(path: str, tree, step: int | None = None):
     os.replace(tmp, path)
 
 
-def _restore_leaf(saved, like):
+def _restore_leaf(saved, like, sharding=None):
     if isinstance(like, torch.Tensor):
         if not isinstance(saved, torch.Tensor) or tuple(saved.shape) != tuple(like.shape):
             raise ValueError(f"checkpoint leaf {getattr(saved, 'shape', saved)} does not fit "
                              f"the template's {tuple(like.shape)}")
+        if sharding is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            # the logical tensor is read on every rank: each keeps its shard
+            # (src_data_rank=None: no collective)
+            local = saved.to(device=sharding.mesh.device_type, dtype=like.dtype)
+            return distribute_tensor(local, sharding.mesh, sharding.placements,
+                                     src_data_rank=None)
         return saved.to(device=like.device, dtype=like.dtype)
     return type(like)(saved) if isinstance(like, (int, float)) else saved
 
 
-def load(path: str, template=None):
+def load(path: str, template=None, shardings=None):
     """Restore -> (tree, step).  Without a template the tree is the flat
     {name: leaf} dict on the CPU; with one it has the template's structure,
-    dtypes and devices."""
+    dtypes and devices.  ``shardings``: a tree of the template's structure
+    (``dist.sharding.make_param_shardings``) whose leaves place the
+    restored tensors as ``DTensor``s on their mesh — the elastic restore."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     leaves, step = payload["leaves"], payload["step"]
     if template is None:
@@ -78,6 +122,7 @@ def load(path: str, template=None):
     missing = set(_flatten(template)) - set(leaves)
     if missing:
         raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]} …")
+    flat_shard = _flatten_shardings(shardings)
 
     def rebuild(node, prefix=""):
         if isinstance(node, dict):
@@ -85,9 +130,31 @@ def load(path: str, template=None):
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(rebuild(v, f"{prefix}#{i}") for i, v in enumerate(node))
-        return _restore_leaf(leaves[prefix], node)
+        return _restore_leaf(leaves[prefix], node, flat_shard.get(prefix))
 
     return rebuild(template), step
+
+
+def _flatten_shardings(shardings) -> dict:
+    """A tree of ``Sharding``s (NamedTuples, not tuples of leaves) -> the
+    names ``_flatten`` gives the template's leaves."""
+    from repro_torch.dist.sharding import Sharding
+
+    out = {}
+
+    def visit(node, prefix):
+        if isinstance(node, Sharding):
+            out[prefix] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                visit(v, f"{prefix}/{k}" if prefix else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                visit(v, f"{prefix}#{i}")
+
+    if shardings is not None:
+        visit(shardings, "")
+    return out
 
 
 class CheckpointManager:
@@ -118,10 +185,10 @@ class CheckpointManager:
             except FileNotFoundError:
                 pass
 
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, shardings=None):
         """-> (tree, step) of ``step`` (default the newest), or (None, None)
         for an empty directory."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
-        return load(self._path(step), template)
+        return load(self._path(step), template, shardings)

@@ -1,7 +1,8 @@
 """Trainer: the train step of any registered algorithm (bp, dfa,
-dfa-fused, dfa-layerwise), microbatch accumulation, the fit loop with
-checkpoint and auto-resume, CSV metric logging and a straggler deadline,
-and evaluation.  Counterpart of ``repro/train/trainer.py``, single device.
+dfa-fused, dfa-layerwise), microbatch accumulation, data parallelism over
+``torch.distributed`` ranks, the fit loop with checkpoint and auto-resume,
+CSV metric logging and a straggler deadline, and evaluation.  Counterpart
+of ``repro/train/trainer.py``.
 
 The state is a dict ``{"params", "fb", "opt", "step"}``: ``params`` a flat
 dict of tensors in the model's ``state_dict`` naming, ``fb`` the feedback
@@ -30,8 +31,32 @@ touching the training state.  ``debug_checks`` runs each step under the
 ``lint.runtime`` sanitizers.
 
 The trainer runs on the card unless ``device="cpu"`` is asked for, and
-raises where CUDA is absent.  The reference's data parallelism is ported
-in a later slice (``ROADMAP.md``).
+raises where CUDA is absent.
+
+Data parallelism (``data_parallel``; "auto" is on when a launcher started
+more than one rank, one rank per card): the trainer builds a (world, 1)
+("data", "model") mesh (``launch.mesh.make_data_mesh``), starting the
+process group if none is up (NCCL on CUDA, gloo on the CPU; True without a
+launcher makes a world of one).  The state is replicated: every rank
+builds it, the ranks check that they agree, and rank 0's is broadcast.
+``put`` gives each rank its rows of the global batch
+(``dist.sharding.put_batch``; a batch that does not split is replicated,
+and then nothing is communicated).  DFA's feedback projection is per
+example, so, as the reference states, the only communication a step needs
+is the mean all-reduce of the per-rank gradients (with the loss and the
+metrics), in flat buckets of one dtype, before the same update on every
+rank; numerics match single-device training up to float reduction order.
+Two things the reference takes from its global array come from the data
+group here: each projection runs in a row window
+(``core.photonics.row_window``), so the operand's scale s_a is the group's
+MAX and the noise is this rank's rows of the global draw (the emu kernel
+counts its counters from the global row).  Microbatch i is global rows
+[i·n/mb, (i+1)·n/mb); a rank holds its share of each.
+``DistributedDataParallel`` is not used: DFA's gradients do not come from
+one autograd backward over the module, so its reducer never sees them.
+Only rank 0 writes the CSV log, the observer's sink and the checkpoints;
+every rank reads the newest snapshot on resume, and ``fit`` checks at its
+end that the ranks' states still agree (the emu ``hw`` state included).
 """
 
 from __future__ import annotations
@@ -49,6 +74,7 @@ from repro_torch import obs as obs_lib
 from repro_torch.algos.dfa import DFAConfig
 from repro_torch.core import photonics
 from repro_torch.data.pipeline import DevicePrefetcher, to_device
+from repro_torch.dist import sharding
 from repro_torch.hardware import calibrate as hw_calibrate
 from repro_torch.hardware import drift as hw_drift
 from repro_torch.lint import runtime as lint_runtime
@@ -66,6 +92,11 @@ class TrainerConfig:
     optimizer: typing.Any = dataclasses.field(default_factory=SGDM)
     seed: int = 0
     microbatches: int = 1
+    # data-parallel scale-out: "auto" splits the batch over the ranks a
+    # launcher started when there are more than one; True forces a mesh
+    # (a world of one without a launcher); False keeps the single-device
+    # path bit for bit
+    data_parallel: bool | str = "auto"
     # batches kept on the device ahead of the step (0 disables)
     prefetch: int = 2
     log_every: int = 50
@@ -88,6 +119,22 @@ class TrainerConfig:
     debug_checks: bool = False
 
 
+def _resolve_data_parallel(flag) -> bool:
+    if isinstance(flag, str):
+        if flag == "auto":
+            from repro_torch.launch.mesh import launched_world
+
+            return launched_world() > 1
+        if flag in ("on", "true"):
+            return True
+        if flag in ("off", "false"):
+            return False
+        raise ValueError(
+            "data_parallel must be a bool, 'auto', 'on', or 'off'; "
+            f"got {flag!r}")
+    return bool(flag)
+
+
 class Trainer:
     def __init__(self, model, cfg: TrainerConfig, device=None):
         self.device = resolve_device(device)
@@ -100,6 +147,18 @@ class Trainer:
         self._vg = self.algorithm.value_and_grad(model, cfg.dfa)
         # only backends that consume device state carry a "hw" state
         self._hw_stateful = photonics.get_backend(cfg.dfa.backend).stateful_hardware
+        self.mesh = None
+        self._group, self._world, self._chief = None, 1, True
+        if _resolve_data_parallel(cfg.data_parallel):
+            import torch.distributed as dist
+
+            from repro_torch.launch import mesh as mesh_lib
+
+            mesh_lib.init_process_group(self.device.type)
+            self.mesh = mesh_lib.make_data_mesh(device_type=self.device.type)
+            self._group = sharding.data_group(self.mesh)
+            self._world = sharding.data_index(self.mesh)[1]
+            self._chief = dist.get_rank() == 0
         self._step_fn = (lint_runtime.checked(self._train_step, "Trainer.step")
                          if cfg.debug_checks else self._train_step)
         self.ckpt = CheckpointManager(cfg.ckpt_dir, cfg.keep_ckpts) if cfg.ckpt_dir else None
@@ -107,8 +166,19 @@ class Trainer:
         self._log_keys = None
         self._probe = None  # the AlignmentProbe, built at the first probed fit
 
+    @property
+    def is_chief(self) -> bool:
+        """Rank 0 under a mesh (it writes the log, the sink and the
+        checkpoints); always on the single-device path."""
+        return self._chief
+
     # ---------- state ----------
     def init_state(self, seed: int | None = None) -> dict:
+        """A fresh state; under a mesh checked across the ranks and
+        broadcast from rank 0."""
+        return self._replicate(self._init_local(seed))
+
+    def _init_local(self, seed: int | None = None) -> dict:
         seed = self.cfg.seed if seed is None else seed
         self.model.init(seed)
         params = self.model.param_dict()
@@ -120,11 +190,76 @@ class Trainer:
                                               device=self.device)
         return state
 
+    # ---------- data parallelism ----------
+    def _replicate(self, state: dict) -> dict:
+        """Under a mesh: check that the ranks built the same state, then
+        broadcast rank 0's (``dist.sharding.replicate``)."""
+        if self.mesh is None:
+            return state
+        self.check_replicas(state, "built")
+        return sharding.replicate(self.mesh, state)
+
+    def check_replicas(self, state: dict, what: str = "hold") -> None:
+        """Raise unless every rank holds the same state: each tensor leaf's
+        f64 sum and norm, compared by one MAX all-reduce of (x, -x)."""
+        if self.mesh is None:
+            return
+        import torch.distributed as dist
+
+        marks = []
+        for x in sharding.tensor_leaves(state):
+            x = x if x.is_floating_point() else x.double()
+            marks += [torch.sum(x, dtype=torch.float64),
+                      torch.linalg.vector_norm(x, dtype=torch.float64)]
+        mark = torch.stack(marks) if marks else torch.zeros(1, dtype=torch.float64,
+                                                           device=self.device)
+        both = torch.cat([mark, -mark])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self._group)
+        hi, neg_lo = both.split(mark.numel())
+        if not torch.equal(hi, -neg_lo):  # lint: disable=RL003 once a fit, after its loop
+            raise RuntimeError(f"the data-parallel ranks {what} different states "
+                               "(a seed, a config or a replica's update differs)")
+
+    def _window(self, rows):
+        """This rank's row window for one (micro)batch, or None."""
+        if rows is None:
+            return None
+        return photonics.RowWindow(rows.start, rows.count, rows.total, self._group)
+
+    def window(self, batch):
+        """The row-window context of this rank's share of ``batch`` (none on
+        one device or for a replicated batch)."""
+        return photonics.row_window(self._window(getattr(batch, "rows", None)))
+
+    def mean_tree(self, tree: dict) -> dict:
+        """A dict of tensors -> their mean over the data group, in place."""
+        sharding.all_reduce_mean(list(tree.values()), self._group, self._world)
+        return tree
+
+    def data_mean(self, out, batch):
+        """((loss, metrics), grads) -> the mean over the data group, in
+        place, where ``batch`` is this rank's share of a split batch;
+        unchanged otherwise (one device, or a replicated batch, whose ranks
+        all computed the same)."""
+        if getattr(batch, "rows", None) is None:
+            return out
+        (loss, metrics), grads = out
+        metrics = {k: v if isinstance(v, torch.Tensor) else torch.tensor(v, device=self.device)
+                   for k, v in metrics.items()}
+        sharding.all_reduce_mean([loss, *metrics.values(), *grads.values()], self._group,
+                                 self._world)
+        return (loss, metrics), grads
+
     # ---------- core step ----------
     def _grads(self, params, fb, batch, rng):
+        """((loss, metrics), grads) of one step's batch: the algorithm's
+        value_and_grad over its microbatches, each in its row window, and
+        under a mesh the mean over the data group."""
+        rows = getattr(batch, "rows", None)
         mb = self.cfg.microbatches
         if mb <= 1:
-            return self._vg(params, fb, batch, rng)
+            with photonics.row_window(self._window(rows)):
+                return self.data_mean(self._vg(params, fb, batch, rng), batch)
         n = next(iter(batch.values())).shape[0]
         if n % mb:
             raise ValueError(f"batch of {n} does not split into {mb} microbatches")
@@ -133,15 +268,16 @@ class Trainer:
         gsum = msum = None
         total = 0.0
         for i, micro in enumerate(parts):
-            (loss, metrics), grads = self._vg(params, fb, micro, prng.fold(rng, i))
+            with photonics.row_window(self._window(rows)):
+                (loss, metrics), grads = self._vg(params, fb, micro, prng.fold(rng, i))
             if gsum is None:
                 gsum, msum = grads, dict(metrics)
             else:
                 gsum = {k: gsum[k] + g for k, g in grads.items()}
                 msum = {k: msum[k] + m for k, m in metrics.items()}
             total = total + loss
-        return ((total / mb, {k: m / mb for k, m in msum.items()}),
-                {k: g / mb for k, g in gsum.items()})
+        return self.data_mean(((total / mb, {k: m / mb for k, m in msum.items()}),
+                               {k: g / mb for k, g in gsum.items()}), batch)
 
     def _train_step(self, state, batch):
         rng = prng.step_key(self.cfg.seed, state["step"], "noise")
@@ -194,8 +330,11 @@ class Trainer:
         return state, metrics
 
     def put(self, batch) -> dict:
-        """A host batch -> tensors on the trainer's device."""
-        return to_device(batch, self.device)
+        """A host batch -> tensors on the trainer's device; under a mesh
+        this rank's rows of it (``dist.sharding.put_batch``)."""
+        if self.mesh is None:
+            return to_device(batch, self.device)
+        return sharding.put_batch(self.mesh, batch, self.device, self.cfg.microbatches)
 
     def step(self, state, batch):
         return self._dispatch(state, self.put(batch))
@@ -214,15 +353,15 @@ class Trainer:
     def restore_or_init(self, seed: int | None = None):
         """(state, first step): the newest snapshot in ``ckpt_dir``, cast
         onto a fresh state, or the fresh state at step 0."""
-        state = self.init_state(seed)
+        state, step = self._init_local(seed), 0
         if self.ckpt is not None:
-            restored, step = self.ckpt.restore(state)
+            restored, saved = self.ckpt.restore(state)
             if restored is not None:
-                return restored, int(step)
-        return state, 0
+                state, step = restored, int(saved)
+        return self._replicate(state), step
 
     def _log(self, step, row):
-        if self.cfg.log_path is None:
+        if self.cfg.log_path is None or not self._chief:
             return
         if self._log_file is None:
             os.makedirs(os.path.dirname(os.path.abspath(self.cfg.log_path)), exist_ok=True)
@@ -267,7 +406,13 @@ class Trainer:
         the ``obs.introspect.AlignmentProbe`` on the step's own (state,
         batch); its row lands in the observer at that step (an in-memory
         observer is made when none is given).
+
+        Under a mesh every rank runs ``fit`` with the same ``data_fn``; only
+        rank 0 prints, logs, saves and feeds ``observer`` (the others run
+        the null observer).
         Returns (state, eval_fn(state)) or (state, last metrics)."""
+        if not self._chief:
+            observer, verbose = None, False
         observer = obs_lib.resolve(observer)
         probe = None
         if self.cfg.probe_every:
@@ -289,7 +434,7 @@ class Trainer:
             for step in range(start, total_steps):
                 batch = feed(step)
                 if timer is not None and timer.examples_per_step is None and batch:
-                    timer.examples_per_step = int(next(iter(batch.values())).shape[0])
+                    timer.examples_per_step = self._examples(batch)
                 if probe is not None and step % self.cfg.probe_every == 0:
                     # diagnostics BEFORE the update: the alignment of the DFA
                     # update this step is about to apply, on its own batch
@@ -320,20 +465,31 @@ class Trainer:
                     if verbose:
                         txt = " ".join(f"{k}={v:.4f}" for k, v in sorted(host.items()))
                         print(f"[step {step + 1}/{total_steps}] {txt}", flush=True)
-                if self.ckpt is not None and (step + 1) % self.cfg.ckpt_every == 0:
+                if (self.ckpt is not None and self._chief
+                        and (step + 1) % self.cfg.ckpt_every == 0):
                     self.ckpt.save(step + 1, state)
         finally:
             # interrupted or not, buffered JSONL rows reach disk
             observer.flush()
-        if self.ckpt is not None:
+        self.check_replicas(state)
+        if self.ckpt is not None and self._chief:
             self.ckpt.save(total_steps, state)
         if eval_fn is not None:
             return state, eval_fn(state)
         return state, metrics
 
+    @staticmethod
+    def _examples(batch) -> int:
+        """Examples of the global batch a (local) batch belongs to."""
+        rows = getattr(batch, "rows", None)
+        n = int(next(iter(batch.values())).shape[0])
+        return n if rows is None else n * rows.total // rows.count
+
     # ---------- eval ----------
     @torch.no_grad()
     def evaluate(self, state, batches) -> dict:
+        """Mean metrics over ``batches``; under a mesh each rank evaluates
+        its rows of each batch and the sums are averaged over the ranks."""
         total = {}
         n = 0
         for batch in batches:
@@ -341,4 +497,7 @@ class Trainer:
             for k, v in metrics.items():
                 total[k] = total.get(k, 0.0) + v  # accumulated on the device
             n += 1
+        if self.mesh is not None and total:
+            total = {k: torch.as_tensor(v, device=self.device).clone() for k, v in total.items()}
+            sharding.all_reduce_mean(list(total.values()), self._group, self._world)
         return {k: v / max(n, 1) for k, v in self.to_host(total).items()}

@@ -2,14 +2,31 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+def local_rank() -> int | None:
+    """This process's index on its host under a launcher (``torchrun`` sets
+    ``LOCAL_RANK``), else None."""
+    value = os.environ.get("LOCAL_RANK")
+    return int(value) if value not in (None, "") else None
 
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Asking for CUDA where there is none raises:
-    an entry point never moves to the CPU on its own."""
+    an entry point never moves to the CPU on its own.
+
+    Under a launcher a rank drives its own card: ``cuda`` without an index
+    resolves to ``cuda:LOCAL_RANK``, made the current device with
+    ``torch.cuda.set_device`` before any CUDA work."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
+    rank = local_rank()
+    if dev.type == "cuda" and dev.index is None and rank is not None:
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
     return dev

@@ -1,0 +1,283 @@
+"""Rank-side scenarios of the port's data-parallel CPU tests.
+
+``spawn(scenario, world, **kw)`` starts ``world`` processes with the
+``spawn`` start method, each joining a gloo process group on localhost,
+runs ``SCENARIOS[scenario](rank, world, **kw)`` in each and returns their
+results by rank; a rank that raises, hangs past ``timeout`` or exits
+nonzero fails the call.  This module imports torch and the port only (no
+JAX): the tests compare what the ranks return with the reference in the
+test process.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import socket
+import traceback
+
+import numpy as np
+import torch
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, scenario, kw, queue):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        queue.put((rank, SCENARIOS[scenario](rank, world, **kw), None))
+    except BaseException:  # reported to the test, then re-raised: the rank exits nonzero
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(scenario: str, world: int, timeout: float = 240.0, **kw) -> list:
+    """Run a scenario on ``world`` gloo ranks -> [result of rank 0, ...]."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, scenario, kw, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in procs:  # drain before joining
+            rank, out, err = queue.get(timeout=timeout)
+            results[rank] = out
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        raise AssertionError("\n".join(errors))
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, f"rank exit codes {codes}"
+    return [results[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# shared by the ranks and the test process
+# ---------------------------------------------------------------------------
+
+
+def session(data_parallel, **kw):
+    from repro_torch import api
+
+    return api.build_session(device="cpu", data_parallel=data_parallel, log_every=10**9, **kw)
+
+
+def load_state(sess, params, fb):
+    """A fresh state of ``sess`` holding the given numpy parameters and
+    feedback."""
+    state = sess.init_state()
+    for k, v in params.items():
+        state["params"][k] = torch.from_numpy(np.array(v))
+    state["fb"] = {k: torch.from_numpy(np.array(v)) for k, v in fb.items()}
+    return state
+
+
+def np_tree(tree) -> dict:
+    return {k: v.detach().float().numpy().copy() for k, v in tree.items()}
+
+
+def grads_of(sess, state, batch, rng=7, window="global"):
+    """((loss, metrics), grads) of one step through the trainer, as numpy.
+    ``window``: "global" (the trainer's own), or under a mesh a rank-local
+    stand-in: "local_scale" (s_a of this rank's rows only) or
+    "local_noise" (this rank's own draw from the key)."""
+    from repro_torch.core import photonics
+    from repro_torch.hardware import drift
+
+    trainer = sess.trainer
+    put = trainer.put(batch)
+    ctx = contextlib.nullcontext()
+    if window != "global":
+        rows = put.rows
+        start, total = (rows.start, rows.total) if window == "local_scale" else (0, rows.count)
+        group = None if window == "local_scale" else trainer._group
+        local = photonics.RowWindow(start, rows.count, total, group)
+        ctx = _forced_window(trainer, local)
+    hw = state.get("hw")
+    hw_ctx = drift.use_state(hw) if hw is not None else contextlib.nullcontext()
+    with ctx, hw_ctx:
+        (loss, metrics), grads = trainer._grads(state["params"], state["fb"], put, rng)
+    return float(loss), {k: float(v) for k, v in metrics.items()}, np_tree(grads)
+
+
+@contextlib.contextmanager
+def _forced_window(trainer, window):
+    """The trainer's windows replaced by ``window`` (a rank that took its
+    scale or its noise from its own rows)."""
+    original = trainer._window
+    trainer._window = lambda rows: None if rows is None else window
+    try:
+        yield
+    finally:
+        trainer._window = original
+
+
+# ---------------------------------------------------------------------------
+# scenarios
+# ---------------------------------------------------------------------------
+
+
+def _mlp(rank, world, params, fb, batch, odd, fit_dir, fit_steps, emu):
+    from repro_torch.bench import report
+    from repro_torch.data import mnist, pipeline
+
+    out = {}
+    for algo in ("dfa", "bp"):
+        s = session(True, arch="mnist_mlp", smoke=True, algo=algo)
+        out[f"ideal_{algo}"] = grads_of(s, load_state(s, params, fb), batch)
+    # fit from the snapshot the test wrote at step 0 (every rank reads it)
+    x, y = mnist.procedural_digits(256, seed=0)
+    pipe = pipeline.ArrayClassification(x[:, :64], y, 32, seed=0)
+    s = session(True, arch="mnist_mlp", smoke=True, ckpt_dir=fit_dir)
+    state, _ = s.fit(pipe.batch, fit_steps, verbose=False)
+    out["fit"] = np_tree(state["params"])
+    # noise on: offchip_bpd through the bank kernel's plain version (input mode)
+    s = session(True, arch="mnist_mlp", smoke=True, hardware="offchip_bpd", backend="cuda")
+    st = load_state(s, params, fb)
+    for window in ("global", "local_scale", "local_noise"):
+        out[f"offchip_{window}"] = grads_of(s, st, batch, window=window)
+    out["rows"] = tuple(s.trainer.put(batch).rows)
+    out["multiplier"] = (report._shard_multiplier(s.mesh, batch),
+                         report._shard_multiplier(s.mesh, odd))
+    out["odd_rows"] = s.trainer.put(odd).rows
+    out["offchip_odd"] = grads_of(s, st, odd)
+    # dfa-fused's step: each block's gradient averaged before its update
+    s = session(True, arch="mnist_mlp", smoke=True, hardware="offchip_bpd", backend="cuda",
+                algo="dfa-fused")
+    st = load_state(s, params, fb)
+    new_p, _, loss = s.fused_step()(st["params"], st["fb"], st["opt"], s.trainer.put(batch), 7)
+    out["fused"] = (float(loss), np_tree(new_p))
+    # microbatches compose as the global batch's
+    s = session(True, arch="mnist_mlp", smoke=True, hardware="offchip_bpd", backend="cuda",
+                microbatches=2)
+    out["micro"] = grads_of(s, load_state(s, params, fb), batch)
+    out["mean"] = _mean_of_rank(s.trainer, rank)
+    out["emu"] = _emu(rank, world, **emu)
+    return out
+
+
+def _mean_of_rank(trainer, rank):
+    """The trainer's mean all-reduce on tensors of two dtypes, in buckets of
+    at most 5 elements (a tensor listed twice is reduced once)."""
+    from repro_torch.dist import sharding
+
+    f = [torch.full((n,), float(rank + n)) for n in (3, 4, 7)]
+    d = torch.full((2,), float(rank), dtype=torch.float64)
+    sharding.all_reduce_mean([*f, d, f[0]], trainer._group, trainer._world, limit=5)
+    return [t.numpy() for t in (*f, d)]
+
+
+def _emu(rank, world, params, fb, batch):
+    out = {}
+    for kernel in ("ref", "cuda"):
+        s = session(True, arch="mnist_mlp", smoke=True, hardware="emu_offchip", backend="emu",
+                    emu_kernel=kernel)
+        st = load_state(s, params, fb)
+        for window in ("global", "local_noise"):
+            out[f"{kernel}_{window}"] = grads_of(s, st, batch, window=window)
+        new, _ = s.step(st, batch)
+        out[f"{kernel}_hw"] = np_tree(new["hw"])
+    return out
+
+
+def _lm(rank, world, params, fb, batch, launcher_args):
+    from repro_torch.launch import train as launch
+
+    out = {}
+    for hardware in ("ideal", "offchip_bpd"):
+        s = session(True, arch="qwen1.5-0.5b", smoke=True, hardware=hardware, backend="cuda")
+        st = load_state(s, params, fb)
+        for window in ("global", "local_noise"):
+            out[f"{hardware}_{window}"] = grads_of(s, st, batch, window=window)
+    out["launcher"] = launch.main(launcher_args)
+    return out
+
+
+def _rule_slice(full, sharding, mesh):
+    """This rank's slice of ``full`` under a ``Sharding``: each split dim
+    cut into the mesh axis's size, this rank's chunk by its coordinate."""
+    index = [slice(None)] * full.ndim
+    for d, entry in enumerate(sharding.spec):
+        if entry is None:
+            continue
+        size = full.shape[d] // mesh.size(mesh.mesh_dim_names.index(entry))
+        c = mesh.get_local_rank(entry)
+        index[d] = slice(c * size, (c + 1) * size)
+    return full[tuple(index)]
+
+
+def _shards_are_the_rules(placed, shardings, params, mesh) -> int:
+    """Raise unless every local shard is its rule's slice -> the count of
+    leaves split on some axis."""
+    split = 0
+    for k, t in placed.items():
+        expect = _rule_slice(torch.from_numpy(params[k]), shardings[k], mesh)
+        if not torch.equal(t.to_local(), expect):
+            raise AssertionError(f"{k}: the local shard is not the rule's slice")
+        split += any(e is not None for e in shardings[k].spec)
+    return split
+
+
+def _elastic_save(rank, world, params, path, data, model):
+    """Place the parameters by PARAM_RULES on a (data, model) mesh and save."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import checkpoint
+
+    mesh = mesh_lib.make_host_mesh(data * model, model_axis=model, device_type="cpu")
+    sh = sharding.make_param_shardings(mesh, {k: torch.from_numpy(v) for k, v in params.items()})
+    placed = {k: distribute_tensor(torch.from_numpy(v), mesh, sh[k].placements,
+                                   src_data_rank=None) for k, v in params.items()}
+    split = _shards_are_the_rules(placed, sh, params, mesh)
+    checkpoint.save(path, {"params": placed}, step=7)
+    return {"split": split}
+
+
+def _elastic_load(rank, world, params, path, batch):
+    """Restore under a mesh of this world's size: each shard the rule's, the
+    logical tensors the saved ones bit for bit, and the smoke model's loss."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import checkpoint
+
+    mesh = mesh_lib.make_host_mesh(world, device_type="cpu")
+    template = {k: torch.zeros(v.shape) for k, v in params.items()}
+    sh = sharding.make_param_shardings(mesh, template)
+    restored, step = checkpoint.load(path, {"params": template}, shardings={"params": sh})
+    placed = restored["params"]
+    split = _shards_are_the_rules(placed, sh, params, mesh)
+    full = {k: t.full_tensor() for k, t in placed.items()}
+    exact = all(torch.equal(full[k], torch.from_numpy(v)) for k, v in params.items())
+    model = configs.get("qwen3-1.7b").make_smoke(device="cpu")
+    model.load_state_dict(full)
+    with torch.no_grad():
+        loss, _ = model.loss(model.param_dict(), {k: torch.from_numpy(v).long()
+                                                  for k, v in batch.items()})
+    return {"step": step, "split": split, "exact": exact, "loss": float(loss)}
+
+
+SCENARIOS = {"mlp": _mlp, "lm": _lm, "elastic_save": _elastic_save,
+             "elastic_load": _elastic_load}
