@@ -201,8 +201,19 @@ sources in the checkout.  Phases:
     all-reduce's ms (gloo staged through host memory, not a multi-card
     rate); the MLP on emu_offchip (gradients within 1e-5, the hardware
     state equal on both ranks); the step-2 snapshot resumed by one process,
-    whose step 3 equals rank 0's within 1e-5.  One ``{"data_parallel":
-    ...}`` line.
+    whose step 3 equals rank 0's within 1e-5.  FSDP (``[fsdp]``, the same
+    spawn): ``launch/dryrun.build_train``'s sharded step on a (1, 1) mesh of
+    the NCCL world of one = the single-device steps bit for bit (losses,
+    parameters and momentum after 2 steps, 25 launches a step); on the two
+    gloo ranks (32 x 64 rows each) every shard the rule's slice of an
+    independent init, step 1's loss and gradients and the parameters after
+    2 steps within 1e-5 of the one-process steps with the noise on, 25
+    launches a rank a step, each rank's resident parameter and momentum
+    bytes, ``step_cost``'s all-gather / reduce-scatter / all-reduce bytes
+    against those the leaves give, each collective's ms; ``DTensor``'s plain
+    ``Replicate`` backward must miss the gradient check; the emu MLP's
+    sharded step within 1e-6 of one process with the hardware state equal.
+    One ``{"data_parallel": ...}`` line.
 
 Every timed full-width training step (``_step_timing``: qwen1.5, Mamba,
 qwen3, minicpm3, qwen2-moe, recurrentgemma, whisper, internvl2) and the
@@ -2401,6 +2412,9 @@ def _dp_world_one(torch, api, pm, seed):
             gc.collect()
             torch.cuda.empty_cache()
             session = _lm_session(api, torch, seed, data_parallel=dp)
+            if dp:
+                check(session.config.dfa == _fsdp_dfa(),
+                      "the sharded step's DFAConfig is not the session's")
             gen = tokens.MarkovTokens(session.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
             batches = [gen.batch(i) for i in range(2)]
             if dp:
@@ -2421,8 +2435,13 @@ def _dp_world_one(torch, api, pm, seed):
                 e1.synchronize()
                 step_ms.append(e0.elapsed_time(e1))
             runs[dp] = {"losses": losses, "launches": pm.launches, "step_ms": step_ms,
-                        "params": {k: v.cpu() for k, v in state["params"].items()}}
+                        "params": {k: v.cpu() for k, v in state["params"].items()},
+                        "mom": {k: v.cpu() for k, v in state["opt"]["mom"].items()}}
             del session, state, metrics
+            if dp:  # the sharded step on the same NCCL world of one
+                gc.collect()
+                torch.cuda.empty_cache()
+                runs["fsdp"] = _fsdp_world_one(torch, pm, seed, batches)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -2442,8 +2461,22 @@ def _dp_world_one(torch, api, pm, seed):
     check(same, "the world-of-one data-parallel steps differ from the single-device steps")
     check(many["launches"] == one["launches"] == 2 * LM_LAUNCHES,
           f"bank launches {many['launches']} / {one['launches']}, expected {2 * LM_LAUNCHES}")
+    fsdp = runs["fsdp"]
+    fsdp_same = fsdp["losses"] == one["losses"] and all(
+        torch.equal(one["params"][k], fsdp["params"][k])
+        and torch.equal(one["mom"][k], fsdp["mom"][k]) for k in one["params"])
+    print(f"[fsdp] world of one over NCCL: build_train's sharded step on a (1, 1) mesh, 2 "
+          f"steps, losses {', '.join(f'{x:.6f}' for x in fsdp['losses'])}, step ms (CUDA "
+          f"events) {', '.join(f'{x:.2f}' for x in fsdp['step_ms'])}, bank launches "
+          f"{fsdp['launches']}; losses, parameters and momentum = the single-device steps' bit "
+          f"for bit: {fsdp_same}")
+    check(fsdp_same, "the world-of-one sharded steps differ from the single-device steps")
+    check(fsdp["launches"] == [LM_LAUNCHES] * 2,
+          f"the sharded step's bank launches {fsdp['launches']}, expected {LM_LAUNCHES} a step")
     return {"bit_for_bit": same, "launches": many["launches"], "losses": many["losses"],
-            "step_ms": many["step_ms"], "one_process_step_ms": one["step_ms"]}
+            "step_ms": many["step_ms"], "one_process_step_ms": one["step_ms"],
+            "fsdp_bit_for_bit": fsdp_same, "fsdp_launches": sum(fsdp["launches"]),
+            "fsdp_step_ms": fsdp["step_ms"]}
 
 
 def _dp_row_base(torch, em):
@@ -2526,7 +2559,10 @@ def _dp_rank_work(rank, world, port, seed, base):
         out = _dp_lm_rank(torch, api, pm, rank, seed, base)
         t1 = time.perf_counter()
         out.update(_dp_emu_rank(torch, api, rank, seed))
-        out["seconds"] = {"lm": t1 - t0, "emu": time.perf_counter() - t1}
+        t2 = time.perf_counter()
+        out.update(_fsdp_lm_rank(torch, api, pm, rank, seed))
+        out.update(_fsdp_emu_rank(torch, api, rank, seed))
+        out["seconds"] = {"lm": t1 - t0, "emu": t2 - t1, "fsdp": time.perf_counter() - t2}
         peer = out.pop("peer")  # rank 1's first projection's noise rows and s_a, to rank 0
         for t in peer:
             dist.broadcast(t, src=1)
@@ -2542,7 +2578,8 @@ def _dp_rank_work(rank, world, port, seed, base):
     else:
         out.update(_dp_resume(torch, api, seed, base, out))
     out["seconds"]["one_process"] = time.perf_counter() - t1
-    for key in ("grads", "local", "params2", "params3", "noise", "emu_grads"):
+    for key in ("grads", "local", "params2", "params3", "noise", "emu_grads", "fsdp_grads",
+                "fsdp_control", "fsdp_params2", "fsdp_emu_params"):
         out.pop(key, None)  # tensors stay in the rank
     return out
 
@@ -2584,7 +2621,7 @@ def _dp_lm_rank(torch, api, pm, rank, seed, base):
     from repro_torch.data import tokens
     from repro_torch.dist import sharding
     from repro_torch.kernels import ops
-    from repro_torch.utils import prng
+    from repro_torch.utils import flop_cost, prng
 
     session = _lm_session(api, torch, seed, data_parallel=True, ckpt_dir=str(base / "lm"))
     trainer = session.trainer
@@ -2672,12 +2709,17 @@ def _dp_lm_rank(torch, api, pm, rank, seed, base):
                grad_launches=grad_launches, profiled=profiled)
     del local
     trainer._step_fn = timed_step
-    try:
-        state3, metrics3 = session.step(state2, gen.batch(DP_STEPS))
+    try:  # step 3 counted by step_cost's collective bytes (its ms include the counting)
+        (state3, metrics3), cost = flop_cost.measure(session.step, state2,
+                                                     gen.batch(DP_STEPS))
     finally:
         trainer._step_fn = step_fn
     trainer.check_replicas(state3)  # rank 1's step 3 is rank 0's
-    out.update(step_ms=steps, reduce=reduces, loss3=metrics3["loss"].item())
+    out.update(step_ms=steps, reduce=reduces, loss3=metrics3["loss"].item(),
+               dp_cost={"counted": dict(cost.coll_bytes_by_kind),
+                        "count": dict(cost.coll_count_by_kind),
+                        "grads": sum(v.numel() * v.element_size()
+                                     for v in state2["params"].values())})
     if rank == 0:
         out["params2"] = {k: v.cpu() for k, v in state2["params"].items()}
     else:
@@ -2706,7 +2748,8 @@ def _dp_emu_session(api, seed, data_parallel):
 
 def _dp_emu_grads(torch, session, batch):
     """-> (loss, gradients, the emu kernel's launches) of one step's
-    gradients at the initial hardware state, and the state after one step."""
+    gradients at the initial hardware state, the hardware state after one
+    step and the parameters after it."""
     from repro_torch.hardware import drift
     from repro_torch.kernels import emu_matmul as em
 
@@ -2719,7 +2762,8 @@ def _dp_emu_grads(torch, session, batch):
     launches = em.launches
     new, _ = session.step(state, batch)
     return (loss.item(), {k: v.cpu() for k, v in grads.items()}, launches,
-            {k: v.cpu().numpy() for k, v in new["hw"].items()})
+            {k: v.cpu().numpy() for k, v in new["hw"].items()},
+            {k: v.cpu() for k, v in new["params"].items()})
 
 
 def _dp_emu_rank(torch, api, rank, seed):
@@ -2727,15 +2771,296 @@ def _dp_emu_rank(torch, api, rank, seed):
     through the emu kernel (2 launches, its counters from the rank's global
     row) and the hardware state after one step."""
     session = _dp_emu_session(api, seed, True)
-    loss, grads, launches, hw = _dp_emu_grads(torch, session, _dp_mlp_batch(seed))
+    loss, grads, launches, hw, _ = _dp_emu_grads(torch, session, _dp_mlp_batch(seed))
     return {"emu_loss": loss, "emu_grads": grads if rank == 0 else None, "emu_hw": hw,
             "emu_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# FSDP: launch/dryrun.build_train's sharded step (ZeRO-3 DTensor state)
+# ---------------------------------------------------------------------------
+
+FSDP_MLP_TOL = 1e-6  # the emu MLP's sharded step against one process
+
+
+def _fsdp_dfa():
+    """The LM sessions' DFAConfig (``_lm_session``): offchip_bpd through the
+    bank kernel."""
+    from repro_torch.algos.dfa import DFAConfig
+    from repro_torch.core import photonics as ph
+
+    return DFAConfig(photonics=ph.preset("offchip_bpd"), backend="cuda")
+
+
+def _fsdp_build(torch, mesh, seed, batch, arch=ARCH, dfa=None):
+    """``build_train``'s step of ``arch`` at full width in f32 on ``mesh``,
+    its parameters and feedback drawn from ``seed`` as a session's, its
+    first batch the host ``batch``."""
+    from repro_torch.launch import dryrun
+
+    host = {k: torch.as_tensor(v) for k, v in batch.items()}
+    return dryrun.build_train(arch, mesh, dfa=dfa or _fsdp_dfa(), dtype=torch.float32,
+                              device=DEVICE, seed=seed, batch=host)
+
+
+def _placed_batch(torch, extra, batch):
+    from repro_torch.dist import sharding
+
+    return sharding.place({k: torch.as_tensor(v) for k, v in batch.items()},
+                          extra["in_shardings"][3])
+
+
+def _fsdp_world_one(torch, pm, seed, batches):
+    """The sharded step on a (1, 1) mesh of the NCCL world of one: 2 steps
+    from the session's seed, with the trainer's noise keys."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import prng
+
+    mesh = mesh_lib.make_host_mesh(1, device_type="cuda")
+    fn, (p, fb, o, _, _), extra = _fsdp_build(torch, mesh, seed, batches[0])
+    losses, launches, step_ms = [], [], []
+    for i, batch in enumerate(batches):
+        placed = _placed_batch(torch, extra, batch)
+        sync(torch)
+        pm.launches = 0
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p, o, loss = fn(p, fb, o, placed, prng.step_key(seed, i, "noise"))
+        e1.record()
+        losses.append(loss.to_local().item())
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        launches.append(pm.launches)
+    out = {"losses": losses, "launches": launches, "step_ms": step_ms,
+           "params": {k: v.to_local().cpu() for k, v in p.items()},
+           "mom": {k: v.to_local().cpu() for k, v in o["mom"].items()}}
+    del fn, p, fb, o, extra
+    return out
+
+
+def _data_shard(full, x):
+    """This rank's piece of the whole tensor ``full`` under the ``DTensor``
+    ``x``'s placement on the data axis (the rule's slice)."""
+    mesh = x.device_mesh
+    i = mesh.mesh_dim_names.index("data")
+    p = x.placements[i]
+    if not p.is_shard():
+        return full
+    return full.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank("data")]
+
+
+def _timed_collectives(torch, dist, log):
+    """Wrap the collectives the sharded step issues (all-gather,
+    reduce-scatter, all-reduce) with CUDA events, appending (kind, ms,
+    operand bytes) to ``log`` -> the function that restores them."""
+    names = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
+             "all_reduce": "all-reduce"}
+    saved = {n: getattr(dist, n) for n in names}
+
+    def wrap(name):
+        fn = saved[name]
+
+        def timed(*args, **kw):
+            operand = args[1] if name != "all_reduce" else args[0]
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            e1.synchronize()
+            log.append((names[name], e0.elapsed_time(e1), operand.numel() * operand.element_size()))
+            return out
+
+        return timed
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+    return restore
+
+
+def _collectives_from_leaves(params, metrics) -> dict:
+    """The collective bytes a rank's sharded dfa step issues, from its
+    placed parameters: each split leaf's shard all-gathered by the forward
+    and a block's again by its recompute, each split leaf's whole gradient
+    reduce-scattered, the replicated leaves' gradients with the metrics
+    mean-all-reduced (the loss is the metrics' "loss": one tensor, reduced
+    once; the MAX of each distinct projection operand, 4 B each, comes on
+    top)."""
+    from repro_torch.dist import sharding
+
+    split = {k for k, x in params.items() if sharding._fsdp_dim(x) is not None}
+    local = {k: x.to_local().numel() * x.element_size() for k, x in params.items()}
+    full = {k: x.numel() * x.element_size() for k, x in params.items()}
+    block = {k for k in params if not k.startswith(("embed.", "head."))}
+    return {"all-gather": sum(local[k] * (2 if k in block else 1) for k in split),
+            "reduce-scatter": sum(full[k] for k in split),
+            "all-reduce": sum(full[k] for k in params if k not in split) + 4 * len(metrics)}
+
+
+def _fsdp_lm_rank(torch, api, pm, rank, seed):
+    """This rank's share of the full-width LM's sharded step on a (2, 1)
+    mesh: its shards against an independent init, step 1's gradients
+    counted by ``step_cost`` (kept whole on rank 0), the update, the
+    control's gradients with DTensor's plain Replicate backward (rank 0's
+    shards), step 2 timed with each collective's ms, and the parameters
+    after 2 steps (whole, rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import flop_cost, prng
+
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_host_mesh(DP_WORLD, device_type="cuda")
+    vocab = configs.get(ARCH).make_model(device="meta").cfg.vocab_size
+    gen = tokens.MarkovTokens(vocab, LM_SEQ, LM_BATCH, seed)
+    fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0))
+    vg, opt = extra["value_and_grad"], extra["trainer"].cfg.optimizer
+    full = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
+    not_rules = [k for k, v in full.named_parameters()
+                 if not torch.equal(p[k].to_local(), _data_shard(v.detach(), p[k]))]
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = [sum(x.to_local().numel() * x.element_size() for x in tree.values())
+                for tree in (p, o["mom"])]
+    released = all(x.is_meta for x in extra["model"].parameters())
+    key0, key1 = prng.step_key(seed, 0, "noise"), prng.step_key(seed, 1, "noise")
+    sync(torch)
+    pm.launches = 0
+    ((loss1, metrics), grads), cost = flop_cost.measure(vg, p, fb, b0, key0)
+    launches = [pm.launches]
+    expect = _collectives_from_leaves(p, metrics)
+    grads1 = {k: sharding.full_tensor(g) for k, g in grads.items()}
+    grads1 = {k: g.cpu() for k, g in grads1.items()} if rank == 0 else None
+    p1, o1, _ = opt.update(grads, o, p)
+    del grads
+    gather = sharding.gather_fsdp
+    sharding.gather_fsdp = _replicate_backward_gather
+    try:
+        (_, _), control = vg(p, fb, b0, key0)
+    finally:
+        sharding.gather_fsdp = gather
+    control = ({k: (g.to_local().cpu(), sharding._fsdp_dim(g)) for k, g in control.items()}
+               if rank == 0 else None)
+    del p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1 = _placed_batch(torch, extra, gen.batch(1))
+    log = []
+    sync(torch)
+    restore = _timed_collectives(torch, dist, log)
+    pm.launches = 0
+    try:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p2, o2, loss2 = fn(p1, fb, o1, b1, key1)
+        e1.record()
+        e1.synchronize()
+    finally:
+        restore()
+    launches.append(pm.launches)
+    params2 = {k: sharding.full_tensor(v) for k, v in p2.items()}
+    params2 = {k: v.cpu() for k, v in params2.items()} if rank == 0 else None
+    out = {"fsdp_loss1": loss1.item(), "fsdp_loss2": loss2.to_local().item(),
+           "fsdp_full_bytes": sum(x.numel() * x.element_size() for x in p2.values()),
+           "fsdp_grads": grads1, "fsdp_control": control, "fsdp_params2": params2,
+           "fsdp_not_rules": not_rules, "fsdp_resident": resident, "fsdp_released": released,
+           "fsdp_launches": launches, "fsdp_step2_ms": e0.elapsed_time(e1),
+           "fsdp_collectives": {k: [(ms, b) for kind, ms, b in log if kind == k]
+                                for k in ("all-gather", "reduce-scatter", "all-reduce")},
+           "fsdp_cost": {"counted": dict(cost.coll_bytes_by_kind),
+                         "count": dict(cost.coll_count_by_kind), "leaves": expect,
+                         "as_dict": cost.as_dict()},
+           "fsdp_transport": f"{dist.get_backend(sharding.batch_group(mesh))} on "
+                             f"{b1['tokens'].to_local().device.type} tensors, in place"}
+    del fn, p1, o1, p2, o2, fb, extra, b0, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fsdp_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _replicate_backward_gather(xs):
+    """The control of ``sharding.gather_fsdp``: the same gather with the
+    backward of DTensor's redistribute to ``Replicate`` (each split leaf's
+    shard takes this rank's chunk of its own gradient, a replicated leaf its
+    own gradient: nothing summed across ranks).  DTensor's redistribute
+    itself runs functional collectives, which crash on gloo with CUDA
+    tensors on the card's torch 2.11 (the CPU tests run it as it is)."""
+    import torch
+    from repro_torch.dist import sharding
+
+    class Gather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, plan, *shards):
+            ctx.plan = plan
+            return tuple(plan.gather(shards))
+
+        @staticmethod
+        def backward(ctx, *grads):
+            plan = ctx.plan
+            mine = [g if d is None else g.chunk(plan.world, dim=d)[plan.index].contiguous()
+                    for g, d in zip(grads, plan.dims)]
+            return (None, *mine)
+
+    if not xs:
+        return []
+    plan = sharding._Plan(xs[0].device_mesh, [sharding._fsdp_dim(x) for x in xs])
+    plan.index = xs[0].device_mesh.get_local_rank("data")
+    return list(Gather.apply(plan, *(x.to_local() for x in xs)))
+
+
+def _fsdp_emu_rank(torch, api, rank, seed):
+    """The paper's MLP at full width on emu_offchip, sharded on a (2, 1)
+    mesh: one step at the session's initial hardware state advanced as the
+    trainer advances it (2 emu launches, the counters from the rank's
+    global row); the loss, the parameters after it (whole, rank 0) and the
+    hardware state."""
+    from repro_torch.dist import sharding
+    from repro_torch.hardware import calibrate, drift
+    from repro_torch.kernels import emu_matmul as em
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import prng
+
+    session = _dp_emu_session(api, seed, True)
+    cfg = session.config
+    hw = session.init_state()["hw"]
+    del session
+    mesh = mesh_lib.make_host_mesh(DP_WORLD, device_type="cuda")
+    fn, args, _ = _fsdp_build(torch, mesh, seed, _dp_mlp_batch(seed), arch="mnist_mlp",
+                              dfa=cfg.dfa)
+    hw = calibrate.advance(hw, cfg.dfa.photonics, 0, prng.step_key(seed, 0, "hardware"),
+                           recalibrate_every=cfg.recalibrate_every)
+    em.launches = 0
+    with drift.use_state(hw):
+        p, _, loss = fn(*args[:4], prng.step_key(seed, 0, "noise"))
+    sync(torch)
+    launches = em.launches
+    params = {k: sharding.full_tensor(v) for k, v in p.items()}
+    return {"fsdp_emu_loss": loss.to_local().item(), "fsdp_emu_launches": launches,
+            "fsdp_emu_params": {k: v.cpu() for k, v in params.items()} if rank == 0 else None,
+            "fsdp_emu_hw": {k: v.cpu().numpy() for k, v in hw.items()}}
 
 
 def _dp_rel(got: dict, expect: dict) -> tuple[float, str]:
     """(max over leaves of max |got - expect| / max |expect|, that leaf)."""
     return max(((got[k].double() - e.double()).abs().max().item()
                 / max(e.abs().max().item(), 1e-30), k) for k, e in expect.items())
+
+
+def _rank0_rel(shards: dict, full: dict) -> tuple[float, str]:
+    """``_dp_rel`` of rank 0's shards ({name: (shard, split dim or None)})
+    against rank 0's piece of each whole tensor."""
+    return _dp_rel({k: g for k, (g, _) in shards.items()},
+                   {k: full[k] if d is None else full[k].chunk(DP_WORLD, dim=d)[0]
+                    for k, (_, d) in shards.items()})
 
 
 def _dp_one_process(torch, api, seed, dp):
@@ -2764,21 +3089,25 @@ def _dp_one_process(torch, api, seed, dp):
     t_local = LM_BATCH // DP_WORLD * LM_SEQ
     noise = cap["noise"]
     out = {"loss1_one": loss1.item(), "grad_err": _dp_rel(dp["grads"], grads),
+           "fsdp_grad_err": _dp_rel(dp["fsdp_grads"], grads),
+           "fsdp_control_err": _rank0_rel(dp["fsdp_control"], grads),
            "noise_rows": [torch.equal(dp["noise"][r], noise[r * t_local:(r + 1) * t_local])
                           for r in range(DP_WORLD)],
            "s_a_one": cap["s_a"].item()}
     del grads
     for i in range(DP_STEPS):  # the fit's steps, from the same initial state
         state, _ = session.step(state, gen.batch(i))
-    out["params2_err"] = _dp_rel({k: v.cpu() for k, v in state["params"].items()},
-                                 dp["params2"])
+    one2 = {k: v.cpu() for k, v in state["params"].items()}
+    out["params2_err"] = _dp_rel(one2, dp["params2"])
+    out["fsdp_params2_err"] = _dp_rel(dp["fsdp_params2"], one2)
+    del one2
     del state, session, trainer
     gc.collect()
     torch.cuda.empty_cache()
-    loss, grads, _, hw = _dp_emu_grads(torch, _dp_emu_session(api, seed, False),
-                                       _dp_mlp_batch(seed))
+    loss, grads, _, hw, params = _dp_emu_grads(torch, _dp_emu_session(api, seed, False),
+                                               _dp_mlp_batch(seed))
     out.update(emu_loss_one=loss, emu_grad_err=_dp_rel(dp["emu_grads"], grads),
-               emu_hw_one=hw)
+               emu_hw_one=hw, fsdp_emu_err=_dp_rel(dp["fsdp_emu_params"], params))
     return out
 
 
@@ -2863,6 +3192,93 @@ def _dp_two_ranks(torch, pm, seed):
     return results[0], results[1], time.perf_counter() - t0
 
 
+def _fsdp_report(np, r0, r1) -> dict:
+    """Print and check the two ranks' sharded steps against one process ->
+    the summary for the ``data_parallel`` line."""
+    ranks = ((0, r0), (1, r1))
+    gb = 1e9
+    print(f"[fsdp] two ranks on one card, build_train's sharded step on a (2, 1) mesh: "
+          f"collectives on {r0['fsdp_transport']}; module parameters released (meta): "
+          f"{r0['fsdp_released']} / {r1['fsdp_released']}; shards = the rule's slices of an "
+          f"independent init: {not r0['fsdp_not_rules']} / {not r1['fsdp_not_rules']}; the "
+          f"ranks' part {r0['fsdp_seconds']:.1f} / {r1['fsdp_seconds']:.1f}s")
+    full = r0["fsdp_full_bytes"]
+    for r, res in ranks:
+        par, mom = res["fsdp_resident"]
+        print(f"[fsdp] rank {r} resident: parameters {par / gb:.4f} GB + momentum "
+              f"{mom / gb:.4f} GB = {(par + mom) / gb:.4f} GB, against the replicated run's 2 x "
+              f"{full / gb:.4f} = {2 * full / gb:.4f} GB ({(par + mom) / (2 * full):.4f} of it); "
+              f"bank launches {res['fsdp_launches']} (step 1's gradients, step 2)")
+    cost = r0["fsdp_cost"]
+    counted, leaves = cost["counted"], cost["leaves"]
+    n_max = (counted.get("all-reduce", 0) - leaves["all-reduce"]) / 4
+    print(f"[fsdp] step_cost of step 1's gradients, rank 0: "
+          + ", ".join(f"{k} {counted.get(k, 0) / gb:.6f} GB in {cost['count'].get(k, 0)} "
+                      f"(from the leaves {leaves[k] / gb:.6f})" for k in leaves)
+          + f"; the all-reduce's rest {n_max:g} x 4 B (the MAX of the one operand every "
+          f"projection reads, the tapped error); "
+          f"collective_bytes {cost['as_dict']['collective_bytes'] / gb:.6f} GB")
+    for r, res in ranks:
+        parts = [f"{kind} {len(v)} x, {sum(ms for ms, _ in v):.2f} ms for "
+                 f"{sum(b for _, b in v) / gb:.4f} GB" for kind, v in res["fsdp_collectives"].items()]
+        print(f"[fsdp] rank {r} step 2: {res['fsdp_step2_ms']:.2f} ms (CUDA events); collectives "
+              f"(gloo, staged by gloo through host memory: not a multi-card rate): "
+              + "; ".join(parts))
+    print(f"[fsdp] step 1: loss {r0['fsdp_loss1']:.6f} (rank 1 {r1['fsdp_loss1']:.6f}) vs one "
+          f"process {r0['loss1_one']:.6f}; gradients max rel {r0['fsdp_grad_err'][0]:.3e} "
+          f"({r0['fsdp_grad_err'][1]}); parameters after 2 steps {r0['fsdp_params2_err'][0]:.3e} "
+          f"({r0['fsdp_params2_err'][1]}); DTensor's plain Replicate backward (control, rank 0's "
+          f"shards) {r0['fsdp_control_err'][0]:.3e} ({r0['fsdp_control_err'][1]})")
+    print(f"[fsdp] gate 1e-5 (of each leaf's max |g|, step 1's gradients): data parallel "
+          f"{r0['grad_err'][0]:.3e} = {r0['grad_err'][0] / DP_TOL:.3f} of it "
+          f"({r0['grad_err'][1]}); FSDP {r0['fsdp_grad_err'][0]:.3e} = "
+          f"{r0['fsdp_grad_err'][0] / DP_TOL:.3f} ({r0['fsdp_grad_err'][1]}); parameters after 2 "
+          f"steps: data parallel {r0['params2_err'][0]:.3e} = {r0['params2_err'][0] / DP_TOL:.3f}, "
+          f"FSDP {r0['fsdp_params2_err'][0]:.3e} = {r0['fsdp_params2_err'][0] / DP_TOL:.3f}")
+    hw_same = all(np.array_equal(r0["fsdp_emu_hw"][k], r1["fsdp_emu_hw"][k])
+                  and np.array_equal(r0["fsdp_emu_hw"][k], r0["emu_hw_one"][k])
+                  for k in r0["fsdp_emu_hw"])
+    print(f"[fsdp] MLP on emu_offchip sharded: loss {r0['fsdp_emu_loss']:.6f} (rank 1 "
+          f"{r1['fsdp_emu_loss']:.6f}) vs one process {r0['emu_loss_one']:.6f}; parameters after "
+          f"the step max rel {r0['fsdp_emu_err'][0]:.3e} ({r0['fsdp_emu_err'][1]}); emu launches "
+          f"{r0['fsdp_emu_launches']} / {r1['fsdp_emu_launches']}; hardware state equal on both "
+          f"ranks and to one process: {hw_same}")
+    for r, res in ranks:
+        check(res["fsdp_released"] and not res["fsdp_not_rules"],
+              f"rank {r}: parameters not released or shards not the rule's "
+              f"{res['fsdp_not_rules'][:3]}")
+        check(sum(res["fsdp_resident"]) < 0.51 * 2 * full,
+              f"rank {r} holds {res['fsdp_resident']} of {full} B: not sharded")
+        check(res["fsdp_launches"] == [LM_LAUNCHES] * 2,
+              f"rank {r}: sharded bank launches {res['fsdp_launches']}")
+        check(res["fsdp_emu_launches"] == 2, f"rank {r}: emu launches {res['fsdp_emu_launches']}")
+    check(r0["fsdp_loss1"] == r1["fsdp_loss1"]
+          and abs(r0["fsdp_loss1"] - r0["loss1_one"]) <= DP_TOL * abs(r0["loss1_one"]),
+          "the sharded step 1's loss differs from one process")
+    check(r0["fsdp_grad_err"][0] <= DP_TOL, f"sharded gradients {r0['fsdp_grad_err']}")
+    check(r0["fsdp_params2_err"][0] <= DP_TOL,
+          f"sharded parameters after 2 steps {r0['fsdp_params2_err']}")
+    check(r0["fsdp_control_err"][0] > DP_LOCAL_MIN,
+          f"the Replicate-backward control passed: {r0['fsdp_control_err']}")
+    check(all(counted.get(k) == leaves[k] for k in ("all-gather", "reduce-scatter"))
+          and n_max == 1,
+          f"step_cost's collectives {counted} against the leaves' {leaves}")
+    check(r0["fsdp_emu_err"][0] <= FSDP_MLP_TOL and r0["fsdp_emu_loss"] == r1["fsdp_emu_loss"]
+          and abs(r0["fsdp_emu_loss"] - r0["emu_loss_one"]) <= FSDP_MLP_TOL
+          * abs(r0["emu_loss_one"]) and hw_same,
+          "the emu MLP's sharded step differs from one process")
+    return {"loss1": r0["fsdp_loss1"], "grad_err": r0["fsdp_grad_err"],
+            "params2_err": r0["fsdp_params2_err"], "control_err": r0["fsdp_control_err"],
+            "emu_err": r0["fsdp_emu_err"], "resident_bytes": [r0["fsdp_resident"],
+                                                             r1["fsdp_resident"]],
+            "replicated_bytes": 2 * full, "collective_bytes": counted,
+            "collective_bytes_from_leaves": leaves,
+            "step2_ms": [r0["fsdp_step2_ms"], r1["fsdp_step2_ms"]],
+            "collective_ms": {k: [sum(ms for ms, _ in res["fsdp_collectives"][k])
+                                  for _, res in ranks] for k in leaves},
+            "bank_launches": sum(r0["fsdp_launches"]), "emu_launches": r0["fsdp_emu_launches"]}
+
+
 def phase_data_parallel(torch, np, api, pm, em, seed, card):
     """Data parallelism on the one card: a world of one NCCL rank equals one
     process bit for bit (qwen1.5-0.5b at full width, 2 dfa steps); the emu
@@ -2887,8 +3303,9 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
         ms = res["step_ms"]
         red = res["reduce"]
         print(f"[dp] rank {r} of {DP_WORLD} on one card (gloo): {DP_STEPS} fit steps at "
-              f"{LM_BATCH // DP_WORLD} x {LM_SEQ} rows, step ms (CUDA events) "
-              f"{', '.join(f'{x:.2f}' for x in ms)}; gradient all-reduce (gloo, staged "
+              f"{LM_BATCH // DP_WORLD} x {LM_SEQ} rows, step ms (CUDA events; the third "
+              f"under step_cost's counting) {', '.join(f'{x:.2f}' for x in ms)}; gradient "
+              f"all-reduce (gloo, staged "
               f"through host memory: not a multi-card rate) "
               f"{', '.join(f'{x:.2f} ms of {b / 1e9:.3f} GB' for x, b in red)}; bank launches "
               f"{res['fit_launches']} in the fit, {res['grad_launches']} in step 3's gradients "
@@ -2920,6 +3337,15 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
           f"{r0['emu_loss']:.6f} vs one process {r0['emu_loss_one']:.6f}, gradients max rel "
           f"{r0['emu_grad_err'][0]:.3e}; hardware state equal on both ranks and to one process: "
           f"{hw_same}; the two-rank run took {wall:.1f}s")
+    dp_cost = r0["dp_cost"]
+    rest = dp_cost["counted"].get("all-reduce", 0) - dp_cost["grads"]
+    print(f"[dp] step_cost of step 3 (rank 0): all-reduce "
+          f"{dp_cost['counted'].get('all-reduce', 0) / 1e9:.6f} GB in "
+          f"{dp_cost['count'].get('all-reduce', 0)} collectives = the gradients' "
+          f"{dp_cost['grads'] / 1e9:.6f} GB + {rest} B (the metrics' f32 scalars and the "
+          f"tapped error's 4 B MAX); kinds {sorted(dp_cost['counted'])}")
+    check(set(dp_cost["counted"]) == {"all-reduce"} and 4 < rest <= 64 and rest % 4 == 0,
+          f"step_cost's data-parallel collectives {dp_cost}")
     check(per_step[0] == per_step[1] == LM_LAUNCHES
           and r0["grad_launches"] == r1["grad_launches"] == LM_LAUNCHES,
           f"bank launches a step {per_step}, expected {LM_LAUNCHES}")
@@ -2942,10 +3368,12 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
           and r1["params3_err"][0] <= DP_TOL, "the resumed step 3 differs from rank 0's")
     check(r0["emu_grad_err"][0] <= DP_TOL and r0["emu_launches"] == r1["emu_launches"] == 2
           and hw_same, "the emu MLP's two-rank step differs from one process")
+    out["fsdp"] = _fsdp_report(np, r0, r1)
     out["two_ranks"] = {k: r0[k] for k in ("loss1", "loss1_one", "grad_err", "params2_err",
                                             "emu_grad_err", "profiled")}
     out["two_ranks"].update({k: r1[k] for k in ("local_err", "params3_err", "loss3_one")})
-    out["two_ranks"].update(step_ms=[r0["step_ms"], r1["step_ms"]],
+    out["two_ranks"].update(collective_bytes=dp_cost["counted"],
+                            step_ms=[r0["step_ms"], r1["step_ms"]],
                             allreduce_ms=[[x for x, _ in r["reduce"]] for r in (r0, r1)],
                             bank_launches=r0["fit_launches"] + r0["grad_launches"],
                             emu_launches=r0["emu_launches"], wall_s=wall)
@@ -5955,7 +6383,7 @@ def main(argv=None):
     print(json.dumps({"internvl2_model": internvl2_summary(internvl2)}))
     print(json.dumps({"schedule": {k: sched[k] for k in ("energy", "tuned", "overlap",
                                                          "serving", "step_ms", "losses")}}))
-    print(json.dumps({"data_parallel": {k: dp[k] for k in ("world1", "two_ranks",
+    print(json.dumps({"data_parallel": {k: dp[k] for k in ("world1", "two_ranks", "fsdp",
                                                             "seconds")}}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
@@ -5978,7 +6406,8 @@ def main(argv=None):
                       + mamba["serve_launches"] + mamba["train_launches"]
                       + sum(dense_bank.values()) + sum(moe_bank.values())
                       + sum(rg_bank.values()) + sum(slice12_bank.values())
-                      + dp["world1"]["launches"] + dp["two_ranks"]["bank_launches"]),
+                      + dp["world1"]["launches"] + dp["two_ranks"]["bank_launches"]
+                      + dp["world1"]["fsdp_launches"] + dp["fsdp"]["bank_launches"]),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
@@ -5986,7 +6415,9 @@ def main(argv=None):
                               "mamba_train": mamba["train_launches"], **dense_bank,
                               **moe_bank, **rg_bank, **slice12_bank,
                               "dp_world1": dp["world1"]["launches"],
-                              "dp_rank0": dp["two_ranks"]["bank_launches"]},
+                              "dp_rank0": dp["two_ranks"]["bank_launches"],
+                              "fsdp_world1": dp["world1"]["fsdp_launches"],
+                              "fsdp_rank0": dp["fsdp"]["bank_launches"]},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
                               if "train" in res), moe["train"]["max_abs_err"],
@@ -6051,7 +6482,8 @@ def main(argv=None):
                       + mamba["emu_serve_launches"] + mamba["emu_train_launches"]
                       + sum(dense_emu.values()) + moe["emu"]["launches"]
                       + rg["emu"]["launches"] + whisper_emu["launches"]
-                      + sum(sched["launches"].values()) + dp["two_ranks"]["emu_launches"]),
+                      + sum(sched["launches"].values()) + dp["two_ranks"]["emu_launches"]
+                      + dp["fsdp"]["emu_launches"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
@@ -6062,7 +6494,8 @@ def main(argv=None):
                               "whisper_emu_train": whisper_emu["launches"],
                               "schedule_train": sched["launches"]["q2"],
                               "schedule_q8": sched["launches"]["q8"],
-                              "dp_rank0": dp["two_ranks"]["emu_launches"]},
+                              "dp_rank0": dp["two_ranks"]["emu_launches"],
+                              "fsdp_rank0": dp["fsdp"]["emu_launches"]},
          "row_base": {"check": "rows [r, T) launched with row_base = r = the plain version "
                                "and rows [r, T) of a row_base = 0 launch, bit for bit, under "
                                "every candidate plan", "shapes": dp["row_base"]},

@@ -36,6 +36,7 @@ import torch
 from repro_torch.algos import base
 from repro_torch.core import feedback as fb_lib
 from repro_torch.core import photonics
+from repro_torch.dist import sharding
 from repro_torch.models.base import subtree
 from repro_torch.utils import prng
 
@@ -186,13 +187,17 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
 
 def _block_grads(spec, params, idx, tape, delta_of, cfg: DFAConfig) -> dict:
     """Gradients of block ``idx``'s parameters with the cotangent
-    ``delta_of(y)`` injected at its output (keyed as in ``params``)."""
+    ``delta_of(y)`` injected at its output (keyed as in ``params``).  The
+    block's recompute reads its parameters through the FSDP gather (the
+    reference's ``unshard_fsdp`` in its per-layer map), so under a mesh the
+    gradients come back to the ``DTensor`` shards through its
+    reduce-scatter."""
     prefix = spec.layer_prefix(idx)
     leaves = {k: v.detach().requires_grad_(not (cfg.freeze_norms
                                                 and _is_norm_path(prefix + k)))
               for k, v in spec.layer_params(params, idx).items()}
     with torch.enable_grad():
-        y, aux = spec.apply(leaves, tape.inputs[idx], tape.extras)
+        y, aux = spec.apply(sharding.unshard_fsdp(leaves), tape.inputs[idx], tape.extras)
         outs, cots = [y], [delta_of(y).to(y.dtype)]
         if aux is not None and aux.requires_grad:
             outs.append(aux)
@@ -295,7 +300,9 @@ def make_fused_train_step(model, cfg: DFAConfig, optimizer, reduce=None):
     (lr, momentum, weight_decay); nesterov and clip_norm are not applied.
     ``reduce`` (data parallelism) maps each block's gradients, the head's,
     the embedding's and the loss to their mean over the data group before
-    they are applied.
+    they are applied.  On sharded (``DTensor``) parameters the gradients
+    reach the shards already reduced (the FSDP gather's backward) and the
+    update runs on each rank's shards.
 
     Returns step(params, fb, opt_state, batch, rng) ->
     (new_params, new_opt_state, loss).
@@ -305,13 +312,13 @@ def make_fused_train_step(model, cfg: DFAConfig, optimizer, reduce=None):
         new_p, new_m = {}, {}
         with torch.no_grad():
             for k, g in grads_t.items():
-                p, m = params_t[k], mom[k]
-                g32 = g.float()
+                p, m = sharding.local(params_t[k]), sharding.local(mom[k])
+                g32 = sharding.local(g).float()
                 if optimizer.weight_decay:
                     g32 = g32 + optimizer.weight_decay * p.float()
                 m_new = optimizer.momentum * m.float() + g32
-                new_p[k] = (p.float() - lr * m_new).to(p.dtype)
-                new_m[k] = m_new.to(m.dtype)
+                new_p[k] = sharding.like(params_t[k], (p.float() - lr * m_new).to(p.dtype))
+                new_m[k] = sharding.like(mom[k], m_new.to(m.dtype))
         return new_p, new_m
 
     def step(params, fb, opt_state, batch, rng):

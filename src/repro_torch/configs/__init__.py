@@ -19,7 +19,7 @@ from repro_torch.configs import (
     recurrentgemma_9b,
     whisper_small,
 )
-from repro_torch.configs.base import Arch
+from repro_torch.configs.base import SHAPES, Arch, ShapeCase, token_specs
 
 _MODULES = [qwen1_5_0_5b, minicpm3_4b, qwen3_1_7b, granite_8b, qwen2_moe_a2_7b, kimi_k2_1t_a32b,
             mamba2_130m, internvl2_2b, recurrentgemma_9b, whisper_small, mnist_mlp]
@@ -40,4 +40,5 @@ def get(name: str) -> Arch:
     return REGISTRY[name]
 
 
-__all__ = ["Arch", "REGISTRY", "ASSIGNED", "get", "list_archs"]
+__all__ = ["Arch", "REGISTRY", "ASSIGNED", "SHAPES", "ShapeCase", "get", "list_archs",
+           "token_specs"]

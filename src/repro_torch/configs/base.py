@@ -2,7 +2,8 @@
 every arch registers an ``Arch`` with a full-size model factory and a
 reduced smoke-test factory, each taking ``(dtype, device)``, and its
 modality extras (``input_extras``: the frontend stubs' inputs as tensors on
-the meta device, the reference's ``ShapeDtypeStruct``s)."""
+the meta device, the reference's ``ShapeDtypeStruct``s), and the dry-run's
+input shapes (``ShapeCase``, ``SHAPES``, ``token_specs``)."""
 
 from __future__ import annotations
 
@@ -26,3 +27,28 @@ class Arch:
         tensors.  kind: train | prefill | decode."""
         del batch, kind, dtype
         return {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCase:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeCase] = {
+    "train_4k": ShapeCase("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCase("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCase("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCase("long_500k", "decode", 524288, 1),
+}
+
+
+def token_specs(batch: int, seq: int) -> dict:
+    """The token inputs of a (batch, seq) case as meta tensors (int64, the
+    port's token dtype; the reference's are int32 shape structs)."""
+    return {
+        "tokens": torch.empty((batch, seq), dtype=torch.int64, device="meta"),
+        "labels": torch.empty((batch, seq), dtype=torch.int64, device="meta"),
+    }

@@ -37,6 +37,7 @@ import torch
 from repro_torch.hardware.mrr import MRRConfig
 from repro_torch.lint.runtime import check_finite
 from repro_torch.utils import prng
+from repro_torch.utils.flop_cost import count_collective
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +248,7 @@ class RowWindow:
                 import torch.distributed as dist
 
                 dist.all_reduce(s, op=dist.ReduceOp.MAX, group=self.group)
+                count_collective("all-reduce", s.numel() * s.element_size())
             # the operand is held until the window closes, so its storage
             # cannot be reused under the same key
             self._scales[key] = (a, s)

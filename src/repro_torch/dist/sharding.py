@@ -23,9 +23,28 @@ splits tensor dim d, ``Replicate()`` on the others.
 
 Single-process contract: without an active mesh ``annotate`` and
 ``unshard_fsdp`` return their argument itself (identity, not a copy), as
-the reference's do.  Under ``use_mesh`` they redistribute a ``DTensor`` to
-the rule's placements.  The models do not call them yet: data-parallel
-training replicates the state and splits the batch (``put_batch``).
+the reference's do.  Data-parallel training replicates the state and
+splits the batch (``put_batch``).
+
+FSDP (ZeRO-3): ``place`` puts a tree's leaves as ``DTensor``s under their
+``Sharding``s (the counterpart of ``jax.device_put(tree, shardings)``), so
+a rank holds its shard of each leaf the rules split over ``data`` and the
+whole of each leaf they leave replicated.  Under ``use_mesh`` the models
+call ``unshard_fsdp`` on one block's parameters at a time (the reference's
+per-layer gathers) and on the embedding's and the head's once a step: each
+split leaf comes back whole, all-gathered over ``data`` in flat buckets of
+one dtype, as a plain local tensor the kernels and ``functional_call``
+take.  The gather's backward is its transpose: a split leaf's gradient
+goes back to its shard as a reduce-scatter over ``data`` (the sum over the
+ranks' rows divided by the batch axes' size, as ``all_reduce_mean``
+divides), and a replicated leaf's takes the mean all-reduce over the batch
+axes.  ``DTensor``'s own backward of a gather to ``Replicate`` would keep
+each rank's gradient of its own rows (it assumes the upstream gradient is
+the same on every rank, which a split batch breaks).  A pod mesh
+reduce-scatters over ``data`` and then all-reduces the shard over
+``pod``.  The collectives run on the group's own transport (gloo takes
+CUDA tensors in its all-gather and reduce-scatter on the card's build) and
+each is counted for ``utils.flop_cost`` by its operand bytes.
 """
 
 from __future__ import annotations
@@ -36,7 +55,8 @@ import typing
 
 import torch
 
-from repro_torch.utils.tree import leaves, path_map
+from repro_torch.utils.flop_cost import count_collective
+from repro_torch.utils.tree import leaves, named_leaves, path_map, tree_map
 
 MODEL = "model"
 FSDP = "data"
@@ -258,6 +278,27 @@ def data_group(mesh):
     return mesh.get_group(FSDP)
 
 
+def batch_group(mesh):
+    """The process group of the batch axes: ``data``, or on a pod mesh the
+    ranks of (pod, data) that share this rank's ``model`` coordinate (made
+    once a mesh, by every rank of the mesh)."""
+    if POD not in mesh.mesh_dim_names:
+        return mesh.get_group(FSDP)
+    group = getattr(mesh, "_repro_batch_group", None)
+    if group is None:
+        import torch.distributed as dist
+
+        grid = mesh.mesh.reshape(-1, mesh.mesh.shape[-1])  # (pod·data, model)
+        me = dist.get_rank()
+        for m in range(grid.shape[1]):
+            ranks = grid[:, m].tolist()
+            made = dist.new_group(ranks)
+            if me in ranks:
+                group = made
+        mesh._repro_batch_group = group
+    return group
+
+
 def data_index(mesh) -> tuple[int, int]:
     """(this rank's index on the batch axes, their size)."""
     sizes = _axis_sizes(mesh)
@@ -268,19 +309,19 @@ def data_index(mesh) -> tuple[int, int]:
 
 
 def _bucket(tensors, limit: int):
-    """Tensors in groups of one dtype and at most ``limit`` elements (a
-    larger tensor alone)."""
+    """The tensors' indices in groups of one dtype and at most ``limit``
+    elements (a larger tensor alone), in order within a group."""
     by_dtype: dict = {}
-    for t in tensors:
-        by_dtype.setdefault(t.dtype, []).append(t)
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
     for group in by_dtype.values():
         bucket, size = [], 0
-        for t in group:
-            if bucket and size + t.numel() > limit:
+        for i in group:
+            if bucket and size + tensors[i].numel() > limit:
                 yield bucket
                 bucket, size = [], 0
-            bucket.append(t)
-            size += t.numel()
+            bucket.append(i)
+            size += tensors[i].numel()
         if bucket:
             yield bucket
 
@@ -293,7 +334,8 @@ def _flat_collective(tensors, op, limit: int = BUCKET_ELEMENTS) -> None:
     buffer, then copy the result back into the tensors (in place; a tensor
     listed twice is taken once)."""
     tensors = list({id(t): t for t in tensors}.values())
-    for bucket in _bucket(tensors, limit):
+    for index in _bucket(tensors, limit):
+        bucket = [tensors[i] for i in index]
         flat = torch.cat([t.reshape(-1) for t in bucket])
         op(flat)
         offset = 0
@@ -311,6 +353,7 @@ def all_reduce_mean(tensors, group, world: int, limit: int = BUCKET_ELEMENTS) ->
 
     def reduce(flat):
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        count_collective("all-reduce", flat.numel() * flat.element_size())
         flat.div_(world)
 
     _flat_collective(tensors, reduce, limit)
@@ -424,25 +467,225 @@ def annotate(x, name: str):
     return _redistribute(x, mesh, spec)
 
 
-def _strip_fsdp(entry):
-    if entry == FSDP:
-        return None
-    if isinstance(entry, tuple):
-        kept = tuple(a for a in entry if a != FSDP)
-        return kept if kept else None
-    return entry
+# ---------------------------------------------------------------------------
+# FSDP: placement, the per-block gather and its transpose
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor) or type(x) in (torch.Tensor, torch.nn.Parameter):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def place_leaf(x: torch.Tensor, sharding: Sharding, dtype=None):
+    """A logical tensor, held whole by every rank -> its ``DTensor`` under
+    ``sharding``: each rank keeps its own shard (``src_data_rank=None``: no
+    collective), on the mesh's device type, in ``dtype`` (default its own)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    local = x.detach().to(device=sharding.mesh.device_type, dtype=dtype or x.dtype)
+    return distribute_tensor(local, sharding.mesh, sharding.placements, src_data_rank=None)
+
+
+def place(tree, shardings):
+    """``jax.device_put(tree, shardings)``: every tensor leaf placed under
+    the ``Sharding`` at its path of ``shardings`` (a tree of the same
+    structure, e.g. from ``make_param_shardings``); other leaves (a step
+    count) as they are."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, shardings[i]) for i, v in enumerate(tree))
+    return place_leaf(tree, shardings) if isinstance(tree, torch.Tensor) else tree
+
+
+def local(x):
+    """A ``DTensor``'s shard on this rank; anything else itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def like(ref, x: torch.Tensor):
+    """``x``, this rank's shard, as a ``DTensor`` with ``ref``'s mesh and
+    placements (``x`` itself where ``ref`` is not a ``DTensor``)."""
+    if not is_dtensor(ref):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
+
+
+def to_local(tree):
+    """Every ``DTensor`` leaf of ``tree`` as its local shard."""
+    return tree_map(local, tree)
+
+
+def full_tensor(x):
+    """A ``DTensor``'s whole (logical) tensor on every rank, as a plain
+    tensor: its local shard all-gathered over each mesh dim that splits it,
+    the innermost first (anything else comes back as it is).  Every rank
+    calls it.  ``DTensor.full_tensor`` does the same through functional
+    collectives, which crash (SIGSEGV) on gloo with CUDA tensors on the
+    card's torch 2.11; ``dist.all_gather_into_tensor`` runs there."""
+    if not is_dtensor(x):
+        return x
+    import torch.distributed as dist
+
+    mesh, out = x.device_mesh, x.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p = x.placements[i]
+        if not p.is_shard():
+            continue
+        n = mesh.size(i)
+        flat = out.contiguous().reshape(-1)
+        whole = flat.new_empty(n * flat.numel())
+        dist.all_gather_into_tensor(whole, flat, group=mesh.get_group(i))
+        count_collective("all-gather", flat.numel() * flat.element_size())
+        out = _join(whole.view(n, *out.shape), p.dim)
+    return out
+
+
+def _join(pieces: torch.Tensor, d: int) -> torch.Tensor:
+    """(n, *shard) pieces -> the whole tensor, the pieces in order along
+    dim d (the layout of ``Shard(d)`` over n ranks)."""
+    shape = list(pieces.shape[1:])
+    shape[d] *= pieces.shape[0]
+    return pieces.movedim(0, d).reshape(shape)
+
+
+def _pieces(whole: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    """The inverse of ``_join``: a whole tensor -> (n, shard numel), rank
+    r's piece of dim d in row r."""
+    shape = (*whole.shape[:d], n, whole.shape[d] // n, *whole.shape[d + 1:])
+    return whole.reshape(shape).movedim(d, 0).reshape(n, -1)
+
+
+def local_batch(mesh, batch) -> LocalBatch:
+    """A batch placed by ``make_batch_shardings`` -> this rank's rows, as
+    ``put_batch`` gives them (``rows`` None where the batch is
+    replicated)."""
+    n = {v.shape[0] for v in batch.values()}
+    split = len(n) == 1 and all(
+        is_dtensor(v) and any(getattr(p, "dim", None) == 0 for p in v.placements)
+        for v in batch.values())
+    out = LocalBatch({k: local(v) for k, v in batch.items()})
+    out.rows = batch_rows(mesh, n.pop()) if split else None
+    return out
+
+
+def _fsdp_dim(x) -> int | None:
+    """The tensor dim a ``DTensor`` splits over ``data``, or None."""
+    p = x.placements[x.device_mesh.mesh_dim_names.index(FSDP)]
+    return p.dim if p.is_shard() else None
+
+
+class _Plan:
+    """How one gather's leaves sit on the mesh: each leaf's dim split over
+    ``data`` (None: replicated there), the data group and its size, and
+    the batch axes' group and size."""
+
+    def __init__(self, mesh, dims: list, limit: int = BUCKET_ELEMENTS):
+        self.dims = dims
+        self.limit = limit
+        self.group = mesh.get_group(FSDP)
+        self.world = mesh.size(mesh.mesh_dim_names.index(FSDP))
+        self.pod = mesh.get_group(POD) if POD in mesh.mesh_dim_names else None
+        self.batch_group = batch_group(mesh)
+        self.batch_world = data_index(mesh)[1]
+
+    def _split(self):
+        return [i for i, d in enumerate(self.dims) if d is not None]
+
+    def gather(self, shards) -> list:
+        """All-gather every split leaf over ``data`` (one flat buffer a
+        bucket); a replicated leaf is its shard."""
+        import torch.distributed as dist
+
+        out = list(shards)
+        split = self._split()
+        for index in _bucket([shards[i] for i in split], self.limit):
+            index = [split[i] for i in index]
+            flat = torch.cat([shards[i].reshape(-1) for i in index])
+            full = flat.new_empty(self.world * flat.numel())
+            dist.all_gather_into_tensor(full, flat, group=self.group)
+            count_collective("all-gather", flat.numel() * flat.element_size())
+            full = full.view(self.world, -1)
+            offset = 0
+            for i in index:
+                n = shards[i].numel()
+                part = full[:, offset: offset + n].reshape(self.world, *shards[i].shape)
+                out[i] = _join(part, self.dims[i])
+                offset += n
+        return out
+
+    def reduce(self, grads) -> list:
+        """The gather's transpose: each split leaf's full-size gradient
+        reduce-scattered to its shard over ``data`` (then all-reduced over
+        ``pod``), a replicated leaf's mean all-reduced over the batch axes;
+        both divided by the batch axes' size."""
+        import torch.distributed as dist
+
+        split = self._split()
+        # the replicated leaves' gradients are reduced in place: copies
+        out = [g if d is not None else g.clone() for g, d in zip(grads, self.dims)]
+        for index in _bucket([grads[i] for i in split], self.limit):
+            index = [split[i] for i in index]
+            rows = [_pieces(grads[i], self.dims[i], self.world) for i in index]
+            flat = torch.cat(rows, dim=1).reshape(-1)
+            mine = flat.new_empty(flat.numel() // self.world)
+            dist.reduce_scatter_tensor(mine, flat, op=dist.ReduceOp.SUM, group=self.group)
+            count_collective("reduce-scatter", flat.numel() * flat.element_size())
+            if self.pod is not None:
+                dist.all_reduce(mine, op=dist.ReduceOp.SUM, group=self.pod)
+                count_collective("all-reduce", mine.numel() * mine.element_size())
+            mine.div_(self.batch_world)
+            offset = 0
+            for i, row in zip(index, rows):
+                d, n = self.dims[i], row.shape[1]
+                shape = list(grads[i].shape)
+                shape[d] //= self.world
+                out[i] = mine[offset: offset + n].view(shape)
+                offset += n
+        replicated = [g for g, d in zip(out, self.dims) if d is None]
+        if replicated:
+            all_reduce_mean(replicated, self.batch_group, self.batch_world, self.limit)
+        return out
+
+
+class _Gather(torch.autograd.Function):
+    """Plain shards -> plain whole tensors (``_Plan.gather``); backward
+    ``_Plan.reduce``."""
+
+    @staticmethod
+    def forward(ctx, plan, *shards):
+        ctx.plan = plan
+        return tuple(plan.gather(shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.plan.reduce(grads))
+
+
+def gather_fsdp(xs: list) -> list:
+    """ZeRO-3 gather of ``DTensor`` leaves of one mesh -> plain local
+    tensors, each with its ``data`` split undone (a leaf split over
+    ``model`` stays split).  Differentiable: the gradient of each result
+    reaches its ``DTensor`` leaf as ``_Plan.reduce`` gives it, with the
+    leaf's placements."""
+    if not xs:
+        return []
+    plan = _Plan(xs[0].device_mesh, [_fsdp_dim(x) for x in xs])
+    return list(_Gather.apply(plan, *(x.to_local() for x in xs)))
 
 
 def unshard_fsdp(tree):
-    """ZeRO-3 gather: each ``DTensor`` leaf redistributed to its rule's
-    placements with the FSDP axis removed (replicated over data, still
-    split over model).  Identity without a mesh."""
-    mesh = current_mesh()
-    if mesh is None:
+    """ZeRO-3 gather of a tree's ``DTensor`` leaves (``gather_fsdp``, one
+    call: one flat all-gather a dtype bucket) -> the same tree of plain
+    tensors, its other leaves as they are.  Identity without a mesh."""
+    if current_mesh() is None:
         return tree
-
-    def gather(path, x):
-        spec = P(*(_strip_fsdp(e) for e in _oriented(path, x.ndim, PARAM_RULES)))
-        return _redistribute(x, mesh, _divisible(spec, x.shape, mesh))
-
-    return path_map(gather, tree)
+    gathered = iter(gather_fsdp([x for _, x in named_leaves(tree) if is_dtensor(x)]))
+    return tree_map(lambda x: next(gathered) if is_dtensor(x) else x, tree)

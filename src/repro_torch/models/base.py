@@ -15,6 +15,14 @@ runs the module on it through ``torch.func.functional_call``.  The trainer
 carries that dict as its state, so a step is a function of (params,
 feedback, optimizer state, batch, step), as in the reference.
 
+Under a sharded step (``launch/dryrun.build_train``) ``params`` holds
+``DTensor``s and the model reads them through the FSDP gather
+(``dist.sharding.unshard_fsdp``): one block's parameters at a time
+(``SegmentSpec.gathered_params``, the reference's per-layer gathers) and
+the embedding's and the head's once each where they are read
+(``gathered``); outside a mesh both hand back the dict as it is.  The
+module's own parameters are then dropped (``release_parameters``).
+
 The forward pass (``run_segments``) saves each block's input — the only
 activation state DFA needs.  The head is split into ``head_logits``
 (parameterised) and ``loss_from_logits`` (pure), so the engine can tap the
@@ -29,6 +37,7 @@ import typing
 
 import torch
 
+from repro_torch.dist.sharding import unshard_fsdp
 from repro_torch.nn.module import Module
 
 
@@ -61,6 +70,13 @@ def subtree(params: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
 
 
+def gathered(params: dict, prefix: str) -> dict:
+    """``subtree(params, prefix)`` through the FSDP gather: its ``DTensor``
+    leaves whole, as plain tensors, under a mesh (the embedding and the
+    head, read once a step); the subtree itself otherwise."""
+    return unshard_fsdp(subtree(params, prefix))
+
+
 @dataclasses.dataclass(frozen=True)
 class SegmentSpec:
     """Static description of one stack of homogeneous blocks."""
@@ -87,6 +103,11 @@ class SegmentSpec:
     def layer_params(self, params: dict, idx: int) -> dict:
         return subtree(params, self.layer_prefix(idx))
 
+    def gathered_params(self, params: dict, idx: int) -> dict:
+        """Layer ``idx``'s parameters through the FSDP gather (one block's
+        all-gather under a mesh; the dict itself otherwise)."""
+        return unshard_fsdp(self.layer_params(params, idx))
+
 
 @dataclasses.dataclass(frozen=True)
 class SavedSegment:
@@ -108,9 +129,12 @@ class DFAModel(Module):
     def d_tap(self) -> int:
         raise NotImplementedError
 
+    # the device the parameters lived on before ``release_parameters``
+    _home: torch.device | None = None
+
     @property
     def device(self) -> torch.device:
-        return next(self.parameters()).device
+        return self._home or next(self.parameters()).device
 
     def segment_specs(self) -> tuple[SegmentSpec, ...]:
         raise NotImplementedError
@@ -119,6 +143,13 @@ class DFAModel(Module):
         """A detached copy of the module's parameters: the trainer's
         ``params``."""
         return {k: v.detach().clone() for k, v in self.named_parameters()}
+
+    def release_parameters(self) -> None:
+        """Drop the module's own parameter storage (moved to the meta
+        device) once a sharded state holds the parameters: the training
+        methods read ``params`` only.  ``device`` stays where they were."""
+        self._home = self.device
+        self.to("meta")
 
     # --- forward parts ---
     def embed(self, params, batch):

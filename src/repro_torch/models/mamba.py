@@ -27,7 +27,7 @@ from torch.func import functional_call
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
-                                     cross_entropy_loss, subtree)
+                                     cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import Module
@@ -96,7 +96,7 @@ class MambaLM(DFAModel, ServingModel):
 
     @property
     def device(self) -> torch.device:
-        return self.head["out"].weight.device
+        return self._home or self.head["out"].weight.device
 
     def _tokens(self, token_ids):
         """The token embedding with the module's own table (the method
@@ -127,7 +127,7 @@ class MambaLM(DFAModel, ServingModel):
                             stacked=True),)
 
     def embed(self, params, batch):
-        return params["embed.tok.table"][batch["tokens"]]
+        return gathered(params, "embed.")["tok.table"][batch["tokens"]]
 
     def run_segments(self, params, x0):
         """Every block's input (L, B, S, d) on the tape."""
@@ -136,15 +136,16 @@ class MambaLM(DFAModel, ServingModel):
         x = x0
         for i in photonics.scanned_layers(range(spec.n_layers)):
             inputs[i] = x
-            x, _ = spec.apply(spec.layer_params(params, i), x, None)
+            x, _ = spec.apply(spec.gathered_params(params, i), x, None)
         saved = {"blocks": SavedSegment(inputs=inputs)}
         return x, saved, {"blocks": torch.zeros((), device=x0.device)}
 
     def head_logits(self, params, x_final, batch):
         """The digital unembedding ``h @ Wᵀ``, as the reference's."""
         del batch
-        h = functional_call(self.head["norm"], subtree(params, "head.norm."), (x_final,))
-        return self._mask_pad(h @ params["head.out.weight"].T)
+        p = gathered(params, "head.")
+        h = functional_call(self.head["norm"], subtree(p, "norm."), (x_final,))
+        return self._mask_pad(h @ p["out.weight"].T)
 
     def loss_from_logits(self, logits, batch):
         return cross_entropy_loss(logits, batch["labels"], mask=batch.get("mask"))

@@ -14,7 +14,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec,
-                                     cross_entropy_loss, subtree)
+                                     cross_entropy_loss, gathered)
 from repro_torch.nn.linear import DenseBlock, Linear
 from repro_torch.utils.device import resolve_device
 
@@ -72,12 +72,12 @@ class MLPClassifier(DFAModel):
         saved = {}
         for spec in self.segment_specs():
             saved[spec.name] = SavedSegment(inputs=x[None])
-            x, _ = spec.apply(spec.layer_params(params, 0), x, None)
+            x, _ = spec.apply(spec.gathered_params(params, 0), x, None)
         return x, saved, {}
 
     def head_logits(self, params, x_final, batch):
         del batch
-        return functional_call(self.head, subtree(params, "head."), (x_final,))
+        return functional_call(self.head, gathered(params, "head."), (x_final,))
 
     def loss_from_logits(self, logits, batch):
         return cross_entropy_loss(logits, batch["y"])

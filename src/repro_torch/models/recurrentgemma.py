@@ -34,7 +34,7 @@ from torch.func import functional_call
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
-                                     cross_entropy_loss, subtree)
+                                     cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.linear import GatedMLP, Linear
@@ -141,7 +141,7 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
 
     @property
     def device(self) -> torch.device:
-        return self.head["out"].weight.device
+        return self._home or self.head["out"].weight.device
 
     @property
     def segments(self) -> tuple[str, ...]:
@@ -173,7 +173,7 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
         return tuple(spec(n) for n in self.segments)
 
     def embed(self, params, batch):
-        return params["embed.tok.table"][batch["tokens"]]
+        return gathered(params, "embed.")["tok.table"][batch["tokens"]]
 
     def run_segments(self, params, x0):
         """Every layer's input (n, B, S, d) on its segment's tape, with the
@@ -189,7 +189,7 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
             for i in photonics.scanned_layers(range(count)):
                 for n in names:
                     inputs[n][i] = x
-                    x, _ = specs[n].apply(specs[n].layer_params(params, i), x, positions)
+                    x, _ = specs[n].apply(specs[n].gathered_params(params, i), x, positions)
 
         run(GROUP, self.cfg.n_groups)
         if self.cfg.n_tail:
@@ -200,8 +200,9 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
     def head_logits(self, params, x_final, batch):
         """The digital unembedding ``h @ Wᵀ``, as the reference's."""
         del batch
-        h = functional_call(self.head["norm"], subtree(params, "head.norm."), (x_final,))
-        return h @ params["head.out.weight"].T
+        p = gathered(params, "head.")
+        h = functional_call(self.head["norm"], subtree(p, "norm."), (x_final,))
+        return h @ p["out.weight"].T
 
     def loss_from_logits(self, logits, batch):
         return cross_entropy_loss(logits, batch["labels"], mask=batch.get("mask"))

@@ -34,7 +34,7 @@ from torch.func import functional_call
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
-                                     cross_entropy_loss, subtree)
+                                     cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.attention import Attention, MLAttention
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.frontends import VisionFrontendStub
@@ -187,7 +187,7 @@ class TransformerLM(DFAModel, ServingModel):
 
     @property
     def device(self) -> torch.device:
-        return self.head["out"].weight.device
+        return self._home or self.head["out"].weight.device
 
     def forward(self, tokens):
         """Full causal forward: tokens (B, S) -> logits (B, S, V)."""
@@ -219,11 +219,12 @@ class TransformerLM(DFAModel, ServingModel):
                             stacked=True),)
 
     def embed(self, params, batch):
-        tok = params["embed.tok.table"][batch["tokens"]]
+        p = gathered(params, "embed.")
+        tok = p["tok.table"][batch["tokens"]]
         if self.cfg.vision is None or "patch_embeds" not in batch:
             return tok
         # the vision prefix is optional: text-only batches are valid
-        pre = functional_call(self._modules["embed"]["vision"], subtree(params, "embed.vision."),
+        pre = functional_call(self._modules["embed"]["vision"], subtree(p, "vision."),
                               (batch["patch_embeds"],))
         return torch.cat([pre.to(tok.dtype), tok], dim=1)
 
@@ -238,7 +239,7 @@ class TransformerLM(DFAModel, ServingModel):
         x, aux_total = x0, torch.zeros((), device=x0.device)
         for i in range(spec.n_layers):
             inputs[i] = x
-            x, aux = spec.apply(spec.layer_params(params, i), x, positions)
+            x, aux = spec.apply(spec.gathered_params(params, i), x, positions)
             if aux is not None:
                 aux_total = aux_total + aux
         saved = {"blocks": SavedSegment(inputs=inputs, extras=positions)}
@@ -246,8 +247,9 @@ class TransformerLM(DFAModel, ServingModel):
 
     def head_logits(self, params, x_final, batch):
         del batch
-        h = functional_call(self.head["norm"], subtree(params, "head.norm."), (x_final,))
-        return self._head(h, params["head.out.weight"])
+        p = gathered(params, "head.")
+        h = functional_call(self.head["norm"], subtree(p, "norm."), (x_final,))
+        return self._head(h, p["out.weight"])
 
     def loss_from_logits(self, logits, batch):
         if self.cfg.vision is not None:

@@ -33,7 +33,7 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, cross_entropy_loss,
-                                     subtree)
+                                     gathered, subtree)
 from repro_torch.nn import initializers
 from repro_torch.nn.attention import Attention, CrossAttention
 from repro_torch.nn.embeddings import Embedding
@@ -158,7 +158,7 @@ class WhisperModel(DFAModel):
 
     @property
     def device(self) -> torch.device:
-        return self.head["out"].weight.device
+        return self._home or self.head["out"].weight.device
 
     def _embed(self) -> _Embed:
         """The embedding module (the method ``embed`` is the DFA hook)."""
@@ -189,10 +189,11 @@ class WhisperModel(DFAModel):
 
     def embed(self, params, batch):
         c = self.cfg
-        enc0 = functional_call(self._embed().audio, subtree(params, "embed.audio."),
+        p = gathered(params, "embed.")
+        enc0 = functional_call(self._embed().audio, subtree(p, "audio."),
                                (batch["frames"].to(c.dtype),))
-        tok = params["embed.tok.table"][batch["tokens"]]
-        s, pos = tok.shape[1], params["embed.pos"]
+        tok = p["tok.table"][batch["tokens"]]
+        s, pos = tok.shape[1], p["pos"]
         if s > c.max_target:  # shapes past whisper's real context: tile, as the reference
             pos = pos.repeat(-(-s // c.max_target), 1)
         return {"enc": enc0, "dec": tok + pos[:s]}
@@ -215,7 +216,7 @@ class WhisperModel(DFAModel):
             inputs = x.new_empty((spec.n_layers, *x.shape))
             for i in photonics.scanned_layers(range(spec.n_layers)):
                 inputs[i] = x
-                x, _ = spec.apply(spec.layer_params(params, i), x, extras)
+                x, _ = spec.apply(spec.gathered_params(params, i), x, extras)
             return x, inputs
 
         enc_final, enc_inputs = run(enc, x0["enc"], None)
@@ -236,8 +237,9 @@ class WhisperModel(DFAModel):
 
     def head_logits(self, params, x_final, batch):
         del batch
-        h = functional_call(self.head["ln"], subtree(params, "head.ln."), (x_final,))
-        return self._logits(h, params["head.out.weight"])
+        p = gathered(params, "head.")
+        h = functional_call(self.head["ln"], subtree(p, "ln."), (x_final,))
+        return self._logits(h, p["out.weight"])
 
     def loss_from_logits(self, logits, batch):
         return cross_entropy_loss(logits, batch["labels"], mask=batch.get("mask"))

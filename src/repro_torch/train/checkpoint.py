@@ -32,6 +32,8 @@ import re
 
 import torch
 
+from repro_torch.dist.sharding import Sharding, full_tensor, is_dtensor, place_leaf
+
 VERSION = 1
 
 
@@ -48,17 +50,9 @@ def _flatten(tree, prefix: str = "", out: dict | None = None) -> dict:
     return out
 
 
-def _is_dtensor(x) -> bool:
-    if not isinstance(x, torch.Tensor) or type(x) in (torch.Tensor, torch.nn.Parameter):
-        return False
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
-
-
 def _to_host(x):
-    if _is_dtensor(x):
-        x = x.full_tensor()  # a collective: every rank gathers the logical tensor
+    if is_dtensor(x):
+        x = full_tensor(x)  # a collective: every rank gathers the logical tensor
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return x
@@ -69,7 +63,7 @@ def save(path: str, tree, step: int | None = None):
     rank calls it: each leaf is gathered, rank 0 writes, and no rank
     returns before the file is in place."""
     flat = _flatten(tree)
-    sharded = any(_is_dtensor(v) for v in flat.values())
+    sharded = any(is_dtensor(v) for v in flat.values())
     payload = {"version": VERSION, "step": -1 if step is None else int(step),
                "leaves": {k: _to_host(v) for k, v in flat.items()}}
     if sharded:
@@ -98,13 +92,8 @@ def _restore_leaf(saved, like, sharding=None):
             raise ValueError(f"checkpoint leaf {getattr(saved, 'shape', saved)} does not fit "
                              f"the template's {tuple(like.shape)}")
         if sharding is not None:
-            from torch.distributed.tensor import distribute_tensor
-
             # the logical tensor is read on every rank: each keeps its shard
-            # (src_data_rank=None: no collective)
-            local = saved.to(device=sharding.mesh.device_type, dtype=like.dtype)
-            return distribute_tensor(local, sharding.mesh, sharding.placements,
-                                     src_data_rank=None)
+            return place_leaf(saved, sharding, like.dtype)
         return saved.to(device=like.device, dtype=like.dtype)
     return type(like)(saved) if isinstance(like, (int, float)) else saved
 
@@ -138,8 +127,6 @@ def load(path: str, template=None, shardings=None):
 def _flatten_shardings(shardings) -> dict:
     """A tree of ``Sharding``s (NamedTuples, not tuples of leaves) -> the
     names ``_flatten`` gives the template's leaves."""
-    from repro_torch.dist.sharding import Sharding
-
     out = {}
 
     def visit(node, prefix):

@@ -6,6 +6,12 @@ returns new parameter and state dicts (flat dicts of tensors keyed alike)
 and leaves its inputs as they were.  Both take global gradient-norm
 clipping and a schedule (a callable ``lr(step)``).  The step count is a
 Python int: the port runs eagerly, so it never needs to live on the device.
+
+On sharded state (``DTensor`` parameters, gradients and momentum, as
+``launch/dryrun.build_train`` places them) SGDM updates each rank's own
+shards, elementwise as on whole tensors, and the new state carries the
+placements of the old.  Global-norm clipping needs the norm over every
+shard and is not run there (it raises).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import typing
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor, like, local
 from repro_torch.utils.tree import global_norm
 
 
@@ -23,6 +30,9 @@ def _lr_at(lr, step: int):
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):
+    if any(is_dtensor(g) for g in grads.values()):
+        raise NotImplementedError("global-norm clipping of sharded gradients: the norm spans "
+                                  "every rank's shards")
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / norm.clamp_min(1e-12), max=1.0)
     return {k: g * scale for k, g in grads.items()}, norm
@@ -50,8 +60,9 @@ class SGDM:
         if self.clip_norm is not None:
             grads, norm = clip_by_global_norm(grads, self.clip_norm)
         new_params, new_mom = {}, {}
-        for k, p in params.items():
-            g32, m = grads[k].float(), state["mom"][k]
+        for k, param in params.items():
+            p, m = local(param), local(state["mom"][k])
+            g32 = local(grads[k]).float()
             if self.weight_decay:
                 g32 = g32 + self.weight_decay * p.float()
             # momentum·m + g and p − lr·d, rounded step by step as written,
@@ -60,8 +71,8 @@ class SGDM:
             m_new = m.float().mul(self.momentum).add_(g32)
             d = (g32 + self.momentum * m_new) if self.nesterov else m_new
             new_p = torch.mul(d, lr)
-            new_params[k] = torch.sub(p.float(), new_p, out=new_p).to(p.dtype)
-            new_mom[k] = m_new.to(m.dtype)
+            new_params[k] = like(param, torch.sub(p.float(), new_p, out=new_p).to(p.dtype))
+            new_mom[k] = like(state["mom"][k], m_new.to(m.dtype))
         info = {"lr": lr}
         if norm is not None:
             info["grad_norm"] = norm

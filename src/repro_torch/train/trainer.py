@@ -57,6 +57,13 @@ one autograd backward over the module, so its reducer never sees them.
 Only rank 0 writes the CSV log, the observer's sink and the checkpoints;
 every rank reads the newest snapshot on resume, and ``fit`` checks at its
 end that the ranks' states still agree (the emu ``hw`` state included).
+
+A trainer made with a ``mesh`` (``launch/dryrun.build_train``'s sharded
+step, on a (data, model) or (pod, data, model) mesh) takes that mesh's
+batch axes as its data group and leaves the state as its caller placed it:
+``_grads`` runs each (micro)batch in its row window as above, and the mean
+all-reduce skips ``DTensor`` gradients, which the FSDP gather's backward
+has already reduced to their shards.
 """
 
 from __future__ import annotations
@@ -136,7 +143,7 @@ def _resolve_data_parallel(flag) -> bool:
 
 
 class Trainer:
-    def __init__(self, model, cfg: TrainerConfig, device=None):
+    def __init__(self, model, cfg: TrainerConfig, device=None, mesh=None):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model lies on {model.device}, the trainer runs on "
@@ -147,16 +154,17 @@ class Trainer:
         self._vg = self.algorithm.value_and_grad(model, cfg.dfa)
         # only backends that consume device state carry a "hw" state
         self._hw_stateful = photonics.get_backend(cfg.dfa.backend).stateful_hardware
-        self.mesh = None
+        self.mesh = mesh
         self._group, self._world, self._chief = None, 1, True
-        if _resolve_data_parallel(cfg.data_parallel):
-            import torch.distributed as dist
-
+        if mesh is None and _resolve_data_parallel(cfg.data_parallel):
             from repro_torch.launch import mesh as mesh_lib
 
             mesh_lib.init_process_group(self.device.type)
             self.mesh = mesh_lib.make_data_mesh(device_type=self.device.type)
-            self._group = sharding.data_group(self.mesh)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            self._group = sharding.batch_group(self.mesh)
             self._world = sharding.data_index(self.mesh)[1]
             self._chief = dist.get_rank() == 0
         self._step_fn = (lint_runtime.checked(self._train_step, "Trainer.step")
@@ -232,22 +240,25 @@ class Trainer:
         return photonics.row_window(self._window(getattr(batch, "rows", None)))
 
     def mean_tree(self, tree: dict) -> dict:
-        """A dict of tensors -> their mean over the data group, in place."""
-        sharding.all_reduce_mean(list(tree.values()), self._group, self._world)
+        """A dict of tensors -> their mean over the data group, in place
+        (``DTensor`` gradients come reduced from the FSDP gather)."""
+        sharding.all_reduce_mean([v for v in tree.values() if not sharding.is_dtensor(v)],
+                                 self._group, self._world)
         return tree
 
     def data_mean(self, out, batch):
         """((loss, metrics), grads) -> the mean over the data group, in
         place, where ``batch`` is this rank's share of a split batch;
         unchanged otherwise (one device, or a replicated batch, whose ranks
-        all computed the same)."""
+        all computed the same).  ``DTensor`` gradients are left as they
+        are: the FSDP gather's backward reduced them to their shards."""
         if getattr(batch, "rows", None) is None:
             return out
         (loss, metrics), grads = out
         metrics = {k: v if isinstance(v, torch.Tensor) else torch.tensor(v, device=self.device)
                    for k, v in metrics.items()}
-        sharding.all_reduce_mean([loss, *metrics.values(), *grads.values()], self._group,
-                                 self._world)
+        plain = [g for g in grads.values() if not sharding.is_dtensor(g)]
+        sharding.all_reduce_mean([loss, *metrics.values(), *plain], self._group, self._world)
         return (loss, metrics), grads
 
     # ---------- core step ----------

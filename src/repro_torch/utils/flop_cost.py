@@ -49,8 +49,17 @@ device, plus the kernels' bytes.
 
 Loops need no trip-count parsing (the reference's ``known_trip_count`` and
 loop-condition constants): a Python loop of N products runs, and is
-counted, N times.  Collective bytes come with sharding: ``collective_bytes``
-is 0 here.
+counted, N times.
+
+Collectives (the reference's ``utils/hlo.py`` kinds ``all-reduce``,
+``all-gather`` and ``reduce-scatter``): the port's own collective helpers
+(``dist.sharding``'s mean all-reduce, the FSDP gather and its
+reduce-scatter, ``core.photonics.RowWindow``'s MAX) call
+``count_collective`` with each collective's operand bytes, as the
+reference's ``_operand_bytes`` reads them from the HLO: an all-gather's
+operand is this rank's shard, a reduce-scatter's the full-size input, an
+all-reduce's the tensor it reduces.  A step on one process issues none and
+counts 0.
 """
 
 from __future__ import annotations
@@ -71,6 +80,15 @@ _OVERWRITE = frozenset({"copy_", "fill_", "zero_", "normal_", "uniform_", "berno
                         "exponential_", "random_"})
 
 
+def count_collective(kind: str, nbytes: int) -> None:
+    """Add one collective of ``kind`` ("all-reduce", "all-gather",
+    "reduce-scatter") on an operand of ``nbytes`` to every measurement under
+    way; free when none is."""
+    for counter in _ACTIVE:
+        counter.coll_bytes[kind] = counter.coll_bytes.get(kind, 0) + int(nbytes)
+        counter.coll_count[kind] = counter.coll_count.get(kind, 0) + 1
+
+
 def count_launch(flops: int, nbytes: int) -> None:
     """Add one hand-written kernel launch of ``flops`` moving ``nbytes`` to
     every measurement under way; free when none is."""
@@ -85,7 +103,9 @@ class StepCost:
     """flops: every matrix product of the step; counted_flops: those the
     mode saw; kernel_flops / kernel_launches / kernel_bytes: the
     hand-written kernels'; mem_bytes: every device operation's operand and
-    output bytes, the kernels' included."""
+    output bytes, the kernels' included; coll_bytes_by_kind /
+    coll_count_by_kind: the operand bytes and the number of the step's
+    collectives, by kind."""
 
     flops: int
     counted_flops: int
@@ -93,15 +113,23 @@ class StepCost:
     kernel_launches: int
     mem_bytes: int = 0
     kernel_bytes: int = 0
+    coll_bytes_by_kind: dict = dataclasses.field(default_factory=dict)
+    coll_count_by_kind: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def collective_bytes(self) -> int:
+        return sum(self.coll_bytes_by_kind.values())
 
     def as_dict(self) -> dict:
-        """The reference's ``HloCost.as_dict`` keys; no collectives yet."""
+        """The reference's ``HloCost.as_dict`` keys."""
         return {"flops": float(self.flops), "mem_bytes": float(self.mem_bytes),
-                "collective_bytes": 0.0, "coll_bytes_by_kind": {}}
+                "collective_bytes": float(self.collective_bytes),
+                "coll_bytes_by_kind": {k: float(v) for k, v in self.coll_bytes_by_kind.items()}}
 
 
 def _describe(x, roots: list):
     if isinstance(x, torch.Tensor):
+        x = getattr(x, "_local_tensor", x)
         base = x._base if x._base is not None else x
         roots.append(weakref.ref(base))
         return ("tensor", x.device, x.dtype, tuple(x.shape), tuple(x.stride()),
@@ -112,8 +140,10 @@ def _describe(x, roots: list):
 
 
 def _tensors(x):
+    """The tensors in ``x``; a ``DTensor`` (an FSDP leaf) as this rank's
+    shard, the memory the operation touches here."""
     if isinstance(x, torch.Tensor):
-        yield x
+        yield getattr(x, "_local_tensor", x)
     elif isinstance(x, (list, tuple)):
         for v in x:
             yield from _tensors(v)
@@ -157,6 +187,8 @@ class _Counter:
         self.kernel_flops = 0
         self.kernel_bytes = 0
         self.kernel_launches = 0
+        self.coll_bytes: dict = {}
+        self.coll_count: dict = {}
 
 
 class _GlobalOnly:
@@ -225,4 +257,6 @@ def measure(fn, *args, **kwargs):
                          kernel_flops=counter.kernel_flops,
                          kernel_launches=counter.kernel_launches,
                          mem_bytes=ops_bytes + counter.kernel_bytes,
-                         kernel_bytes=counter.kernel_bytes)
+                         kernel_bytes=counter.kernel_bytes,
+                         coll_bytes_by_kind=dict(counter.coll_bytes),
+                         coll_count_by_kind=dict(counter.coll_count))

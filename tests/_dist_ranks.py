@@ -279,5 +279,201 @@ def _elastic_load(rank, world, params, path, batch):
     return {"step": step, "split": split, "exact": exact, "loss": float(loss)}
 
 
+# ---------------------------------------------------------------------------
+# FSDP: launch/dryrun.build_train's sharded step
+# ---------------------------------------------------------------------------
+
+FSDP_MESHES = {"data": (4, 1), "pod": (2, 2, 1)}
+FSDP_HARDWARE = ("ideal", "offchip_bpd")
+
+
+def fsdp_mesh(shape):
+    """A (data, model) or (pod, data, model) mesh over the group's first
+    ranks, on the CPU."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    axes = mesh_lib.AXES if len(shape) == 2 else mesh_lib.POD_AXES
+    n = int(np.prod(shape))
+    return DeviceMesh("cpu", torch.arange(n).view(*shape), mesh_dim_names=axes)
+
+
+def fsdp_step(arch, mesh, hardware, params, fb, batch, seed=0):
+    """``build_train``'s step of the smoke ``arch`` on ``mesh`` (the bank
+    kernel's plain version on ``hardware``) with the given numpy parameters
+    and feedback placed as its arguments -> (fn, args, extra)."""
+    from repro_torch.algos.dfa import DFAConfig
+    from repro_torch.core import photonics
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun
+
+    cfg = DFAConfig(photonics=photonics.preset(hardware), backend="cuda")
+    host = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+    fn, args, extra = dryrun.build_train(arch, mesh, smoke=True, dfa=cfg, device="cpu",
+                                         batch=host, seed=seed)
+    p_sh, f_sh = extra["in_shardings"][:2]
+    placed = sharding.place({k: torch.from_numpy(np.array(v)) for k, v in params.items()}, p_sh)
+    fb = sharding.place({k: torch.from_numpy(np.array(v)) for k, v in fb.items()}, f_sh)
+    return fn, (placed, fb, extra["trainer"].cfg.optimizer.init(placed), args[3], 7), extra
+
+
+def fsdp_grads(extra, args) -> tuple:
+    """(loss, whole gradients as numpy) of the sharded step's gradient half
+    (every rank gathers them)."""
+    from repro_torch.dist import sharding
+
+    (loss, _), grads = extra["value_and_grad"](args[0], args[1], args[3], args[4])
+    return float(loss), np_tree({k: sharding.full_tensor(g) for k, g in grads.items()})
+
+
+def replicate_backward_gather(xs):
+    """The negative control of ``sharding.gather_fsdp``: ``DTensor``'s own
+    redistribute to ``Replicate`` over data and ``to_local``, whose backward
+    keeps each rank's gradient of its own rows."""
+    from torch.distributed.tensor import Replicate
+
+    out = []
+    for x in xs:
+        placements = list(x.placements)
+        placements[x.device_mesh.mesh_dim_names.index("data")] = Replicate()
+        out.append(x.redistribute(x.device_mesh, placements).to_local())
+    return out
+
+
+def _collective_expectation(params, metrics) -> dict:
+    """The collective bytes a sharded dfa step must count, from its placed
+    parameters: every split leaf's shard all-gathered in the forward, and a
+    block's again in its recompute, its full gradient reduce-scattered; the
+    replicated leaves' gradients and the metrics (f32 scalars; the loss is
+    the metrics' "loss", reduced once) mean-all-reduced, and one 4-byte MAX
+    of s_a: every projection reads the one tapped error."""
+    from repro_torch.dist import sharding
+
+    split = {k for k, x in params.items() if sharding._fsdp_dim(x) is not None}
+    local = {k: x.to_local().numel() * x.element_size() for k, x in params.items()}
+    full = {k: x.numel() * x.element_size() for k, x in params.items()}
+    block = {k for k in params if not k.startswith(("embed.", "head."))}
+    return {"all-gather": sum(local[k] * (2 if k in block else 1) for k in split),
+            "reduce-scatter": sum(full[k] for k in split),
+            "all-reduce": sum(full[k] for k in params if k not in split)
+            + 4 * len(metrics) + 4}
+
+
+def _fsdp(rank, world, cases, moe, ckpt):
+    """Every family's sharded step on both meshes, noise off and on, with
+    the checks of the first case on the data mesh; qwen2-moe against the
+    replicated data-parallel step; the step's collective bytes and a
+    data-parallel step's; the sharded checkpoint (2, 1) -> (4, 1)."""
+    from repro_torch.dist import sharding
+    from repro_torch.utils import flop_cost
+
+    out = {"grads": {}}
+    first = next(iter(cases))
+    for kind, shape in FSDP_MESHES.items():
+        mesh = fsdp_mesh(shape)
+        for arch, case in cases.items():
+            for hardware in FSDP_HARDWARE:
+                fn, args, extra = fsdp_step(arch, mesh, hardware, **case)
+                out["grads"][kind, arch, hardware] = fsdp_grads(extra, args)
+            out.setdefault("shards", {})[kind, arch] = _shards_are_the_rules(
+                args[0], extra["in_shardings"][0], case["params"], mesh)
+            out.setdefault("full_tensor", {})[kind, arch] = all(
+                torch.equal(sharding.full_tensor(x), x.full_tensor()) for x in args[0].values())
+        if kind != "data":
+            continue
+        fn, args, extra = fsdp_step(first, mesh, "offchip_bpd", **cases[first])
+        out["released"] = (all(p.is_meta for p in extra["model"].parameters()),
+                           extra["model"].device.type)
+        new_p, new_o, loss = fn(*args)
+        out["placements"] = (
+            all(new_p[k].placements == args[0][k].placements
+                and new_o["mom"][k].placements == args[2]["mom"][k].placements for k in new_p),
+            new_o["step"], tuple(type(p).__name__ for p in loss.placements))
+        out["step"] = (float(loss.to_local()), np_tree({k: sharding.full_tensor(v)
+                                                         for k, v in new_p.items()}))
+        out["algos"] = _fsdp_algos(mesh, extra, args)
+        gather = sharding.gather_fsdp
+        sharding.gather_fsdp = replicate_backward_gather
+        try:
+            out["control"] = fsdp_grads(extra, args)
+        finally:
+            sharding.gather_fsdp = gather
+        fn, args, extra = fsdp_step(first, mesh, "ideal", **cases[first])
+        (_, metrics), _ = extra["value_and_grad"](args[0], args[1], args[3], args[4])
+        _, cost = flop_cost.measure(fn, *args)
+        out["cost"] = (dict(cost.coll_bytes_by_kind), cost.as_dict(),
+                       _collective_expectation(args[0], metrics))
+        s = session(True, arch=first, smoke=True, hardware="ideal", backend="cuda")
+        st = load_state(s, cases[first]["params"], cases[first]["fb"])
+        cost = s.trainer.step_cost(st, cases[first]["batch"])
+        _, metrics, grads = grads_of(s, st, cases[first]["batch"])
+        out["dp_cost"] = (dict(cost.coll_bytes_by_kind), 4 * sum(g.size for g in grads.values())
+                          + 4 * len(metrics) + 4)
+        fn, args, extra = fsdp_step("qwen2-moe-a2.7b", mesh, "offchip_bpd", **moe)
+        out["moe"] = fsdp_grads(extra, args)
+        s = session(True, arch="qwen2-moe-a2.7b", smoke=True, hardware="offchip_bpd",
+                    backend="cuda")
+        out["moe_dp"] = grads_of(s, load_state(s, moe["params"], moe["fb"]), moe["batch"])
+    out["ckpt"] = _fsdp_checkpoint(rank, first, **ckpt)
+    return out if rank == 0 else {k: out[k] for k in ("ckpt",)}
+
+
+def _fsdp_algos(mesh, extra, args) -> dict:
+    """bp and dfa-layerwise gradients and the dfa-fused step on the sharded
+    state: bp reaches the gathers through autograd, the other two through
+    the block recompute."""
+    from repro_torch import algos
+    from repro_torch.dist import sharding
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer, model = extra["trainer"], extra["model"]
+    cfg, opt = trainer.cfg.dfa, trainer.cfg.optimizer
+    batch, fb = sharding.local_batch(mesh, args[3]), sharding.to_local(args[1])
+    out = {}
+    with sharding.use_mesh(mesh):
+        for algo in ("bp", "dfa-layerwise"):
+            t = Trainer(model, TrainerConfig(algo=algo, dfa=cfg, data_parallel=False),
+                        device="cpu", mesh=mesh)
+            (loss, _), grads = t._grads(args[0], fb, batch, args[4])
+            out[algo] = (float(loss), np_tree({k: sharding.full_tensor(g)
+                                               for k, g in grads.items()}))
+        step = algos.get("dfa-fused").fused_step(model, cfg, opt, reduce=trainer.mean_tree)
+        with trainer.window(batch):
+            params, _, loss = step(args[0], fb, args[2], batch, args[4])
+        out["dfa-fused"] = (float(loss), np_tree({k: sharding.full_tensor(p)
+                                                  for k, p in params.items()}))
+    return out
+
+
+def _fsdp_checkpoint(rank, arch, params, fb, batches, path):
+    """Ranks 0-1 take a sharded step on a (2, 1) mesh and save its state;
+    every rank restores it on (4, 1) and steps: the losses of the second
+    step on both meshes (ranks 2-3 join the save's barrier)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import checkpoint
+
+    two = mesh_lib.make_host_mesh(2, device_type="cpu")  # every rank builds it
+    out = {}
+    if rank < 2:
+        fn, args, extra = fsdp_step(arch, two, "offchip_bpd", params, fb, batches[0])
+        p, o, loss = fn(*args)
+        checkpoint.save(path, {"params": p, "opt": o}, step=1)
+        fn2, args2, _ = fsdp_step(arch, two, "offchip_bpd", params, fb, batches[1])
+        out["two"] = float(fn2(p, args2[1], o, args2[3], 8)[2].to_local())
+    else:
+        dist.barrier()
+    four = fsdp_mesh((4, 1))
+    fn, args, extra = fsdp_step(arch, four, "offchip_bpd", params, fb, batches[1])
+    p_sh, _, o_sh = extra["in_shardings"][:3]
+    state, step = checkpoint.load(path, {"params": args[0], "opt": args[2]},
+                                  shardings={"params": p_sh, "opt": o_sh})
+    out["four"] = (step, float(fn(state["params"], args[1], state["opt"], args[3], 8)[2]
+                               .to_local()))
+    return out
+
+
 SCENARIOS = {"mlp": _mlp, "lm": _lm, "elastic_save": _elastic_save,
-             "elastic_load": _elastic_load}
+             "elastic_load": _elastic_load, "fsdp": _fsdp}
