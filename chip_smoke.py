@@ -2562,7 +2562,10 @@ def _dp_rank_work(rank, world, port, seed, base):
         t2 = time.perf_counter()
         out.update(_fsdp_lm_rank(torch, api, pm, rank, seed))
         out.update(_fsdp_emu_rank(torch, api, rank, seed))
-        out["seconds"] = {"lm": t1 - t0, "emu": t2 - t1, "fsdp": time.perf_counter() - t2}
+        t3 = time.perf_counter()
+        out.update(_tp_lm_rank(torch, api, pm, rank, seed))
+        out["seconds"] = {"lm": t1 - t0, "emu": t2 - t1, "fsdp": t3 - t2,
+                          "tp": time.perf_counter() - t3}
         peer = out.pop("peer")  # rank 1's first projection's noise rows and s_a, to rank 0
         for t in peer:
             dist.broadcast(t, src=1)
@@ -2579,7 +2582,7 @@ def _dp_rank_work(rank, world, port, seed, base):
         out.update(_dp_resume(torch, api, seed, base, out))
     out["seconds"]["one_process"] = time.perf_counter() - t1
     for key in ("grads", "local", "params2", "params3", "noise", "emu_grads", "fsdp_grads",
-                "fsdp_control", "fsdp_params2", "fsdp_emu_params"):
+                "fsdp_control", "fsdp_params2", "fsdp_emu_params", "tp_grads", "tp_params2"):
         out.pop(key, None)  # tensors stay in the rank
     return out
 
@@ -2838,15 +2841,15 @@ def _fsdp_world_one(torch, pm, seed, batches):
     return out
 
 
-def _data_shard(full, x):
+def _rule_piece(full, x):
     """This rank's piece of the whole tensor ``full`` under the ``DTensor``
-    ``x``'s placement on the data axis (the rule's slice)."""
+    ``x``'s placements (the rule's slice on every mesh dim that splits
+    it)."""
     mesh = x.device_mesh
-    i = mesh.mesh_dim_names.index("data")
-    p = x.placements[i]
-    if not p.is_shard():
-        return full
-    return full.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank("data")]
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            full = full.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(mesh.mesh_dim_names[i])]
+    return full
 
 
 def _timed_collectives(torch, dist, log):
@@ -2924,7 +2927,7 @@ def _fsdp_lm_rank(torch, api, pm, rank, seed):
     vg, opt = extra["value_and_grad"], extra["trainer"].cfg.optimizer
     full = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
     not_rules = [k for k, v in full.named_parameters()
-                 if not torch.equal(p[k].to_local(), _data_shard(v.detach(), p[k]))]
+                 if not torch.equal(p[k].to_local(), _rule_piece(v.detach(), p[k]))]
     del full
     gc.collect()
     torch.cuda.empty_cache()
@@ -3049,10 +3052,209 @@ def _fsdp_emu_rank(torch, api, rank, seed):
             "fsdp_emu_hw": {k: v.cpu().numpy() for k, v in hw.items()}}
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: build_train's step on a (1, 2) mesh (the model axis)
+# ---------------------------------------------------------------------------
+
+TP_MESH = (1, DP_WORLD)  # (data, model): the weights split over the two ranks
+
+
+def _tp_lm_rank(torch, api, pm, rank, seed):
+    """This rank's share of the full-width LM's tensor-parallel step on a
+    (1, 2) mesh: its pieces against an independent init, step 1's
+    gradients (whole on rank 0) counted by ``step_cost`` beside the
+    operand bytes the collectives were handed, the path's first bank launch
+    against the plain version on its own operands, the update, step 2 timed
+    with each collective's ms, and the parameters after 2 steps (whole,
+    rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import tokens
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import flop_cost, prng
+
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_host_mesh(TP_MESH[0] * TP_MESH[1], model_axis=TP_MESH[1],
+                                   device_type="cuda")
+    vocab = configs.get(ARCH).make_model(device="meta").cfg.vocab_size
+    gen = tokens.MarkovTokens(vocab, LM_SEQ, LM_BATCH, seed)
+    fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0))
+    vg, opt = extra["value_and_grad"], extra["trainer"].cfg.optimizer
+    full = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
+    not_rules = [k for k, v in full.named_parameters()
+                 if not torch.equal(p[k].to_local(), _rule_piece(v.detach(), p[k]))]
+    split = sum(p[k].to_local().shape != v.shape for k, v in full.named_parameters())
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = [sum(x.to_local().numel() * x.element_size() for x in tree.values())
+                for tree in (p, o["mom"])]
+    key0, key1 = prng.step_key(seed, 0, "noise"), prng.step_key(seed, 1, "noise")
+    launch, cap = ops.photonic_matmul_cuda, {}
+
+    def first_launch(a, b, **kw):
+        out = launch(a, b, **kw)
+        if not cap:
+            cap.update(a=a.clone(), b=b.clone(), kw={k: v.clone() for k, v in kw.items()},
+                       out=out.clone())
+        return out
+
+    log = []
+    sync(torch)
+    restore = _timed_collectives(torch, dist, log)
+    ops.photonic_matmul_cuda = first_launch
+    pm.launches = 0
+    try:
+        ((loss1, _), grads), cost = flop_cost.measure(vg, p, fb, b0, key0)
+    finally:
+        ops.photonic_matmul_cuda = launch
+        restore()
+    launches = [pm.launches]
+    plain = pm.photonic_matmul_plain(cap["a"], cap["b"], **cap["kw"])
+    kernel_err = ((cap["out"] - plain).abs().max() / plain.abs().max()).item()
+    shape = (cap["a"].shape[0], cap["a"].shape[1], cap["b"].shape[0])
+    del cap, plain
+    seen = {}
+    for kind, _, nbytes in log:
+        seen[kind] = seen.get(kind, 0) + nbytes
+    grads1 = {k: sharding.full_tensor(g) for k, g in grads.items()}
+    grads1 = {k: g.cpu() for k, g in grads1.items()} if rank == 0 else None
+    p1, o1, _ = opt.update(grads, o, p)
+    del grads, p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1 = _placed_batch(torch, extra, gen.batch(1))
+    log = []
+    sync(torch)
+    restore = _timed_collectives(torch, dist, log)
+    pm.launches = 0
+    try:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p2, o2, loss2 = fn(p1, fb, o1, b1, key1)
+        e1.record()
+        e1.synchronize()
+    finally:
+        restore()
+    launches.append(pm.launches)
+    params2 = {k: sharding.full_tensor(v) for k, v in p2.items()}
+    params2 = {k: v.cpu() for k, v in params2.items()} if rank == 0 else None
+    out = {"tp_loss1": loss1.item(), "tp_loss2": loss2.to_local().item(),
+           "tp_full_bytes": sum(x.numel() * x.element_size() for x in p2.values()),
+           "tp_grads": grads1, "tp_params2": params2, "tp_not_rules": not_rules,
+           "tp_split": split, "tp_resident": resident, "tp_launches": launches,
+           "tp_kernel_err": kernel_err, "tp_shape": shape,
+           "tp_step2_ms": e0.elapsed_time(e1),
+           "tp_collectives": {k: [(ms, b) for kind, ms, b in log if kind == k]
+                              for k in ("all-gather", "reduce-scatter", "all-reduce")},
+           "tp_cost": {"counted": dict(cost.coll_bytes_by_kind),
+                       "count": dict(cost.coll_count_by_kind), "seen": seen},
+           "tp_groups": (dist.get_process_group_ranks(sharding.model_group(mesh)),
+                         sharding.model_index(mesh))}
+    del fn, p1, o1, p2, o2, fb, extra, b0, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_report(torch, pm, r0, r1, card) -> dict:
+    """Print and check the two ranks' tensor-parallel steps against one
+    process, and time the bank kernel at the rank's projection shape ->
+    the summary for the ``data_parallel`` line."""
+    ranks = ((0, r0), (1, r1))
+    gb = 1e9
+    print(f"[tp] two ranks on one card, build_train's sharded step on a {TP_MESH} (data, "
+          f"model) mesh: the weights, the vocabulary and the feedback rows split over the "
+          f"model axis; model groups {r0['tp_groups']} / {r1['tp_groups']}; pieces = the "
+          f"rule's slices of an independent init: {not r0['tp_not_rules']} / "
+          f"{not r1['tp_not_rules']} ({r0['tp_split']} leaves split); the ranks' part "
+          f"{r0['tp_seconds']:.1f} / {r1['tp_seconds']:.1f}s")
+    full = r0["tp_full_bytes"]
+    for r, res in ranks:
+        par, mom = res["tp_resident"]
+        print(f"[tp] rank {r} resident: parameters {par / gb:.4f} GB + momentum {mom / gb:.4f} "
+              f"GB = {(par + mom) / gb:.4f} GB, against the replicated run's 2 x {full / gb:.4f}"
+              f" = {2 * full / gb:.4f} GB ({(par + mom) / (2 * full):.4f} of it); bank launches "
+              f"{res['tp_launches']} (step 1's gradients, step 2)")
+    cost = r0["tp_cost"]
+    counted, seen = cost["counted"], cost["seen"]
+    print(f"[tp] step_cost of step 1's gradients, rank 0: "
+          + ", ".join(f"{k} {counted.get(k, 0) / gb:.6f} GB in {cost['count'].get(k, 0)} "
+                      f"(handed to torch.distributed {seen.get(k, 0) / gb:.6f})"
+                      for k in sorted(set(counted) | set(seen))))
+    for r, res in ranks:
+        parts = [f"{kind} {len(v)} x, {sum(ms for ms, _ in v):.2f} ms for "
+                 f"{sum(b for _, b in v) / gb:.4f} GB" for kind, v in res["tp_collectives"].items()
+                 if v]
+        print(f"[tp] rank {r} step 2: {res['tp_step2_ms']:.2f} ms (CUDA events); collectives "
+              f"(gloo, staged through host memory: not a multi-card rate): " + "; ".join(parts))
+    print(f"[tp] step 1: loss {r0['tp_loss1']:.6f} (rank 1 {r1['tp_loss1']:.6f}) vs one process "
+          f"{r0['loss1_one']:.6f}; gradients max rel {r0['tp_grad_err'][0]:.3e} "
+          f"({r0['tp_grad_err'][1]}) = {r0['tp_grad_err'][0] / DP_TOL:.3f} of the 1e-5 gate; "
+          f"parameters after 2 steps {r0['tp_params2_err'][0]:.3e} ({r0['tp_params2_err'][1]}) "
+          f"= {r0['tp_params2_err'][0] / DP_TOL:.3f}; bit for bit (every split product on its "
+          f"gathered weight): loss {r0['tp_loss1'] == r0['loss1_one']}, gradients "
+          f"{r0['tp_grad_err'][0] == 0.0}, parameters {r0['tp_params2_err'][0] == 0.0}")
+    t, k, m = r0["tp_shape"]
+    print(f"[tp] the path's first bank launch (rank 0, ({t}, {k}) x ({m}, {k}) f32, input "
+          f"mode: its rows of B) vs the plain version on its operands: "
+          f"{r0['tp_kernel_err']:.3e} of max|plain| (rank 1 {r1['tp_kernel_err']:.3e})")
+    peaks = card_peaks(card)[1]
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    a, b = (torch.randn(shape, generator=gen, device=DEVICE) for shape in ((t, k), (m, k)))
+    noise = torch.randn((t, m), generator=gen, device=DEVICE) * 0.1
+    print(f"[tp] the bank kernel at a rank's projection shape     T      K      M  dtype "
+          f"{TIMING_HEAD}")
+    row = _bank_row(torch, pm, a, b, {"noise": noise}, peaks, "input", "tp",
+                    "a rank's rows of B(k), input mode ",
+                    reps={"ms": 25, "plain_ms": 10, "library_ms": 25})
+    del a, b, noise
+    for r, res in ranks:
+        check(not res["tp_not_rules"] and res["tp_split"] > 0,
+              f"rank {r}: pieces not the rule's {res['tp_not_rules'][:3]}")
+        check(sum(res["tp_resident"]) < 0.51 * 2 * full,
+              f"rank {r} holds {res['tp_resident']} of {full} B: not split")
+        check(res["tp_launches"] == [LM_LAUNCHES] * 2,
+              f"rank {r}: tensor-parallel bank launches {res['tp_launches']}")
+        check(res["tp_kernel_err"] <= TOL["float32"],
+              f"rank {r}: the bank kernel vs plain at the rank's shape {res['tp_kernel_err']}")
+    check(r0["tp_loss1"] == r1["tp_loss1"] and r0["tp_loss2"] == r1["tp_loss2"]
+          and abs(r0["tp_loss1"] - r0["loss1_one"]) <= DP_TOL * abs(r0["loss1_one"]),
+          "the tensor-parallel step 1's loss differs from one process")
+    check(r0["tp_grad_err"][0] <= DP_TOL, f"tensor-parallel gradients {r0['tp_grad_err']}")
+    check(r0["tp_params2_err"][0] <= DP_TOL,
+          f"tensor-parallel parameters after 2 steps {r0['tp_params2_err']}")
+    check(counted == seen and counted.get("all-gather", 0) > 0
+          and counted.get("all-reduce", 0) > 0,
+          f"step_cost's collectives {counted} against the calls' {seen}")
+    return {"mesh": list(TP_MESH), "loss1": r0["tp_loss1"], "grad_err": r0["tp_grad_err"],
+            "params2_err": r0["tp_params2_err"], "kernel_err": max(r0["tp_kernel_err"],
+                                                                   r1["tp_kernel_err"]),
+            "resident_bytes": [r0["tp_resident"], r1["tp_resident"]],
+            "replicated_bytes": 2 * full, "collective_bytes": counted,
+            "collective_bytes_seen": seen,
+            "step2_ms": [r0["tp_step2_ms"], r1["tp_step2_ms"]],
+            "collective_ms": {kind: [sum(ms for ms, _ in res["tp_collectives"][kind])
+                                     for _, res in ranks] for kind in ("all-gather",
+                                                                       "all-reduce")},
+            "bank_launches": sum(r0["tp_launches"]), "shape": [t, k, m], "timing": row}
+
+
 def _dp_rel(got: dict, expect: dict) -> tuple[float, str]:
-    """(max over leaves of max |got - expect| / max |expect|, that leaf)."""
-    return max(((got[k].double() - e.double()).abs().max().item()
-                / max(e.abs().max().item(), 1e-30), k) for k, e in expect.items())
+    """(max over leaves of max |got - expect| / max |expect|, that leaf), in
+    f64 on the card (the host's f64 passes over a full-width state took
+    seconds each)."""
+    import torch
+
+    def rel(g, e):
+        g, e = g.to(DEVICE, torch.float64), e.to(DEVICE, torch.float64)
+        return (g - e).abs().max().item() / max(e.abs().max().item(), 1e-30)
+
+    return max((rel(got[k], e), k) for k, e in expect.items())
 
 
 def _rank0_rel(shards: dict, full: dict) -> tuple[float, str]:
@@ -3090,6 +3292,7 @@ def _dp_one_process(torch, api, seed, dp):
     noise = cap["noise"]
     out = {"loss1_one": loss1.item(), "grad_err": _dp_rel(dp["grads"], grads),
            "fsdp_grad_err": _dp_rel(dp["fsdp_grads"], grads),
+           "tp_grad_err": _dp_rel(dp["tp_grads"], grads),
            "fsdp_control_err": _rank0_rel(dp["fsdp_control"], grads),
            "noise_rows": [torch.equal(dp["noise"][r], noise[r * t_local:(r + 1) * t_local])
                           for r in range(DP_WORLD)],
@@ -3100,6 +3303,7 @@ def _dp_one_process(torch, api, seed, dp):
     one2 = {k: v.cpu() for k, v in state["params"].items()}
     out["params2_err"] = _dp_rel(one2, dp["params2"])
     out["fsdp_params2_err"] = _dp_rel(dp["fsdp_params2"], one2)
+    out["tp_params2_err"] = _dp_rel(dp["tp_params2"], one2)
     del one2
     del state, session, trainer
     gc.collect()
@@ -3292,7 +3496,10 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
     (gloo staged through the host, not a multi-card rate); the MLP on
     emu_offchip (gradients within 1e-5, the hardware state equal on both
     ranks); the step-2 snapshot resumed in one process, whose step 3 equals
-    rank 0's within 1e-5."""
+    rank 0's within 1e-5.  In the same spawn the FSDP checks (``[fsdp]``)
+    and tensor parallelism on a (1, 2) mesh (``[tp]``: step 1's gradients
+    and the parameters after 2 steps within 1e-5 of one process, 25 bank
+    launches a rank a step, ``step_cost`` = the collectives' bytes)."""
     t0 = time.perf_counter()
     print(f"[dp] card: {card}; torch {torch.__version__}")
     out = {"world1": _dp_world_one(torch, api, pm, seed)}
@@ -3369,6 +3576,7 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
     check(r0["emu_grad_err"][0] <= DP_TOL and r0["emu_launches"] == r1["emu_launches"] == 2
           and hw_same, "the emu MLP's two-rank step differs from one process")
     out["fsdp"] = _fsdp_report(np, r0, r1)
+    out["tp"] = _tp_report(torch, pm, r0, r1, card)
     out["two_ranks"] = {k: r0[k] for k in ("loss1", "loss1_one", "grad_err", "params2_err",
                                             "emu_grad_err", "profiled")}
     out["two_ranks"].update({k: r1[k] for k in ("local_err", "params3_err", "loss3_one")})
@@ -6384,7 +6592,7 @@ def main(argv=None):
     print(json.dumps({"schedule": {k: sched[k] for k in ("energy", "tuned", "overlap",
                                                          "serving", "step_ms", "losses")}}))
     print(json.dumps({"data_parallel": {k: dp[k] for k in ("world1", "two_ranks", "fsdp",
-                                                            "seconds")}}))
+                                                            "tp", "seconds")}}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
     dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
@@ -6407,7 +6615,8 @@ def main(argv=None):
                       + sum(dense_bank.values()) + sum(moe_bank.values())
                       + sum(rg_bank.values()) + sum(slice12_bank.values())
                       + dp["world1"]["launches"] + dp["two_ranks"]["bank_launches"]
-                      + dp["world1"]["fsdp_launches"] + dp["fsdp"]["bank_launches"]),
+                      + dp["world1"]["fsdp_launches"] + dp["fsdp"]["bank_launches"]
+                      + dp["tp"]["bank_launches"]),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
@@ -6417,8 +6626,10 @@ def main(argv=None):
                               "dp_world1": dp["world1"]["launches"],
                               "dp_rank0": dp["two_ranks"]["bank_launches"],
                               "fsdp_world1": dp["world1"]["fsdp_launches"],
-                              "fsdp_rank0": dp["fsdp"]["bank_launches"]},
+                              "fsdp_rank0": dp["fsdp"]["bank_launches"],
+                              "tp_rank0": dp["tp"]["bank_launches"]},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
+                            dp["tp"]["kernel_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
                               if "train" in res), moe["train"]["max_abs_err"],
                             rg["train"]["max_abs_err"], whisper["train"]["max_abs_err"],
@@ -6428,6 +6639,7 @@ def main(argv=None):
          "library_ms": per_step["library_ms"],
          "decode_step": per_step, "prefill_forward": per_prefill,
          "lm_train_shape": lm["bank"], "lm_step": lm["profile"], "draw_sass": draws["bank"],
+         "tp_rank_shape": dp["tp"]["timing"],
          "observe": {k: observed[k] for k in ("lm", "mlp", "step_cost")},
          "mamba": {k: mamba[k] for k in ("serve", "profile", "parity", "decode_forward",
                                          "decode_shapes", "train_shape", "train")},

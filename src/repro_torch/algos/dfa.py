@@ -19,6 +19,16 @@ through ``photonic_project(mask=)`` (``ROADMAP.md`` queue 3 says why).
 Error compression (``ternary``, the paper's ref [48], or ``int8``) is
 applied to e before projection.
 
+Tensor parallelism: under a ``model`` axis the rules split each B(k)'s
+injection dim, so a rank holds its rows of B(k) and projects them in a
+column window (``photonics.ColumnWindow``: s_b the whole matrix's MAX, the
+noise its columns of the global draw): δ's local columns (the
+reference's ``delta_tm``), gathered over the model axis before they are
+shaped to the block's output.  The error is whole on every rank (the head
+runs on its gathered weight), and each block's vjp reaches its leaves'
+local pieces.  These projections are the only products a model axis
+splits.
+
 This module registers two algorithms:
 
 * ``dfa``       — value_and_grad per Eq. 1 (+ the generic fused fallback)
@@ -105,9 +115,19 @@ def init_feedback(model, seed: int, cfg: DFAConfig):
     return fb
 
 
-def _project(e, bmat, cfg: DFAConfig, key):
-    """δ = e·Bᵀ through the photonic execution model."""
-    return photonics.photonic_project(e, bmat, cfg.photonics, key, backend=cfg.backend)
+def _project(e, bmat, cfg: DFAConfig, key, d_out: int | None = None):
+    """δ = e·Bᵀ through the photonic execution model.  Where ``bmat`` holds
+    this rank's rows of a ``d_out``-row B split over the model axis, its
+    columns of δ are projected in a column window and gathered whole."""
+    if d_out is None or bmat.shape[0] == d_out:
+        return photonics.photonic_project(e, bmat, cfg.photonics, key, backend=cfg.backend)
+    mesh = sharding.current_mesh()
+    index = sharding.model_index(mesh)[0]
+    window = photonics.ColumnWindow(index * bmat.shape[0], bmat.shape[0], d_out,
+                                    sharding.model_group(mesh))
+    with photonics.column_window(window):
+        delta = photonics.photonic_project(e, bmat, cfg.photonics, key, backend=cfg.backend)
+    return sharding.gather_from_model(delta, -1)
 
 
 def _leaves(params: dict) -> dict:
@@ -243,7 +263,7 @@ def dfa_delta(cfg: DFAConfig):
     """Eq. 1's cotangent: the global error projected through B(k)."""
 
     def delta_fn(spec, e_seg, bmat, key, y):
-        delta = _project(e_seg, bmat, cfg, key)
+        delta = _project(e_seg, bmat, cfg, key, spec.d_inject)
         if spec.expand_delta is not None:
             return spec.expand_delta(delta, y.shape)
         return delta.reshape(y.shape)
@@ -260,8 +280,9 @@ def embed_grads(model, params, cfg: DFAConfig, fwd, fb, rng) -> dict:
     if fwd["embed_vjp"] is None:
         return {}
     key = prng.fold(rng, "embed")
+    d_inject = model.segment_specs()[0].d_inject
     delta0 = model.embed_feedback(fwd["e_tap"], fb["embed"], fwd["x0"],
-                                  lambda e, b: _project(e, b, cfg, key))
+                                  lambda e, b: _project(e, b, cfg, key, d_inject))
     return fwd["embed_vjp"](delta0)
 
 

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.algos import base
 from repro_torch.algos import dfa as dfa_lib
+from repro_torch.dist import sharding
 
 
 def value_and_grad(model, cfg: dfa_lib.DFAConfig):
@@ -43,6 +44,9 @@ def value_and_grad(model, cfg: dfa_lib.DFAConfig):
         return e
 
     def fn(params, fb, batch, rng):
+        # the readout y_k·B(k) would need the block output's columns that
+        # B(k)'s local rows meet
+        sharding.require_no_model_axis("dfa-layerwise")
         fwd = dfa_lib.forward_with_error(model, params, cfg, batch)
         global_delta = dfa_lib.dfa_delta(cfg)
 

@@ -79,9 +79,24 @@ def preset(name: str) -> PhotonicConfig:
     return PRESETS[name]
 
 
+def resolution_to_sigma(bits: float) -> float:
+    """Effective resolution (bits) -> full-scale noise σ = 2^(1 - bits)."""
+    return 2.0 ** (1.0 - bits)
+
+
 def sigma_to_resolution(sigma: float) -> float:
     """Full-scale noise σ -> effective bits = 1 - log2(σ)."""
     return 1.0 - math.log2(sigma) if sigma > 0 else float("inf")
+
+
+def bits_to_std(bits: float) -> float:
+    """Alias of ``resolution_to_sigma`` (the reference's historical name)."""
+    return resolution_to_sigma(bits)
+
+
+def std_to_bits(std: float) -> float:
+    """Alias of ``sigma_to_resolution`` (the reference's historical name)."""
+    return sigma_to_resolution(std)
 
 
 def fake_quant(x, bits: int | None, amax=None):
@@ -152,19 +167,18 @@ def normalise_operands(a, b, cfg: PhotonicConfig):
     DAC/weight fake-quant -> (a_n, b_n, s_a, s_b).
 
     The division runs in the operand dtype (bf16 at full size) and the
-    scales stay on the device, as in the reference: no host sync.  A
+    scales stay on the device, as in the reference: no host sync.  Inside
+    a row window s_a is the data group's MAX, inside a column window s_b
+    the model group's (the whole weight's scale).  A
     stacked b (E, M, K) with a (E, T, K) takes one scale per index, (E, 1,
     1) each, as the reference's vmap gives."""
     dims = (-2, -1) if b.ndim == 3 else None
-    window = active_window()
-    if window is None:
-        s_a = _amax(a.detach().abs(), dims).clamp_min(1e-12)
-    elif dims is None:
-        s_a = window.amax(a).clamp_min(1e-12)
-    else:
-        raise ValueError("a stacked bank product inside a data-parallel row window: the "
-                         "trainer's projections are 2-D")
-    s_b = _amax(b.detach().abs(), dims).clamp_min(1e-12)
+    window, columns = active_window(), active_columns()
+    if dims is not None and (window is not None or columns is not None):
+        raise ValueError("a stacked bank product inside a data-parallel row window or a "
+                         "model-parallel column window: the trainer's projections are 2-D")
+    s_a = (_amax(a.detach().abs(), dims) if window is None else window.amax(a)).clamp_min(1e-12)
+    s_b = (_amax(b.detach().abs(), dims) if columns is None else columns.bmax(b)).clamp_min(1e-12)
     a_n = fake_quant(a / s_a, cfg.input_bits, 1.0)
     b_n = fake_quant(b / s_b, cfg.weight_bits, 1.0)
     return a_n, b_n, s_a, s_b
@@ -200,7 +214,7 @@ def photonic_matmul(a, b, cfg: PhotonicConfig, key=None, *, mask=None):
 
 
 # ---------------------------------------------------------------------------
-# Data-parallel row window
+# Data-parallel row window and model-parallel column window
 # ---------------------------------------------------------------------------
 # Under data parallelism each rank projects its own rows of the step's
 # global error.  The reference runs one SPMD program over the global
@@ -211,6 +225,35 @@ def photonic_matmul(a, b, cfg: PhotonicConfig, key=None, *, mask=None):
 # kernel counts its noise counters from the global row).  The trainer opens
 # a window around each data-parallel gradient; outside one every result is
 # the single-device one, bit for bit.
+#
+# Under tensor parallelism each rank projects through its rows of the
+# feedback matrix B (the rule splits B's injection dim over ``model``), so
+# it computes its columns of the output.  A column window gives the same
+# two things from the whole weight: s_b is the MAX over the model group,
+# and the noise is this rank's columns of the draw over the global
+# columns (with a row window too, its window of both).  The emu backend's
+# counters have no column base and refuse a column window.
+
+
+def _group_max(cache: dict, x, group):
+    """max |x| over ``group``'s pieces of the operand ``x`` is this rank's
+    share of: one MAX all-reduce per distinct operand of the window,
+    cached in ``cache``; in f32 for the collective (exact)."""
+    key = (x.untyped_storage().data_ptr(), x.storage_offset(), tuple(x.shape),
+           x.stride(), x._version)
+    if key not in cache:
+        s = x.detach().abs().amax()
+        if group is not None:
+            import torch.distributed as dist
+
+            s32 = s.float()
+            dist.all_reduce(s32, op=dist.ReduceOp.MAX, group=group)
+            count_collective("all-reduce", s32.numel() * s32.element_size())
+            s = s32.to(s.dtype)
+        # the operand is held until the window closes, so its storage
+        # cannot be reused under the same key
+        cache[key] = (x, s)
+    return cache[key][1]
 
 
 @dataclasses.dataclass
@@ -238,42 +281,66 @@ class RowWindow:
 
     def amax(self, a):
         """max |a| over the group's rows of the operand ``a`` is this rank's
-        share of: one MAX all-reduce per distinct operand of the window
-        (every projection of a step reads the same error)."""
-        key = (a.untyped_storage().data_ptr(), a.storage_offset(), tuple(a.shape),
-               a.stride(), a._version)
-        if key not in self._scales:
-            s = a.detach().abs().amax()
-            if self.group is not None:
-                import torch.distributed as dist
+        share of (every projection of a step reads the same error: one MAX
+        a step)."""
+        return _group_max(self._scales, a, self.group)
 
-                dist.all_reduce(s, op=dist.ReduceOp.MAX, group=self.group)
-                count_collective("all-reduce", s.numel() * s.element_size())
-            # the operand is held until the window closes, so its storage
-            # cannot be reused under the same key
-            self._scales[key] = (a, s)
-        return self._scales[key][1]
+
+@dataclasses.dataclass
+class ColumnWindow:
+    """This rank's columns of a product whose weight's rows are split over
+    the model axis: ``start`` its first output column, ``count`` its
+    columns (the weight's local rows), ``total`` the global column count;
+    the weight's scale s_b is the MAX over ``group`` (the model group)."""
+
+    start: int
+    count: int
+    total: int
+    group: typing.Any = None
+    _scales: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def bmax(self, b):
+        """max |b| over the whole weight ``b`` holds this rank's rows of."""
+        if b.shape[-2] != self.count:
+            raise ValueError(f"a weight of {b.shape[-2]} rows in a window of {self.count} "
+                             "columns")
+        return _group_max(self._scales, b, self.group)
 
 
 _WINDOW: list = []
+_COLUMNS: list = []
 
 
 @contextlib.contextmanager
-def row_window(window: RowWindow | None):
-    """Run the block's projections on this rank's rows of the global batch
-    (None: no window, the single-device path)."""
+def _pushed(stack: list, window):
     if window is None:
         yield None
         return
-    _WINDOW.append(window)
+    stack.append(window)
     try:
         yield window
     finally:
-        _WINDOW.pop()
+        stack.pop()
+
+
+def row_window(window: RowWindow | None):
+    """Run the block's projections on this rank's rows of the global batch
+    (None: no window, the single-device path)."""
+    return _pushed(_WINDOW, window)
+
+
+def column_window(window: ColumnWindow | None):
+    """Run a projection on this rank's columns (its rows of the weight)
+    of the global product (None: no window)."""
+    return _pushed(_COLUMNS, window)
 
 
 def active_window() -> RowWindow | None:
     return _WINDOW[-1] if _WINDOW else None
+
+
+def active_columns() -> ColumnWindow | None:
+    return _COLUMNS[-1] if _COLUMNS else None
 
 
 def global_rows(t: int) -> tuple[int, int]:
@@ -285,13 +352,20 @@ def global_rows(t: int) -> tuple[int, int]:
 
 def randn_rows(shape, generator, device, dtype):
     """``torch.randn(shape)`` from ``generator``, whose leading dim is the
-    operand's rows: inside a row window this rank's rows of the draw over
-    the global rows."""
+    operand's rows and, for a product's (rows, columns) output, whose last
+    dim its columns: inside a row window this rank's rows of the draw over
+    the global rows, inside a column window its columns of the draw over
+    the global columns (with both, its window of both)."""
     base, total = global_rows(shape[0])
-    if (base, total) == (0, shape[0]):
+    columns = active_columns()
+    c0, c_total = (0, shape[-1]) if columns is None else (columns.start, columns.total)
+    if columns is not None and shape[-1] != columns.count:
+        raise ValueError(f"a draw of {shape[-1]} columns in a window of {columns.count}")
+    if (base, total, c0, c_total) == (0, shape[0], 0, shape[-1]):
         return torch.randn(shape, generator=generator, device=device, dtype=dtype)
-    full = torch.randn((total, *shape[1:]), generator=generator, device=device, dtype=dtype)
-    return full[base: base + shape[0]]
+    full = torch.randn((total, *shape[1:-1], c_total), generator=generator, device=device,
+                       dtype=dtype)
+    return full[base: base + shape[0], ..., c0: c0 + shape[-1]]
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +439,10 @@ class EmulatedMRRBackend(PhotonicBackend):
     def matmul(self, a, b, cfg, key=None, *, mask=None):
         from repro_torch.hardware import channel  # lazy: hardware imports us
 
+        if active_columns() is not None:
+            raise NotImplementedError(
+                "the emu backend in a model-parallel column window: its noise counters have "
+                "a row base and no column base yet (ROADMAP.md queue 1, item 2)")
         return channel.emulated_matmul(a, b, cfg, key=key, mask=mask,
                                        kernel=self.emu_kernel)
 

@@ -23,8 +23,9 @@ splits tensor dim d, ``Replicate()`` on the others.
 
 Single-process contract: without an active mesh ``annotate`` and
 ``unshard_fsdp`` return their argument itself (identity, not a copy), as
-the reference's do.  Data-parallel training replicates the state and
-splits the batch (``put_batch``).
+the reference's do, and so do the model-axis operators on a ``model``
+axis of 1.  Data-parallel training replicates the state and splits the
+batch (``put_batch``).
 
 FSDP (ZeRO-3): ``place`` puts a tree's leaves as ``DTensor``s under their
 ``Sharding``s (the counterpart of ``jax.device_put(tree, shardings)``), so
@@ -45,6 +46,38 @@ reduce-scatters over ``data`` and then all-reduces the shard over
 ``pod``.  The collectives run on the group's own transport (gloo takes
 CUDA tensors in its all-gather and reduce-scatter on the card's build) and
 each is counted for ``utils.flop_cost`` by its operand bytes.
+
+Tensor parallelism (the ``model`` axis): the rules split every 2-D
+weight's output dim (torch dim 0), the vocabulary and the feedback's
+injection dim over ``model``, and the FSDP gather hands back a leaf still
+split there.  The reference's GSPMD keeps every value's global meaning;
+the port computes the same global values from the pieces.  A model axis
+splits the storage of the parameters and the momentum, and the feedback
+projections; it does not split a forward or backward product.  A
+model-split layer gathers its weight (``gather_from_model``: an
+all-gather along dim 0; backward this rank's slice of the weight's
+gradient, which every rank computes whole) and runs the one process's
+product on it (``nn/linear.py``), so the activations, the loss and the
+error stay whole on every rank.  The card's f32 cuBLAS picks its
+algorithm by shape: a narrower product's columns, or an input gradient
+summed from partial products, are not the whole product's bits, and the
+shifts, amplified by the rows that cancel in a noisy DFA step's bias
+gradients, reach the 1e-5 gate against one process
+(``tools/gemm_width_probe.py``, ``tools/tp_split_ablation.py``).  Each
+rank projects the error through its rows of B(k) (``algos/dfa.py``,
+``core/photonics.ColumnWindow``) and the columns are gathered.  The
+vocabulary-parallel lookup sums the ranks' rows (``reduce_from_model``: a
+SUM all-reduce; backward identity).  ``copy_to_model`` (identity; backward
+the SUM all-reduce of partial gradients) marks a whole tensor entering
+split compute.  A module reads whether a leaf is split from the leaf
+itself (its local size against the whole), never from the mesh alone, so
+a leaf the divisibility fallback left whole is computed whole.  The
+collectives are ``dist.all_reduce`` and ``dist.all_gather_into_tensor`` on
+the group's own transport, counted as the FSDP ones are; ``DTensor``'s
+redistribute is not used (its functional collectives crash on gloo with
+CUDA tensors on the card's torch 2.11).  A path without tensor
+parallelism raises on a ``model`` axis above 1
+(``require_no_model_axis``).
 """
 
 from __future__ import annotations
@@ -457,7 +490,9 @@ def _redistribute(x, mesh, spec):
 
 def annotate(x, name: str):
     """Redistribute a ``DTensor`` to the rule's placements; identity
-    without a mesh, for an unknown name or a plain tensor."""
+    without a mesh, for an unknown name or a plain tensor (the
+    tensor-parallel models' activations are plain tensors, whole on every
+    rank)."""
     mesh = current_mesh()
     if mesh is None or name not in ACT_RULES:
         return x
@@ -465,6 +500,121 @@ def annotate(x, name: str):
     entries = tuple((b if len(b) > 1 else b[0]) if e is _B else e for e in ACT_RULES[name])
     spec = _divisible(_fit_spec(P(*entries), x.ndim), x.shape, mesh)
     return _redistribute(x, mesh, spec)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the model-axis operators
+# ---------------------------------------------------------------------------
+
+
+def model_group(mesh):
+    """The process group of the mesh's ``model`` axis (the ranks that share
+    this rank's batch coordinates)."""
+    return mesh.get_group(MODEL)
+
+
+def model_index(mesh) -> tuple[int, int]:
+    """(this rank's coordinate on ``model``, the axis's size); (0, 1)
+    without a mesh or a ``model`` axis."""
+    if mesh is None or MODEL not in mesh.mesh_dim_names:
+        return 0, 1
+    return mesh.get_local_rank(MODEL), _axis_sizes(mesh)[MODEL]
+
+
+def require_no_model_axis(what: str) -> None:
+    """Raise for a path without tensor parallelism on a ``model`` axis
+    above 1, rather than let it compute on a leaf's slice."""
+    size = model_index(current_mesh())[1]
+    if size > 1:
+        raise NotImplementedError(
+            f"{what} has no tensor parallelism yet (ROADMAP.md queue 1, item 2): it runs on "
+            f"a mesh whose model axis is 1, not {size}")
+
+
+def _tp_group():
+    """(the model group, this rank's coordinate, the axis's size) of the
+    active mesh; (None, 0, 1) without a model axis above 1."""
+    mesh = current_mesh()
+    index, size = model_index(mesh)
+    return (model_group(mesh) if size > 1 else None), index, size
+
+
+def _all_reduce(x, group):
+    """A SUM all-reduce of a copy of ``x`` over ``group``."""
+    import torch.distributed as dist
+
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    count_collective("all-reduce", out.numel() * out.element_size())
+    return out
+
+
+def _all_gather(x, dim: int, group, size: int):
+    """The ranks' pieces of ``group`` joined along ``dim``, in rank order."""
+    import torch.distributed as dist
+
+    flat = x.contiguous().reshape(-1)
+    whole = flat.new_empty(size * flat.numel())
+    dist.all_gather_into_tensor(whole, flat, group=group)
+    count_collective("all-gather", flat.numel() * flat.element_size())
+    return _join(whole.view(size, *x.shape), dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, index, size):
+        ctx.dim, ctx.index, ctx.n = dim, index, x.shape[dim]
+        return _all_gather(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(), None, None, None, None
+
+
+def copy_to_model(x):
+    """Enter a split product with a tensor every model rank holds whole:
+    identity; the backward sums the ranks' partial gradients (a SUM
+    all-reduce over ``model``).  Identity without a model axis above 1."""
+    group, _, size = _tp_group()
+    return x if size == 1 else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x):
+    """The SUM over ``model`` of the ranks' terms (an all-reduce); the
+    backward is the identity: each term's gradient is the sum's."""
+    group, _, size = _tp_group()
+    return x if size == 1 else _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x, dim: int = -1):
+    """The ranks' pieces joined along ``dim`` (an all-gather over
+    ``model``); the backward takes this rank's slice of the gradient, which
+    every rank holds whole because what follows the gather is computed
+    alike on every rank (a partitioned use enters through
+    ``copy_to_model`` first)."""
+    group, index, size = _tp_group()
+    return x if size == 1 else _GatherFromModel.apply(x, dim % x.ndim, group, index, size)
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +740,7 @@ class _Plan:
     def __init__(self, mesh, dims: list, limit: int = BUCKET_ELEMENTS):
         self.dims = dims
         self.limit = limit
+        self.mesh = mesh
         self.group = mesh.get_group(FSDP)
         self.world = mesh.size(mesh.mesh_dim_names.index(FSDP))
         self.pod = mesh.get_group(POD) if POD in mesh.mesh_dim_names else None
@@ -678,6 +829,10 @@ def gather_fsdp(xs: list) -> list:
     if not xs:
         return []
     plan = _Plan(xs[0].device_mesh, [_fsdp_dim(x) for x in xs])
+    if plan.batch_world == 1 and model_index(plan.mesh)[1] > 1:
+        # a tensor-parallel mesh with one rank on the batch axes: nothing to
+        # gather or reduce (a world of one keeps the collectives)
+        return [x.to_local() for x in xs]
     return list(_Gather.apply(plan, *(x.to_local() for x in xs)))
 
 

@@ -37,8 +37,11 @@ def photonic_matmul(a, b, cfg, key=None, *, mask=None, noise_mode="auto"):
     noise_mode: auto|none|input|prng — "auto" picks ``input`` when a key is
     given and the hardware is noisy, else ``none``.  Inside a data-parallel
     row window (``photonics.row_window``) s_a is the data group's MAX and
-    the input-mode noise this rank's rows of the global draw; ``prng``
-    raises there.
+    the input-mode noise this rank's rows of the global draw; inside a
+    model-parallel column window (``photonics.column_window``: b holds this
+    rank's rows of the weight) s_b is the model group's MAX and the noise
+    this rank's columns of the global draw.  The kernel runs unchanged on
+    the local operands; ``prng`` raises inside either window.
     """
     if mask is None:
         kernel = photonic_matmul_cuda
@@ -62,11 +65,12 @@ def photonic_matmul(a, b, cfg, key=None, *, mask=None, noise_mode="auto"):
         noise = total_noise(key, (a.shape[-2], b.shape[-2]), k_dim, cfg, a.device)
         out = kernel(a_n, b_n, noise=noise)
     elif noise_mode == "prng":
-        if photonics.active_window() is not None:
-            # the kernel's counters are keyed by local row: it would draw
-            # rank-local noise (no training path picks prng)
-            raise ValueError("prng noise inside a data-parallel row window: the kernel "
-                             "draws by local row; use noise_mode='input'")
+        if photonics.active_window() is not None or photonics.active_columns() is not None:
+            # the kernel's counters are keyed by local row and column: it
+            # would draw rank-local noise (no training path picks prng)
+            raise ValueError("prng noise inside a data-parallel row window or a model-parallel "
+                             "column window: the kernel draws by local row and column; use "
+                             "noise_mode='input'")
         nk = math.ceil(k_dim / BLOCK_K)
         sigma_step = photonics.noise_sigma_total(k_dim, 1.0, 1.0, cfg) / math.sqrt(nk)
         out = kernel(a_n, b_n, seed=key if key is not None else 0, sigma_step=sigma_step)

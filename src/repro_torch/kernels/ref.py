@@ -31,7 +31,9 @@ def total_noise(key, shape, k_dim: int, cfg, device, dtype=torch.float32):
     """Draw the accumulated bank noise for a (T,M) output with contraction
     length k_dim, in normalised units — used by ``ops`` ("input" mode).
     Inside a data-parallel row window the rows are this rank's rows of the
-    draw over the global rows (``photonics.randn_rows``)."""
+    draw over the global rows, inside a model-parallel column window the
+    columns its columns of the draw over the global columns
+    (``photonics.randn_rows``)."""
     from repro_torch.core import photonics
 
     sigma = photonics.noise_sigma_total(k_dim, 1.0, 1.0, cfg)

@@ -21,8 +21,15 @@ parameters' and the momentum's placements, the loss replicated.
 
 Once the state is placed, the model module's own parameters are released
 (``DFAModel.release_parameters``): a rank holds its parameter and momentum
-shards, the replicated feedback and, during the step, one gathered block
-beside the embedding's and the head's leaves.
+shards, its rows of the feedback (split over ``model``) and, during the
+step, one gathered block beside the embedding's and the head's leaves.
+
+The mesh is (data, model) or (pod, data, model).  A ``model`` axis above 1
+runs tensor parallelism (``dist.sharding``'s model-axis operators): the
+dense transformer family and the MLP compute on each leaf's model-split
+piece, every projection runs on this rank's rows of B(k), and the loss and
+every gradient are the one process's.  The other families, the ``emu``
+backend and ``dfa-layerwise`` raise there (``ROADMAP.md`` queue 1).
 
 Usage::
 
@@ -30,6 +37,7 @@ Usage::
 
     mesh_lib.init_process_group("cuda")
     mesh = mesh_lib.make_host_mesh(device_type="cuda")  # (ranks, 1)
+    # or tensor parallel: make_host_mesh(model_axis=2) -> (ranks // 2, 2)
     fn, args, extra = dryrun.build_train("qwen1.5-0.5b", mesh)
     params, opt_state, loss = fn(*args)
 """
@@ -89,7 +97,9 @@ def build_train(arch, mesh, *, shape="train_4k", dfa: DFAConfig | None = None,
     ``shape`` (a ``SHAPES`` name or a ``ShapeCase``) sizes the synthetic
     batch (``example_batch``, from ``seed`` folded with "batch") unless
     ``batch`` (a host batch) is given.
-    ``dfa`` replaces ``_dfa_config()``.  The parameters are drawn from
+    ``dfa`` replaces ``_dfa_config()``.  ``mesh`` is a (data, model) or
+    (pod, data, model) mesh, its ``model`` axis 1 or above.  The
+    parameters are drawn from
     ``seed`` and the feedback from ``seed`` folded with "feedback", as
     ``Trainer.init_state`` draws them, so ``fn`` on a world of one is the
     trainer's single-device step.  ``extra`` holds the model, the trainer,

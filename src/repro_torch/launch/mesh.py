@@ -5,7 +5,9 @@ Functions, not module-level constants: importing this module touches no
 process group and no device.  A mesh is a ``DeviceMesh`` over the ranks of
 the default process group, one rank per card (``torchrun --nproc-per-node
 N`` starts them).  Single pod: 16×16 = 256 ranks on ("data", "model");
-multi-pod: 2×16×16 = 512 with a leading "pod" axis.
+multi-pod: 2×16×16 = 512 with a leading "pod" axis.  The ranks fill the
+mesh in row-major order, so the ``model`` axis (tensor parallelism) is the
+innermost: its groups are consecutive ranks.
 
 ``init_process_group`` starts the default group where none exists: from a
 launcher's environment (``torchrun`` sets ``WORLD_SIZE``, ``RANK``,
@@ -85,12 +87,15 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = N
 def make_host_mesh(n_devices: int | None = None, model_axis: int = 1,
                    device_type: str | None = None):
     """Small mesh over the group's ranks (tests / examples): (n //
-    model_axis, model_axis) on ("data", "model")."""
+    model_axis, model_axis) on ("data", "model"), rank r at (r //
+    model_axis, r % model_axis): a ``model`` group is model_axis
+    consecutive ranks, a ``data`` group the ranks model_axis apart."""
     n = world_size() if n_devices is None else n_devices
     if n > world_size():
         raise RuntimeError(f"a mesh of {n} devices needs {n} ranks, found {world_size()}")
-    data = n // model_axis
-    return _mesh((data, model_axis), AXES, device_type)
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"a model axis of {model_axis} does not divide {n} devices")
+    return _mesh((n // model_axis, model_axis), AXES, device_type)
 
 
 def make_data_mesh(n_devices: int | None = None, device_type: str | None = None):

@@ -26,6 +26,7 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.embeddings import Embedding
@@ -127,6 +128,7 @@ class MambaLM(DFAModel, ServingModel):
                             stacked=True),)
 
     def embed(self, params, batch):
+        sharding.require_no_model_axis("the mamba2 family")
         return gathered(params, "embed.")["tok.table"][batch["tokens"]]
 
     def run_segments(self, params, x0):

@@ -6,6 +6,10 @@ the photonic circuit amplitude-encodes onto the N WDM channels.  The hidden
 ``DenseBlock``s ``h0``, ``h1``, ... are segments of one block each and get
 DFA feedback δ(k) = B(k)e ⊙ g'(a(k)) through the engine's block-local
 gradient; the output layer ("head") is updated with e exactly.
+
+Under tensor parallelism each ``DenseBlock`` and the head run on their
+gathered weights (``nn/linear.py``): every block's output and the logits
+are whole on every rank.
 """
 
 from __future__ import annotations
@@ -76,6 +80,8 @@ class MLPClassifier(DFAModel):
         return x, saved, {}
 
     def head_logits(self, params, x_final, batch):
+        """The logits whole on every rank (a head split over the model axis
+        runs on its gathered weight): the tapped error is their gradient."""
         del batch
         return functional_call(self.head, gathered(params, "head."), (x_final,))
 

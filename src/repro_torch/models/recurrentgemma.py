@@ -33,6 +33,7 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.attention import Attention
@@ -173,6 +174,7 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
         return tuple(spec(n) for n in self.segments)
 
     def embed(self, params, batch):
+        sharding.require_no_model_axis("the recurrentgemma family")
         return gathered(params, "embed.")["tok.table"][batch["tokens"]]
 
     def run_segments(self, params, x0):

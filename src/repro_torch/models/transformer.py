@@ -22,6 +22,18 @@ with cotangent 1; serving does not compute it.  With ``cfg.vision``
 (B, P, d_vision) gets their projections as a prefix before its tokens,
 positions run over prefix and text, and the loss reads only the text
 region; serving is text-only, as the reference's.
+
+Under tensor parallelism (``dist.sharding``, a ``model`` axis above 1 in
+``launch/dryrun.build_train``'s step) the dense family trains on its
+local pieces: the embedding is a vocabulary-parallel lookup, and every
+product of a block and the head runs on its gathered weight
+(``nn/linear.py``), so the residual stream stays whole on every rank
+(``act_btd``), and so do the logits (the reference's ``logits`` rule would
+split them): the loss and the tapped error are the one process's.  The DFA tape
+stays whole: each rank holds every block's (B, S, d) input of its rows,
+not the ``tape_lbsd`` rule's feature slice, so the recompute needs no
+gather.  MoE, MLA and the vision prefix have no tensor parallelism yet and
+raise on a ``model`` axis above 1.
 """
 
 from __future__ import annotations
@@ -33,10 +45,11 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.attention import Attention, MLAttention
-from repro_torch.nn.embeddings import Embedding
+from repro_torch.nn.embeddings import Embedding, lookup
 from repro_torch.nn.frontends import VisionFrontendStub
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
@@ -220,9 +233,10 @@ class TransformerLM(DFAModel, ServingModel):
 
     def embed(self, params, batch):
         p = gathered(params, "embed.")
-        tok = p["tok.table"][batch["tokens"]]
+        tok = lookup(p["tok.table"], batch["tokens"], self.cfg.v_padded)
         if self.cfg.vision is None or "patch_embeds" not in batch:
             return tok
+        sharding.require_no_model_axis("the vision prefix (internvl2)")
         # the vision prefix is optional: text-only batches are valid
         pre = functional_call(self._modules["embed"]["vision"], subtree(p, "vision."),
                               (batch["patch_embeds"],))
@@ -288,9 +302,13 @@ class TransformerLM(DFAModel, ServingModel):
 
     def _head(self, h, weight=None):
         """Unembedding (by ``weight``, default the module's own), masking
-        padded vocab ids so greedy serving never emits one."""
+        padded vocab ids so greedy serving never emits one.  A weight that
+        holds this rank's vocabulary rows is gathered whole first."""
         c = self.cfg
-        logits = forward_matmul(h, self.head["out"].weight if weight is None else weight)
+        w = self.head["out"].weight if weight is None else weight
+        if w.shape[0] != c.v_padded:
+            w = sharding.gather_from_model(w, 0)
+        logits = forward_matmul(h, w)
         if c.pad_vocab_to:
             pad_mask = torch.arange(c.v_padded, device=logits.device) >= c.vocab_size
             logits = torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype,

@@ -32,6 +32,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.core import photonics
+from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, cross_entropy_loss,
                                      gathered, subtree)
 from repro_torch.nn import initializers
@@ -188,6 +189,7 @@ class WhisperModel(DFAModel):
         )
 
     def embed(self, params, batch):
+        sharding.require_no_model_axis("the whisper family")
         c = self.cfg
         p = gathered(params, "embed.")
         enc0 = functional_call(self._embed().audio, subtree(p, "audio."),

@@ -12,6 +12,16 @@ import numpy as np
 import torch
 
 
+def zeros(generator, shape, dtype, device):
+    del generator
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones(generator, shape, dtype, device):
+    del generator
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
 def normal(stddev: float = 0.02):
     def init(generator, shape, dtype, device):
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
@@ -28,5 +38,27 @@ def lecun_normal(in_axis: int = -1):
         std = 1.0 / np.sqrt(max(1, fan_in))
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (x * std).to(dtype)
+
+    return init
+
+
+def glorot_normal():
+    """Normal with std sqrt(2 / (fan_in + fan_out)) over the last two dims
+    (symmetric in them, so the same in either layout)."""
+
+    def init(generator, shape, dtype, device):
+        std = np.sqrt(2.0 / (shape[-2] + shape[-1]))
+        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (x * std).to(dtype)
+
+    return init
+
+
+def uniform_sym(scale: float):
+    """Uniform on [-scale, scale)."""
+
+    def init(generator, shape, dtype, device):
+        x = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+        return (x * (2 * scale) - scale).to(dtype)
 
     return init

@@ -6,13 +6,23 @@ Weights are in torch layout (out, in): ``forward_matmul`` hands ``weight``
 to the bank as its (M, K) operand with no copy.  ``stack=E`` holds E such
 weights in one (E, out, in) parameter, the reference's ``stack_init`` of a
 module run under ``jax.vmap`` (a mixture of experts' expert FFNs): each
-product then runs over the stack as one batched bank product."""
+product then runs over the stack as one batched bank product.
+
+Tensor parallelism (``dist.sharding``): under a mesh whose ``model`` axis
+split a weight's output dim (every 2-D weight, as the reference's
+placements dictate), a layer holds this rank's rows of it, gathers them
+and runs the one process's product on the whole weight, so its output is
+whole on every rank and its arithmetic the one process's (a narrower
+product is not: ``dist.sharding`` says why).  A layer reads the split from
+its own weight (local rows against ``out_dim``), so a weight the
+divisibility fallback left whole is computed whole."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist.sharding import gather_from_model
 from repro_torch.nn import activations, initializers
 from repro_torch.nn.module import Module, empty_param
 from repro_torch.utils import prng
@@ -23,6 +33,7 @@ class Linear(Module):
                  dtype=torch.float32, device=None, stack: int | None = None):
         super().__init__()
         lead = (stack,) if stack else ()
+        self.in_dim, self.out_dim = in_dim, out_dim
         self.weight = empty_param((*lead, out_dim, in_dim), dtype, device)
         self.bias = empty_param((out_dim,), dtype, device) if use_bias else None
 
@@ -36,10 +47,15 @@ class Linear(Module):
         return self
 
     def forward(self, x):
-        y = forward_matmul(x, self.weight)
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+        """The layer on ``x``, a model-split weight and bias gathered whole
+        first."""
+        w, b = self.weight, self.bias
+        if w.shape[-2] != self.out_dim:
+            w = gather_from_model(w, 0)
+        if b is not None and b.shape[0] != self.out_dim:
+            b = gather_from_model(b, 0)
+        y = forward_matmul(x, w)
+        return y if b is None else y + b
 
 
 class DenseBlock(Linear):
@@ -79,9 +95,7 @@ class GatedMLP(Module):
 
     def forward(self, x):
         g, _ = activations.get(self.activation)
-        gate = g(forward_matmul(x, self.gate.weight))
-        up = forward_matmul(x, self.up.weight)
-        return forward_matmul(gate * up, self.down.weight)
+        return self.down(g(self.gate(x)) * self.up(x))
 
 
 class MLP(Module):

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import photonics
+from repro_torch.dist import sharding
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
 
@@ -139,6 +140,7 @@ class MoE(Module):
 
         Above ``group_size`` tokens the groups are cut along the sequence
         axis, (B, chunk) tokens each, and the aux terms are their means."""
+        sharding.require_no_model_axis("the MoE block (expert_ecd)")
         b, s, d = x.shape
         t = b * s
         chunk = max(1, self.group_size // b)

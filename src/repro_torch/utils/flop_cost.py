@@ -54,12 +54,13 @@ counted, N times.
 Collectives (the reference's ``utils/hlo.py`` kinds ``all-reduce``,
 ``all-gather`` and ``reduce-scatter``): the port's own collective helpers
 (``dist.sharding``'s mean all-reduce, the FSDP gather and its
-reduce-scatter, ``core.photonics.RowWindow``'s MAX) call
+reduce-scatter, the model-axis operators of tensor parallelism,
+``core.photonics``' row and column windows' MAX) call
 ``count_collective`` with each collective's operand bytes, as the
 reference's ``_operand_bytes`` reads them from the HLO: an all-gather's
 operand is this rank's shard, a reduce-scatter's the full-size input, an
-all-reduce's the tensor it reduces.  A step on one process issues none and
-counts 0.
+all-reduce's the tensor it reduces, each counted once per rank.  A step on
+one process issues none and counts 0.
 """
 
 from __future__ import annotations

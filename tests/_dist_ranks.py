@@ -213,17 +213,22 @@ def _lm(rank, world, params, fb, batch, launcher_args):
     return out
 
 
-def _rule_slice(full, sharding, mesh):
-    """This rank's slice of ``full`` under a ``Sharding``: each split dim
-    cut into the mesh axis's size, this rank's chunk by its coordinate."""
-    index = [slice(None)] * full.ndim
+def _rule_index(shape, sharding, mesh) -> tuple:
+    """This rank's slice of a whole tensor of ``shape`` under a
+    ``Sharding``: each split dim cut into the mesh axis's size, this rank's
+    chunk by its coordinate (an index of slices)."""
+    index = [slice(None)] * len(shape)
     for d, entry in enumerate(sharding.spec):
         if entry is None:
             continue
-        size = full.shape[d] // mesh.size(mesh.mesh_dim_names.index(entry))
+        size = shape[d] // mesh.size(mesh.mesh_dim_names.index(entry))
         c = mesh.get_local_rank(entry)
         index[d] = slice(c * size, (c + 1) * size)
-    return full[tuple(index)]
+    return tuple(index)
+
+
+def _rule_slice(full, sharding, mesh):
+    return full[_rule_index(full.shape, sharding, mesh)]
 
 
 def _shards_are_the_rules(placed, shardings, params, mesh) -> int:
@@ -475,5 +480,359 @@ def _fsdp_checkpoint(rank, arch, params, fb, batches, path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: build_train's step on meshes with a model axis
+# ---------------------------------------------------------------------------
+
+TP_MESHES = {"tp12": (1, 2), "tp14": (1, 4), "tp22": (2, 2), "tp212": (2, 1, 2)}
+TP_ARCHS = {"tp12": ("qwen1.5-0.5b", "mnist_mlp"), "tp14": ("qwen1.5-0.5b", "qwen3-1.7b"),
+            "tp22": ("qwen1.5-0.5b",), "tp212": ("qwen1.5-0.5b",)}
+TP_STEPS = 2
+# the families, backends and algorithms without tensor parallelism: each
+# must raise on a model axis of 2 -> (arch, hardware, backend, algorithm)
+TP_REFUSED = {"mamba2": ("mamba2-130m", "ideal", "cuda", "dfa"),
+              "recurrentgemma": ("recurrentgemma-9b", "ideal", "cuda", "dfa"),
+              "whisper": ("whisper-small", "ideal", "cuda", "dfa"),
+              "moe": ("qwen2-moe-a2.7b", "ideal", "cuda", "dfa"),
+              "mla": ("minicpm3-4b", "ideal", "cuda", "dfa"),
+              "vision": ("internvl2-2b", "ideal", "cuda", "dfa"),
+              "emu": ("qwen1.5-0.5b", "emu_offchip", "emu", "dfa"),
+              "dfa-layerwise": ("qwen1.5-0.5b", "ideal", "cuda", "dfa-layerwise")}
+
+
+def _tp_mesh(name):
+    """``TP_MESHES[name]`` over the group's first ranks (every rank builds
+    it); the 2-D ones through ``launch.mesh.make_host_mesh``."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    shape = TP_MESHES[name]
+    if len(shape) == 2:
+        return mesh_lib.make_host_mesh(shape[0] * shape[1], model_axis=shape[1],
+                                       device_type="cpu")
+    return fsdp_mesh(shape)
+
+
+def _tp(rank, world, cases, refused, ckpt):
+    """Every mesh's sharded step (noise off and on) for its archs, two
+    noisy steps' shards, the groups; on (1, 2) the operators, the modules,
+    the refusals, bp and dfa-fused and the collective bytes; the (2, 2)
+    checkpoint restored on (4, 1)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+    from repro_torch.utils import prng
+
+    out = {"grads": {}, "shards": {}, "groups": {}}
+    for name in TP_MESHES:
+        mesh = _tp_mesh(name)
+        if rank >= mesh.mesh.numel():
+            continue
+        out["groups"][name] = (dist.get_process_group_ranks(sharding.model_group(mesh)),
+                               sharding.model_index(mesh))
+        for arch in TP_ARCHS[name]:
+            for hardware in FSDP_HARDWARE:
+                _, args, extra = fsdp_step(arch, mesh, hardware, **cases[arch])
+                out["grads"][name, arch, hardware] = fsdp_grads(extra, args)
+        arch = TP_ARCHS[name][0]
+        fn, (p, fb, o, batch, _), extra = fsdp_step(arch, mesh, "offchip_bpd", **cases[arch])
+        for i in range(TP_STEPS):
+            p, o, _ = fn(p, fb, o, batch, prng.step_key(0, i, "noise"))
+        out["shards"][name] = {k: (v.to_local().numpy().copy(),
+                                   _rule_index(v.shape, extra["in_shardings"][0][k], mesh))
+                               for k, v in p.items()}
+        if name == "tp12":
+            out["operators"] = _tp_operators(mesh)
+            out["refused"] = _tp_refused(mesh, refused)
+            _, args, extra = fsdp_step(arch, mesh, "offchip_bpd", **cases[arch])
+            out["algos"] = _tp_algos(mesh, extra, args)
+            out["cost"] = _tp_cost(mesh, cases[arch])
+        if name == "tp14":
+            out["modules"] = _tp_modules(mesh)
+    try:
+        from repro_torch.launch import mesh as mesh_lib
+
+        mesh_lib.make_host_mesh(4, model_axis=3, device_type="cpu")
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    out["ckpt"] = _tp_checkpoint(rank, **ckpt)
+    keep = ("shards", "groups", "operators", "modules", "ckpt", "refused")
+    return out if rank == 0 else {k: out[k] for k in keep if k in out}
+
+
+def _tp_operators(mesh) -> dict:
+    """The model-axis operators and ``annotate`` on the active mesh against
+    one-process autograd of the same function of the whole tensors (every
+    rank draws the whole inputs): the largest |difference| of each."""
+    from repro_torch.dist import sharding
+
+    with sharding.use_mesh(mesh):
+        return _operators_on(sharding, *sharding.model_index(mesh))
+
+
+def _operators_on(sharding, index, size) -> dict:
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(3, 8, generator=gen)
+    w = torch.randn(size, 3, 8, generator=gen)  # one weight a rank
+    n = 8 // size
+    mine = slice(index * n, (index + 1) * n)
+
+    def diff(a, b):
+        return float((a - b).abs().max())
+
+    out = {}
+    # copy: sum_r <copy(x), w_r> -> d/dx = sum_r w_r
+    xg = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad((sharding.copy_to_model(xg) * w[index]).sum(), xg)
+    out["copy_to_model"] = diff(g, w.sum(0))
+    # gather: <gather(x_r), w_0>, the same on every rank -> d/dx_r = w_0's piece
+    xr = x[:, mine].clone().requires_grad_()
+    y = sharding.gather_from_model(xr, -1)
+    (g,) = torch.autograd.grad((y * w[0]).sum(), xr)
+    out["gather_from_model"] = max(diff(y, x), diff(g, w[0][:, mine]))
+    # reduce: sum_r x_r -> d/dx_r = the upstream gradient
+    xr = (x * (index + 1)).requires_grad_()
+    y = sharding.reduce_from_model(xr)
+    (g,) = torch.autograd.grad((y * w[0]).sum(), xr)
+    out["reduce_from_model"] = max(diff(y, x * size * (size + 1) / 2), diff(g, w[0]))
+    # annotate: the models' activations are plain tensors, whole on every
+    # rank, and every rule leaves them as they are
+    x3 = x.reshape(1, 3, 8)
+    out["annotate"] = float(any(sharding.annotate(x3, name) is not x3
+                                for name in sharding.ACT_RULES))
+    return out
+
+
+def _tp_modules(mesh) -> dict:
+    """Whisper's plain MLP, the gated FFN, the MLP's dense block and an
+    attention layer whose q, k and v all split in the middle of a head (2
+    heads of 16 over 4 ranks) on their local pieces, against the whole
+    modules in this process: the output and every parameter's gradient
+    (this rank's piece), largest |difference|."""
+    from torch.func import functional_call
+
+    from repro_torch.dist import sharding
+    from repro_torch.nn.attention import Attention
+    from repro_torch.nn.linear import MLP, DenseBlock, GatedMLP
+
+    index, size = sharding.model_index(mesh)
+    out = {}
+    for name, module in (("mlp", MLP(32, 64)), ("gated_mlp", GatedMLP(32, 64)),
+                         ("dense_block", DenseBlock(32, 64)),
+                         ("attention", Attention(32, 2, 2, head_dim=16, qkv_bias=True))):
+        module.init(5)
+        x = torch.randn(2, 6, 32, generator=torch.Generator().manual_seed(3))
+        whole = {k: v.detach().requires_grad_() for k, v in module.named_parameters()}
+        y = functional_call(module, whole, (x,))
+        expect = torch.autograd.grad((y * y).sum(), list(whole.values()))
+        with sharding.use_mesh(mesh):
+            local = {k: v.detach().chunk(size)[index].clone().requires_grad_()
+                     for k, v in module.named_parameters()}
+            y_tp = functional_call(module, local, (x,))
+            got = torch.autograd.grad((y_tp * y_tp).sum(), list(local.values()))
+        n = [v.shape[0] for v in local.values()]
+        out[name] = max([float((y_tp - y).abs().max())]
+                        + [float((g - e.narrow(0, index * m, m)).abs().max())
+                           for g, e, m in zip(got, expect, n)])
+    return out
+
+
+def _tp_refused(mesh, batches) -> dict:
+    """Each path without tensor parallelism on the (1, 2) mesh -> its
+    NotImplementedError's message (None where it ran)."""
+    from repro_torch.algos.dfa import DFAConfig
+    from repro_torch.core import photonics
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    out = {}
+    for what, (arch, hardware, backend, algo) in TP_REFUSED.items():
+        cfg = DFAConfig(photonics=photonics.preset(hardware), backend=backend)
+        host = {k: torch.as_tensor(np.asarray(v)) for k, v in batches[arch].items()}
+        _, args, extra = dryrun.build_train(arch, mesh, smoke=True, dfa=cfg, device="cpu",
+                                            batch=host)
+        trainer = Trainer(extra["model"], TrainerConfig(algo=algo, dfa=cfg, data_parallel=False),
+                          device="cpu", mesh=mesh)
+        try:
+            with sharding.use_mesh(mesh):
+                trainer._grads(args[0], sharding.to_local(args[1]),
+                               sharding.local_batch(mesh, args[3]), 7)
+            out[what] = None
+        except NotImplementedError as e:
+            out[what] = str(e)
+    return out
+
+
+def _tp_algos(mesh, extra, args) -> dict:
+    """bp (autograd through the operators end to end) and the dfa-fused
+    step on the sharded state of the (1, 2) mesh."""
+    from repro_torch import algos
+    from repro_torch.dist import sharding
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer, model = extra["trainer"], extra["model"]
+    cfg, opt = trainer.cfg.dfa, trainer.cfg.optimizer
+    batch, fb = sharding.local_batch(mesh, args[3]), sharding.to_local(args[1])
+    with sharding.use_mesh(mesh):
+        t = Trainer(model, TrainerConfig(algo="bp", dfa=cfg, data_parallel=False),
+                    device="cpu", mesh=mesh)
+        (loss, _), grads = t._grads(args[0], fb, batch, args[4])
+        out = {"bp": (float(loss), np_tree({k: sharding.full_tensor(g)
+                                             for k, g in grads.items()}))}
+        step = algos.get("dfa-fused").fused_step(model, cfg, opt, reduce=trainer.mean_tree)
+        with trainer.window(batch):
+            params, _, loss = step(args[0], fb, args[2], batch, args[4])
+        out["dfa-fused"] = (float(loss), np_tree({k: sharding.full_tensor(p)
+                                                  for k, p in params.items()}))
+    return out
+
+
+def _tp_cost(mesh, case) -> tuple:
+    """``step_cost``'s collective bytes of a sharded dfa step's gradients by
+    kind, and the operand bytes the ``torch.distributed`` calls saw."""
+    from repro_torch.utils import flop_cost
+
+    _, args, extra = fsdp_step("qwen1.5-0.5b", mesh, "offchip_bpd", **case)
+    seen: dict = {}
+    restore = _counted_calls(seen)
+    try:
+        _, cost = flop_cost.measure(extra["value_and_grad"], args[0], args[1], args[3], args[4])
+    finally:
+        restore()
+    return dict(cost.coll_bytes_by_kind), seen
+
+
+def _tp_checkpoint(rank, arch, params, fb, batches, path):
+    """A step on the (2, 2) mesh saved through ``train/checkpoint.py`` and
+    restored on (4, 1): the logical tensors equal, and the next step's loss
+    on both meshes."""
+    from repro_torch.dist import sharding
+    from repro_torch.train import checkpoint
+
+    two = _tp_mesh("tp22")
+    fn, args, _ = fsdp_step(arch, two, "offchip_bpd", params, fb, batches[0])
+    p, o, _ = fn(*args)
+    checkpoint.save(path, {"params": p, "opt": o}, step=1)
+    whole = {k: sharding.full_tensor(v) for k, v in p.items()}
+    fn2, args2, _ = fsdp_step(arch, two, "offchip_bpd", params, fb, batches[1])
+    loss22 = float(fn2(p, args2[1], o, args2[3], 8)[2].to_local())
+    four = fsdp_mesh((4, 1))
+    fn, args, extra = fsdp_step(arch, four, "offchip_bpd", params, fb, batches[1])
+    p_sh, _, o_sh = extra["in_shardings"][:3]
+    state, step = checkpoint.load(path, {"params": args[0], "opt": args[2]},
+                                  shardings={"params": p_sh, "opt": o_sh})
+    same = all(torch.equal(sharding.full_tensor(state["params"][k]), v) for k, v in whole.items())
+    loss41 = float(fn(state["params"], args[1], state["opt"], args[3], 8)[2].to_local())
+    return {"step": step, "same": same, "loss22": loss22, "loss41": loss41}
+
+
+def _counted_calls(seen: dict):
+    """Wrap ``torch.distributed``'s collectives to add each one's operand
+    bytes to ``seen`` by kind -> the function that restores them."""
+    import torch.distributed as dist
+
+    kinds = {"all_gather_into_tensor": ("all-gather", 1), "all_reduce": ("all-reduce", 0),
+             "reduce_scatter_tensor": ("reduce-scatter", 1)}
+    saved = {n: getattr(dist, n) for n in kinds}
+
+    def wrap(name):
+        kind, at = kinds[name]
+
+        def call(*a, **kw):
+            seen[kind] = seen.get(kind, 0) + a[at].numel() * a[at].element_size()
+            return saved[name](*a, **kw)
+
+        return call
+
+    for name in kinds:
+        setattr(dist, name, wrap(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+    return restore
+
+
+def _tp_card(rank, world, seed, seq, batch):
+    """Full-width qwen1.5-0.5b's tensor-parallel step on a (1, 2) mesh of
+    two ranks on one card (gloo), f32, offchip_bpd through the bank kernel:
+    each piece against an independent init, the bank launches a step, the
+    resident bytes' share of the replicated state, ``step_cost``'s
+    collective bytes against the calls', and on rank 0 step 1's loss and
+    gradients and the parameters after 2 steps against the one process's
+    (the largest max |diff| / max |one process| over the leaves)."""
+    from repro_torch import api, configs
+    from repro_torch.algos.dfa import DFAConfig
+    from repro_torch.core import photonics
+    from repro_torch.data import tokens
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import photonic_matmul as pm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import flop_cost, prng
+
+    arch, device = "qwen1.5-0.5b", "cuda"
+    dfa = DFAConfig(photonics=photonics.preset("offchip_bpd"), backend="cuda")
+    mesh = mesh_lib.make_host_mesh(2, model_axis=2, device_type=device)
+    vocab = configs.get(arch).make_model(device="meta").cfg.vocab_size
+    gen = tokens.MarkovTokens(vocab, seq, batch, seed)
+    keys = [prng.step_key(seed, i, "noise") for i in range(2)]
+    fn, (p, fb, o, b0, _), extra = dryrun.build_train(
+        arch, mesh, dfa=dfa, dtype=torch.float32, device=device, seed=seed,
+        batch={k: torch.as_tensor(v) for k, v in gen.batch(0).items()})
+    full = api.build_model(arch, dtype=torch.float32, device=device, seed=seed)
+    slices = {k: _rule_index(v.shape, extra["in_shardings"][0][k], mesh)
+              for k, v in full.named_parameters()}
+    pieces = all(torch.equal(p[k].to_local(), v.detach()[slices[k]])
+                 for k, v in full.named_parameters())
+    del full
+    replicated = 2 * sum(x.numel() * x.element_size() for x in p.values())
+    resident = sum(x.to_local().numel() * x.element_size()
+                   for tree in (p, o["mom"]) for x in tree.values())
+    seen: dict = {}
+    restore = _counted_calls(seen)
+    pm.launches = 0
+    try:
+        ((loss1, _), grads), cost = flop_cost.measure(extra["value_and_grad"], p, fb, b0,
+                                                      keys[0])
+    finally:
+        restore()
+    launches = [pm.launches]
+    grads1 = {k: sharding.full_tensor(g).cpu() for k, g in grads.items()}
+    p, o, _ = extra["trainer"].cfg.optimizer.update(grads, o, p)
+    del grads
+    b1 = sharding.place({k: torch.as_tensor(v) for k, v in gen.batch(1).items()},
+                        extra["in_shardings"][3])
+    pm.launches = 0
+    p, o, loss2 = fn(p, fb, o, b1, keys[1])
+    launches.append(pm.launches)
+    params2 = {k: sharding.full_tensor(v).cpu() for k, v in p.items()}
+    out = {"pieces": pieces, "share": resident / replicated, "launches": launches,
+           "counted": dict(cost.coll_bytes_by_kind), "seen": seen, "loss1": float(loss1),
+           "loss2": float(loss2.to_local())}
+    del fn, p, fb, o, b0, b1, extra
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return out
+    s = api.build_session(arch=arch, smoke=False, dtype=torch.float32, seed=seed, algo="dfa",
+                          hardware="offchip_bpd", backend="cuda", data_parallel=False,
+                          log_every=10**9, device=device)
+    state = s.init_state()
+    (one_loss, _), one = s.trainer._grads(state["params"], state["fb"],
+                                          s.trainer.put(gen.batch(0)), keys[0])
+
+    def worst(got, expect):
+        return max(float((got[k].double() - e.double().cpu()).abs().max()
+                         / max(float(e.abs().max()), 1e-30)) for k, e in expect.items())
+
+    out.update(one_loss=float(one_loss), grad_err=worst(grads1, one))
+    del one
+    for i in range(2):
+        state, _ = s.step(state, gen.batch(i))
+    out["params2_err"] = worst(params2, state["params"])
+    return out
+
+
 SCENARIOS = {"mlp": _mlp, "lm": _lm, "elastic_save": _elastic_save,
-             "elastic_load": _elastic_load, "fsdp": _fsdp}
+             "elastic_load": _elastic_load, "fsdp": _fsdp, "tp": _tp, "tp_card": _tp_card}

@@ -2,7 +2,8 @@
 devices: ``python tests/_fsdp_reference.py IN.npz OUT.npz``.
 
 For every case in IN (``{case}|params|a/b/c``, ``{case}|fb|...`` and
-``{case}|batch|...`` arrays; ``{case}|arch`` and ``{case}|mesh``) it runs
+``{case}|batch|...`` arrays; ``{case}|arch`` and ``{case}|mesh``, a name of
+``MESHES``, among them model axes above 1) it runs
 ``repro``'s ``dfa`` value_and_grad under ``jax.jit`` with the dry-run's
 ``in_shardings`` (``make_param_shardings``, ``FEEDBACK_RULES``,
 ``make_batch_shardings``) and the gradients sharded as the parameters,
@@ -27,7 +28,11 @@ from repro import algos, configs  # noqa: E402
 from repro.algos.dfa import DFAConfig  # noqa: E402
 from repro.dist import sharding  # noqa: E402
 
-MESHES = {"data": ((4, 1), ("data", "model")), "pod": ((2, 2, 1), ("pod", "data", "model"))}
+MESHES = {"data": ((4, 1), ("data", "model")), "pod": ((2, 2, 1), ("pod", "data", "model")),
+          # tensor parallelism: a model axis above 1 (a mesh of fewer than
+          # four devices takes the first ones)
+          "tp12": ((1, 2), ("data", "model")), "tp14": ((1, 4), ("data", "model")),
+          "tp22": ((2, 2), ("data", "model")), "tp212": ((2, 1, 2), ("pod", "data", "model"))}
 
 
 def nest(flat: dict) -> dict:
@@ -59,7 +64,8 @@ def main(src: str, dst: str) -> None:
         tree = {what: nest({k[len(what) + 1:]: v for k, v in part.items()
                             if k.startswith(what + "|")}) for what in ("params", "fb", "batch")}
         shape, names = MESHES[str(part["mesh"])]
-        mesh = jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(shape))
+        mesh = jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(shape),
+                             devices=jax.devices()[:int(np.prod(shape))])
         model = configs.get(str(part["arch"])).make_smoke()
         vg = algos.get("dfa").value_and_grad(model, DFAConfig(backend="ref"))
         p_sh = sharding.make_param_shardings(mesh, tree["params"])
