@@ -182,8 +182,8 @@ sources in the checkout.  Phases:
     parameters) served text-only in bf16 like qwen1.5 (169 launches a
     forward, the odd 92553-row head held to the plain version), f32
     parity, f32 ``dfa`` training at full depth with the patch prefix and
-    seq 64 at the largest batch of 64 / 32 / 16 that leaves 5 GiB free
-    (25 launches a step, ideal cuda = ref gradients); the bank kernel
+    seq 64 at batch 16 where it leaves 5 GiB free (the card holds 64; 16
+    keeps the script's wall near 700 s; 25 launches a step, ideal cuda = ref gradients); the bank kernel
     timed at every decode shape and the training shape.  One
     ``{"internvl2_model": ...}`` line.
 
@@ -1795,6 +1795,18 @@ def phase_emu_timing(torch, em, ph, ch, mrr, card, draw):
               f"kernel {total['ms']:.4f} ms events, {total['dev_ms']:.4f} ms device, plain "
               f"{total['plain_ms']:.4f} ms events, bound "
               f"{total['bound_ms']:.4f} ms, share {total['share']:.1%}")
+    # a tensor-parallel rank's LM projection on (1, 2): its 512 rows of a
+    # (1024, 1024) B(k) widened to the bank panels they touch, [500, 1024),
+    # so col_base = 500 (emu_offchip, f32, as the LM's emu step runs it)
+    case = _emu_case(torch, ph, ch, mrr, LM_BATCH * LM_SEQ, 524, 1024, {}, {"adc_bits": 10},
+                     True, torch.float32, gen)
+    kw = dict(n_panels=case[3], gamma=1.0, sigma=sigma, shot=shot, adc_bits=10,
+              amax=float(cfg.bank_cols), seed=EMU_SEED, col_base=500)
+    rows["tp_rank"] = _emu_row(torch, em, case, kw, peaks, draw, sms)
+    _print_emu_row("emu_timing", "a tensor-parallel rank's LM projection (4096, 1024 -> 524 "
+                   "rows, col_base 500), f32 a_t and δ, σ 0.098, 10-bit ADC", rows["tp_rank"])
+    del case
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2394,7 +2406,7 @@ DP_MLP_BATCH = 64  # the emu MLP step's rows, 32 a rank
 # (T, K, M, buses) of the emu kernel's row-base check: path A's projection
 # (64 rows, the error's 10 columns -> 800) and an LM projection on 2 buses
 DP_ROW_SHAPES = [(64, 10, 800, 1), (256, 1024, 1024, 2)]
-DP_TIMEOUT_S = 420.0  # the two ranks' run, set-up included
+DP_TIMEOUT_S = 600.0  # the two ranks' run, set-up included
 
 
 def _dp_world_one(torch, api, pm, seed):
@@ -2527,6 +2539,59 @@ def _dp_row_base(torch, em):
     return rows_out
 
 
+def _tp_col_base(torch, em):
+    """The emu kernel on panels [p, nm) of delta with col_base = p·rows
+    (and rows [r, T) of a_t with row_base = r), a tensor-parallel rank's
+    columns, under the planner's plan and every candidate plan, against its
+    plain version and against those rows and columns of the col_base = 0
+    launch over the whole product under every plan: bit for bit."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.hardware import channel, mrr
+
+    out = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for t, k, m, q in DP_ROW_SHAPES:
+        cfg = ph.PhotonicConfig(noise_std=0.202, n_buses=q,
+                                mrr=mrr.MRRConfig(adc_bits=8, shot_noise=0.05))
+        g = torch.Generator(device=DEVICE).manual_seed(t + k + m + 1)
+        a = torch.rand((t, k), generator=g, device=DEVICE) * 2 - 1
+        b = torch.rand((m, k), generator=g, device=DEVICE) * 2 - 1
+        a_t, b_t, n_panels = channel.tile_operands(a, b, cfg)
+        delta = channel.effective_deltas(b_t, cfg).contiguous()
+        mask = channel.alive_dead_ring_mask(cfg, DEVICE)
+        kw = dict(n_panels=n_panels, gamma=float(cfg.mrr.gamma), sigma=0.202, shot=0.05,
+                  adc_bits=8, amax=float(cfg.bank_cols), seed=EMU_SEED)
+        _t, qb, nj, cols = a_t.shape
+        nm, _q, rows, _nj, _c = delta.shape
+        r, panel = t // 2, nm // 2
+        c0 = panel * rows
+        a_part, d_part = a_t[r:].contiguous(), delta[panel:].contiguous()
+        plain = em.emu_bank_product_plain(a_part, d_part, mask, row_base=r, col_base=c0, **kw)
+        bad, plans = [], 0
+        ptrs = em._pointers(d_part, mask)
+        for plan in em.candidate_plans(t - r, nm - panel, rows, qb, nj, cols, ptrs, sms):
+            plans += 1
+            got = em.launch_kernel(a_part, d_part, mask, plan=plan, row_base=r, col_base=c0,
+                                   **kw)
+            if not torch.equal(got, plain):
+                bad.append(f"part {plan.name}")
+        for plan in em.candidate_plans(t, nm, rows, qb, nj, cols, em._pointers(delta, mask),
+                                       sms):
+            plans += 1
+            whole = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
+            if not torch.equal(whole[r:, c0:], plain):
+                bad.append(f"whole {plan.name}")
+        sync(torch)
+        print(f"[tp] emu kernel col_base: (T={t}, K={k}, M={m}, {q} bus{'es' * (q > 1)}) rows "
+              f"[{r}, {t}) and columns [{c0}, {nm * rows}) (panels [{panel}, {nm}) of {rows}) "
+              f"with row_base={r}, col_base={c0}: {plans} launches under every candidate plan, "
+              f"= the plain version and those rows and columns of the col_base=0 launches bit "
+              f"for bit: {not bad}")
+        check(not bad, f"col_base launches differ: {bad}")
+        out.append({"shape": [t, k, m, q], "row_base": r, "col_base": c0, "plans": plans})
+    return out
+
+
 def _dp_rank(rank, world, port, seed, base, queue):
     """One rank of the two-rank run (a spawned process): its results, or its
     traceback, go to ``queue``; a failure then re-raises, so the rank exits
@@ -2564,8 +2629,12 @@ def _dp_rank_work(rank, world, port, seed, base):
         out.update(_fsdp_emu_rank(torch, api, rank, seed))
         t3 = time.perf_counter()
         out.update(_tp_lm_rank(torch, api, pm, rank, seed))
-        out["seconds"] = {"lm": t1 - t0, "emu": t2 - t1, "fsdp": t3 - t2,
-                          "tp": time.perf_counter() - t3}
+        t4 = time.perf_counter()
+        out.update(_fsdp_emu_rank(torch, api, rank, seed, model_axis=TP_MESH[1]))
+        out.update(_tp_emu_window(torch, rank))
+        out.update(_tp_moe_rank(torch, api, pm, rank, seed))
+        out["seconds"] = {"lm": t1 - t0, "emu": t2 - t1, "fsdp": t3 - t2, "tp": t4 - t3,
+                          "tp_moe": time.perf_counter() - t4}
         peer = out.pop("peer")  # rank 1's first projection's noise rows and s_a, to rank 0
         for t in peer:
             dist.broadcast(t, src=1)
@@ -2582,7 +2651,8 @@ def _dp_rank_work(rank, world, port, seed, base):
         out.update(_dp_resume(torch, api, seed, base, out))
     out["seconds"]["one_process"] = time.perf_counter() - t1
     for key in ("grads", "local", "params2", "params3", "noise", "emu_grads", "fsdp_grads",
-                "fsdp_control", "fsdp_params2", "fsdp_emu_params", "tp_grads", "tp_params2"):
+                "fsdp_control", "fsdp_params2", "fsdp_emu_params", "tp_grads", "tp_params2",
+                "tp_emu_params"):
         out.pop(key, None)  # tensors stay in the rank
     return out
 
@@ -3020,12 +3090,15 @@ def _replicate_backward_gather(xs):
     return list(Gather.apply(plan, *(x.to_local() for x in xs)))
 
 
-def _fsdp_emu_rank(torch, api, rank, seed):
+def _fsdp_emu_rank(torch, api, rank, seed, model_axis=1):
     """The paper's MLP at full width on emu_offchip, sharded on a (2, 1)
-    mesh: one step at the session's initial hardware state advanced as the
-    trainer advances it (2 emu launches, the counters from the rank's
-    global row); the loss, the parameters after it (whole, rank 0) and the
-    hardware state."""
+    mesh, or tensor parallel on (1, 2) with ``model_axis=2``: one step at
+    the session's initial hardware state advanced as the trainer advances
+    it (2 emu launches, the counters from the rank's global row, and on
+    (1, 2) from its first global column: rank 1's 400 rows of each 800-row
+    feedback matrix start at panel 8, col_base 400); the loss, the
+    parameters after it (whole, rank 0), the hardware state and the
+    launches' column bases."""
     from repro_torch.dist import sharding
     from repro_torch.hardware import calibrate, drift
     from repro_torch.kernels import emu_matmul as em
@@ -3036,20 +3109,31 @@ def _fsdp_emu_rank(torch, api, rank, seed):
     cfg = session.config
     hw = session.init_state()["hw"]
     del session
-    mesh = mesh_lib.make_host_mesh(DP_WORLD, device_type="cuda")
+    mesh = mesh_lib.make_host_mesh(DP_WORLD, model_axis=model_axis, device_type="cuda")
     fn, args, _ = _fsdp_build(torch, mesh, seed, _dp_mlp_batch(seed), arch="mnist_mlp",
                               dfa=cfg.dfa)
     hw = calibrate.advance(hw, cfg.dfa.photonics, 0, prng.step_key(seed, 0, "hardware"),
                            recalibrate_every=cfg.recalibrate_every)
+    launch, bases = em.emu_bank_product_cuda, []
+
+    def recorded(*a, **kw):
+        bases.append(kw.get("col_base", 0))
+        return launch(*a, **kw)
+
     em.launches = 0
-    with drift.use_state(hw):
-        p, _, loss = fn(*args[:4], prng.step_key(seed, 0, "noise"))
+    em.emu_bank_product_cuda = recorded
+    try:
+        with drift.use_state(hw):
+            p, _, loss = fn(*args[:4], prng.step_key(seed, 0, "noise"))
+    finally:
+        em.emu_bank_product_cuda = launch
     sync(torch)
     launches = em.launches
     params = {k: sharding.full_tensor(v) for k, v in p.items()}
-    return {"fsdp_emu_loss": loss.to_local().item(), "fsdp_emu_launches": launches,
-            "fsdp_emu_params": {k: v.cpu() for k, v in params.items()} if rank == 0 else None,
-            "fsdp_emu_hw": {k: v.cpu().numpy() for k, v in hw.items()}}
+    tag = "fsdp_emu" if model_axis == 1 else "tp_emu"
+    return {f"{tag}_loss": loss.to_local().item(), f"{tag}_launches": launches,
+            f"{tag}_params": {k: v.cpu() for k, v in params.items()} if rank == 0 else None,
+            f"{tag}_hw": {k: v.cpu().numpy() for k, v in hw.items()}, f"{tag}_col_base": bases}
 
 
 # ---------------------------------------------------------------------------
@@ -3057,6 +3141,57 @@ def _fsdp_emu_rank(torch, api, rank, seed):
 # ---------------------------------------------------------------------------
 
 TP_MESH = (1, DP_WORLD)  # (data, model): the weights split over the two ranks
+# (T, K, M) of the emu projection whose bank panels the ranks share: the LM
+# step's error (64 x 64 rows, d_tap 1024) through a 1024-row B(k), 512 rows
+# a rank, which is no whole number of 50-row panels
+TP_EMU_WINDOW = (LM_BATCH * LM_SEQ, 1024, 1024)
+
+
+def _tp_emu_window(torch, rank):
+    """The emu backend's projection at the LM step's shape in this rank's
+    column window of the (1, 2) mesh: its 512 rows of a 1024-row B(k),
+    widened to the whole bank panels they touch by the neighbour's edge
+    rows, all-gathered over the model group (rank 1 from column 500), and
+    cut back; against this rank's columns of the one-process product on
+    the same card, the launches and their column bases, and the bytes
+    ``step_cost`` counts for the window's collectives."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import emu_matmul as em
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import flop_cost
+
+    t, k, m = TP_EMU_WINDOW
+    cfg = ph.preset("emu_offchip")
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    e = torch.randn((t, k), generator=g, device=DEVICE)
+    b = torch.randn((m, k), generator=g, device=DEVICE)
+    whole = ph.photonic_project(e, b, cfg, 7, backend="emu")
+    n = m // TP_MESH[1]
+    mine = slice(rank * n, (rank + 1) * n)
+    mesh = mesh_lib.make_host_mesh(TP_MESH[0] * TP_MESH[1], model_axis=TP_MESH[1],
+                                   device_type="cuda")
+    launch, bases = em.emu_bank_product_cuda, []
+
+    def recorded(*a, **kw):
+        bases.append(kw.get("col_base", 0))
+        return launch(*a, **kw)
+
+    em.launches = 0
+    em.emu_bank_product_cuda = recorded
+    try:
+        with sharding.use_mesh(mesh), ph.column_window(
+                ph.ColumnWindow(rank * n, n, m, sharding.model_group(mesh))):
+            part, cost = flop_cost.measure(ph.photonic_project, e, b[mine], cfg, 7,
+                                           backend="emu")
+    finally:
+        em.emu_bank_product_cuda = launch
+    sync(torch)
+    return {"tp_window": {"equal": torch.equal(part, whole[:, mine]),
+                          "max_abs": float((part - whole[:, mine]).abs().max()),
+                          "launches": em.launches, "col_base": bases,
+                          "columns": [rank * n, (rank + 1) * n],
+                          "collective_bytes": dict(cost.coll_bytes_by_kind)}}
 
 
 def _tp_lm_rank(torch, api, pm, rank, seed):
@@ -3161,10 +3296,328 @@ def _tp_lm_rank(torch, api, pm, rank, seed):
     return out
 
 
+TP_MOE_LAYERS = 4  # qwen2-moe's one-card f32 training depth (phase_moe's)
+TP_MOE_LAUNCHES = TP_MOE_LAYERS + 1  # bank launches a dfa step: the blocks' and the embedding's
+
+
+def _tp_moe_arch(torch):
+    """qwen2-moe-a2.7b's full width in f32 at TP_MOE_LAYERS layers, as an
+    ``Arch`` that ``build_train`` takes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import TransformerLM
+
+    arch = configs.get(QWEN2MOE)
+    cfg = dataclasses.replace(_meta_model(torch, QWEN2MOE, torch.float32).cfg,
+                              n_layers=TP_MOE_LAYERS)
+
+    def make_model(dtype=torch.float32, device=None):
+        return TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=device)
+
+    return dataclasses.replace(arch, make_model=make_model)
+
+
+def _tp_moe_one_process(torch, api, seed, mesh, keep=((), ())):
+    """qwen2-moe's one-process step 1 at TP_MOE_LAYERS layers from
+    ``seed`` (its loss, its expert FLOPs, the digests of each rank's piece
+    of its gradients) and its parameters after 2 steps (their digests), as
+    a session trains them; the gradients and the parameters that ``keep``
+    names also whole on the host."""
+    from repro_torch.data import tokens
+    from repro_torch.utils import flop_cost, prng
+
+    stamps = [time.perf_counter()]
+    model = _tp_moe_arch(torch).make_model(torch.float32, device=DEVICE)
+    session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
+                                seed=seed, data_parallel=False, log_every=10**9, device=DEVICE)
+    state = session.init_state()
+    model.release_parameters()  # the training methods read the state's parameters
+    trainer = session.trainer
+    gen = tokens.MarkovTokens(model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
+    sync(torch)
+    stamps.append(time.perf_counter())
+    ((loss1, _), grads), cost = flop_cost.measure(
+        trainer._grads, state["params"], state["fb"], trainer.put(gen.batch(0)),
+        prng.step_key(seed, 0, "noise"))
+    sync(torch)
+    stamps.append(time.perf_counter())
+    out = {"loss1": loss1.item(), "grads_digests": _piece_digests(torch, grads, mesh),
+           "grads": {k: grads[k].cpu() for k in keep[0]},
+           "expert_flops": cost.region_flops.get("experts", 0), "flops": cost.flops}
+    del grads
+    stamps.append(time.perf_counter())
+    for i in range(DP_STEPS):
+        state, _ = session.step(state, gen.batch(i))
+    sync(torch)
+    stamps.append(time.perf_counter())
+    out["params2_digests"] = _piece_digests(torch, state["params"], mesh)
+    out["params2"] = {k: state["params"][k].cpu() for k in keep[1]}
+    stamps.append(time.perf_counter())
+    out["stages"] = dict(zip(("init", "step 1 counted", "digests", "2 steps", "digests 2"),
+                             (b - a for a, b in zip(stamps, stamps[1:]))))
+    del state, session, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+DIGEST_CHUNK = 1 << 24  # elements a digest weighs at once
+
+
+def _digest(torch, x) -> int:
+    """A fingerprint of an f32 tensor's bits: each element's int32 bit
+    pattern times a fixed pseudo-random odd 64-bit weight of its position,
+    summed modulo 2^64.  Equal tensors give equal digests; two that differ
+    in any bit collide with a chance of about 2^-63."""
+    flat = x.detach().contiguous().view(-1).view(torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for i, start in enumerate(range(0, flat.numel(), DIGEST_CHUNK)):
+        part = flat[start: start + DIGEST_CHUNK].to(torch.int64)
+        gen = torch.Generator(device=flat.device).manual_seed(i)
+        w = torch.randint(-(1 << 62), 1 << 62, part.shape, generator=gen, device=flat.device,
+                          dtype=torch.int64) * 2 + 1
+        total += (part * w).sum()
+    return int(total.item())
+
+
+def _piece_digests(torch, tree, mesh) -> dict:
+    """The digest of each rank's piece of every whole leaf of ``tree`` on
+    the (1, 2) ``mesh``, as the rules split it: {leaf: [rank 0's, rank
+    1's]}."""
+    from repro_torch.dist import sharding
+
+    m = TP_MESH[1]
+    out = {}
+    for k, v in tree.items():
+        spec = sharding.leaf_spec(k, tuple(v.shape), mesh)
+        dims = [d for d, e in enumerate(spec) if e == sharding.MODEL]
+        pieces = v.chunk(m, dim=dims[0]) if dims else [v] * m
+        out[k] = [_digest(torch, piece) for piece in pieces]
+    return out
+
+
+def _differing(torch, tree, digests, rank) -> list:
+    """The leaves of a sharded tree whose piece on some rank differs in its
+    bits from the one process's (the digests ``_piece_digests`` made on
+    rank 0), gathered whole on rank 0's host {leaf: tensor} (every rank
+    calls it; empty elsewhere)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+
+    keys = list(tree)
+    mine = torch.tensor([_digest(torch, tree[k].to_local()) for k in keys], dtype=torch.int64)
+    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    differ = torch.zeros(len(keys), dtype=torch.int64)
+    if rank == 0:
+        for i, k in enumerate(keys):
+            differ[i] = int(any(int(every[r][i]) != digests[k][r] for r in range(len(every))))
+    dist.broadcast(differ, src=0)
+    out = {}
+    for i, k in enumerate(keys):
+        if differ[i]:
+            whole = sharding.full_tensor(tree[k])
+            if rank == 0:
+                out[k] = whole.cpu()
+            del whole
+    return out
+
+
+def _tp_moe_rank(torch, api, pm, rank, seed):
+    """qwen2-moe's expert-parallel step on the (1, 2) mesh at full width:
+    first the one process's step on rank 0 alone (rank 1 waits), then this
+    rank's share: its pieces' resident expert bytes, step 1's gradients
+    counted by ``step_cost`` (its expert FLOPs and collective bytes) beside
+    the operand bytes the collectives were handed, the update, step 2
+    timed.  Each rank's piece of step 1's gradients and of the parameters
+    after 2 steps is held to the one process's by the digests of their
+    bits (``_differing``); a leaf whose bits differ anywhere is gathered
+    whole and held, in f64, to a second one-process run's values on rank
+    0."""
+    import torch.distributed as dist
+
+    from repro_torch.data import tokens
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.utils import flop_cost, prng
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the full-width MoE step's tensors come in many sizes: grow segments
+    # rather than strand reserved blocks (both ranks and the control share
+    # the card)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_host_mesh(TP_MESH[0] * TP_MESH[1], model_axis=TP_MESH[1],
+                                   device_type="cuda")
+    one = _tp_moe_one_process(torch, api, seed, mesh) if rank == 0 else None
+    dist.barrier()
+    t1 = time.perf_counter()
+    stamps = [t1]
+    torch.cuda.reset_peak_memory_stats()
+    arch = _tp_moe_arch(torch)
+    gen = tokens.MarkovTokens(MOE_FULL[QWEN2MOE][-1], LM_SEQ, LM_BATCH, seed)
+    fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0), arch=arch)
+    vg, opt = extra["value_and_grad"], extra["trainer"].cfg.optimizer
+    experts = [k for k in p if ".experts." in k]
+    expert_bytes = [sum(p[k].to_local().numel() * p[k].element_size() for k in experts),
+                    sum(p[k].numel() * p[k].element_size() for k in experts)]
+    local_experts = sorted({p[k].to_local().shape[0] for k in experts})
+    resident = [sum(x.to_local().numel() * x.element_size() for x in tree.values())
+                for tree in (p, o["mom"])]
+    full_bytes = sum(x.numel() * x.element_size() for x in p.values())
+    key0, key1 = prng.step_key(seed, 0, "noise"), prng.step_key(seed, 1, "noise")
+    log = []
+    sync(torch)
+    stamps.append(time.perf_counter())
+    restore = _timed_collectives(torch, dist, log)
+    pm.launches = 0
+    try:
+        ((loss1, _), grads), cost = flop_cost.measure(vg, p, fb, b0, key0)
+    finally:
+        restore()
+    sync(torch)
+    stamps.append(time.perf_counter())
+    launches = [pm.launches]
+    seen = {}
+    for kind, _, nbytes in log:
+        seen[kind] = seen.get(kind, 0) + nbytes
+    grads_differ = _differing(torch, grads, one and one["grads_digests"], rank)
+    stamps.append(time.perf_counter())
+    p1, o1, _ = opt.update(grads, o, p)
+    del grads, p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1 = _placed_batch(torch, extra, gen.batch(1))
+    sync(torch)
+    pm.launches = 0
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    p2, _, loss2 = fn(p1, fb, o1, b1, key1)
+    e1.record()
+    e1.synchronize()
+    launches.append(pm.launches)
+    del p1, o1
+    peak = torch.cuda.max_memory_allocated()
+    stamps.append(time.perf_counter())
+    params2_differ = _differing(torch, p2, one and one["params2_digests"], rank)
+    stamps.append(time.perf_counter())
+    out = {"moe_loss1": loss1.item(), "moe_loss2": loss2.to_local().item(),
+           "moe_expert_bytes": expert_bytes, "moe_local_experts": local_experts,
+           "moe_resident": resident, "moe_full_bytes": full_bytes,
+           "moe_launches": launches, "moe_step2_ms": e0.elapsed_time(e1),
+           "moe_expert_flops": cost.region_flops.get("experts", 0), "moe_flops": cost.flops,
+           "moe_cost": {"counted": dict(cost.coll_bytes_by_kind),
+                        "count": dict(cost.coll_count_by_kind), "seen": seen},
+           "moe_peak_gib": peak / 2**30, "moe_one_s": t1 - t0,
+           "moe_stages": dict(zip(("build", "step 1 counted", "gradients' digests",
+                                   "update and step 2", "parameters' digests"),
+                                  (b - a for a, b in zip(stamps, stamps[1:]))))}
+    del fn, p2, fb, extra, b0, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_seconds"] = time.perf_counter() - t1
+    if one is not None:
+        # equal bits are a distance of 0; a leaf that differs anywhere is
+        # held to the one process's values, which a second one-process run
+        # keeps on the host (the ranks' pieces came whole to rank 0)
+        keep = (list(grads_differ), list(params2_differ))
+        again = (_tp_moe_one_process(torch, api, seed, mesh, keep) if any(keep) else None)
+        out.update(moe_loss1_one=one["loss1"], moe_expert_flops_one=one["expert_flops"],
+                   moe_flops_one=one["flops"], moe_one_stages=one["stages"],
+                   moe_grad_err=(_dp_rel(grads_differ, again["grads"]) if grads_differ
+                                 else (0.0, "every leaf's bits equal")),
+                   moe_params2_err=(_dp_rel(params2_differ, again["params2"]) if params2_differ
+                                    else (0.0, "every leaf's bits equal")),
+                   moe_gathered=[len(grads_differ), len(params2_differ)],
+                   moe_leaves=len(one["params2_digests"]))
+    dist.barrier()
+    return out
+
+
+def _tp_moe_report(r0, r1) -> dict:
+    """Print and check qwen2-moe's expert-parallel steps against one
+    process -> the summary for the ``data_parallel`` line's ``tp`` block."""
+    ranks = ((0, r0), (1, r1))
+    gb = 1e9
+    m = TP_MESH[1]
+    print(f"[tp] qwen2-moe-a2.7b at full width (60 experts, d_ff_expert 1408, vocabulary "
+          f"151936), {TP_MOE_LAYERS} of 24 layers, f32, offchip_bpd (cuda), batch {LM_BATCH} x "
+          f"seq {LM_SEQ}, expert parallel on the {TP_MESH} mesh: each rank holds "
+          f"{r0['moe_local_experts']} / {r1['moe_local_experts']} experts a stack; the ranks' "
+          f"part {r0['moe_seconds']:.1f} / {r1['moe_seconds']:.1f}s after the one process's "
+          f"{r0['moe_one_s']:.1f}s on rank 0, peak device memory {r0['moe_peak_gib']:.2f} / "
+          f"{r1['moe_peak_gib']:.2f} GiB a rank; seconds by stage, rank 0: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["moe_stages"].items())
+          + "; the one process: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["moe_one_stages"].items()))
+    for r, res in ranks:
+        mine, whole = res["moe_expert_bytes"]
+        par, mom = res["moe_resident"]
+        print(f"[tp] rank {r} resident expert weights {mine / gb:.4f} GB against the replicated "
+              f"{whole / gb:.4f} GB ({mine / whole:.4f} of it); all its parameters {par / gb:.4f}"
+              f" GB + momentum {mom / gb:.4f} GB against 2 x {res['moe_full_bytes'] / gb:.4f} GB "
+              f"({(par + mom) / (2 * res['moe_full_bytes']):.4f}); bank launches "
+              f"{res['moe_launches']} (step 1's gradients, step 2); step 2 "
+              f"{res['moe_step2_ms']:.2f} ms (CUDA events, gloo collectives staged through host "
+              f"memory)")
+    for r, res in ranks:
+        counted, seen = res["moe_cost"]["counted"], res["moe_cost"]["seen"]
+        print(f"[tp] rank {r} step_cost of step 1's gradients: "
+              + ", ".join(f"{k} {counted.get(k, 0) / gb:.6f} GB in "
+                          f"{res['moe_cost']['count'].get(k, 0)} (handed to torch.distributed "
+                          f"{seen.get(k, 0) / gb:.6f})" for k in sorted(set(counted) | set(seen)))
+              + f"; expert GEMM FLOPs {res['moe_expert_flops'] / 1e12:.6f} TFLOP against half "
+              f"of one process's {r0['moe_expert_flops_one'] / m / 1e12:.6f} (the step's "
+              f"{res['moe_flops'] / 1e12:.4f} TFLOP against one process's "
+              f"{r0['moe_flops_one'] / 1e12:.4f})")
+    grad, par2 = r0["moe_grad_err"], r0["moe_params2_err"]
+    print(f"[tp] qwen2-moe step 1: loss {r0['moe_loss1']:.6f} (rank 1 {r1['moe_loss1']:.6f}) vs "
+          f"one process {r0['moe_loss1_one']:.6f}; gradients max rel {grad[0]:.3e} ({grad[1]}) "
+          f"= {grad[0] / DP_TOL:.3f} of the 1e-5 gate; parameters after 2 steps {par2[0]:.3e} "
+          f"({par2[1]}) = {par2[0] / DP_TOL:.3f}; bit for bit: loss "
+          f"{r0['moe_loss1'] == r0['moe_loss1_one']}, gradients {grad[0] == 0.0}, parameters "
+          f"{par2[0] == 0.0} (each rank's piece of each of the {r0['moe_leaves']} leaves held to "
+          f"the one process's by a digest of its bits, made on the card; leaves whose bits "
+          f"differ, gathered whole and compared in f64: {r0['moe_gathered'][0]} gradients, "
+          f"{r0['moe_gathered'][1]} parameters)")
+    for r, res in ranks:
+        mine, whole = res["moe_expert_bytes"]
+        counted, seen = res["moe_cost"]["counted"], res["moe_cost"]["seen"]
+        check(res["moe_local_experts"] == [60 // m] and mine * m == whole,
+              f"rank {r} holds {res['moe_local_experts']} experts, {mine} of {whole} B")
+        check(res["moe_launches"] == [TP_MOE_LAUNCHES] * 2,
+              f"rank {r}: expert-parallel bank launches {res['moe_launches']}")
+        check(counted == seen and counted.get("all-gather", 0) > 0,
+              f"rank {r}: step_cost's collectives {counted} against the calls' {seen}")
+        check(res["moe_expert_flops"] > 0
+              and res["moe_expert_flops"] * m == r0["moe_expert_flops_one"],
+              f"rank {r}: expert FLOPs {res['moe_expert_flops']} against 1/{m} of "
+              f"{r0['moe_expert_flops_one']}")
+    check(r0["moe_loss1"] == r1["moe_loss1"] and r0["moe_loss2"] == r1["moe_loss2"]
+          and abs(r0["moe_loss1"] - r0["moe_loss1_one"]) <= DP_TOL * abs(r0["moe_loss1_one"]),
+          "the expert-parallel step 1's loss differs from one process")
+    check(grad[0] <= DP_TOL, f"expert-parallel gradients {grad}")
+    check(par2[0] <= DP_TOL, f"expert-parallel parameters after 2 steps {par2}")
+    return {"arch": QWEN2MOE, "layers": TP_MOE_LAYERS, "loss1": r0["moe_loss1"],
+            "grad_err": grad, "params2_err": par2,
+            "expert_bytes": [r0["moe_expert_bytes"], r1["moe_expert_bytes"]],
+            "expert_flops": [r0["moe_expert_flops"], r1["moe_expert_flops"]],
+            "expert_flops_one": r0["moe_expert_flops_one"],
+            "collective_bytes": [r0["moe_cost"]["counted"], r1["moe_cost"]["counted"]],
+            "collective_bytes_seen": [r0["moe_cost"]["seen"], r1["moe_cost"]["seen"]],
+            "step2_ms": [r0["moe_step2_ms"], r1["moe_step2_ms"]],
+            "bank_launches": sum(r0["moe_launches"])}
+
+
 def _tp_report(torch, pm, r0, r1, card) -> dict:
     """Print and check the two ranks' tensor-parallel steps against one
-    process, and time the bank kernel at the rank's projection shape ->
-    the summary for the ``data_parallel`` line."""
+    process (the LM's and the emu MLP's), and time the bank kernel at the
+    rank's projection shape -> the summary for the ``data_parallel``
+    line."""
+    import numpy as np
+
     ranks = ((0, r0), (1, r1))
     gb = 1e9
     print(f"[tp] two ranks on one card, build_train's sharded step on a {TP_MESH} (data, "
@@ -3231,6 +3684,40 @@ def _tp_report(torch, pm, r0, r1, card) -> dict:
     check(counted == seen and counted.get("all-gather", 0) > 0
           and counted.get("all-reduce", 0) > 0,
           f"step_cost's collectives {counted} against the calls' {seen}")
+    hw_same = all(np.array_equal(r0["tp_emu_hw"][k], r1["tp_emu_hw"][k])
+                  and np.array_equal(r0["tp_emu_hw"][k], r0["emu_hw_one"][k])
+                  for k in r0["tp_emu_hw"])
+    print(f"[tp] MLP on emu_offchip on the {TP_MESH} mesh (each rank 400 rows of each 800-row "
+          f"B(k), the emu kernel's col_base {r0['tp_emu_col_base']} / "
+          f"{r1['tp_emu_col_base']}): loss {r0['tp_emu_loss']:.6f} (rank 1 "
+          f"{r1['tp_emu_loss']:.6f}) vs one process {r0['emu_loss_one']:.6f}; parameters after "
+          f"the step max rel {r0['tp_emu_err'][0]:.3e} ({r0['tp_emu_err'][1]}); emu launches "
+          f"{r0['tp_emu_launches']} / {r1['tp_emu_launches']}; hardware state equal on both "
+          f"ranks and to one process: {hw_same}")
+    check(r0["tp_emu_launches"] == r1["tp_emu_launches"] == 2
+          and r0["tp_emu_col_base"] == [0, 0] and r1["tp_emu_col_base"] == [400, 400],
+          f"the emu MLP's launches {r0['tp_emu_launches']} / {r1['tp_emu_launches']}, column "
+          f"bases {r0['tp_emu_col_base']} / {r1['tp_emu_col_base']}")
+    t_w, k_w, m_w = TP_EMU_WINDOW
+    w0, w1 = r0["tp_window"], r1["tp_window"]
+    print(f"[tp] emu projection at the LM step's shape ({t_w}, {k_w}) x ({m_w}, {k_w}) f32 on "
+          f"emu_offchip in each rank's column window (columns {w0['columns']} / "
+          f"{w1['columns']}: bank panels of 50 shared, the neighbour's edge rows all-gathered), "
+          f"emu kernel's col_base {w0['col_base']} / {w1['col_base']}: = the one process's "
+          f"columns bit for bit {w0['equal']} / {w1['equal']} (max |diff| {w0['max_abs']:.3e} / "
+          f"{w1['max_abs']:.3e}); emu launches {w0['launches']} / {w1['launches']}; step_cost's "
+          f"collective bytes {w0['collective_bytes']} / {w1['collective_bytes']} (the edge "
+          f"rows' all-gather and s_b's MAX)")
+    edges = 2 * min(50 - 1, -(-m_w // 2 // 2)) * k_w * 4  # each rank's edge rows, f32
+    check(w0["equal"] and w1["equal"] and w0["launches"] == w1["launches"] == 1
+          and w0["col_base"] == [0] and w1["col_base"] == [m_w // 2 // 50 * 50]
+          and w0["collective_bytes"].get("all-gather") == edges
+          and w1["collective_bytes"].get("all-gather") == edges,
+          f"the emu projection in a shared-panel window: {w0} / {w1}")
+    check(r0["tp_emu_err"][0] <= FSDP_MLP_TOL and r0["tp_emu_loss"] == r1["tp_emu_loss"]
+          and abs(r0["tp_emu_loss"] - r0["emu_loss_one"]) <= FSDP_MLP_TOL
+          * abs(r0["emu_loss_one"]) and hw_same,
+          "the emu MLP's tensor-parallel step differs from one process")
     return {"mesh": list(TP_MESH), "loss1": r0["tp_loss1"], "grad_err": r0["tp_grad_err"],
             "params2_err": r0["tp_params2_err"], "kernel_err": max(r0["tp_kernel_err"],
                                                                    r1["tp_kernel_err"]),
@@ -3241,7 +3728,10 @@ def _tp_report(torch, pm, r0, r1, card) -> dict:
             "collective_ms": {kind: [sum(ms for ms, _ in res["tp_collectives"][kind])
                                      for _, res in ranks] for kind in ("all-gather",
                                                                        "all-reduce")},
-            "bank_launches": sum(r0["tp_launches"]), "shape": [t, k, m], "timing": row}
+            "bank_launches": sum(r0["tp_launches"]), "shape": [t, k, m], "timing": row,
+            "emu_err": r0["tp_emu_err"], "emu_launches": r0["tp_emu_launches"],
+            "emu_col_base": [r0["tp_emu_col_base"], r1["tp_emu_col_base"]],
+            "emu_window": [r0["tp_window"], r1["tp_window"]]}
 
 
 def _dp_rel(got: dict, expect: dict) -> tuple[float, str]:
@@ -3311,7 +3801,8 @@ def _dp_one_process(torch, api, seed, dp):
     loss, grads, _, hw, params = _dp_emu_grads(torch, _dp_emu_session(api, seed, False),
                                                _dp_mlp_batch(seed))
     out.update(emu_loss_one=loss, emu_grad_err=_dp_rel(dp["emu_grads"], grads),
-               emu_hw_one=hw, fsdp_emu_err=_dp_rel(dp["fsdp_emu_params"], params))
+               emu_hw_one=hw, fsdp_emu_err=_dp_rel(dp["fsdp_emu_params"], params),
+               tp_emu_err=_dp_rel(dp["tp_emu_params"], params))
     return out
 
 
@@ -3504,6 +3995,7 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
     print(f"[dp] card: {card}; torch {torch.__version__}")
     out = {"world1": _dp_world_one(torch, api, pm, seed)}
     out["row_base"] = _dp_row_base(torch, em)
+    out["col_base"] = _tp_col_base(torch, em)
     r0, r1, wall = _dp_two_ranks(torch, pm, seed)
     per_step = {r: res["fit_launches"] / DP_STEPS for r, res in ((0, r0), (1, r1))}
     for r, res in ((0, r0), (1, r1)):
@@ -3577,6 +4069,7 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
           and hw_same, "the emu MLP's two-rank step differs from one process")
     out["fsdp"] = _fsdp_report(np, r0, r1)
     out["tp"] = _tp_report(torch, pm, r0, r1, card)
+    out["tp"]["moe"] = _tp_moe_report(r0, r1)
     out["two_ranks"] = {k: r0[k] for k in ("loss1", "loss1_one", "grad_err", "params2_err",
                                             "emu_grad_err", "profiled")}
     out["two_ranks"].update({k: r1[k] for k in ("local_err", "params3_err", "loss3_one")})
@@ -4222,7 +4715,7 @@ MAMBA = "mamba2-130m"
 MAMBA_SHAPES = {(3352, 768): 24, (768, 1536): 24, (50280, 768): 1}
 MAMBA_FORWARD = sum(MAMBA_SHAPES.values())  # 49
 MAMBA_BATCH, MAMBA_SEQ = 8, 512  # two SSD chunks of 256; 4096 rows per DFA projection
-MAMBA_STEPS, MAMBA_EMU_STEPS = 16, 4
+MAMBA_STEPS, MAMBA_EMU_STEPS = 8, 4  # f32 dfa fit steps, then emu steps
 
 
 def _mamba_forwards(eng, chunk):
@@ -5939,7 +6432,7 @@ WHISPER_FULL = (12, 12, 768, 12, 3072, 51865, 1500, 448)
 # each of 12 layers; the cross attention and the head are digital
 WHISPER_FORWARD = 6 * 12  # 72
 WHISPER_CLIPS, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 16  # served: 4 clips, 4 + 16 decode steps
-WHISPER_BATCH, WHISPER_STEPS, WHISPER_EMU_STEPS = 8, 8, 2  # f32 dfa: batch 8 x seq 64
+WHISPER_BATCH, WHISPER_STEPS, WHISPER_EMU_STEPS = 8, 4, 2  # f32 dfa: batch 8 x seq 64
 # a dfa step's projections: 12 encoder blocks (the pooled error, one row a
 # clip), 12 decoder blocks and the embedding (every target position)
 WHISPER_LAUNCHES = 25
@@ -5947,7 +6440,9 @@ WHISPER_LAUNCHES = 25
 INTERNVL2_FULL = (24, 2048, 16, 8, 8192, 92553, 256, 1024)
 INTERNVL2_FORWARD = 7 * 24 + 1  # 169: q, k, v, o and the MLP's 3 a layer, the head
 INTERNVL2_STEPS = 2  # f32 dfa fit steps, 256 patches + seq 64
-INTERNVL2_BATCHES = (64, 32, 16)  # the largest that leaves FREE_GIB free
+# the largest that leaves FREE_GIB free; the card holds 64, and 16 keeps
+# the script's wall near 700 s
+INTERNVL2_BATCHES = (16,)
 INTERNVL2_PROBE_BATCH = 16
 
 
@@ -6616,7 +7111,7 @@ def main(argv=None):
                       + sum(rg_bank.values()) + sum(slice12_bank.values())
                       + dp["world1"]["launches"] + dp["two_ranks"]["bank_launches"]
                       + dp["world1"]["fsdp_launches"] + dp["fsdp"]["bank_launches"]
-                      + dp["tp"]["bank_launches"]),
+                      + dp["tp"]["bank_launches"] + dp["tp"]["moe"]["bank_launches"]),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
@@ -6627,7 +7122,8 @@ def main(argv=None):
                               "dp_rank0": dp["two_ranks"]["bank_launches"],
                               "fsdp_world1": dp["world1"]["fsdp_launches"],
                               "fsdp_rank0": dp["fsdp"]["bank_launches"],
-                              "tp_rank0": dp["tp"]["bank_launches"]},
+                              "tp_rank0": dp["tp"]["bank_launches"],
+                              "tp_moe_rank0": dp["tp"]["moe"]["bank_launches"]},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
                             dp["tp"]["kernel_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
@@ -6695,7 +7191,7 @@ def main(argv=None):
                       + sum(dense_emu.values()) + moe["emu"]["launches"]
                       + rg["emu"]["launches"] + whisper_emu["launches"]
                       + sum(sched["launches"].values()) + dp["two_ranks"]["emu_launches"]
-                      + dp["fsdp"]["emu_launches"]),
+                      + dp["fsdp"]["emu_launches"] + dp["tp"]["emu_launches"]),
          "launches_by_path": {"train": emu_train_launches, "serve": emu_serve_launches,
                               "lm_train": lm["emu_launches"],
                               "probe": observed["probe_launches"]["emu_bank_product"],
@@ -6707,10 +7203,15 @@ def main(argv=None):
                               "schedule_train": sched["launches"]["q2"],
                               "schedule_q8": sched["launches"]["q8"],
                               "dp_rank0": dp["two_ranks"]["emu_launches"],
-                              "fsdp_rank0": dp["fsdp"]["emu_launches"]},
+                              "fsdp_rank0": dp["fsdp"]["emu_launches"],
+                              "tp_rank0": dp["tp"]["emu_launches"]},
          "row_base": {"check": "rows [r, T) launched with row_base = r = the plain version "
                                "and rows [r, T) of a row_base = 0 launch, bit for bit, under "
                                "every candidate plan", "shapes": dp["row_base"]},
+         "col_base": {"check": "panels [p, nm) launched with col_base = p·rows (and rows [r, "
+                               "T) with row_base = r) = the plain version and those columns "
+                               "of a col_base = 0 launch, bit for bit, under every candidate "
+                               "plan", "shapes": dp["col_base"]},
          "max_abs_err": max(max_err_c, max_err_serve, lm["emu_max_abs_err"],
                             mamba["emu_max_abs_err"], dense[QWEN3]["emu"]["max_abs_err"],
                             moe["emu"]["max_abs_err"], rg["emu"]["max_abs_err"],

@@ -26,8 +26,8 @@ noise its columns of the global draw): δ's local columns (the
 reference's ``delta_tm``), gathered over the model axis before they are
 shaped to the block's output.  The error is whole on every rank (the head
 runs on its gathered weight), and each block's vjp reaches its leaves'
-local pieces.  These projections are the only products a model axis
-splits.
+local pieces.  These projections and a mixture of experts' expert
+products (``nn/moe.py``) are the only products a model axis splits.
 
 This module registers two algorithms:
 
@@ -217,7 +217,7 @@ def _block_grads(spec, params, idx, tape, delta_of, cfg: DFAConfig) -> dict:
                                                 and _is_norm_path(prefix + k)))
               for k, v in spec.layer_params(params, idx).items()}
     with torch.enable_grad():
-        y, aux = spec.apply(sharding.unshard_fsdp(leaves), tape.inputs[idx], tape.extras)
+        y, aux = spec.apply(spec.unshard(leaves), tape.inputs[idx], tape.extras)
         outs, cots = [y], [delta_of(y).to(y.dtype)]
         if aux is not None and aux.requires_grad:
             outs.append(aux)

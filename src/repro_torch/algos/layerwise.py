@@ -19,6 +19,12 @@ readout runs in f32 on the detached block output.  A segment with an error
 adapter or expander (whisper's pooled encoder) falls back to the global
 error, as in the reference: its local tap would not line up with the loss.
 Head and embedding updates are those of ``dfa``.
+
+Under tensor parallelism a rank holds its rows of B(k) (the feedback's
+injection dim is split over ``model``): the readout, which contracts the
+whole block output with B(k), runs on B(k) gathered whole (exact, and the
+one process's product), and the projection back through B(k) on the
+rank's rows in a column window, as ``dfa``'s.
 """
 
 from __future__ import annotations
@@ -44,18 +50,16 @@ def value_and_grad(model, cfg: dfa_lib.DFAConfig):
         return e
 
     def fn(params, fb, batch, rng):
-        # the readout y_k·B(k) would need the block output's columns that
-        # B(k)'s local rows meet
-        sharding.require_no_model_axis("dfa-layerwise")
         fwd = dfa_lib.forward_with_error(model, params, cfg, batch)
         global_delta = dfa_lib.dfa_delta(cfg)
 
         def delta_fn(spec, e_seg, bmat, key, y):
             if spec.adapt_error is not None or spec.expand_delta is not None:
                 return global_delta(spec, e_seg, bmat, key, y)
-            tap = y.detach().float() @ bmat.float()
+            whole = bmat if bmat.shape[0] == spec.d_inject else sharding.gather_from_model(bmat, 0)
+            tap = y.detach().float() @ whole.float()
             e_loc = dfa_lib.compress_error(local_error(params, batch, tap), cfg.error_compress)
-            delta = dfa_lib._project(e_loc.to(y.dtype).detach(), bmat, cfg, key)
+            delta = dfa_lib._project(e_loc.to(y.dtype).detach(), bmat, cfg, key, spec.d_inject)
             return delta.reshape(y.shape)
 
         grads = dict(fwd["g_head"])

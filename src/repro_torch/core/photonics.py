@@ -231,8 +231,9 @@ def photonic_matmul(a, b, cfg: PhotonicConfig, key=None, *, mask=None):
 # it computes its columns of the output.  A column window gives the same
 # two things from the whole weight: s_b is the MAX over the model group,
 # and the noise is this rank's columns of the draw over the global
-# columns (with a row window too, its window of both).  The emu backend's
-# counters have no column base and refuse a column window.
+# columns (with a row window too, its window of both).  The emu backend
+# computes the whole bank panels its columns touch and draws their noise
+# (``hardware/channel.py``).
 
 
 def _group_max(cache: dict, x, group):
@@ -439,10 +440,6 @@ class EmulatedMRRBackend(PhotonicBackend):
     def matmul(self, a, b, cfg, key=None, *, mask=None):
         from repro_torch.hardware import channel  # lazy: hardware imports us
 
-        if active_columns() is not None:
-            raise NotImplementedError(
-                "the emu backend in a model-parallel column window: its noise counters have "
-                "a row base and no column base yet (ROADMAP.md queue 1, item 2)")
         return channel.emulated_matmul(a, b, cfg, key=key, mask=mask,
                                        kernel=self.emu_kernel)
 

@@ -49,16 +49,17 @@ each is counted for ``utils.flop_cost`` by its operand bytes.
 
 Tensor parallelism (the ``model`` axis): the rules split every 2-D
 weight's output dim (torch dim 0), the vocabulary and the feedback's
-injection dim over ``model``, and the FSDP gather hands back a leaf still
-split there.  The reference's GSPMD keeps every value's global meaning;
-the port computes the same global values from the pieces.  A model axis
-splits the storage of the parameters and the momentum, and the feedback
-projections; it does not split a forward or backward product.  A
-model-split layer gathers its weight (``gather_from_model``: an
-all-gather along dim 0; backward this rank's slice of the weight's
-gradient, which every rank computes whole) and runs the one process's
-product on it (``nn/linear.py``), so the activations, the loss and the
-error stay whole on every rank.  The card's f32 cuBLAS picks its
+injection dim over ``model``.  The reference's GSPMD keeps every value's
+global meaning; the port computes the same global values from the
+pieces.  A model axis splits the storage of the parameters and the
+momentum, and the feedback projections; it does not split a dense layer's
+forward or backward product.  The FSDP gather (``unshard_fsdp``) also
+gathers every model-split leaf whole (``gather_from_model``: an
+all-gather along the split dim; backward this rank's slice of the leaf's
+gradient, which every rank computes whole), except those a module reads
+as its piece (``SPLIT_READS``), so every module runs the one process's
+products on whole leaves and the activations, the loss and the error stay
+whole on every rank.  The card's f32 cuBLAS picks its
 algorithm by shape: a narrower product's columns, or an input gradient
 summed from partial products, are not the whole product's bits, and the
 shifts, amplified by the rows that cancel in a noisy DFA step's bias
@@ -69,15 +70,22 @@ rank projects the error through its rows of B(k) (``algos/dfa.py``,
 vocabulary-parallel lookup sums the ranks' rows (``reduce_from_model``: a
 SUM all-reduce; backward identity).  ``copy_to_model`` (identity; backward
 the SUM all-reduce of partial gradients) marks a whole tensor entering
-split compute.  A module reads whether a leaf is split from the leaf
-itself (its local size against the whole), never from the mesh alone, so
-a leaf the divisibility fallback left whole is computed whole.  The
-collectives are ``dist.all_reduce`` and ``dist.all_gather_into_tensor`` on
+split compute.  Whether a leaf is split is read from the leaf itself (its
+placement, or its local size against the whole), never from the mesh
+alone, so a leaf the divisibility fallback left whole is computed whole.
+The collectives are ``dist.all_reduce`` and ``dist.all_gather_into_tensor`` on
 the group's own transport, counted as the FSDP ones are; ``DTensor``'s
 redistribute is not used (its functional collectives crash on gloo with
-CUDA tensors on the card's torch 2.11).  A path without tensor
-parallelism raises on a ``model`` axis above 1
-(``require_no_model_axis``).
+CUDA tensors on the card's torch 2.11).
+
+Two exceptions to "whole on every rank".  The experts of a mixture of
+experts split over ``model`` (the ``experts`` rule, expert parallelism):
+each rank runs its experts on its slice of the whole (E, C, d) dispatch
+buffer (``split_to_model``: a narrow; backward the all-gather of the
+pieces' gradients) and the expert outputs are gathered along E, so each
+expert's product is the one process's and the routing and the combine run
+whole.  And each rank projects the error through its rows of the
+feedback.
 """
 
 from __future__ import annotations
@@ -153,6 +161,12 @@ PARAM_RULES: tuple = (
     ("ln1", P()), ("ln2", P()), ("ln3", P()), ("ln_enc", P()),
     ("", P(FSDP, MODEL)),                # default 2D weight (d_in, d_out)
 )
+
+# The model-split leaves a module reads as this rank's piece, which the
+# FSDP gather leaves split (``unshard_fsdp``): the stacked experts (expert
+# parallel, ``nn/moe.py``) and the vocabulary table
+# (``nn/embeddings.lookup``), matched in the leaf's reference path.
+SPLIT_READS: tuple = ("experts", "tok/table")
 
 # Feedback matrices are (L, d_inject, d_tap): shard the injection dim on
 # model (it is the photonic projection's output dim), replicate d_tap.
@@ -521,16 +535,6 @@ def model_index(mesh) -> tuple[int, int]:
     return mesh.get_local_rank(MODEL), _axis_sizes(mesh)[MODEL]
 
 
-def require_no_model_axis(what: str) -> None:
-    """Raise for a path without tensor parallelism on a ``model`` axis
-    above 1, rather than let it compute on a leaf's slice."""
-    size = model_index(current_mesh())[1]
-    if size > 1:
-        raise NotImplementedError(
-            f"{what} has no tensor parallelism yet (ROADMAP.md queue 1, item 2): it runs on "
-            f"a mesh whose model axis is 1, not {size}")
-
-
 def _tp_group():
     """(the model group, this rank's coordinate, the axis's size) of the
     active mesh; (None, 0, 1) without a model axis above 1."""
@@ -592,6 +596,18 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(), None, None, None, None
 
 
+class _SplitToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, index, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        n = x.shape[dim] // size
+        return x.narrow(dim, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.size), None, None, None, None
+
+
 def copy_to_model(x):
     """Enter a split product with a tensor every model rank holds whole:
     identity; the backward sums the ranks' partial gradients (a SUM
@@ -615,6 +631,20 @@ def gather_from_model(x, dim: int = -1):
     ``copy_to_model`` first)."""
     group, index, size = _tp_group()
     return x if size == 1 else _GatherFromModel.apply(x, dim % x.ndim, group, index, size)
+
+
+def split_to_model(x, dim: int = 0):
+    """This rank's piece of a tensor every model rank holds whole: its
+    slice of ``dim`` (the dual of ``gather_from_model``); the backward
+    all-gathers the ranks' gradients of their pieces along ``dim``, so the
+    whole gradient is every rank's, each piece computed by its owner.
+    Identity without a model axis above 1."""
+    group, index, size = _tp_group()
+    if size == 1:
+        return x
+    if x.shape[dim] % size:
+        raise ValueError(f"a dim of {x.shape[dim]} does not split over {size} model ranks")
+    return _SplitToModel.apply(x, dim % x.ndim, group, index, size)
 
 
 # ---------------------------------------------------------------------------
@@ -836,11 +866,28 @@ def gather_fsdp(xs: list) -> list:
     return list(_Gather.apply(plan, *(x.to_local() for x in xs)))
 
 
+def _model_dim(x) -> int | None:
+    """The tensor dim a ``DTensor`` splits over ``model``, or None."""
+    names = x.device_mesh.mesh_dim_names
+    if MODEL not in names:
+        return None
+    p = x.placements[names.index(MODEL)]
+    return p.dim if p.is_shard() else None
+
+
 def unshard_fsdp(tree):
     """ZeRO-3 gather of a tree's ``DTensor`` leaves (``gather_fsdp``, one
     call: one flat all-gather a dtype bucket) -> the same tree of plain
-    tensors, its other leaves as they are.  Identity without a mesh."""
+    tensors, its other leaves as they are.  Identity without a mesh.  A
+    leaf split over ``model`` is gathered whole there too
+    (``gather_from_model``), unless its path holds one of ``SPLIT_READS``."""
     if current_mesh() is None:
         return tree
-    gathered = iter(gather_fsdp([x for _, x in named_leaves(tree) if is_dtensor(x)]))
-    return tree_map(lambda x: next(gathered) if is_dtensor(x) else x, tree)
+    named = [(k, x) for k, x in named_leaves(tree) if is_dtensor(x)]
+    out = {}
+    for (k, x), g in zip(named, gather_fsdp([x for _, x in named])):
+        d = _model_dim(x)
+        if d is not None and not any(s in ref_path(k) for s in SPLIT_READS):
+            g = gather_from_model(g, d)
+        out[k] = g
+    return path_map(lambda k, x: out[k] if k in out else x, tree)

@@ -20,6 +20,19 @@ Keys are integer seeds.  ``bank_product`` draws its noise from two
 ``torch.Generator``s folded from the key, as the reference splits its key
 into a thermal and a shot half; the fused kernel draws from the
 reference's own counter-based stream.
+
+Tensor parallelism: inside a model-parallel column window
+(``photonics.ColumnWindow``) a rank holds its rows of B, the output
+columns [start, start + count) of the global product.  The bank tiles B
+into panels of ``bank_rows`` output rows, and a panel's crosstalk, its
+dead rings and its drift residual are the bank's, so a rank computes
+whole global panels: where its columns start or end inside a panel, its
+rows of B are widened to the panels they touch with the neighbouring
+rows, all-gathered over the model group (``_panel_window``), and the
+product's columns are cut back to the rank's.  Both paths then draw the
+noise of those global panels (``bank_product`` the panels of the draw over
+every panel, the kernel from its column base), so a rank's columns are
+the one process's bit for bit.
 """
 
 from __future__ import annotations
@@ -152,10 +165,28 @@ def alive_dead_ring_mask(cfg, device="cpu"):
     return phys.index_select(0, idx)
 
 
-def bank_product(a_n, b_n, cfg, key=None, *, residual=None):
+def _randn_panels(shape, generator, device, dtype, panels: tuple[int, int]):
+    """``torch.randn(shape)`` for a (T, nm, ...) draw of T operand rows and
+    nm panels: inside a row window this rank's rows of the draw over the
+    global rows, and with ``panels`` = (first, total) the panels [first,
+    first + nm) of the draw over ``total``."""
+    base, total = photonics.global_rows(shape[0])
+    first, n_panels = panels
+    if (base, total, first, n_panels) == (0, shape[0], 0, shape[1]):
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    full = torch.randn((total, n_panels, *shape[2:]), generator=generator, device=device,
+                       dtype=dtype)
+    return full[base: base + shape[0], first: first + shape[1]]
+
+
+def bank_product(a_n, b_n, cfg, key=None, *, residual=None, col_base: int = 0,
+                 m_total: int | None = None):
     """Noisy panel-accumulated product of normalised operands, unfused.
 
-    a_n: (T, K), b_n: (M, K) in [-1, 1]  ->  (T, M) in bank output units."""
+    a_n: (T, K), b_n: (M, K) in [-1, 1]  ->  (T, M) in bank output units.
+    ``col_base`` (whole panels) is the global output column of b_n's first
+    row in a product of ``m_total`` columns (default M): the noise is that
+    product's draw's panels."""
     device = cfg.mrr or mrr.MRRConfig()
     t = a_n.shape[0]
     m = b_n.shape[0]
@@ -174,16 +205,21 @@ def bank_product(a_n, b_n, cfg, key=None, *, residual=None):
     if sigma > 0.0 or device.shot_noise > 0.0:
         if key is None:
             raise ValueError("noisy emulated bank requires a PRNG key")
-        # rows of T: inside a data-parallel row window, this rank's rows of
-        # the draw over the global rows
+        # rows of T and panels of M: inside a data-parallel row window this
+        # rank's rows of the draw over the global rows, and from col_base its
+        # panels of the draw over the global product's panels
+        rows = cfg.bank_rows
+        if col_base % rows:
+            raise ValueError(f"col_base {col_base} is not a whole number of panels of {rows}")
+        panels = (col_base // rows, -(-(m_total or m) // rows))
         noise = torch.zeros_like(p)
         if sigma > 0.0:
             gen = prng.generator(prng.fold(key, 0), p.device)
-            noise = noise + sigma * photonics.randn_rows(p.shape, gen, p.device, p.dtype)
+            noise = noise + sigma * _randn_panels(p.shape, gen, p.device, p.dtype, panels)
         if device.shot_noise > 0.0:
             gen = prng.generator(prng.fold(key, 1), p.device)
             noise = noise + (device.shot_noise * torch.sqrt(torch.abs(p))
-                             * photonics.randn_rows(p.shape, gen, p.device, p.dtype))
+                             * _randn_panels(p.shape, gen, p.device, p.dtype, panels))
         if n_buses * nj != n_panels:
             # idle buses of the last cycle never fire: mask their draws so
             # the accumulated noise counts the real panels only
@@ -297,15 +333,60 @@ def emulated_matmul(a, b, cfg, key=None, *, mask=None, state=None,
     if state is None:
         state = drift_lib.active_state()
     residual = drift_lib.residual(state) if state is not None else None
+    columns = photonics.active_columns()
+    b_n, col_base, cut = _panel_window(b_n, cfg)
     if kernel == "ref" and b.ndim == 3:
         out = torch.stack([bank_product(a_n[i], b_n[i], cfg, key, residual=residual)
                            for i in range(b.shape[0])])
     elif kernel == "ref":
-        out = bank_product(a_n, b_n, cfg, key, residual=residual)
+        out = bank_product(a_n, b_n, cfg, key, residual=residual, col_base=col_base,
+                           m_total=None if columns is None else columns.total)
     else:
         from repro_torch.kernels import emu_matmul  # lazy: kernels import us
 
-        out = emu_matmul.fused_bank_product(a_n, b_n, cfg, key, residual=residual)
+        out = emu_matmul.fused_bank_product(a_n, b_n, cfg, key, residual=residual,
+                                            col_base=col_base)
+    if cut is not None:
+        out = out[..., cut: cut + b.shape[-2]]
     out = check_finite(out * (s_a * s_b), "emulated_matmul output")
     out = out * mask if mask is not None else out
     return out.to(torch.result_type(a, b))
+
+
+def _panel_window(b_n, cfg):
+    """-> (rows of B, col_base, cut): outside a column window b_n, 0 and
+    None; inside one the rank's rows of the normalised B widened to the
+    whole bank panels they touch, the global output column of the first,
+    and where the rank's columns start within the widened product (None
+    where nothing was widened).
+
+    The ranks' windows are equal (rank i holds [i·count, (i+1)·count)),
+    so whether any panel is shared follows from ``count`` alone and every
+    rank of the model group takes the same branch.  Where ``count`` is not
+    a whole number of panels, every rank all-gathers its first and last h
+    rows, h = min(rows - 1, ⌈count / 2⌉): all that a neighbour's widened
+    window reaches into it, and at most one row more than its own."""
+    columns = photonics.active_columns()
+    if columns is None:
+        return b_n, 0, None
+    rows, start, count = cfg.bank_rows, columns.start, columns.count
+    if count % rows == 0:
+        return b_n, start, None
+    if columns.group is None:
+        raise ValueError(f"a window of {count} columns splits a bank panel of {rows} rows "
+                         "between ranks: the window needs its model group")
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding  # lazy: sharding's users import us
+
+    size = dist.get_world_size(columns.group)
+    h = min(rows - 1, -(-count // 2))
+    ends = sharding._all_gather(torch.cat([b_n[:h], b_n[count - h:]]), 0, columns.group, size)
+    first = start // rows * rows
+    last = min(-(-(start + count) // rows) * rows, columns.total)
+    near = torch.cat([torch.arange(first, start, device=b_n.device),
+                      torch.arange(start + count, last, device=b_n.device)])
+    rank, at = near // count, near % count  # a row's owner, its place in the owner's rows
+    near = ends[rank * 2 * h + torch.where(at < h, at, at - count + 2 * h)]
+    cut = start - first
+    return torch.cat([near[:cut], b_n, near[cut:]]), first, cut

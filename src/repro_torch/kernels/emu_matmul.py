@@ -10,13 +10,23 @@ schedule:
     out = Σ_s ADC( Σ_c a_t[t,q,j,c]·w[i,q,r,j,c] + valid_s·noise )
     w   = (δ² − γ²)/(δ² + γ²) · dead_mask[q,r,c]
     noise = σ·z(c0, c1) + shot·√|p|·z(c0 ^ 0x80000000, c1)
-    c0 = i·(Q·NJ) + s,  c1 = (row_base + t)·rows + r,  valid_s = s < n_panels
+    c0 = (col_base/rows + i)·(Q·NJ) + s,  c1 = (row_base + t)·rows + r,
+    valid_s = s < n_panels
 
 with z the reference's Irwin–Hall(4) gaussian of one threefry2x32 output
 (``counter_gaussian``), so the noise is the reference's bit for bit.
 ``row_base`` is the global row of the first row of a_t: a data-parallel
 rank that holds rows [r, r + T) of a batch passes r and draws the noise
 those rows draw in one launch over the whole batch (0 on one process).
+``col_base`` is the global output column of delta_eff's first row: a
+tensor-parallel rank that holds output columns [c, c + nm·rows) of a
+product passes c and draws those columns' noise (0 on one process).  It
+must be a whole number of panels (a multiple of rows): the dead-ring mask
+and a drift residual are one bank's, the same for every panel, so a
+rank's whole panels are the global product's panels; a column start
+inside a panel raises ValueError here, and ``fused_bank_product``'s caller
+(``hardware.channel.emulated_matmul``) widens such a rank's rows of the
+weight to the panels they touch first.
 
 A stack of E products (a mixture of experts' weights) is one launch:
 a_t (E, T, Q, NJ, C) and delta_eff (E, nm, Q, rows, NJ, C) give (E, T,
@@ -124,10 +134,13 @@ def _fma_dot(a, w):
     return acc
 
 
-def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed, row_base: int = 0):
+def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed, row_base: int = 0,
+                   col_base: int = 0):
     """Raise on operands the kernel does not take: a_t (T, Q, NJ, C) with
     delta_eff (nm, Q, rows, NJ, C), or a stack of E of each; a ``row_base``
-    whose noise counters (row_base + T)·rows would pass 2³²."""
+    whose noise counters (row_base + T)·rows would pass 2³²; a ``col_base``
+    that is not a whole number of panels, not below 2³², or whose slot
+    counters (col_base/rows + nm)·Q·NJ would pass 2³¹."""
     if not ((a_t.ndim, delta_eff.ndim) in ((4, 5), (5, 6))
             and a_t.shape[:-4] == delta_eff.shape[:-5]):
         raise ValueError(f"need a_t ([E,] T, Q, NJ, C) and delta_eff ([E,] nm, Q, rows, NJ, "
@@ -157,11 +170,19 @@ def check_operands(a_t, delta_eff, dead_mask, n_panels: int, seed, row_base: int
     if row_base < 0 or (row_base + t) * rows > COUNTER_ROWS:
         raise ValueError(f"row_base {row_base}: the noise counters (row_base + T={t})·"
                          f"rows={rows} pass 2**32")
+    if col_base < 0 or col_base % rows:
+        raise ValueError(f"col_base {col_base} is not a whole number of panels of {rows} "
+                         "rows: widen the weight's rows to the panels they touch")
+    if col_base >= COUNTER_ROWS:
+        raise ValueError(f"col_base {col_base}: the kernel takes a 32-bit column base")
+    if (col_base // rows + nm) * q_buses * nj > COUNTER_SLOTS:
+        raise ValueError(f"col_base {col_base}: the slot counters (col_base/rows + nm={nm})·"
+                         f"Q·NJ={q_buses * nj} pass 2**31")
 
 
 def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float,
                            sigma: float, shot: float, adc_bits: int | None, amax: float,
-                           seed=None, row_base: int = 0):
+                           seed=None, row_base: int = 0, col_base: int = 0):
     """The kernel's function in plain torch, slot by slot in the kernel's
     order, with its counters -> f32 (T, nm·rows), or (E, T, nm·rows) for a
     stack: every product with the same counters and mask."""
@@ -183,7 +204,8 @@ def emu_bank_product_plain(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: f
     n_slots = q_buses * nj
     if noisy:
         k0, k1 = (int(x) & _M32 for x in seed)
-        ii = torch.arange(nm, device=dev, dtype=torch.int64)[None, :, None]
+        ii = (col_base // rows
+              + torch.arange(nm, device=dev, dtype=torch.int64))[None, :, None]
         c1 = ((row_base + torch.arange(t, device=dev, dtype=torch.int64))[:, None, None] * rows
               + torch.arange(rows, device=dev, dtype=torch.int64)[None, None, :])
     acc = torch.zeros((n_e, t, nm, rows), dtype=torch.float32, device=dev)
@@ -219,6 +241,7 @@ CARD_SMS = 132  # an H100 SXM's SMs
 SM_REGISTERS, REGISTERS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 128, 233472, 2048, 32
 MAX_STACK = 65535  # products a launch takes (the grid's y extent)
 COUNTER_ROWS = 1 << 32  # (row_base + T)·rows at most: the noise counter c1 is 32 bits
+COUNTER_SLOTS = 1 << 31  # slot counters c0 below the shot stream's bit
 # the planner's cost of a block, in units of one T row of one tuple (its
 # FMA chain, draw and ADC): loading a tuple's detunings and forming its
 # weights ≈ 4, staging a T row of inputs ≈ 1/2, the block's launch,
@@ -416,10 +439,11 @@ def candidate_plans(t: int, nm: int, rows: int, q: int, nj: int, cols: int, poin
 
 def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sigma: float,
                   shot: float, adc_bits: int | None, amax: float, seed=None,
-                  plan: Plan | None = None, row_base: int = 0):
+                  plan: Plan | None = None, row_base: int = 0, col_base: int = 0):
     """Launch the CUDA kernel on checked CUDA operands -> f32 (T, nm·rows),
     or (E, T, nm·rows) for a stack; ``plan`` defaults to ``_plan``'s
-    choice, ``row_base`` is the global row of a_t's first row.  Raises
+    choice, ``row_base`` is the global row of a_t's first row and
+    ``col_base`` the global output column of delta_eff's first row.  Raises
     ValueError for what no plan can run and RuntimeError if
     the launch fails."""
     if a_t.device.type != "cuda":
@@ -450,7 +474,7 @@ def launch_kernel(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float, sig
             n_e, t, q_buses, nj, cols, nm, rows, n_panels,
             _DTYPES[a_t.dtype], float(gamma * gamma), float(sigma), float(shot),
             _levels(adc_bits), float(amax), k0, k1, stream,
-            plan.variant, plan.rows_per_block, plan.t_tile, int(row_base))
+            plan.variant, plan.rows_per_block, plan.t_tile, int(row_base), int(col_base))
     if err != 0:
         raise RuntimeError(f"emu_bank_product kernel launch failed ({plan.name}): CUDA error "
                            f"{err}")
@@ -479,17 +503,18 @@ def division_mismatches(device, *, divisor: float | None = None,
 
 def emu_bank_product_cuda(a_t, delta_eff, dead_mask, *, n_panels: int, gamma: float,
                           sigma: float, shot: float, adc_bits: int | None, amax: float,
-                          seed=None, row_base: int = 0):
+                          seed=None, row_base: int = 0, col_base: int = 0):
     """One fused panel loop for a whole bus-tiled GEMM, or for a stack of E
     of them in one launch.  a_t ([E,] T, Q, NJ, C) in f32 or bf16, delta_eff
     ([E,] nm, Q, rows, NJ, C) f32, dead_mask (Q, rows, C) f32 or None, seed
     two uint32 words (needed when σ or shot is nonzero), ``row_base`` the
-    global row of a_t's first row -> the accumulated f32 ([E,] T, nm·rows)
-    (the caller slices M)."""
+    global row of a_t's first row, ``col_base`` the global output column of
+    delta_eff's first row (whole panels) -> the accumulated f32 ([E,] T,
+    nm·rows) (the caller slices M)."""
     global launches
-    check_operands(a_t, delta_eff, dead_mask, n_panels, seed, row_base)
+    check_operands(a_t, delta_eff, dead_mask, n_panels, seed, row_base, col_base)
     kw = dict(n_panels=n_panels, gamma=gamma, sigma=sigma, shot=shot, adc_bits=adc_bits,
-              amax=amax, seed=seed, row_base=row_base)
+              amax=amax, seed=seed, row_base=row_base, col_base=col_base)
     if a_t.device.type == "cpu":
         return emu_bank_product_plain(a_t, delta_eff, dead_mask, **kw)
     out = launch_kernel(a_t, delta_eff, dead_mask, **kw)
@@ -509,13 +534,14 @@ def seed_words(key: int) -> tuple[int, int]:
     return ((key >> 32) & _M32, key & _M32)
 
 
-def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None):
+def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None, col_base: int = 0):
     """Drop-in for ``hardware.channel.bank_product`` on the fused path:
     a_n (T, K), b_n (M, K) normalised operands -> (T, M) in bank output units
     (the caller rescales by s_a·s_b).  A stack a_n (E, T, K), b_n (E, M, K)
     is tiled in one pass and runs as one launch -> (E, T, M).  Inside a
     data-parallel row window the noise counters start at this rank's first
-    global row."""
+    global row; ``col_base`` is the global output column of b_n's first row
+    (whole panels: a tensor-parallel rank's first column)."""
     from repro_torch.core import photonics
     from repro_torch.hardware import channel  # lazy: channel imports us lazily
     from repro_torch.hardware import mrr
@@ -537,5 +563,5 @@ def fused_bank_product(a_n, b_n, cfg, key=None, *, residual=None):
                                 gamma=float(device.gamma), sigma=float(sigma),
                                 shot=float(shot), adc_bits=device.adc_bits,
                                 amax=float(cfg.bank_cols), seed=seed,
-                                row_base=photonics.global_rows(t)[0])
+                                row_base=photonics.global_rows(t)[0], col_base=col_base)
     return check_finite(out[..., :t, :m], "fused_bank_product output")

@@ -136,7 +136,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # the plan: variant, rows, T tile
-        ctypes.c_uint32]  # the global row of the first row (noise counters)
+        ctypes.c_uint32,  # the global row of the first row (noise counters)
+        ctypes.c_uint32]  # the global output column of the first panel
     lib.emu_bank_product_launch.restype = ctypes.c_int
     lib.emu_division_check.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                                        ctypes.c_void_p, ctypes.c_void_p]

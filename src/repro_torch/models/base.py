@@ -71,9 +71,10 @@ def subtree(params: dict, prefix: str) -> dict:
 
 
 def gathered(params: dict, prefix: str) -> dict:
-    """``subtree(params, prefix)`` through the FSDP gather: its ``DTensor``
-    leaves whole, as plain tensors, under a mesh (the embedding and the
-    head, read once a step); the subtree itself otherwise."""
+    """``subtree(params, prefix)`` through the FSDP gather
+    (``unshard_fsdp``): its ``DTensor`` leaves as plain tensors under a
+    mesh (the embedding and the head, read once a step); the subtree
+    itself otherwise."""
     return unshard_fsdp(subtree(params, prefix))
 
 
@@ -103,10 +104,14 @@ class SegmentSpec:
     def layer_params(self, params: dict, idx: int) -> dict:
         return subtree(params, self.layer_prefix(idx))
 
-    def gathered_params(self, params: dict, idx: int) -> dict:
-        """Layer ``idx``'s parameters through the FSDP gather (one block's
+    def unshard(self, leaves: dict) -> dict:
+        """One block's parameters through the FSDP gather (one block's
         all-gather under a mesh; the dict itself otherwise)."""
-        return unshard_fsdp(self.layer_params(params, idx))
+        return unshard_fsdp(leaves)
+
+    def gathered_params(self, params: dict, idx: int) -> dict:
+        """Layer ``idx``'s parameters through ``unshard``."""
+        return self.unshard(self.layer_params(params, idx))
 
 
 @dataclasses.dataclass(frozen=True)

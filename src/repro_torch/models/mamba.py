@@ -15,6 +15,13 @@ As in the reference, the training head (``head_logits``) is the digital
 photonic bank when serving on one).  The reference scans stacked layer
 parameters; the port loops over a ``ModuleList`` (``photonics.
 scanned_layers`` keeps the reference's per-layer noise-key numbering).
+
+Tensor parallelism (``dist.sharding``): the FSDP gather hands each block
+its leaves whole, the ones it reads outside ``Linear.forward`` (the
+SSD's projections, ``conv_w``, ``conv_b``, ``A_log``, ``D`` and
+``dt_bias``) included, and the head's; the table is looked up
+vocabulary-parallel (``nn/embeddings.lookup``).  Every product is then
+the one process's, and only the feedback projections split.
 """
 
 from __future__ import annotations
@@ -26,10 +33,9 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
-from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, subtree)
-from repro_torch.nn.embeddings import Embedding
+from repro_torch.nn.embeddings import Embedding, lookup
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import Module
 from repro_torch.nn.norms import RMSNorm
@@ -128,8 +134,8 @@ class MambaLM(DFAModel, ServingModel):
                             stacked=True),)
 
     def embed(self, params, batch):
-        sharding.require_no_model_axis("the mamba2 family")
-        return gathered(params, "embed.")["tok.table"][batch["tokens"]]
+        return lookup(gathered(params, "embed.")["tok.table"], batch["tokens"],
+                      self.cfg.v_padded)
 
     def run_segments(self, params, x0):
         """Every block's input (L, B, S, d) on the tape."""

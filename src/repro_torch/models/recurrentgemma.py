@@ -22,6 +22,13 @@ Serving caches are a flat dict of stacked (n, B, ...) tensors, named
 model has no parallel prefill: the engine fills its state by the masked
 decode-scan (``serve.decode.make_prefill_step``), as the reference's
 windowed caches require.
+
+Tensor parallelism (``dist.sharding``): the FSDP gather hands each block
+its leaves whole, the ones it reads outside ``Linear.forward`` (the
+RG-LRU's projections, conv and gate leaves) included, and the head's; the
+table is looked up vocabulary-parallel (``nn/embeddings.lookup``).
+Every product is then the one process's, and only the feedback
+projections split.
 """
 
 from __future__ import annotations
@@ -33,11 +40,10 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
-from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.attention import Attention
-from repro_torch.nn.embeddings import Embedding
+from repro_torch.nn.embeddings import Embedding, lookup
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
 from repro_torch.nn.norms import RMSNorm
@@ -174,8 +180,8 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
         return tuple(spec(n) for n in self.segments)
 
     def embed(self, params, batch):
-        sharding.require_no_model_axis("the recurrentgemma family")
-        return gathered(params, "embed.")["tok.table"][batch["tokens"]]
+        return lookup(gathered(params, "embed.")["tok.table"], batch["tokens"],
+                      self.cfg.vocab_size)
 
     def run_segments(self, params, x0):
         """Every layer's input (n, B, S, d) on its segment's tape, with the

@@ -26,14 +26,16 @@ region; serving is text-only, as the reference's.
 Under tensor parallelism (``dist.sharding``, a ``model`` axis above 1 in
 ``launch/dryrun.build_train``'s step) the dense family trains on its
 local pieces: the embedding is a vocabulary-parallel lookup, and every
-product of a block and the head runs on its gathered weight
-(``nn/linear.py``), so the residual stream stays whole on every rank
-(``act_btd``), and so do the logits (the reference's ``logits`` rule would
+product of a block, the vision stub and the head runs on the whole weight
+the FSDP gather hands it (``dist.sharding.unshard_fsdp``), so the
+residual stream stays whole on every rank (``act_btd``), and so do the
+logits (the reference's ``logits`` rule would
 split them): the loss and the tapped error are the one process's.  The DFA tape
 stays whole: each rank holds every block's (B, S, d) input of its rows,
 not the ``tape_lbsd`` rule's feature slice, so the recompute needs no
-gather.  MoE, MLA and the vision prefix have no tensor parallelism yet and
-raise on a ``model`` axis above 1.
+gather.  A mixture of experts is expert parallel: each rank runs its E/m
+experts on its slice of the dispatch buffer and the outputs are gathered
+(``nn/moe.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
-from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, subtree)
 from repro_torch.nn.attention import Attention, MLAttention
@@ -232,11 +233,11 @@ class TransformerLM(DFAModel, ServingModel):
                             stacked=True),)
 
     def embed(self, params, batch):
+        prefix = self.cfg.vision is not None and "patch_embeds" in batch
         p = gathered(params, "embed.")
         tok = lookup(p["tok.table"], batch["tokens"], self.cfg.v_padded)
-        if self.cfg.vision is None or "patch_embeds" not in batch:
+        if not prefix:
             return tok
-        sharding.require_no_model_axis("the vision prefix (internvl2)")
         # the vision prefix is optional: text-only batches are valid
         pre = functional_call(self._modules["embed"]["vision"], subtree(p, "vision."),
                               (batch["patch_embeds"],))
@@ -302,12 +303,9 @@ class TransformerLM(DFAModel, ServingModel):
 
     def _head(self, h, weight=None):
         """Unembedding (by ``weight``, default the module's own), masking
-        padded vocab ids so greedy serving never emits one.  A weight that
-        holds this rank's vocabulary rows is gathered whole first."""
+        padded vocab ids so greedy serving never emits one."""
         c = self.cfg
         w = self.head["out"].weight if weight is None else weight
-        if w.shape[0] != c.v_padded:
-            w = sharding.gather_from_model(w, 0)
         logits = forward_matmul(h, w)
         if c.pad_vocab_to:
             pad_mask = torch.arange(c.v_padded, device=logits.device) >= c.vocab_size

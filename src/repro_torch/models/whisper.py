@@ -22,6 +22,13 @@ the reference's raw ``@``.  The engine does not serve the model: serving
 is ``encode`` then ``serve.decode.make_serve_step(model, whisper_enc=True)``.
 The reference scans each segment's layers; the port iterates them through
 ``photonics.scanned_layers`` to keep its noise-key numbering.
+
+Tensor parallelism (``dist.sharding``): the FSDP gather hands each block,
+the frontend stub, the learned positions and the head their leaves whole,
+the cross-attention's read outside ``Linear.forward`` included; the token
+table is looked up vocabulary-parallel (``nn/embeddings.lookup``).  Every
+product, the encoder's pooled error included, is then the one process's,
+and only the feedback projections split.
 """
 
 from __future__ import annotations
@@ -32,12 +39,11 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.core import photonics
-from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, cross_entropy_loss,
                                      gathered, subtree)
 from repro_torch.nn import initializers
 from repro_torch.nn.attention import Attention, CrossAttention
-from repro_torch.nn.embeddings import Embedding
+from repro_torch.nn.embeddings import Embedding, lookup
 from repro_torch.nn.frontends import AudioFrontendStub
 from repro_torch.nn.linear import MLP, Linear
 from repro_torch.nn.module import Module, empty_param, init_children
@@ -189,12 +195,11 @@ class WhisperModel(DFAModel):
         )
 
     def embed(self, params, batch):
-        sharding.require_no_model_axis("the whisper family")
         c = self.cfg
         p = gathered(params, "embed.")
         enc0 = functional_call(self._embed().audio, subtree(p, "audio."),
                                (batch["frames"].to(c.dtype),))
-        tok = p["tok.table"][batch["tokens"]]
+        tok = lookup(p["tok.table"], batch["tokens"], c.v_padded)
         s, pos = tok.shape[1], p["pos"]
         if s > c.max_target:  # shapes past whisper's real context: tile, as the reference
             pos = pos.repeat(-(-s // c.max_target), 1)

@@ -17,10 +17,8 @@ rope-less layers with an output bias, non-causal in its encoder, and
 products are digital (raw ``@``), as the reference's.
 
 Under tensor parallelism (``dist.sharding``: q, k, v and o split on their
-output dims over ``model``) ``Attention`` runs its products on their
-gathered weights (``nn/linear.py``) and attends every head on every rank.
-``MLAttention`` has no tensor parallelism yet and raises on a ``model``
-axis above 1.
+output dims over ``model``) every attention runs on the whole weights the
+FSDP gather hands it and attends every head on every rank.
 
 Cache updates are out of place, as in the reference: ``decode`` and
 ``prefill`` return new cache tensors and never write the ones they were
@@ -34,7 +32,6 @@ import math
 
 import torch
 
-from repro_torch.dist import sharding
 from repro_torch.nn.embeddings import apply_rotary, rotary_angles
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import Module, empty_param, init_children
@@ -411,7 +408,6 @@ class MLAttention(Module):
         return q, c_kv, k_rope
 
     def forward(self, x, *, positions=None, q_chunk: int = 2048, k_chunk: int = 1024):
-        sharding.require_no_model_axis("MLAttention")
         b, s, _ = x.shape
         h = self.n_heads
         if positions is None:

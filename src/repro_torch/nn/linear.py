@@ -8,21 +8,18 @@ weights in one (E, out, in) parameter, the reference's ``stack_init`` of a
 module run under ``jax.vmap`` (a mixture of experts' expert FFNs): each
 product then runs over the stack as one batched bank product.
 
-Tensor parallelism (``dist.sharding``): under a mesh whose ``model`` axis
-split a weight's output dim (every 2-D weight, as the reference's
-placements dictate), a layer holds this rank's rows of it, gathers them
-and runs the one process's product on the whole weight, so its output is
-whole on every rank and its arithmetic the one process's (a narrower
-product is not: ``dist.sharding`` says why).  A layer reads the split from
-its own weight (local rows against ``out_dim``), so a weight the
-divisibility fallback left whole is computed whole."""
+Tensor parallelism (``dist.sharding``): a layer runs on whole weights,
+which the FSDP gather hands it, so its output is whole on every rank and
+its arithmetic the one process's (a narrower product is not:
+``dist.sharding`` says why).  The experts' stacked weight is the
+exception: split along E, the layer runs its E/m products on the matching
+slice of its input (``nn/moe.py`` hands it over)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.photonics import forward_matmul
-from repro_torch.dist.sharding import gather_from_model
 from repro_torch.nn import activations, initializers
 from repro_torch.nn.module import Module, empty_param
 from repro_torch.utils import prng
@@ -33,7 +30,7 @@ class Linear(Module):
                  dtype=torch.float32, device=None, stack: int | None = None):
         super().__init__()
         lead = (stack,) if stack else ()
-        self.in_dim, self.out_dim = in_dim, out_dim
+        self.in_dim, self.out_dim, self.stack = in_dim, out_dim, stack
         self.weight = empty_param((*lead, out_dim, in_dim), dtype, device)
         self.bias = empty_param((out_dim,), dtype, device) if use_bias else None
 
@@ -47,13 +44,12 @@ class Linear(Module):
         return self
 
     def forward(self, x):
-        """The layer on ``x``, a model-split weight and bias gathered whole
-        first."""
+        """The layer on ``x``; a stack split along E on the matching E/m
+        slice of ``x``."""
         w, b = self.weight, self.bias
-        if w.shape[-2] != self.out_dim:
-            w = gather_from_model(w, 0)
-        if b is not None and b.shape[0] != self.out_dim:
-            b = gather_from_model(b, 0)
+        if self.stack and w.shape[0] != x.shape[0]:
+            raise ValueError(f"a stack of {w.shape[0]} of {self.stack} weights on an input of "
+                             f"{x.shape[0]}: an expert-parallel rank takes its slice of E")
         y = forward_matmul(x, w)
         return y if b is None else y + b
 

@@ -22,6 +22,18 @@ rewinds the key counter per group (``photonics.scanned_layers``).
 Aux losses: the load-balancing loss (Switch) and the router z-loss, with
 the dropped fraction, returned for the trainer to weight.  Serving asks
 for none (``with_aux=False``) and the layer skips computing them.
+
+Expert parallelism (``dist.sharding``): under a ``model`` axis the
+``experts`` rule splits the stacked expert weights along E, so a rank
+holds E/m experts (the divisibility fallback leaves them whole where m
+does not divide E; the layer reads the split from its weights).  The
+routing, the capacity, the aux losses and the dispatch run whole and alike
+on every rank (the router's weight whole from the FSDP gather); each rank runs its experts
+on its slice of the whole (E, C, d) buffer, the reference's ``expert_ecd``
+placement, and the outputs are all-gathered along E in rank order.  The
+backward all-gathers the slices' input gradients, so the scatter back to
+the tokens runs on the whole (E, C, d) gradient, as in one process (a SUM
+all-reduce of partial token gradients would reorder the top-k sums).
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from repro_torch.core import photonics
 from repro_torch.dist import sharding
 from repro_torch.nn.linear import GatedMLP, Linear
 from repro_torch.nn.module import Module
+from repro_torch.utils import flop_cost
 
 
 def top_k(x, k: int):
@@ -100,13 +113,25 @@ class MoE(Module):
         combine = torch.einsum("tk,tke,tkc->tec", topv, keep, pos_oh)
         return combine, dispatch, aux
 
+    def _run_experts(self, expert_in):
+        """The stacked experts on the (E, C, d) buffer -> (E, C, d).  Where
+        this rank holds E/m of them, it runs them on its slice of the
+        buffer and the outputs are gathered along E."""
+
+        def run(x):  # step_cost counts the expert products under "experts"
+            return flop_cost.region("experts", self.experts, x)
+
+        if self.experts.gate.weight.shape[0] == self.n_experts:
+            return run(expert_in)
+        return sharding.gather_from_model(run(sharding.split_to_model(expert_in, 0)), 0)
+
     def _group_forward(self, x_flat, with_aux=True):
         """Route and compute one token group: x_flat (Tg, d) -> (y, aux)."""
         if self.dispatch == "gather":
             return self._group_forward_gather(x_flat, with_aux)
         combine, dispatch, aux = self._route(x_flat, with_aux)
         expert_in = torch.einsum("tec,td->ecd", dispatch.to(x_flat.dtype), x_flat)
-        expert_out = self.experts(expert_in)  # (E, C, d)
+        expert_out = self._run_experts(expert_in)  # (E, C, d)
         y = torch.einsum("tec,ecd->td", combine.to(x_flat.dtype), expert_out)
         return y, aux
 
@@ -128,7 +153,7 @@ class MoE(Module):
         slot_valid = torch.zeros(n_slots + 1, dtype=x_flat.dtype, device=x_flat.device)
         slot_valid[slot.reshape(-1)] = 1.0
         expert_in = x_flat[slot_tok[:n_slots]] * slot_valid[:n_slots, None]
-        expert_out = self.experts(expert_in.reshape(e, cap, d))  # (E, C, d)
+        expert_out = self._run_experts(expert_in.reshape(e, cap, d))  # (E, C, d)
         out_flat = torch.cat([expert_out.reshape(n_slots, d),
                               expert_out.new_zeros((1, d))], dim=0)
         per_k = out_flat[slot]  # (T, K, d); the overflow row is zeros
@@ -140,7 +165,6 @@ class MoE(Module):
 
         Above ``group_size`` tokens the groups are cut along the sequence
         axis, (B, chunk) tokens each, and the aux terms are their means."""
-        sharding.require_no_model_axis("the MoE block (expert_ecd)")
         b, s, d = x.shape
         t = b * s
         chunk = max(1, self.group_size // b)

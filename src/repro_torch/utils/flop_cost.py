@@ -61,6 +61,12 @@ reference's ``_operand_bytes`` reads them from the HLO: an all-gather's
 operand is this rank's shard, a reduce-scatter's the full-size input, an
 all-reduce's the tensor it reduces, each counted once per rank.  A step on
 one process issues none and counts 0.
+
+Regions: ``region(name, fn, x)`` runs ``fn(x)`` and adds the FLOPs of the
+products it runs, in the forward and, through two identity autograd nodes
+at its input and output, in its backward, to ``StepCost.region_flops``
+under ``name`` as well (a mixture of experts' expert products, which
+expert parallelism divides over the ranks).
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ import weakref
 import torch
 
 _ACTIVE: list = []  # the counters of the measurements under way
+_REGIONS: list = []  # the names of the regions whose products run now
 
 # operations that allocate without writing: nothing moves
 _ALLOCATE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
@@ -99,6 +106,49 @@ def count_launch(flops: int, nbytes: int) -> None:
         counter.kernel_launches += 1
 
 
+class _RegionEdge(torch.autograd.Function):
+    """Identity; its backward opens a region (at the region's output) or
+    closes it (at its input)."""
+
+    @staticmethod
+    def forward(ctx, x, name, opening):
+        ctx.name, ctx.opening = name, opening
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.opening:
+            _REGIONS.append(ctx.name)
+        elif ctx.name in _REGIONS:
+            _REGIONS.remove(ctx.name)
+        return g, None, None
+
+
+def region(name: str, fn, x):
+    """``fn(x)``, its products' FLOPs, forward and backward, also counted
+    under ``name`` by every measurement under way; ``fn(x)`` alone when
+    none is.
+
+    The backward count opens the region at the output's edge and closes
+    it at the input's, so it assumes the autograd engine runs the region's
+    own nodes between the two and no other product: true of ``fn`` a chain
+    from ``x`` to its output, which the engine runs in sequence-number
+    order (the experts between the dispatch and the combine).  A backward
+    that never reaches the input's edge leaves the region open until
+    ``measure`` ends."""
+    if not _ACTIVE:
+        return fn(x)
+    track = torch.is_grad_enabled() and x.requires_grad
+    if track:
+        x = _RegionEdge.apply(x, name, False)
+    _REGIONS.append(name)
+    try:
+        y = fn(x)
+    finally:
+        _REGIONS.remove(name)
+    return _RegionEdge.apply(y, name, True) if track else y
+
+
 @dataclasses.dataclass(frozen=True)
 class StepCost:
     """flops: every matrix product of the step; counted_flops: those the
@@ -106,7 +156,8 @@ class StepCost:
     hand-written kernels'; mem_bytes: every device operation's operand and
     output bytes, the kernels' included; coll_bytes_by_kind /
     coll_count_by_kind: the operand bytes and the number of the step's
-    collectives, by kind."""
+    collectives, by kind; region_flops: the FLOPs of the products run in
+    each ``region``, by name."""
 
     flops: int
     counted_flops: int
@@ -116,6 +167,7 @@ class StepCost:
     kernel_bytes: int = 0
     coll_bytes_by_kind: dict = dataclasses.field(default_factory=dict)
     coll_count_by_kind: dict = dataclasses.field(default_factory=dict)
+    region_flops: dict = dataclasses.field(default_factory=dict)
 
     @property
     def collective_bytes(self) -> int:
@@ -190,6 +242,7 @@ class _Counter:
         self.kernel_launches = 0
         self.coll_bytes: dict = {}
         self.coll_count: dict = {}
+        self.region_flops: dict = {}
 
 
 class _GlobalOnly:
@@ -235,6 +288,14 @@ def _counting_mode():
                 if prev is not None and all(r() is not None for r in prev):
                     return out  # the same product on the same live tensors
                 self._seen[key] = roots
+                if _REGIONS:
+                    before = self.get_total_flops()
+                    out = super()._count_flops(func_packet, out, args, kwargs)
+                    for counter in _ACTIVE:
+                        flops = counter.region_flops
+                        flops[_REGIONS[-1]] = (flops.get(_REGIONS[-1], 0)
+                                               + self.get_total_flops() - before)
+                    return out
             return super()._count_flops(func_packet, out, args, kwargs)
 
     return CostMode()
@@ -251,6 +312,8 @@ def measure(fn, *args, **kwargs):
             out = fn(*args, **kwargs)
     finally:
         _ACTIVE.remove(counter)
+        if not _ACTIVE:
+            _REGIONS.clear()
     counted = int(mode.get_total_flops())
     on_card = mode.device_bytes or counter.kernel_launches
     ops_bytes = mode.device_bytes if on_card else mode.host_bytes
@@ -260,4 +323,5 @@ def measure(fn, *args, **kwargs):
                          mem_bytes=ops_bytes + counter.kernel_bytes,
                          kernel_bytes=counter.kernel_bytes,
                          coll_bytes_by_kind=dict(counter.coll_bytes),
-                         coll_count_by_kind=dict(counter.coll_count))
+                         coll_count_by_kind=dict(counter.coll_count),
+                         region_flops=dict(counter.region_flops))

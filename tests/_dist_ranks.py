@@ -304,16 +304,17 @@ def fsdp_mesh(shape):
     return DeviceMesh("cpu", torch.arange(n).view(*shape), mesh_dim_names=axes)
 
 
-def fsdp_step(arch, mesh, hardware, params, fb, batch, seed=0):
+def fsdp_step(arch, mesh, hardware, params, fb, batch, seed=0, dfa=None):
     """``build_train``'s step of the smoke ``arch`` on ``mesh`` (the bank
-    kernel's plain version on ``hardware``) with the given numpy parameters
-    and feedback placed as its arguments -> (fn, args, extra)."""
+    kernel's plain version on ``hardware``, or the ``dfa`` config given)
+    with the given numpy parameters and feedback placed as its arguments
+    -> (fn, args, extra)."""
     from repro_torch.algos.dfa import DFAConfig
     from repro_torch.core import photonics
     from repro_torch.dist import sharding
     from repro_torch.launch import dryrun
 
-    cfg = DFAConfig(photonics=photonics.preset(hardware), backend="cuda")
+    cfg = dfa or DFAConfig(photonics=photonics.preset(hardware), backend="cuda")
     host = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
     fn, args, extra = dryrun.build_train(arch, mesh, smoke=True, dfa=cfg, device="cpu",
                                          batch=host, seed=seed)
@@ -488,18 +489,6 @@ TP_MESHES = {"tp12": (1, 2), "tp14": (1, 4), "tp22": (2, 2), "tp212": (2, 1, 2)}
 TP_ARCHS = {"tp12": ("qwen1.5-0.5b", "mnist_mlp"), "tp14": ("qwen1.5-0.5b", "qwen3-1.7b"),
             "tp22": ("qwen1.5-0.5b",), "tp212": ("qwen1.5-0.5b",)}
 TP_STEPS = 2
-# the families, backends and algorithms without tensor parallelism: each
-# must raise on a model axis of 2 -> (arch, hardware, backend, algorithm)
-TP_REFUSED = {"mamba2": ("mamba2-130m", "ideal", "cuda", "dfa"),
-              "recurrentgemma": ("recurrentgemma-9b", "ideal", "cuda", "dfa"),
-              "whisper": ("whisper-small", "ideal", "cuda", "dfa"),
-              "moe": ("qwen2-moe-a2.7b", "ideal", "cuda", "dfa"),
-              "mla": ("minicpm3-4b", "ideal", "cuda", "dfa"),
-              "vision": ("internvl2-2b", "ideal", "cuda", "dfa"),
-              "emu": ("qwen1.5-0.5b", "emu_offchip", "emu", "dfa"),
-              "dfa-layerwise": ("qwen1.5-0.5b", "ideal", "cuda", "dfa-layerwise")}
-
-
 def _tp_mesh(name):
     """``TP_MESHES[name]`` over the group's first ranks (every rank builds
     it); the 2-D ones through ``launch.mesh.make_host_mesh``."""
@@ -512,10 +501,10 @@ def _tp_mesh(name):
     return fsdp_mesh(shape)
 
 
-def _tp(rank, world, cases, refused, ckpt):
+def _tp(rank, world, cases, ckpt):
     """Every mesh's sharded step (noise off and on) for its archs, two
-    noisy steps' shards, the groups; on (1, 2) the operators, the modules,
-    the refusals, bp and dfa-fused and the collective bytes; the (2, 2)
+    noisy steps' shards, the groups; on (1, 2) the operators, bp and
+    dfa-fused and the collective bytes; on (1, 4) the modules; the (2, 2)
     checkpoint restored on (4, 1)."""
     import torch.distributed as dist
 
@@ -542,7 +531,6 @@ def _tp(rank, world, cases, refused, ckpt):
                                for k, v in p.items()}
         if name == "tp12":
             out["operators"] = _tp_operators(mesh)
-            out["refused"] = _tp_refused(mesh, refused)
             _, args, extra = fsdp_step(arch, mesh, "offchip_bpd", **cases[arch])
             out["algos"] = _tp_algos(mesh, extra, args)
             out["cost"] = _tp_cost(mesh, cases[arch])
@@ -555,7 +543,7 @@ def _tp(rank, world, cases, refused, ckpt):
     except ValueError as e:
         out["indivisible"] = str(e)
     out["ckpt"] = _tp_checkpoint(rank, **ckpt)
-    keep = ("shards", "groups", "operators", "modules", "ckpt", "refused")
+    keep = ("shards", "groups", "operators", "modules", "ckpt")
     return out if rank == 0 else {k: out[k] for k in keep if k in out}
 
 
@@ -589,6 +577,13 @@ def _operators_on(sharding, index, size) -> dict:
     y = sharding.gather_from_model(xr, -1)
     (g,) = torch.autograd.grad((y * w[0]).sum(), xr)
     out["gather_from_model"] = max(diff(y, x), diff(g, w[0][:, mine]))
+    # split: <split(x), w_r's piece> on each rank, the pieces' gradients
+    # gathered -> d/dx = every rank's piece of its own w_r
+    xg = x.clone().requires_grad_()
+    y = sharding.split_to_model(xg, -1)
+    (g,) = torch.autograd.grad((y * w[index][:, mine]).sum(), xg)
+    expect = torch.cat([w[r][:, r * n:(r + 1) * n] for r in range(size)], dim=-1)
+    out["split_to_model"] = max(diff(y, x[:, mine]), diff(g, expect))
     # reduce: sum_r x_r -> d/dx_r = the upstream gradient
     xr = (x * (index + 1)).requires_grad_()
     y = sharding.reduce_from_model(xr)
@@ -605,16 +600,16 @@ def _operators_on(sharding, index, size) -> dict:
 def _tp_modules(mesh) -> dict:
     """Whisper's plain MLP, the gated FFN, the MLP's dense block and an
     attention layer whose q, k and v all split in the middle of a head (2
-    heads of 16 over 4 ranks) on their local pieces, against the whole
-    modules in this process: the output and every parameter's gradient
-    (this rank's piece), largest |difference|."""
+    heads of 16 over 4 ranks), their leaves placed by the rules (each rank
+    holding its pieces) and read through the FSDP gather, against the whole
+    modules in this process: the output and every parameter's gradient,
+    largest |difference|."""
     from torch.func import functional_call
 
     from repro_torch.dist import sharding
     from repro_torch.nn.attention import Attention
     from repro_torch.nn.linear import MLP, DenseBlock, GatedMLP
 
-    index, size = sharding.model_index(mesh)
     out = {}
     for name, module in (("mlp", MLP(32, 64)), ("gated_mlp", GatedMLP(32, 64)),
                          ("dense_block", DenseBlock(32, 64)),
@@ -625,41 +620,14 @@ def _tp_modules(mesh) -> dict:
         y = functional_call(module, whole, (x,))
         expect = torch.autograd.grad((y * y).sum(), list(whole.values()))
         with sharding.use_mesh(mesh):
-            local = {k: v.detach().chunk(size)[index].clone().requires_grad_()
-                     for k, v in module.named_parameters()}
-            y_tp = functional_call(module, local, (x,))
-            got = torch.autograd.grad((y_tp * y_tp).sum(), list(local.values()))
-        n = [v.shape[0] for v in local.values()]
+            leaves = {k: v.requires_grad_() for k, v in sharding.place(
+                whole, sharding.make_param_shardings(mesh, whole)).items()}
+            assert all(v.to_local().shape != v.shape for v in leaves.values()), name
+            y_tp = functional_call(module, sharding.unshard_fsdp(leaves), (x,))
+            got = torch.autograd.grad((y_tp * y_tp).sum(), list(leaves.values()))
+            got = [sharding.full_tensor(g) for g in got]
         out[name] = max([float((y_tp - y).abs().max())]
-                        + [float((g - e.narrow(0, index * m, m)).abs().max())
-                           for g, e, m in zip(got, expect, n)])
-    return out
-
-
-def _tp_refused(mesh, batches) -> dict:
-    """Each path without tensor parallelism on the (1, 2) mesh -> its
-    NotImplementedError's message (None where it ran)."""
-    from repro_torch.algos.dfa import DFAConfig
-    from repro_torch.core import photonics
-    from repro_torch.dist import sharding
-    from repro_torch.launch import dryrun
-    from repro_torch.train.trainer import Trainer, TrainerConfig
-
-    out = {}
-    for what, (arch, hardware, backend, algo) in TP_REFUSED.items():
-        cfg = DFAConfig(photonics=photonics.preset(hardware), backend=backend)
-        host = {k: torch.as_tensor(np.asarray(v)) for k, v in batches[arch].items()}
-        _, args, extra = dryrun.build_train(arch, mesh, smoke=True, dfa=cfg, device="cpu",
-                                            batch=host)
-        trainer = Trainer(extra["model"], TrainerConfig(algo=algo, dfa=cfg, data_parallel=False),
-                          device="cpu", mesh=mesh)
-        try:
-            with sharding.use_mesh(mesh):
-                trainer._grads(args[0], sharding.to_local(args[1]),
-                               sharding.local_batch(mesh, args[3]), 7)
-            out[what] = None
-        except NotImplementedError as e:
-            out[what] = str(e)
+                        + [float((g - e).abs().max()) for g, e in zip(got, expect)])
     return out
 
 
@@ -834,5 +802,128 @@ def _tp_card(rank, world, seed, seq, batch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism for the other families, the emu backend and
+# dfa-layerwise
+# ---------------------------------------------------------------------------
+
+TPF_MOE = "qwen2-moe-a2.7b"
+TPF_ARCHS = {"tp12": (TPF_MOE, "minicpm3-4b", "mamba2-130m", "recurrentgemma-9b",
+                      "whisper-small", "internvl2-2b"),
+             "tp14": (TPF_MOE,)}
+TPF_EMU_KERNELS = ("ref", "cuda")  # the unfused chain and the kernel's plain version
+# (output columns, bank rows) of the emu column checks: panels shared by
+# every rank's window; on (1, 4) also windows of 10 columns in panels of 30,
+# where only the last rank's ends on a panel's edge, and of 25 in panels of
+# 8, where a neighbour's widened window reaches only the rank's edge rows
+TPF_EMU_COLUMNS = {"tp12": ((130, 50),), "tp14": ((132, 50), (40, 30), (100, 8))}
+
+
+def _tp_families(rank, world, cases, emu, layerwise):
+    """Each family's sharded step (noise off and on) on its meshes, two
+    noisy steps' pieces and, for the MoE, the expert FLOPs and the
+    collective bytes; on (1, 2) the emu backend's step (both kernels) and
+    dfa-layerwise's gradients; on both meshes the emu product's columns
+    against one process's."""
+    from repro_torch.utils import flop_cost, prng
+
+    out = {"grads": {}, "shards": {}, "moe": {}, "emu_columns": {}}
+    for name, archs in TPF_ARCHS.items():
+        mesh = _tp_mesh(name)
+        if rank >= mesh.mesh.numel():
+            continue
+        for arch in archs:
+            for hardware in FSDP_HARDWARE:
+                _, args, extra = fsdp_step(arch, mesh, hardware, **cases[arch])
+                out["grads"][name, arch, hardware] = fsdp_grads(extra, args)
+            fn, (p, fb, o, batch, _), extra = fsdp_step(arch, mesh, "offchip_bpd",
+                                                        **cases[arch])
+            for i in range(TP_STEPS):
+                p, o, _ = fn(p, fb, o, batch, prng.step_key(0, i, "noise"))
+            out["shards"][name, arch] = {
+                k: (v.to_local().numpy().copy(), _rule_index(v.shape, extra["in_shardings"][0][k],
+                                                             mesh)) for k, v in p.items()}
+        _, args, extra = fsdp_step(TPF_MOE, mesh, "offchip_bpd", **cases[TPF_MOE])
+        seen: dict = {}
+        restore = _counted_calls(seen)
+        try:
+            _, cost = flop_cost.measure(extra["value_and_grad"], args[0], args[1], args[3],
+                                        args[4])
+        finally:
+            restore()
+        local = {k: v.to_local().shape[0] for k, v in args[0].items() if ".experts." in k}
+        out["moe"][name] = {"experts": cost.region_flops.get("experts", 0),
+                            "counted": dict(cost.coll_bytes_by_kind), "seen": seen,
+                            "local_experts": local}
+        out["emu_columns"][name] = {case: _tp_emu_columns(mesh, *case)
+                                    for case in TPF_EMU_COLUMNS[name]}
+        if name == "tp12":
+            out["emu"] = {kernel: _tp_emu_step(mesh, kernel, **emu) for kernel in TPF_EMU_KERNELS}
+            out["layerwise"] = _tp_layerwise(mesh, **layerwise)
+    return out if rank == 0 else {k: out[k] for k in ("shards", "moe", "emu_columns")}
+
+
+def _tp_emu_columns(mesh, m, rows) -> dict:
+    """This rank's columns of an emu_offchip product of ``m`` columns on a
+    bank of ``rows`` rows (its rows of B, a bank panel shared with a
+    neighbour) in its column window, through both kernels, against the
+    one-process product's columns: equal bit for bit, and the largest
+    |difference| / max |product|."""
+    import dataclasses
+
+    from repro_torch.core import photonics
+    from repro_torch.dist import sharding
+
+    cfg = dataclasses.replace(photonics.preset("emu_offchip"), bank_rows=rows)
+    index, size = sharding.model_index(mesh)
+    gen = torch.Generator().manual_seed(21)
+    a, b = torch.randn(6, 90, generator=gen), torch.randn(m, 90, generator=gen)
+    n = m // size
+    mine = slice(index * n, (index + 1) * n)
+    out = {"window": (index * n, n)}
+    for kernel in TPF_EMU_KERNELS:
+        backend = photonics.EmulatedMRRBackend(emu_kernel=kernel)
+        full = backend.matmul(a, b, cfg, key=5)
+        window = photonics.ColumnWindow(index * n, n, m, sharding.model_group(mesh))
+        with photonics.column_window(window):
+            part = backend.matmul(a, b[mine], cfg, key=5)
+        out[kernel] = (torch.equal(part, full[:, mine]),
+                       float((part - full[:, mine]).abs().max() / full.abs().max()))
+    return out
+
+
+def _tp_emu_step(mesh, kernel, arch, params, fb, batch):
+    """The smoke ``arch``'s sharded dfa step on emu_offchip through
+    ``kernel`` on ``mesh``, at the session's initial hardware state (as
+    ``grads_of`` runs one process)."""
+    from repro_torch.hardware import drift
+
+    s = session(False, arch=arch, smoke=True, hardware="emu_offchip", backend="emu",
+                emu_kernel=kernel)
+    hw = s.init_state()["hw"]
+    _, args, extra = fsdp_step(arch, mesh, "emu_offchip", params, fb, batch,
+                               dfa=s.trainer.cfg.dfa)
+    with drift.use_state(hw):
+        return fsdp_grads(extra, args)
+
+
+def _tp_layerwise(mesh, arch, params, fb, batch):
+    """dfa-layerwise's gradients on the sharded state of ``mesh`` (noise
+    on): the readout through each B(k) gathered whole, the projection on
+    the rank's rows."""
+    from repro_torch.dist import sharding
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    _, args, extra = fsdp_step(arch, mesh, "offchip_bpd", params, fb, batch)
+    cfg = extra["trainer"].cfg.dfa
+    with sharding.use_mesh(mesh):
+        t = Trainer(extra["model"], TrainerConfig(algo="dfa-layerwise", dfa=cfg,
+                                                  data_parallel=False), device="cpu", mesh=mesh)
+        (loss, _), grads = t._grads(args[0], sharding.to_local(args[1]),
+                                    sharding.local_batch(mesh, args[3]), args[4])
+        return float(loss), np_tree({k: sharding.full_tensor(g) for k, g in grads.items()})
+
+
 SCENARIOS = {"mlp": _mlp, "lm": _lm, "elastic_save": _elastic_save,
-             "elastic_load": _elastic_load, "fsdp": _fsdp, "tp": _tp, "tp_card": _tp_card}
+             "elastic_load": _elastic_load, "fsdp": _fsdp, "tp": _tp, "tp_card": _tp_card,
+             "tp_families": _tp_families}

@@ -15,8 +15,7 @@ of the one global draw) and of the reference's sharded step (noise off);
 every shard after two noisy steps the rule's slice of the one process's
 parameters.  Also: the operators and ``annotate`` against one-process
 autograd, whisper's MLP, the gated FFN, the dense block and a mid-head
-attention on local pieces, every
-path without tensor parallelism raising, bp and dfa-fused on split state,
+attention on local pieces, bp and dfa-fused on split state,
 ``step_cost``'s collective bytes against what ``torch.distributed`` was
 handed, and a (2, 2) checkpoint restored on (4, 1).  Without the spawn: the
 column window, a model axis of 1, and the names ported beside them."""
@@ -67,14 +66,6 @@ def _reference_inputs(path, ref_cases):
     np.savez(path, **data)
 
 
-def _refused_batches():
-    out = {}
-    for arch, *_ in ranks.TP_REFUSED.values():
-        cfg = tconfigs.get(arch).make_smoke(device="meta").cfg
-        out[arch] = lm_batches(arch, cfg, SEQ, BATCH, 0)(0)
-    return out
-
-
 @pytest.fixture(scope="module")
 def tp(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp")
@@ -94,7 +85,7 @@ def tp(tmp_path_factory):
             "batches": [first["batch"], later], "path": str(tmp / "tp.pt")}
     threads = torch.get_num_threads()
     try:
-        out = ranks.spawn("tp", WORLD, cases=cases, refused=_refused_batches(), ckpt=ckpt)
+        out = ranks.spawn("tp", WORLD, cases=cases, ckpt=ckpt)
         # one thread, as each rank runs: the CPU's GEMMs then split their work
         # alike on both sides
         torch.set_num_threads(1)
@@ -185,8 +176,8 @@ def test_an_indivisible_model_axis_raises(tp):
     assert "does not divide 4 devices" in tp["ranks"][0]["indivisible"]
 
 
-@pytest.mark.parametrize("op", ["copy_to_model", "gather_from_model", "reduce_from_model",
-                                "annotate"])
+@pytest.mark.parametrize("op", ["copy_to_model", "gather_from_model", "split_to_model",
+                                "reduce_from_model", "annotate"])
 def test_operators_equal_one_process_autograd(tp, op):
     """Forward and gradient of each operator on both (1, 2) ranks against
     the same function of the whole tensors in one process: exact."""
@@ -198,17 +189,11 @@ def test_operators_equal_one_process_autograd(tp, op):
 def test_modules_on_local_pieces_equal_whole(tp, module):
     """Whisper's plain MLP, the gated FFN, the dense block, and an
     attention layer whose q, k and v split in the middle of a head on
-    (1, 4): output and every parameter's gradient against the whole
-    module."""
+    (1, 4), each rank holding its pieces and the module reading them
+    through the FSDP gather: output and every parameter's gradient against
+    the whole module."""
     for r in range(WORLD):
         assert tp["ranks"][r]["modules"][module] <= 1e-5, r
-
-
-@pytest.mark.parametrize("what", list(ranks.TP_REFUSED))
-def test_paths_without_tensor_parallelism_raise(tp, what):
-    for r in range(2):
-        message = tp["ranks"][r]["refused"][what]
-        assert message is not None and "queue 1, item 2" in message, (r, message)
 
 
 @pytest.mark.parametrize("algo", ["bp", "dfa-fused"])
@@ -271,10 +256,10 @@ class _Group:
 
 def test_a_model_axis_of_one_is_the_identity():
     x = torch.randn(2, 3, 8)
-    for op in (tsh.copy_to_model, tsh.reduce_from_model, tsh.gather_from_model):
+    for op in (tsh.copy_to_model, tsh.reduce_from_model, tsh.gather_from_model,
+               tsh.split_to_model):
         assert op(x) is x
     assert tsh.model_index(None) == (0, 1)
-    tsh.require_no_model_axis("anything")  # no mesh: no raise
     assert tph.active_columns() is None
 
 
@@ -328,9 +313,18 @@ def test_column_window_takes_one_max_per_weight_and_refuses():
         with pytest.raises(ValueError, match="prng"):
             ops.photonic_matmul(torch.randn(4, 8), torch.randn(5, 8), cfg, key=1,
                                 noise_mode="prng")
-        with pytest.raises(NotImplementedError, match="column base"):
-            tph.get_backend("emu").matmul(torch.randn(4, 8), torch.randn(5, 8),
+    # the emu backend widens columns that share a bank panel (50 rows) with
+    # another rank's through the model group, and the kernel takes whole
+    # panels only
+    with tph.column_window(tph.ColumnWindow(25, 25, 50)):
+        with pytest.raises(ValueError, match="needs its model group"):
+            tph.get_backend("emu").matmul(torch.randn(4, 8), torch.randn(25, 8),
                                           tph.PRESETS["emu_offchip"], key=1)
+    from repro_torch.kernels import emu_matmul as em
+
+    with pytest.raises(ValueError, match="whole number of panels"):
+        em.check_operands(torch.zeros(2, 1, 1, 20), torch.zeros(1, 1, 50, 1, 20), None, 1,
+                          None, col_base=25)
 
 
 def test_sharded_leaves_of_both_axes_place_and_join():

@@ -7,8 +7,13 @@ rows.  Step 1's loss and gradients and the parameters after 2 steps within
 1e-5 of each leaf's max of the one process's; 25 bank launches a rank a
 step; each piece the rule's slice of an independent init; the resident
 parameters and momentum about half the replicated state; ``step_cost``'s
-collective bytes = what ``torch.distributed`` was handed.  Marked ``gpu``:
-skipped where there is no CUDA device; on the card run
+collective bytes = what ``torch.distributed`` was handed.  The emu kernel's
+``col_base`` (a rank's first global output column, whole bank panels): a
+launch on panels [p, nm) with ``col_base = p·rows`` equals its plain version
+and those columns of a ``col_base = 0`` launch over the whole product, bit
+for bit, under every plan ``candidate_plans`` returns; a column base inside
+a panel or past the slot counters raises.  Marked ``gpu``: skipped where
+there is no CUDA device; on the card run
 
     python -m pytest -m gpu tests/test_torch_tensor_parallel_gpu.py -q
 """
@@ -54,3 +59,72 @@ def test_step_cost_counts_the_collectives_handed_to_torch_distributed(two_ranks)
     for r in two_ranks:
         assert r["counted"] == r["seen"]
         assert r["counted"]["all-gather"] > 0 and r["counted"]["all-reduce"] > 0
+
+
+SEED = (0x1234ABCD, 0x0BADF00D)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+def _emu_case(t, k, m, n_buses, dtype, device):
+    from repro_torch.core import photonics as ph
+    from repro_torch.hardware import channel, mrr
+
+    cfg = ph.PhotonicConfig(noise_std=0.202, n_buses=n_buses,
+                            mrr=mrr.MRRConfig(adc_bits=8, shot_noise=0.05))
+    g = torch.Generator(device=device).manual_seed(t + k + m)
+    a = (torch.rand((t, k), generator=g, device=device) * 2 - 1).to(dtype)
+    b = torch.rand((m, k), generator=g, device=device) * 2 - 1
+    a_t, b_t, n_panels = channel.tile_operands(a, b, cfg)
+    delta = channel.effective_deltas(b_t, cfg).contiguous()
+    kw = dict(n_panels=n_panels, gamma=float(cfg.mrr.gamma), sigma=0.202, shot=0.05,
+              adc_bits=8, amax=float(cfg.bank_cols), seed=SEED)
+    return a_t, delta, channel.alive_dead_ring_mask(cfg, device), kw
+
+
+@pytest.mark.parametrize("t,k,m,n_buses,dtype,panel,r", [
+    (64, 800, 10, 1, torch.float32, 0, 0), (96, 1024, 1024, 2, torch.bfloat16, 10, 5),
+    (12, 257, 300, 3, torch.float32, 3, 0), (8, 40, 130, 1, torch.float32, 1, 2)])
+def test_col_base_launch_equals_plain_and_the_whole_product(cuda, t, k, m, n_buses, dtype,
+                                                            panel, r):
+    from repro_torch.kernels import emu_matmul as em
+
+    a_t, delta, mask, kw = _emu_case(t, k, m, n_buses, dtype, cuda)
+    whole_t, q, nj, cols = a_t.shape
+    nm, _q, rows, _nj, _c = delta.shape
+    panel = min(panel, nm - 1)
+    a_part, d_part = a_t[r:].contiguous(), delta[panel:].contiguous()
+    c0 = panel * rows
+    sms = em._sm_count(cuda.index or 0)
+    plain = em.emu_bank_product_plain(a_part, d_part, mask, row_base=r, col_base=c0, **kw)
+    for plan in em.candidate_plans(whole_t - r, nm - panel, rows, q, nj, cols,
+                                   em._pointers(d_part, mask), sms):
+        got = em.launch_kernel(a_part, d_part, mask, plan=plan, row_base=r, col_base=c0, **kw)
+        assert torch.equal(got, plain), plan.name
+    for plan in em.candidate_plans(whole_t, nm, rows, q, nj, cols, em._pointers(delta, mask),
+                                   sms):
+        whole = em.launch_kernel(a_t, delta, mask, plan=plan, **kw)
+        assert torch.equal(whole[r:, c0:], plain), plan.name
+    torch.cuda.synchronize()
+
+
+def test_col_base_inside_a_panel_or_past_the_counters_raises(cuda):
+    from repro_torch.kernels import emu_matmul as em
+
+    a_t, delta, mask, kw = _emu_case(8, 1024, 100, 1, torch.float32, cuda)
+    nm, q, rows, nj, _c = delta.shape
+    with pytest.raises(ValueError, match="whole number of panels"):
+        em.emu_bank_product_cuda(a_t, delta, mask, col_base=rows // 2, **kw)
+    # the C entry point refuses both without a launch
+    with pytest.raises(RuntimeError, match="launch failed"):
+        em.launch_kernel(a_t, delta, mask, col_base=rows // 2, **kw)
+    top = (em.COUNTER_SLOTS // (q * nj) - nm) * rows  # the last base whose counters fit
+    with pytest.raises(RuntimeError, match="launch failed"):
+        em.launch_kernel(a_t, delta, mask, col_base=top + rows, **kw)
+    got = em.emu_bank_product_cuda(a_t, delta, mask, col_base=top, **kw)
+    assert torch.equal(got, em.emu_bank_product_plain(a_t, delta, mask, col_base=top, **kw))

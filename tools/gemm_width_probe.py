@@ -14,6 +14,13 @@ from the half (plain and batched) against the whole, and how far the
 whole f32 input gradient lies from f64.  Each line: bit for bit or not, and max |difference| /
 max |whole|.  TF32 off.
 
+The batch count: for qwen2-moe-a2.7b's expert products at 64 x 64 rows
+(60 experts, capacity 341, d 2048, d_ff_expert 1408) it compares each
+expert's result of the (30, C, K) batched f32 product an expert-parallel
+rank runs on its half of the experts with the same expert's of the (60,
+C, K) product one process runs: the forward ``a @ w.mT`` of gate / up and
+of down, and their input and weight gradients.
+
     python3 tools/gemm_width_probe.py
 """
 
@@ -55,6 +62,29 @@ def main() -> None:
               f"rows from the half {rel(dyh.t().mm(x), dw[h:])}, batched "
               f"{'not run' if dw_batched is None else rel(dw_batched, dw[h:])}")
         del x, w, wh, dy, dyh, whole, batched, pad, dx, halves, dw, dw_batched
+        torch.cuda.empty_cache()
+    experts(gen)
+
+
+def experts(gen) -> None:
+    """Each expert's bits in a batched product of 30 experts against 60."""
+    e, c = 60, 341
+    for name, k, n in (("gate / up", 2048, 1408), ("down", 1408, 2048)):
+        a = torch.randn(e, c, k, generator=gen, device="cuda")
+        w = torch.randn(e, n, k, generator=gen, device="cuda") * 0.03
+        dy = torch.randn(e, c, n, generator=gen, device="cuda")
+        parts = []
+        for label, fn in (("forward", lambda a, w, dy: a @ w.mT),
+                          ("input gradient", lambda a, w, dy: dy @ w),
+                          ("weight gradient", lambda a, w, dy: dy.mT @ a)):
+            whole = fn(a, w, dy)
+            lo, hi = (fn(a[sl].contiguous(), w[sl].contiguous(), dy[sl].contiguous())
+                      for sl in (slice(0, e // 2), slice(e // 2, e)))
+            parts.append(f"{label} experts [0, 30) {rel(lo, whole[:e // 2])}, [30, 60) "
+                         f"{rel(hi, whole[e // 2:])}")
+        print(f"[gemm] experts ({e}, {c}, {k}) x ({e}, {n}, {k}) ({name}), 30 a rank against "
+              f"60: " + "; ".join(parts))
+        del a, w, dy
         torch.cuda.empty_cache()
 
 
