@@ -193,9 +193,10 @@ sources in the checkout.  Phases:
     single-device steps bit for bit; the emu kernel on rows [r, T) with
     ``row_base = r`` = its plain version and rows [r, T) of a whole launch
     under every candidate plan; two ranks spawned on the one card over gloo
-    (NCCL refuses two ranks on one device): step 1's loss and gradients
-    within 1e-5 of the one-process step, 25 bank launches a rank a step
-    (rank 0's profile too), the group's s_a and each rank's rows of the
+    (NCCL refuses two ranks on one device), qwen1.5-0.5b's full width at 8
+    of its 24 layers (``DP_LAYERS``, as every two-rank LM part and its
+    one-process check): step 1's loss and gradients within 1e-5 of the
+    one-process step, 9 bank launches a rank a step (rank 0's profile too), the group's s_a and each rank's rows of the
     global noise in use (rank-local noise misses by more than 1e-3), the
     parameters after 2 steps within 1e-5, step ms and the gradient
     all-reduce's ms (gloo staged through host memory, not a multi-card
@@ -207,13 +208,30 @@ sources in the checkout.  Phases:
     parameters and momentum after 2 steps, 25 launches a step); on the two
     gloo ranks (32 x 64 rows each) every shard the rule's slice of an
     independent init, step 1's loss and gradients and the parameters after
-    2 steps within 1e-5 of the one-process steps with the noise on, 25
+    2 steps within 1e-5 of the one-process steps with the noise on, 9
     launches a rank a step, each rank's resident parameter and momentum
     bytes, ``step_cost``'s all-gather / reduce-scatter / all-reduce bytes
     against those the leaves give, each collective's ms; ``DTensor``'s plain
     ``Replicate`` backward must miss the gradient check; the emu MLP's
     sharded step within 1e-6 of one process with the hardware state equal.
     One ``{"data_parallel": ...}`` line.
+24. sharded serving (``[shard_serve]``, ``phase_shard_serve``): qwen1.5-0.5b
+    at full width and depth, f32, offchip_bpd through the bank kernel, on
+    two ranks over gloo on (2, 1) and (1, 2) (data, model): build_prefill's
+    logits of a (4, 32) batch, a parallel prefill_step into caches placed
+    by ``serve.decode.cache_shardings`` and 8 greedy decode steps, each
+    against one process (distances printed), 169 bank launches a rank a
+    forward; on (1, 2) recurrentgemma-9b (the head_dim rule) and minicpm3-4b
+    (the latent caches' sequence rule at 1024 slots) at 4 layers, one decode
+    step within 1e-4; qwen2-moe's 30-expert batched bank launch against its
+    60-expert launch at T = 1 and 5 (distance and plans printed).  One
+    ``{"shard_serve": ...}`` line.
+25. the dry-run against the card (``[dryrun]``, ``phase_dryrun``):
+    ``launch/dryrun.run_cell`` for qwen1.5-0.5b at full width in bf16 on a
+    train and a decode cell at reduced shapes, on a fake world of one and on
+    a real NCCL world of one, in a fresh process: FLOPs, bytes and
+    collective bytes equal, the fake peak within 10% of the allocator's.
+    One ``{"dryrun": ...}`` line.
 
 Every timed full-width training step (``_step_timing``: qwen1.5, Mamba,
 qwen3, minicpm3, qwen2-moe, recurrentgemma, whisper, internvl2) and the
@@ -1819,12 +1837,13 @@ LM_STEPS, LM_EMU_STEPS = 16, 2
 LM_LAUNCHES = 25  # bank products per dfa step: 24 blocks + the embedding
 
 
-def _lm_session(api, torch, seed, **kw):
+def _lm_session(api, torch, seed, arch=ARCH, **kw):
     """qwen1.5-0.5b at full width in f32 (24 layers, d 1024, d_ff 2816,
-    vocab 151936, random weights from ``seed``) on the card."""
+    vocab 151936, random weights from ``seed``) on the card; ``arch`` a
+    model instance in its place (``_dp_model``'s cut depth)."""
     kw = {"algo": "dfa", "hardware": "offchip_bpd", "backend": "cuda", "log_every": 10**9,
           **kw}
-    return api.build_session(arch=ARCH, smoke=False, dtype=torch.float32, seed=seed,
+    return api.build_session(arch=arch, smoke=False, dtype=torch.float32, seed=seed,
                              device=DEVICE, **kw)
 
 
@@ -2399,6 +2418,11 @@ def phase_lm_train(torch, np, api, pm, em, seed, card, draws):
 # ---------------------------------------------------------------------------
 
 DP_WORLD = 2  # ranks on the one card, over gloo (NCCL refuses two ranks on one device)
+# the two-rank LM parts (data parallel, FSDP, dense tensor parallel) run
+# qwen1.5-0.5b's full width at 8 of its 24 layers: they move GBs through gloo
+# and host memory, the script's most load-sensitive work
+DP_LAYERS = 8
+DP_LAUNCHES = DP_LAYERS + 1  # bank products a dfa step: the blocks' and the embedding's
 DP_STEPS = 2  # fit steps of the two-rank run; it saves at the last and runs one more
 DP_TOL = 1e-5  # of each leaf's max |value|: step-1 gradients, parameters after a step
 DP_LOCAL_MIN = 1e-3  # a rank drawing rank-local noise misses the one-process step by more
@@ -2407,6 +2431,28 @@ DP_MLP_BATCH = 64  # the emu MLP step's rows, 32 a rank
 # (64 rows, the error's 10 columns -> 800) and an LM projection on 2 buses
 DP_ROW_SHAPES = [(64, 10, 800, 1), (256, 1024, 1024, 2)]
 DP_TIMEOUT_S = 600.0  # the two ranks' run, set-up included
+
+
+def _dp_arch(torch):
+    """qwen1.5-0.5b's full width in f32 at DP_LAYERS layers, as an ``Arch``
+    that ``build_train`` takes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = dataclasses.replace(_meta_model(torch, ARCH, torch.float32).cfg, n_layers=DP_LAYERS)
+
+    def make_model(dtype=torch.float32, device=None):
+        return TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=device)
+
+    return dataclasses.replace(configs.get(ARCH), make_model=make_model)
+
+
+def _dp_model(torch, seed):
+    """``_dp_arch``'s model on the card, its weights from ``seed`` (as
+    ``api.build_model`` draws them)."""
+    return _dp_arch(torch).make_model(torch.float32, device=DEVICE).init(seed)
 
 
 def _dp_world_one(torch, api, pm, seed):
@@ -2696,7 +2742,8 @@ def _dp_lm_rank(torch, api, pm, rank, seed, base):
     from repro_torch.kernels import ops
     from repro_torch.utils import flop_cost, prng
 
-    session = _lm_session(api, torch, seed, data_parallel=True, ckpt_dir=str(base / "lm"))
+    session = _lm_session(api, torch, seed, arch=_dp_model(torch, seed), data_parallel=True,
+                          ckpt_dir=str(base / "lm"))
     trainer = session.trainer
     gen = tokens.MarkovTokens(session.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
     rows = trainer.put(gen.batch(0)).rows
@@ -2772,7 +2819,7 @@ def _dp_lm_rank(torch, api, pm, rank, seed, base):
             grad_launches = pm.launches
             profiled = (sum(any(part in e.name for part in KERNEL_PARTS["photonic_matmul"])
                             for e in _device_kernels(torch, prof)) if rank == 0 else None)
-            done = torch.tensor([rank != 0 or profiled >= LM_LAUNCHES], device=DEVICE)
+            done = torch.tensor([rank != 0 or profiled >= DP_LAUNCHES], device=DEVICE)
             dist.broadcast(done, src=0)
             if done.item():
                 break
@@ -2993,9 +3040,10 @@ def _fsdp_lm_rank(torch, api, pm, rank, seed):
     mesh = mesh_lib.make_host_mesh(DP_WORLD, device_type="cuda")
     vocab = configs.get(ARCH).make_model(device="meta").cfg.vocab_size
     gen = tokens.MarkovTokens(vocab, LM_SEQ, LM_BATCH, seed)
-    fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0))
+    fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0),
+                                               arch=_dp_arch(torch))
     vg, opt = extra["value_and_grad"], extra["trainer"].cfg.optimizer
-    full = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
+    full = _dp_model(torch, seed)
     not_rules = [k for k, v in full.named_parameters()
                  if not torch.equal(p[k].to_local(), _rule_piece(v.detach(), p[k]))]
     del full
@@ -3216,9 +3264,10 @@ def _tp_lm_rank(torch, api, pm, rank, seed):
                                    device_type="cuda")
     vocab = configs.get(ARCH).make_model(device="meta").cfg.vocab_size
     gen = tokens.MarkovTokens(vocab, LM_SEQ, LM_BATCH, seed)
-    fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0))
+    fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0),
+                                               arch=_dp_arch(torch))
     vg, opt = extra["value_and_grad"], extra["trainer"].cfg.optimizer
-    full = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
+    full = _dp_model(torch, seed)
     not_rules = [k for k, v in full.named_parameters()
                  if not torch.equal(p[k].to_local(), _rule_piece(v.detach(), p[k]))]
     split = sum(p[k].to_local().shape != v.shape for k, v in full.named_parameters())
@@ -3671,7 +3720,7 @@ def _tp_report(torch, pm, r0, r1, card) -> dict:
               f"rank {r}: pieces not the rule's {res['tp_not_rules'][:3]}")
         check(sum(res["tp_resident"]) < 0.51 * 2 * full,
               f"rank {r} holds {res['tp_resident']} of {full} B: not split")
-        check(res["tp_launches"] == [LM_LAUNCHES] * 2,
+        check(res["tp_launches"] == [DP_LAUNCHES] * 2,
               f"rank {r}: tensor-parallel bank launches {res['tp_launches']}")
         check(res["tp_kernel_err"] <= TOL["float32"],
               f"rank {r}: the bank kernel vs plain at the rank's shape {res['tp_kernel_err']}")
@@ -3764,7 +3813,7 @@ def _dp_one_process(torch, api, seed, dp):
     from repro_torch.kernels import ops
     from repro_torch.utils import prng
 
-    session = _lm_session(api, torch, seed, data_parallel=False)
+    session = _lm_session(api, torch, seed, arch=_dp_model(torch, seed), data_parallel=False)
     trainer = session.trainer
     gen = tokens.MarkovTokens(session.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
     state = session.init_state()
@@ -3814,7 +3863,8 @@ def _dp_resume(torch, api, seed, base, dp):
     from repro_torch.data import tokens
     from repro_torch.utils import prng
 
-    resumed = _lm_session(api, torch, seed, data_parallel=False, ckpt_dir=str(base / "lm"))
+    resumed = _lm_session(api, torch, seed, arch=_dp_model(torch, seed), data_parallel=False,
+                          ckpt_dir=str(base / "lm"))
     gen = tokens.MarkovTokens(resumed.model.cfg.vocab_size, LM_SEQ, LM_BATCH, seed)
     state, start = resumed.trainer.restore_or_init()
     (_, _), grads3 = resumed.trainer._grads(state["params"], state["fb"],
@@ -3944,7 +3994,7 @@ def _fsdp_report(np, r0, r1) -> dict:
               f"{res['fsdp_not_rules'][:3]}")
         check(sum(res["fsdp_resident"]) < 0.51 * 2 * full,
               f"rank {r} holds {res['fsdp_resident']} of {full} B: not sharded")
-        check(res["fsdp_launches"] == [LM_LAUNCHES] * 2,
+        check(res["fsdp_launches"] == [DP_LAUNCHES] * 2,
               f"rank {r}: sharded bank launches {res['fsdp_launches']}")
         check(res["fsdp_emu_launches"] == 2, f"rank {r}: emu launches {res['fsdp_emu_launches']}")
     check(r0["fsdp_loss1"] == r1["fsdp_loss1"]
@@ -3978,10 +4028,10 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
     """Data parallelism on the one card: a world of one NCCL rank equals one
     process bit for bit (qwen1.5-0.5b at full width, 2 dfa steps); the emu
     kernel's row_base bit for bit under every plan; two ranks on the card
-    over gloo (qwen1.5-0.5b full width f32 on offchip_bpd, 32 x 64 rows a
-    rank): step 1's loss and every gradient leaf within 1e-5 of its max |g|
-    of the one-process step, 25 bank launches a rank a step (rank 0's
-    profile too), the group's s_a and each rank's rows of the global noise
+    over gloo (qwen1.5-0.5b's full width at DP_LAYERS = 8 of its 24 layers,
+    f32 on offchip_bpd, 32 x 64 rows a rank): step 1's loss and every
+    gradient leaf within 1e-5 of its max |g| of the one-process step (at
+    the same depth), 9 bank launches a rank a step (rank 0's profile too), the group's s_a and each rank's rows of the global noise
     in use (a rank-local draw misses by more than 1e-3), the parameters
     after 2 steps within 1e-5, step ms and the gradient all-reduce's ms
     (gloo staged through the host, not a multi-card rate); the MLP on
@@ -3989,8 +4039,9 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
     ranks); the step-2 snapshot resumed in one process, whose step 3 equals
     rank 0's within 1e-5.  In the same spawn the FSDP checks (``[fsdp]``)
     and tensor parallelism on a (1, 2) mesh (``[tp]``: step 1's gradients
-    and the parameters after 2 steps within 1e-5 of one process, 25 bank
-    launches a rank a step, ``step_cost`` = the collectives' bytes)."""
+    and the parameters after 2 steps within 1e-5 of one process, 9 bank
+    launches a rank a step, ``step_cost`` = the collectives' bytes), all at
+    DP_LAYERS layers."""
     t0 = time.perf_counter()
     print(f"[dp] card: {card}; torch {torch.__version__}")
     out = {"world1": _dp_world_one(torch, api, pm, seed)}
@@ -4045,11 +4096,11 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
           f"tapped error's 4 B MAX); kinds {sorted(dp_cost['counted'])}")
     check(set(dp_cost["counted"]) == {"all-reduce"} and 4 < rest <= 64 and rest % 4 == 0,
           f"step_cost's data-parallel collectives {dp_cost}")
-    check(per_step[0] == per_step[1] == LM_LAUNCHES
-          and r0["grad_launches"] == r1["grad_launches"] == LM_LAUNCHES,
-          f"bank launches a step {per_step}, expected {LM_LAUNCHES}")
-    check(r0["profiled"] == LM_LAUNCHES,
-          f"rank 0's profile saw {r0['profiled']} bank launches, expected {LM_LAUNCHES}")
+    check(per_step[0] == per_step[1] == DP_LAUNCHES
+          and r0["grad_launches"] == r1["grad_launches"] == DP_LAUNCHES,
+          f"bank launches a step {per_step}, expected {DP_LAUNCHES}")
+    check(r0["profiled"] == DP_LAUNCHES,
+          f"rank 0's profile saw {r0['profiled']} bank launches, expected {DP_LAUNCHES}")
     check(r0["loss1"] == r1["loss1"] and abs(r0["loss1"] - r0["loss1_one"]) <= DP_TOL
           * abs(r0["loss1_one"]), "step 1's loss differs from one process")
     check(r0["grad_err"][0] <= DP_TOL, f"gradients {r0['grad_err']} from one process")
@@ -7018,6 +7069,472 @@ def internvl2_summary(res):
             "seconds": res["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# Sharded serving and the dry-run against the card
+# ---------------------------------------------------------------------------
+
+SS_WORLD = 2  # ranks on the one card, over gloo
+SS_MESHES = {"data": (2, 1), "model": (1, 2)}  # (data, model)
+SS_BATCH, SS_PROMPT, SS_STEPS = 4, 32, 8  # the prefill batch and the greedy decode steps
+SS_MAX_LEN = 64  # cache slots of the qwen1.5 runs
+SS_FORWARD = 169  # bank launches a qwen1.5 forward: 24 x 7 + the head
+SS_TOL = 1e-4  # serving logits (ROADMAP)
+SS_SPLIT_LAYERS = 4  # recurrentgemma-9b and minicpm3-4b for the head_dim and sequence rules
+SS_SPLIT_SLOTS = {RG: 64, MINICPM3: 1024}  # cache slots: minicpm3's latent caches split at 1024
+SS_TIMEOUT_S = 600.0
+SS_EXPERTS = 60  # qwen2-moe's routed experts: 30 a rank on a model axis of 2
+SS_EXPERT_T = (1, 5)  # its decode and prefill-chunk expert buffers' rows
+DRYRUN_CELLS = {"train": (256, 8), "decode": (1024, 8)}  # (seq_len, global_batch), full width
+DRYRUN_PEAK_TOL = 0.10
+
+
+def _spawned(work, rank, world, port, args, queue):
+    """One rank of a spawned run: ``work(rank, world, *args)`` in a gloo group
+    on localhost; its result, or its traceback, goes to ``queue`` (and a
+    failure re-raises, so the rank exits nonzero)."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if world:
+            dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                    world_size=world)
+        try:
+            queue.put((rank, work(rank, world, *args), None))
+        finally:
+            if world:
+                dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _spawn(torch, work, world, timeout, *args) -> list:
+    """``work`` on ``world`` spawned ranks over gloo (0: one spawned process
+    without a group) -> their results by rank; any failure fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_lib
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    n = max(world, 1)
+    procs = [ctx.Process(target=_spawned, args=(work, r, world, port, args, queue))
+             for r in range(n)]
+    t0 = time.perf_counter()
+    results = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(results) < n:
+            if time.perf_counter() - t0 > timeout:
+                raise PhaseError(f"{work.__name__} passed {timeout} s")
+            try:
+                rank, res, err = queue.get(timeout=5.0)
+            except queue_lib.Empty:
+                dead = [i for i, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                if dead:
+                    raise PhaseError(f"{work.__name__}: rank {dead[0]} exited with "
+                                     f"{procs[dead[0]].exitcode}")
+                continue
+            if err is not None:
+                raise PhaseError(f"{work.__name__}: rank {rank} failed:\n{err}")
+            results[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * n, f"{work.__name__}: exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    return [results[r] for r in range(n)]
+
+
+def _ss_whole(x):
+    from repro_torch.dist import sharding
+
+    return sharding.full_tensor(x) if sharding.is_dtensor(x) else x
+
+
+def _ss_placed(torch, mesh, name, x):
+    """``x`` (numpy) on the card, placed by ``make_batch_shardings`` on
+    ``mesh`` (as it is where ``mesh`` is None)."""
+    from repro_torch.dist import sharding
+
+    x = torch.as_tensor(x).to(DEVICE)
+    if mesh is None:
+        return x
+    return sharding.place_leaf(x, sharding.make_batch_shardings(mesh, {name: x})[name])
+
+
+def _ss_qwen_run(torch, pm, model, prefill, params, mesh, tokens, n_valid, seed):
+    """qwen1.5-0.5b served through the params-taking steps on ``params``
+    (placed on ``mesh``, or plain for one process), offchip_bpd through the
+    bank kernel, keys folded from ``seed``: build_prefill's forward of the
+    (B, C) prompts, a parallel prefill_step of them into caches placed by
+    ``cache_shardings``, then SS_STEPS greedy decode steps; the bank
+    launches of each forward counted.  -> numpy outputs and the counts."""
+    import numpy as np
+
+    from repro_torch.core import photonics as ph
+    from repro_torch.dist import sharding
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils import prng
+
+    cfg = ph.preset("offchip_bpd")
+    fwd = lambda i: ph.forward_execution(cfg, "cuda", key=prng.fold(seed, "serve", i))
+    caches = {k: torch.zeros(v.shape, dtype=v.dtype, device=DEVICE)
+              for k, v in model.init_caches(SS_BATCH, SS_MAX_LEN).items()}
+    if mesh is not None:
+        caches = sharding.place(caches, sd.cache_shardings(mesh, caches))
+    counts, out = [], {}
+    with torch.no_grad():
+        pm.launches = 0
+        with fwd(0):
+            logits = prefill(params, {"tokens": _ss_placed(torch, mesh, "tokens", tokens)})
+        counts.append(pm.launches)
+        out["prefill_logits"] = _ss_whole(logits).float().cpu().numpy()
+        step = sd.make_prefill_step(model, with_params=True)
+        clen = _ss_placed(torch, mesh, "len", np.zeros(SS_BATCH, np.int64))
+        pm.launches = 0
+        with fwd(1):
+            last, caches, clen = step(params, _ss_placed(torch, mesh, "tokens", tokens),
+                                      _ss_placed(torch, mesh, "n", n_valid), caches, clen)
+        counts.append(pm.launches)
+        last = _ss_whole(last)
+        out["last"] = last.float().cpu().numpy()
+        tok = _ss_placed(torch, mesh, "tok", last.argmax(-1)[:, None].cpu().numpy())
+        serve = sd.make_serve_step(model, with_params=True)
+        logs, toks = [], []
+        for i in range(SS_STEPS):
+            pm.launches = 0
+            with fwd(2 + i):
+                tok, lg, caches = serve(params, tok, caches, clen)
+            counts.append(pm.launches)
+            clen = clen + 1
+            logs.append(lg.float().cpu().numpy())
+            toks.append(_ss_whole(tok).cpu().numpy())
+        out["decode"], out["tokens"] = np.stack(logs), np.stack(toks)
+        out["caches"] = {k: _ss_whole(v).float().cpu().numpy() for k, v in caches.items()}
+        out["split"] = {k: sharding.model_dim(v) for k, v in caches.items()}
+    sync(torch)
+    return out, counts
+
+
+def _ss_inputs(torch, seed):
+    """qwen1.5's (B, C) prompts from ``seed`` and their valid lengths."""
+    import numpy as np
+
+    vocab = _meta_model(torch, ARCH).cfg.vocab_size
+    rng = np.random.default_rng(seed + 29)
+    tokens = rng.integers(0, vocab, size=(SS_BATCH, SS_PROMPT)).astype(np.int64)
+    return tokens, np.array([SS_PROMPT, SS_PROMPT - 3, SS_PROMPT, SS_PROMPT - 10], np.int64)
+
+
+def _ss_one_process(torch, pm, seed):
+    """qwen1.5-0.5b's one-process run (``_ss_qwen_run`` on its own
+    parameters, full width and depth, f32) -> (outputs, launches)."""
+    from repro_torch import api
+    from repro_torch.serve import decode as sd
+
+    model = api.build_model(ARCH, dtype=torch.float32, device=DEVICE, seed=seed)
+    plain = {k: v.detach() for k, v in model.named_parameters()}
+    out = _ss_qwen_run(torch, pm, model, sd.make_prefill(model), plain, None,
+                       *_ss_inputs(torch, seed), seed)
+    del model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ss_qwen(torch, pm, mesh, seed, one):
+    """One mesh's sharded run of qwen1.5-0.5b (full width and depth, f32)
+    and, where ``one`` (rank 0: the one process's outputs and launches) is
+    given, its distances from the one process."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    tokens, n_valid = _ss_inputs(torch, seed)
+    case = configs.ShapeCase("prefill_32k", "prefill", SS_PROMPT, SS_BATCH)
+    t0 = time.perf_counter()
+    prefill, (params, _), extra = dryrun.build_prefill(
+        ARCH, mesh, shape=case, dtype=torch.float32, device=DEVICE, seed=seed,
+        batch={"tokens": torch.as_tensor(tokens)})
+    got, counts = _ss_qwen_run(torch, pm, extra["model"], prefill, params, mesh, tokens,
+                               n_valid, seed)
+    res = {"counts": counts, "split": got["split"], "seconds": time.perf_counter() - t0}
+    del params, prefill, extra
+    if one is not None:
+        one, res["one_counts"] = one
+        res["dist"] = {k: _max_rel(torch.as_tensor(got[k]), torch.as_tensor(one[k]))
+                       for k in ("prefill_logits", "last", "decode")}
+        res["dist"]["caches"] = max(float(np.abs(got["caches"][k] - one["caches"][k]).max())
+                                    for k in one["caches"])
+        res["tokens_equal"] = bool(np.array_equal(got["tokens"], one["tokens"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ss_split(torch, pm, mesh, arch, seed, rank):
+    """``arch`` at full width, SS_SPLIT_LAYERS layers, f32, one decode step
+    (offchip_bpd, bank kernel) from random caches of SS_SPLIT_SLOTS[arch]
+    slots placed by ``cache_shardings`` on the (1, 2) mesh, against the one
+    process on rank 0: the logits' and the caches' distances and the rule
+    each cache leaf took."""
+    import numpy as np
+
+    import dataclasses
+
+    from repro_torch.core import photonics as ph
+    from repro_torch.dist import sharding
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils import prng
+
+    meta = _meta_model(torch, arch, torch.float32)
+    cfg = dataclasses.replace(meta.cfg, n_layers=SS_SPLIT_LAYERS)
+    model = type(meta)(cfg, device=DEVICE)
+    model.init(seed)
+    slots = SS_SPLIT_SLOTS[arch]
+    rng = np.random.default_rng(seed + 31)
+    whole = {k: (rng.normal(size=tuple(v.shape)) * 0.5).astype(np.float32)
+             for k, v in model.init_caches(SS_BATCH, slots).items()}
+    clen = np.array([3, slots * 3 // 4, slots - 1, slots // 3], np.int64)
+    tok = rng.integers(0, cfg.vocab_size, size=(SS_BATCH, 1)).astype(np.int64)
+    hw = ph.preset("offchip_bpd")
+    key = prng.fold(seed, "split", arch)
+    serve = sd.make_serve_step(model, with_params=True)
+
+    def run(params, m):
+        caches = {k: torch.as_tensor(v).to(DEVICE) for k, v in whole.items()}
+        if m is not None:
+            caches = sharding.place(caches, sd.cache_shardings(m, caches))
+        pm.launches = 0
+        with torch.no_grad(), ph.forward_execution(hw, "cuda", key=key):
+            nxt, logits, new = serve(params, _ss_placed(torch, m, "tok", tok), caches,
+                                     _ss_placed(torch, m, "len", clen))
+        sync(torch)
+        return (logits.float().cpu(), {k: _ss_whole(v).float().cpu() for k, v in new.items()},
+                {k: sharding.model_dim(v) for k, v in caches.items()}, pm.launches)
+
+    plain = {k: v.detach() for k, v in model.named_parameters()}
+    placed = sharding.place(plain, sharding.make_param_shardings(mesh, plain))
+    logits, caches, split, launches = run(placed, mesh)
+    res = {"split": split, "launches": launches}
+    del placed
+    if rank == 0:
+        one_logits, one_caches, _, one_launches = run(plain, None)
+        res.update(logits=_max_rel(logits, one_logits), one_launches=one_launches,
+                   caches=max(float((caches[k] - one_caches[k]).abs().max()) for k in caches))
+    del model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ss_rank(rank, world, seed):
+    """A rank of the sharded-serving run: qwen1.5-0.5b on each of SS_MESHES,
+    then recurrentgemma-9b and minicpm3-4b on (1, 2)."""
+    import torch
+
+    from repro_torch.kernels import photonic_matmul as pm
+    from repro_torch.launch import mesh as mesh_lib
+
+    out = {"qwen": {}, "split": {}}
+    one = _ss_one_process(torch, pm, seed) if rank == 0 else None
+    for name, (_, m) in SS_MESHES.items():
+        mesh = mesh_lib.make_host_mesh(world, model_axis=m, device_type=DEVICE)
+        out["qwen"][name] = _ss_qwen(torch, pm, mesh, seed, one)
+    mesh = mesh_lib.make_host_mesh(world, model_axis=SS_WORLD, device_type=DEVICE)
+    for arch in SS_SPLIT_SLOTS:
+        out["split"][arch] = _ss_split(torch, pm, mesh, arch, seed, rank)
+    return out
+
+
+def _ss_experts(torch, pm, seed):
+    """qwen2-moe's batched bank launch of a rank's E/2 = 30 experts against
+    the 60-expert launch at its decode shapes (T = 1 and 5: the expert
+    buffer's rows at 4 slots and at a 16-token prefill chunk), gate / up
+    (2048 -> 1408) and down (1408 -> 2048), f32 and bf16, offchip_bpd: the
+    largest distance of either half's outputs from the whole launch's rows
+    and the variant the planner picks for each (comparison launches)."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.kernels import ops as kops
+
+    cfg = ph.preset("offchip_bpd")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 37)
+    half = SS_EXPERTS // 2
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in SS_EXPERT_T:
+            for m, k in ((1408, 2048), (2048, 1408)):
+                a = torch.randn(SS_EXPERTS, t, k, generator=gen, device=DEVICE).to(dtype)
+                b = (torch.randn(SS_EXPERTS, m, k, generator=gen, device=DEVICE) * 0.02).to(dtype)
+                whole = kops.photonic_matmul(a, b, cfg, key=seed + t)
+                worst = 0.0
+                for i in (0, 1):
+                    part = slice(i * half, (i + 1) * half)
+                    got = kops.photonic_matmul(a[part].contiguous(), b[part].contiguous(), cfg,
+                                               key=seed + t)
+                    worst = max(worst, float((got.float() - whole[part].float()).abs().max()
+                                             / whole[part].float().abs().max()))
+                ptrs = (a.data_ptr(), b.data_ptr())
+                rows.append({"dtype": str(dtype).split(".")[-1], "t": t, "m": m, "k": k,
+                             "max_rel": worst,
+                             "plan_60": pm._plan(t, m, k, dtype, ptrs, e=SS_EXPERTS).name,
+                             "plan_30": pm._plan(t, m, k, dtype, ptrs, e=half).name})
+    sync(torch)
+    return rows
+
+
+def phase_shard_serve(torch, np_, api, pm, seed, card):
+    """qwen1.5-0.5b served sharded at full width and depth, f32, offchip_bpd
+    through the bank kernel, on two ranks over gloo, on (2, 1) and (1, 2):
+    build_prefill's logits of a (4, 32) batch, a parallel prefill_step into
+    caches placed by ``cache_shardings`` (the kv heads split on (1, 2)) and
+    8 greedy decode steps, each against one process (the distances
+    printed; bit for bit expected), 169 bank launches a rank a forward; on
+    (1, 2) recurrentgemma-9b (kv 1: the head_dim rule) and minicpm3-4b (its
+    latent caches at 1024 slots: the sequence rule) at 4 layers, one decode
+    step each within 1e-4; qwen2-moe's 30-expert batched launch against its
+    60-expert launch."""
+    del np_, api
+    t0 = time.perf_counter()
+    print(f"[shard_serve] card: {card}")
+    r0, r1 = _spawn(torch, _ss_rank, SS_WORLD, SS_TIMEOUT_S, seed)
+    out = {"meshes": {}, "split": {}}
+    launches = 0
+    for name, shape in SS_MESHES.items():
+        a, b = r0["qwen"][name], r1["qwen"][name]
+        d = a["dist"]
+        print(f"[shard_serve] qwen1.5-0.5b on {shape} (data, model), two ranks over gloo: "
+              f"max |sharded - one process| / max |one process|: build_prefill logits "
+              f"{d['prefill_logits']:.3e}, prefill_step last logits {d['last']:.3e}, "
+              f"{SS_STEPS} decode steps {d['decode']:.3e}; caches max abs {d['caches']:.3e}; "
+              f"greedy tokens equal {a['tokens_equal']}; cache split dims {a['split']}; bank "
+              f"launches a forward rank 0 {a['counts']}, rank 1 {b['counts']}, one process "
+              f"{a['one_counts']}; {a['seconds']:.1f}s")
+        expect = [SS_FORWARD] * (2 + SS_STEPS)
+        check(a["counts"] == b["counts"] == a["one_counts"] == expect,
+              f"bank launches a forward {a['counts']} / {b['counts']}, expected {SS_FORWARD}")
+        check(max(d[k] for k in ("prefill_logits", "last", "decode")) <= SS_TOL
+              and a["tokens_equal"], f"sharded serving on {shape} differs from one process: {d}")
+        check(d["caches"] <= SS_TOL, f"caches on {shape}: {d['caches']}")
+        # the kv heads on ``model``: split over 2 ranks on (1, 2), whole on
+        # (2, 1)'s axis of 1, as the reference's spec places them
+        check(a["split"] == {"k": 3, "v": 3}, f"cache split {a['split']} on {shape}")
+        out["meshes"][name] = {"dist": d, "tokens_equal": a["tokens_equal"],
+                               "launches_a_forward": a["counts"][0], "split": a["split"]}
+        launches += sum(a["counts"])
+    rules = {RG: {"grp_attn.k": 4, "grp_attn.v": 4}, MINICPM3: {"c_kv": 2, "k_rope": 2}}
+    for arch, res in r0["split"].items():
+        print(f"[shard_serve] {arch}, {SS_SPLIT_LAYERS} layers at full width, f32, on (1, 2): "
+              f"one decode step from {SS_SPLIT_SLOTS[arch]}-slot caches, logits "
+              f"{res['logits']:.3e} from one process, caches max abs {res['caches']:.3e}, "
+              f"split {res['split']}, bank launches {res['launches']} (one process "
+              f"{res['one_launches']})")
+        check(res["logits"] <= SS_TOL and res["caches"] <= SS_TOL,
+              f"{arch}'s split cache misses one process: {res}")
+        check(all(res["split"].get(k) == d for k, d in rules[arch].items()),
+              f"{arch}'s cache split {res['split']}")
+        check(res["launches"] == res["one_launches"] > 0, f"{arch}'s launches {res}")
+        out["split"][arch] = {k: res[k] for k in ("logits", "caches", "split", "launches")}
+        launches += res["launches"]
+    rows = _ss_experts(torch, pm, seed)
+    for row in rows:
+        print(f"[shard_serve] qwen2-moe experts {row['dtype']} T={row['t']} ({row['k']} -> "
+              f"{row['m']}): 30-expert launch vs the 60-expert launch's rows max rel "
+              f"{row['max_rel']:.3e}; plan at 60 {row['plan_60']}, at 30 {row['plan_30']}")
+    out["experts"] = rows
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[shard_serve] done in {out['seconds']:.1f}s")
+    return out
+
+
+def _dryrun_cells(rank, world, seed):
+    """qwen1.5-0.5b at full width, bf16, on reduced shapes: each of
+    DRYRUN_CELLS on a fake world of one, then on a real NCCL world of one
+    (this process's card) -> the records."""
+    del rank, world, seed
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    cases = {kind: configs.ShapeCase(f"{kind}_reduced", kind, s, b)
+             for kind, (s, b) in DRYRUN_CELLS.items()}
+    out = {kind: {"fake": dryrun.run_cell(ARCH, c.name, "1x1", shape=c)}
+           for kind, c in cases.items()}
+    mesh_lib.init_process_group("cuda")
+    try:
+        mesh = mesh_lib.make_host_mesh(1, device_type="cuda")
+        for kind, c in cases.items():
+            gc.collect()
+            out[kind]["real"] = dryrun.run_cell(ARCH, c.name, "1x1", mesh=mesh, shape=c)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_dryrun(torch, seed):
+    """The dry-run's fake world against the card: ``run_cell`` for
+    qwen1.5-0.5b at full width in bf16 on a train and a decode cell at
+    reduced shapes (DRYRUN_CELLS), on a fake world of one and on a real NCCL
+    world of one, in a fresh process: FLOPs, bytes and collective bytes
+    equal, the fake world's peak (``MemTracker``) within 10% of
+    ``torch.cuda.max_memory_allocated``."""
+    t0 = time.perf_counter()
+    (cells,) = _spawn(torch, _dryrun_cells, 0, SS_TIMEOUT_S, seed)
+    out = {}
+    for kind, pair in cells.items():
+        fake, real = pair["fake"], pair["real"]
+        for what, rec in pair.items():
+            check(rec["status"] == "ok", f"{kind} on the {what} world: {rec.get('traceback')}")
+        ratio = fake["memory"]["total_hbm_bytes"] / real["memory"]["total_hbm_bytes"]
+        seq, batch = DRYRUN_CELLS[kind]
+        print(f"[dryrun] {ARCH} {kind} at batch {batch} x seq {seq}, full width, bf16, world of "
+              f"one: FLOPs fake {fake['cost']['flops']:.6g} real {real['cost']['flops']:.6g}; "
+              f"bytes fake {fake['cost']['bytes accessed']:.6g} real "
+              f"{real['cost']['bytes accessed']:.6g}; collectives fake "
+              f"{fake['collectives']['bytes_by_kind']} real "
+              f"{real['collectives']['bytes_by_kind']} (agree with step_cost: "
+              f"{fake['collectives_agree']} / {real['collectives_agree']}); peak fake "
+              f"{fake['memory']['total_hbm_bytes'] / 2**30:.4f} GiB (MemTracker) vs the "
+              f"allocator's {real['memory']['total_hbm_bytes'] / 2**30:.4f} GiB: ratio "
+              f"{ratio:.4f}; arguments {real['argument_bytes'] / 2**30:.4f} GiB; host seconds "
+              f"fake {fake['seconds']} real {real['seconds']}")
+        check(fake["cost"] == real["cost"], f"{kind}: FLOPs / bytes differ {fake['cost']} "
+              f"{real['cost']}")
+        check(fake["collectives"] == real["collectives"]
+              and fake["hlo_cost"]["coll_bytes_by_kind"] == real["hlo_cost"]["coll_bytes_by_kind"]
+              and fake["collectives_agree"] and real["collectives_agree"],
+              f"{kind}: collectives differ")
+        check(abs(ratio - 1.0) <= DRYRUN_PEAK_TOL, f"{kind}: peak ratio {ratio:.4f}")
+        out[kind] = {"flops": real["cost"]["flops"], "bytes": real["cost"]["bytes accessed"],
+                     "collectives": real["collectives"]["bytes_by_kind"],
+                     "peak_fake": fake["memory"]["total_hbm_bytes"],
+                     "peak_real": real["memory"]["total_hbm_bytes"], "peak_ratio": ratio}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[dryrun] done in {out['seconds']:.1f}s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7071,6 +7588,8 @@ def main(argv=None):
     observed = timed(phase_observe, torch, np, api, pm, em, args.seed, card)
     sched = timed(phase_schedule, torch, np, api, pm, em, args.seed, card, draws)
     dp = timed(phase_data_parallel, torch, np, api, pm, em, args.seed, card)
+    ss = timed(phase_shard_serve, torch, np, api, pm, args.seed, card)
+    dry = timed(phase_dryrun, torch, args.seed)
     mamba = timed(phase_mamba, torch, np, api, pm, em, args.seed, card, draws)
     dense = timed(phase_dense, torch, np, api, pm, em, args.seed, card, draws)
     moe = timed(phase_moe, torch, np, api, pm, em, args.seed, card, draws)
@@ -7088,6 +7607,8 @@ def main(argv=None):
                                                          "serving", "step_ms", "losses")}}))
     print(json.dumps({"data_parallel": {k: dp[k] for k in ("world1", "two_ranks", "fsdp",
                                                             "tp", "seconds")}}))
+    print(json.dumps({"shard_serve": ss}))
+    print(json.dumps({"dryrun": dry}))
     dense_bank = {f"{arch.split('-')[0]}_{path}": res[path]["launches"]
                   for arch, res in dense.items() for path in ("serve", "train") if path in res}
     dense_bank["qwen3_seq4096"] = dense[QWEN3]["train"]["long"]["launches"]
@@ -7111,7 +7632,8 @@ def main(argv=None):
                       + sum(rg_bank.values()) + sum(slice12_bank.values())
                       + dp["world1"]["launches"] + dp["two_ranks"]["bank_launches"]
                       + dp["world1"]["fsdp_launches"] + dp["fsdp"]["bank_launches"]
-                      + dp["tp"]["bank_launches"] + dp["tp"]["moe"]["bank_launches"]),
+                      + dp["tp"]["bank_launches"] + dp["tp"]["moe"]["bank_launches"]
+                      + ss["launches"]),
          "launches_by_path": {"serve": serve_launches, "train": train_launches,
                               "lm_train": lm["launches"],
                               "probe": observed["probe_launches"]["photonic_matmul"],
@@ -7123,7 +7645,8 @@ def main(argv=None):
                               "fsdp_world1": dp["world1"]["fsdp_launches"],
                               "fsdp_rank0": dp["fsdp"]["bank_launches"],
                               "tp_rank0": dp["tp"]["bank_launches"],
-                              "tp_moe_rank0": dp["tp"]["moe"]["bank_launches"]},
+                              "tp_moe_rank0": dp["tp"]["moe"]["bank_launches"],
+                              "shard_serve_rank0": ss["launches"]},
          "max_abs_err": max(max_err, lm["max_abs_err"], mamba["max_abs_err"],
                             dp["tp"]["kernel_err"],
                             *(res["train"]["max_abs_err"] for res in dense.values()
@@ -7136,6 +7659,8 @@ def main(argv=None):
          "decode_step": per_step, "prefill_forward": per_prefill,
          "lm_train_shape": lm["bank"], "lm_step": lm["profile"], "draw_sass": draws["bank"],
          "tp_rank_shape": dp["tp"]["timing"],
+         "shard_serve": {"meshes": ss["meshes"], "split": ss["split"],
+                         "experts_30_vs_60": ss["experts"]},
          "observe": {k: observed[k] for k in ("lm", "mlp", "step_cost")},
          "mamba": {k: mamba[k] for k in ("serve", "profile", "parity", "decode_forward",
                                          "decode_shapes", "train_shape", "train")},

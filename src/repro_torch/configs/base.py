@@ -3,7 +3,10 @@ every arch registers an ``Arch`` with a full-size model factory and a
 reduced smoke-test factory, each taking ``(dtype, device)``, and its
 modality extras (``input_extras``: the frontend stubs' inputs as tensors on
 the meta device, the reference's ``ShapeDtypeStruct``s), and the dry-run's
-input shapes (``ShapeCase``, ``SHAPES``, ``token_specs``)."""
+input shapes (``ShapeCase``, ``SHAPES``, ``token_specs``).  ``make_opt`` is
+the dry-run's ``opt`` variant (None: the arch has none),
+``sub_quadratic`` whether its ``long_500k`` decode runs, ``has_decoder``
+whether it serves at all (the paper's MLP does not)."""
 
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ class Arch:
     family: str  # dense | moe | ssm | vlm | hybrid | audio
     make_model: typing.Callable  # (dtype, device) -> model, full public config
     make_smoke: typing.Callable  # (device) -> model, reduced same-family config
+    make_opt: typing.Callable | None = None  # (dtype, device) -> the optimised variant
+    sub_quadratic: bool = False  # long_500k runnable?
+    has_decoder: bool = True
     source: str = ""
     notes: str = ""
 

@@ -57,6 +57,7 @@ class _InternVLArch(Arch):
 
 ARCH = _InternVLArch(
     name="internvl2-2b", family="vlm", make_model=full, make_smoke=smoke,
+    make_opt=opt,
     source="arXiv:2404.16821",
     notes="ViT tower stubbed; serve paths are text-decode",
 )

@@ -53,6 +53,7 @@ def opt(dtype=torch.bfloat16, device=None) -> TransformerLM:
 
 ARCH = Arch(
     name="kimi-k2-1t-a32b", family="moe", make_model=full, make_smoke=smoke,
+    make_opt=opt,
     source="arXiv:2501.kimi2 (unverified)",
     notes="1T total / 32B active; full size needs the model sharded over cards",
 )

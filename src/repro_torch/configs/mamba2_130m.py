@@ -35,6 +35,7 @@ def opt(dtype=torch.bfloat16, device=None) -> MambaLM:
 
 ARCH = Arch(
     name="mamba2-130m", family="ssm", make_model=full, make_smoke=smoke,
+    make_opt=opt, sub_quadratic=True,
     source="arXiv:2405.21060 (unverified)",
     notes="SSD; O(1) decode state",
 )

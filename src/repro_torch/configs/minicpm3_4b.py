@@ -44,5 +44,6 @@ def opt(dtype=torch.bfloat16, device=None) -> TransformerLM:
 
 ARCH = Arch(
     name="minicpm3-4b", family="dense", make_model=full, make_smoke=smoke,
+    make_opt=opt,
     source="hf:openbmb/MiniCPM3-4B", notes="MLA latent cache; absorbed decode",
 )

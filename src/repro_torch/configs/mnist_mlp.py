@@ -22,5 +22,6 @@ def smoke(device=None) -> MLPClassifier:
 
 ARCH = Arch(
     name="mnist_mlp", family="paper", make_model=full, make_smoke=smoke,
+    has_decoder=False,
     source="paper §4",
 )

@@ -44,5 +44,6 @@ def opt(dtype=torch.bfloat16, device=None) -> TransformerLM:
 
 ARCH = Arch(
     name="qwen2-moe-a2.7b", family="moe", make_model=full, make_smoke=smoke,
+    make_opt=opt,
     source="hf:Qwen/Qwen1.5-MoE-A2.7B", notes="4 shared + 60 routed top-4",
 )

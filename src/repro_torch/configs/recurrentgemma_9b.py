@@ -28,6 +28,7 @@ def smoke(device=None) -> RecurrentGemmaLM:
 
 ARCH = Arch(
     name="recurrentgemma-9b", family="hybrid", make_model=full, make_smoke=smoke,
+    sub_quadratic=True,
     source="arXiv:2402.19427 (unverified)",
     notes="ring-buffer window cache + O(1) RG-LRU state",
 )

@@ -51,6 +51,7 @@ class _WhisperArch(Arch):
 
 ARCH = _WhisperArch(
     name="whisper-small", family="audio", make_model=full, make_smoke=smoke,
+    make_opt=opt,
     source="arXiv:2212.04356 (unverified)",
     notes="enc-dec DFA: encoder gets pooled-error feedback",
 )

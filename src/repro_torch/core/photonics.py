@@ -37,7 +37,7 @@ import torch
 from repro_torch.hardware.mrr import MRRConfig
 from repro_torch.lint.runtime import check_finite
 from repro_torch.utils import prng
-from repro_torch.utils.flop_cost import count_collective
+from repro_torch.utils.flop_cost import collective, storage_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,16 +240,15 @@ def _group_max(cache: dict, x, group):
     """max |x| over ``group``'s pieces of the operand ``x`` is this rank's
     share of: one MAX all-reduce per distinct operand of the window,
     cached in ``cache``; in f32 for the collective (exact)."""
-    key = (x.untyped_storage().data_ptr(), x.storage_offset(), tuple(x.shape),
-           x.stride(), x._version)
+    key = (storage_key(x), x.storage_offset(), tuple(x.shape), x.stride(), x._version)
     if key not in cache:
         s = x.detach().abs().amax()
         if group is not None:
             import torch.distributed as dist
 
             s32 = s.float()
-            dist.all_reduce(s32, op=dist.ReduceOp.MAX, group=group)
-            count_collective("all-reduce", s32.numel() * s32.element_size())
+            with collective("all-reduce", s32.numel() * s32.element_size()):
+                dist.all_reduce(s32, op=dist.ReduceOp.MAX, group=group)
             s = s32.to(s.dtype)
         # the operand is held until the window closes, so its storage
         # cannot be reused under the same key
@@ -336,8 +335,24 @@ def column_window(window: ColumnWindow | None):
     return _pushed(_COLUMNS, window)
 
 
+_WHOLE = object()  # a row window's suspension (``whole_rows``)
+
+
+@contextlib.contextmanager
+def whole_rows():
+    """Suspend the row window within the block: its products run on whole
+    rows every rank of the group holds alike (serving's mixture of experts
+    on the all-gathered batch)."""
+    _WINDOW.append(_WHOLE)
+    try:
+        yield
+    finally:
+        _WINDOW.pop()
+
+
 def active_window() -> RowWindow | None:
-    return _WINDOW[-1] if _WINDOW else None
+    window = _WINDOW[-1] if _WINDOW else None
+    return None if window is _WHOLE else window
 
 
 def active_columns() -> ColumnWindow | None:

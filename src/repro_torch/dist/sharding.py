@@ -96,7 +96,7 @@ import typing
 
 import torch
 
-from repro_torch.utils.flop_cost import count_collective
+from repro_torch.utils.flop_cost import collective
 from repro_torch.utils.tree import leaves, named_leaves, path_map, tree_map
 
 MODEL = "model"
@@ -334,11 +334,13 @@ def batch_group(mesh):
     group = getattr(mesh, "_repro_batch_group", None)
     if group is None:
         import torch.distributed as dist
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
 
-        grid = mesh.mesh.reshape(-1, mesh.mesh.shape[-1])  # (pod·data, model)
+        with unset_fake_temporarily():  # the rank grid is host data, also in a fake world
+            grid = mesh.mesh.reshape(-1, mesh.mesh.shape[-1]).tolist()  # (pod·data, model)
         me = dist.get_rank()
-        for m in range(grid.shape[1]):
-            ranks = grid[:, m].tolist()
+        for m in range(len(grid[0])):
+            ranks = [row[m] for row in grid]
             made = dist.new_group(ranks)
             if me in ranks:
                 group = made
@@ -399,8 +401,8 @@ def all_reduce_mean(tensors, group, world: int, limit: int = BUCKET_ELEMENTS) ->
     import torch.distributed as dist
 
     def reduce(flat):
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        count_collective("all-reduce", flat.numel() * flat.element_size())
+        with collective("all-reduce", flat.numel() * flat.element_size()):
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         flat.div_(world)
 
     _flat_collective(tensors, reduce, limit)
@@ -548,8 +550,8 @@ def _all_reduce(x, group):
     import torch.distributed as dist
 
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    count_collective("all-reduce", out.numel() * out.element_size())
+    with collective("all-reduce", out.numel() * out.element_size()):
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
@@ -559,8 +561,8 @@ def _all_gather(x, dim: int, group, size: int):
 
     flat = x.contiguous().reshape(-1)
     whole = flat.new_empty(size * flat.numel())
-    dist.all_gather_into_tensor(whole, flat, group=group)
-    count_collective("all-gather", flat.numel() * flat.element_size())
+    with collective("all-gather", flat.numel() * flat.element_size()):
+        dist.all_gather_into_tensor(whole, flat, group=group)
     return _join(whole.view(size, *x.shape), dim)
 
 
@@ -722,8 +724,8 @@ def full_tensor(x):
         n = mesh.size(i)
         flat = out.contiguous().reshape(-1)
         whole = flat.new_empty(n * flat.numel())
-        dist.all_gather_into_tensor(whole, flat, group=mesh.get_group(i))
-        count_collective("all-gather", flat.numel() * flat.element_size())
+        with collective("all-gather", flat.numel() * flat.element_size()):
+            dist.all_gather_into_tensor(whole, flat, group=mesh.get_group(i))
         out = _join(whole.view(n, *out.shape), p.dim)
     return out
 
@@ -743,16 +745,17 @@ def _pieces(whole: torch.Tensor, d: int, n: int) -> torch.Tensor:
     return whole.reshape(shape).movedim(d, 0).reshape(n, -1)
 
 
-def local_batch(mesh, batch) -> LocalBatch:
+def local_batch(mesh, batch, microbatches: int = 1) -> LocalBatch:
     """A batch placed by ``make_batch_shardings`` -> this rank's rows, as
     ``put_batch`` gives them (``rows`` None where the batch is
-    replicated)."""
+    replicated).  With ``microbatches`` its rows are read as its share of
+    each microbatch in turn (``put_batch``'s layout)."""
     n = {v.shape[0] for v in batch.values()}
     split = len(n) == 1 and all(
         is_dtensor(v) and any(getattr(p, "dim", None) == 0 for p in v.placements)
         for v in batch.values())
     out = LocalBatch({k: local(v) for k, v in batch.items()})
-    out.rows = batch_rows(mesh, n.pop()) if split else None
+    out.rows = batch_rows(mesh, n.pop(), microbatches) if split else None
     return out
 
 
@@ -791,8 +794,8 @@ class _Plan:
             index = [split[i] for i in index]
             flat = torch.cat([shards[i].reshape(-1) for i in index])
             full = flat.new_empty(self.world * flat.numel())
-            dist.all_gather_into_tensor(full, flat, group=self.group)
-            count_collective("all-gather", flat.numel() * flat.element_size())
+            with collective("all-gather", flat.numel() * flat.element_size()):
+                dist.all_gather_into_tensor(full, flat, group=self.group)
             full = full.view(self.world, -1)
             offset = 0
             for i in index:
@@ -817,11 +820,11 @@ class _Plan:
             rows = [_pieces(grads[i], self.dims[i], self.world) for i in index]
             flat = torch.cat(rows, dim=1).reshape(-1)
             mine = flat.new_empty(flat.numel() // self.world)
-            dist.reduce_scatter_tensor(mine, flat, op=dist.ReduceOp.SUM, group=self.group)
-            count_collective("reduce-scatter", flat.numel() * flat.element_size())
+            with collective("reduce-scatter", flat.numel() * flat.element_size()):
+                dist.reduce_scatter_tensor(mine, flat, op=dist.ReduceOp.SUM, group=self.group)
             if self.pod is not None:
-                dist.all_reduce(mine, op=dist.ReduceOp.SUM, group=self.pod)
-                count_collective("all-reduce", mine.numel() * mine.element_size())
+                with collective("all-reduce", mine.numel() * mine.element_size()):
+                    dist.all_reduce(mine, op=dist.ReduceOp.SUM, group=self.pod)
             mine.div_(self.batch_world)
             offset = 0
             for i, row in zip(index, rows):
@@ -891,3 +894,64 @@ def unshard_fsdp(tree):
             g = gather_from_model(g, d)
         out[k] = g
     return path_map(lambda k, x: out[k] if k in out else x, tree)
+
+
+def max_over_model(x):
+    """The MAX over ``model`` of the ranks' values of ``x`` (an all-reduce;
+    not differentiable: serving's log-sum-exp combine).  Identity without a
+    model axis above 1."""
+    group, _, size = _tp_group()
+    if size == 1:
+        return x
+    import torch.distributed as dist
+
+    out = x.contiguous().clone()
+    with collective("all-reduce", out.numel() * out.element_size()):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def gather_rows(x, group, size: int):
+    """The ranks' rows of ``group`` joined along dim 0 (an all-gather over
+    the batch axes; serving only)."""
+    return x if size == 1 else _all_gather(x, 0, group, size)
+
+
+# ---------------------------------------------------------------------------
+# serving: caches split over ``model`` (``serve.decode.cache_shardings``)
+# ---------------------------------------------------------------------------
+
+_CACHE_SPLIT: list = []
+
+
+@contextlib.contextmanager
+def split_caches(dims: dict):
+    """Within the block, a serving model's cache leaf ``name`` holds this
+    rank's piece of dim ``dims[name]`` (its per-layer dim: the stacked
+    leaf's dim less one) over ``model``; a name absent or None is whole."""
+    _CACHE_SPLIT.append(dict(dims))
+    try:
+        yield
+    finally:
+        _CACHE_SPLIT.pop()
+
+
+def active_cache_split() -> dict:
+    """The innermost ``split_caches`` dims (empty outside one)."""
+    return dict(_CACHE_SPLIT[-1]) if _CACHE_SPLIT else {}
+
+
+def cache_split(name: str):
+    """(the per-layer dim of cache leaf ``name`` split over ``model``, this
+    rank's coordinate, the axis's size), or None where the leaf is whole."""
+    dim = _CACHE_SPLIT[-1].get(name) if _CACHE_SPLIT else None
+    if dim is None:
+        return None
+    index, size = model_index(current_mesh())
+    return (dim, index, size) if size > 1 else None
+
+
+def model_dim(x) -> int | None:
+    """The tensor dim a ``DTensor`` splits over ``model``, or None (a plain
+    tensor: None)."""
+    return _model_dim(x) if is_dtensor(x) else None

@@ -82,18 +82,21 @@ def cost_analysis_dict(cost) -> dict:
     return {"flops": float(cost.flops), "bytes accessed": float(cost.mem_bytes)}
 
 
-def memory_analysis_dict(device, argument_bytes: int = 0) -> dict:
+def memory_analysis_dict(device, argument_bytes: int = 0, peak: int | None = None) -> dict:
     """XLA's ``memory_analysis()`` keys from the CUDA caching allocator's
-    peak since the last ``torch.cuda.reset_peak_memory_stats``:
+    peak since the last ``torch.cuda.reset_peak_memory_stats``, or from
+    ``peak`` where given (the dry-run's fake world tracks its own):
     ``argument_size_in_bytes`` (the caller's inputs, ``argument_bytes``),
     ``temp_size_in_bytes`` (the peak above them) and ``total_hbm_bytes``
-    (the peak).  Empty off the card, where no allocator keeps a peak."""
+    (the peak).  Empty off the card without a ``peak``."""
     import torch
 
     device = torch.device(device)
-    if device.type != "cuda":
-        return {}
-    peak = int(torch.cuda.max_memory_allocated(device))
+    if peak is None:
+        if device.type != "cuda":
+            return {}
+        peak = torch.cuda.max_memory_allocated(device)
+    peak = int(peak)
     return {"argument_size_in_bytes": int(argument_bytes),
             "temp_size_in_bytes": peak - int(argument_bytes),
             "total_hbm_bytes": peak}

@@ -32,6 +32,7 @@ unembedding (``hidden``).  Head parameters always get exact gradients.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import typing
 
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.dist.sharding import unshard_fsdp
 from repro_torch.nn.module import Module
+from repro_torch.utils.device import faking
 
 
 class ServingModel(Module):
@@ -49,11 +51,12 @@ class ServingModel(Module):
     def init_caches(self, batch: int, max_len: int, dtype=None):
         raise NotImplementedError
 
-    def decode_step(self, token, caches, cache_len):
-        """token (B, 1) -> (logits (B, 1, V), new caches)."""
+    def decode_step(self, token, caches, cache_len, params=None):
+        """token (B, 1) -> (logits (B, 1, V), new caches); on ``params``
+        (``serving_params``) where given, else the module's own."""
         raise NotImplementedError
 
-    def prefill_step(self, tokens, caches, cache_len, n_valid):
+    def prefill_step(self, tokens, caches, cache_len, n_valid, params=None):
         """tokens (B, C) -> (logits (B, C, V), new caches)."""
         raise NotImplementedError
 
@@ -62,6 +65,55 @@ class ServingModel(Module):
         streamed token."""
         raise NotImplementedError(
             f"{type(self).__name__} declares no forward GEMM workload")
+
+
+@contextlib.contextmanager
+def serving_params(module, params: dict | None, prefix: str, skip: str | None = None):
+    """Run ``module`` on ``params``' subtree under ``prefix`` (a flat dict,
+    ``DTensor``s under a sharded serving step) through the FSDP gather
+    (``unshard_fsdp``: one block's all-gather under a mesh, the
+    reference's per-layer serving gathers), leaving out the leaves under
+    ``skip`` (relative to ``prefix``), which the call does not read; on its
+    own parameters where ``params`` is None."""
+    if params is None:
+        yield module
+        return
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    # gathered under their full names, so that ``SPLIT_READS`` finds the
+    # leaves a module reads as its piece (the vocabulary table, the experts)
+    leaves = {k: v for k, v in params.items() if k.startswith(prefix)
+              and (skip is None or not k[len(prefix):].startswith(skip))}
+    with _reparametrize_module(module, subtree(unshard_fsdp(leaves), prefix)):
+        yield module
+
+
+_NO_TAPE: list = []
+
+
+@contextlib.contextmanager
+def no_tape():
+    """Within the block ``run_segments`` keeps no tape (a serving prefill
+    reads only the logits; the reference's compiler drops the unused
+    tape)."""
+    _NO_TAPE.append(True)
+    try:
+        yield
+    finally:
+        _NO_TAPE.pop()
+
+
+class _Discard:
+    """A tape that keeps nothing."""
+
+    def __setitem__(self, index, value):
+        del index, value
+
+
+def new_tape(n_layers: int, x0: torch.Tensor):
+    """The (n_layers, *x0.shape) buffer ``run_segments`` saves each block's
+    input in; one that keeps nothing under ``no_tape``."""
+    return _Discard() if _NO_TAPE else x0.new_empty((n_layers, *x0.shape))
 
 
 def subtree(params: dict, prefix: str) -> dict:
@@ -154,6 +206,8 @@ class DFAModel(Module):
         device) once a sharded state holds the parameters: the training
         methods read ``params`` only.  ``device`` stays where they were."""
         self._home = self.device
+        if faking():
+            return  # fake parameters hold no storage (and cannot be swapped)
         self.to("meta")
 
     # --- forward parts ---

@@ -34,7 +34,8 @@ from torch.func import functional_call
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
-                                     cross_entropy_loss, gathered, subtree)
+                                     cross_entropy_loss, gathered, new_tape, serving_params,
+                                     subtree)
 from repro_torch.nn.embeddings import Embedding, lookup
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import Module
@@ -140,7 +141,7 @@ class MambaLM(DFAModel, ServingModel):
     def run_segments(self, params, x0):
         """Every block's input (L, B, S, d) on the tape."""
         (spec,) = self.segment_specs()
-        inputs = x0.new_empty((spec.n_layers, *x0.shape))
+        inputs = new_tape(spec.n_layers, x0)
         x = x0
         for i in photonics.scanned_layers(range(spec.n_layers)):
             inputs[i] = x
@@ -164,17 +165,22 @@ class MambaLM(DFAModel, ServingModel):
         one = self.blocks[0].mixer.init_cache(batch, max_len, dtype)
         return {n: t[None].repeat(self.cfg.n_layers, *(1,) * t.ndim) for n, t in one.items()}
 
-    def decode_step(self, token, caches, cache_len):
+    def decode_step(self, token, caches, cache_len, params=None):
         """token: (B, 1) int -> (logits (B, 1, V), new caches).  The head
-        runs through ``forward_matmul``, as the reference's decode head."""
-        x = self._tokens(token)
+        runs through ``forward_matmul``, as the reference's decode head.
+        ``params``: a flat dict (``DTensor``s under a sharded serving step)
+        each block gathers a layer at a time (``serving_params``)."""
+        with serving_params(self._modules["embed"]["tok"], params, "embed.tok."):
+            x = self._tokens(token)
         new = {n: [] for n in CACHE_NAMES}
         for i, layer in enumerate(photonics.scanned_layers(self.blocks)):
-            x, cache = layer.decode(x, {n: caches[n][i] for n in CACHE_NAMES}, cache_len)
+            with serving_params(layer, params, f"blocks.{i}."):
+                x, cache = layer.decode(x, {n: caches[n][i] for n in CACHE_NAMES}, cache_len)
             for n in CACHE_NAMES:
                 new[n].append(cache[n])
-        h = self.head["norm"](x)
-        logits = self._mask_pad(forward_matmul(h, self.head["out"].weight))
+        with serving_params(self.head, params, "head."):
+            h = self.head["norm"](x)
+            logits = self._mask_pad(forward_matmul(h, self.head["out"].weight))
         return logits, {n: torch.stack(t) for n, t in new.items()}
 
     def forward_gemm_specs(self):

@@ -40,8 +40,10 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist import sharding
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
-                                     cross_entropy_loss, gathered, subtree)
+                                     cross_entropy_loss, gathered, new_tape, serving_params,
+                                     subtree)
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.embeddings import Embedding, lookup
 from repro_torch.nn.linear import GatedMLP, Linear
@@ -189,7 +191,7 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
         b, s, _ = x0.shape
         positions = torch.arange(s, device=x0.device)[None, :].expand(b, s)
         specs = {sp.name: sp for sp in self.segment_specs()}
-        inputs = {n: x0.new_empty((sp.n_layers, *x0.shape)) for n, sp in specs.items()}
+        inputs = {n: new_tape(sp.n_layers, x0) for n, sp in specs.items()}
         x = x0
 
         def run(names, count):
@@ -227,10 +229,13 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
                 caches[f"{name}.{leaf}"] = t[None].repeat(len(stack), *(1,) * t.ndim)
         return caches
 
-    def decode_step(self, token, caches, cache_len):
+    def decode_step(self, token, caches, cache_len, params=None):
         """token: (B, 1) int -> (logits (B, 1, V), new caches).  The head
-        runs through ``forward_matmul``, as the reference's decode head."""
-        x = self._tokens(token)
+        runs through ``forward_matmul``, as the reference's decode head.
+        ``params``: a flat dict (``DTensor``s under a sharded serving step)
+        each layer gathers as it runs (``serving_params``)."""
+        with serving_params(self._modules["embed"]["tok"], params, "embed.tok."):
+            x = self._tokens(token)
         new = {n: [] for n in caches}
 
         def run(names, count):
@@ -239,17 +244,26 @@ class RecurrentGemmaLM(DFAModel, ServingModel):
                 for n in names:
                     layer = self._modules[n][i]
                     leaves = CACHE_NAMES[layer.kind]
-                    x, cache = layer.decode(
-                        x, {leaf: caches[f"{n}.{leaf}"][i] for leaf in leaves}, cache_len)
+                    with serving_params(layer, params, f"{n}.{i}."), \
+                            sharding.split_caches(self._split_of(n)):
+                        x, cache = layer.decode(
+                            x, {leaf: caches[f"{n}.{leaf}"][i] for leaf in leaves}, cache_len)
                     for leaf in leaves:
                         new[f"{n}.{leaf}"].append(cache[leaf])
 
         run(GROUP, self.cfg.n_groups)
         if self.cfg.n_tail:
             run((TAIL,), self.cfg.n_tail)
-        h = self.head["norm"](x)
-        return forward_matmul(h, self.head["out"].weight), {n: torch.stack(t)
-                                                             for n, t in new.items()}
+        with serving_params(self.head, params, "head."):
+            logits = forward_matmul(self.head["norm"](x), self.head["out"].weight)
+        return logits, {n: torch.stack(t) for n, t in new.items()}
+
+    def _split_of(self, segment: str) -> dict:
+        """The active cache split of ``segment``'s leaves, named as its
+        layers read them (the model's keys are ``{segment}.{leaf}``)."""
+        split = sharding.active_cache_split()
+        return {leaf.split(".", 1)[1]: d for leaf, d in split.items()
+                if leaf.startswith(segment + ".")}
 
     def forward_gemm_specs(self):
         """(name, m, k) per-token forward projections: a recurrent layer's

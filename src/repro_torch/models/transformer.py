@@ -47,8 +47,10 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist.sharding import gather_rows
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
-                                     cross_entropy_loss, gathered, subtree)
+                                     cross_entropy_loss, gathered, new_tape, serving_params,
+                                     subtree)
 from repro_torch.nn.attention import Attention, MLAttention
 from repro_torch.nn.embeddings import Embedding, lookup
 from repro_torch.nn.frontends import VisionFrontendStub
@@ -154,8 +156,20 @@ class DecoderBlock(Module):
         return x + h, c.moe.lb_weight * aux["lb_loss"] + c.moe.z_weight * aux["z_loss"]
 
     def _serve_ffn(self, h):
-        """The FFN's output alone: serving computes no aux terms."""
-        return self.ffn(h) if self.cfg.moe is None else self.ffn(h, with_aux=False)[0]
+        """The FFN's output alone: serving computes no aux terms.  A mixture
+        of experts on a batch split over the data axes (a serving row
+        window) routes the whole batch, as the reference's global routing
+        does: the rows are all-gathered, the layer runs on them outside the
+        window, and this rank keeps its rows."""
+        if self.cfg.moe is None:
+            return self.ffn(h)
+        window = photonics.active_window()
+        if window is None:
+            return self.ffn(h, with_aux=False)[0]
+        whole = gather_rows(h, window.group, window.total // window.count)
+        with photonics.whole_rows():
+            y = self.ffn(whole, with_aux=False)[0]
+        return y[window.start: window.start + window.count]
 
     def decode(self, x, cache, cache_len):
         h, cache = self.attn.decode(self.norm1(x), cache, cache_len)
@@ -250,7 +264,7 @@ class TransformerLM(DFAModel, ServingModel):
         b, s, _ = x0.shape
         positions = torch.arange(s, device=x0.device)[None, :].expand(b, s)
         (spec,) = self.segment_specs()
-        inputs = x0.new_empty((spec.n_layers, *x0.shape))
+        inputs = new_tape(spec.n_layers, x0)
         x, aux_total = x0, torch.zeros((), device=x0.device)
         for i in range(spec.n_layers):
             inputs[i] = x
@@ -279,27 +293,36 @@ class TransformerLM(DFAModel, ServingModel):
         return {n: t[None].repeat(self.cfg.n_layers, *(1,) * t.ndim)
                 for n, t in one.items()}
 
-    def _run_layers(self, x, caches, step):
+    def _serve_tokens(self, token_ids, params):
+        with serving_params(self._modules["embed"]["tok"], params, "embed.tok."):
+            return self._tokens(token_ids)
+
+    def _run_layers(self, x, caches, step, params=None):
+        """Each block on its cache, its parameters gathered from ``params``
+        a layer at a time where given (``serving_params``), then the
+        head."""
         new = {n: [] for n in caches}
         for i, block in enumerate(photonics.scanned_layers(self.blocks)):
-            x, cache = step(block, x, {n: t[i] for n, t in caches.items()})
+            with serving_params(block, params, f"blocks.{i}."):
+                x, cache = step(block, x, {n: t[i] for n, t in caches.items()})
             for n in new:
                 new[n].append(cache[n])
-        h = self.head["norm"](x)
-        return self._head(h), {n: torch.stack(t) for n, t in new.items()}
+        with serving_params(self.head, params, "head."):
+            logits = self._head(self.head["norm"](x))
+        return logits, {n: torch.stack(t) for n, t in new.items()}
 
-    def decode_step(self, token, caches, cache_len):
+    def decode_step(self, token, caches, cache_len, params=None):
         """token: (B, 1) int.  Returns (logits (B, 1, V), new caches)."""
-        x = self._tokens(token)
+        x = self._serve_tokens(token, params)
         return self._run_layers(
-            x, caches, lambda blk, x, cache: blk.decode(x, cache, cache_len))
+            x, caches, lambda blk, x, cache: blk.decode(x, cache, cache_len), params)
 
-    def prefill_step(self, tokens, caches, cache_len, n_valid):
+    def prefill_step(self, tokens, caches, cache_len, n_valid, params=None):
         """tokens (B, C) -> (logits (B, C, V), new caches).  ``cache_len``
         is not advanced here: the engine owns slot bookkeeping."""
-        x = self._tokens(tokens)
+        x = self._serve_tokens(tokens, params)
         return self._run_layers(
-            x, caches, lambda blk, x, cache: blk.prefill(x, cache, cache_len, n_valid))
+            x, caches, lambda blk, x, cache: blk.prefill(x, cache, cache_len, n_valid), params)
 
     def _head(self, h, weight=None):
         """Unembedding (by ``weight``, default the module's own), masking

@@ -40,7 +40,7 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, cross_entropy_loss,
-                                     gathered, subtree)
+                                     gathered, new_tape, serving_params, subtree)
 from repro_torch.nn import initializers
 from repro_torch.nn.attention import Attention, CrossAttention
 from repro_torch.nn.embeddings import Embedding, lookup
@@ -220,7 +220,7 @@ class WhisperModel(DFAModel):
         enc, dec = self.segment_specs()
 
         def run(spec, x, extras):
-            inputs = x.new_empty((spec.n_layers, *x.shape))
+            inputs = new_tape(spec.n_layers, x)
             for i in photonics.scanned_layers(range(spec.n_layers)):
                 inputs[i] = x
                 x, _ = spec.apply(spec.gathered_params(params, i), x, extras)
@@ -266,18 +266,24 @@ class WhisperModel(DFAModel):
         return {n: t[None].repeat(self.cfg.n_dec_layers, *(1,) * t.ndim)
                 for n, t in one.items()}
 
-    def decode_step(self, token, enc_out, caches, cache_len):
+    def decode_step(self, token, enc_out, caches, cache_len, params=None):
         """token (B, 1) int against ``enc_out`` (``encode``'s) -> (logits
         (B, 1, V), new caches).  The position is clamped to max_target - 1;
-        the head is digital and, as the reference's decode head, unmasked."""
+        the head is digital and, as the reference's decode head, unmasked.
+        ``params``: a flat dict (``DTensor``s under a sharded serving step)
+        each decoder layer gathers as it runs (``serving_params``)."""
         c = self.cfg
         emb = self._embed()
-        pos = emb.pos[torch.clamp(cache_len, max=c.max_target - 1)]
-        x = emb.tok(token) + pos[:, None, :]
+        with serving_params(emb, params, "embed.", skip="audio."):
+            pos = emb.pos[torch.clamp(cache_len, max=c.max_target - 1)]
+            x = emb.tok(token) + pos[:, None, :]
         new = {n: [] for n in caches}
         for i, layer in enumerate(photonics.scanned_layers(self.dec)):
-            x, cache = layer.decode(x, enc_out, {n: t[i] for n, t in caches.items()}, cache_len)
+            with serving_params(layer, params, f"dec.{i}."):
+                x, cache = layer.decode(x, enc_out, {n: t[i] for n, t in caches.items()},
+                                        cache_len)
             for n in new:
                 new[n].append(cache[n])
-        h = self.head["ln"](x)
-        return h @ self.head["out"].weight.T, {n: torch.stack(t) for n, t in new.items()}
+        with serving_params(self.head, params, "head.", skip="ln_enc."):
+            logits = self.head["ln"](x) @ self.head["out"].weight.T
+        return logits, {n: torch.stack(t) for n, t in new.items()}

@@ -18,7 +18,9 @@ products are digital (raw ``@``), as the reference's.
 
 Under tensor parallelism (``dist.sharding``: q, k, v and o split on their
 output dims over ``model``) every attention runs on the whole weights the
-FSDP gather hands it and attends every head on every rank.
+FSDP gather hands it and attends every head on every rank; a serving step
+whose cache is split over ``model`` (``serve.decode.cache_shardings``)
+attends on this rank's piece of it (below).
 
 Cache updates are out of place, as in the reference: ``decode`` and
 ``prefill`` return new cache tensors and never write the ones they were
@@ -32,6 +34,7 @@ import math
 
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.nn.embeddings import apply_rotary, rotary_angles
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import Module, empty_param, init_children
@@ -187,6 +190,73 @@ def write_positions(cache, new, start, n_valid):
     return torch.where(hit.reshape(b, smax, *tail), src, cache)
 
 
+# ---------------------------------------------------------------------------
+# caches split over the model axis (``serve.decode.cache_shardings``)
+# ---------------------------------------------------------------------------
+# A serving step on a ``model`` axis above 1 holds this rank's piece of each
+# layer's cache (``dist.sharding.cache_split``): its kv heads, its slice of
+# head_dim, or its slots of the sequence.  The new token's q, k and v are
+# whole on every rank (the projections run on whole weights); each rank
+# writes its piece of k and v into its piece of the cache and attends there.
+# Heads: the rank's kv heads and their q heads, the outputs all-gathered
+# along heads (the one process's sums).  head_dim: the partial q·k sums
+# SUM all-reduced, the softmax whole, the rank's slice of the value
+# product gathered.  Sequence: each rank's max, sum and weighted value over
+# its slots, combined by MAX and SUM all-reduces (the log-sum-exp combine
+# the reference's GSPMD lowers); a token reaches the rank holding its slot.
+
+HEADS, HEAD_DIM, SEQ = 2, 3, 1  # the per-layer dim of a (B, S, KVH, D) cache
+
+
+def _lse_combine(scores, mask, value):
+    """Attention over slots split across ``model``: scores (B, H, Sq, Sl)
+    f32 and mask (B, Sq, Sl) of this rank's slots, value(p) the weighted
+    value p·V (B, Sq, H, Dv) -> the whole softmax-weighted value."""
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    m = sharding.max_over_model(scores.amax(dim=-1))  # (B, H, Sq)
+    p = torch.where(mask[:, None], torch.exp(scores - m[..., None]), 0.0)
+    total = sharding.reduce_from_model(p.sum(dim=-1))
+    out = sharding.reduce_from_model(value(p))
+    return out / total.transpose(1, 2)[..., None]
+
+
+def _split_attention(q, k_cache, v_cache, mask, split, scale, logit_softcap):
+    """q (B, Sq, H, D) whole against this rank's piece of the caches (B,
+    Sl, KVH', D') split at ``split`` = (dim, index, size) on head_dim or
+    the sequence; mask (B, Sq, Sl) over its slots -> (B, Sq, H, D) f32."""
+    dim, index, size = split
+    h = q.shape[2]
+    k = _gqa_expand(k_cache, h).float()
+    v = _gqa_expand(v_cache, h).float()
+    if dim == HEAD_DIM:
+        n = k.shape[-1]
+        q_part = q[..., index * n:(index + 1) * n].float()
+        scores = sharding.reduce_from_model(torch.einsum("bqhd,bkhd->bhqk", q_part, k))
+        scores = _softcap(scores * scale, logit_softcap)
+        w = torch.softmax(torch.where(mask[:, None], scores, NEG_INF), dim=-1)
+        return sharding.gather_from_model(torch.einsum("bhqk,bkhd->bqhd", w, v), -1)
+    if dim != SEQ:
+        raise ValueError(f"no split attention along cache dim {dim}")
+    scores = _softcap(torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * scale, logit_softcap)
+    return _lse_combine(scores, mask, lambda p: torch.einsum("bhqk,bkhd->bqhd", p, v))
+
+
+def _gathered_heads(out, split):
+    """A heads-split attention's output (B, Sq, H', D) all-gathered along
+    heads (itself otherwise)."""
+    return out if split is None else sharding.gather_from_model(out, 2)
+
+
+def _piece(x, dim, split):
+    """This rank's piece of a whole ``x`` along the cache split's ``dim``
+    (``x`` where the split is along another dim)."""
+    if split is None or split[0] != dim:
+        return x
+    _, index, size = split
+    n = x.shape[dim] // size
+    return x.narrow(dim, index * n, n)
+
+
 def _self_attention(q, k, v, positions, scale, q_chunk, k_chunk, window=None,
                     logit_softcap=None, causal=True):
     """Self-attention of a whole sequence (causal by default): O(S²) up to
@@ -268,21 +338,43 @@ class Attention(Module):
         are valid."""
         b = x.shape[0]
         q, k, v = self.qkv(x, cache_len[:, None])
-        smax = cache["k"].shape[1]
+        split = sharding.cache_split("k")
+        q, k, v = self._heads_piece(q, k, v, split)
+        seq = split is not None and split[0] == SEQ
+        slots = cache["k"].shape[1]
+        smax = slots * split[2] if seq else slots  # the whole cache's slots
+        base = split[1] * slots if seq else 0  # this rank's first slot
         ring = self.window is not None and smax == self.window
         slot = cache_len % smax if ring else cache_len
         one = torch.ones_like(cache_len)
-        k_cache = write_positions(cache["k"], k, slot, one)
-        v_cache = write_positions(cache["v"], v, slot, one)
-        if ring:
-            out = decode_attention(q, k_cache, v_cache,
-                                   cache_len=torch.clamp(cache_len + 1, max=smax),
+        k_cache = write_positions(cache["k"], _piece(k, HEAD_DIM, split), slot - base, one)
+        v_cache = write_positions(cache["v"], _piece(v, HEAD_DIM, split), slot - base, one)
+        n_seen = torch.clamp(cache_len + 1, max=smax) if ring else cache_len + 1
+        window = None if ring else self.window
+        if split is None or split[0] == HEADS:
+            out = decode_attention(q, k_cache, v_cache, cache_len=n_seen, window=window,
                                    logit_softcap=self.logit_softcap)
+            out = _gathered_heads(out, split)
         else:
-            out = decode_attention(q, k_cache, v_cache, cache_len=cache_len + 1,
-                                   window=self.window, logit_softcap=self.logit_softcap)
+            kv_pos = base + torch.arange(slots, device=x.device)[None, :]
+            valid = kv_pos < n_seen[:, None]
+            if window is not None:
+                valid &= (n_seen - 1)[:, None] - kv_pos < window
+            out = _split_attention(q, k_cache, v_cache, valid[:, None, :], split,
+                                   1.0 / math.sqrt(self.hd), self.logit_softcap).to(q.dtype)
         y = self.o(out.reshape(b, 1, self.n_heads * self.hd))
         return y, {"k": k_cache, "v": v_cache}
+
+    def _heads_piece(self, q, k, v, split):
+        """Under the heads rule this rank's kv heads of k and v and their q
+        heads; the whole q, k, v otherwise."""
+        if split is None or split[0] != HEADS:
+            return q, k, v
+        _, index, size = split
+        rep = self.n_heads // self.n_kv_heads
+        n = self.n_kv_heads // size
+        return (q[:, :, index * n * rep:(index + 1) * n * rep], k[:, :, index * n:(index + 1) * n],
+                v[:, :, index * n:(index + 1) * n])
 
     def prefill(self, x, cache, cache_len, n_valid):
         """Chunked cache fill: x (B, C, d) is the next C prompt tokens of
@@ -297,12 +389,23 @@ class Attention(Module):
         b, c, _ = x.shape
         positions = cache_len[:, None] + torch.arange(c, device=x.device)[None, :]
         q, k, v = self.qkv(x, positions)
-        k_cache = write_positions(cache["k"], k, cache_len, n_valid)
-        v_cache = write_positions(cache["v"], v, cache_len, n_valid)
-        smax = k_cache.shape[1]
-        kv_pos = torch.arange(smax, device=x.device)[None, :].expand(b, smax)
-        out = reference_attention(q, k_cache, v_cache, q_pos=positions, kv_pos=kv_pos,
-                                  causal=True, logit_softcap=self.logit_softcap)
+        split = sharding.cache_split("k")
+        q, k, v = self._heads_piece(q, k, v, split)
+        slots = cache["k"].shape[1]
+        base = split[1] * slots if split is not None and split[0] == SEQ else 0
+        k_cache = write_positions(cache["k"], _piece(k, HEAD_DIM, split), cache_len - base,
+                                  n_valid)
+        v_cache = write_positions(cache["v"], _piece(v, HEAD_DIM, split), cache_len - base,
+                                  n_valid)
+        kv_pos = base + torch.arange(slots, device=x.device)[None, :].expand(b, slots)
+        if split is None or split[0] == HEADS:
+            out = reference_attention(q, k_cache, v_cache, q_pos=positions, kv_pos=kv_pos,
+                                      causal=True, logit_softcap=self.logit_softcap)
+            out = _gathered_heads(out, split)
+        else:
+            causal = kv_pos[:, None, :] <= positions[:, :, None]
+            out = _split_attention(q, k_cache, v_cache, causal, split, 1.0 / math.sqrt(self.hd),
+                                   self.logit_softcap).to(q.dtype)
         y = self.o(out.reshape(b, c, self.n_heads * self.hd))
         return y, {"k": k_cache, "v": v_cache}
 
@@ -429,11 +532,13 @@ class MLAttention(Module):
         return {"c_kv": torch.zeros((batch, max_len, self.kv_lora_rank), dtype=dt, device=dev),
                 "k_rope": torch.zeros((batch, max_len, self.qk_rope_dim), dtype=dt, device=dev)}
 
-    def _absorbed(self, q, c_cache, r_cache, mask, dtype):
+    def _absorbed(self, q, c_cache, r_cache, mask, dtype, split=None):
         """Attention of q (B, C, H, qk_dim) against the latent caches, with
         ``mask`` (B, C, S) -> (B, C, H, v_head_dim) in ``dtype``.  The
         reference reshapes its (r, H·n) weights to (r, H, n); the port's are
-        (H·n, r), so they are transposed first."""
+        (H·n, r), so they are transposed first.  With the caches' sequence
+        split over ``model`` (``split``) each rank attends its slots and
+        the latent outputs take the log-sum-exp combine."""
         h, r = self.n_heads, self.kv_lora_rank
         q_nope, q_rope = q[..., :self.qk_nope_dim].float(), q[..., self.qk_nope_dim:].float()
         w_uk = self.k_up.weight.T.reshape(r, h, self.qk_nope_dim).float()
@@ -442,21 +547,37 @@ class MLAttention(Module):
         scores = torch.einsum("bqhr,bkr->bhqk", q_abs, c)
         scores = scores + torch.einsum("bqhp,bkp->bhqk", q_rope, r_cache.float())
         scores = scores * (1.0 / math.sqrt(self.qk_dim))
-        scores = torch.where(mask[:, None], scores, NEG_INF)
-        w = torch.softmax(scores, dim=-1)
-        out_lat = torch.einsum("bhqk,bkr->bqhr", w, c)
+        if split is not None:
+            out_lat = _lse_combine(scores, mask, lambda p: torch.einsum("bhqk,bkr->bqhr", p, c))
+        else:
+            scores = torch.where(mask[:, None], scores, NEG_INF)
+            w = torch.softmax(scores, dim=-1)
+            out_lat = torch.einsum("bhqk,bkr->bqhr", w, c)
         w_uv = self.v_up.weight.T.reshape(r, h, self.v_head_dim).float()
         return torch.einsum("bqhr,rhv->bqhv", out_lat, w_uv).to(dtype)
+
+    def _split(self, slots: int):
+        """(the latent caches' sequence split over ``model``, this rank's
+        first slot) for a cache piece of ``slots`` slots: (None, 0) where
+        they are whole."""
+        split = sharding.cache_split("c_kv")
+        if split is None:
+            return None, 0
+        if split[0] != SEQ:
+            raise ValueError(f"a latent cache split along dim {split[0]}: only the sequence")
+        return split, split[1] * slots
 
     def decode(self, x, cache, cache_len):
         """One token: x (B, 1, d).  Returns (y, new_cache)."""
         b = x.shape[0]
         q, c_new, r_new = self._latents(x, cache_len[:, None])
+        split, base = self._split(cache["c_kv"].shape[1])
         one = torch.ones_like(cache_len)
-        c_cache = write_positions(cache["c_kv"], c_new, cache_len, one)
-        r_cache = write_positions(cache["k_rope"], r_new, cache_len, one)
-        valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] < (cache_len + 1)[:, None]
-        out = self._absorbed(q, c_cache, r_cache, valid[:, None, :], x.dtype)
+        c_cache = write_positions(cache["c_kv"], c_new, cache_len - base, one)
+        r_cache = write_positions(cache["k_rope"], r_new, cache_len - base, one)
+        kv_pos = base + torch.arange(c_cache.shape[1], device=x.device)[None, :]
+        valid = kv_pos < (cache_len + 1)[:, None]
+        out = self._absorbed(q, c_cache, r_cache, valid[:, None, :], x.dtype, split)
         y = self.o(out.reshape(b, 1, self.n_heads * self.v_head_dim))
         return y, {"c_kv": c_cache, "k_rope": r_cache}
 
@@ -466,10 +587,11 @@ class MLAttention(Module):
         b, c, _ = x.shape
         positions = cache_len[:, None] + torch.arange(c, device=x.device)[None, :]
         q, c_new, r_new = self._latents(x, positions)
-        c_cache = write_positions(cache["c_kv"], c_new, cache_len, n_valid)
-        r_cache = write_positions(cache["k_rope"], r_new, cache_len, n_valid)
-        smax = c_cache.shape[1]
-        causal = torch.arange(smax, device=x.device)[None, None, :] <= positions[:, :, None]
-        out = self._absorbed(q, c_cache, r_cache, causal, x.dtype)
+        split, base = self._split(cache["c_kv"].shape[1])
+        c_cache = write_positions(cache["c_kv"], c_new, cache_len - base, n_valid)
+        r_cache = write_positions(cache["k_rope"], r_new, cache_len - base, n_valid)
+        kv_pos = base + torch.arange(c_cache.shape[1], device=x.device)
+        causal = kv_pos[None, None, :] <= positions[:, :, None]
+        out = self._absorbed(q, c_cache, r_cache, causal, x.dtype, split)
         y = self.o(out.reshape(b, c, self.n_heads * self.v_head_dim))
         return y, {"c_kv": c_cache, "k_rope": r_cache}

@@ -57,6 +57,13 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _one_hot(index, n: int):
+    """``one_hot(index, n)`` in f32 from the shapes alone: eager
+    ``torch.nn.functional.one_hot`` reads the indices' range back to the
+    host, which a fake tensor (the dry-run's) has not."""
+    return (index[..., None] == torch.arange(n, device=index.device)).float()
+
+
 class MoE(Module):
     def __init__(self, d_model: int, d_ff_expert: int, n_experts: int, top_k: int,
                  n_shared_experts: int = 0, d_ff_shared: int | None = None,
@@ -91,7 +98,7 @@ class MoE(Module):
             topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
         # one-hot expert assignment per k-slot, and each (token, slot)'s
         # position in its expert's queue
-        assign = torch.nn.functional.one_hot(topi, e).float()  # (T, K, E)
+        assign = _one_hot(topi, e)  # (T, K, E)
         flat = assign.reshape(t * self.top_k, e)
         pos_in_expert = (torch.cumsum(flat, dim=0) - flat).reshape(t, self.top_k, e)
         keep = (pos_in_expert < cap).float() * assign
@@ -108,7 +115,7 @@ class MoE(Module):
     def _route(self, x_flat, with_aux=True):
         """x_flat (T, d) -> (combine (T, E, C), dispatch (T, E, C), aux)."""
         topv, _, keep, pos, cap, aux = self._route_topk(x_flat, with_aux)
-        pos_oh = torch.nn.functional.one_hot(pos, cap).float()  # (T, K, C)
+        pos_oh = _one_hot(pos, cap)  # (T, K, C)
         dispatch = torch.einsum("tke,tkc->tec", keep, pos_oh)  # in {0, 1}
         combine = torch.einsum("tk,tke,tkc->tec", topv, keep, pos_oh)
         return combine, dispatch, aux

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist import sharding
 from repro_torch.nn.activations import silu
 from repro_torch.nn.linear import Linear
 from repro_torch.nn.module import Module, empty_param, init_children
@@ -200,10 +201,31 @@ class Mamba2Block(Module):
         x = x.reshape(bsz, hn, pd).float()
         bh, ch = self._heads(bmat, (bsz,)), self._heads(cmat, (bsz,))
         dec = torch.exp(dt * -torch.exp(self.A_log.float()))  # (B, H)
+        d_skip = self.D.float()[None, :, None] * x
+        split = sharding.cache_split("ssm")
+        if split is not None:
+            # the state (B, H, N, P) split over ``model`` (the reference's
+            # rank-5 cache rule): this rank updates its piece; the output's
+            # sum over N is all-reduced, a split H or P gathered
+            dim, index, size = split
+
+            def piece(t, d):
+                n = t.shape[d] // size
+                return t.narrow(d, index * n, n)
+
+            if dim == 1:  # heads
+                bh, ch, dt, dec, x = (piece(t, 1) for t in (bh, ch, dt, dec, x))
+            elif dim == 2:  # d_state
+                bh, ch = piece(bh, 2), piece(ch, 2)
+            else:  # head_dim
+                x = piece(x, 2)
         s_new = (cache["ssm"] * dec[:, :, None, None]
                  + torch.einsum("bhn,bhp->bhnp", bh * dt[..., None], x))
         y = torch.einsum("bhn,bhnp->bhp", ch, s_new)
-        y = y + self.D.float()[None, :, None] * x
+        if split is not None:
+            y = (sharding.reduce_from_model(y) if split[0] == 2
+                 else sharding.gather_from_model(y, 1 if split[0] == 1 else 2))
+        y = y + d_skip
         y = _gated_rmsnorm(y.reshape(bsz, 1, self.d_inner), z, self.norm_scale)
         y = forward_matmul(y.to(u.dtype), self.out_proj.weight)
         return y, {"ssm": s_new, "conv": win[:, 1:, :].to(cache["conv"].dtype)}

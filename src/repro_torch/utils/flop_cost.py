@@ -60,7 +60,9 @@ reduce-scatter, the model-axis operators of tensor parallelism,
 reference's ``_operand_bytes`` reads them from the HLO: an all-gather's
 operand is this rank's shard, a reduce-scatter's the full-size input, an
 all-reduce's the tensor it reduces, each counted once per rank.  A step on
-one process issues none and counts 0.
+one process issues none and counts 0.  The operations a collective's
+backend dispatches to carry it out (``collective``) are not counted as the
+step's device traffic.
 
 Regions: ``region(name, fn, x)`` runs ``fn(x)`` and adds the FLOPs of the
 products it runs, in the forward and, through two identity autograd nodes
@@ -71,6 +73,7 @@ expert parallelism divides over the ranks).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import weakref
@@ -78,14 +81,34 @@ import weakref
 import torch
 
 _ACTIVE: list = []  # the counters of the measurements under way
+_COLLECTIVE: list = []  # the collectives under way (``collective``)
 _REGIONS: list = []  # the names of the regions whose products run now
 
 # operations that allocate without writing: nothing moves
 _ALLOCATE = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                        "new_empty_strided", "resize_"})
+# metadata queries a fake tensor dispatches (a real one answers them without
+# a dispatch): nothing moves
+_METADATA = frozenset({"device", "dim", "size", "stride", "numel", "layout", "sym_size",
+                       "sym_stride", "sym_numel", "sym_storage_offset", "is_contiguous",
+                       "is_strides_like_format", "is_non_overlapping_and_dense"})
 # in-place operations that overwrite their first operand without reading it
 _OVERWRITE = frozenset({"copy_", "fill_", "zero_", "normal_", "uniform_", "bernoulli_",
                         "exponential_", "random_"})
+
+
+@contextlib.contextmanager
+def collective(kind: str, nbytes: int):
+    """Run one collective of ``kind`` on an operand of ``nbytes`` in the
+    block, counted as ``count_collective`` counts it; the operations its
+    backend dispatches to carry it out (gloo's copies) are the transport's,
+    not the step's device traffic, and are not counted."""
+    _COLLECTIVE.append(kind)
+    try:
+        yield
+    finally:
+        _COLLECTIVE.pop()
+    count_collective(kind, nbytes)
 
 
 def count_collective(kind: str, nbytes: int) -> None:
@@ -186,7 +209,7 @@ def _describe(x, roots: list):
         base = x._base if x._base is not None else x
         roots.append(weakref.ref(base))
         return ("tensor", x.device, x.dtype, tuple(x.shape), tuple(x.stride()),
-                x.storage_offset(), x.data_ptr(), x._version)
+                x.storage_offset(), storage_key(x), x._version)
     if isinstance(x, (list, tuple)):
         return tuple(_describe(v, roots) for v in x)
     return repr(x)
@@ -215,13 +238,20 @@ def span_bytes(x: torch.Tensor) -> int:
     return min(extent, distinct) * x.element_size()
 
 
+def storage_key(x: torch.Tensor) -> int:
+    """The identity of ``x``'s storage, shared by its views: the storage
+    object's own address, which a fake tensor (the dry-run's) has too,
+    where its data pointer does not exist."""
+    return x.untyped_storage()._cdata
+
+
 def _storage(x):
-    return x.untyped_storage().data_ptr() if x.numel() else None
+    return storage_key(x) if x.numel() else None
 
 
 def op_bytes(name: str, out, args, kwargs) -> int:
     """Operand plus output bytes of one operation (0 for an alias)."""
-    if name in _ALLOCATE:
+    if name in _ALLOCATE or name in _METADATA:
         return 0
     inputs = list(_tensors((args, kwargs)))
     outputs = list(_tensors(out))
@@ -274,7 +304,10 @@ def _counting_mode():
             self.host_bytes = 0
 
         def _count_flops(self, func_packet, out, args, kwargs):
-            name = func_packet._qualified_op_name.split("::")[-1]
+            qualified = func_packet._qualified_op_name
+            if _COLLECTIVE and not qualified.startswith(("c10d::", "_c10d_functional::")):
+                return out  # the transport's own work inside a collective
+            name = qualified.split("::")[-1]
             nbytes = op_bytes(name, out, args, kwargs)
             if any(x.device.type != "cpu" for x in _tensors((out, args, kwargs))):
                 self.device_bytes += nbytes

@@ -51,7 +51,12 @@ def consume(seed: int) -> int:
 
 
 def generator(seed: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded with ``seed``."""
+    """A generator on ``device`` seeded with ``seed`` (on the host inside a
+    ``FakeTensorMode``, whose draws are shapes only)."""
+    from repro_torch.utils.device import faking
+
+    if torch.device(device).type != "cpu" and faking():
+        device = "cpu"
     return torch.Generator(device=device).manual_seed(int(seed))
 
 

@@ -924,6 +924,209 @@ def _tp_layerwise(mesh, arch, params, fb, batch):
         return float(loss), np_tree({k: sharding.full_tensor(g) for k, g in grads.items()})
 
 
+# ---------------------------------------------------------------------------
+# sharded serving (serve.decode's params-taking steps on placed state)
+# ---------------------------------------------------------------------------
+
+SERVE_MESHES = {"serve41": (4, 1), "serve22": (2, 2), "serve14": (1, 4)}
+SERVE_STEPS = 3
+
+
+def serve_model(arch, params, device="cpu"):
+    """The smoke ``arch`` holding ``params`` (numpy, the port's names)."""
+    from repro_torch import configs
+
+    model = configs.get(arch).make_smoke(device=device)
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in params.items()})
+    return model
+
+
+def serve_run(model, mesh, case, hardware=None, backend="cuda", steps=SERVE_STEPS, key=11,
+              device="cpu"):
+    """Prefill ``case["tokens"]`` (B, C) with ``case["n_valid"]`` into caches
+    of ``case["max_len"]`` slots, then ``steps`` greedy decode steps, through
+    the params-taking serve steps: on ``mesh`` the parameters placed by
+    ``make_param_shardings``, the caches by ``cache_shardings`` and the
+    tokens by ``make_batch_shardings``; one process where ``mesh`` is None.
+    ``hardware`` (a preset name) runs the photonic forward through
+    ``backend`` with keys folded from ``key``.  whisper decodes against
+    ``case["enc"]`` without a prefill.  -> numpy: the prefill's last logits,
+    the decode logits (steps, B, 1, V), the greedy tokens, the caches after
+    the last step, and each cache leaf's split (its per-layer dim over
+    ``model``, or None)."""
+    from repro_torch.core import photonics
+    from repro_torch.dist import sharding
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils import prng
+
+    def fwd(i):
+        if hardware is None:
+            return contextlib.nullcontext()
+        return photonics.forward_execution(photonics.preset(hardware), backend,
+                                           key=prng.fold(key, i))
+
+    def put(name, x):
+        x = torch.as_tensor(np.asarray(x)).to(device)
+        if mesh is None:
+            return x
+        return sharding.place_leaf(x, sharding.make_batch_shardings(mesh, {name: x})[name])
+
+    whole = lambda x: sharding.full_tensor(x) if sharding.is_dtensor(x) else x
+    b = case["tokens"].shape[0]
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    caches = model.init_caches(b, case["max_len"])
+    if mesh is not None:
+        params = sharding.place(params, sharding.make_param_shardings(mesh, params))
+        caches = sharding.place(caches, sd.cache_shardings(mesh, caches))
+    split = {k: sharding.model_dim(v) for k, v in caches.items()}
+    clen = put("len", np.zeros(b, np.int64))
+    out = {}
+    with torch.no_grad():
+        if "enc" in case:
+            enc = put("enc", case["enc"])
+            tok = put("tok", case["tokens"][:, :1])
+            step = sd.make_serve_step(model, whisper_enc=True, with_params=True)
+            extra = (enc,)
+        else:
+            pstep = sd.make_prefill_step(model, with_params=True)
+            with fwd(0):
+                last, caches, clen = pstep(params, put("tokens", case["tokens"]),
+                                           put("n_valid", case["n_valid"]), caches, clen)
+            out["prefill"] = whole(last).float().cpu().numpy()
+            tok = put("tok", whole(last).argmax(-1)[:, None].cpu().numpy())
+            step = sd.make_serve_step(model, with_params=True)
+            extra = ()
+        logits, tokens = [], []
+        for i in range(steps):
+            with fwd(i + 1):
+                tok, lg, caches = step(params, tok, caches, clen, *extra)
+            clen = clen + 1
+            logits.append(lg.float().cpu().numpy())
+            tokens.append(whole(tok).cpu().numpy())
+    out["decode"] = np.stack(logits)
+    out["tokens"] = np.stack(tokens)
+    out["caches"] = {k: whole(v).float().cpu().numpy() for k, v in caches.items()}
+    out["split"] = split
+    return out
+
+
+def rel(a, b) -> float:
+    """max |a - b| / max |b|."""
+    a, b = (np.asarray(x.detach() if isinstance(x, torch.Tensor) else x, np.float64)
+            for x in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _serve_compare(got, one) -> dict:
+    """The sharded run's distances from the one process's: relative for
+    the logits, absolute for the caches, and whether the tokens agree."""
+    out = {k: rel(got[k], one[k]) for k in ("prefill", "decode") if k in one}
+    out["caches"] = max(float(np.abs(got["caches"][k] - one["caches"][k]).max())
+                        for k in one["caches"])
+    out["tokens"] = bool(np.array_equal(got["tokens"], one["tokens"]))
+    out["split"] = got["split"]
+    return out
+
+
+def _seq_attention(mesh) -> dict:
+    """The sequence rule at one layer: an ``Attention`` whose kv heads (1)
+    and head_dim (6) do not divide a model axis of 4, its (B, 8, 1, 6)
+    cache split by slots, decode and prefill against the whole cache's."""
+    from repro_torch.dist import sharding
+    from repro_torch.nn.attention import Attention
+    from repro_torch.serve import decode as sd
+
+    torch.manual_seed(0)
+    attn = Attention(24, 2, 1, head_dim=6).init(3)
+    b, slots = 4, 8
+    cache = {k: torch.randn(b, slots, 1, 6) for k in ("k", "v")}
+    x1, x4 = torch.randn(b, 1, 24), torch.randn(b, 3, 24)
+    clen, n_valid = torch.tensor([0, 3, 5, 7]), torch.tensor([3, 2, 3, 1])
+    with torch.no_grad():
+        want = (attn.decode(x1, cache, clen), attn.prefill(x4, cache, clen, n_valid))
+        spec = sd.cache_spec(mesh, (1, b, slots, 1, 6))
+        stacked = {k: sharding.place_leaf(v[None], sharding.named(mesh, spec))
+                   for k, v in cache.items()}
+        dims = {k: sharding.model_dim(v) - 1 for k, v in stacked.items()}
+        local = {k: sharding.local(v)[0] for k, v in stacked.items()}
+        with sharding.use_mesh(mesh), sharding.split_caches(dims):
+            got = (attn.decode(x1, local, clen), attn.prefill(x4, local, clen, n_valid))
+    index, size = sharding.model_index(mesh)
+    n = slots // size
+    return {"dims": dims,
+            "y": max(rel(g[0], w[0]) for g, w in zip(got, want)),
+            "cache": max(float((g[1][k] - w[1][k][:, index * n:(index + 1) * n]).abs().max())
+                         for g, w in zip(got, want) for k in ("k", "v"))}
+
+
+def _shard_serve(rank, world, cases):
+    """Every case's smoke model served sharded on each of ``SERVE_MESHES``
+    against its one process, noise off and on (offchip_bpd through the bank
+    kernel's plain version: each rank's rows of the global draw), and the
+    sequence rule at one layer on (1, 4).  Rank 0 returns the distances,
+    and the noise-off logits of (2, 2) for the comparison with the
+    reference."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    meshes = {name: mesh_lib.make_host_mesh(world, model_axis=shape[1], device_type="cpu")
+              for name, shape in SERVE_MESHES.items()}
+    out = {"compare": {}, "logits": {}}
+    for arch, case in cases.items():
+        model = serve_model(arch, case["params"])
+        for hardware in (None, "offchip_bpd"):
+            one = serve_run(model, None, case, hardware)
+            for name, mesh in meshes.items():
+                got = serve_run(model, mesh, case, hardware)
+                out["compare"][arch, name, hardware] = _serve_compare(got, one)
+                if hardware is None and name == "serve22":
+                    out["logits"][arch] = {k: got[k] for k in ("prefill", "decode")
+                                           if k in got}
+    out["seq_attention"] = _seq_attention(meshes["serve14"])
+    return out if rank == 0 else None
+
+
+CARD_SERVE = {"qwen1.5-0.5b": 16, "minicpm3-4b": 1024, "qwen2-moe-a2.7b": 16}  # slots
+
+
+def _shard_serve_card(rank, world, cases):
+    """The smoke models served on the card over gloo on (2, 1) and (1, 2),
+    offchip_bpd through the bank kernel, each forward's launches counted:
+    rank 0's distances from its one process and both ranks' launches."""
+    from repro_torch.kernels import photonic_matmul as pm
+    from repro_torch.launch import mesh as mesh_lib
+
+    out = {}
+    for arch, case in cases.items():
+        model = serve_model(arch, case["params"], device="cuda")
+        one = serve_run(model, None, case, "offchip_bpd", device="cuda") if rank == 0 else None
+        for m in (1, 2):
+            mesh = mesh_lib.make_host_mesh(world, model_axis=m, device_type="cuda")
+            pm.launches = 0
+            got = serve_run(model, mesh, case, "offchip_bpd", device="cuda")
+            out[arch, m] = {"launches": pm.launches}
+            if rank == 0:
+                out[arch, m].update(_serve_compare(got, one))
+    return out
+
+
+def _dryrun(rank, world, cells):
+    """``launch.dryrun.run_cell`` of each smoke cell ([arch, shape name,
+    kind, seq_len, global_batch, mesh kind]) on a real (data, model) mesh
+    of the mesh kind's shape over the gloo ranks -> rank 0's records."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    out = []
+    for arch, name, kind, seq, batch, mesh_kind in cells:
+        data, model = dryrun.mesh_shape(mesh_kind)
+        mesh = mesh_lib.make_host_mesh(data * model, model_axis=model, device_type="cpu")
+        case = configs.ShapeCase(name, kind, seq, batch)
+        out.append(dryrun.run_cell(arch, name, mesh_kind, mesh=mesh, shape=case, smoke=True))
+    return out if rank == 0 else None
+
+
 SCENARIOS = {"mlp": _mlp, "lm": _lm, "elastic_save": _elastic_save,
              "elastic_load": _elastic_load, "fsdp": _fsdp, "tp": _tp, "tp_card": _tp_card,
-             "tp_families": _tp_families}
+             "tp_families": _tp_families, "shard_serve": _shard_serve,
+             "shard_serve_card": _shard_serve_card, "dryrun": _dryrun}
