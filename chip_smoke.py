@@ -221,9 +221,13 @@ sources in the checkout.  Phases:
     logits of a (4, 32) batch, a parallel prefill_step into caches placed
     by ``serve.decode.cache_shardings`` and 8 greedy decode steps, each
     against one process (distances printed), 169 bank launches a rank a
-    forward; on (1, 2) recurrentgemma-9b (the head_dim rule) and minicpm3-4b
-    (the latent caches' sequence rule at 1024 slots) at 4 layers, one decode
-    step within 1e-4; qwen2-moe's 30-expert batched bank launch against its
+    forward; on (1, 2) the dense blocks' and the head's products
+    column-parallel (``nn/linear.py``): every launch on the rank's M/2 rows,
+    the weight bytes a rank's launches read 0.50 of one process's, the first
+    launch of each new shape equal to the kernel's plain version; on (1, 2)
+    recurrentgemma-9b (the head_dim rule) and minicpm3-4b (the latent
+    caches' sequence rule at 1024 slots) at 4 layers, one decode step within
+    1e-4; qwen2-moe's 30-expert batched bank launch against its
     60-expert launch at T = 1 and 5 (distance and plans printed).  One
     ``{"shard_serve": ...}`` line.
 25. the dry-run against the card (``[dryrun]``, ``phase_dryrun``):
@@ -252,6 +256,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -3189,6 +3194,12 @@ def _fsdp_emu_rank(torch, api, rank, seed, model_axis=1):
 # ---------------------------------------------------------------------------
 
 TP_MESH = (1, DP_WORLD)  # (data, model): the weights split over the two ranks
+# the training head split too, as fractions of the 1e-5 gate (step 1's
+# gradients, the parameters after 2 steps) on an NVIDIA H100 80GB HBM3 at
+# 700 W: ``tools/tp_split_ablation.py all``'s measure of the part training
+# keeps on its gathered weight (a full-width step on its own is not
+# repeated here)
+HEAD_SPLIT_GATE = (0.973, 1.136)
 # (T, K, M) of the emu projection whose bank panels the ranks share: the LM
 # step's error (64 x 64 rows, d_tap 1024) through a 1024-row B(k), 512 rows
 # a rank, which is no whole number of 50-row panels
@@ -3244,12 +3255,14 @@ def _tp_emu_window(torch, rank):
 
 def _tp_lm_rank(torch, api, pm, rank, seed):
     """This rank's share of the full-width LM's tensor-parallel step on a
-    (1, 2) mesh: its pieces against an independent init, step 1's
-    gradients (whole on rank 0) counted by ``step_cost`` beside the
+    (1, 2) mesh (the dense blocks' products column-parallel): its pieces
+    against an independent init, step 1's gradients (whole on rank 0)
+    counted by ``step_cost`` (FLOPs by product, collectives) beside the
     operand bytes the collectives were handed, the path's first bank launch
-    against the plain version on its own operands, the update, step 2 timed
-    with each collective's ms, and the parameters after 2 steps (whole,
-    rank 0)."""
+    against the plain version on its own operands, the update, the parts
+    the model reports on gathered weights on this mesh, step 2 timed with
+    each collective's ms, and the parameters after 2 steps (whole, rank
+    0)."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -3307,6 +3320,8 @@ def _tp_lm_rank(torch, api, pm, rank, seed):
     grads1 = {k: sharding.full_tensor(g) for k, g in grads.items()}
     grads1 = {k: g.cpu() for k, g in grads1.items()} if rank == 0 else None
     p1, o1, _ = opt.update(grads, o, p)
+    with sharding.use_mesh(mesh):
+        kept = extra["model"].column_fallbacks(p)
     del grads, p, o
     gc.collect()
     torch.cuda.empty_cache()
@@ -3336,6 +3351,8 @@ def _tp_lm_rank(torch, api, pm, rank, seed):
                               for k in ("all-gather", "reduce-scatter", "all-reduce")},
            "tp_cost": {"counted": dict(cost.coll_bytes_by_kind),
                        "count": dict(cost.coll_count_by_kind), "seen": seen},
+           "tp_flops": {"flops": cost.flops, "regions": dict(cost.region_flops)},
+           "tp_kept": kept,
            "tp_groups": (dist.get_process_group_ranks(sharding.model_group(mesh)),
                          sharding.model_index(mesh))}
     del fn, p1, o1, p2, o2, fb, extra, b0, b1
@@ -3367,12 +3384,12 @@ def _tp_moe_arch(torch):
     return dataclasses.replace(arch, make_model=make_model)
 
 
-def _tp_moe_one_process(torch, api, seed, mesh, keep=((), ())):
+def _tp_moe_one_process(torch, api, seed, mesh, rank):
     """qwen2-moe's one-process step 1 at TP_MOE_LAYERS layers from
-    ``seed`` (its loss, its expert FLOPs, the digests of each rank's piece
-    of its gradients) and its parameters after 2 steps (their digests), as
-    a session trains them; the gradients and the parameters that ``keep``
-    names also whole on the host."""
+    ``seed`` (its loss, its FLOPs by product) and its parameters after 2
+    steps, as a session trains them: ``rank``'s piece of each leaf of the
+    gradients and of the parameters, as the rules split it on the (1, 2)
+    ``mesh``, on the host."""
     from repro_torch.data import tokens
     from repro_torch.utils import flop_cost, prng
 
@@ -3391,19 +3408,18 @@ def _tp_moe_one_process(torch, api, seed, mesh, keep=((), ())):
         prng.step_key(seed, 0, "noise"))
     sync(torch)
     stamps.append(time.perf_counter())
-    out = {"loss1": loss1.item(), "grads_digests": _piece_digests(torch, grads, mesh),
-           "grads": {k: grads[k].cpu() for k in keep[0]},
-           "expert_flops": cost.region_flops.get("experts", 0), "flops": cost.flops}
+    out = {"loss1": loss1.item(), "grads": _rank_pieces(grads, mesh, rank),
+           "regions": dict(cost.region_flops), "flops": cost.flops}
     del grads
     stamps.append(time.perf_counter())
     for i in range(DP_STEPS):
         state, _ = session.step(state, gen.batch(i))
     sync(torch)
     stamps.append(time.perf_counter())
-    out["params2_digests"] = _piece_digests(torch, state["params"], mesh)
-    out["params2"] = {k: state["params"][k].cpu() for k in keep[1]}
+    out["params2"] = _rank_pieces(state["params"], mesh, rank)
     stamps.append(time.perf_counter())
-    out["stages"] = dict(zip(("init", "step 1 counted", "digests", "2 steps", "digests 2"),
+    out["stages"] = dict(zip(("init", "step 1 counted", "its pieces to the host", "2 steps",
+                              "its pieces to the host"),
                              (b - a for a, b in zip(stamps, stamps[1:]))))
     del state, session, trainer, model
     gc.collect()
@@ -3411,80 +3427,50 @@ def _tp_moe_one_process(torch, api, seed, mesh, keep=((), ())):
     return out
 
 
-DIGEST_CHUNK = 1 << 24  # elements a digest weighs at once
-
-
-def _digest(torch, x) -> int:
-    """A fingerprint of an f32 tensor's bits: each element's int32 bit
-    pattern times a fixed pseudo-random odd 64-bit weight of its position,
-    summed modulo 2^64.  Equal tensors give equal digests; two that differ
-    in any bit collide with a chance of about 2^-63."""
-    flat = x.detach().contiguous().view(-1).view(torch.int32)
-    total = torch.zeros((), dtype=torch.int64, device=flat.device)
-    for i, start in enumerate(range(0, flat.numel(), DIGEST_CHUNK)):
-        part = flat[start: start + DIGEST_CHUNK].to(torch.int64)
-        gen = torch.Generator(device=flat.device).manual_seed(i)
-        w = torch.randint(-(1 << 62), 1 << 62, part.shape, generator=gen, device=flat.device,
-                          dtype=torch.int64) * 2 + 1
-        total += (part * w).sum()
-    return int(total.item())
-
-
-def _piece_digests(torch, tree, mesh) -> dict:
-    """The digest of each rank's piece of every whole leaf of ``tree`` on
-    the (1, 2) ``mesh``, as the rules split it: {leaf: [rank 0's, rank
-    1's]}."""
+def _rank_pieces(tree, mesh, rank) -> dict:
+    """``rank``'s piece of every whole leaf of ``tree`` on the (1, 2)
+    ``mesh``, as the rules split it, on the host."""
     from repro_torch.dist import sharding
 
-    m = TP_MESH[1]
     out = {}
     for k, v in tree.items():
         spec = sharding.leaf_spec(k, tuple(v.shape), mesh)
         dims = [d for d, e in enumerate(spec) if e == sharding.MODEL]
-        pieces = v.chunk(m, dim=dims[0]) if dims else [v] * m
-        out[k] = [_digest(torch, piece) for piece in pieces]
+        out[k] = (v.chunk(TP_MESH[1], dim=dims[0])[rank] if dims else v).cpu()
     return out
 
 
-def _differing(torch, tree, digests, rank) -> list:
-    """The leaves of a sharded tree whose piece on some rank differs in its
-    bits from the one process's (the digests ``_piece_digests`` made on
-    rank 0), gathered whole on rank 0's host {leaf: tensor} (every rank
-    calls it; empty elsewhere)."""
+def _pieces_rel(torch, tree, one) -> dict:
+    """Each leaf of a sharded tree against the one process's (``one``: this
+    rank's piece of each leaf, ``_rank_pieces``), over both ranks: {leaf:
+    max |got - one| / max |one|}, in f64 on the card; every rank calls it
+    and gets the same."""
     import torch.distributed as dist
 
-    from repro_torch.dist import sharding
-
     keys = list(tree)
-    mine = torch.tensor([_digest(torch, tree[k].to_local()) for k in keys], dtype=torch.int64)
-    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
-    dist.all_gather(every, mine)
-    differ = torch.zeros(len(keys), dtype=torch.int64)
-    if rank == 0:
-        for i, k in enumerate(keys):
-            differ[i] = int(any(int(every[r][i]) != digests[k][r] for r in range(len(every))))
-    dist.broadcast(differ, src=0)
-    out = {}
+    diff = torch.zeros(len(keys), dtype=torch.float64, device=DEVICE)
+    ref = torch.zeros_like(diff)
     for i, k in enumerate(keys):
-        if differ[i]:
-            whole = sharding.full_tensor(tree[k])
-            if rank == 0:
-                out[k] = whole.cpu()
-            del whole
-    return out
+        got = tree[k].to_local().to(torch.float64)
+        want = one[k].to(DEVICE, torch.float64)
+        diff[i], ref[i] = (got - want).abs().max(), want.abs().max()
+        del got, want
+    both = torch.stack([diff, ref]).cpu()
+    dist.all_reduce(both, op=dist.ReduceOp.MAX)
+    return {k: both[0, i].item() / max(both[1, i].item(), 1e-30) for i, k in enumerate(keys)}
 
 
 def _tp_moe_rank(torch, api, pm, rank, seed):
-    """qwen2-moe's expert-parallel step on the (1, 2) mesh at full width:
-    first the one process's step on rank 0 alone (rank 1 waits), then this
-    rank's share: its pieces' resident expert bytes, step 1's gradients
-    counted by ``step_cost`` (its expert FLOPs and collective bytes) beside
-    the operand bytes the collectives were handed, the update, step 2
-    timed.  Each rank's piece of step 1's gradients and of the parameters
-    after 2 steps is held to the one process's by the digests of their
-    bits (``_differing``); a leaf whose bits differ anywhere is gathered
-    whole and held, in f64, to a second one-process run's values on rank
-    0."""
+    """qwen2-moe's step on the (1, 2) mesh at full width as the port runs it
+    (its experts expert parallel, its attention column-parallel): first the
+    one process's step on each rank in turn (the other waits), which keeps
+    that rank's piece of its gradients and of its parameters after 2 steps
+    on the host; then this rank's share: its pieces' resident expert bytes,
+    step 1's gradients counted by ``step_cost`` (its FLOPs by product and
+    collective bytes) beside the operand bytes the collectives were handed,
+    the update, step 2 timed.  Each leaf of step 1's gradients and of the
+    parameters after 2 steps is held to the one process's (``_pieces_rel``:
+    the ranks' pieces against the one process's, with no leaf gathered)."""
     import torch.distributed as dist
 
     from repro_torch.data import tokens
@@ -3500,8 +3486,11 @@ def _tp_moe_rank(torch, api, pm, rank, seed):
     t0 = time.perf_counter()
     mesh = mesh_lib.make_host_mesh(TP_MESH[0] * TP_MESH[1], model_axis=TP_MESH[1],
                                    device_type="cuda")
-    one = _tp_moe_one_process(torch, api, seed, mesh) if rank == 0 else None
-    dist.barrier()
+    one = None
+    for r in range(TP_MESH[1]):
+        if r == rank:
+            one = _tp_moe_one_process(torch, api, seed, mesh, rank)
+        dist.barrier()
     t1 = time.perf_counter()
     stamps = [t1]
     torch.cuda.reset_peak_memory_stats()
@@ -3532,7 +3521,7 @@ def _tp_moe_rank(torch, api, pm, rank, seed):
     seen = {}
     for kind, _, nbytes in log:
         seen[kind] = seen.get(kind, 0) + nbytes
-    grads_differ = _differing(torch, grads, one and one["grads_digests"], rank)
+    grad_rel = _pieces_rel(torch, grads, one.pop("grads"))
     stamps.append(time.perf_counter())
     p1, o1, _ = opt.update(grads, o, p)
     del grads, p, o
@@ -3550,56 +3539,52 @@ def _tp_moe_rank(torch, api, pm, rank, seed):
     del p1, o1
     peak = torch.cuda.max_memory_allocated()
     stamps.append(time.perf_counter())
-    params2_differ = _differing(torch, p2, one and one["params2_digests"], rank)
+    params2_rel = _pieces_rel(torch, p2, one.pop("params2"))
     stamps.append(time.perf_counter())
     out = {"moe_loss1": loss1.item(), "moe_loss2": loss2.to_local().item(),
            "moe_expert_bytes": expert_bytes, "moe_local_experts": local_experts,
            "moe_resident": resident, "moe_full_bytes": full_bytes,
            "moe_launches": launches, "moe_step2_ms": e0.elapsed_time(e1),
-           "moe_expert_flops": cost.region_flops.get("experts", 0), "moe_flops": cost.flops,
+           "moe_regions": dict(cost.region_flops), "moe_flops": cost.flops,
+           "moe_regions_one": one["regions"], "moe_flops_one": one["flops"],
+           "moe_loss1_one": one["loss1"], "moe_one_stages": one["stages"],
+           "moe_grad_rel": grad_rel, "moe_params2_rel": params2_rel,
            "moe_cost": {"counted": dict(cost.coll_bytes_by_kind),
                         "count": dict(cost.coll_count_by_kind), "seen": seen},
            "moe_peak_gib": peak / 2**30, "moe_one_s": t1 - t0,
-           "moe_stages": dict(zip(("build", "step 1 counted", "gradients' digests",
-                                   "update and step 2", "parameters' digests"),
+           "moe_stages": dict(zip(("build", "step 1 counted", "gradients held",
+                                   "update and step 2", "parameters held"),
                                   (b - a for a, b in zip(stamps, stamps[1:]))))}
     del fn, p2, fb, extra, b0, b1
     gc.collect()
     torch.cuda.empty_cache()
     out["moe_seconds"] = time.perf_counter() - t1
-    if one is not None:
-        # equal bits are a distance of 0; a leaf that differs anywhere is
-        # held to the one process's values, which a second one-process run
-        # keeps on the host (the ranks' pieces came whole to rank 0)
-        keep = (list(grads_differ), list(params2_differ))
-        again = (_tp_moe_one_process(torch, api, seed, mesh, keep) if any(keep) else None)
-        out.update(moe_loss1_one=one["loss1"], moe_expert_flops_one=one["expert_flops"],
-                   moe_flops_one=one["flops"], moe_one_stages=one["stages"],
-                   moe_grad_err=(_dp_rel(grads_differ, again["grads"]) if grads_differ
-                                 else (0.0, "every leaf's bits equal")),
-                   moe_params2_err=(_dp_rel(params2_differ, again["params2"]) if params2_differ
-                                    else (0.0, "every leaf's bits equal")),
-                   moe_gathered=[len(grads_differ), len(params2_differ)],
-                   moe_leaves=len(one["params2_digests"]))
     dist.barrier()
     return out
 
 
+def _moe_worst(rel: dict, experts: bool) -> tuple[float, str]:
+    """(the largest distance of ``rel``'s expert leaves, or of its other
+    leaves, that leaf)."""
+    return max((v, k) for k, v in rel.items() if (".experts." in k) == experts)
+
+
 def _tp_moe_report(r0, r1) -> dict:
-    """Print and check qwen2-moe's expert-parallel steps against one
+    """Print and check qwen2-moe's tensor-parallel steps against one
     process -> the summary for the ``data_parallel`` line's ``tp`` block."""
     ranks = ((0, r0), (1, r1))
     gb = 1e9
     m = TP_MESH[1]
     print(f"[tp] qwen2-moe-a2.7b at full width (60 experts, d_ff_expert 1408, vocabulary "
           f"151936), {TP_MOE_LAYERS} of 24 layers, f32, offchip_bpd (cuda), batch {LM_BATCH} x "
-          f"seq {LM_SEQ}, expert parallel on the {TP_MESH} mesh: each rank holds "
+          f"seq {LM_SEQ}, on the {TP_MESH} mesh as the port runs it (the experts expert "
+          f"parallel, the attention column-parallel): each rank holds "
           f"{r0['moe_local_experts']} / {r1['moe_local_experts']} experts a stack; the ranks' "
           f"part {r0['moe_seconds']:.1f} / {r1['moe_seconds']:.1f}s after the one process's "
-          f"{r0['moe_one_s']:.1f}s on rank 0, peak device memory {r0['moe_peak_gib']:.2f} / "
-          f"{r1['moe_peak_gib']:.2f} GiB a rank; seconds by stage, rank 0: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in r0["moe_stages"].items())
-          + "; the one process: "
+          f"on each rank in turn, {r0['moe_one_s']:.1f}s; peak device memory "
+          f"{r0['moe_peak_gib']:.2f} / {r1['moe_peak_gib']:.2f} GiB a rank; seconds by stage, "
+          f"rank 0: " + ", ".join(f"{k} {v:.1f}" for k, v in r0["moe_stages"].items())
+          + "; its one process: "
           + ", ".join(f"{k} {v:.1f}" for k, v in r0["moe_one_stages"].items()))
     for r, res in ranks:
         mine, whole = res["moe_expert_bytes"]
@@ -3613,47 +3598,61 @@ def _tp_moe_report(r0, r1) -> dict:
               f"memory)")
     for r, res in ranks:
         counted, seen = res["moe_cost"]["counted"], res["moe_cost"]["seen"]
+        mine, one = res["moe_regions"], res["moe_regions_one"]
         print(f"[tp] rank {r} step_cost of step 1's gradients: "
               + ", ".join(f"{k} {counted.get(k, 0) / gb:.6f} GB in "
                           f"{res['moe_cost']['count'].get(k, 0)} (handed to torch.distributed "
                           f"{seen.get(k, 0) / gb:.6f})" for k in sorted(set(counted) | set(seen)))
-              + f"; expert GEMM FLOPs {res['moe_expert_flops'] / 1e12:.6f} TFLOP against half "
-              f"of one process's {r0['moe_expert_flops_one'] / m / 1e12:.6f} (the step's "
-              f"{res['moe_flops'] / 1e12:.4f} TFLOP against one process's "
-              f"{r0['moe_flops_one'] / 1e12:.4f})")
-    grad, par2 = r0["moe_grad_err"], r0["moe_params2_err"]
+              + "; TFLOP by product, the rank / one process: "
+              + ", ".join(f"{n} {mine.get(n, 0) / 1e12:.6f} / {f / 1e12:.6f}"
+                          for n, f in sorted(one.items()))
+              + f" (the step's {res['moe_flops'] / 1e12:.4f} against one process's "
+              f"{res['moe_flops_one'] / 1e12:.4f})")
+    grad, par2 = max((v, k) for k, v in r0["moe_grad_rel"].items()), \
+        max((v, k) for k, v in r0["moe_params2_rel"].items())
+    parts = {name: (_moe_worst(r0["moe_grad_rel"], e), _moe_worst(r0["moe_params2_rel"], e))
+             for name, e in (("experts", True), ("the other leaves", False))}
+    equal = [sum(v == 0.0 for v in r0[k].values()) for k in ("moe_grad_rel", "moe_params2_rel")]
     print(f"[tp] qwen2-moe step 1: loss {r0['moe_loss1']:.6f} (rank 1 {r1['moe_loss1']:.6f}) vs "
           f"one process {r0['moe_loss1_one']:.6f}; gradients max rel {grad[0]:.3e} ({grad[1]}) "
           f"= {grad[0] / DP_TOL:.3f} of the 1e-5 gate; parameters after 2 steps {par2[0]:.3e} "
-          f"({par2[1]}) = {par2[0] / DP_TOL:.3f}; bit for bit: loss "
-          f"{r0['moe_loss1'] == r0['moe_loss1_one']}, gradients {grad[0] == 0.0}, parameters "
-          f"{par2[0] == 0.0} (each rank's piece of each of the {r0['moe_leaves']} leaves held to "
-          f"the one process's by a digest of its bits, made on the card; leaves whose bits "
-          f"differ, gathered whole and compared in f64: {r0['moe_gathered'][0]} gradients, "
-          f"{r0['moe_gathered'][1]} parameters)")
+          f"({par2[1]}) = {par2[0] / DP_TOL:.3f}; by kind, gradients / parameters: "
+          + "; ".join(f"{name} {g[0]:.3e} ({g[1]}) / {p[0]:.3e} ({p[1]})"
+                      for name, (g, p) in parts.items())
+          + f" (each rank's piece of each of the {len(r0['moe_grad_rel'])} leaves against the "
+          f"one process's piece, in f64 on the card; leaves equal bit for bit: {equal[0]} "
+          f"gradients, {equal[1]} parameters)")
     for r, res in ranks:
         mine, whole = res["moe_expert_bytes"]
         counted, seen = res["moe_cost"]["counted"], res["moe_cost"]["seen"]
+        regions, one = res["moe_regions"], res["moe_regions_one"]
+        halved = [n for n in one if n == "experts" or n.startswith("attn.")]
         check(res["moe_local_experts"] == [60 // m] and mine * m == whole,
               f"rank {r} holds {res['moe_local_experts']} experts, {mine} of {whole} B")
         check(res["moe_launches"] == [TP_MOE_LAUNCHES] * 2,
-              f"rank {r}: expert-parallel bank launches {res['moe_launches']}")
+              f"rank {r}: tensor-parallel bank launches {res['moe_launches']}")
         check(counted == seen and counted.get("all-gather", 0) > 0,
               f"rank {r}: step_cost's collectives {counted} against the calls' {seen}")
-        check(res["moe_expert_flops"] > 0
-              and res["moe_expert_flops"] * m == r0["moe_expert_flops_one"],
-              f"rank {r}: expert FLOPs {res['moe_expert_flops']} against 1/{m} of "
-              f"{r0['moe_expert_flops_one']}")
+        check(len(halved) == 5 and all(regions.get(n, 0) > 0 and regions[n] * m == one[n]
+                                       for n in halved),
+              f"rank {r}: the experts' and the attention's FLOPs {regions} against 1/{m} of "
+              f"{one}")
     check(r0["moe_loss1"] == r1["moe_loss1"] and r0["moe_loss2"] == r1["moe_loss2"]
           and abs(r0["moe_loss1"] - r0["moe_loss1_one"]) <= DP_TOL * abs(r0["moe_loss1_one"]),
-          "the expert-parallel step 1's loss differs from one process")
-    check(grad[0] <= DP_TOL, f"expert-parallel gradients {grad}")
-    check(par2[0] <= DP_TOL, f"expert-parallel parameters after 2 steps {par2}")
+          "the tensor-parallel step 1's loss differs from one process")
+    check(r0["moe_grad_rel"] == r1["moe_grad_rel"]
+          and r0["moe_params2_rel"] == r1["moe_params2_rel"],
+          "the ranks' distances from one process differ")
+    check(grad[0] <= DP_TOL, f"qwen2-moe's tensor-parallel gradients {grad}")
+    check(par2[0] <= DP_TOL, f"qwen2-moe's tensor-parallel parameters after 2 steps {par2}")
     return {"arch": QWEN2MOE, "layers": TP_MOE_LAYERS, "loss1": r0["moe_loss1"],
             "grad_err": grad, "params2_err": par2,
+            "by_kind": {name: {"grad_err": g, "params2_err": p}
+                        for name, (g, p) in parts.items()},
+            "bit_for_bit_leaves": equal,
             "expert_bytes": [r0["moe_expert_bytes"], r1["moe_expert_bytes"]],
-            "expert_flops": [r0["moe_expert_flops"], r1["moe_expert_flops"]],
-            "expert_flops_one": r0["moe_expert_flops_one"],
+            "flops": [r0["moe_regions"], r1["moe_regions"]],
+            "flops_one": r0["moe_regions_one"],
             "collective_bytes": [r0["moe_cost"]["counted"], r1["moe_cost"]["counted"]],
             "collective_bytes_seen": [r0["moe_cost"]["seen"], r1["moe_cost"]["seen"]],
             "step2_ms": [r0["moe_step2_ms"], r1["moe_step2_ms"]],
@@ -3698,9 +3697,19 @@ def _tp_report(torch, pm, r0, r1, card) -> dict:
           f"{r0['loss1_one']:.6f}; gradients max rel {r0['tp_grad_err'][0]:.3e} "
           f"({r0['tp_grad_err'][1]}) = {r0['tp_grad_err'][0] / DP_TOL:.3f} of the 1e-5 gate; "
           f"parameters after 2 steps {r0['tp_params2_err'][0]:.3e} ({r0['tp_params2_err'][1]}) "
-          f"= {r0['tp_params2_err'][0] / DP_TOL:.3f}; bit for bit (every split product on its "
-          f"gathered weight): loss {r0['tp_loss1'] == r0['loss1_one']}, gradients "
-          f"{r0['tp_grad_err'][0] == 0.0}, parameters {r0['tp_params2_err'][0] == 0.0}")
+          f"= {r0['tp_params2_err'][0] / DP_TOL:.3f} (the blocks' products column-parallel, "
+          f"the head on its gathered weight)")
+    print(f"[tp] kept on gathered weights in training: the head "
+          f"(TransformerLM.head_logits; split, it moved this step to {HEAD_SPLIT_GATE[0]:.3f} "
+          f"of the gate in step 1's gradients and {HEAD_SPLIT_GATE[1]:.3f} in the parameters "
+          f"after 2 steps: tools/tp_split_ablation.py, variant 'all', on this card), and the "
+          f"parts the model reports on this mesh: {r0['tp_kept'] or 'none'}")
+    flops, one_f = r0["tp_flops"], r0["tp_flops_one"]
+    print(f"[tp] step_cost of step 1's gradients: {flops['flops'] / 1e12:.4f} TFLOP a rank vs one "
+          f"process's {one_f['flops'] / 1e12:.4f} ({flops['flops'] / one_f['flops']:.4f}); by "
+          f"product, rank 0 / one process: "
+          + ", ".join(f"{n} {flops['regions'].get(n, 0) / 1e12:.4f} / {f / 1e12:.4f}"
+                      for n, f in sorted(one_f["regions"].items())))
     t, k, m = r0["tp_shape"]
     print(f"[tp] the path's first bank launch (rank 0, ({t}, {k}) x ({m}, {k}) f32, input "
           f"mode: its rows of B) vs the plain version on its operands: "
@@ -3728,6 +3737,11 @@ def _tp_report(torch, pm, r0, r1, card) -> dict:
           and abs(r0["tp_loss1"] - r0["loss1_one"]) <= DP_TOL * abs(r0["loss1_one"]),
           "the tensor-parallel step 1's loss differs from one process")
     check(r0["tp_grad_err"][0] <= DP_TOL, f"tensor-parallel gradients {r0['tp_grad_err']}")
+    blocks = {n for n in one_f["regions"] if n.startswith(("attn.", "ffn."))}
+    check(blocks and all(2 * flops["regions"][n] == one_f["regions"][n] for n in blocks)
+          and flops["regions"].get("head") == one_f["regions"].get("head")
+          and flops["flops"] < one_f["flops"],
+          f"a rank's product FLOPs {flops} against one process's {one_f}")
     check(r0["tp_params2_err"][0] <= DP_TOL,
           f"tensor-parallel parameters after 2 steps {r0['tp_params2_err']}")
     check(counted == seen and counted.get("all-gather", 0) > 0
@@ -3768,6 +3782,10 @@ def _tp_report(torch, pm, r0, r1, card) -> dict:
           * abs(r0["emu_loss_one"]) and hw_same,
           "the emu MLP's tensor-parallel step differs from one process")
     return {"mesh": list(TP_MESH), "loss1": r0["tp_loss1"], "grad_err": r0["tp_grad_err"],
+            "kept": {"head": {"split_of_gate": list(HEAD_SPLIT_GATE),
+                              "source": "tools/tp_split_ablation.py all"},
+                     **r0["tp_kept"]},
+            "flops": {"rank": flops, "one_process": one_f},
             "params2_err": r0["tp_params2_err"], "kernel_err": max(r0["tp_kernel_err"],
                                                                    r1["tp_kernel_err"]),
             "resident_bytes": [r0["tp_resident"], r1["tp_resident"]],
@@ -3811,7 +3829,7 @@ def _dp_one_process(torch, api, seed, dp):
     from repro_torch.core import photonics as ph
     from repro_torch.data import tokens
     from repro_torch.kernels import ops
-    from repro_torch.utils import prng
+    from repro_torch.utils import flop_cost, prng
 
     session = _lm_session(api, torch, seed, arch=_dp_model(torch, seed), data_parallel=False)
     trainer = session.trainer
@@ -3820,9 +3838,9 @@ def _dp_one_process(torch, api, seed, dp):
     cap = {}
     restore = _dp_capture(ph, ops, cap)
     try:
-        (loss1, _), grads = trainer._grads(state["params"], state["fb"],
-                                           trainer.put(gen.batch(0)),
-                                           prng.step_key(seed, 0, "noise"))
+        ((loss1, _), grads), cost = flop_cost.measure(
+            trainer._grads, state["params"], state["fb"], trainer.put(gen.batch(0)),
+            prng.step_key(seed, 0, "noise"))
     finally:
         restore()
     sync(torch)
@@ -3832,6 +3850,7 @@ def _dp_one_process(torch, api, seed, dp):
     out = {"loss1_one": loss1.item(), "grad_err": _dp_rel(dp["grads"], grads),
            "fsdp_grad_err": _dp_rel(dp["fsdp_grads"], grads),
            "tp_grad_err": _dp_rel(dp["tp_grads"], grads),
+           "tp_flops_one": {"flops": cost.flops, "regions": dict(cost.region_flops)},
            "fsdp_control_err": _rank0_rel(dp["fsdp_control"], grads),
            "noise_rows": [torch.equal(dp["noise"][r], noise[r * t_local:(r + 1) * t_local])
                           for r in range(DP_WORLD)],
@@ -4038,10 +4057,16 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
     emu_offchip (gradients within 1e-5, the hardware state equal on both
     ranks); the step-2 snapshot resumed in one process, whose step 3 equals
     rank 0's within 1e-5.  In the same spawn the FSDP checks (``[fsdp]``)
-    and tensor parallelism on a (1, 2) mesh (``[tp]``: step 1's gradients
-    and the parameters after 2 steps within 1e-5 of one process, 9 bank
+    and tensor parallelism on a (1, 2) mesh (``[tp]``: the dense blocks'
+    products column-parallel, step 1's gradients and the parameters after 2
+    steps within 1e-5 of one process, a rank's product FLOPs by product
+    against one process's, the head kept on its gathered weight (named with
+    its split's distance from ``tools/tp_split_ablation.py``), 9 bank
     launches a rank a step, ``step_cost`` = the collectives' bytes), all at
-    DP_LAYERS layers."""
+    DP_LAYERS layers; and qwen2-moe at full width and TP_MOE_LAYERS layers
+    as the port runs it on (1, 2) (the experts expert parallel, the
+    attention column-parallel), each leaf of step 1's gradients and of the
+    parameters after 2 steps within 1e-5 of one process's."""
     t0 = time.perf_counter()
     print(f"[dp] card: {card}; torch {torch.__version__}")
     out = {"world1": _dp_world_one(torch, api, pm, seed)}
@@ -7179,13 +7204,44 @@ def _ss_placed(torch, mesh, name, x):
     return sharding.place_leaf(x, sharding.make_batch_shardings(mesh, {name: x})[name])
 
 
-def _ss_qwen_run(torch, pm, model, prefill, params, mesh, tokens, n_valid, seed):
+@contextlib.contextmanager
+def _ss_launch_log(torch, log):
+    """Each bank launch in the block logged in ``log``: its (T, K, M) and
+    its weight operand's bytes appended to ``log["shapes"]``, and, where
+    ``log["first"]`` is a dict, the operands and output of the first
+    launch of each (T, K, M) kept there (comparison launches are made
+    after the block)."""
+    from repro_torch.kernels import ops
+
+    launch = ops.photonic_matmul_cuda
+
+    def logged(a, b, **kw):
+        out = launch(a, b, **kw)
+        shape = (a.shape[-2], a.shape[-1], b.shape[-2])
+        log["shapes"].append((*shape, b.numel() * b.element_size()))
+        first = log.get("first")
+        if first is not None and shape not in first:
+            first[shape] = (a.clone(), b.clone(), {k: v.clone() if torch.is_tensor(v) else v
+                                                   for k, v in kw.items()}, out.clone())
+        return out
+
+    ops.photonic_matmul_cuda = logged
+    try:
+        yield log
+    finally:
+        ops.photonic_matmul_cuda = launch
+
+
+def _ss_qwen_run(torch, pm, model, prefill, params, mesh, tokens, n_valid, seed, first=None):
     """qwen1.5-0.5b served through the params-taking steps on ``params``
     (placed on ``mesh``, or plain for one process), offchip_bpd through the
     bank kernel, keys folded from ``seed``: build_prefill's forward of the
     (B, C) prompts, a parallel prefill_step of them into caches placed by
     ``cache_shardings``, then SS_STEPS greedy decode steps; the bank
-    launches of each forward counted.  -> numpy outputs and the counts."""
+    launches of each forward counted, their (T, K, M, weight bytes) logged
+    (``out["launches"]``, a list a forward) and, into ``first`` where
+    given, the first launch of each shape kept.  -> numpy outputs and the
+    counts."""
     import numpy as np
 
     from repro_torch.core import photonics as ph
@@ -7194,13 +7250,22 @@ def _ss_qwen_run(torch, pm, model, prefill, params, mesh, tokens, n_valid, seed)
     from repro_torch.utils import prng
 
     cfg = ph.preset("offchip_bpd")
-    fwd = lambda i: ph.forward_execution(cfg, "cuda", key=prng.fold(seed, "serve", i))
+    log = {"shapes": [], "first": first}
+    forwards = []
+
+    @contextlib.contextmanager
+    def fwd(i):
+        log["shapes"] = []
+        with ph.forward_execution(cfg, "cuda", key=prng.fold(seed, "serve", i)):
+            yield
+        forwards.append(log["shapes"])
+
     caches = {k: torch.zeros(v.shape, dtype=v.dtype, device=DEVICE)
               for k, v in model.init_caches(SS_BATCH, SS_MAX_LEN).items()}
     if mesh is not None:
         caches = sharding.place(caches, sd.cache_shardings(mesh, caches))
-    counts, out = [], {}
-    with torch.no_grad():
+    counts, out = [], {"launches": forwards}
+    with torch.no_grad(), _ss_launch_log(torch, log):
         pm.launches = 0
         with fwd(0):
             logits = prefill(params, {"tokens": _ss_placed(torch, mesh, "tokens", tokens)})
@@ -7274,9 +7339,11 @@ def _ss_qwen(torch, pm, mesh, seed, one):
     prefill, (params, _), extra = dryrun.build_prefill(
         ARCH, mesh, shape=case, dtype=torch.float32, device=DEVICE, seed=seed,
         batch={"tokens": torch.as_tensor(tokens)})
+    first = {}
     got, counts = _ss_qwen_run(torch, pm, extra["model"], prefill, params, mesh, tokens,
-                               n_valid, seed)
-    res = {"counts": counts, "split": got["split"], "seconds": time.perf_counter() - t0}
+                               n_valid, seed, first)
+    res = {"counts": counts, "split": got["split"], "launches": got["launches"],
+           "seconds": time.perf_counter() - t0}
     del params, prefill, extra
     if one is not None:
         one, res["one_counts"] = one
@@ -7285,6 +7352,17 @@ def _ss_qwen(torch, pm, mesh, seed, one):
         res["dist"]["caches"] = max(float(np.abs(got["caches"][k] - one["caches"][k]).max())
                                     for k in one["caches"])
         res["tokens_equal"] = bool(np.array_equal(got["tokens"], one["tokens"]))
+        res["one_launches"] = one["launches"]
+    # the first launch of each shape the one process does not launch
+    # against the kernel's plain version on its operands
+    seen = {tuple(x[:3]) for f in (one["launches"] if one is not None else []) for x in f}
+    res["new_shapes"] = []
+    for shape, (a, b, kw, out) in first.items():
+        if shape not in seen:
+            plain = pm.photonic_matmul_plain(a, b, **kw)
+            res["new_shapes"].append(
+                [*shape, ((out - plain).abs().max() / plain.abs().max()).item()])
+    del first
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -7407,7 +7485,10 @@ def phase_shard_serve(torch, np_, api, pm, seed, card):
     build_prefill's logits of a (4, 32) batch, a parallel prefill_step into
     caches placed by ``cache_shardings`` (the kv heads split on (1, 2)) and
     8 greedy decode steps, each against one process (the distances
-    printed; bit for bit expected), 169 bank launches a rank a forward; on
+    printed), 169 bank launches a rank a forward; on (1, 2) the blocks' and
+    the head's products column-parallel: every launch on the rank's M/2 rows
+    of the one process's, the weight bytes a rank reads 0.50 of its, and the
+    first launch of each new shape against the kernel's plain version; on
     (1, 2) recurrentgemma-9b (kv 1: the head_dim rule) and minicpm3-4b (its
     latent caches at 1024 slots: the sequence rule) at 4 layers, one decode
     step each within 1e-4; qwen2-moe's 30-expert batched launch against its
@@ -7437,8 +7518,31 @@ def phase_shard_serve(torch, np_, api, pm, seed, card):
         # the kv heads on ``model``: split over 2 ranks on (1, 2), whole on
         # (2, 1)'s axis of 1, as the reference's spec places them
         check(a["split"] == {"k": 3, "v": 3}, f"cache split {a['split']} on {shape}")
+        new = a["new_shapes"] + b["new_shapes"]
+        worst_new = max((x[3] for x in new), default=0.0)
+        print(f"[shard_serve] {shape}: the first launch of each shape one process does not "
+              f"launch vs the kernel's plain version on its operands, (T, K, M) max rel: "
+              + ", ".join(f"({t}, {k}, {m}) {e:.3e}" for t, k, m, e in a["new_shapes"])
+              + f" (rank 1's worst {max((x[3] for x in b['new_shapes']), default=0.0):.3e})")
+        check(worst_new <= TOL["float32"], f"a new launch shape differs from its plain "
+                                           f"version: {new}")
+        share = None
+        if shape[1] > 1:  # the blocks' and the head's products split over ``model``
+            mine, one_l = a["launches"], a["one_launches"]
+            halves = all(len(f) == len(g) and all((t, k, 2 * m) == tuple(x[:3])
+                                                  for (t, k, m, _), x in zip(f, g))
+                         for f, g in zip(mine, one_l))
+            share = (sum(x[3] for f in mine for x in f)
+                     / sum(x[3] for f in one_l for x in f))
+            print(f"[shard_serve] {shape}: every bank launch of every forward on the rank's "
+                  f"M/2 rows of the one process's launch: {halves} (rank 1's launches the "
+                  f"same: {a['launches'] == b['launches']}); the weight bytes a rank's launches "
+                  f"read {share:.4f} of one process's")
+            check(halves and a["launches"] == b["launches"] and share == 0.5,
+                  f"the split launches on {shape}: halves {halves}, weight bytes {share}")
         out["meshes"][name] = {"dist": d, "tokens_equal": a["tokens_equal"],
-                               "launches_a_forward": a["counts"][0], "split": a["split"]}
+                               "launches_a_forward": a["counts"][0], "split": a["split"],
+                               "weight_bytes_share": share, "new_shapes": a["new_shapes"]}
         launches += sum(a["counts"])
     rules = {RG: {"grp_attn.k": 4, "grp_attn.v": 4}, MINICPM3: {"c_kv": 2, "k_rope": 2}}
     for arch, res in r0["split"].items():

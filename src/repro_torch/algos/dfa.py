@@ -24,10 +24,12 @@ injection dim, so a rank holds its rows of B(k) and projects them in a
 column window (``photonics.ColumnWindow``: s_b the whole matrix's MAX, the
 noise its columns of the global draw): δ's local columns (the
 reference's ``delta_tm``), gathered over the model axis before they are
-shaped to the block's output.  The error is whole on every rank (the head
-runs on its gathered weight), and each block's vjp reaches its leaves'
-local pieces.  These projections and a mixture of experts' expert
-products (``nn/moe.py``) are the only products a model axis splits.
+shaped to the block's output, which is the whole residual stream.  The
+error is whole on every rank (the vocabulary-split head gathers the
+logits), and each block's vjp runs through its column-parallel products
+(``nn/linear.py``) to its leaves' local pieces: a split weight's gradient
+from this rank's columns of the output gradient, the input gradient the
+SUM of the ranks' partial products.
 
 This module registers two algorithms:
 
@@ -180,15 +182,15 @@ def forward_with_error(model, params, cfg: DFAConfig, batch):
     with torch.no_grad():
         x_final, saved, auxes = model.run_segments(params, _detached(x0))
     head = _leaves(subtree(params, "head."))
-    xf = x_final.detach().requires_grad_()
+    # the error below the unembedding only where it is tapped: XLA drops
+    # the reference's unused product as dead code
+    tap_logits = model.error_tap == "logits"
+    xf = x_final.detach().requires_grad_(not tap_logits)
     with torch.enable_grad():
         logits = model.head_logits({**params, **{f"head.{k}": v for k, v in head.items()}},
                                    xf, batch)
         loss, metrics = model.loss_from_logits(logits, batch)
         (e_logits,) = torch.autograd.grad(loss, logits, retain_graph=True)
-        # the error below the unembedding only where it is tapped: XLA drops
-        # the reference's unused product as dead code
-        tap_logits = model.error_tap == "logits"
         # a head parameter the training head does not read (whisper's
         # ln_enc, a serving-only norm) gets zeros, as from the reference's vjp
         g = _grads_or_zeros(logits, list(head.values()) + ([] if tap_logits else [xf]), e_logits)

@@ -563,7 +563,14 @@ def forward_matmul(x, w):
     A stacked w (E, M, K) with x (E, ..., K) is the counterpart of the
     reference's ``jax.vmap(forward_matmul)``: x flattens to (E, T, K), the
     digital product is ``x @ w.mT``, and the photonic one is one backend
-    call on the batch with one key."""
+    call on the batch with one key.
+
+    Inside a column window (``nn/linear.Linear.columns``: w is this rank's
+    rows of a weight split over the model axis) the photonic product is
+    this rank's columns of the whole weight's: s_b the whole weight's MAX,
+    the noise its columns of the one draw (``ref`` and ``cuda``; ``emu``
+    through its kernel's ``col_base``); the key is the one the whole
+    product takes."""
     ctx = active_forward()
     a = x.reshape(*w.shape[:-2], -1, x.shape[-1])  # (T, K), or (E, T, K) for a stack
     if ctx is None or not ctx.cfg.enabled:

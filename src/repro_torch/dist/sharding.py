@@ -50,48 +50,58 @@ each is counted for ``utils.flop_cost`` by its operand bytes.
 Tensor parallelism (the ``model`` axis): the rules split every 2-D
 weight's output dim (torch dim 0), the vocabulary and the feedback's
 injection dim over ``model``.  The reference's GSPMD keeps every value's
-global meaning; the port computes the same global values from the
-pieces.  A model axis splits the storage of the parameters and the
-momentum, and the feedback projections; it does not split a dense layer's
-forward or backward product.  The FSDP gather (``unshard_fsdp``) also
-gathers every model-split leaf whole (``gather_from_model``: an
+global meaning and computes each product on the pieces; the port computes
+the same global values from the pieces.  The dense products are
+column-parallel (``nn/linear.py``): a module whose parts are named in its
+call of the FSDP gather (``unshard_fsdp(tree, parts)``, the patterns of
+``COLUMN_SPLIT``) gets those model-split leaves as this rank's rows, and
+runs its product on them: this rank's columns of the output, from the whole
+input (``copy_to_model``: identity; backward the SUM all-reduce of the
+ranks' partial input gradients).  The dense decoder block keeps q, k and v
+on this rank's heads, attends on them and gathers the heads before ``o``;
+it gathers the FFN's gate·up before ``down``; ``o``'s and ``down``'s
+columns are gathered back into the residual stream, which stays whole on
+every rank (``act_btd``), and so do the logits.  Every other model-split
+leaf is gathered whole by the FSDP gather (``gather_from_model``: an
 all-gather along the split dim; backward this rank's slice of the leaf's
-gradient, which every rank computes whole), except those a module reads
-as its piece (``SPLIT_READS``), so every module runs the one process's
-products on whole leaves and the activations, the loss and the error stay
-whole on every rank.  The card's f32 cuBLAS picks its
-algorithm by shape: a narrower product's columns, or an input gradient
-summed from partial products, are not the whole product's bits, and the
-shifts, amplified by the rows that cancel in a noisy DFA step's bias
-gradients, reach the 1e-5 gate against one process
-(``tools/gemm_width_probe.py``, ``tools/tp_split_ablation.py``).  Each
-rank projects the error through its rows of B(k) (``algos/dfa.py``,
+gradient, which every rank computes whole), except those a module reads as
+its piece (``SPLIT_READS``), so those modules run the one process's
+products on whole leaves.  A part runs on its gathered weights by rule:
+the model decides its parts once a mesh (``DecoderBlock.column_parts``:
+attention whose kv heads do not divide over the axis is not split, a split
+in the middle of a head) and reports what it left whole
+(``column_fallbacks``, with ``left_whole``: a leaf the divisibility
+fallback left whole runs whole).  The split products' columns are not the
+whole product's bits (the card's f32 cuBLAS picks its algorithm by width,
+``tools/gemm_width_probe.py``): a training step splits the blocks and keeps
+the head on its gathered weight, a sharded serving call
+(``serving_call``, entered by ``serve.decode.serving``) splits the head
+too, and ``tools/tp_split_ablation.py`` measures each part against the
+1e-5 training gate.  Each rank projects the error
+through its rows of B(k) (``algos/dfa.py``,
 ``core/photonics.ColumnWindow``) and the columns are gathered.  The
 vocabulary-parallel lookup sums the ranks' rows (``reduce_from_model``: a
-SUM all-reduce; backward identity).  ``copy_to_model`` (identity; backward
-the SUM all-reduce of partial gradients) marks a whole tensor entering
-split compute.  Whether a leaf is split is read from the leaf itself (its
-placement, or its local size against the whole), never from the mesh
-alone, so a leaf the divisibility fallback left whole is computed whole.
-The collectives are ``dist.all_reduce`` and ``dist.all_gather_into_tensor`` on
-the group's own transport, counted as the FSDP ones are; ``DTensor``'s
-redistribute is not used (its functional collectives crash on gloo with
-CUDA tensors on the card's torch 2.11).
+SUM all-reduce; backward identity).  Whether a leaf is split is read from
+the leaf itself (its placement, or its local size against the whole),
+never from the mesh alone, so a leaf the divisibility fallback left whole
+is computed whole.  The collectives are ``dist.all_reduce`` and
+``dist.all_gather_into_tensor`` on the group's own transport, counted as
+the FSDP ones are; ``DTensor``'s redistribute is not used (its functional
+collectives crash on gloo with CUDA tensors on the card's torch 2.11).
 
-Two exceptions to "whole on every rank".  The experts of a mixture of
-experts split over ``model`` (the ``experts`` rule, expert parallelism):
-each rank runs its experts on its slice of the whole (E, C, d) dispatch
-buffer (``split_to_model``: a narrow; backward the all-gather of the
-pieces' gradients) and the expert outputs are gathered along E, so each
-expert's product is the one process's and the routing and the combine run
-whole.  And each rank projects the error through its rows of the
-feedback.
+The experts of a mixture of experts split over ``model`` (the ``experts``
+rule, expert parallelism): each rank runs its experts on its slice of the
+whole (E, C, d) dispatch buffer (``split_to_model``: a narrow; backward
+the all-gather of the pieces' gradients) and the expert outputs are
+gathered along E, so each expert's product is the one process's and the
+routing and the combine run whole.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import types
 import typing
 
 import torch
@@ -167,6 +177,40 @@ PARAM_RULES: tuple = (
 # parallel, ``nn/moe.py``) and the vocabulary table
 # (``nn/embeddings.lookup``), matched in the leaf's reference path.
 SPLIT_READS: tuple = ("experts", "tok/table")
+
+# The column-parallel parts (``nn/linear.py``): each part's leaves, as
+# patterns of their reference paths within the tree a module gathers.  The
+# dense decoder block's q, k and v (on this rank's heads), its ``o``, its
+# gated FFN's gate and up, and its ``down``; the LM's head (vocabulary
+# split); an MLP's dense layer, whose subtree is its weight and bias.  A
+# caller names the parts it computes column-parallel (``unshard_fsdp``):
+# a training step the blocks', a sharded serving call the head's too.
+COLUMN_SPLIT = types.MappingProxyType({
+    "attn": ("attn/q/", "attn/k/", "attn/v/"), "o": ("attn/o/",),
+    "ffn": ("ffn/gate/", "ffn/up/"), "down": ("ffn/down/",), "head": ("out/",),
+    "layer": ("w", "b")})
+
+
+def _part_of(ref: str, parts: dict | None) -> str | None:
+    """The part of ``parts`` (name -> patterns) whose patterns match the
+    reference path ``ref``, or None."""
+    return next((name for name, patterns in (parts or {}).items()
+                 if any(p in ref for p in patterns)), None)
+
+
+def left_whole(tree, parts: dict | None) -> dict:
+    """The leaves of ``parts`` in a placed tree that the divisibility
+    fallback left whole on the active mesh's model axis, by part: they run
+    on their whole weights.  {} without a model axis above 1."""
+    mesh = current_mesh()
+    if mesh is None or model_index(mesh)[1] == 1:
+        return {}
+    out = {}
+    for k, x in named_leaves(tree):
+        part = _part_of(ref_path(k), parts)
+        if part is not None and is_dtensor(x) and _model_dim(x) is None:
+            out[part] = f"{ref_path(k)} {tuple(x.shape)} left whole by the divisibility fallback"
+    return out
 
 # Feedback matrices are (L, d_inject, d_tap): shard the injection dim on
 # model (it is the photonic projection's output dim), replicate d_tap.
@@ -537,7 +581,7 @@ def model_index(mesh) -> tuple[int, int]:
     return mesh.get_local_rank(MODEL), _axis_sizes(mesh)[MODEL]
 
 
-def _tp_group():
+def tp_group():
     """(the model group, this rank's coordinate, the axis's size) of the
     active mesh; (None, 0, 1) without a model axis above 1."""
     mesh = current_mesh()
@@ -614,14 +658,14 @@ def copy_to_model(x):
     """Enter a split product with a tensor every model rank holds whole:
     identity; the backward sums the ranks' partial gradients (a SUM
     all-reduce over ``model``).  Identity without a model axis above 1."""
-    group, _, size = _tp_group()
+    group, _, size = tp_group()
     return x if size == 1 else _CopyToModel.apply(x, group)
 
 
 def reduce_from_model(x):
     """The SUM over ``model`` of the ranks' terms (an all-reduce); the
     backward is the identity: each term's gradient is the sum's."""
-    group, _, size = _tp_group()
+    group, _, size = tp_group()
     return x if size == 1 else _ReduceFromModel.apply(x, group)
 
 
@@ -631,7 +675,7 @@ def gather_from_model(x, dim: int = -1):
     every rank holds whole because what follows the gather is computed
     alike on every rank (a partitioned use enters through
     ``copy_to_model`` first)."""
-    group, index, size = _tp_group()
+    group, index, size = tp_group()
     return x if size == 1 else _GatherFromModel.apply(x, dim % x.ndim, group, index, size)
 
 
@@ -641,7 +685,7 @@ def split_to_model(x, dim: int = 0):
     all-gathers the ranks' gradients of their pieces along ``dim``, so the
     whole gradient is every rank's, each piece computed by its owner.
     Identity without a model axis above 1."""
-    group, index, size = _tp_group()
+    group, index, size = tp_group()
     if size == 1:
         return x
     if x.shape[dim] % size:
@@ -878,19 +922,23 @@ def _model_dim(x) -> int | None:
     return p.dim if p.is_shard() else None
 
 
-def unshard_fsdp(tree):
+def unshard_fsdp(tree, parts: dict | None = None):
     """ZeRO-3 gather of a tree's ``DTensor`` leaves (``gather_fsdp``, one
     call: one flat all-gather a dtype bucket) -> the same tree of plain
     tensors, its other leaves as they are.  Identity without a mesh.  A
     leaf split over ``model`` is gathered whole there too
-    (``gather_from_model``), unless its path holds one of ``SPLIT_READS``."""
+    (``gather_from_model``), unless its path holds one of ``SPLIT_READS``
+    or matches one of ``parts`` (name -> ``COLUMN_SPLIT`` patterns, the
+    parts the caller computes column-parallel): those stay this rank's
+    piece."""
     if current_mesh() is None:
         return tree
     named = [(k, x) for k, x in named_leaves(tree) if is_dtensor(x)]
     out = {}
     for (k, x), g in zip(named, gather_fsdp([x for _, x in named])):
-        d = _model_dim(x)
-        if d is not None and not any(s in ref_path(k) for s in SPLIT_READS):
+        d, ref = _model_dim(x), ref_path(k)
+        if (d is not None and _part_of(ref, parts) is None
+                and not any(s in ref for s in SPLIT_READS)):
             g = gather_from_model(g, d)
         out[k] = g
     return path_map(lambda k, x: out[k] if k in out else x, tree)
@@ -900,7 +948,7 @@ def max_over_model(x):
     """The MAX over ``model`` of the ranks' values of ``x`` (an all-reduce;
     not differentiable: serving's log-sum-exp combine).  Identity without a
     model axis above 1."""
-    group, _, size = _tp_group()
+    group, _, size = tp_group()
     if size == 1:
         return x
     import torch.distributed as dist
@@ -922,6 +970,27 @@ def gather_rows(x, group, size: int):
 # ---------------------------------------------------------------------------
 
 _CACHE_SPLIT: list = []
+
+
+_SERVING: list = []
+
+
+@contextlib.contextmanager
+def serving_call():
+    """Within the block a sharded serving call runs
+    (``serve.decode.serving``): a module computes column-parallel the parts
+    serving splits beyond a training step's (the LM's vocabulary-split
+    head, ``TransformerLM.head_logits``)."""
+    _SERVING.append(True)
+    try:
+        yield
+    finally:
+        _SERVING.pop()
+
+
+def in_serving_call() -> bool:
+    """Whether a sharded serving call is running (``serving_call``)."""
+    return bool(_SERVING)
 
 
 @contextlib.contextmanager

@@ -39,9 +39,12 @@ reference's ``in_shardings``:
   rank's shards.  A ``model`` axis above 1 runs tensor parallelism
   (``dist.sharding``): every family, the ``emu`` backend and
   ``dfa-layerwise`` included; it splits the storage of the parameters and
-  the momentum and the feedback projections, and the experts' products
-  (expert parallel), not the other products (``ROADMAP.md`` queue 1, item
-  2a).  Once the state is placed the module's own parameters are released
+  the momentum, the feedback projections, the experts' products (expert
+  parallel), and the dense blocks' and the head's products
+  (column-parallel, ``nn/linear.py``), so a rank counts 1/m of their FLOPs
+  and the activations' all-gathers and partial-gradient all-reduces; the
+  other families' products run on gathered weights (``ROADMAP.md``).
+  Once the state is placed the module's own parameters are released
   (``DFAModel.release_parameters``);
 * ``build_prefill``: ``serve.decode.make_prefill``'s forward over a
   placed (B, S) batch, ``fn(params, batch) -> logits``;

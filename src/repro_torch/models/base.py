@@ -20,8 +20,11 @@ Under a sharded step (``launch/dryrun.build_train``) ``params`` holds
 (``dist.sharding.unshard_fsdp``): one block's parameters at a time
 (``SegmentSpec.gathered_params``, the reference's per-layer gathers) and
 the embedding's and the head's once each where they are read
-(``gathered``); outside a mesh both hand back the dict as it is.  The
-module's own parameters are then dropped (``release_parameters``).
+(``gathered``); outside a mesh both hand back the dict as it is.  Each
+names the column-parallel parts its module computes on this rank's rows
+(``SegmentSpec.split``, ``gathered(parts=)``, ``serving_params(parts=)``):
+those model-split leaves stay split.  The module's own parameters are then
+dropped (``release_parameters``).
 
 The forward pass (``run_segments``) saves each block's input — the only
 activation state DFA needs.  The head is split into ``head_logits``
@@ -68,13 +71,15 @@ class ServingModel(Module):
 
 
 @contextlib.contextmanager
-def serving_params(module, params: dict | None, prefix: str, skip: str | None = None):
+def serving_params(module, params: dict | None, prefix: str, skip: str | None = None,
+                   parts: dict | None = None):
     """Run ``module`` on ``params``' subtree under ``prefix`` (a flat dict,
     ``DTensor``s under a sharded serving step) through the FSDP gather
     (``unshard_fsdp``: one block's all-gather under a mesh, the
-    reference's per-layer serving gathers), leaving out the leaves under
-    ``skip`` (relative to ``prefix``), which the call does not read; on its
-    own parameters where ``params`` is None."""
+    reference's per-layer serving gathers; the column-parallel ``parts``
+    left split), leaving out the leaves under ``skip`` (relative to
+    ``prefix``), which the call does not read; on its own parameters where
+    ``params`` is None."""
     if params is None:
         yield module
         return
@@ -84,7 +89,7 @@ def serving_params(module, params: dict | None, prefix: str, skip: str | None = 
     # leaves a module reads as its piece (the vocabulary table, the experts)
     leaves = {k: v for k, v in params.items() if k.startswith(prefix)
               and (skip is None or not k[len(prefix):].startswith(skip))}
-    with _reparametrize_module(module, subtree(unshard_fsdp(leaves), prefix)):
+    with _reparametrize_module(module, subtree(unshard_fsdp(leaves, parts), prefix)):
         yield module
 
 
@@ -122,12 +127,12 @@ def subtree(params: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
 
 
-def gathered(params: dict, prefix: str) -> dict:
+def gathered(params: dict, prefix: str, parts: dict | None = None) -> dict:
     """``subtree(params, prefix)`` through the FSDP gather
-    (``unshard_fsdp``): its ``DTensor`` leaves as plain tensors under a
-    mesh (the embedding and the head, read once a step); the subtree
-    itself otherwise."""
-    return unshard_fsdp(subtree(params, prefix))
+    (``unshard_fsdp``, the column-parallel ``parts`` left split): its
+    ``DTensor`` leaves as plain tensors under a mesh (the embedding and
+    the head, read once a step); the subtree itself otherwise."""
+    return unshard_fsdp(subtree(params, prefix), parts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +153,9 @@ class SegmentSpec:
     # optional: expand the projected delta to the block-output shape
     # (default: reshape), e.g. broadcast a pooled delta over positions
     expand_delta: typing.Callable | None = dataclasses.field(default=None, compare=False)
+    # optional: () -> the column-parallel parts of a layer on the active
+    # mesh (``dist.sharding.COLUMN_SPLIT`` entries), left split by ``unshard``
+    split: typing.Callable | None = dataclasses.field(default=None, compare=False)
 
     def layer_prefix(self, idx: int) -> str:
         """Where layer ``idx``'s parameters sit in the flat dict."""
@@ -158,8 +166,9 @@ class SegmentSpec:
 
     def unshard(self, leaves: dict) -> dict:
         """One block's parameters through the FSDP gather (one block's
-        all-gather under a mesh; the dict itself otherwise)."""
-        return unshard_fsdp(leaves)
+        all-gather under a mesh, its column-parallel parts left split; the
+        dict itself otherwise)."""
+        return unshard_fsdp(leaves, self.split() if self.split is not None else None)
 
     def gathered_params(self, params: dict, idx: int) -> dict:
         """Layer ``idx``'s parameters through ``unshard``."""

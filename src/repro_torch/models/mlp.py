@@ -7,9 +7,12 @@ the photonic circuit amplitude-encodes onto the N WDM channels.  The hidden
 DFA feedback δ(k) = B(k)e ⊙ g'(a(k)) through the engine's block-local
 gradient; the output layer ("head") is updated with e exactly.
 
-Under tensor parallelism each ``DenseBlock`` and the head run on their
-gathered weights (``nn/linear.py``): every block's output and the logits
-are whole on every rank.
+Under tensor parallelism each ``DenseBlock`` is column-parallel
+(``nn/linear.py``, the ``layer`` part of ``dist.sharding.COLUMN_SPLIT``):
+each rank computes its columns of the product on its rows of the weight,
+and the columns are gathered, so every block's output is whole on every
+rank.  The head runs on its gathered weight, as the LM's training head
+does (``models/transformer.py``): the logits are whole too.
 """
 
 from __future__ import annotations
@@ -17,10 +20,13 @@ from __future__ import annotations
 import torch
 from torch.func import functional_call
 
+from repro_torch.dist.sharding import COLUMN_SPLIT, left_whole
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec,
                                      cross_entropy_loss, gathered)
 from repro_torch.nn.linear import DenseBlock, Linear
 from repro_torch.utils.device import resolve_device
+
+LAYER = {"layer": COLUMN_SPLIT["layer"]}  # a dense block's subtree is its one layer
 
 
 class MLPClassifier(DFAModel):
@@ -36,9 +42,9 @@ class MLPClassifier(DFAModel):
         dims = (in_dim,) + self.hidden
         for i in range(len(self.hidden)):
             self.add_module(f"h{i}", DenseBlock(dims[i], dims[i + 1], activation,
-                                                dtype=dtype, device=device))
+                                                dtype=dtype, device=device, region=f"h{i}"))
         self.head = Linear(self.hidden[-1], n_classes, use_bias=True, dtype=dtype,
-                           device=device)
+                           device=device, region="head")
 
     @property
     def error_tap(self) -> str:
@@ -65,7 +71,8 @@ class MLPClassifier(DFAModel):
                 return functional_call(blk, p, (x,)), torch.zeros((), device=x.device)
 
             specs.append(SegmentSpec(name=f"h{i}", n_layers=1,
-                                     d_inject=blk.weight.shape[0], apply=apply))
+                                     d_inject=blk.weight.shape[0], apply=apply,
+                                     split=lambda: LAYER))
         return tuple(specs)
 
     def embed(self, params, batch):
@@ -79,9 +86,16 @@ class MLPClassifier(DFAModel):
             x, _ = spec.apply(spec.gathered_params(params, 0), x, None)
         return x, saved, {}
 
+    def column_fallbacks(self, params) -> dict:
+        """The dense blocks whose leaves in the placed ``params`` the
+        divisibility fallback left whole on the active mesh, name -> why
+        (``sharding.left_whole``): they run on their whole weights."""
+        return {spec.name: why for spec in self.segment_specs()
+                for why in left_whole(spec.layer_params(params, 0), LAYER).values()}
+
     def head_logits(self, params, x_final, batch):
-        """The logits whole on every rank (a head split over the model axis
-        runs on its gathered weight): the tapped error is their gradient."""
+        """The logits whole on every rank (the head runs on its gathered
+        weight): the tapped error is their gradient."""
         del batch
         return functional_call(self.head, gathered(params, "head."), (x_final,))
 

@@ -24,18 +24,26 @@ positions run over prefix and text, and the loss reads only the text
 region; serving is text-only, as the reference's.
 
 Under tensor parallelism (``dist.sharding``, a ``model`` axis above 1 in
-``launch/dryrun.build_train``'s step) the dense family trains on its
-local pieces: the embedding is a vocabulary-parallel lookup, and every
-product of a block, the vision stub and the head runs on the whole weight
-the FSDP gather hands it (``dist.sharding.unshard_fsdp``), so the
-residual stream stays whole on every rank (``act_btd``), and so do the
-logits (the reference's ``logits`` rule would
-split them): the loss and the tapped error are the one process's.  The DFA tape
-stays whole: each rank holds every block's (B, S, d) input of its rows,
-not the ``tape_lbsd`` rule's feature slice, so the recompute needs no
-gather.  A mixture of experts is expert parallel: each rank runs its E/m
-experts on its slice of the dispatch buffer and the outputs are gathered
-(``nn/moe.py``).
+``launch/dryrun.build_train``'s step and in a sharded serving call) the
+dense decoder block computes its products on its pieces: the FSDP gather
+leaves the parts the block names (``DecoderBlock.column_parts``) split, and
+the attention runs column-parallel on this rank's heads, the gated FFN on
+its columns of gate·up, ``o`` and ``down`` on their rows with their
+columns gathered (``nn/linear.py``), so the residual stream stays whole on
+every rank (``act_btd``).  A block whose kv heads do not divide over the
+axis keeps its attention on gathered weights (``column_fallbacks`` says
+which parts ran whole, and why); a block with multi-head latent attention
+keeps every product gathered, and a mixture of experts is expert parallel:
+each rank runs its E/m experts on its slice of the dispatch buffer and the
+outputs are gathered (``nn/moe.py``).  In serving the head is
+vocabulary-split (``SERVING_HEAD``): each rank computes its V/m columns of
+the logits and the logits are gathered; a training step runs it on its
+gathered weight (``head_logits``).  Either way the logits are whole, so
+the loss and the tapped error are the one process's.  The embedding is a
+vocabulary-parallel lookup and the vision stub runs on its gathered
+weights.  The DFA tape stays whole: each rank
+holds every block's (B, S, d) input of its rows, not the ``tape_lbsd``
+rule's feature slice, so the recompute needs no gather.
 """
 
 from __future__ import annotations
@@ -46,8 +54,8 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.core import photonics
-from repro_torch.core.photonics import forward_matmul
-from repro_torch.dist.sharding import gather_rows
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import COLUMN_SPLIT, gather_rows
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, new_tape, serving_params,
                                      subtree)
@@ -59,6 +67,11 @@ from repro_torch.nn.module import Module
 from repro_torch.nn.moe import MoE
 from repro_torch.nn.norms import RMSNorm
 from repro_torch.utils.device import resolve_device
+
+
+# a sharded serving call's vocabulary-split unembedding (a training step
+# keeps it whole: ``TransformerLM.head_logits``)
+SERVING_HEAD = {"head": COLUMN_SPLIT["head"]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +158,26 @@ class DecoderBlock(Module):
         else:
             self.ffn = GatedMLP(c.d_model, c.d_ff, dtype=c.dtype, device=device)
 
+    def column_parts(self) -> tuple[dict, dict]:
+        """(the column-parallel parts of this block on the active mesh,
+        name -> ``COLUMN_SPLIT`` patterns; the parts it keeps on gathered
+        weights, name -> why): the attention where its kv heads divide over
+        the model axis, and ``o``, and a dense FFN's; none under multi-head
+        latent attention."""
+        c = self.cfg
+        if c.mla is not None:
+            return {}, {}
+        size = sharding.model_index(sharding.current_mesh())[1]
+        names, kept = ["o"], {}
+        if c.n_kv_heads % size == 0:
+            names.append("attn")
+        else:
+            kept["attn"] = (f"{c.n_kv_heads} kv heads over {size} model ranks: a split in the "
+                            "middle of a head")
+        if c.moe is None:
+            names += ["ffn", "down"]
+        return {n: COLUMN_SPLIT[n] for n in names}, kept
+
     def forward(self, x, positions):
         """-> (y, the weighted aux loss, or None for a dense FFN)."""
         c = self.cfg
@@ -210,7 +243,7 @@ class TransformerLM(DFAModel, ServingModel):
             DecoderBlock(c, device) for _ in range(c.n_layers))
         self.head = torch.nn.ModuleDict({
             "norm": RMSNorm(c.d_model, c.norm_eps, c.dtype, device),
-            "out": Linear(c.d_model, c.v_padded, dtype=c.dtype, device=device),
+            "out": Linear(c.d_model, c.v_padded, dtype=c.dtype, device=device, region="head"),
         })
 
     @property
@@ -244,7 +277,7 @@ class TransformerLM(DFAModel, ServingModel):
             return functional_call(block, p, (x, extras))
 
         return (SegmentSpec("blocks", self.cfg.n_layers, self.cfg.d_model, apply,
-                            stacked=True),)
+                            stacked=True, split=lambda: block.column_parts()[0]),)
 
     def embed(self, params, batch):
         prefix = self.cfg.vision is not None and "patch_embeds" in batch
@@ -274,9 +307,24 @@ class TransformerLM(DFAModel, ServingModel):
         saved = {"blocks": SavedSegment(inputs=inputs, extras=positions)}
         return x, saved, {"blocks": aux_total}
 
+    def column_fallbacks(self, params) -> dict:
+        """The column-parallel parts that run on gathered weights on the
+        active mesh, name -> why: those the blocks keep
+        (``DecoderBlock.column_parts``) and those whose leaves in the placed
+        ``params`` the divisibility fallback left whole
+        (``sharding.left_whole``; the head's as a serving call reads it)."""
+        parts, kept = self.blocks[0].column_parts()
+        return {**kept, **sharding.left_whole(subtree(params, "blocks.0."), parts),
+                **sharding.left_whole(subtree(params, "head."), SERVING_HEAD)}
+
     def head_logits(self, params, x_final, batch):
+        """The head on the forward's output: vocabulary-split in a sharded
+        serving call (``sharding.in_serving_call``: ``serve.decode.
+        make_prefill``), on its gathered weight in training (split, it moved
+        a noisy full-width DFA step past the 1e-5 gate against one process
+        on the card: ``tools/tp_split_ablation.py``)."""
         del batch
-        p = gathered(params, "head.")
+        p = gathered(params, "head.", SERVING_HEAD if sharding.in_serving_call() else None)
         h = functional_call(self.head["norm"], subtree(p, "norm."), (x_final,))
         return self._head(h, p["out.weight"])
 
@@ -302,12 +350,13 @@ class TransformerLM(DFAModel, ServingModel):
         a layer at a time where given (``serving_params``), then the
         head."""
         new = {n: [] for n in caches}
+        parts = self.blocks[0].column_parts()[0] if params is not None else None
         for i, block in enumerate(photonics.scanned_layers(self.blocks)):
-            with serving_params(block, params, f"blocks.{i}."):
+            with serving_params(block, params, f"blocks.{i}.", parts=parts):
                 x, cache = step(block, x, {n: t[i] for n, t in caches.items()})
             for n in new:
                 new[n].append(cache[n])
-        with serving_params(self.head, params, "head."):
+        with serving_params(self.head, params, "head.", parts=SERVING_HEAD):
             logits = self._head(self.head["norm"](x))
         return logits, {n: torch.stack(t) for n, t in new.items()}
 
@@ -326,10 +375,19 @@ class TransformerLM(DFAModel, ServingModel):
 
     def _head(self, h, weight=None):
         """Unembedding (by ``weight``, default the module's own), masking
-        padded vocab ids so greedy serving never emits one."""
+        padded vocab ids so greedy serving never emits one.  A weight that
+        holds this rank's rows of the vocabulary gives its columns of the
+        logits, gathered whole: vocabulary-major, so that the gather joins
+        the pieces along its first dim without a copy, and the logits come
+        back as a (..., V) view of the (V, ...) whole."""
         c = self.cfg
-        w = self.head["out"].weight if weight is None else weight
-        logits = forward_matmul(h, w)
+        out = self.head["out"]
+        w = out.weight if weight is None else weight
+        if out.splits(w):
+            part = out.columns(sharding.copy_to_model(h), w).movedim(-1, 0).contiguous()
+            logits = sharding.gather_from_model(part, 0).movedim(0, -1)
+        else:
+            logits = out.product(h, w)
         if c.pad_vocab_to:
             pad_mask = torch.arange(c.v_padded, device=logits.device) >= c.vocab_size
             logits = torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype,

@@ -17,10 +17,15 @@ rope-less layers with an output bias, non-causal in its encoder, and
 products are digital (raw ``@``), as the reference's.
 
 Under tensor parallelism (``dist.sharding``: q, k, v and o split on their
-output dims over ``model``) every attention runs on the whole weights the
-FSDP gather hands it and attends every head on every rank; a serving step
-whose cache is split over ``model`` (``serve.decode.cache_shardings``)
-attends on this rank's piece of it (below).
+output dims over ``model``) the dense decoder block's ``Attention`` is
+column-parallel where its kv heads divide over the axis (the ``attn`` and
+``o`` parts): q, k and v are this rank's heads (their rows of the
+weights), attention runs on them, the heads are gathered before ``o``, and
+``o``'s columns are gathered (``nn/linear.py``).  Elsewhere an attention
+runs on the whole weights the FSDP gather hands it and attends every head
+on every rank.  A serving step whose cache is split over ``model``
+(``serve.decode.cache_shardings``) attends on this rank's piece of it
+(below); a column-parallel attention's heads are its kv-heads piece.
 
 Cache updates are out of place, as in the reference: ``decode`` and
 ``prefill`` return new cache tensors and never write the ones they were
@@ -196,8 +201,9 @@ def write_positions(cache, new, start, n_valid):
 # A serving step on a ``model`` axis above 1 holds this rank's piece of each
 # layer's cache (``dist.sharding.cache_split``): its kv heads, its slice of
 # head_dim, or its slots of the sequence.  The new token's q, k and v are
-# whole on every rank (the projections run on whole weights); each rank
-# writes its piece of k and v into its piece of the cache and attends there.
+# this rank's heads where the projections are column-parallel (the kv-heads
+# piece), whole on every rank otherwise; each rank writes its piece of k
+# and v into its piece of the cache and attends there.
 # Heads: the rank's kv heads and their q heads, the outputs all-gathered
 # along heads (the one process's sums).  head_dim: the partial q·k sums
 # SUM all-reduced, the softmax whole, the rank's slice of the value
@@ -290,17 +296,34 @@ class Attention(Module):
         self.n_kv_heads = n_kv_heads
         self.hd = head_dim or d_model // n_heads
         self.rope_theta = rope_theta
-        mk = lambda i, o, b: Linear(i, o, use_bias=b, dtype=dtype, device=device)
-        self.q = mk(d_model, n_heads * self.hd, qkv_bias)
-        self.k = mk(d_model, n_kv_heads * self.hd, qkv_bias)
-        self.v = mk(d_model, n_kv_heads * self.hd, qkv_bias)
-        self.o = mk(n_heads * self.hd, d_model, out_bias)
+        mk = lambda i, o, b, n: Linear(i, o, use_bias=b, dtype=dtype, device=device,
+                                       region=f"attn.{n}")
+        self.q = mk(d_model, n_heads * self.hd, qkv_bias, "q")
+        self.k = mk(d_model, n_kv_heads * self.hd, qkv_bias, "k")
+        self.v = mk(d_model, n_kv_heads * self.hd, qkv_bias, "v")
+        self.o = mk(n_heads * self.hd, d_model, out_bias, "o")
+
+    @property
+    def split(self) -> bool:
+        """Whether q, k and v are column-parallel: this rank's heads."""
+        split = {self.q.split, self.k.split, self.v.split}
+        if len(split) > 1:
+            raise ValueError("q, k and v split over the model axis apart: they split together "
+                             "(the attn part) or not at all")
+        return split.pop()
 
     def qkv(self, x, positions):
+        """q (B, S, H, D), k and v (B, S, KVH, D): this rank's H/m and KVH/m
+        heads where the attention is column-parallel."""
         b, s, _ = x.shape
-        q = self.q(x).reshape(b, s, self.n_heads, self.hd)
-        k = self.k(x).reshape(b, s, self.n_kv_heads, self.hd)
-        v = self.v(x).reshape(b, s, self.n_kv_heads, self.hd)
+        if self.split:
+            x = sharding.copy_to_model(x)
+            q, k, v = self.q.columns(x), self.k.columns(x), self.v.columns(x)
+        else:
+            q, k, v = self.q(x), self.k(x), self.v(x)
+        q = q.reshape(b, s, -1, self.hd)
+        k = k.reshape(b, s, -1, self.hd)
+        v = v.reshape(b, s, -1, self.hd)
         if self.qk_norm:
             q = rms_normalize(q)
             k = rms_normalize(k)
@@ -315,8 +338,10 @@ class Attention(Module):
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         q, k, v = self.qkv(x, positions)
         out = _self_attention(q, k, v, positions, None, q_chunk, k_chunk, self.window,
-                              self.logit_softcap, self.causal)
-        return self.o(out.reshape(b, s, self.n_heads * self.hd))
+                              self.logit_softcap, self.causal).reshape(b, s, -1)
+        if self.split:
+            out = sharding.gather_from_model(out, -1)
+        return self.o(out)
 
     # ---- decode path ------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None):
@@ -367,7 +392,13 @@ class Attention(Module):
 
     def _heads_piece(self, q, k, v, split):
         """Under the heads rule this rank's kv heads of k and v and their q
-        heads; the whole q, k, v otherwise."""
+        heads (column-parallel q, k and v are already); the whole q, k, v
+        otherwise."""
+        if self.split:
+            if split is None or split[0] != HEADS:
+                raise ValueError("a column-parallel attention serves from a cache split by "
+                                 f"kv heads, not {split}")
+            return q, k, v
         if split is None or split[0] != HEADS:
             return q, k, v
         _, index, size = split

@@ -8,29 +8,41 @@ weights in one (E, out, in) parameter, the reference's ``stack_init`` of a
 module run under ``jax.vmap`` (a mixture of experts' expert FFNs): each
 product then runs over the stack as one batched bank product.
 
-Tensor parallelism (``dist.sharding``): a layer runs on whole weights,
-which the FSDP gather hands it, so its output is whole on every rank and
-its arithmetic the one process's (a narrower product is not:
-``dist.sharding`` says why).  The experts' stacked weight is the
-exception: split along E, the layer runs its E/m products on the matching
-slice of its input (``nn/moe.py`` hands it over)."""
+Tensor parallelism (``dist.sharding``): a layer whose weight holds this
+rank's rows of a weight split over the ``model`` axis (``split``; the FSDP
+gather leaves it split for the parts a module names, ``COLUMN_SPLIT``) is
+column-parallel: it computes this rank's columns of the product from the
+whole input (``columns``), inside a ``photonics.ColumnWindow`` on the bank
+(s_b the whole weight's MAX over the model group, the noise its columns of
+the global draw), so that its columns are the one process's product's, up
+to the rounding of a narrower product.  Called as a module it gathers the
+columns (``forward``); ``Attention``, ``GatedMLP`` and the LM head call
+``columns`` to keep them local.  A layer on a whole weight runs the one
+process's product.  The experts' stacked weight splits along E instead:
+the layer runs its E/m products on the matching slice of its input
+(``nn/moe.py`` hands it over).  A layer with a ``region`` name counts its
+products' FLOPs under it (``utils.flop_cost.region``)."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import photonics
 from repro_torch.core.photonics import forward_matmul
+from repro_torch.dist import sharding
 from repro_torch.nn import activations, initializers
 from repro_torch.nn.module import Module, empty_param
-from repro_torch.utils import prng
+from repro_torch.utils import flop_cost, prng
 
 
 class Linear(Module):
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = False,
-                 dtype=torch.float32, device=None, stack: int | None = None):
+                 dtype=torch.float32, device=None, stack: int | None = None,
+                 region: str | None = None):
         super().__init__()
         lead = (stack,) if stack else ()
         self.in_dim, self.out_dim, self.stack = in_dim, out_dim, stack
+        self.region = region
         self.weight = empty_param((*lead, out_dim, in_dim), dtype, device)
         self.bias = empty_param((out_dim,), dtype, device) if use_bias else None
 
@@ -43,14 +55,45 @@ class Linear(Module):
                 self.bias.zero_()
         return self
 
+    def splits(self, w) -> bool:
+        """Whether ``w`` holds this rank's rows of the layer's weight split
+        over the model axis (the FSDP gather left it split: the layer is
+        column-parallel)."""
+        return not self.stack and w.shape[-2] != self.out_dim
+
+    @property
+    def split(self) -> bool:
+        """Whether the layer's own weight is split (``splits``)."""
+        return self.splits(self.weight)
+
+    def product(self, x, w):
+        """``forward_matmul(x, w)``, counted under the layer's region."""
+        if self.region is None:
+            return forward_matmul(x, w)
+        return flop_cost.region(self.region, lambda a: forward_matmul(a, w), x)
+
+    def columns(self, x, weight=None):
+        """This rank's columns of the layer (by ``weight``, default its own
+        rows) on a whole ``x`` that entered the split through
+        ``sharding.copy_to_model``: the product in a column window, plus
+        this rank's slice of the bias."""
+        w = self.weight if weight is None else weight
+        group, index, _ = sharding.tp_group()
+        n = w.shape[-2]
+        with photonics.column_window(photonics.ColumnWindow(index * n, n, self.out_dim, group)):
+            y = self.product(x, w)
+        return y if self.bias is None else y + self.bias
+
     def forward(self, x):
         """The layer on ``x``; a stack split along E on the matching E/m
-        slice of ``x``."""
+        slice of ``x``; a column-parallel layer's columns gathered."""
         w, b = self.weight, self.bias
         if self.stack and w.shape[0] != x.shape[0]:
             raise ValueError(f"a stack of {w.shape[0]} of {self.stack} weights on an input of "
                              f"{x.shape[0]}: an expert-parallel rank takes its slice of E")
-        y = forward_matmul(x, w)
+        if self.split:
+            return sharding.gather_from_model(self.columns(sharding.copy_to_model(x)), -1)
+        y = self.product(x, w)
         return y if b is None else y + b
 
 
@@ -63,8 +106,9 @@ class DenseBlock(Linear):
     the local gradient through g contributes the ⊙ g'(a) Hadamard."""
 
     def __init__(self, in_dim: int, out_dim: int, activation: str = "relu",
-                 use_bias: bool = True, dtype=torch.float32, device=None):
-        super().__init__(in_dim, out_dim, use_bias, dtype, device)
+                 use_bias: bool = True, dtype=torch.float32, device=None,
+                 region: str | None = None):
+        super().__init__(in_dim, out_dim, use_bias, dtype, device, region=region)
         self.activation = activation
 
     def preact(self, x):
@@ -79,19 +123,27 @@ class GatedMLP(Module):
     """Gated FFN: down( act(gate(x)) * up(x) ), SwiGLU by default
     (``activation="silu"``; recurrentgemma's is ``"gelu"``, the tanh
     form).  With ``stack=E`` it is E FFNs on stacked weights, x (E, ...,
-    d_model) -> (E, ..., d_model)."""
+    d_model) -> (E, ..., d_model).  Column-parallel gate and up (the
+    ``ffn`` part) give this rank's columns of gate·up, gathered before
+    ``down``."""
 
     def __init__(self, d_model: int, d_ff: int, activation: str = "silu",
                  dtype=torch.float32, device=None, stack: int | None = None):
         super().__init__()
         self.activation = activation
-        self.gate = Linear(d_model, d_ff, dtype=dtype, device=device, stack=stack)
-        self.up = Linear(d_model, d_ff, dtype=dtype, device=device, stack=stack)
-        self.down = Linear(d_ff, d_model, dtype=dtype, device=device, stack=stack)
+        mk = lambda i, o, n: Linear(i, o, dtype=dtype, device=device, stack=stack,
+                                    region=None if stack else f"ffn.{n}")
+        self.gate = mk(d_model, d_ff, "gate")
+        self.up = mk(d_model, d_ff, "up")
+        self.down = mk(d_ff, d_model, "down")
 
     def forward(self, x):
         g, _ = activations.get(self.activation)
-        return self.down(g(self.gate(x)) * self.up(x))
+        if not self.gate.split:
+            return self.down(g(self.gate(x)) * self.up(x))
+        x = sharding.copy_to_model(x)
+        h = g(self.gate.columns(x)) * self.up.columns(x)
+        return self.down(sharding.gather_from_model(h, -1))
 
 
 class MLP(Module):

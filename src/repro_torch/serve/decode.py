@@ -23,13 +23,18 @@ and ``make_prefill_step(model, with_params=True)`` step(params, tokens,
 n_valid, caches, cache_len).  Given ``DTensor``s (the parameters placed
 by ``make_param_shardings``, the caches by ``cache_shardings``, the
 tokens by ``make_batch_shardings``) the step runs sharded: each block
-gathers its parameters a layer at a time (``models.base.serving_params``),
-each rank runs its rows of the batch (a photonic forward in a row window:
-s_a the global rows' MAX, the input noise its rows of the global draw)
-against its piece of each cache (``nn/attention.py``, ``nn/ssm.py``), and
-the outputs come back placed as their inputs; the logits of a decode step
-come back whole on every rank, as the reference's replicated
-``out_shardings`` give them.
+gathers its parameters a layer at a time (``models.base.serving_params``)
+but for its column-parallel parts, which run on this rank's rows of each
+weight through the bank (a column window: s_b the whole weight's MAX, the
+noise its columns of the global draw; ``nn/linear.py``), the attention on
+this rank's kv heads, which are its piece of the kv-heads cache; each rank
+runs its rows of the batch (a photonic forward in a row window: s_a the
+global rows' MAX, the input noise its rows of the global draw) against its
+piece of each cache (``nn/attention.py``, ``nn/ssm.py``), and the outputs
+come back placed as their inputs; the head computes this rank's columns of
+the vocabulary and the logits are gathered, so those of a decode step come
+back whole on every rank, as the reference's replicated ``out_shardings``
+give them.
 """
 
 from __future__ import annotations
@@ -105,13 +110,14 @@ def _row_window(mesh, rows):
 
 @contextlib.contextmanager
 def serving(mesh, rows, caches=None):
-    """The context of a sharded serving call: ``mesh`` active, the row
-    window of the batch ``rows`` (a placed tensor whose dim 0 is the
-    batch), and each cache leaf's ``model`` split (its per-layer dim)."""
+    """The context of a sharded serving call (``sharding.serving_call``):
+    ``mesh`` active, the row window of the batch ``rows`` (a placed tensor
+    whose dim 0 is the batch), and each cache leaf's ``model`` split (its
+    per-layer dim)."""
     dims = {n: (d - 1 if d is not None else None)
             for n, d in ((n, sharding.model_dim(t)) for n, t in (caches or {}).items())}
     with sharding.use_mesh(mesh), photonics.row_window(_row_window(mesh, rows)), \
-            sharding.split_caches(dims):
+            sharding.split_caches(dims), sharding.serving_call():
         yield
 
 

@@ -68,7 +68,8 @@ Regions: ``region(name, fn, x)`` runs ``fn(x)`` and adds the FLOPs of the
 products it runs, in the forward and, through two identity autograd nodes
 at its input and output, in its backward, to ``StepCost.region_flops``
 under ``name`` as well (a mixture of experts' expert products, which
-expert parallelism divides over the ranks).
+expert parallelism divides over the ranks; the dense layers' products,
+which the column-parallel split divides: ``nn/linear.Linear.region``).
 """
 
 from __future__ import annotations

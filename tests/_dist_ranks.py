@@ -1126,7 +1126,168 @@ def _dryrun(rank, world, cells):
     return out if rank == 0 else None
 
 
+# ---------------------------------------------------------------------------
+# the column-parallel split of the dense blocks' products
+# ---------------------------------------------------------------------------
+
+SPLIT_ARCHS = ("qwen1.5-0.5b", "qwen3-1.7b", "mnist_mlp")
+SPLIT_COST_MESHES = ("tp12", "tp14")  # the batch whole: no FSDP gather to count
+SPLIT_SERVE_MESHES = ("tp12", "tp14", "tp22")
+SPLIT_ROWS = 200  # a split layer's rows: whole 50-row bank panels on m = 2 and 4
+
+
+@contextlib.contextmanager
+def column_calls(calls: list):
+    """Each column-parallel product in the block appended to ``calls`` as
+    (its region, the rows it ran on, the whole weight's rows)."""
+    from repro_torch.nn.linear import Linear
+
+    columns = Linear.columns
+
+    def record(self, x, weight=None):
+        w = self.weight if weight is None else weight
+        calls.append((self.region, w.shape[-2], self.out_dim))
+        return columns(self, x, weight)
+
+    Linear.columns = record
+    try:
+        yield calls
+    finally:
+        Linear.columns = columns
+
+
+def _split_layer(mesh, backend) -> dict:
+    """A model-split ``Linear`` (``SPLIT_ROWS`` rows, a bias) placed by the
+    rules and read through the FSDP gather as its ``layer`` part, its
+    photonic forward (offchip_bpd on ``ref``, emu_offchip on ``emu``: each
+    rank's columns in its column window, gathered) against the whole
+    layer's in one process: max |diff| / max |whole| and bit for bit."""
+    from torch.func import functional_call
+
+    from repro_torch.core import photonics
+    from repro_torch.dist import sharding
+    from repro_torch.nn.linear import Linear
+
+    gen = torch.Generator().manual_seed(8)
+    layer = Linear(48, SPLIT_ROWS, use_bias=True).init(4)
+    whole = {k: torch.randn(v.shape, generator=gen) * 0.1 for k, v in layer.named_parameters()}
+    x = torch.randn(6, 48, generator=gen)
+    cfg = photonics.preset("emu_offchip" if backend == "emu" else "offchip_bpd")
+    with torch.no_grad():
+        with photonics.forward_execution(cfg, backend, key=11):
+            want = functional_call(layer, whole, (x,))
+        with sharding.use_mesh(mesh):
+            local = sharding.unshard_fsdp(
+                sharding.place(whole, sharding.make_param_shardings(mesh, whole)),
+                {"layer": sharding.COLUMN_SPLIT["layer"]})
+            rows = local["weight"].shape[0]
+            with photonics.forward_execution(cfg, backend, key=11):
+                got = functional_call(layer, local, (x,))
+    return {"rows": rows, "rel": rel(got, want), "equal": bool(torch.equal(got, want))}
+
+
+def _serving_head_fallback(mesh, case) -> dict:
+    """The MLP's 10-row head placed by the rules on ``mesh``, read as a
+    column-parallel part -> what ``sharding.left_whole`` reports and the
+    rows the FSDP gather hands over."""
+    from repro_torch.dist import sharding
+
+    head = {k: torch.from_numpy(np.array(v)) for k, v in case["params"].items()
+            if k.startswith("head.")}
+    parts = {"head": ("head/",)}
+    with sharding.use_mesh(mesh):
+        placed = sharding.place(head, sharding.make_param_shardings(mesh, head))
+        rows = sharding.unshard_fsdp(placed, parts)["head.weight"].shape[0]
+        return {"left_whole": sharding.left_whole(placed, parts), "rows": rows}
+
+
+def _tp_split(rank, world, cases, serve):
+    """The dense blocks' column-parallel products: each arch's sharded step
+    (noise off and on) on every ``TP_MESHES`` mesh, with the products that
+    ran split and the fallbacks recorded; on (1, 2) and (1, 4)
+    ``step_cost``'s regions and collectives of the noisy step beside the
+    calls', and a split layer on ``ref`` and ``emu``; on
+    ``SPLIT_SERVE_MESHES`` each serving case against its one process (noise
+    off and on) with the products that ran split."""
+    from repro_torch.dist import sharding
+    from repro_torch.utils import flop_cost
+
+    out = {"grads": {}, "calls": {}, "fallbacks": {}, "flops": {}, "cost": {}, "layer": {},
+           "serve": {}, "prefill": {}}
+    for name in TP_MESHES:
+        mesh = _tp_mesh(name)
+        if rank >= mesh.mesh.numel():
+            continue
+        for arch in SPLIT_ARCHS:
+            for hardware in FSDP_HARDWARE:
+                _, args, extra = fsdp_step(arch, mesh, hardware, **cases[arch])
+                with column_calls([]) as calls:
+                    out["grads"][name, arch, hardware] = fsdp_grads(extra, args)
+                out["calls"][name, arch, hardware] = calls
+            with sharding.use_mesh(mesh):
+                out["fallbacks"][name, arch] = extra["model"].column_fallbacks(args[0])
+            if name not in SPLIT_COST_MESHES:
+                continue
+            _, args, extra = fsdp_step(arch, mesh, "offchip_bpd", **cases[arch])
+            seen: dict = {}
+            restore = _counted_calls(seen)
+            try:
+                _, cost = flop_cost.measure(extra["value_and_grad"], args[0], args[1],
+                                            args[3], args[4])
+            finally:
+                restore()
+            out["flops"][name, arch] = dict(cost.region_flops)
+            out["cost"][name, arch] = (dict(cost.coll_bytes_by_kind), seen)
+        if name in SPLIT_COST_MESHES:
+            out["layer"][name] = {b: _split_layer(mesh, b) for b in ("ref", "emu")}
+        if name == "tp14":
+            out["head_fallback"] = _serving_head_fallback(mesh, cases["mnist_mlp"])
+        if name in SPLIT_SERVE_MESHES:
+            for arch, case in serve.items():
+                model = serve_model(arch, case["params"])
+                for hardware in (None, "offchip_bpd"):
+                    one = serve_run(model, None, case, hardware) if rank == 0 else None
+                    with column_calls([]) as calls:
+                        got = serve_run(model, mesh, case, hardware)
+                    out["serve"][name, arch, hardware] = (
+                        _serve_compare(got, one) if rank == 0 else None, calls,
+                        got if hardware is None and name == "tp22" else None)
+                one = _prefill_run(model, None, case) if rank == 0 else None
+                with column_calls([]) as calls:
+                    got = _prefill_run(model, mesh, case)
+                out["prefill"][name, arch] = (
+                    _rel(got, one) if rank == 0 else None, calls)
+    return out
+
+
+def _prefill_run(model, mesh, case, key=11):
+    """``serve.decode.make_prefill``'s forward (``build_prefill``'s) of
+    ``case["tokens"]`` on offchip_bpd (``ref``): on ``mesh`` the parameters
+    placed by ``make_param_shardings`` and the tokens by
+    ``make_batch_shardings``; one process where ``mesh`` is None -> the
+    logits, whole."""
+    from repro_torch.core import photonics
+    from repro_torch.dist import sharding
+    from repro_torch.serve import decode as sd
+
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    tokens = torch.as_tensor(np.asarray(case["tokens"]))
+    if mesh is not None:
+        params = sharding.place(params, sharding.make_param_shardings(mesh, params))
+        tokens = sharding.place_leaf(
+            tokens, sharding.make_batch_shardings(mesh, {"tokens": tokens})["tokens"])
+    with torch.no_grad(), photonics.forward_execution(photonics.preset("offchip_bpd"), "ref",
+                                                      key=key):
+        logits = sd.make_prefill(model)(params, {"tokens": tokens})
+    return sharding.full_tensor(logits) if sharding.is_dtensor(logits) else logits
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
 SCENARIOS = {"mlp": _mlp, "lm": _lm, "elastic_save": _elastic_save,
              "elastic_load": _elastic_load, "fsdp": _fsdp, "tp": _tp, "tp_card": _tp_card,
              "tp_families": _tp_families, "shard_serve": _shard_serve,
-             "shard_serve_card": _shard_serve_card, "dryrun": _dryrun}
+             "shard_serve_card": _shard_serve_card, "dryrun": _dryrun, "tp_split": _tp_split}

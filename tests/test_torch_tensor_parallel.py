@@ -118,15 +118,17 @@ def test_sharded_step_equals_one_process(tp, mesh, arch, hardware):
 @pytest.mark.parametrize("hardware", ranks.FSDP_HARDWARE)
 def test_the_cards_layout_is_one_process_bit_for_bit(tp, hardware):
     """The card's run on the CPU: qwen1.5 on (1, 2), every row on every
-    rank.  Every split product runs on its gathered weight and attention on
-    every head, so the loss and every gradient are the one process's bit
-    for bit (one thread on both sides; the other cases sit within 1e-5,
-    where the CPU's own kernels differ with a reduction's width)."""
+    rank.  The dense products run column-parallel (attention on the rank's
+    heads): on one thread the CPU's narrower products give the whole
+    product's columns bit for bit, so the loss is the one process's bit for
+    bit; an input gradient is the SUM of the ranks' partial products, a
+    reordered sum, so the gradients sit within 1e-5 of it, not on its bits
+    (with every product on its gathered weight, every gradient was)."""
     mesh, arch = "tp12", FIRST
     loss, grads = tp["ranks"][0]["grads"][mesh, arch, hardware]
     one_loss, _, one_grads = tp["one"][arch, hardware]
     assert loss == one_loss
-    assert _worst(grads, one_grads, arch) == 0.0
+    assert _worst(grads, one_grads, arch) <= TOL
 
 
 @pytest.mark.parametrize("mesh,arch", PAIRS)
@@ -219,23 +221,30 @@ def test_step_cost_counts_the_model_axis_collectives(tp):
     """By kind, the operand bytes ``step_cost`` counted = those the step
     handed ``torch.distributed``; on (1, 2) every collective is the model
     axis's (the data axis is one rank: the FSDP gather issues none).  The
-    gathers are each block's split weights and biases, in the forward and
-    again in the block's recompute, the head's weight once (the embedding
-    is looked up where it lies), and each projection's (B·S, d / 2)
-    columns of δ, the blocks' and the embedding's; the all-reduces hold the
-    lookup's (B, S, d) sum."""
+    dense products are column-parallel, so no weight is gathered: the
+    gathers are each block's (B·S, rows) columns of its heads (q's rows),
+    of ``o``, of gate·up (gate's rows) and of ``down``, in the forward and
+    again in the block's recompute, the head's weight once (training keeps
+    it whole), and each projection's (B·S, d / 2) columns of δ, the blocks'
+    and the embedding's; the all-reduces hold the lookup's (B, S, d) sum
+    and the partial input gradients of the recompute's products."""
     counted, seen = tp["ranks"][0]["cost"]
     assert counted == seen
     assert set(counted) == {"all-gather", "all-reduce"}
     params = tp["cases"][FIRST]["params"]
-    split = {k: piece.nbytes for k, (piece, _) in tp["ranks"][0]["shards"]["tp12"].items()
-             if piece.shape != params[k].shape}
+    rows = {k: piece.shape[0] for k, (piece, _) in tp["ranks"][0]["shards"]["tp12"].items()
+            if piece.shape != params[k].shape}
     d_model = params["embed.tok.table"].shape[1]
-    n_blocks = len({k.split(".")[1] for k in params if k.startswith("blocks.")})
-    weights = sum(2 * v for k, v in split.items() if k.startswith("blocks."))
-    deltas = (n_blocks + 1) * 4 * BATCH * SEQ * d_model // 2
-    assert counted["all-gather"] == weights + split["head.out.weight"] + deltas
-    assert counted["all-reduce"] >= 4 * BATCH * SEQ * d_model
+    blocks = sorted({k.split(".")[1] for k in params if k.startswith("blocks.")})
+    t = BATCH * SEQ
+    columns = sum(rows[f"blocks.{i}.{leaf}.weight"] for i in blocks
+                  for leaf in ("attn.q", "attn.o", "ffn.gate", "ffn.down"))
+    deltas = (len(blocks) + 1) * 4 * t * d_model // 2
+    head = 4 * rows["head.out.weight"] * d_model
+    assert counted["all-gather"] == 4 * t * 2 * columns + head + deltas
+    dx = sum(2 * rows[f"blocks.{i}.{leaf}.weight"] for i in blocks
+             for leaf in ("attn.q", "ffn.gate")) + len(blocks) * 2 * d_model
+    assert counted["all-reduce"] >= 4 * t * (d_model + dx)
 
 
 def test_checkpoint_restores_from_2x2_on_4x1(tp):

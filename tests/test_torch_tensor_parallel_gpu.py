@@ -2,8 +2,8 @@
 step of qwen1.5-0.5b at full width (24 layers, d 1024, 16 / 16 heads, d_ff
 2816, V 151936) in f32 on a (1, 2) (data, model) mesh, its weights, its
 vocabulary and its feedback rows split over two ranks on one card (gloo:
-NCCL takes one rank a device), offchip_bpd through the bank kernel, 64 x 64
-rows.  Step 1's loss and gradients and the parameters after 2 steps within
+NCCL takes one rank a device), the dense blocks' products column-parallel,
+offchip_bpd through the bank kernel, 64 x 64 rows.  Step 1's loss and gradients and the parameters after 2 steps within
 1e-5 of each leaf's max of the one process's; 25 bank launches a rank a
 step; each piece the rule's slice of an independent init; the resident
 parameters and momentum about half the replicated state; ``step_cost``'s
@@ -12,7 +12,11 @@ collective bytes = what ``torch.distributed`` was handed.  The emu kernel's
 launch on panels [p, nm) with ``col_base = p·rows`` equals its plain version
 and those columns of a ``col_base = 0`` launch over the whole product, bit
 for bit, under every plan ``candidate_plans`` returns; a column base inside
-a panel or past the slot counters raises.  Marked ``gpu``: skipped where
+a panel or past the slot counters raises.  The bank kernel in a column
+window at the sharded serving's shapes (a rank's half of qwen1.5's q / o,
+gate / up, down and head rows on (1, 2), T = 4 and 128, f32 and bf16,
+offchip_bpd in input mode) equal to the plain version in the same window
+and to the whole product's columns.  Marked ``gpu``: skipped where
 there is no CUDA device; on the card run
 
     python -m pytest -m gpu tests/test_torch_tensor_parallel_gpu.py -q
@@ -128,3 +132,35 @@ def test_col_base_inside_a_panel_or_past_the_counters_raises(cuda):
         em.launch_kernel(a_t, delta, mask, col_base=top + rows, **kw)
     got = em.emu_bank_product_cuda(a_t, delta, mask, col_base=top, **kw)
     assert torch.equal(got, em.emu_bank_product_plain(a_t, delta, mask, col_base=top, **kw))
+
+
+KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the reference's kernel-test bounds
+# (K, M) of qwen1.5's serving products: q / k / v / o, gate / up, down, the head
+SERVE_PRODUCTS = ((1024, 1024), (1024, 2816), (2816, 1024), (1024, 151936))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [4, 128])
+@pytest.mark.parametrize("k,m", SERVE_PRODUCTS)
+def test_bank_kernel_in_a_column_window_equals_plain(cuda, k, m, t, dtype):
+    """Rank 1's rows [M/2, M) of a serving product in its column window
+    (s_b from its rows, where the whole weight's max lies; the noise its
+    columns of the global draw): the kernel = the plain version in the same
+    window = the whole product's columns."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.kernels import ops
+
+    cfg = ph.preset("offchip_bpd")
+    gen = torch.Generator(device=cuda).manual_seed(t + k + m)
+    a = torch.randn(t, k, generator=gen, device=cuda).to(dtype)
+    b = torch.randn(m, k, generator=gen, device=cuda) * 0.02
+    n = m // 2
+    b[n + 1, 3] = 1.0  # the whole weight's max, in the window's rows
+    b = b.to(dtype)
+    with ph.column_window(ph.ColumnWindow(n, m - n, m)):
+        got = ops.photonic_matmul(a, b[n:], cfg, key=9).float()
+        plain = ph.photonic_matmul(a, b[n:], cfg, key=9).float()
+    whole = ph.photonic_matmul(a, b, cfg, key=9)[:, n:].float()
+    torch.cuda.synchronize()
+    for expect in (plain, whole):
+        assert ((got - expect).abs().max() / expect.abs().max()).item() <= KERNEL_TOL[dtype]

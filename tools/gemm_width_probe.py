@@ -1,6 +1,7 @@
 """Whether the card's f32 GEMMs give a product's columns the same bits at
-another width: the evidence for computing every model-split product on
-its gathered weight (``nn/linear.py``).
+another width: why a column-parallel product (``nn/linear.py``) is within
+rounding of the one process's rather than on its bits, and so why each
+split part is held to the 1e-5 training gate (``tools/tp_split_ablation.py``).
 
 For the products of a qwen1.5-0.5b block at 64 x 64 rows (T = 4096; K and
 N of q / o, gate / up, down and the head) it compares, on the card, the

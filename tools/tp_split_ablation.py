@@ -1,33 +1,39 @@
 #!/usr/bin/env python3
-"""Which FLOPs of a model-split product could run split and keep a
-tensor-parallel step within the 1e-5 gate against one process, on the card.
+"""Which column-parallel parts of the dense blocks and the head keep a
+tensor-parallel DFA step within the 1e-5 gate against one process, on the
+card.
 
-The port computes every model-split product on its gathered weight
-(``nn/linear.py``): each rank does the one process's product FLOPs.  This
-tool takes the full-width qwen1.5-0.5b ``dfa`` step (f32, offchip_bpd
-through the bank kernel, 64 x 64 rows, seed 0) on a (1, 2) (data, model)
-mesh, two ranks on one card over gloo, through
-``launch/dryrun.build_train``, and splits one part of every model-split
-product at a time:
+The port computes the dense decoder block's products and the LM head
+column-parallel on a ``model`` axis (``nn/linear.py``; the parts are
+``dist.sharding.COLUMN_SPLIT``): each rank computes its columns of a
+product on its rows of the weight, and the rest of the step runs on the
+gathered columns.  The columns of a narrower f32 product are not the whole
+product's bits (``tools/gemm_width_probe.py``), and a noisy DFA step
+amplifies the shift in the bias gradients its rows cancel.  This tool
+takes the full-width qwen1.5-0.5b ``dfa`` step (f32, offchip_bpd through
+the bank kernel, 64 x 64 rows, seed 0) on a (1, 2) (data, model) mesh,
+two ranks on one card over gloo, through ``launch/dryrun.build_train``,
+and overrides the parts a training step splits (the blocks'
+``DecoderBlock.column_parts``, the head's ``TransformerLM.head_logits``)
+with one variant at a time:
 
-- port:  the port as it is (the control: 0 from one process);
-- none:  this tool's product with nothing split (a second control: 0);
-- fwd:   the forward on this rank's rows of the weight, a narrower GEMM,
-         its columns gathered;
-- dx:    the input gradient as the SUM all-reduce of the ranks' partial
-         products (this rank's columns of the output gradient times its
-         rows of the weight);
-- dw:    the weight gradient from this rank's columns of the output
-         gradient, a narrower GEMM;
-- fwd+dx+dw: all three (column-parallel, as Megatron's);
-- head:  all three on the head's vocabulary-split product, none on the
-         blocks';
-- all:   all three on the blocks and the head.
+- port:   the port as it is;
+- none:   every product on its gathered weight (the control: 0);
+- attn:   q, k and v on this rank's heads, attention on them, the heads
+          gathered before ``o``;
+- o:      ``o`` on its rows, its columns gathered;
+- ffn:    the FFN's gate and up on their rows, gate·up gathered;
+- down:   ``down`` on its rows, its columns gathered;
+- head:   the head on its rows of the vocabulary, the logits gathered;
+- blocks: attn, o, ffn and down;
+- all:    the blocks and the head.
 
 Each variant prints step 1's loss and each gradient leaf's max |diff| /
 max |one process| (the worst leaf and the worst of each kind), against the
-one process's ``Trainer._grads`` on the same batch and key.  The one
-process and every variant draw the same global noise.
+one process's ``Trainer._grads`` on the same batch and key, and the worst
+leaf of the parameters after two steps (SGD momentum, the trainer's keys)
+against the one process's ``Session.step``.  The one process and every
+variant draw the same global noise.
 
     python3 tools/tp_split_ablation.py [variant ...]
 
@@ -48,98 +54,46 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH, SEED, SEQ, BATCH = "qwen1.5-0.5b", 0, 64, 64
 GATE = 1e-5
-SPLIT = ("fwd", "dx", "dw")
-# variant -> (what the blocks' products split, what the head's splits);
-# None: the port unpatched
-VARIANTS = {"port": None, "none": ((), ()), "fwd": (("fwd",), ()), "dx": (("dx",), ()),
-            "dw": (("dw",), ()), "fwd+dx+dw": (SPLIT, ()), "head": ((), SPLIT),
-            "all": (SPLIT, SPLIT)}
-
-
-def _product_fn(torch, sharding):
-    """The autograd function of x2 @ wᵀ for this rank's rows ``w`` of a
-    model-split weight, each of the forward, the input gradient and the
-    weight gradient split or computed whole as ``flags`` say.  A part
-    computed whole runs the GEMM autograd runs on the gathered weight."""
-    import torch.distributed as dist
-
-    class Product(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x2, w, flags, group, index, size):
-            ctx.save_for_backward(x2, w)
-            ctx.flags, ctx.group, ctx.index, ctx.size = flags, group, index, size
-            if "fwd" in flags:
-                return sharding._all_gather(x2 @ w.mT, 1, group, size)
-            return x2 @ sharding._all_gather(w, 0, group, size).mT
-
-        @staticmethod
-        def backward(ctx, g):
-            x2, w = ctx.saved_tensors
-            n, flags = w.shape[0], ctx.flags
-            g_local = g[:, ctx.index * n:(ctx.index + 1) * n].contiguous()
-            whole = None if {"dx", "dw"} <= set(flags) else sharding._all_gather(
-                w, 0, ctx.group, ctx.size)
-            if "dx" in flags:
-                dx = g_local.mm(w)
-                dist.all_reduce(dx, op=dist.ReduceOp.SUM, group=ctx.group)
-            else:
-                dx = g.mm(whole)
-            # autograd's weight gradient of x2 @ wᵀ: gᵀ·x2 (w.mT is column-major)
-            if "dw" in flags:
-                dw = g_local.t().mm(x2)
-            else:
-                dw = g.t().mm(x2).narrow(0, ctx.index * n, n).contiguous()
-            return dx, dw, None, None, None, None
-
-    def product(x, w, flags):
-        group, index, size = sharding._tp_group()
-        y = Product.apply(x.reshape(-1, x.shape[-1]), w, flags, group, index, size)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-
-    return product
+BLOCKS = ("attn", "o", "ffn", "down")
+# variant -> the parts a training step splits; None: the port as it is
+VARIANTS = {"port": None, "none": (), **{p: (p,) for p in BLOCKS}, "head": ("head",),
+            "blocks": BLOCKS, "all": BLOCKS + ("head",)}
 
 
 @contextlib.contextmanager
-def _patched(torch, variant):
-    """The blocks' ``Linear.forward`` and the LM head running the variant's
-    split product on a model-split weight (the port itself for "port")."""
-    from repro_torch.dist import sharding
-    from repro_torch.models.transformer import TransformerLM
-    from repro_torch.nn.linear import Linear
+def _patched(variant):
+    """The training step splitting the variant's parts (the port itself
+    for "port"): the blocks' parts (``DecoderBlock.column_parts``) cut to
+    the variant's, and with "head" the training head read as serving reads
+    it (vocabulary-split), for the duration of the block."""
+    from unittest import mock
 
-    flags = VARIANTS[variant]
-    if flags is None:
+    from torch.func import functional_call
+
+    from repro_torch.models import base, transformer
+
+    parts = VARIANTS[variant]
+    if parts is None:
         yield
         return
-    blocks, head = flags
-    product = _product_fn(torch, sharding)
-    linear_forward, lm_head = Linear.forward, TransformerLM._head
+    block_parts = transformer.DecoderBlock.column_parts
 
-    def forward(self, x):
-        w, b = self.weight, self.bias
-        if w.shape[-2] == self.out_dim:
-            return linear_forward(self, x)
-        y = product(x, w, blocks)
-        if b is not None:
-            y = y + (b if b.shape[0] == self.out_dim else sharding.gather_from_model(b, 0))
-        return y
+    def column_parts(self):
+        mine, kept = block_parts(self)
+        return {k: v for k, v in mine.items() if k in parts}, kept
 
-    def head_fn(self, h, weight=None):
-        w = self.head["out"].weight if weight is None else weight
-        if w.shape[0] == self.cfg.v_padded:
-            return lm_head(self, h, weight)
-        logits = product(h, w, head)
-        if self.cfg.pad_vocab_to:
-            pad = torch.arange(self.cfg.v_padded, device=logits.device) >= self.cfg.vocab_size
-            logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
-                                                   device=logits.device), logits)
-        return logits
+    def head_logits(self, params, x_final, batch):
+        p = base.gathered(params, "head.", transformer.SERVING_HEAD)
+        h = functional_call(self.head["norm"], base.subtree(p, "norm."), (x_final,))
+        return self._head(h, p["out.weight"])
 
-    Linear.forward, TransformerLM._head = forward, head_fn
-    try:
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(transformer.DecoderBlock, "column_parts",
+                                              column_parts))
+        if "head" in parts:
+            stack.enter_context(mock.patch.object(transformer.TransformerLM, "head_logits",
+                                                  head_logits))
         yield
-    finally:
-        Linear.forward, TransformerLM._head = linear_forward, lm_head
 
 
 def _kind(name: str) -> str:
@@ -171,37 +125,47 @@ def _rank(rank, port, variants, queue):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=2)
     try:
-        key = prng.step_key(SEED, 0, "noise")
+        keys = [prng.step_key(SEED, i, "noise") for i in range(2)]
         vocab = configs.get(ARCH).make_model(device="meta").cfg.vocab_size
-        batch = tokens.MarkovTokens(vocab, SEQ, BATCH, SEED).batch(0)
-        one = None
+        gen = tokens.MarkovTokens(vocab, SEQ, BATCH, SEED)
+        one = one2 = None
         if rank == 0:
             s = api.build_session(arch=ARCH, smoke=False, dtype=torch.float32, seed=SEED,
                                   algo="dfa", hardware="offchip_bpd", backend="cuda",
                                   data_parallel=False, log_every=10**9, device="cuda")
             state = s.init_state()
             (one_loss, _), one = s.trainer._grads(state["params"], state["fb"],
-                                                  s.trainer.put(batch), key)
+                                                  s.trainer.put(gen.batch(0)), keys[0])
             one_loss = float(one_loss)
+            for i in range(2):
+                state, _ = s.step(state, gen.batch(i))
+            one2 = state["params"]
             del s, state
             torch.cuda.empty_cache()
         dist.barrier()
         mesh = mesh_lib.make_host_mesh(2, model_axis=2, device_type="cuda")
         dfa = DFAConfig(photonics=photonics.preset("offchip_bpd"), backend="cuda")
-        _, (p, fb, _, b0, _), extra = dryrun.build_train(
+        fn, (p, fb, o, b0, _), extra = dryrun.build_train(
             ARCH, mesh, dfa=dfa, dtype=torch.float32, device="cuda", seed=SEED,
-            batch={k: torch.as_tensor(v) for k, v in batch.items()})
+            batch={k: torch.as_tensor(v) for k, v in gen.batch(0).items()})
+        b1 = sharding.place({k: torch.as_tensor(v) for k, v in gen.batch(1).items()},
+                            extra["in_shardings"][3])
         out = []
         for variant in variants:
             t0 = time.perf_counter()
-            with _patched(torch, variant):
-                (loss, _), grads = extra["value_and_grad"](p, fb, b0, key)
-            grads = {k: sharding.full_tensor(g) for k, g in grads.items()}
-            seconds = time.perf_counter() - t0
+            with _patched(variant):
+                (loss, _), grads = extra["value_and_grad"](p, fb, b0, keys[0])
+                grads = {k: sharding.full_tensor(g) for k, g in grads.items()}
+                seconds = time.perf_counter() - t0
+                errs = _errors(grads, one) if rank == 0 else None
+                del grads
+                p2, o2 = p, o
+                for i, b in enumerate((b0, b1)):
+                    p2, o2, _ = fn(p2, fb, o2, b, keys[i])
+                p2 = {k: sharding.full_tensor(v) for k, v in p2.items()}
             if rank == 0:
-                errs = _errors(grads, one)
-                out.append((variant, float(loss), one_loss, errs, seconds))
-            del grads
+                out.append((variant, float(loss), one_loss, errs, _errors(p2, one2), seconds))
+            del p2, o2
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
@@ -254,14 +218,16 @@ def main() -> None:
     failed = [proc.exitcode for proc in procs if proc.exitcode]
     if failed:
         raise SystemExit(f"a rank failed: exit codes {failed}")
-    for variant, loss, one_loss, errs, seconds in results[0]:
+    for variant, loss, one_loss, errs, errs2, seconds in results[0]:
         worst = max(errs, key=errs.get)
+        worst2 = max(errs2, key=errs2.get)
         kinds: dict = {}
         for k, e in errs.items():
             kinds[_kind(k)] = max(kinds.get(_kind(k), 0.0), e)
         top = sorted(kinds.items(), key=lambda kv: -kv[1])[:5]
         print(f"[ablation] {variant:10s} loss {loss:.6f} (one process {one_loss:.6f}); worst "
               f"gradient {errs[worst]:.3e} ({worst}) = {errs[worst] / GATE:.3f} of the gate; "
+              f"after 2 steps {errs2[worst2]:.3e} ({worst2}) = {errs2[worst2] / GATE:.3f}; "
               f"by kind " + ", ".join(f"{k} {e:.3e}" for k, e in top)
               + f"; {seconds:.1f}s")
 
