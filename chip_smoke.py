@@ -227,7 +227,9 @@ sources in the checkout.  Phases:
     launch of each new shape equal to the kernel's plain version; on (1, 2)
     recurrentgemma-9b (the head_dim rule) and minicpm3-4b (the latent
     caches' sequence rule at 1024 slots) at 4 layers, one decode step within
-    1e-4; qwen2-moe's 30-expert batched bank launch against its
+    1e-4, minicpm3's launches each on the rank's M/2 rows but q_up's
+    (served whole), 0.5136 of one process's weight bytes, each new shape
+    equal to the plain version; qwen2-moe's 30-expert batched bank launch against its
     60-expert launch at T = 1 and 5 (distance and plans printed).  One
     ``{"shard_serve": ...}`` line.
 25. the dry-run against the card (``[dryrun]``, ``phase_dryrun``):
@@ -2683,9 +2685,13 @@ def _dp_rank_work(rank, world, port, seed, base):
         t4 = time.perf_counter()
         out.update(_fsdp_emu_rank(torch, api, rank, seed, model_axis=TP_MESH[1]))
         out.update(_tp_emu_window(torch, rank))
-        out.update(_tp_moe_rank(torch, api, pm, rank, seed))
+        t5 = time.perf_counter()
+        out.update(_tp_family_rank(torch, api, pm, rank, seed, "moe"))
+        t6 = time.perf_counter()
+        out.update(_tp_family_rank(torch, api, pm, rank, seed, "mla"))
         out["seconds"] = {"lm": t1 - t0, "emu": t2 - t1, "fsdp": t3 - t2, "tp": t4 - t3,
-                          "tp_moe": time.perf_counter() - t4}
+                          "tp_emu": t5 - t4, "tp_moe": t6 - t5,
+                          "tp_mla": time.perf_counter() - t6}
         peer = out.pop("peer")  # rank 1's first projection's noise rows and s_a, to rank 0
         for t in peer:
             dist.broadcast(t, src=1)
@@ -3362,21 +3368,22 @@ def _tp_lm_rank(torch, api, pm, rank, seed):
     return out
 
 
-TP_MOE_LAYERS = 4  # qwen2-moe's one-card f32 training depth (phase_moe's)
-TP_MOE_LAUNCHES = TP_MOE_LAYERS + 1  # bank launches a dfa step: the blocks' and the embedding's
+# the families' tensor-parallel checks at full width in f32 on (1, 2): tag ->
+# (arch, layers); qwen2-moe at its one-card f32 training depth (phase_moe's),
+# minicpm3 (latent attention) cut to 2 layers
+TP_FAMILIES = {"moe": ("qwen2-moe-a2.7b", 4), "mla": ("minicpm3-4b", 2)}
 
 
-def _tp_moe_arch(torch):
-    """qwen2-moe-a2.7b's full width in f32 at TP_MOE_LAYERS layers, as an
-    ``Arch`` that ``build_train`` takes."""
+def _tp_family_arch(torch, name, layers):
+    """``name``'s full width in f32 at ``layers`` layers, as an ``Arch``
+    that ``build_train`` takes."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.models.transformer import TransformerLM
 
-    arch = configs.get(QWEN2MOE)
-    cfg = dataclasses.replace(_meta_model(torch, QWEN2MOE, torch.float32).cfg,
-                              n_layers=TP_MOE_LAYERS)
+    arch = configs.get(name)
+    cfg = dataclasses.replace(_meta_model(torch, name, torch.float32).cfg, n_layers=layers)
 
     def make_model(dtype=torch.float32, device=None):
         return TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=device)
@@ -3384,17 +3391,16 @@ def _tp_moe_arch(torch):
     return dataclasses.replace(arch, make_model=make_model)
 
 
-def _tp_moe_one_process(torch, api, seed, mesh, rank):
-    """qwen2-moe's one-process step 1 at TP_MOE_LAYERS layers from
-    ``seed`` (its loss, its FLOPs by product) and its parameters after 2
-    steps, as a session trains them: ``rank``'s piece of each leaf of the
-    gradients and of the parameters, as the rules split it on the (1, 2)
-    ``mesh``, on the host."""
+def _tp_family_one_process(torch, api, seed, mesh, rank, arch):
+    """``arch``'s one-process step 1 from ``seed`` (its loss, its FLOPs by
+    product) and its parameters after 2 steps, as a session trains them:
+    ``rank``'s piece of each leaf of the gradients and of the parameters,
+    as the rules split it on the (1, 2) ``mesh``, on the host."""
     from repro_torch.data import tokens
     from repro_torch.utils import flop_cost, prng
 
     stamps = [time.perf_counter()]
-    model = _tp_moe_arch(torch).make_model(torch.float32, device=DEVICE)
+    model = arch.make_model(torch.float32, device=DEVICE)
     session = api.build_session(arch=model, algo="dfa", hardware="offchip_bpd", backend="cuda",
                                 seed=seed, data_parallel=False, log_every=10**9, device=DEVICE)
     state = session.init_state()
@@ -3460,23 +3466,29 @@ def _pieces_rel(torch, tree, one) -> dict:
     return {k: both[0, i].item() / max(both[1, i].item(), 1e-30) for i, k in enumerate(keys)}
 
 
-def _tp_moe_rank(torch, api, pm, rank, seed):
-    """qwen2-moe's step on the (1, 2) mesh at full width as the port runs it
-    (its experts expert parallel, its attention column-parallel): first the
-    one process's step on each rank in turn (the other waits), which keeps
-    that rank's piece of its gradients and of its parameters after 2 steps
-    on the host; then this rank's share: its pieces' resident expert bytes,
-    step 1's gradients counted by ``step_cost`` (its FLOPs by product and
-    collective bytes) beside the operand bytes the collectives were handed,
-    the update, step 2 timed.  Each leaf of step 1's gradients and of the
-    parameters after 2 steps is held to the one process's (``_pieces_rel``:
-    the ranks' pieces against the one process's, with no leaf gathered)."""
+def _tp_family_rank(torch, api, pm, rank, seed, tag):
+    """``TP_FAMILIES[tag]``'s step on the (1, 2) mesh at full width as the
+    port runs it (qwen2-moe: the experts expert parallel, the attention
+    and the shared experts column-parallel, the router whole; minicpm3: the
+    latent attention's q_down, kv_down, heads and ``o`` and the FFN
+    column-parallel): first the one process's step on each rank in turn
+    (the other waits), which keeps that rank's piece of its gradients and
+    of its parameters after 2 steps on the host; then this rank's share:
+    its pieces' resident expert bytes, step 1's gradients counted by
+    ``step_cost`` (its FLOPs by product and collective bytes) beside the
+    operand bytes the collectives were handed, the parts the model reports
+    whole, the update, step 2 timed.  Each leaf of step 1's gradients and
+    of the parameters after 2 steps is held to the one process's
+    (``_pieces_rel``: the ranks' pieces against the one process's, with no
+    leaf gathered).  -> the results, keyed ``{tag}_...``."""
     import torch.distributed as dist
 
     from repro_torch.data import tokens
+    from repro_torch.dist import sharding
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.utils import flop_cost, prng
 
+    name, layers = TP_FAMILIES[tag]
     gc.collect()
     torch.cuda.empty_cache()
     # the full-width MoE step's tensors come in many sizes: grow segments
@@ -3486,16 +3498,17 @@ def _tp_moe_rank(torch, api, pm, rank, seed):
     t0 = time.perf_counter()
     mesh = mesh_lib.make_host_mesh(TP_MESH[0] * TP_MESH[1], model_axis=TP_MESH[1],
                                    device_type="cuda")
+    arch = _tp_family_arch(torch, name, layers)
     one = None
     for r in range(TP_MESH[1]):
         if r == rank:
-            one = _tp_moe_one_process(torch, api, seed, mesh, rank)
+            one = _tp_family_one_process(torch, api, seed, mesh, rank, arch)
         dist.barrier()
     t1 = time.perf_counter()
     stamps = [t1]
     torch.cuda.reset_peak_memory_stats()
-    arch = _tp_moe_arch(torch)
-    gen = tokens.MarkovTokens(MOE_FULL[QWEN2MOE][-1], LM_SEQ, LM_BATCH, seed)
+    vocab = _meta_model(torch, name, torch.float32).cfg.vocab_size
+    gen = tokens.MarkovTokens(vocab, LM_SEQ, LM_BATCH, seed)
     fn, (p, fb, o, b0, _), extra = _fsdp_build(torch, mesh, seed, gen.batch(0), arch=arch)
     vg, opt = extra["value_and_grad"], extra["trainer"].cfg.optimizer
     experts = [k for k in p if ".experts." in k]
@@ -3505,6 +3518,8 @@ def _tp_moe_rank(torch, api, pm, rank, seed):
     resident = [sum(x.to_local().numel() * x.element_size() for x in tree.values())
                 for tree in (p, o["mom"])]
     full_bytes = sum(x.numel() * x.element_size() for x in p.values())
+    with sharding.use_mesh(mesh):
+        kept = extra["model"].column_fallbacks(p)
     key0, key1 = prng.step_key(seed, 0, "noise"), prng.step_key(seed, 1, "noise")
     log = []
     sync(torch)
@@ -3541,122 +3556,138 @@ def _tp_moe_rank(torch, api, pm, rank, seed):
     stamps.append(time.perf_counter())
     params2_rel = _pieces_rel(torch, p2, one.pop("params2"))
     stamps.append(time.perf_counter())
-    out = {"moe_loss1": loss1.item(), "moe_loss2": loss2.to_local().item(),
-           "moe_expert_bytes": expert_bytes, "moe_local_experts": local_experts,
-           "moe_resident": resident, "moe_full_bytes": full_bytes,
-           "moe_launches": launches, "moe_step2_ms": e0.elapsed_time(e1),
-           "moe_regions": dict(cost.region_flops), "moe_flops": cost.flops,
-           "moe_regions_one": one["regions"], "moe_flops_one": one["flops"],
-           "moe_loss1_one": one["loss1"], "moe_one_stages": one["stages"],
-           "moe_grad_rel": grad_rel, "moe_params2_rel": params2_rel,
-           "moe_cost": {"counted": dict(cost.coll_bytes_by_kind),
-                        "count": dict(cost.coll_count_by_kind), "seen": seen},
-           "moe_peak_gib": peak / 2**30, "moe_one_s": t1 - t0,
-           "moe_stages": dict(zip(("build", "step 1 counted", "gradients held",
-                                   "update and step 2", "parameters held"),
-                                  (b - a for a, b in zip(stamps, stamps[1:]))))}
+    out = {"loss1": loss1.item(), "loss2": loss2.to_local().item(),
+           "expert_bytes": expert_bytes, "local_experts": local_experts,
+           "resident": resident, "full_bytes": full_bytes, "kept": kept,
+           "launches": launches, "step2_ms": e0.elapsed_time(e1),
+           "regions": dict(cost.region_flops), "flops": cost.flops,
+           "regions_one": one["regions"], "flops_one": one["flops"],
+           "loss1_one": one["loss1"], "one_stages": one["stages"],
+           "grad_rel": grad_rel, "params2_rel": params2_rel,
+           "cost": {"counted": dict(cost.coll_bytes_by_kind),
+                    "count": dict(cost.coll_count_by_kind), "seen": seen},
+           "peak_gib": peak / 2**30, "one_s": t1 - t0,
+           "stages": dict(zip(("build", "step 1 counted", "gradients held",
+                               "update and step 2", "parameters held"),
+                              (b - a for a, b in zip(stamps, stamps[1:]))))}
     del fn, p2, fb, extra, b0, b1
     gc.collect()
     torch.cuda.empty_cache()
-    out["moe_seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t1
     dist.barrier()
-    return out
+    return {f"{tag}_{k}": v for k, v in out.items()}
 
 
-def _moe_worst(rel: dict, experts: bool) -> tuple[float, str]:
+def _tp_worst(rel: dict, experts: bool) -> tuple[float, str]:
     """(the largest distance of ``rel``'s expert leaves, or of its other
     leaves, that leaf)."""
-    return max((v, k) for k, v in rel.items() if (".experts." in k) == experts)
+    return max(((v, k) for k, v in rel.items() if (".experts." in k) == experts),
+               default=(0.0, "none"))
 
 
-def _tp_moe_report(r0, r1) -> dict:
-    """Print and check qwen2-moe's tensor-parallel steps against one
-    process -> the summary for the ``data_parallel`` line's ``tp`` block."""
+def _tp_family_report(r0, r1, tag) -> dict:
+    """Print and check ``TP_FAMILIES[tag]``'s tensor-parallel steps against
+    one process -> the summary for the ``data_parallel`` line's ``tp``
+    block."""
+    name, layers = TP_FAMILIES[tag]
+    r0 = {k[len(tag) + 1:]: v for k, v in r0.items() if k.startswith(f"{tag}_")}
+    r1 = {k[len(tag) + 1:]: v for k, v in r1.items() if k.startswith(f"{tag}_")}
     ranks = ((0, r0), (1, r1))
     gb = 1e9
     m = TP_MESH[1]
-    print(f"[tp] qwen2-moe-a2.7b at full width (60 experts, d_ff_expert 1408, vocabulary "
-          f"151936), {TP_MOE_LAYERS} of 24 layers, f32, offchip_bpd (cuda), batch {LM_BATCH} x "
-          f"seq {LM_SEQ}, on the {TP_MESH} mesh as the port runs it (the experts expert "
-          f"parallel, the attention column-parallel): each rank holds "
-          f"{r0['moe_local_experts']} / {r1['moe_local_experts']} experts a stack; the ranks' "
-          f"part {r0['moe_seconds']:.1f} / {r1['moe_seconds']:.1f}s after the one process's "
-          f"on each rank in turn, {r0['moe_one_s']:.1f}s; peak device memory "
-          f"{r0['moe_peak_gib']:.2f} / {r1['moe_peak_gib']:.2f} GiB a rank; seconds by stage, "
-          f"rank 0: " + ", ".join(f"{k} {v:.1f}" for k, v in r0["moe_stages"].items())
+    moe = bool(r0["local_experts"])
+    full_layers = (MOE_FULL.get(name) or DENSE_FULL[name])[0]
+    print(f"[tp] {name} at full width, {layers} of {full_layers} layers, f32, offchip_bpd "
+          f"(cuda), batch {LM_BATCH} x seq {LM_SEQ}, on the {TP_MESH} mesh as the port runs it"
+          + (f" (the experts expert parallel: each rank holds {r0['local_experts']} / "
+             f"{r1['local_experts']} experts a stack; the attention and the shared experts "
+             f"column-parallel, the router whole)" if moe else
+             " (the latent attention's q_down, kv_down, q_up, k_up, v_up and o and the FFN "
+             "column-parallel)")
+          + f"; the ranks' part {r0['seconds']:.1f} / {r1['seconds']:.1f}s after the one "
+          f"process's on each rank in turn, {r0['one_s']:.1f}s; peak device memory "
+          f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB a rank; seconds by stage, "
+          f"rank 0: " + ", ".join(f"{k} {v:.1f}" for k, v in r0["stages"].items())
           + "; its one process: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in r0["moe_one_stages"].items()))
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["one_stages"].items()))
+    print(f"[tp] {name}: kept on gathered weights in training, the parts the model reports on "
+          f"this mesh: {r0['kept'] or 'none'} (the head: TransformerLM.head_logits)")
     for r, res in ranks:
-        mine, whole = res["moe_expert_bytes"]
-        par, mom = res["moe_resident"]
-        print(f"[tp] rank {r} resident expert weights {mine / gb:.4f} GB against the replicated "
-              f"{whole / gb:.4f} GB ({mine / whole:.4f} of it); all its parameters {par / gb:.4f}"
-              f" GB + momentum {mom / gb:.4f} GB against 2 x {res['moe_full_bytes'] / gb:.4f} GB "
-              f"({(par + mom) / (2 * res['moe_full_bytes']):.4f}); bank launches "
-              f"{res['moe_launches']} (step 1's gradients, step 2); step 2 "
-              f"{res['moe_step2_ms']:.2f} ms (CUDA events, gloo collectives staged through host "
+        mine, whole = res["expert_bytes"]
+        par, mom = res["resident"]
+        print(f"[tp] {name} rank {r}"
+              + (f" resident expert weights {mine / gb:.4f} GB against the replicated "
+                 f"{whole / gb:.4f} GB ({mine / whole:.4f} of it);" if moe else "")
+              + f" all its parameters {par / gb:.4f} GB + momentum {mom / gb:.4f} GB against 2 "
+              f"x {res['full_bytes'] / gb:.4f} GB ({(par + mom) / (2 * res['full_bytes']):.4f});"
+              f" bank launches {res['launches']} (step 1's gradients, step 2); step 2 "
+              f"{res['step2_ms']:.2f} ms (CUDA events, gloo collectives staged through host "
               f"memory)")
     for r, res in ranks:
-        counted, seen = res["moe_cost"]["counted"], res["moe_cost"]["seen"]
-        mine, one = res["moe_regions"], res["moe_regions_one"]
-        print(f"[tp] rank {r} step_cost of step 1's gradients: "
+        counted, seen = res["cost"]["counted"], res["cost"]["seen"]
+        mine, one = res["regions"], res["regions_one"]
+        print(f"[tp] {name} rank {r} step_cost of step 1's gradients: "
               + ", ".join(f"{k} {counted.get(k, 0) / gb:.6f} GB in "
-                          f"{res['moe_cost']['count'].get(k, 0)} (handed to torch.distributed "
+                          f"{res['cost']['count'].get(k, 0)} (handed to torch.distributed "
                           f"{seen.get(k, 0) / gb:.6f})" for k in sorted(set(counted) | set(seen)))
               + "; TFLOP by product, the rank / one process: "
               + ", ".join(f"{n} {mine.get(n, 0) / 1e12:.6f} / {f / 1e12:.6f}"
                           for n, f in sorted(one.items()))
-              + f" (the step's {res['moe_flops'] / 1e12:.4f} against one process's "
-              f"{res['moe_flops_one'] / 1e12:.4f})")
-    grad, par2 = max((v, k) for k, v in r0["moe_grad_rel"].items()), \
-        max((v, k) for k, v in r0["moe_params2_rel"].items())
-    parts = {name: (_moe_worst(r0["moe_grad_rel"], e), _moe_worst(r0["moe_params2_rel"], e))
-             for name, e in (("experts", True), ("the other leaves", False))}
-    equal = [sum(v == 0.0 for v in r0[k].values()) for k in ("moe_grad_rel", "moe_params2_rel")]
-    print(f"[tp] qwen2-moe step 1: loss {r0['moe_loss1']:.6f} (rank 1 {r1['moe_loss1']:.6f}) vs "
-          f"one process {r0['moe_loss1_one']:.6f}; gradients max rel {grad[0]:.3e} ({grad[1]}) "
+              + f" (the step's {res['flops'] / 1e12:.4f} against one process's "
+              f"{res['flops_one'] / 1e12:.4f})")
+    grad, par2 = max((v, k) for k, v in r0["grad_rel"].items()), \
+        max((v, k) for k, v in r0["params2_rel"].items())
+    parts = ({name: (_tp_worst(r0["grad_rel"], e), _tp_worst(r0["params2_rel"], e))
+              for name, e in (("experts", True), ("the other leaves", False))} if moe else {})
+    equal = [sum(v == 0.0 for v in r0[k].values()) for k in ("grad_rel", "params2_rel")]
+    print(f"[tp] {name} step 1: loss {r0['loss1']:.6f} (rank 1 {r1['loss1']:.6f}) vs "
+          f"one process {r0['loss1_one']:.6f}; gradients max rel {grad[0]:.3e} ({grad[1]}) "
           f"= {grad[0] / DP_TOL:.3f} of the 1e-5 gate; parameters after 2 steps {par2[0]:.3e} "
-          f"({par2[1]}) = {par2[0] / DP_TOL:.3f}; by kind, gradients / parameters: "
-          + "; ".join(f"{name} {g[0]:.3e} ({g[1]}) / {p[0]:.3e} ({p[1]})"
-                      for name, (g, p) in parts.items())
-          + f" (each rank's piece of each of the {len(r0['moe_grad_rel'])} leaves against the "
+          f"({par2[1]}) = {par2[0] / DP_TOL:.3f}"
+          + ("; by kind, gradients / parameters: "
+             + "; ".join(f"{n} {g[0]:.3e} ({g[1]}) / {p[0]:.3e} ({p[1]})"
+                         for n, (g, p) in parts.items()) if parts else "")
+          + f" (each rank's piece of each of the {len(r0['grad_rel'])} leaves against the "
           f"one process's piece, in f64 on the card; leaves equal bit for bit: {equal[0]} "
           f"gradients, {equal[1]} parameters)")
     for r, res in ranks:
-        mine, whole = res["moe_expert_bytes"]
-        counted, seen = res["moe_cost"]["counted"], res["moe_cost"]["seen"]
-        regions, one = res["moe_regions"], res["moe_regions_one"]
-        halved = [n for n in one if n == "experts" or n.startswith("attn.")]
-        check(res["moe_local_experts"] == [60 // m] and mine * m == whole,
-              f"rank {r} holds {res['moe_local_experts']} experts, {mine} of {whole} B")
-        check(res["moe_launches"] == [TP_MOE_LAUNCHES] * 2,
-              f"rank {r}: tensor-parallel bank launches {res['moe_launches']}")
+        mine, whole = res["expert_bytes"]
+        counted, seen = res["cost"]["counted"], res["cost"]["seen"]
+        regions, one = res["regions"], res["regions_one"]
+        # every product the blocks split runs on the rank's rows (the experts
+        # on its E/m); the head, which training keeps gathered, and the
+        # router whole
+        whole_products = ("head", "router")
+        halved = [n for n in one if n not in whole_products]
+        if moe:
+            check(res["local_experts"] == [60 // m] and mine * m == whole,
+                  f"rank {r} holds {res['local_experts']} experts, {mine} of {whole} B")
+        check(res["launches"] == [layers + 1] * 2,
+              f"{name} rank {r}: tensor-parallel bank launches {res['launches']}")
         check(counted == seen and counted.get("all-gather", 0) > 0,
-              f"rank {r}: step_cost's collectives {counted} against the calls' {seen}")
-        check(len(halved) == 5 and all(regions.get(n, 0) > 0 and regions[n] * m == one[n]
-                                       for n in halved),
-              f"rank {r}: the experts' and the attention's FLOPs {regions} against 1/{m} of "
-              f"{one}")
-    check(r0["moe_loss1"] == r1["moe_loss1"] and r0["moe_loss2"] == r1["moe_loss2"]
-          and abs(r0["moe_loss1"] - r0["moe_loss1_one"]) <= DP_TOL * abs(r0["moe_loss1_one"]),
-          "the tensor-parallel step 1's loss differs from one process")
-    check(r0["moe_grad_rel"] == r1["moe_grad_rel"]
-          and r0["moe_params2_rel"] == r1["moe_params2_rel"],
-          "the ranks' distances from one process differ")
-    check(grad[0] <= DP_TOL, f"qwen2-moe's tensor-parallel gradients {grad}")
-    check(par2[0] <= DP_TOL, f"qwen2-moe's tensor-parallel parameters after 2 steps {par2}")
-    return {"arch": QWEN2MOE, "layers": TP_MOE_LAYERS, "loss1": r0["moe_loss1"],
-            "grad_err": grad, "params2_err": par2,
-            "by_kind": {name: {"grad_err": g, "params2_err": p}
-                        for name, (g, p) in parts.items()},
+              f"{name} rank {r}: step_cost's collectives {counted} against the calls' {seen}")
+        check(len(halved) == (8 if moe else 9)
+              and all(regions.get(n, 0) > 0 and regions[n] * m == one[n] for n in halved)
+              and all(regions.get(n) == one.get(n) for n in whole_products),
+              f"{name} rank {r}: the split products' FLOPs {regions} against 1/{m} of {one}")
+    check(r0["loss1"] == r1["loss1"] and r0["loss2"] == r1["loss2"]
+          and abs(r0["loss1"] - r0["loss1_one"]) <= DP_TOL * abs(r0["loss1_one"]),
+          f"{name}: the tensor-parallel step 1's loss differs from one process")
+    check(r0["grad_rel"] == r1["grad_rel"] and r0["params2_rel"] == r1["params2_rel"],
+          f"{name}: the ranks' distances from one process differ")
+    check(grad[0] <= DP_TOL, f"{name}'s tensor-parallel gradients {grad}")
+    check(par2[0] <= DP_TOL, f"{name}'s tensor-parallel parameters after 2 steps {par2}")
+    return {"arch": name, "layers": layers, "loss1": r0["loss1"],
+            "grad_err": grad, "params2_err": par2, "kept": r0["kept"],
+            "by_kind": {n: {"grad_err": g, "params2_err": p} for n, (g, p) in parts.items()},
             "bit_for_bit_leaves": equal,
-            "expert_bytes": [r0["moe_expert_bytes"], r1["moe_expert_bytes"]],
-            "flops": [r0["moe_regions"], r1["moe_regions"]],
-            "flops_one": r0["moe_regions_one"],
-            "collective_bytes": [r0["moe_cost"]["counted"], r1["moe_cost"]["counted"]],
-            "collective_bytes_seen": [r0["moe_cost"]["seen"], r1["moe_cost"]["seen"]],
-            "step2_ms": [r0["moe_step2_ms"], r1["moe_step2_ms"]],
-            "bank_launches": sum(r0["moe_launches"])}
+            "expert_bytes": [r0["expert_bytes"], r1["expert_bytes"]],
+            "flops": [r0["regions"], r1["regions"]],
+            "flops_one": r0["regions_one"],
+            "collective_bytes": [r0["cost"]["counted"], r1["cost"]["counted"]],
+            "collective_bytes_seen": [r0["cost"]["seen"], r1["cost"]["seen"]],
+            "step2_ms": [r0["step2_ms"], r1["step2_ms"]],
+            "bank_launches": sum(r0["launches"])}
 
 
 def _tp_report(torch, pm, r0, r1, card) -> dict:
@@ -4063,10 +4094,13 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
     against one process's, the head kept on its gathered weight (named with
     its split's distance from ``tools/tp_split_ablation.py``), 9 bank
     launches a rank a step, ``step_cost`` = the collectives' bytes), all at
-    DP_LAYERS layers; and qwen2-moe at full width and TP_MOE_LAYERS layers
-    as the port runs it on (1, 2) (the experts expert parallel, the
-    attention column-parallel), each leaf of step 1's gradients and of the
-    parameters after 2 steps within 1e-5 of one process's."""
+    DP_LAYERS layers; and ``TP_FAMILIES``, qwen2-moe at full width and 4
+    layers (the experts expert parallel, the attention and the shared
+    experts column-parallel, the router whole) and minicpm3 at full width and 2 layers
+    (the latent attention and the FFN column-parallel), as the port runs
+    them on (1, 2), each leaf of step 1's gradients and of the parameters
+    after 2 steps within 1e-5 of one process's, every split product's
+    FLOPs a rank half of one process's, the kept parts printed."""
     t0 = time.perf_counter()
     print(f"[dp] card: {card}; torch {torch.__version__}")
     out = {"world1": _dp_world_one(torch, api, pm, seed)}
@@ -4145,7 +4179,8 @@ def phase_data_parallel(torch, np, api, pm, em, seed, card):
           and hw_same, "the emu MLP's two-rank step differs from one process")
     out["fsdp"] = _fsdp_report(np, r0, r1)
     out["tp"] = _tp_report(torch, pm, r0, r1, card)
-    out["tp"]["moe"] = _tp_moe_report(r0, r1)
+    out["tp"]["moe"] = _tp_family_report(r0, r1, "moe")
+    out["tp"]["mla"] = _tp_family_report(r0, r1, "mla")
     out["two_ranks"] = {k: r0[k] for k in ("loss1", "loss1_one", "grad_err", "params2_err",
                                             "emu_grad_err", "profiled")}
     out["two_ranks"].update({k: r1[k] for k in ("local_err", "params3_err", "loss3_one")})
@@ -5142,8 +5177,12 @@ FREE_GIB = 5.0  # device memory a training run must leave free
 # copies of the f32 parameters alive at a dfa step's update: the state's,
 # its momentum, the gradients, the new parameters and momentum (the
 # optimizer is functional, as the reference's), and the module's own copy,
-# which the reference does not hold (ROADMAP queue 3)
+# which the reference does not hold; a fit's module shares its state's
+# parameters (``Trainer._adopt``), so a fit's update holds FIT_COPIES.
+# The MoE and the batch-sized phases keep STATE_COPIES (their depths and
+# batches as recorded)
 STATE_COPIES = 6
+FIT_COPIES = 5
 
 
 def _dense_decode_shapes(model):
@@ -5308,9 +5347,9 @@ def _segment_params(model):
     return per_layer, rest
 
 
-def _dense_depth(torch, arch, steps_batch_rows, act=None):
+def _dense_depth(torch, arch, steps_batch_rows, act=None, copies=STATE_COPIES):
     """The depth at which ``arch``'s f32 dfa training leaves FREE_GIB of the
-    card free, reckoned from its parameter counts: STATE_COPIES f32 copies
+    card free, reckoned from its parameter counts: ``copies`` f32 copies
     of every parameter, plus the activations of ``steps_batch_rows`` rows
     (the DFA tape, logits, their softmax and gradient, one block's
     recompute), under the card's memory.  Full depth where it fits.  A
@@ -5327,11 +5366,12 @@ def _dense_depth(torch, arch, steps_batch_rows, act=None):
     if act is None:
         act = 4 * rows * (4 * cfg.v_padded + 16 * max(cfg.d_ff, cfg.d_model))
     total = torch.cuda.get_device_properties(0).total_memory
-    room = total - FREE_GIB * 2**30 - STATE_COPIES * 4 * rest - act
-    fit = int(room // (STATE_COPIES * 4 * per_layer + 4 * rows * cfg.d_model))
+    room = total - FREE_GIB * 2**30 - copies * 4 * rest - act
+    fit = int(room // (copies * 4 * per_layer + 4 * rows * cfg.d_model))
     depth = max(1, min(cfg.n_layers, fit))
-    need = STATE_COPIES * 4 * (rest + cfg.n_layers * per_layer) + act
+    need = copies * 4 * (rest + cfg.n_layers * per_layer) + act
     return depth, {"layers": cfg.n_layers, "params_per_layer": per_layer, "params_rest": rest,
+                   "copies": copies,
                    "reckoned_full_gib": need / 2**30, "card_gib": total / 2**30,
                    "act_gib": act / 2**30, "room_gib": room / 2**30}
 
@@ -5354,12 +5394,12 @@ def _dense_train(torch, api, pm, arch, seed, card, long_steps=False):
     kind, peaks = card_peaks(card)
     steps = DENSE_STEPS[arch]
     rows = LM_BATCH * LM_SEQ
-    depth, reckoning = _dense_depth(torch, arch, rows)
+    depth, reckoning = _dense_depth(torch, arch, rows, copies=FIT_COPIES)
     full_cfg = DENSE_FULL[arch]
     if depth < full_cfg[0]:
         print(f"[{tag}] depth cut: {depth} of {full_cfg[0]} layers at full width "
               f"({reckoning['reckoned_full_gib']:.1f} GiB reckoned at full depth: "
-              f"{STATE_COPIES} f32 copies of {reckoning['params_rest'] / 1e6:.1f} M + "
+              f"{FIT_COPIES} f32 copies (a fit's) of {reckoning['params_rest'] / 1e6:.1f} M + "
               f"{full_cfg[0]} x {reckoning['params_per_layer'] / 1e6:.2f} M parameters and the "
               f"activations, on a {reckoning['card_gib']:.1f} GiB card that must keep "
               f"{FREE_GIB:g} GiB free)")
@@ -5798,7 +5838,7 @@ def _moe_emu_serve(torch, np, api, em, seed, card, draws):
 def _moe_act_probe(torch, api, seed, rows):
     """The activations of qwen2-moe's f32 dfa step at full width, measured:
     the peak device memory of two fit steps of a 1-layer model above the
-    memory resident before it, less STATE_COPIES f32 copies of its
+    memory resident before it, less FIT_COPIES f32 copies of its
     parameters (at least 0).  What they hold (the logits, one block's
     recompute with its (rows, E, cap) routing tensors) does not grow with
     depth.  -> bytes."""
@@ -5824,11 +5864,11 @@ def _moe_act_probe(torch, api, seed, rows):
     del state, session, model
     gc.collect()
     torch.cuda.empty_cache()
-    act = max(0, peak - STATE_COPIES * 4 * n_params)
+    act = max(0, peak - FIT_COPIES * 4 * n_params)
     print(f"[moe_train] activations measured on a 1-layer model ({n_params / 1e9:.3f} B "
-          f"parameters, 2 f32 dfa steps at {rows} rows): peak {peak / 2**30:.2f} GiB above "
-          f"resident, less {STATE_COPIES} f32 copies of its parameters "
-          f"({STATE_COPIES * 4 * n_params / 2**30:.2f} GiB): {act / 2**30:.2f} GiB")
+          f"parameters, 2 f32 dfa fit steps at {rows} rows): peak {peak / 2**30:.2f} GiB above "
+          f"resident, less {FIT_COPIES} f32 copies of its parameters "
+          f"({FIT_COPIES * 4 * n_params / 2**30:.2f} GiB): {act / 2**30:.2f} GiB")
     return act
 
 
@@ -7397,28 +7437,46 @@ def _ss_split(torch, pm, mesh, arch, seed, rank):
     key = prng.fold(seed, "split", arch)
     serve = sd.make_serve_step(model, with_params=True)
 
-    def run(params, m):
+    def run(params, m, first=None):
         caches = {k: torch.as_tensor(v).to(DEVICE) for k, v in whole.items()}
         if m is not None:
             caches = sharding.place(caches, sd.cache_shardings(m, caches))
         pm.launches = 0
-        with torch.no_grad(), ph.forward_execution(hw, "cuda", key=key):
+        log = {"shapes": [], "first": first}
+        with torch.no_grad(), ph.forward_execution(hw, "cuda", key=key), \
+                _ss_launch_log(torch, log):
             nxt, logits, new = serve(params, _ss_placed(torch, m, "tok", tok), caches,
                                      _ss_placed(torch, m, "len", clen))
         sync(torch)
         return (logits.float().cpu(), {k: _ss_whole(v).float().cpu() for k, v in new.items()},
-                {k: sharding.model_dim(v) for k, v in caches.items()}, pm.launches)
+                {k: sharding.model_dim(v) for k, v in caches.items()}, pm.launches,
+                log["shapes"])
 
     plain = {k: v.detach() for k, v in model.named_parameters()}
     placed = sharding.place(plain, sharding.make_param_shardings(mesh, plain))
-    logits, caches, split, launches = run(placed, mesh)
-    res = {"split": split, "launches": launches}
+    first = {}
+    logits, caches, split, launches, shapes = run(placed, mesh, first)
+    res = {"split": split, "launches": launches, "shapes": shapes}
+    if arch == MINICPM3:
+        with sharding.use_mesh(mesh), sharding.serving_call():
+            res["kept"] = model.column_fallbacks(placed)
     del placed
+    seen = set()
     if rank == 0:
-        one_logits, one_caches, _, one_launches = run(plain, None)
+        one_logits, one_caches, _, one_launches, one_shapes = run(plain, None)
         res.update(logits=_max_rel(logits, one_logits), one_launches=one_launches,
-                   caches=max(float((caches[k] - one_caches[k]).abs().max()) for k in caches))
-    del model, plain
+                   caches=max(float((caches[k] - one_caches[k]).abs().max()) for k in caches),
+                   one_shapes=one_shapes)
+        seen = {tuple(x[:3]) for x in one_shapes}
+    # the first launch of each shape the one process does not launch
+    # against the kernel's plain version on its operands
+    res["new_shapes"] = []
+    for shape, (a, b, kw, out) in first.items():
+        if shape not in seen:
+            plain_out = pm.photonic_matmul_plain(a, b, **kw)
+            res["new_shapes"].append(
+                [*shape, ((out - plain_out).abs().max() / plain_out.abs().max()).item()])
+    del model, plain, first
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -7477,6 +7535,48 @@ def _ss_experts(torch, pm, seed):
                              "plan_30": pm._plan(t, m, k, dtype, ptrs, e=half).name})
     sync(torch)
     return rows
+
+
+# the share of one process's bank weight bytes a rank's launches read in
+# minicpm3-4b's split decode step at SS_SPLIT_LAYERS layers on (1, 2): half of
+# every weight but q_up's, which serving keeps whole (4 x 61,358,080 bank
+# weights a layer, 2,949,120 of them q_up's, and the 73448 x 2560 head)
+SS_MLA_SHARE = 0.5136
+SS_MLA_WHOLE = (768, 3840)  # (K, M) of q_up, served whole
+
+
+def _ss_mla_rows(r0, r1) -> dict:
+    """Print and check minicpm3's split decode launches on (1, 2): each on
+    the rank's M/2 rows of the one process's launch (q_up whole), the
+    weight bytes a rank reads against one process's, each new launch shape
+    against the kernel's plain version, and the parts the model reports
+    whole in a serving call."""
+    mine, one = r0["shapes"], r0["one_shapes"]
+    rows = [(t, k, m, x[2]) for (t, k, m, _), x in zip(mine, one)]
+    halves = len(mine) == len(one) and all(
+        (t, k) == tuple(x[:2]) and (m == x[2] if (k, x[2]) == SS_MLA_WHOLE else 2 * m == x[2])
+        for (t, k, m, _), x in zip(mine, one))
+    share = sum(x[3] for x in mine) / sum(x[3] for x in one)
+    new = r0["new_shapes"] + r1["new_shapes"]
+    worst_new = max((x[3] for x in new), default=0.0)
+    print(f"[shard_serve] {MINICPM3} on (1, 2): every launch (T, K, M rank / one process): "
+          + ", ".join(f"({t}, {k}, {m} / {w})" for t, k, m, w in rows[:8])
+          + f", ... ({len(rows)} launches); each on the rank's M/2 rows, q_up "
+          f"{SS_MLA_WHOLE} whole: {halves} (rank 1's the same: "
+          f"{[x[:3] for x in r1['shapes']] == [x[:3] for x in mine]}); the weight bytes a "
+          f"rank's launches read {share:.4f} of one process's (expected {SS_MLA_SHARE}); "
+          f"kept whole in a serving call: {r0['kept']}; the new shapes vs the kernel's plain "
+          f"version, (T, K, M) max rel: "
+          + ", ".join(f"({t}, {k}, {m}) {e:.3e}" for t, k, m, e in r0["new_shapes"])
+          + f" (rank 1's worst {max((x[3] for x in r1['new_shapes']), default=0.0):.3e})")
+    check(halves and [x[:3] for x in r1["shapes"]] == [x[:3] for x in mine]
+          and abs(share - SS_MLA_SHARE) <= 1e-3,
+          f"{MINICPM3}'s split launches: halves {halves}, weight bytes {share}")
+    check(set(r0["kept"]) == {"heads"}, f"{MINICPM3}'s serving parts kept whole {r0['kept']}")
+    check(r0["new_shapes"] and worst_new <= TOL["float32"],
+          f"a new {MINICPM3} launch shape differs from its plain version: {new}")
+    return {"rows": rows, "weight_bytes_share": share, "new_shapes": r0["new_shapes"],
+            "kept": r0["kept"]}
 
 
 def phase_shard_serve(torch, np_, api, pm, seed, card):
@@ -7558,6 +7658,8 @@ def phase_shard_serve(torch, np_, api, pm, seed, card):
         check(res["launches"] == res["one_launches"] > 0, f"{arch}'s launches {res}")
         out["split"][arch] = {k: res[k] for k in ("logits", "caches", "split", "launches")}
         launches += res["launches"]
+        if arch == MINICPM3:
+            out["split"][arch].update(_ss_mla_rows(res, r1["split"][arch]))
     rows = _ss_experts(torch, pm, seed)
     for row in rows:
         print(f"[shard_serve] qwen2-moe experts {row['dtype']} T={row['t']} ({row['k']} -> "

@@ -341,8 +341,8 @@ _WHOLE = object()  # a row window's suspension (``whole_rows``)
 @contextlib.contextmanager
 def whole_rows():
     """Suspend the row window within the block: its products run on whole
-    rows every rank of the group holds alike (serving's mixture of experts
-    on the all-gathered batch)."""
+    rows every rank of the group holds alike (a mixture of experts' summed
+    dispatch buffer under a photonic forward, ``nn/moe.py``)."""
     _WINDOW.append(_WHOLE)
     try:
         yield

@@ -180,15 +180,23 @@ SPLIT_READS: tuple = ("experts", "tok/table")
 
 # The column-parallel parts (``nn/linear.py``): each part's leaves, as
 # patterns of their reference paths within the tree a module gathers.  The
-# dense decoder block's q, k and v (on this rank's heads), its ``o``, its
-# gated FFN's gate and up, and its ``down``; the LM's head (vocabulary
-# split); an MLP's dense layer, whose subtree is its weight and bias.  A
-# caller names the parts it computes column-parallel (``unshard_fsdp``):
-# a training step the blocks', a sharded serving call the head's too.
+# decoder block's q, k and v (on this rank's heads), its ``o``, its gated
+# FFN's gate and up, and its ``down``; multi-head latent attention's q_down
+# and kv_down (``latent``) and q_up, k_up and v_up (``heads``, on this
+# rank's heads); a mixture of experts' shared experts (``shared``: gate and
+# up; ``shared_down``); the LM's head (vocabulary split); an MLP's dense
+# layer, whose subtree is its weight and bias.  No part's patterns match
+# another block part's leaf (``attn/q/`` is not in ``attn/q_up/``,
+# ``ffn/gate/`` not in ``ffn/shared/gate/``).  A caller names the parts it computes
+# column-parallel (``unshard_fsdp``): a training step the blocks', a
+# sharded serving call the head's too.
 COLUMN_SPLIT = types.MappingProxyType({
     "attn": ("attn/q/", "attn/k/", "attn/v/"), "o": ("attn/o/",),
-    "ffn": ("ffn/gate/", "ffn/up/"), "down": ("ffn/down/",), "head": ("out/",),
-    "layer": ("w", "b")})
+    "latent": ("attn/q_down/", "attn/kv_down/"),
+    "heads": ("attn/q_up/", "attn/k_up/", "attn/v_up/"),
+    "ffn": ("ffn/gate/", "ffn/up/"), "down": ("ffn/down/",),
+    "shared": ("ffn/shared/gate/", "ffn/shared/up/"), "shared_down": ("ffn/shared/down/",),
+    "head": ("out/",), "layer": ("w", "b")})
 
 
 def _part_of(ref: str, parts: dict | None) -> str | None:
@@ -654,6 +662,77 @@ class _SplitToModel(torch.autograd.Function):
         return _all_gather(g, ctx.dim, ctx.group, ctx.size), None, None, None, None
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def sum_over(x, group):
+    """The SUM of the ranks' ``x`` over ``group`` (an all-reduce), where
+    every rank's loss reads the sum: the backward all-reduces the ranks'
+    cotangents, so that the mean of the ranks' gradients (the trainer's)
+    is the sum's one gradient (a data-parallel step's global batch
+    statistic, ``nn/moe.py``)."""
+    return _SumOver.apply(x, group)
+
+
+def _reduce_scatter(x, dim: int, group, size: int):
+    """The SUM over ``group`` of the ranks' ``x``, this rank's 1/size of it
+    along ``dim`` in rank order (a reduce-scatter)."""
+    import torch.distributed as dist
+
+    flat = _pieces(x.contiguous(), dim, size).reshape(-1)
+    shape = list(x.shape)
+    shape[dim] //= size
+    mine = flat.new_empty(flat.numel() // size)
+    with collective("reduce-scatter", flat.numel() * flat.element_size()):
+        dist.reduce_scatter_tensor(mine, flat, op=dist.ReduceOp.SUM, group=group)
+    return mine.view(shape)
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        return _reduce_scatter(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.size), None, None, None
+
+
+class _GatherOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        return _all_gather(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group, ctx.size), None, None, None
+
+
+def scatter_sum(x, dim: int, group, size: int):
+    """This rank's 1/size along ``dim`` of the SUM of the ranks' ``x`` over
+    ``group`` (a reduce-scatter; the backward all-gathers): the data ranks'
+    partial buffers of a whole batch, each rank keeping its share
+    (``nn/moe.py``)."""
+    return _ScatterSum.apply(x, dim, group, size)
+
+
+def gather_over(x, dim: int, group, size: int):
+    """The ranks' pieces of ``group`` joined along ``dim`` (an all-gather),
+    where every rank's loss reads the whole: the backward reduce-scatters
+    the ranks' cotangents, as ``sum_over``'s all-reduces them."""
+    return _GatherOver.apply(x, dim, group, size)
+
+
 def copy_to_model(x):
     """Enter a split product with a tensor every model rank holds whole:
     identity; the backward sums the ranks' partial gradients (a SUM
@@ -957,12 +1036,6 @@ def max_over_model(x):
     with collective("all-reduce", out.numel() * out.element_size()):
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
-
-
-def gather_rows(x, group, size: int):
-    """The ranks' rows of ``group`` joined along dim 0 (an all-gather over
-    the batch axes; serving only)."""
-    return x if size == 1 else _all_gather(x, 0, group, size)
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,10 @@ reference's ``in_shardings``:
   (``dist.sharding``): every family, the ``emu`` backend and
   ``dfa-layerwise`` included; it splits the storage of the parameters and
   the momentum, the feedback projections, the experts' products (expert
-  parallel), and the dense blocks' and the head's products
-  (column-parallel, ``nn/linear.py``), so a rank counts 1/m of their FLOPs
+  parallel), and the decoder blocks' products (the dense, latent-attention
+  and mixture-of-experts blocks' parts, ``DecoderBlock.column_parts``) and
+  the serving head's (column-parallel, ``nn/linear.py``), so a rank counts
+  1/m of their FLOPs
   and the activations' all-gathers and partial-gradient all-reduces; the
   other families' products run on gathered weights (``ROADMAP.md``).
   Once the state is placed the module's own parameters are released

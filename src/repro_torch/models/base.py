@@ -210,6 +210,37 @@ class DFAModel(Module):
         ``params``."""
         return {k: v.detach().clone() for k, v in self.named_parameters()}
 
+    # whether the parameters share a state's storage (``adopt``)
+    _adopted: bool = False
+
+    def adopt(self, params: dict) -> None:
+        """Hold a plain state's ``params`` as the module's parameters,
+        sharing their storage: a fit keeps no copy of the parameters beside
+        its state's (the module serves what the fit trained).  A released
+        module (``release_parameters``) holds no copy and stays released."""
+        if next(self.parameters()).is_meta:
+            return
+        for k, p in self.named_parameters():
+            p.data = params[k]
+        self._adopted = True
+
+    def own_storage(self) -> None:
+        """Give the parameters storage of their own where they share a
+        state's (``adopt``): the writers that change them in place
+        (``init``, ``load_state_dict``) call it first, so the state keeps
+        its values."""
+        if self._adopted:
+            self.to_empty(device=self.device)
+            self._adopted = False
+
+    def init(self, seed: int) -> "DFAModel":
+        self.own_storage()
+        return super().init(seed)
+
+    def load_state_dict(self, *args, **kwargs):
+        self.own_storage()
+        return super().load_state_dict(*args, **kwargs)
+
     def release_parameters(self) -> None:
         """Drop the module's own parameter storage (moved to the meta
         device) once a sharded state holds the parameters: the training

@@ -25,17 +25,20 @@ region; serving is text-only, as the reference's.
 
 Under tensor parallelism (``dist.sharding``, a ``model`` axis above 1 in
 ``launch/dryrun.build_train``'s step and in a sharded serving call) the
-dense decoder block computes its products on its pieces: the FSDP gather
-leaves the parts the block names (``DecoderBlock.column_parts``) split, and
-the attention runs column-parallel on this rank's heads, the gated FFN on
-its columns of gate·up, ``o`` and ``down`` on their rows with their
-columns gathered (``nn/linear.py``), so the residual stream stays whole on
-every rank (``act_btd``).  A block whose kv heads do not divide over the
-axis keeps its attention on gathered weights (``column_fallbacks`` says
-which parts ran whole, and why); a block with multi-head latent attention
-keeps every product gathered, and a mixture of experts is expert parallel:
+decoder block computes its products on its pieces: the FSDP gather leaves
+the parts the block names (``DecoderBlock.column_parts``, joined from its
+attention's and its FFN's own) split, and the attention runs
+column-parallel on this rank's heads, the gated FFN on its columns of
+gate·up, ``o`` and ``down`` on their rows with their columns gathered
+(``nn/linear.py``), so the residual stream stays whole on every rank
+(``act_btd``).  Multi-head latent attention splits q_down and kv_down and,
+in training, its heads (``nn/attention.MLAttention``); a mixture of experts
+splits its shared experts, keeps its router whole, and is expert parallel:
 each rank runs its E/m experts on its slice of the dispatch buffer and the
-outputs are gathered (``nn/moe.py``).  In serving the head is
+outputs are gathered (``nn/moe.py``).  A part that would split in the middle of a
+head runs on gathered weights, and so does a leaf the divisibility
+fallback left whole (``column_fallbacks`` says which parts ran whole, and
+why).  In serving the head is
 vocabulary-split (``SERVING_HEAD``): each rank computes its V/m columns of
 the logits and the logits are gathered; a training step runs it on its
 gathered weight (``head_logits``).  Either way the logits are whole, so
@@ -55,7 +58,7 @@ from torch.func import functional_call
 
 from repro_torch.core import photonics
 from repro_torch.dist import sharding
-from repro_torch.dist.sharding import COLUMN_SPLIT, gather_rows
+from repro_torch.dist.sharding import COLUMN_SPLIT
 from repro_torch.models.base import (DFAModel, SavedSegment, SegmentSpec, ServingModel,
                                      cross_entropy_loss, gathered, new_tape, serving_params,
                                      subtree)
@@ -161,22 +164,17 @@ class DecoderBlock(Module):
     def column_parts(self) -> tuple[dict, dict]:
         """(the column-parallel parts of this block on the active mesh,
         name -> ``COLUMN_SPLIT`` patterns; the parts it keeps on gathered
-        weights, name -> why): the attention where its kv heads divide over
-        the model axis, and ``o``, and a dense FFN's; none under multi-head
-        latent attention."""
-        c = self.cfg
-        if c.mla is not None:
-            return {}, {}
+        weights, name -> why): the attention's and the FFN's, each module
+        naming its own for the model axis and the call (a sharded serving
+        call or a training step)."""
         size = sharding.model_index(sharding.current_mesh())[1]
-        names, kept = ["o"], {}
-        if c.n_kv_heads % size == 0:
-            names.append("attn")
-        else:
-            kept["attn"] = (f"{c.n_kv_heads} kv heads over {size} model ranks: a split in the "
-                            "middle of a head")
-        if c.moe is None:
-            names += ["ffn", "down"]
-        return {n: COLUMN_SPLIT[n] for n in names}, kept
+        serving = sharding.in_serving_call()
+        names, kept = [], {}
+        for module in (self.attn, self.ffn):
+            n, k = module.column_parts(size, serving)
+            names += n
+            kept.update(k)
+        return {n: COLUMN_SPLIT[n] for n in names}, (kept if size > 1 else {})
 
     def forward(self, x, positions):
         """-> (y, the weighted aux loss, or None for a dense FFN)."""
@@ -189,20 +187,12 @@ class DecoderBlock(Module):
         return x + h, c.moe.lb_weight * aux["lb_loss"] + c.moe.z_weight * aux["z_loss"]
 
     def _serve_ffn(self, h):
-        """The FFN's output alone: serving computes no aux terms.  A mixture
-        of experts on a batch split over the data axes (a serving row
-        window) routes the whole batch, as the reference's global routing
-        does: the rows are all-gathered, the layer runs on them outside the
-        window, and this rank keeps its rows."""
+        """The FFN's output alone: serving computes no aux terms (a mixture
+        of experts on a batch split over the data axes routes it as the
+        global batch, ``nn/moe.py``)."""
         if self.cfg.moe is None:
             return self.ffn(h)
-        window = photonics.active_window()
-        if window is None:
-            return self.ffn(h, with_aux=False)[0]
-        whole = gather_rows(h, window.group, window.total // window.count)
-        with photonics.whole_rows():
-            y = self.ffn(whole, with_aux=False)[0]
-        return y[window.start: window.start + window.count]
+        return self.ffn(h, with_aux=False)[0]
 
     def decode(self, x, cache, cache_len):
         h, cache = self.attn.decode(self.norm1(x), cache, cache_len)

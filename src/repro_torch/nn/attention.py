@@ -21,9 +21,10 @@ output dims over ``model``) the dense decoder block's ``Attention`` is
 column-parallel where its kv heads divide over the axis (the ``attn`` and
 ``o`` parts): q, k and v are this rank's heads (their rows of the
 weights), attention runs on them, the heads are gathered before ``o``, and
-``o``'s columns are gathered (``nn/linear.py``).  Elsewhere an attention
-runs on the whole weights the FSDP gather hands it and attends every head
-on every rank.  A serving step whose cache is split over ``model``
+``o``'s columns are gathered (``nn/linear.py``); ``MLAttention`` splits
+its latent projections and ``o``, and in training its heads.  Elsewhere an
+attention runs on the whole weights the FSDP gather hands it and attends
+every head on every rank.  A serving step whose cache is split over ``model``
 (``serve.decode.cache_shardings``) attends on this rank's piece of it
 (below); a column-parallel attention's heads are its kv-heads piece.
 
@@ -247,6 +248,16 @@ def _split_attention(q, k_cache, v_cache, mask, split, scale, logit_softcap):
     return _lse_combine(scores, mask, lambda p: torch.einsum("bhqk,bkhd->bqhd", p, v))
 
 
+def _split_together(layers, names: str, part: str) -> bool:
+    """Whether ``layers`` are column-parallel (this rank's heads): all or
+    none of them."""
+    split = {layer.split for layer in layers}
+    if len(split) > 1:
+        raise ValueError(f"{names} split over the model axis apart: they split together "
+                         f"(the {part} part) or not at all")
+    return split.pop()
+
+
 def _gathered_heads(out, split):
     """A heads-split attention's output (B, Sq, H', D) all-gathered along
     heads (itself otherwise)."""
@@ -306,11 +317,18 @@ class Attention(Module):
     @property
     def split(self) -> bool:
         """Whether q, k and v are column-parallel: this rank's heads."""
-        split = {self.q.split, self.k.split, self.v.split}
-        if len(split) > 1:
-            raise ValueError("q, k and v split over the model axis apart: they split together "
-                             "(the attn part) or not at all")
-        return split.pop()
+        return _split_together((self.q, self.k, self.v), "q, k and v", "attn")
+
+    def column_parts(self, size: int, serving: bool) -> tuple[list, dict]:
+        """(the ``COLUMN_SPLIT`` parts this attention computes
+        column-parallel on a model axis of ``size``, the parts it keeps
+        whole -> why): ``o``, and q, k and v (``attn``) where the kv heads
+        divide over the axis."""
+        del serving
+        if self.n_kv_heads % size == 0:
+            return ["o", "attn"], {}
+        return ["o"], {"attn": f"{self.n_kv_heads} kv heads over {size} model ranks: a split "
+                               "in the middle of a head"}
 
     def qkv(self, x, positions):
         """q (B, S, H, D), k and v (B, S, KVH, D): this rank's H/m and KVH/m
@@ -492,7 +510,14 @@ class MLAttention(Module):
     holds only ``{"c_kv", "k_rope"}``.  Decode and prefill take the
     absorbed form: q_nope folded through k_up, the output read back through
     v_up, both digital einsums on the weights (as in the reference), so a
-    token's bank products are q_down, q_up, kv_down and o."""
+    token's bank products are q_down, q_up, kv_down and o.
+
+    Under tensor parallelism (``column_parts``) q_down and kv_down
+    (``latent``) and ``o`` are column-parallel, their columns gathered
+    (``nn/linear.py``), so the latents are whole on every rank; in training
+    q_up, k_up and v_up (``heads``) give this rank's heads of q, k_nope and
+    v from the whole latents, the shared rotary key expands to those heads,
+    attention runs on them and the heads are gathered before ``o``."""
 
     def __init__(self, d_model: int, n_heads: int, q_lora_rank: int = 768,
                  kv_lora_rank: int = 256, qk_nope_dim: int = 64, qk_rope_dim: int = 32,
@@ -505,20 +530,42 @@ class MLAttention(Module):
         self.qk_rope_dim = qk_rope_dim
         self.v_head_dim = v_head_dim
         self.rope_theta = rope_theta
-        mk = lambda i, o: Linear(i, o, dtype=dtype, device=device)
+        mk = lambda i, o, n: Linear(i, o, dtype=dtype, device=device, region=f"attn.{n}")
         h = n_heads
-        self.q_down = mk(d_model, q_lora_rank)
+        self.q_down = mk(d_model, q_lora_rank, "q_down")
         self.q_norm_scale = empty_param((q_lora_rank,), dtype, device)
-        self.q_up = mk(q_lora_rank, h * self.qk_dim)
-        self.kv_down = mk(d_model, kv_lora_rank + qk_rope_dim)
+        self.q_up = mk(q_lora_rank, h * self.qk_dim, "q_up")
+        self.kv_down = mk(d_model, kv_lora_rank + qk_rope_dim, "kv_down")
         self.kv_norm_scale = empty_param((kv_lora_rank,), dtype, device)
-        self.k_up = mk(kv_lora_rank, h * qk_nope_dim)
-        self.v_up = mk(kv_lora_rank, h * v_head_dim)
-        self.o = mk(h * v_head_dim, d_model)
+        self.k_up = mk(kv_lora_rank, h * qk_nope_dim, "k_up")
+        self.v_up = mk(kv_lora_rank, h * v_head_dim, "v_up")
+        self.o = mk(h * v_head_dim, d_model, "o")
 
     @property
     def qk_dim(self) -> int:
         return self.qk_nope_dim + self.qk_rope_dim
+
+    @property
+    def split(self) -> bool:
+        """Whether q_up, k_up and v_up are column-parallel: this rank's
+        heads."""
+        return _split_together((self.q_up, self.k_up, self.v_up), "q_up, k_up and v_up",
+                               "heads")
+
+    def column_parts(self, size: int, serving: bool) -> tuple[list, dict]:
+        """(the ``COLUMN_SPLIT`` parts this attention computes
+        column-parallel on a model axis of ``size``, the parts it keeps
+        whole -> why): ``latent`` and ``o``, and in training ``heads``
+        where the heads divide over the axis.  A serving call keeps the
+        heads whole: its absorbed form reads k_up and v_up whole."""
+        parts = ["latent", "o"]
+        if serving:
+            return parts, {"heads": "the absorbed decode and prefill read k_up and v_up whole "
+                                    "(the latent cache has no head axis)"}
+        if self.n_heads % size:
+            return parts, {"heads": f"{self.n_heads} heads over {size} model ranks: a split in "
+                                    "the middle of a head"}
+        return parts + ["heads"], {}
 
     def init(self, seed: int):
         init_children(self, seed)
@@ -528,11 +575,15 @@ class MLAttention(Module):
         return self
 
     def _latents(self, x, positions):
-        """-> (q (B, S, H, qk_dim), c_kv (B, S, r), k_rope (B, S, rope))."""
+        """-> (q (B, S, H, qk_dim), c_kv (B, S, r), k_rope (B, S, rope)); q
+        on this rank's heads where they are column-parallel (q_up on the
+        whole normalised latent, which enters the split through
+        ``copy_to_model``)."""
         b, s, _ = x.shape
         r = self.kv_lora_rank
         ql = rms_normalize(self.q_down(x)) * self.q_norm_scale
-        q = self.q_up(ql).reshape(b, s, self.n_heads, self.qk_dim)
+        q = self.q_up.columns(sharding.copy_to_model(ql)) if self.split else self.q_up(ql)
+        q = q.reshape(b, s, -1, self.qk_dim)
         kv = self.kv_down(x)
         c_kv = rms_normalize(kv[..., :r]) * self.kv_norm_scale
         cos, sin = rotary_angles(positions, self.qk_rope_dim, self.rope_theta)
@@ -543,18 +594,27 @@ class MLAttention(Module):
 
     def forward(self, x, *, positions=None, q_chunk: int = 2048, k_chunk: int = 1024):
         b, s, _ = x.shape
-        h = self.n_heads
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         q, c_kv, k_rope = self._latents(x, positions)
-        k_nope = self.k_up(c_kv).reshape(b, s, h, self.qk_nope_dim)
-        v = self.v_up(c_kv).reshape(b, s, h, self.v_head_dim)
+        h = q.shape[2]  # this rank's heads
+        if self.split:  # the whole latents enter the split together
+            both = sharding.copy_to_model(torch.cat([c_kv, k_rope], dim=-1))
+            c_kv, k_rope = both.split([self.kv_lora_rank, self.qk_rope_dim], dim=-1)
+            k_nope, v = self.k_up.columns(c_kv), self.v_up.columns(c_kv)
+        else:
+            k_nope, v = self.k_up(c_kv), self.v_up(c_kv)
+        k_nope = k_nope.reshape(b, s, h, self.qk_nope_dim)
+        v = v.reshape(b, s, h, self.v_head_dim)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, self.qk_rope_dim)], dim=-1)
         # v_head_dim != qk_dim: pad V for the shared attention, slice after
         v = torch.nn.functional.pad(v, (0, self.qk_dim - self.v_head_dim))
         out = _self_attention(q, k, v, positions, 1.0 / math.sqrt(self.qk_dim), q_chunk,
                               k_chunk)
-        return self.o(out[..., :self.v_head_dim].reshape(b, s, h * self.v_head_dim))
+        out = out[..., :self.v_head_dim].reshape(b, s, h * self.v_head_dim)
+        if self.split:
+            out = sharding.gather_from_model(out, -1)
+        return self.o(out)
 
     # ---- decode path (absorbed form) ---------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None):
@@ -570,6 +630,9 @@ class MLAttention(Module):
         (H·n, r), so they are transposed first.  With the caches' sequence
         split over ``model`` (``split``) each rank attends its slots and
         the latent outputs take the log-sum-exp combine."""
+        if self.split:
+            raise ValueError("the absorbed form reads k_up and v_up whole: a serving call "
+                             "keeps the heads gathered (column_parts)")
         h, r = self.n_heads, self.kv_lora_rank
         q_nope, q_rope = q[..., :self.qk_nope_dim].float(), q[..., self.qk_nope_dim:].float()
         w_uk = self.k_up.weight.T.reshape(r, h, self.qk_nope_dim).float()

@@ -123,19 +123,32 @@ class GatedMLP(Module):
     """Gated FFN: down( act(gate(x)) * up(x) ), SwiGLU by default
     (``activation="silu"``; recurrentgemma's is ``"gelu"``, the tanh
     form).  With ``stack=E`` it is E FFNs on stacked weights, x (E, ...,
-    d_model) -> (E, ..., d_model).  Column-parallel gate and up (the
-    ``ffn`` part) give this rank's columns of gate·up, gathered before
-    ``down``."""
+    d_model) -> (E, ..., d_model).  Column-parallel gate and up give this
+    rank's columns of gate·up, gathered before ``down``.  ``region`` names
+    its products' regions (``{region}.gate``, ...), ``parts`` its
+    ``COLUMN_SPLIT`` parts (gate and up's, down's): a decoder block's FFN
+    ``ffn.*`` and ("ffn", "down"), a mixture of experts' shared experts
+    ``shared.*`` and ("shared", "shared_down")."""
 
     def __init__(self, d_model: int, d_ff: int, activation: str = "silu",
-                 dtype=torch.float32, device=None, stack: int | None = None):
+                 dtype=torch.float32, device=None, stack: int | None = None,
+                 region: str = "ffn", parts: tuple = ("ffn", "down")):
         super().__init__()
         self.activation = activation
+        self.parts = parts
         mk = lambda i, o, n: Linear(i, o, dtype=dtype, device=device, stack=stack,
-                                    region=None if stack else f"ffn.{n}")
+                                    region=None if stack else f"{region}.{n}")
         self.gate = mk(d_model, d_ff, "gate")
         self.up = mk(d_model, d_ff, "up")
         self.down = mk(d_ff, d_model, "down")
+
+    def column_parts(self, size: int, serving: bool) -> tuple[list, dict]:
+        """(the ``COLUMN_SPLIT`` parts this FFN computes column-parallel on
+        a model axis of ``size``, the parts it keeps whole -> why): gate and
+        up, and down; a leaf the divisibility fallback leaves whole runs
+        whole (``Linear.split``)."""
+        del size, serving
+        return list(self.parts), {}
 
     def forward(self, x):
         g, _ = activations.get(self.activation)

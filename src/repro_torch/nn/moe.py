@@ -23,17 +23,43 @@ Aux losses: the load-balancing loss (Switch) and the router z-loss, with
 the dropped fraction, returned for the trainer to weight.  Serving asks
 for none (``with_aux=False``) and the layer skips computing them.
 
+A batch split over data-parallel ranks (a row window: a training step's,
+or a sharded serving call's) is routed as the reference's global batch:
+each rank routes its own rows, but the capacity is the global group's and
+each (token, slot)'s position in its expert's queue counts the tokens of
+the ranks before it in the batch's order (``_ranks_before``: one
+all-reduce of the per-expert counts), so every token keeps or drops as in
+one process; the load-balancing loss reads the whole batch's means
+(``_batch_mean``).  The rank's dispatch fills only its tokens' slots of
+the whole (E, C, d) buffer; the ranks' buffers are summed over the data
+group (each slot comes from one rank: the sum is exact) and every rank
+runs the experts on its 1/n of the slots (a reduce-scatter along C, padded
+to a multiple of the ranks), the outputs all-gathered for each rank's
+combine.  The reference's placement (``expert_ecd``) holds the whole C on
+every data rank; splitting the slots does 1/n of its expert work a rank.
+Under a photonic forward the experts run on the whole summed buffer
+instead (``photonics.whole_rows``): their operand scales and noise are the
+whole buffer's, as one process's.
+
 Expert parallelism (``dist.sharding``): under a ``model`` axis the
 ``experts`` rule splits the stacked expert weights along E, so a rank
 holds E/m experts (the divisibility fallback leaves them whole where m
 does not divide E; the layer reads the split from its weights).  The
 routing, the capacity, the aux losses and the dispatch run whole and alike
-on every rank (the router's weight whole from the FSDP gather); each rank runs its experts
-on its slice of the whole (E, C, d) buffer, the reference's ``expert_ecd``
-placement, and the outputs are all-gathered along E in rank order.  The
-backward all-gathers the slices' input gradients, so the scatter back to
-the tokens runs on the whole (E, C, d) gradient, as in one process (a SUM
-all-reduce of partial token gradients would reorder the top-k sums).
+on every model rank; each rank runs its experts on its slice of the
+(E, C, d) buffer, the reference's ``expert_ecd`` placement, and the
+outputs are all-gathered along E in rank order.  The backward all-gathers
+the slices' input gradients, so the scatter back to the tokens runs on the
+whole (E, C, d) gradient, as in one process (a SUM all-reduce of partial
+token gradients would reorder the top-k sums).
+
+The shared experts split column-parallel, as the reference's GSPMD
+computes them (``column_parts``): a ``GatedMLP`` on its columns of gate·up
+(``nn/linear.py``), their products counted under ``shared.*``.  The router
+(a digital product, counted under ``router``) stays whole on every rank:
+a routing decision is discrete, and a narrower product's rounding (a GEMM
+picks its kernel by width) can flip a token's top k, which moves its whole
+expert output.
 """
 
 from __future__ import annotations
@@ -57,6 +83,37 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _data_split():
+    """The active row window where it splits the batch over data-parallel
+    ranks, else None."""
+    window = photonics.active_window()
+    return None if window is None or window.count == window.total else window
+
+
+def _ranks(window) -> int:
+    return 1 if window is None else window.total // window.count
+
+
+def _batch_mean(x, window):
+    """The mean of ``x`` (T, ...) over the tokens of the step's whole batch:
+    on a split batch the ranks' sums are all-reduced over the window's group
+    (``sharding.sum_over``), as the reference's global batch statistic."""
+    if window is None:
+        return x.mean(dim=0)
+    return sharding.sum_over(x.sum(dim=0), window.group) / (x.shape[0] * _ranks(window))
+
+
+def _ranks_before(counts, window):
+    """(E,) the slots the ranks before this one in the batch's order take
+    in each expert's queue: the exclusive prefix of the data group's
+    per-expert ``counts`` (one all-reduce of a (ranks, E) table; whole
+    numbers, exact in f32)."""
+    index = window.start // window.count
+    table = counts.new_zeros((_ranks(window), counts.shape[-1]))
+    table[index] = counts
+    return sharding.sum_over(table, window.group)[:index].sum(dim=0)
+
+
 def _one_hot(index, n: int):
     """``one_hot(index, n)`` in f32 from the shapes alone: eager
     ``torch.nn.functional.one_hot`` reads the indices' range back to the
@@ -76,11 +133,23 @@ class MoE(Module):
         self.d_model, self.n_experts, self.top_k = d_model, n_experts, top_k
         self.capacity_factor, self.norm_topk_prob = capacity_factor, norm_topk_prob
         self.group_size, self.dispatch = group_size, dispatch
-        self.router = Linear(d_model, n_experts, dtype=dtype, device=device)
+        self.router = Linear(d_model, n_experts, dtype=dtype, device=device, region="router")
         self.experts = GatedMLP(d_model, d_ff_expert, dtype=dtype, device=device,
                                 stack=n_experts)
         self.shared = (GatedMLP(d_model, (d_ff_shared or d_ff_expert) * n_shared_experts,
-                                dtype=dtype, device=device) if n_shared_experts else None)
+                                dtype=dtype, device=device, region="shared",
+                                parts=("shared", "shared_down"))
+                       if n_shared_experts else None)
+
+    def column_parts(self, size: int, serving: bool) -> tuple[list, dict]:
+        """(the ``COLUMN_SPLIT`` parts this layer computes column-parallel
+        on a model axis of ``size``, the parts it keeps whole -> why): the
+        shared experts'; the router runs whole (the module docstring).  The
+        stacked experts split along E by their own rule."""
+        parts, kept = ([], {}) if self.shared is None else self.shared.column_parts(size,
+                                                                                   serving)
+        return parts, {**kept, "router": "a routing decision is discrete: a narrower "
+                                         "product's rounding can flip a token's top k"}
 
     def capacity(self, t: int) -> int:
         """Slots per expert for a group of ``t`` tokens."""
@@ -90,8 +159,10 @@ class MoE(Module):
         """The routing prelude: (topv (T, K), topi (T, K), keep (T, K, E),
         pos (T, K), cap, aux); aux is None unless ``with_aux``."""
         t, e = x_flat.shape[0], self.n_experts
-        cap = self.capacity(t)
-        logits = (x_flat @ self.router.weight.T).float()  # (T, E)
+        window = _data_split()
+        cap = self.capacity(t * _ranks(window))  # the global group's
+        router = lambda x: x @ self.router.weight.T
+        logits = flop_cost.region(self.router.region, router, x_flat).float()  # (T, E)
         probs = torch.softmax(logits, dim=-1)
         topv, topi = top_k(probs, self.top_k)
         if self.norm_topk_prob:
@@ -100,13 +171,16 @@ class MoE(Module):
         # position in its expert's queue
         assign = _one_hot(topi, e)  # (T, K, E)
         flat = assign.reshape(t * self.top_k, e)
-        pos_in_expert = (torch.cumsum(flat, dim=0) - flat).reshape(t, self.top_k, e)
+        pos_in_expert = torch.cumsum(flat, dim=0) - flat
+        if window is not None:
+            pos_in_expert = pos_in_expert + _ranks_before(flat.sum(dim=0), window)
+        pos_in_expert = pos_in_expert.reshape(t, self.top_k, e)
         keep = (pos_in_expert < cap).float() * assign
         pos = torch.einsum("tke,tke->tk", pos_in_expert, keep).long()
         if not with_aux:
             return topv, topi, keep, pos, cap, None
-        me = probs.mean(dim=0)  # (E,)
-        ce = assign.sum(dim=1).mean(dim=0)  # the fraction routed to each expert
+        me = _batch_mean(probs, window)  # (E,)
+        ce = _batch_mean(assign.sum(dim=1), window)  # the fraction routed to each expert
         aux = {"lb_loss": e * torch.sum(me * ce),
                "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
                "dropped_frac": 1.0 - keep.sum() / (t * self.top_k)}
@@ -123,14 +197,27 @@ class MoE(Module):
     def _run_experts(self, expert_in):
         """The stacked experts on the (E, C, d) buffer -> (E, C, d).  Where
         this rank holds E/m of them, it runs them on its slice of the
-        buffer and the outputs are gathered along E."""
+        buffer and the outputs are gathered along E.  On a split batch
+        ``expert_in`` holds this rank's tokens' slots alone, and the ranks'
+        buffers are summed (the module docstring)."""
 
         def run(x):  # step_cost counts the expert products under "experts"
             return flop_cost.region("experts", self.experts, x)
 
-        if self.experts.gate.weight.shape[0] == self.n_experts:
-            return run(expert_in)
-        return sharding.gather_from_model(run(sharding.split_to_model(expert_in, 0)), 0)
+        local = self.experts.gate.weight.shape[0] != self.n_experts
+        x = sharding.split_to_model(expert_in, 0) if local else expert_in
+        window, ctx = _data_split(), photonics.active_forward()
+        if window is None:
+            y = run(x)
+        elif ctx is not None and ctx.cfg.enabled:
+            with photonics.whole_rows():
+                y = run(sharding.sum_over(x, window.group))
+        else:
+            n, c = _ranks(window), x.shape[1]
+            x = torch.nn.functional.pad(x, (0, 0, 0, -c % n))
+            mine = sharding.scatter_sum(x, 1, window.group, n)
+            y = sharding.gather_over(run(mine), 1, window.group, n)[:, :c]
+        return sharding.gather_from_model(y, 0) if local else y
 
     def _group_forward(self, x_flat, with_aux=True):
         """Route and compute one token group: x_flat (Tg, d) -> (y, aux)."""
@@ -171,11 +258,12 @@ class MoE(Module):
         """x (B, S, d) -> (y (B, S, d), aux), aux None unless ``with_aux``.
 
         Above ``group_size`` tokens the groups are cut along the sequence
-        axis, (B, chunk) tokens each, and the aux terms are their means."""
+        axis, (B, chunk) tokens each, and the aux terms are their means; on
+        a split batch B and the tokens are the global batch's."""
         b, s, d = x.shape
-        t = b * s
-        chunk = max(1, self.group_size // b)
-        if t <= self.group_size or s % chunk != 0:
+        t, ranks = b * s, _ranks(_data_split())
+        chunk = max(1, self.group_size // (b * ranks))
+        if t * ranks <= self.group_size or s % chunk != 0:
             y, aux = self._group_forward(x.reshape(t, d), with_aux)
         else:
             xg = x.reshape(b, s // chunk, chunk, d).transpose(0, 1)  # (G, B, chunk, d)

@@ -331,6 +331,7 @@ class Trainer:
     def _dispatch(self, state, batch):
         t0 = time.monotonic()
         state, metrics = self._step_fn(state, batch)
+        self._adopt(state)
         if self.cfg.step_deadline_s is not None:
             self._sync()
             dt = time.monotonic() - t0
@@ -436,6 +437,7 @@ class Trainer:
                 # probe rows need somewhere to land
                 observer = obs_lib.Observer()
         state, start = self.restore_or_init()
+        self._adopt(state)
         feed = self._make_feed(data_fn, total_steps)
         metrics = {}
         recal = self.cfg.recalibrate_every if self._hw_stateful else 0
@@ -488,6 +490,17 @@ class Trainer:
         if eval_fn is not None:
             return state, eval_fn(state)
         return state, metrics
+
+    def _adopt(self, state) -> None:
+        """The module holds the state's parameters, sharing their storage
+        (``DFAModel.adopt``; a fit's from its start, every step's after
+        it): an update holds five f32 copies of the parameters (the
+        parameters, their momentum, the gradients, the new parameters and
+        momentum), as the reference's functional update, not a sixth, the
+        module's own.  A sharded state's module is released instead
+        (``launch/dryrun``)."""
+        if not any(sharding.is_dtensor(v) for v in state["params"].values()):
+            self.model.adopt(state["params"])
 
     @staticmethod
     def _examples(batch) -> int:

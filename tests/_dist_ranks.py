@@ -1130,9 +1130,15 @@ def _dryrun(rank, world, cells):
 # the column-parallel split of the dense blocks' products
 # ---------------------------------------------------------------------------
 
-SPLIT_ARCHS = ("qwen1.5-0.5b", "qwen3-1.7b", "mnist_mlp")
+SPLIT_ARCHS = ("qwen1.5-0.5b", "qwen3-1.7b", "mnist_mlp", "minicpm3-4b", "qwen2-moe-a2.7b")
+SPLIT_MOE = "qwen2-moe-a2.7b"
 SPLIT_COST_MESHES = ("tp12", "tp14")  # the batch whole: no FSDP gather to count
 SPLIT_SERVE_MESHES = ("tp12", "tp14", "tp22")
+# the meshes that split the batch over the data axes: there the mixture of
+# experts routes the global batch (its capacity and queue positions), sums
+# the ranks' dispatch buffers and runs the experts on its share of the
+# slots (digital) or on the whole buffer (photonic, outside the row window)
+SPLIT_BATCH_MESHES = ("tp22", "tp212")
 SPLIT_ROWS = 200  # a split layer's rows: whole 50-row bank panels on m = 2 and 4
 
 
@@ -1154,6 +1160,32 @@ def column_calls(calls: list):
         yield calls
     finally:
         Linear.columns = columns
+
+
+@contextlib.contextmanager
+def bank_products(products: list):
+    """Each product a ``Linear`` hands the bank (``Linear.product``, its
+    one call of ``forward_matmul``) appended to ``products`` as (its
+    region, the rows it ran on, the whole weight's rows, whether its rows
+    were whole (no row window), the first column of its column window or
+    None)."""
+    from repro_torch.core import photonics
+    from repro_torch.nn.linear import Linear
+
+    product = Linear.product
+
+    def record(self, x, w):
+        columns = photonics.active_columns()
+        products.append((self.region, w.shape[-2], self.out_dim,
+                         photonics.active_window() is None,
+                         None if columns is None else columns.start))
+        return product(self, x, w)
+
+    Linear.product = record
+    try:
+        yield products
+    finally:
+        Linear.product = product
 
 
 def _split_layer(mesh, backend) -> dict:
@@ -1201,6 +1233,52 @@ def _serving_head_fallback(mesh, case) -> dict:
         return {"left_whole": sharding.left_whole(placed, parts), "rows": rows}
 
 
+def _fallback_models(mesh) -> dict:
+    """On ``mesh`` (a model axis of 4): the smoke minicpm3 with 2 heads (a
+    split of q_up, k_up and v_up in the middle of a head) and the smoke
+    qwen2-moe with 6 experts (its router's 6 rows and its stacked experts
+    do not split over 4: the divisibility fallback leaves them whole), each
+    placed by the rules -> its forward loss on its pieces and one
+    process's, the parts it reports whole (``column_fallbacks``) and the
+    products that ran split."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.models.transformer import TransformerLM
+
+    out = {}
+    for name, arch in (("mla", "minicpm3-4b"), ("router", SPLIT_MOE)):
+        cfg = configs.get(arch).make_smoke(device="meta").cfg
+        cfg = (dataclasses.replace(cfg, n_heads=2, n_kv_heads=2) if name == "mla" else
+               dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=6)))
+        model = TransformerLM(cfg, device="cpu").init(5)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        gen = torch.Generator().manual_seed(6)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        with torch.no_grad():
+            one = float(model.loss(params, batch)[0])
+            with sharding.use_mesh(mesh):
+                placed = sharding.place(params, sharding.make_param_shardings(mesh, params))
+                with column_calls([]) as calls:
+                    loss = float(model.loss(placed, batch)[0])
+                fallbacks = model.column_fallbacks(placed)
+        out[name] = {"loss": loss, "one": one, "calls": calls, "fallbacks": fallbacks}
+    return out
+
+
+def _serving_fallbacks(model, mesh) -> dict:
+    """The parts ``model`` reports whole in a sharded serving call on
+    ``mesh`` (``column_fallbacks`` inside ``sharding.serving_call``)."""
+    from repro_torch.dist import sharding
+
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    with sharding.use_mesh(mesh), sharding.serving_call():
+        return model.column_fallbacks(
+            sharding.place(params, sharding.make_param_shardings(mesh, params)))
+
+
 def _tp_split(rank, world, cases, serve):
     """The dense blocks' column-parallel products: each arch's sharded step
     (noise off and on) on every ``TP_MESHES`` mesh, with the products that
@@ -1212,8 +1290,9 @@ def _tp_split(rank, world, cases, serve):
     from repro_torch.dist import sharding
     from repro_torch.utils import flop_cost
 
-    out = {"grads": {}, "calls": {}, "fallbacks": {}, "flops": {}, "cost": {}, "layer": {},
-           "serve": {}, "prefill": {}}
+    out = {"grads": {}, "calls": {}, "bank": {}, "fallbacks": {}, "flops": {},
+           "cost": {}, "layer": {}, "serve": {}, "serve_products": {}, "serve_fallbacks": {},
+           "prefill": {}}
     for name in TP_MESHES:
         mesh = _tp_mesh(name)
         if rank >= mesh.mesh.numel():
@@ -1221,9 +1300,10 @@ def _tp_split(rank, world, cases, serve):
         for arch in SPLIT_ARCHS:
             for hardware in FSDP_HARDWARE:
                 _, args, extra = fsdp_step(arch, mesh, hardware, **cases[arch])
-                with column_calls([]) as calls:
+                with column_calls([]) as calls, bank_products([]) as products:
                     out["grads"][name, arch, hardware] = fsdp_grads(extra, args)
                 out["calls"][name, arch, hardware] = calls
+                out["bank"][name, arch, hardware] = products
             with sharding.use_mesh(mesh):
                 out["fallbacks"][name, arch] = extra["model"].column_fallbacks(args[0])
             if name not in SPLIT_COST_MESHES:
@@ -1242,21 +1322,28 @@ def _tp_split(rank, world, cases, serve):
             out["layer"][name] = {b: _split_layer(mesh, b) for b in ("ref", "emu")}
         if name == "tp14":
             out["head_fallback"] = _serving_head_fallback(mesh, cases["mnist_mlp"])
-        if name in SPLIT_SERVE_MESHES:
-            for arch, case in serve.items():
-                model = serve_model(arch, case["params"])
-                for hardware in (None, "offchip_bpd"):
-                    one = serve_run(model, None, case, hardware) if rank == 0 else None
-                    with column_calls([]) as calls:
-                        got = serve_run(model, mesh, case, hardware)
-                    out["serve"][name, arch, hardware] = (
-                        _serve_compare(got, one) if rank == 0 else None, calls,
-                        got if hardware is None and name == "tp22" else None)
-                one = _prefill_run(model, None, case) if rank == 0 else None
-                with column_calls([]) as calls:
-                    got = _prefill_run(model, mesh, case)
-                out["prefill"][name, arch] = (
-                    _rel(got, one) if rank == 0 else None, calls)
+            out["fallback_models"] = _fallback_models(mesh)
+        served = serve if name in SPLIT_SERVE_MESHES else (
+            {SPLIT_MOE: serve[SPLIT_MOE]} if name in SPLIT_BATCH_MESHES else {})
+        for arch, case in served.items():
+            model = serve_model(arch, case["params"])
+            out["serve_fallbacks"][name, arch] = _serving_fallbacks(model, mesh)
+            for hardware in (None, "offchip_bpd")[name not in SPLIT_SERVE_MESHES:]:
+                one = serve_run(model, None, case, hardware) if rank == 0 else None
+                with column_calls([]) as calls, bank_products([]) as products:
+                    got = serve_run(model, mesh, case, hardware)
+                out["serve"][name, arch, hardware] = (
+                    _serve_compare(got, one) if rank == 0 else None, calls,
+                    got if hardware is None and name == "tp22" else None)
+                if hardware is not None:
+                    out["serve_products"][name, arch] = products
+            if name not in SPLIT_SERVE_MESHES:
+                continue
+            one = _prefill_run(model, None, case) if rank == 0 else None
+            with column_calls([]) as calls:
+                got = _prefill_run(model, mesh, case)
+            out["prefill"][name, arch] = (
+                _rel(got, one) if rank == 0 else None, calls)
     return out
 
 

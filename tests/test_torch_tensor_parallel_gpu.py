@@ -16,7 +16,10 @@ a panel or past the slot counters raises.  The bank kernel in a column
 window at the sharded serving's shapes (a rank's half of qwen1.5's q / o,
 gate / up, down and head rows on (1, 2), T = 4 and 128, f32 and bf16,
 offchip_bpd in input mode) equal to the plain version in the same window
-and to the whole product's columns.  Marked ``gpu``: skipped where
+and to the whole product's columns; so too, in bf16 at T = 4 and 64, the
+MLA and MoE blocks' split products: minicpm3's q_down, kv_down, o, gate /
+up and down and qwen2-moe's shared experts on (1, 2), q_down and kv_down
+on 16 ranks.  Marked ``gpu``: skipped where
 there is no CUDA device; on the card run
 
     python -m pytest -m gpu tests/test_torch_tensor_parallel_gpu.py -q
@@ -164,3 +167,39 @@ def test_bank_kernel_in_a_column_window_equals_plain(cuda, k, m, t, dtype):
     torch.cuda.synchronize()
     for expect in (plain, whole):
         assert ((got - expect).abs().max() / expect.abs().max()).item() <= KERNEL_TOL[dtype]
+
+
+# (K, M, model ranks) of the MLA and MoE blocks' split products: minicpm3's
+# q_down, kv_down, o, gate / up and down, qwen2-moe's shared experts' gate /
+# up and down, on (1, 2); q_down and kv_down also at m = 16 (48 and 18 rows)
+SPLIT_PRODUCTS = ((2560, 768, 2), (2560, 288, 2), (2560, 2560, 2), (2560, 6400, 2),
+                  (6400, 2560, 2), (2048, 5632, 2), (5632, 2048, 2), (2560, 768, 16),
+                  (2560, 288, 16))
+
+
+@pytest.mark.parametrize("t", [4, 64])
+@pytest.mark.parametrize("k,m,ranks", SPLIT_PRODUCTS)
+def test_mla_and_moe_column_window_launches_equal_plain(cuda, k, m, ranks, t):
+    """The last rank's M/m rows of an MLA or MoE block's split product in
+    its column window, bf16: the kernel = the plain version in the same
+    window = the whole product's columns."""
+    from repro_torch.core import photonics as ph
+    from repro_torch.kernels import ops
+
+    cfg = ph.preset("offchip_bpd")
+    gen = torch.Generator(device=cuda).manual_seed(t + k + m + ranks)
+    a = torch.randn(t, k, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(m, k, generator=gen, device=cuda) * 0.02
+    n = m // ranks
+    start = m - n
+    b[start + 1, 3] = 1.0  # the whole weight's max, in the window's rows
+    b = b.to(torch.bfloat16)
+    with ph.column_window(ph.ColumnWindow(start, n, m)):
+        got = ops.photonic_matmul(a, b[start:], cfg, key=9).float()
+        plain = ph.photonic_matmul(a, b[start:], cfg, key=9).float()
+    whole = ph.photonic_matmul(a, b, cfg, key=9)[:, start:].float()
+    torch.cuda.synchronize()
+    assert got.shape == (t, n)
+    for expect in (plain, whole):
+        assert ((got - expect).abs().max() / expect.abs().max()).item() <= \
+            KERNEL_TOL[torch.bfloat16]
